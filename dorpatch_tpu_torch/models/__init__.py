@@ -1,0 +1,5 @@
+"""Victim models: the CIFAR ResNet-18 and the victim factory."""
+
+from dorpatch_tpu_torch.models.registry import Victim, get_model
+
+__all__ = ["Victim", "get_model"]

@@ -1,0 +1,70 @@
+"""Carry weights into the port's models.
+
+- `from_flax_params`: the JAX package's `CifarResNet18` parameter tree, as
+  nested numpy arrays, -> the port's state_dict. Conv kernels go from HWIO
+  to OIHW, the dense head from `[in, out]` to `[out, in]`, GroupNorm
+  `scale`/`bias` to `weight`/`bias`.
+- `load_state_dict`: a `.pth` checkpoint (bare or `{'state_dict': ...}`,
+  DataParallel `module.` prefixes stripped), as `dorpatch_tpu.train`
+  exports it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _conv(kernel) -> torch.Tensor:
+    """HWIO -> OIHW."""
+    return _t(np.asarray(kernel).transpose(3, 2, 0, 1))
+
+
+def from_flax_params(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `CifarResNet18` params (`{"params": {...}}` or the inner dict,
+    any stage depths) -> the port's `CifarResNet18` state_dict."""
+    p = params_np["params"] if "params" in params_np else params_np
+    sd: Dict[str, torch.Tensor] = {
+        "stem.weight": _conv(p["stem"]["kernel"]),
+        "stem_norm.weight": _t(p["stem_norm"]["scale"]),
+        "stem_norm.bias": _t(p["stem_norm"]["bias"]),
+        "head.weight": _t(np.asarray(p["head"]["kernel"]).T),
+        "head.bias": _t(p["head"]["bias"]),
+    }
+    names = sorted(
+        (k for k in p if k.startswith("stage")),
+        key=lambda k: tuple(int(v) for v in
+                            k[len("stage"):].split("_block")))
+    for i, name in enumerate(names):
+        blk = p[name]
+        dst = f"blocks.{i}."
+        sd[dst + "conv1.weight"] = _conv(blk["conv1"]["kernel"])
+        sd[dst + "norm1.weight"] = _t(blk["norm1"]["scale"])
+        sd[dst + "norm1.bias"] = _t(blk["norm1"]["bias"])
+        sd[dst + "conv2.weight"] = _conv(blk["conv2"]["kernel"])
+        sd[dst + "norm2.weight"] = _t(blk["norm2"]["scale"])
+        sd[dst + "norm2.bias"] = _t(blk["norm2"]["bias"])
+        if "proj" in blk:
+            sd[dst + "proj.0.weight"] = _conv(blk["proj"]["kernel"])
+            sd[dst + "proj.1.weight"] = _t(blk["proj_norm"]["scale"])
+            sd[dst + "proj.1.bias"] = _t(blk["proj_norm"]["bias"])
+    return sd
+
+
+def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A torch checkpoint file -> flat state_dict of float32 CPU tensors."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    out = {}
+    for k, v in obj.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        out[k] = torch.as_tensor(np.asarray(v, dtype=np.float32))
+    return out

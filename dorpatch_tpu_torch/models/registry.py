@@ -1,0 +1,111 @@
+"""Victim-model factory.
+
+Resolves an architecture name, loads the `<model_dir>/<dataset>/
+<arch>_cutout2_128_<dataset>.pth` checkpoint when present (seeded random
+initialization otherwise) and wraps the model as a `Victim` whose `apply`
+takes NHWC images in [0, 1] with the `(x - 0.5) / 0.5` normalization folded
+in. Port of `dorpatch_tpu.models.registry` for the CIFAR ResNet-18.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from dorpatch_tpu_torch import utils
+from dorpatch_tpu_torch.config import NUM_CLASSES
+from dorpatch_tpu_torch.models.small import CifarResNet18, init_weights
+from dorpatch_tpu_torch.ops.stem_fold import StemFoldEngine
+
+SUPPORTED = ("cifar_resnet18",)
+
+
+class Victim(NamedTuple):
+    """A frozen classifier: `logits = apply(images01)`, images NHWC in
+    [0, 1] on `device`. `incremental` is the family's masked-stem engine."""
+
+    name: str
+    apply: Callable[[torch.Tensor], torch.Tensor]
+    model: torch.nn.Module
+    num_classes: int
+    from_checkpoint: bool
+    device: torch.device
+    incremental: Any = None
+
+
+def resolve_arch(arch: str) -> str:
+    if arch in ("resnet18", "cifar_resnet18"):
+        return "cifar_resnet18"
+    raise ValueError(f"unknown architecture {arch!r}; this port supports "
+                     f"{SUPPORTED} (as 'resnet18' or 'cifar_resnet18')")
+
+
+def checkpoint_path(model_dir: str, dataset: str, timm_name: str) -> str:
+    """The PatchCleanser-release checkpoint naming contract."""
+    return os.path.join(model_dir, dataset,
+                        f"{timm_name}_cutout2_128_{dataset}.pth")
+
+
+def _build(timm_name: str, num_classes: int) -> torch.nn.Module:
+    if timm_name == "cifar_resnet18":
+        return CifarResNet18(num_classes=num_classes)
+    raise NotImplementedError(timm_name)
+
+
+def normalize(images01: torch.Tensor) -> torch.Tensor:
+    """The folded victim normalization (mean = std = 0.5)."""
+    return (images01 - 0.5) / 0.5
+
+
+#: d(normalized)/d(image01): the scale the masked-stem fold applies to the
+#: fill delta.
+NORM_SCALE = 2.0
+
+
+def incremental_engine(timm_name: str, model, img_size: int):
+    """The family's mask-aware incremental engine: the masked-stem fold of
+    the CIFAR ResNet-18's 3x3, stride-1, pad-1 stem."""
+    if timm_name == "cifar_resnet18":
+        return StemFoldEngine(
+            model, img_size,
+            kernel_fn=lambda: model.stem.weight.permute(2, 3, 1, 0),
+            kernel_hw=3, strides=(1, 1), pads=((1, 1), (1, 1)),
+            normalize=normalize, norm_scale=NORM_SCALE)
+    return None
+
+
+def get_model(
+    dataset: str,
+    arch: str = "resnet18",
+    model_dir: str = "pretrained_models/",
+    img_size: int = 224,
+    seed: int = 0,
+    device="cuda",
+) -> Victim:
+    """Build the victim on `device` ("cuda" unless the caller asks for
+    "cpu"). Loads the checkpoint when present, else initializes from
+    `seed`."""
+    dev = utils.resolve_device(device)
+    timm_name = resolve_arch(arch)
+    num_classes = NUM_CLASSES[dataset]
+    model = _build(timm_name, num_classes)
+    ckpt = checkpoint_path(model_dir, dataset, timm_name)
+    if os.path.exists(ckpt):
+        from dorpatch_tpu_torch.models.convert import load_state_dict
+
+        model.load_state_dict(load_state_dict(ckpt))
+        from_checkpoint = True
+    else:
+        init_weights(model, utils.generator(seed, torch.device("cpu")))
+        from_checkpoint = False
+    model = model.to(dev).eval().requires_grad_(False)
+
+    def apply(images01: torch.Tensor) -> torch.Tensor:
+        return model(normalize(images01))
+
+    return Victim(name=timm_name, apply=apply, model=model,
+                  num_classes=num_classes, from_checkpoint=from_checkpoint,
+                  device=dev,
+                  incremental=incremental_engine(timm_name, model, img_size))
