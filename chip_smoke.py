@@ -8,19 +8,30 @@ NVIDIA GPU.
    exits nonzero without a CUDA device;
 2. builds the CUDA kernels from `dorpatch_tpu_torch/csrc` (nvcc, sm_90a);
 3. holds every kernel against its plain PyTorch version on the card at the
-   main path's shapes and times both (median over REPS warmed
+   main paths' shapes and times both (median over REPS warmed
    repetitions; a repetition replays a CUDA graph of INNER calls,
-   bracketed by synchronizes, so host launch cost is not counted);
-4. runs the main path through its user entry point: the CLI flags
-   `--synthetic --dataset cifar10 --base_arch resnet18 --img-size 32 -b 8
-   --sampling-size 128 --dropout 2 --max-iterations 20 --num-batches 1`
-   (full-width CIFAR ResNet-18, random weights from the seed; certification
-   at the four radii with prune="exact", incremental="auto" -> stem),
-   with every kernel's launch count set to 0 just before and read just
-   after; fails if a kernel of the path was not launched;
-5. certifies one radius both ways (stem fold = kernel C, and full masked
-   forwards = kernel A) and asserts the first-round tables agree wherever
-   both top-2 margins exceed 1e-3;
+   bracketed by synchronizes, so host launch cost is not counted):
+   kernels A, B and C at the CIFAR path's shapes, the GroupNorm+ReLU
+   forward and backward at the RN50 attack step's largest slab
+   [256, 56*56, 256] and at [256, 7*7, 2048], and kernel C at RN50's
+   7x7/2 stem at 224;
+4. runs two main paths through their user entry point, the CLI, each with
+   every kernel's launch count set to 0 just before and read just after,
+   and fails if a kernel of that path was not launched:
+   - CIFAR: `--synthetic --dataset cifar10 --base_arch resnet18
+     --img-size 32 -b 8 --sampling-size 128 --dropout 2 --max-iterations
+     20 --num-batches 1` (full-width CIFAR ResNet-18; kernels A, B, C);
+   - RN50: `--synthetic --dataset imagenet --base_arch resnetv2
+     --img-size 224 -b 2 --sampling-size 128 --dropout 2 --max-iterations
+     20 --num-batches 1` (ResNetV2-50x1 BiT at full depth and width;
+     kernels A, B, C and the GroupNorm+ReLU forward and backward);
+   random weights from the seed, certification at the four radii with
+   prune="exact", incremental="auto" -> stem;
+5. certifies one radius both ways on each victim (stem fold = kernel C,
+   and full masked forwards = kernel A) and asserts the first-round tables
+   agree wherever both top-2 margins exceed 1e-3; on RN50 also holds the
+   victim's logits with the GroupNorm kernels against its plain GroupNorm
+   (argmax equal wherever the top-2 margin exceeds 1e-3);
 6. prints the per-kernel JSON line, the nvidia-smi line and, last,
    `{"ok": true, "device": {...}}`.
 
@@ -48,6 +59,27 @@ INNER, REPS = 20, 15                 # calls per timed graph, timed graphs
 
 TOL_B = dict(rtol=1e-5, atol=1e-6)   # summation order over S
 TOL_C = 1e-4                         # summation order of the delta conv
+# GroupNorm+ReLU against the float64 plain versions: f32 rounding of a few
+# flops per element (the group statistics are summed in float64); dscale and
+# dbias sum N*HW terms per channel in f32 blocks of 64 rows. Gate flips of
+# pre-activations within GN_NEAR of 0 are allowed for by
+# `fused_gn.gate_flip_bounds`, and those elements are left out of dx.
+TOL_GN = dict(rtol=1e-5, atol=1e-5)
+TOL_GN_PARAMS = dict(rtol=1e-5, atol=1e-3)
+GN_NEAR = 1e-5
+#: [N, HW, C] GroupNorm slabs of the RN50 attack step (2 images x 128 masks)
+GN_SLABS = ((256, 56 * 56, 256), (256, 7 * 7, 2048))
+
+CIFAR_ARGV = ["--synthetic", "--dataset", "cifar10", "--base_arch",
+              "resnet18", "--img-size", "32", "-b", "8",
+              "--sampling-size", "128", "--dropout", "2",
+              "--max-iterations", "20", "--num-batches", "1"]
+RN50_ARGV = ["--synthetic", "--dataset", "imagenet", "--base_arch",
+             "resnetv2", "--img-size", "224", "-b", "2",
+             "--sampling-size", "128", "--dropout", "2",
+             "--max-iterations", "20", "--num-batches", "1"]
+CIFAR_KERNELS = ("masked_fill_fwd", "masked_fill_bwd", "stem_fold")
+RN50_KERNELS = CIFAR_KERNELS + ("gn_relu_fwd", "gn_relu_bwd")
 
 
 def _smi() -> str:
@@ -99,16 +131,13 @@ def _bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
 
 
 def kernel_phases(torch, dev):
-    """Kernels A, B, C against their plain versions at the main path's
-    shapes. Returns the per-kernel records (launches filled in later)."""
+    """Kernels A, B, C against their plain versions at the CIFAR main
+    path's shapes. Returns the per-kernel records (launches filled in
+    later)."""
     import numpy as np
 
     from dorpatch_tpu_torch import masks as masks_lib
-    from dorpatch_tpu_torch.models.registry import get_model, normalize
     from dorpatch_tpu_torch.ops import masked_fill as mf
-    from dorpatch_tpu_torch.ops import stem_fold as sf
-
-    import torch.nn.functional as F
 
     rng = np.random.default_rng(0)
     b, size, fill = 8, 32, 0.5
@@ -186,84 +215,232 @@ def kernel_phases(torch, dev):
 
     # -- C: stem fold, one phase-1 chunk (3 masks) of the 0.12 radius on
     #    the full-width CIFAR ResNet-18 stem --
-    victim = get_model("cifar10", "resnet18", "/nonexistent", size, seed=0,
+    out.append(stem_fold_phase(torch, dev, "cifar10", "resnet18", size, b,
+                               "stem_fold"))
+    return out
+
+
+def stem_fold_phase(torch, dev, dataset, arch, size, b, name):
+    """Kernel C on one phase-1 chunk of the 0.12 radius (the chunk the
+    engine takes by the stem's inflation), against the plain fold and
+    against the stem conv of the masked batch."""
+    import numpy as np
+
+    from dorpatch_tpu_torch import masks as masks_lib
+    from dorpatch_tpu_torch.config import DefenseConfig
+    from dorpatch_tpu_torch.models.registry import get_model, normalize
+    from dorpatch_tpu_torch.ops import masked_fill as mf
+    from dorpatch_tpu_torch.ops import stem_fold as sf
+
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(2)
+    fill = 0.5
+    imgs = torch.as_tensor(rng.uniform(0, 1, (b, size, size, 3)),
+                           dtype=torch.float32, device=dev)
+    victim = get_model(dataset, arch, "/nonexistent", size, seed=0,
                        device=dev)
     eng = victim.incremental
+    k, s = eng.kernel_hw, eng.strides[0]
     spec = masks_lib.geometry(size, 0.12)
     singles, _ = masks_lib.mask_sets(spec)
-    plan = sf.plan_windows(singles, size, eng.kernel_hw, 1, eng.pads)
-    n_chunk = 3
-    part = plan[:n_chunk]
+    plan = sf.plan_windows(singles, size, k, s, eng.pads)
     with torch.no_grad():
         clean = eng.module(normalize(imgs), "stem").contiguous()
+        # the engine's chunk: chunk_size shrunk by the stem's inflation
+        inflation = clean[0].numel() / imgs[0].numel()
+        n_chunk = max(1, int(DefenseConfig().chunk_size / max(1.0,
+                                                               inflation)))
+        part = plan[:n_chunk]
         u = eng.norm_scale * (fill - imgs)
         kern = eng.kernel_fn().contiguous()
-        up = sf.pad_for_kernel(u, eng.pads, 1)
-        oh, ow, geo_np, occ_np = sf._uniform_plan(part, size, size, 3, 1)
+        up = sf.pad_for_kernel(u, eng.pads, s)
+        _, h, w, cout = clean.shape
+        oh, ow, geo_np, occ_np = sf._uniform_plan(part, h, w, k, s)
         geo = torch.as_tensor(geo_np, device=dev)
         occ = torch.as_tensor(occ_np, device=dev)
-        got = sf.fold_masked_stem_kernel(kern, clean, up, geo, occ, oh, ow, 1)
-        want = sf.fold_masked_stem(kern, clean, u, part, (1, 1), eng.pads)
+        got = sf.fold_masked_stem_kernel(kern, clean, up, geo, occ, oh, ow, s)
+        want = sf.fold_masked_stem(kern, clean, u, part, (s, s), eng.pads)
         torch.cuda.synchronize()
         c_err = float((got - want).abs().max())
         if not c_err <= TOL_C:
-            raise AssertionError(f"kernel C max_abs_err {c_err} > {TOL_C}")
+            raise AssertionError(f"kernel C ({name}) max_abs_err {c_err} > "
+                                 f"{TOL_C}")
         # the fold's algebra: the same activations as the stem conv of the
         # masked images
         xm = mf.masked_fill_reference(
             imgs, torch.as_tensor(singles[:n_chunk], device=dev), fill)
-        xm = normalize(xm.reshape(-1, size, size, 3)).permute(0, 3, 1, 2)
-        w_oihw = eng.module.stem.weight
-        lib = F.conv2d(xm, w_oihw, None, 1, 1).permute(0, 2, 3, 1)
+        xm = normalize(xm.reshape(-1, size, size, 3))
+        (pr0, pr1), (pc0, pc1) = eng.pads
+        xm = F.pad(xm, (0, 0, pc0, pc1, pr0, pr1)).permute(0, 3, 1, 2)
+        w_oihw = kern.permute(3, 2, 0, 1).contiguous()
+        lib = F.conv2d(xm, w_oihw, None, s).permute(0, 2, 3, 1)
         lib_err = float((lib.reshape(got.shape) - got).abs().max())
         if not lib_err <= TOL_C:
-            raise AssertionError(f"kernel C vs conv of the masked batch: "
-                                 f"{lib_err} > {TOL_C}")
+            raise AssertionError(f"kernel C ({name}) vs conv of the masked "
+                                 f"batch: {lib_err} > {TOL_C}")
         c_ms = _device_ms(lambda: sf.fold_masked_stem_kernel(
-            kern, clean, up, geo, occ, oh, ow, 1))
+            kern, clean, up, geo, occ, oh, ow, s))
         # the plain fold with its occlusion windows already on the card (a
         # host-to-device copy cannot be captured in a CUDA graph)
-        part_dev = [w._replace(occ=torch.as_tensor(w.occ, device=dev))
-                    for w in part]
+        part_dev = [pw._replace(occ=torch.as_tensor(pw.occ, device=dev))
+                    for pw in part]
         c_plain = _device_ms(lambda: sf.fold_masked_stem(
-            kern, clean, u, part_dev, (1, 1), eng.pads))
-        c_lib = _device_ms(lambda: F.conv2d(xm, w_oihw, None, 1, 1))
+            kern, clean, u, part_dev, (s, s), eng.pads))
+        c_lib = _device_ms(lambda: F.conv2d(xm, w_oihw, None, s))
     _, hp, wp, cin = up.shape
-    cout = clean.shape[-1]
-    n_out = sum((w.o1 - w.o0) * (w.oc1 - w.oc0) for w in part)
+    n_out = sum((pw.o1 - pw.o0) * (pw.oc1 - pw.oc0) for pw in part)
     nbytes = 4 * (b * hp * wp * cin + occ.numel() + clean.numel()
                   + kern.numel() + b * n_chunk * clean[0].numel()) \
         + 16 * n_chunk
-    flops = 2.0 * b * n_out * cout * 9 * cin
+    flops = 2.0 * b * n_out * cout * k * k * cin
     bound, by = _bound(nbytes, flops)
-    out.append(dict(name="stem_fold", route="cuda",
-                    source="dorpatch_tpu_torch/csrc/stem_fold.cu",
-                    replaces="dorpatch_tpu/ops/stem_fold.py:214",
-                    launches=0, max_abs_err=c_err, ms=c_ms, plain_ms=c_plain,
-                    bound_ms=bound, bound_by=by, library_ms=c_lib))
-    print(f"kernel C stem_fold [B={b},N={n_chunk},32x32x64, OH/OW {oh}/{ow}]: "
-          f"max_abs_err {c_err:.3g} (atol {TOL_C}; vs conv of the masked "
-          f"batch {lib_err:.3g}), {c_ms * 1e3:.2f} us (plain "
+    print(f"kernel C {name} [B={b},N={n_chunk},{h}x{w}x{cout}, k={k} s={s}, "
+          f"OH/OW {oh}/{ow}]: max_abs_err {c_err:.3g} (atol {TOL_C}; vs conv "
+          f"of the masked batch {lib_err:.3g}), {c_ms * 1e3:.2f} us (plain "
           f"{c_plain * 1e3:.2f} us, conv2d of the masked batch "
           f"{c_lib * 1e3:.2f} us, bound {bound * 1e3:.2f} us by {by})",
           flush=True)
-    return out
+    return dict(name=name, route="cuda",
+                source="dorpatch_tpu_torch/csrc/stem_fold.cu",
+                replaces="dorpatch_tpu/ops/stem_fold.py:214",
+                launches=0, max_abs_err=c_err, ms=c_ms, plain_ms=c_plain,
+                bound_ms=bound, bound_by=by, library_ms=c_lib)
 
 
-def main_path(torch, dev):
-    """The main path through the CLI entry point. Returns (metrics,
-    launch counts of the run)."""
+def gn_phases(torch, dev):
+    """The GroupNorm+ReLU forward and backward kernels against their plain
+    versions in float64 at the RN50 attack step's slabs, and timed beside
+    the plain f32 versions and PyTorch's own group norm (which leaves out
+    the ReLU). Returns the forward and backward records of the largest
+    slab."""
+    from dorpatch_tpu_torch.ops import fused_gn as fgn
+
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    recs = []
+    for n, hw, c in GN_SLABS:
+        side = math.isqrt(hw)
+        shape = (n, side, side, c)
+        g = 32
+
+        def rand(*size):
+            return torch.randn(size, generator=gen, device=dev)
+
+        x = rand(*shape) + 0.5 * rand(c)
+        s, b = 1 + 0.2 * rand(c), 0.3 * rand(c)
+        dy = rand(*shape)
+        label = f"[{n},{side}*{side},{c}]"
+
+        # forward against float64
+        y, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
+        torch.cuda.synchronize()
+        x64, s64, b64, dy64 = (t.double() for t in (x, s, b, dy))
+        fwd_err = float((y.double() - fgn.gn_relu_reference(x64, s64, b64))
+                        .abs().max())
+        torch.testing.assert_close(
+            y.double(), fgn.gn_relu_reference(x64, s64, b64), **TOL_GN)
+        m64, r64 = fgn.gn_stats_reference(x64, g)
+        stat_err = max(float((mean.double() - m64).abs().max()),
+                       float(((rstd.double() - r64) / r64).abs().max()))
+
+        # backward against float64, gate flips allowed for
+        dx, ds, db = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd)
+        torch.cuda.synchronize()
+        wdx, wds, wdb = fgn.gn_relu_backward_reference(x64, dy64, s64, b64,
+                                                       m64, r64, g)
+        near, dx_b, ds_b, db_b = fgn.gate_flip_bounds(x64, dy64, s64, b64,
+                                                      m64, r64, g, GN_NEAR)
+        n_near = int(near.sum())
+        dx_err = (dx.double() - wdx).abs()
+        dx_bad = int(((dx_err > TOL_GN["atol"] + TOL_GN["rtol"] * wdx.abs()
+                       + dx_b) & ~near).sum())
+        dx_max = float(dx_err[~near].max())
+        flip_max = float(dx_b.max())
+        del dx_err, dx_b, wdx, near
+        param_bad = 0
+        param_err = 0.0
+        for got, want, bnd in ((ds, wds, ds_b), (db, wdb, db_b)):
+            err = (got.double() - want).abs()
+            param_err = max(param_err, float(err.max()))
+            param_bad += int((err > TOL_GN_PARAMS["atol"]
+                              + TOL_GN_PARAMS["rtol"] * want.abs()
+                              + bnd).sum())
+        print(f"GN {label}: forward max_abs_err {fwd_err:.3g} (atol "
+              f"{TOL_GN['atol']}, rtol {TOL_GN['rtol']} of float64), stats "
+              f"err {stat_err:.3g}; backward dx max_abs_err {dx_max:.3g} "
+              f"over the elements not within {GN_NEAR} of the gate "
+              f"({n_near} near-zero pre-activations left out, flip bound "
+              f"up to {flip_max:.3g}), dscale/dbias max_abs_err "
+              f"{param_err:.3g} (atol {TOL_GN_PARAMS['atol']}, rtol "
+              f"{TOL_GN_PARAMS['rtol']})", flush=True)
+        if dx_bad or param_bad:
+            raise AssertionError(f"GN backward {label}: {dx_bad} dx and "
+                                 f"{param_bad} dscale/dbias elements out "
+                                 "of tolerance")
+        del x64, dy64, m64, r64, wds, wdb
+
+        # times: the kernels as the victim calls them (frozen affine: no
+        # parameter cotangents), the plain f32 versions, and PyTorch's
+        # group norm on the channels-last view (no ReLU)
+        fwd_ms = _device_ms(lambda: fgn.gn_relu_fwd_kernel(x, s, b), 5, 7)
+        fwd_plain = _device_ms(lambda: fgn.gn_relu_reference(x, s, b), 5, 7)
+        xv = x.permute(0, 3, 1, 2)
+        dyv = dy.permute(0, 3, 1, 2)
+        fwd_lib = _device_ms(lambda: F.group_norm(xv, g, s, b, 1e-5), 5, 7)
+        bwd_ms = _device_ms(lambda: fgn.gn_relu_bwd_kernel(
+            x, dy, s, b, mean, rstd, params=False), 5, 7)
+        bwd_plain = _device_ms(lambda: fgn.gn_relu_backward_reference(
+            x, dy, s, b, mean, rstd, g), 5, 7)
+        # PyTorch's group norm backward takes NCHW-contiguous tensors
+        xc, dyc = xv.contiguous(), dyv.contiguous()
+        _, lmean, lrstd = torch.ops.aten.native_group_norm(
+            xc, s, b, n, c, hw, g, 1e-5)
+        bwd_lib = _device_ms(lambda: torch.ops.aten.native_group_norm_backward(
+            dyc, xc, lmean, lrstd, s, n, c, hw, g, [True, False, False]), 5, 7)
+        del xc, dyc
+        slab = 4.0 * n * hw * c
+        small = 4.0 * (2 * c + 2 * n * g)
+        fwd_bound, fwd_by = _bound(2 * slab + small, 8.0 * n * hw * c)
+        bwd_bound, bwd_by = _bound(3 * slab + small, 12.0 * n * hw * c)
+        print(f"GN {label}: forward {fwd_ms * 1e3:.1f} us (bound "
+              f"{fwd_bound * 1e3:.1f} us by {fwd_by}, plain "
+              f"{fwd_plain * 1e3:.1f} us, F.group_norm without the ReLU "
+              f"{fwd_lib * 1e3:.1f} us); backward {bwd_ms * 1e3:.1f} us "
+              f"(bound {bwd_bound * 1e3:.1f} us by {bwd_by}, plain "
+              f"{bwd_plain * 1e3:.1f} us, native_group_norm_backward on "
+              f"NCHW copies, without the ReLU {bwd_lib * 1e3:.1f} us)",
+              flush=True)
+        recs.append((
+            dict(name="gn_relu_fwd", route="cuda",
+                 source="dorpatch_tpu_torch/csrc/fused_gn.cu",
+                 replaces="dorpatch_tpu/ops/fused_gn.py:115", launches=0,
+                 max_abs_err=max(fwd_err, stat_err), ms=fwd_ms,
+                 plain_ms=fwd_plain, bound_ms=fwd_bound, bound_by=fwd_by,
+                 library_ms=fwd_lib),
+            dict(name="gn_relu_bwd", route="cuda",
+                 source="dorpatch_tpu_torch/csrc/fused_gn.cu",
+                 replaces="dorpatch_tpu/ops/fused_gn.py:135", launches=0,
+                 max_abs_err=max(dx_max, param_err), ms=bwd_ms,
+                 plain_ms=bwd_plain, bound_ms=bwd_bound, bound_by=bwd_by,
+                 library_ms=bwd_lib)))
+        del x, dy, y, dx, xv, dyv
+        torch.cuda.empty_cache()
+    return list(recs[0])
+
+
+def main_path(torch, dev, label, argv, required):
+    """One main path through the CLI entry point, with the launch counts
+    set to 0 just before and read just after; every kernel in `required`
+    must have launched. Returns (metrics, launch counts of the run)."""
     from dorpatch_tpu_torch import ops
     from dorpatch_tpu_torch.cli import build_parser, config_from_args
     from dorpatch_tpu_torch.pipeline import run_experiment
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        argv = ["--synthetic", "--dataset", "cifar10", "--base_arch",
-                "resnet18", "--img-size", "32", "-b", "8",
-                "--sampling-size", "128", "--dropout", "2",
-                "--max-iterations", "20", "--num-batches", "1",
-                "--results-root", root]
-        cfg = config_from_args(build_parser().parse_args(argv))
+        cfg = config_from_args(build_parser().parse_args(
+            argv + ["--results-root", root]))
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -271,38 +448,39 @@ def main_path(torch, dev):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         wall = time.perf_counter() - t0
-    print(f"main path: {wall:.2f} s wall; attack seconds "
+    print(f"{label} main path: {wall:.2f} s wall; attack seconds "
           f"{m.get('attack_seconds')}; certify seconds "
           f"{m.get('certify_seconds')}; forwards {m.get('forwards')} of "
           f"{m.get('forwards_exhaustive')} exhaustive; launches {counts}",
           flush=True)
-    for name, n in counts.items():
-        if n <= 0:
+    for name in required:
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
+                                 f"{label} main path")
     vals = ([m["clean_accuracy"], m["robust_accuracy"]] + m["acc_pc"]
             + m["certified_acc_pc"] + m["certified_asr_pc"])
     if (m["evaluated_images"] < 1 or len(m["acc_pc"]) != 4
             or not all(math.isfinite(v) for v in vals)):
-        raise AssertionError(f"malformed main-path metrics: {m}")
+        raise AssertionError(f"malformed {label} main-path metrics: {m}")
     return m, counts
 
 
-def cross_check(torch, dev):
+def cross_check(torch, dev, dataset, arch, size, b):
     """One radius certified both ways on the card: the stem fold (kernel C)
     and full masked forwards (kernel A) give the same first-round table
-    wherever both top-2 margins exceed 1e-3."""
+    wherever both top-2 margins exceed 1e-3. Returns the victim and the
+    images."""
     from dorpatch_tpu_torch import data
     from dorpatch_tpu_torch.config import DefenseConfig
     from dorpatch_tpu_torch.defense import PatchCleanser
     from dorpatch_tpu_torch.masks import geometry
     from dorpatch_tpu_torch.models import get_model
 
-    victim = get_model("cifar10", "resnet18", "/nonexistent", 32, seed=0,
+    victim = get_model(dataset, arch, "/nonexistent", size, seed=0,
                        device=dev)
-    x_np, _ = next(data.synthetic_batches("cifar10", 8, 32, 1234))
+    x_np, _ = next(data.synthetic_batches(dataset, b, size, 1234))
     x = torch.as_tensor(x_np, device=dev)
-    pc = PatchCleanser(victim.apply, geometry(32, 0.12), DefenseConfig(),
+    pc = PatchCleanser(victim.apply, geometry(size, 0.12), DefenseConfig(),
                        incremental_engine=victim.incremental, device=dev)
     with torch.no_grad():
         p_stem, m_stem = pc._phase1_incr(x)
@@ -315,12 +493,50 @@ def cross_check(torch, dev):
     same = sum((a.prediction, a.certification) == (b.prediction,
                                                    b.certification)
                for a, b in zip(rec_stem, rec_off))
-    print(f"cross-check r=0.12: preds_1 stem vs off: {bad} disagreements "
-          f"among {n_sure} of {sure.numel()} entries with margin > 1e-3; "
-          f"verdicts equal for {same}/{len(rec_stem)} images", flush=True)
+    print(f"cross-check {arch} {size}px r=0.12: preds_1 stem vs off: {bad} "
+          f"disagreements among {n_sure} of {sure.numel()} entries with "
+          f"margin > 1e-3 (largest margin gap "
+          f"{float((m_stem - m_off).abs().max()):.3g}); verdicts equal for "
+          f"{same}/{len(rec_stem)} images", flush=True)
     if bad:
         raise AssertionError(f"stem-fold and full-forward first-round tables "
                              f"disagree on {bad} confident entries")
+    return victim, x
+
+
+def gn_logits_check(torch, dev, victim, x):
+    """The RN50 victim's logits with the GroupNorm kernels against its plain
+    GroupNorm on the card, on the images and their 36 single-masked copies
+    of the 0.12 radius: argmax equal wherever the top-2 margin exceeds
+    1e-3."""
+    from dorpatch_tpu_torch import masks as masks_lib
+    from dorpatch_tpu_torch import ops, utils
+    from dorpatch_tpu_torch.ops import masked_fill as mf
+
+    singles, _ = masks_lib.mask_sets(masks_lib.geometry(x.shape[1], 0.12))
+    with torch.no_grad():
+        xs = torch.cat([x, mf.masked_fill(x, singles, 0.5).reshape(
+            (-1,) + tuple(x.shape[1:]))])
+        ops.reset_launch_counts()
+        got = victim.apply(xs)
+        launched = ops.launch_counts()["gn_relu_fwd"]
+        victim.model.set_gn_impl("plain")
+        try:
+            want = victim.apply(xs)
+        finally:
+            victim.model.set_gn_impl("auto")
+    p_got, m_got = utils.preds_margins(got)
+    p_want, m_want = utils.preds_margins(want)
+    sure = torch.minimum(m_got, m_want) > 1e-3
+    bad = int(((p_got != p_want) & sure).sum())
+    print(f"RN50 logits, GN kernels ({launched} forward launches) vs plain "
+          f"GroupNorm on {xs.shape[0]} images: max_abs_err "
+          f"{float((got - want).abs().max()):.3g}; {bad} argmax "
+          f"disagreements among {int(sure.sum())} with margin > 1e-3; "
+          f"{len(set(p_want.tolist()))} distinct classes", flush=True)
+    if bad or launched != 49:
+        raise AssertionError(f"GN kernel logits: {bad} confident argmax "
+                             f"disagreements, {launched} launches (want 49)")
 
 
 def main() -> int:
@@ -347,20 +563,30 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}", flush=True)
 
     t0 = time.perf_counter()
-    kernels = kernel_phases(torch, dev)
+    cifar_kernels = kernel_phases(torch, dev)
+    rn50_kernels = [stem_fold_phase(torch, dev, "imagenet", "resnetv2", 224,
+                                    2, "stem_fold_rn50")]
+    rn50_kernels += gn_phases(torch, dev)
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    t0 = time.perf_counter()
-    _, counts = main_path(torch, dev)
-    for rec in kernels:
-        rec["launches"] = counts[rec["name"]]
-    print(f"main-path phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    for label, argv, required, records in (
+            ("CIFAR", CIFAR_ARGV, CIFAR_KERNELS, cifar_kernels),
+            ("RN50", RN50_ARGV, RN50_KERNELS, rn50_kernels)):
+        t0 = time.perf_counter()
+        _, counts = main_path(torch, dev, label, argv, required)
+        for rec in records:
+            # stem_fold_rn50 is kernel C at RN50's stem: stem_fold's count
+            rec["launches"] = counts[rec["name"].replace("_rn50", "")]
+        print(f"{label} main-path phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
     t0 = time.perf_counter()
-    cross_check(torch, dev)
+    cross_check(torch, dev, "cifar10", "resnet18", 32, 8)
+    victim, x = cross_check(torch, dev, "imagenet", "resnetv2", 224, 4)
+    gn_logits_check(torch, dev, victim, x)
     print(f"cross-check phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": cifar_kernels + rn50_kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

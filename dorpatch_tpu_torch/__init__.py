@@ -8,8 +8,8 @@ kernels become hand-written CUDA C++ kernels for `sm_90a`
 `ctypes`. Every kernel wrapper launches its kernel for a CUDA tensor and runs
 its plain PyTorch version for a CPU tensor; nothing falls back silently.
 
-Run:  python -m dorpatch_tpu_torch --synthetic --dataset cifar10 \\
-          --base_arch resnet18 --img-size 32 ...
+Run:  python -m dorpatch_tpu_torch --synthetic --dataset imagenet \\
+          --base_arch resnetv2 --img-size 224 ...
 
 The package imports `torch` and `numpy` only: never `jax`, `flax` or
 anything of `dorpatch_tpu`.

@@ -1,7 +1,9 @@
 """Command line of the port: the flags of `dorpatch_tpu.cli` that this
 slice runs, plus `--device`.
 
-Run:  python -m dorpatch_tpu_torch --synthetic --dataset cifar10 \\
+Run:  python -m dorpatch_tpu_torch --synthetic --dataset imagenet \\
+          --base_arch resnetv2 --img-size 224 --max-iterations 20 -b 2
+      python -m dorpatch_tpu_torch --synthetic --dataset cifar10 \\
           --base_arch resnet18 --img-size 32 --max-iterations 20 -b 8
 """
 
@@ -23,8 +25,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", "-d", default="imagenet",
                    choices=["cifar10", "imagenet", "cifar100"])
     p.add_argument("--model_dir", default="pretrained_models/")
-    p.add_argument("--base_arch", "-ba", default="resnet18",
-                   choices=["resnet18", "cifar_resnet18"])
+    p.add_argument("--base_arch", "-ba", default="resnetv2",
+                   choices=["resnetv2", "resnet18", "cifar_resnet18"])
     p.add_argument("--targeted", "-t", action="store_true")
     p.add_argument("--patch_budget", type=float, default=0.12)
     p.add_argument("-b", "--batch-size", type=int, default=1)

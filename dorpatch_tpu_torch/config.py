@@ -83,7 +83,7 @@ class ExperimentConfig:
 
     dataset: str = "imagenet"
     model_dir: str = "pretrained_models/"
-    base_arch: str = "resnet18"
+    base_arch: str = "resnetv2"
     attack_name: str = "DorPatch"
     batch_size: int = 1
     num_batches: int = 10

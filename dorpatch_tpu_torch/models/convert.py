@@ -4,9 +4,12 @@
   nested numpy arrays, -> the port's state_dict. Conv kernels go from HWIO
   to OIHW, the dense head from `[in, out]` to `[out, in]`, GroupNorm
   `scale`/`bias` to `weight`/`bias`.
+- `from_flax_resnetv2`: the same for the JAX package's `ResNetV2` tree, into
+  timm's `resnetv2` key names; the Dense head becomes the 1x1 conv
+  `head.fc.weight [K, C, 1, 1]`.
 - `load_state_dict`: a `.pth` checkpoint (bare or `{'state_dict': ...}`,
   DataParallel `module.` prefixes stripped), as `dorpatch_tpu.train`
-  exports it.
+  exports it or as timm saves it.
 """
 
 from __future__ import annotations
@@ -37,11 +40,7 @@ def from_flax_params(params_np: Mapping) -> Dict[str, torch.Tensor]:
         "head.weight": _t(np.asarray(p["head"]["kernel"]).T),
         "head.bias": _t(p["head"]["bias"]),
     }
-    names = sorted(
-        (k for k in p if k.startswith("stage")),
-        key=lambda k: tuple(int(v) for v in
-                            k[len("stage"):].split("_block")))
-    for i, name in enumerate(names):
+    for i, name in enumerate(_stage_block_names(p)):
         blk = p[name]
         dst = f"blocks.{i}."
         sd[dst + "conv1.weight"] = _conv(blk["conv1"]["kernel"])
@@ -54,6 +53,44 @@ def from_flax_params(params_np: Mapping) -> Dict[str, torch.Tensor]:
             sd[dst + "proj.0.weight"] = _conv(blk["proj"]["kernel"])
             sd[dst + "proj.1.weight"] = _t(blk["proj_norm"]["scale"])
             sd[dst + "proj.1.bias"] = _t(blk["proj_norm"]["bias"])
+    return sd
+
+
+def _stage_block_names(p: Mapping):
+    """The `stageS_blockB` keys of a flax tree, in (S, B) order."""
+    return sorted(
+        (k for k in p if k.startswith("stage")),
+        key=lambda k: tuple(int(v) for v in
+                            k[len("stage"):].split("_block")))
+
+
+def from_flax_resnetv2(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `ResNetV2` params (`{"params": {...}}` or the inner dict, any
+    `layers`) -> the port's `ResNetV2` state_dict (timm's key names)."""
+    p = params_np["params"] if "params" in params_np else params_np
+
+    def gn(node):
+        return node["GroupNorm_0"]
+
+    head_k = np.asarray(p["head"]["kernel"])                 # [C, K]
+    sd: Dict[str, torch.Tensor] = {
+        "stem.conv.weight": _conv(p["stem_conv"]["kernel"]),
+        "norm.weight": _t(gn(p["norm"])["scale"]),
+        "norm.bias": _t(gn(p["norm"])["bias"]),
+        "head.fc.weight": _t(head_k.T[:, :, None, None]),
+        "head.fc.bias": _t(p["head"]["bias"]),
+    }
+    for name in _stage_block_names(p):
+        si, bi = (int(v) for v in name[len("stage"):].split("_block"))
+        blk = p[name]
+        dst = f"stages.{si}.blocks.{bi}."
+        for k in (1, 2, 3):
+            sd[dst + f"norm{k}.weight"] = _t(gn(blk[f"norm{k}"])["scale"])
+            sd[dst + f"norm{k}.bias"] = _t(gn(blk[f"norm{k}"])["bias"])
+            sd[dst + f"conv{k}.weight"] = _conv(blk[f"conv{k}"]["kernel"])
+        if "downsample_conv" in blk:
+            sd[dst + "downsample.conv.weight"] = _conv(
+                blk["downsample_conv"]["kernel"])
     return sd
 
 

@@ -4,7 +4,8 @@ Resolves an architecture name, loads the `<model_dir>/<dataset>/
 <arch>_cutout2_128_<dataset>.pth` checkpoint when present (seeded random
 initialization otherwise) and wraps the model as a `Victim` whose `apply`
 takes NHWC images in [0, 1] with the `(x - 0.5) / 0.5` normalization folded
-in. Port of `dorpatch_tpu.models.registry` for the CIFAR ResNet-18.
+in. Port of `dorpatch_tpu.models.registry` for the CIFAR ResNet-18 and
+ResNetV2-50x1 BiT.
 """
 
 from __future__ import annotations
@@ -16,10 +17,13 @@ import torch
 
 from dorpatch_tpu_torch import utils
 from dorpatch_tpu_torch.config import NUM_CLASSES
-from dorpatch_tpu_torch.models.small import CifarResNet18, init_weights
-from dorpatch_tpu_torch.ops.stem_fold import StemFoldEngine
+from dorpatch_tpu_torch.models import resnetv2, small
+from dorpatch_tpu_torch.ops.stem_fold import StemFoldEngine, same_pads
 
-SUPPORTED = ("cifar_resnet18",)
+#: timm model names, matched by substring as in the JAX package (the ViT and
+#: ResMLP families join with their slices)
+TIMM_MODELS = ("resnetv2_50x1_bit_distilled",)
+SUPPORTED = TIMM_MODELS + ("cifar_resnet18",)
 
 
 class Victim(NamedTuple):
@@ -36,10 +40,15 @@ class Victim(NamedTuple):
 
 
 def resolve_arch(arch: str) -> str:
+    """'resnet18'/'cifar_resnet18', or a substring of a supported timm
+    name (`--base_arch resnetv2`)."""
     if arch in ("resnet18", "cifar_resnet18"):
         return "cifar_resnet18"
+    for tm in TIMM_MODELS:
+        if arch in tm:
+            return tm
     raise ValueError(f"unknown architecture {arch!r}; this port supports "
-                     f"{SUPPORTED} (as 'resnet18' or 'cifar_resnet18')")
+                     f"{SUPPORTED}")
 
 
 def checkpoint_path(model_dir: str, dataset: str, timm_name: str) -> str:
@@ -48,10 +57,14 @@ def checkpoint_path(model_dir: str, dataset: str, timm_name: str) -> str:
                         f"{timm_name}_cutout2_128_{dataset}.pth")
 
 
-def _build(timm_name: str, num_classes: int) -> torch.nn.Module:
-    if timm_name == "cifar_resnet18":
-        return CifarResNet18(num_classes=num_classes)
-    raise NotImplementedError(timm_name)
+#: each family's constructor `(num_classes) -> module` and seeded
+#: initializer `(module, generator)`, by resolved name
+_FAMILIES = {
+    "resnetv2_50x1_bit_distilled": (resnetv2.resnetv2_50x1,
+                                    resnetv2.init_weights),
+    "cifar_resnet18": (lambda k: small.CifarResNet18(num_classes=k),
+                       small.init_weights),
+}
 
 
 def normalize(images01: torch.Tensor) -> torch.Tensor:
@@ -66,19 +79,29 @@ NORM_SCALE = 2.0
 
 def incremental_engine(timm_name: str, model, img_size: int):
     """The family's mask-aware incremental engine: the masked-stem fold of
-    the CIFAR ResNet-18's 3x3, stride-1, pad-1 stem."""
+    the CIFAR ResNet-18's 3x3, stride-1, pad-1 stem, or of ResNetV2's 7x7,
+    stride-2, SAME-padded std-conv stem (the fold's delta conv uses the
+    standardized kernel, the stem's effective one)."""
     if timm_name == "cifar_resnet18":
         return StemFoldEngine(
             model, img_size,
             kernel_fn=lambda: model.stem.weight.permute(2, 3, 1, 0),
             kernel_hw=3, strides=(1, 1), pads=((1, 1), (1, 1)),
             normalize=normalize, norm_scale=NORM_SCALE)
+    if timm_name == "resnetv2_50x1_bit_distilled":
+        stem = model.stem["conv"]
+        pads = same_pads(img_size, stem.k, stem.stride)
+        return StemFoldEngine(
+            model, img_size,
+            kernel_fn=lambda: stem.standardized().permute(2, 3, 1, 0),
+            kernel_hw=stem.k, strides=(stem.stride, stem.stride),
+            pads=(pads, pads), normalize=normalize, norm_scale=NORM_SCALE)
     return None
 
 
 def get_model(
     dataset: str,
-    arch: str = "resnet18",
+    arch: str = "resnetv2",
     model_dir: str = "pretrained_models/",
     img_size: int = 224,
     seed: int = 0,
@@ -90,7 +113,8 @@ def get_model(
     dev = utils.resolve_device(device)
     timm_name = resolve_arch(arch)
     num_classes = NUM_CLASSES[dataset]
-    model = _build(timm_name, num_classes)
+    build, init_weights = _FAMILIES[timm_name]
+    model = build(num_classes)
     ckpt = checkpoint_path(model_dir, dataset, timm_name)
     if os.path.exists(ckpt):
         from dorpatch_tpu_torch.models.convert import load_state_dict

@@ -38,6 +38,9 @@ SIGNATURES = {
     "dp_masked_fill_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
     "dp_masked_fill_bwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
     "dp_stem_fold": ([_P, _P, _P, _P, _P, _P] + [_I] * 14 + [_P], _I),
+    "dp_gn_tiles": ([_I], _I),
+    "dp_gn_relu_fwd": ([_P] * 8 + [_I] * 4 + [_F, _P], _I),
+    "dp_gn_relu_bwd": ([_P] * 15 + [_I] * 4 + [_P], _I),
     "dp_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,10 +1,13 @@
-"""Where the main path's device time goes, on the card.
+"""Where a main path's device time goes, on the card.
 
-    python -m dorpatch_tpu_torch.trace
+    python -m dorpatch_tpu_torch.trace                   # ResNetV2-50x1, 224
+    python -m dorpatch_tpu_torch.trace --base_arch resnet18 --img-size 32 \\
+        --batch 8                                        # CIFAR ResNet-18
 
-Runs the pieces of the main path (full-width CIFAR ResNet-18, 32 px, 8
-synthetic images, random weights from the seed) under `torch.profiler`,
-each after a warm-up:
+Runs the pieces of the main path for the victim given (by default the
+port's default victim at 224 px and 2 images, as the RN50 main path runs
+it; full width, random weights from the seed; `cifar10` for resnet18,
+`imagenet` for resnetv2; synthetic images) under `torch.profiler`, each after a warm-up:
 
 - `attack_step`: 5 stage-0 optimizer steps at sampling size 128
   over the dropout=2 universe (2520 masks);
@@ -15,12 +18,14 @@ each after a warm-up:
 For each phase it prints the wall time per call (host clock around work
 that ends in a synchronize), the device-busy time (union of the kernels'
 intervals), the idle share of the wall time, and device time by kernel
-group (the port's kernels, convolutions, reductions, elementwise, other),
-then one JSON line with all of it. Needs a CUDA device.
+group (the GroupNorm kernels, the port's other kernels, convolutions,
+reductions, elementwise, other), then one JSON line with all of it. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 from collections import defaultdict
@@ -34,9 +39,11 @@ from dorpatch_tpu_torch.defense import build_defenses
 from dorpatch_tpu_torch.losses import local_variance
 from dorpatch_tpu_torch.models import get_model
 
-BATCH, STEPS, SEED, SIZE = 8, 5, 1234, 32
+SEED, STEPS = 1234, 5
+DATASET = {"resnet18": "cifar10", "resnetv2": "imagenet"}
 
 _GROUPS = (
+    ("gn kernels", ("gn_fwd_", "gn_bwd_", "gn_param_")),
     ("port kernels", ("fill_fwd", "fill_bwd", "stem_fold")),
     ("convolution", ("conv", "cudnn", "xmma", "gemm", "cutlass", "wgrad",
                      "dgrad", "implicit")),
@@ -109,18 +116,24 @@ def profile_phase(name: str, fn, calls: int) -> dict:
     return rec
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--base_arch", default="resnetv2", choices=sorted(DATASET))
+    p.add_argument("--img-size", type=int, default=224)
+    p.add_argument("--batch", type=int, default=2)
+    args = p.parse_args(argv)
+    size, batch, dataset = args.img_size, args.batch, DATASET[args.base_arch]
     dev = utils.resolve_device("cuda")
     utils.configure_numerics()
-    victim = get_model("cifar10", "resnet18", "/nonexistent", SIZE,
+    victim = get_model(dataset, args.base_arch, "/nonexistent", size,
                        device=dev)
-    x_np, _ = next(data.synthetic_batches("cifar10", BATCH, SIZE, SEED))
+    x_np, _ = next(data.synthetic_batches(dataset, batch, size, SEED))
     x = torch.as_tensor(x_np, device=dev)
     with torch.no_grad():
         y = torch.argmax(victim.apply(x), -1)
     cfg = AttackConfig(sampling_size=128, dropout=2)
     attack = DorPatch(victim.apply, victim.num_classes, cfg)
-    universe = torch.as_tensor(masks.dropout_universe(SIZE, 2), device=dev)
+    universe = torch.as_tensor(masks.dropout_universe(size, 2), device=dev)
     lvx = torch.mean(local_variance(x)[0], dim=-1)
     state = attack._init_state(utils.generator(SEED, dev), x, y, False,
                                universe.shape[0])
@@ -134,21 +147,22 @@ def main() -> int:
         attack.sweep_failures(s.adv_mask, s.adv_pattern, x, s.y, s.targeted,
                               universe)
 
-    defenses = build_defenses(victim.apply, SIZE, DefenseConfig(),
+    defenses = build_defenses(victim.apply, size, DefenseConfig(),
                               incremental=victim.incremental, device=dev)
 
     def certify():
         for d in defenses:
             d.robust_predict(x, victim.num_classes,
-                             bucket_sizes=data.batch_buckets(BATCH))
+                             bucket_sizes=data.batch_buckets(batch))
 
     name = torch.cuda.get_device_name(dev)
     print(f"device: {name}", flush=True)
     phases = [profile_phase("attack_step", step, STEPS),
               profile_phase("sweep", sweep, 1),
               profile_phase("certify", certify, 1)]
-    print(json.dumps({"device": name, "batch": BATCH,
-                      "phases": phases}, default=float), flush=True)
+    print(json.dumps({"device": name, "arch": victim.name, "img_size": size,
+                      "batch": batch, "phases": phases}, default=float),
+          flush=True)
     return 0
 
 

@@ -12,6 +12,7 @@ import torch
 
 from dorpatch_tpu_torch import masks as tmasks
 from dorpatch_tpu_torch.ops import _backend
+from dorpatch_tpu_torch.ops import fused_gn as fgn
 from dorpatch_tpu_torch.ops import masked_fill as mf
 from dorpatch_tpu_torch.ops import stem_fold as sf
 
@@ -156,3 +157,91 @@ def test_pruned_certification_on_card_equals_cpu(dev):
         np.testing.assert_array_equal(g.preds_2, w.preds_2)
     assert [(r.prediction, r.certification) for r in got] == \
         [(0, True), (0, False), (1, False), (1, False)]
+
+
+# GroupNorm+ReLU: f32 kernels against the float64 plain versions. Forward
+# and per-element dx within 1e-5 (f32 rounding of a few flops per element;
+# the group statistics are summed in float64); the parameter cotangents sum
+# N*HW terms per channel in f32 blocks of 64 rows, hence atol 1e-3. Gate
+# flips near a pre-activation of 0 are allowed for by `gate_flip_bounds`.
+GN_SHAPES = [(8, 28, 28, 128), (16, 7, 7, 2048), (3, 9, 9, 64), (2, 5, 5, 96),
+             (4, 56, 56, 256)]
+
+
+def _gn_case(dev, seed, shape):
+    rng = np.random.default_rng(seed)
+    c = shape[-1]
+    arrays = (rng.standard_normal(shape) + rng.normal(0, 0.5, c),
+              1 + rng.normal(0, 0.2, c), rng.normal(0, 0.3, c),
+              rng.standard_normal(shape))
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                 for a in arrays)
+
+
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_gn_forward_matches_float64_plain(dev, shape):
+    x, s, b, _ = _gn_case(dev, 0, shape)
+    y, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
+    torch.cuda.synchronize()
+    m64, r64 = fgn.gn_stats_reference(x.double(), 32)
+    torch.testing.assert_close(mean.double(), m64, rtol=0, atol=1e-6)
+    torch.testing.assert_close(rstd.double(), r64, rtol=1e-5, atol=0)
+    want = fgn.gn_relu_reference(x.double(), s.double(), b.double())
+    torch.testing.assert_close(y.double(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(fgn.gn_relu_fwd_kernel(x, s, b)[0], y)
+
+
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_gn_backward_matches_float64_plain(dev, shape):
+    x, s, b, dy = _gn_case(dev, 1, shape)
+    _, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
+    dx, ds, db = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd)
+    torch.cuda.synchronize()
+    args = [t.double() for t in (x, dy, s, b)]
+    m64, r64 = fgn.gn_stats_reference(args[0], 32)
+    wdx, wds, wdb = fgn.gn_relu_backward_reference(*args, m64, r64, 32)
+    near, dx_b, ds_b, db_b = fgn.gate_flip_bounds(*args, m64, r64, 32)
+    keep = ~near
+    err = (dx.double() - wdx).abs()[keep]
+    assert (err <= 1e-5 + 1e-5 * wdx.abs()[keep] + dx_b[keep]).all()
+    assert ((ds.double() - wds).abs() <= 1e-3 + 1e-5 * wds.abs() + ds_b).all()
+    assert ((db.double() - wdb).abs() <= 1e-3 + 1e-5 * wdb.abs() + db_b).all()
+    again = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd)
+    assert all(torch.equal(p, q) for p, q in zip(again, (dx, ds, db)))
+    dx_only = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd, params=False)
+    assert dx_only[1] is None and dx_only[2] is None
+    assert torch.equal(dx_only[0], dx)
+
+
+def test_gn_autograd_function_pairs_the_kernels_and_counts(dev):
+    x, s, b, dy = _gn_case(dev, 2, (2, 8, 8, 64))
+    leaves = [t.clone().requires_grad_(True) for t in (x, s, b)]
+    _backend.reset_launch_counts()
+    got = torch.autograd.grad((fgn.gn_relu(*leaves) * dy).sum(), leaves)
+    counts = _backend.launch_counts()
+    assert (counts["gn_relu_fwd"], counts["gn_relu_bwd"]) == (1, 1)
+    ref = [t.clone().requires_grad_(True) for t in (x, s, b)]
+    want = torch.autograd.grad(
+        (fgn.gn_relu_reference(*ref) * dy).sum(), ref)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    # frozen affine (the victim's case): the Function still returns dx
+    xr = x.clone().requires_grad_(True)
+    (gx,) = torch.autograd.grad((fgn.gn_relu(xr, s, b) * dy).sum(), xr)
+    torch.testing.assert_close(gx, got[0], rtol=0, atol=0)
+
+
+def test_resnetv2_victim_on_card_matches_cpu(dev):
+    """The full-depth ResNetV2-50x1 from the same seed on the card (49 GN
+    forward launches per forward) and on the CPU."""
+    from dorpatch_tpu_torch.models import get_model
+
+    cpu = get_model("imagenet", "resnetv2", "/nonexistent", 64, device="cpu")
+    gpu = get_model("imagenet", "resnetv2", "/nonexistent", 64, device=dev)
+    x = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(0))
+    _backend.reset_launch_counts()
+    with torch.no_grad():
+        got = gpu.apply(x.to(dev)).cpu()
+        want = cpu.apply(x)
+    assert _backend.launch_counts()["gn_relu_fwd"] == 49
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)

@@ -65,7 +65,8 @@ def test_cpu_tensor_takes_the_plain_version_without_launching():
                                       torch.as_tensor(rects), 0.25)
     assert torch.equal(out, ref)
     assert _backend.launch_counts() == {"masked_fill_fwd": 0,
-                                        "masked_fill_bwd": 0, "stem_fold": 0}
+                                        "masked_fill_bwd": 0, "stem_fold": 0,
+                                        "gn_relu_fwd": 0, "gn_relu_bwd": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -33,9 +33,11 @@ REPORT = re.compile(
 @pytest.fixture()
 def shallow_victim(monkeypatch):
     """The factory builds the full-width, one-block-per-stage ResNet-18."""
-    monkeypatch.setattr(
-        registry, "_build",
-        lambda name, n: CifarResNet18(num_classes=n, stage_sizes=(1, 1, 1, 1)))
+    _, init_weights = registry._FAMILIES["cifar_resnet18"]
+    monkeypatch.setitem(
+        registry._FAMILIES, "cifar_resnet18",
+        (lambda n: CifarResNet18(num_classes=n, stage_sizes=(1, 1, 1, 1)),
+         init_weights))
 
 
 def _cfg(tmp_path, **attack):
@@ -128,3 +130,14 @@ def test_cli_defaults_and_flags():
         ["--device", "cpu"])).device == "cpu"
     with pytest.raises(SystemExit):
         build_parser().parse_args(["--base_arch", "vit"])
+    # the JAX package's default victim, ResNetV2-50x1 BiT at 224 on imagenet
+    default = config_from_args(build_parser().parse_args([]))
+    assert (default.base_arch, default.dataset, default.img_size) == \
+        ("resnetv2", "imagenet", 224)
+    assert ExperimentConfig().base_arch == "resnetv2"
+    assert registry.resolve_arch(default.base_arch) == \
+        "resnetv2_50x1_bit_distilled"
+    assert config_from_args(build_parser().parse_args(
+        ["--base_arch", "resnetv2"])).base_arch == "resnetv2"
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--base_arch", "resmlp"])
