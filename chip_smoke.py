@@ -13,11 +13,14 @@ NVIDIA GPU.
    bracketed by synchronizes, so host launch cost is not counted):
    kernels A, B and C at the CIFAR path's shapes, the GroupNorm+ReLU
    forward and backward at the RN50 attack step's largest slab
-   [256, 56*56, 256] and at [256, 7*7, 2048], and kernel C at RN50's
-   7x7/2 stem at 224;
-4. runs two main paths through their user entry point, the CLI, each with
-   every kernel's launch count set to 0 just before and read just after,
-   and fails if a kernel of that path was not launched:
+   [256, 56*56, 256] and at [256, 7*7, 2048], kernel C at RN50's
+   7x7/2 stem at 224, and kernel H (the masked-KV attention) at the
+   ViT-B/16 token engine's phase-1 chunk and pair-audit chunk of the 0.12
+   radius, against its plain version in float64, with
+   `F.scaled_dot_product_attention` timed beside it;
+4. runs three main paths through their user entry point, the CLI, each
+   with every kernel's launch count set to 0 just before and read just
+   after, and fails if a kernel of that path was not launched:
    - CIFAR: `--synthetic --dataset cifar10 --base_arch resnet18
      --img-size 32 -b 8 --sampling-size 128 --dropout 2 --max-iterations
      20 --num-batches 1` (full-width CIFAR ResNet-18; kernels A, B, C);
@@ -25,13 +28,22 @@ NVIDIA GPU.
      --img-size 224 -b 2 --sampling-size 128 --dropout 2 --max-iterations
      20 --num-batches 1` (ResNetV2-50x1 BiT at full depth and width;
      kernels A, B, C and the GroupNorm+ReLU forward and backward);
+   - ViT: the same flags with `--base_arch vit` (ViT-B/16 at full depth
+     and width; kernels A, B and H);
    random weights from the seed, certification at the four radii with
-   prune="exact", incremental="auto" -> stem;
-5. certifies one radius both ways on each victim (stem fold = kernel C,
-   and full masked forwards = kernel A) and asserts the first-round tables
-   agree wherever both top-2 margins exceed 1e-3; on RN50 also holds the
-   victim's logits with the GroupNorm kernels against its plain GroupNorm
-   (argmax equal wherever the top-2 margin exceeds 1e-3);
+   prune="exact", incremental="auto" (-> stem for the conv victims,
+   -> token-exact for the ViT);
+5. certifies one radius both ways on each conv victim (stem fold = kernel
+   C, and full masked forwards = kernel A) and asserts the first-round
+   tables agree wherever both top-2 margins exceed 1e-3; on RN50 also
+   holds the victim's logits with the GroupNorm kernels against its plain
+   GroupNorm (argmax equal wherever the top-2 margin exceeds 1e-3); on the
+   ViT (as seeded, and with one class's head bias raised so that images
+   clear the escalation margin) holds the token engine's first-round logits with
+   kernel H against the engine with the plain attention (1e-4) and
+   against full masked forwards (predictions equal wherever both margins
+   exceed `incremental_margin`), and asserts that "token-exact" gives every
+   image the (prediction, certification) of incremental="off";
 6. prints the per-kernel JSON line, the nvidia-smi line and, last,
    `{"ok": true, "device": {...}}`.
 
@@ -69,6 +81,12 @@ TOL_GN_PARAMS = dict(rtol=1e-5, atol=1e-3)
 GN_NEAR = 1e-5
 #: [N, HW, C] GroupNorm slabs of the RN50 attack step (2 images x 128 masks)
 GN_SLABS = ((256, 56 * 56, 256), (256, 7 * 7, 2048))
+# kernel H against its plain version in float64: float32 rounding of the
+# logits (64-term dots), the exp-sum over T+1+S keys and the weighted sum;
+# the engine's logits with kernel H and with the plain attention after 12
+# blocks of it
+TOL_H = dict(rtol=1e-5, atol=1e-5)
+TOL_H_LOGITS = 1e-4
 
 CIFAR_ARGV = ["--synthetic", "--dataset", "cifar10", "--base_arch",
               "resnet18", "--img-size", "32", "-b", "8",
@@ -78,8 +96,10 @@ RN50_ARGV = ["--synthetic", "--dataset", "imagenet", "--base_arch",
              "resnetv2", "--img-size", "224", "-b", "2",
              "--sampling-size", "128", "--dropout", "2",
              "--max-iterations", "20", "--num-batches", "1"]
+VIT_ARGV = [a if a != "resnetv2" else "vit" for a in RN50_ARGV]
 CIFAR_KERNELS = ("masked_fill_fwd", "masked_fill_bwd", "stem_fold")
 RN50_KERNELS = CIFAR_KERNELS + ("gn_relu_fwd", "gn_relu_bwd")
+VIT_KERNELS = ("masked_fill_fwd", "masked_fill_bwd", "masked_kv_attn")
 
 
 def _smi() -> str:
@@ -430,6 +450,91 @@ def gn_phases(torch, dev):
     return list(recs[0])
 
 
+def attn_phase(torch, dev):
+    """Kernel H at the ViT-B/16 token engine's two shapes of the 0.12
+    radius (2 images; T+1 = 197 tokens, 12 heads of 64): the phase-1 chunk
+    (all 36 first-round masks) and the first pair-audit chunk (64 of the
+    630 pairs). The biases are the engine's own: the stale clean columns
+    of the masks' token sets and the duplicate dirty slots of their
+    padding. Held against the plain version in float64 and timed beside
+    the plain f32 version and `F.scaled_dot_product_attention` over the
+    concatenated clean and dirty keys with the biases as its mask."""
+    import numpy as np
+
+    import torch.nn.functional as F
+
+    from dorpatch_tpu_torch import masks as masks_lib
+    from dorpatch_tpu_torch.models import vit
+    from dorpatch_tpu_torch.ops import masked_kv_attn as mka
+
+    size, patch, b, h, f = 224, 16, 2, 12, 64
+    t1 = (size // patch) ** 2 + 1
+    singles, doubles = masks_lib.mask_sets(masks_lib.geometry(size, 0.12))
+    m = singles.shape[0]
+    rng = np.random.default_rng(4)
+    recs = []
+    for name, rects, c in (("masked_kv_attn", singles, m),
+                           ("masked_kv_attn_pairs", doubles, 64)):
+        table = vit.build_tables(rects, size, patch)
+        idx = table.idx[:c]
+        s = idx.shape[1]
+        stale = (idx[:, :, None] == np.arange(t1)).any(axis=1)   # [c, T+1]
+        biases = (np.where(stale, -1e9, 0.0), table.slot_bias[:c])
+        cb, db = (torch.as_tensor(np.tile(a, (b, 1, 1)), dtype=torch.float32,
+                                  device=dev)
+                  for a in biases)
+        q, kd, vd = (torch.as_tensor(rng.standard_normal((b, c, s, h, f)),
+                                     dtype=torch.float32, device=dev)
+                     for _ in range(3))
+        q = q / math.sqrt(f)
+        kc, vc = (torch.as_tensor(rng.standard_normal((b, t1, h, f)),
+                                  dtype=torch.float32, device=dev)
+                  for _ in range(2))
+        args = (q, kd, vd, kc, vc, cb, db)
+        got = mka.masked_kv_attention_kernel(*args)
+        torch.cuda.synchronize()
+        want = mka.masked_kv_attention_reference(*(a.double() for a in args))
+        err = float((got.double() - want).abs().max())
+        err32 = float((got - mka.masked_kv_attention_reference(*args))
+                      .abs().max())
+        torch.testing.assert_close(got.double(), want, **TOL_H)
+        del want
+        # the library yardstick: one SDPA call over [B*C, H, T+1+S, f]
+        # keys and values, concatenated outside the timing
+        def heads(t):
+            return t.permute(0, 1, 3, 2, 4).reshape(b * c, h, -1, f)
+
+        qs = heads(q).contiguous()
+        ks, vs = (heads(torch.cat([cl[:, None].expand(b, c, t1, h, f), dt],
+                                  dim=2)).contiguous()
+                  for cl, dt in ((kc, kd), (vc, vd)))
+        mask = torch.cat([cb, db], dim=-1).reshape(b * c, 1, 1, t1 + s)
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                 scale=1.0)
+        lib_err = float((lib_out - heads(got)).abs().max())
+        ms = _device_ms(lambda: mka.masked_kv_attention_kernel(*args))
+        plain = _device_ms(lambda: mka.masked_kv_attention_reference(*args))
+        lib = _device_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, scale=1.0))
+        nbytes = 4 * (4 * b * c * s * h * f + 2 * b * t1 * h * f
+                      + b * c * (t1 + s))
+        bound, by = _bound(nbytes, 4.0 * b * c * h * s * (t1 + s) * f)
+        print(f"kernel H {name} [B={b},C={c},S={s},H={h},f={f},T+1={t1}]: "
+              f"max_abs_err {err:.3g} vs float64 plain (rtol "
+              f"{TOL_H['rtol']}, atol {TOL_H['atol']}), {err32:.3g} vs f32 "
+              f"plain, {lib_err:.3g} vs SDPA; {ms * 1e3:.2f} us (plain "
+              f"{plain * 1e3:.2f} us, SDPA {lib * 1e3:.2f} us, bound "
+              f"{bound * 1e3:.2f} us by {by})", flush=True)
+        recs.append(dict(name=name, route="cuda",
+                         source="dorpatch_tpu_torch/csrc/masked_kv_attn.cu",
+                         replaces="dorpatch_tpu/ops/masked_kv_attn.py:56",
+                         launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=bound, bound_by=by, library_ms=lib))
+        del args, q, kd, vd, got, qs, ks, vs, lib_out
+        torch.cuda.empty_cache()
+    return recs
+
+
 def main_path(torch, dev, label, argv, required):
     """One main path through the CLI entry point, with the launch counts
     set to 0 just before and read just after; every kernel in `required`
@@ -451,8 +556,9 @@ def main_path(torch, dev, label, argv, required):
     print(f"{label} main path: {wall:.2f} s wall; attack seconds "
           f"{m.get('attack_seconds')}; certify seconds "
           f"{m.get('certify_seconds')}; forwards {m.get('forwards')} of "
-          f"{m.get('forwards_exhaustive')} exhaustive; launches {counts}",
-          flush=True)
+          f"{m.get('forwards_exhaustive')} exhaustive, forward equivalents "
+          f"{m.get('forward_equivalents')}, escalated (image, radius) "
+          f"records {m.get('escalated')}; launches {counts}", flush=True)
     for name in required:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
@@ -539,6 +645,106 @@ def gn_logits_check(torch, dev, victim, x):
                              f"disagreements, {launched} launches (want 49)")
 
 
+def vit_cross_check(torch, dev, b, lift):
+    """The ViT-B/16 victim at 224 and the 0.12 radius on the card, with its
+    head bias of class 0 raised by `lift` (a random victim's top-2 margins
+    are mostly below `incremental_margin`, so unlifted nearly every image
+    escalates; the lift widens the margins without changing the engine's
+    logit drift, a difference of logits):
+    - the token engine's first-round logits with kernel H against the same
+      engine with the plain attention: within TOL_H_LOGITS, argmax equal
+      wherever the margin exceeds 1e-3;
+    - its first-round predictions against full masked forwards (kernel A):
+      equal wherever both margins exceed `incremental_margin`;
+    - "token-exact" certification gives every image the (prediction,
+      certification) of incremental="off"; prints how many images
+      escalated and the largest logit gap to the full forwards over the
+      images that did not."""
+    from dorpatch_tpu_torch import data, ops, utils
+    from dorpatch_tpu_torch.config import DefenseConfig
+    from dorpatch_tpu_torch.defense import PatchCleanser
+    from dorpatch_tpu_torch.masks import geometry, mask_sets
+    from dorpatch_tpu_torch.models import get_model, vit
+    from dorpatch_tpu_torch.ops import masked_fill as mf
+    from dorpatch_tpu_torch.ops import masked_kv_attn as mka
+
+    size, cfg = 224, DefenseConfig()
+    victim = get_model("imagenet", "vit", "/nonexistent", size, seed=0,
+                       device=dev)
+    victim.model.head.bias[0] += lift
+    x_np, _ = next(data.synthetic_batches("imagenet", b, size, 1234))
+    x = torch.as_tensor(x_np, device=dev)
+    pc = PatchCleanser(victim.apply, geometry(size, 0.12), cfg,
+                       incremental_engine=victim.incremental, device=dev)
+    eng, table = victim.incremental, pc._incr_family.first
+    singles, _ = mask_sets(pc.spec)
+    m = singles.shape[0]
+
+    def per_image(t):
+        return t[None].expand((b,) + t.shape)
+
+    with torch.no_grad():
+        patches, cls0, kcs, vcs = eng._clean(x)
+
+        def first_round():
+            return eng._chunk(patches, cls0, kcs, vcs, per_image(table.idx),
+                              per_image(table.keep),
+                              per_image(table.slot_bias), cfg.mask_fill)
+
+        ops.reset_launch_counts()
+        lg_tok = first_round()
+        launched = ops.launch_counts()["masked_kv_attn"]
+        # the same engine with the plain attention on the card, for this
+        # comparison only
+        vit.masked_kv_attention = mka.masked_kv_attention_reference
+        try:
+            lg_plain = first_round()
+        finally:
+            vit.masked_kv_attention = mka.masked_kv_attention
+        xm = mf.masked_fill(x, torch.as_tensor(singles, device=dev),
+                            cfg.mask_fill)
+        lg_full = victim.apply(xm.reshape(-1, size, size, 3)).reshape(
+            b, m, -1)
+    p_tok, m_tok = utils.preds_margins(lg_tok)
+    p_plain, m_plain = utils.preds_margins(lg_plain)
+    p_full, m_full = utils.preds_margins(lg_full)
+    kern_err = float((lg_tok - lg_plain).abs().max())
+    kern_bad = int(((p_tok != p_plain)
+                    & (torch.minimum(m_tok, m_plain) > 1e-3)).sum())
+    sure = torch.minimum(m_tok, m_full) > cfg.incremental_margin
+    full_bad = int(((p_tok != p_full) & sure).sum())
+
+    rec_tok = pc.robust_predict(x, victim.num_classes,
+                                incremental="token-exact")
+    esc = pc.last_min_margin < cfg.incremental_margin
+    margins = [round(float(v), 4) for v in pc.last_min_margin]
+    rec_off = pc.robust_predict(x, victim.num_classes, incremental="off")
+    differ = [i for i, (a, o) in enumerate(zip(rec_tok, rec_off))
+              if (a.prediction, a.certification)
+              != (o.prediction, o.certification)]
+    kept = torch.as_tensor(~esc, device=dev)
+    gap = (float((lg_tok - lg_full)[kept].abs().max()) if bool(kept.any())
+           else None)
+    print(f"ViT cross-check 224px r=0.12, class-0 bias +{lift}: kernel H vs "
+          f"plain-attention engine logits max_abs_err {kern_err:.3g} "
+          f"(atol {TOL_H_LOGITS}; {launched} launches), {kern_bad} argmax "
+          f"disagreements with margin > 1e-3; token vs full forwards: "
+          f"{full_bad} disagreements among {int(sure.sum())} of "
+          f"{sure.numel()} first-round entries with both margins > "
+          f"{cfg.incremental_margin}; escalated {int(esc.sum())} of {b} "
+          f"images (min margins {margins}); largest token-vs-full logit "
+          f"gap over the images not escalated {gap}; verdicts token-exact "
+          f"vs off differ for images {differ}", flush=True)
+    if kern_err > TOL_H_LOGITS or kern_bad or launched != eng.module.depth:
+        raise AssertionError(f"kernel H engine logits: max_abs_err "
+                             f"{kern_err}, {kern_bad} confident argmax "
+                             f"disagreements, {launched} launches")
+    if full_bad or differ:
+        raise AssertionError(f"token engine vs full forwards: {full_bad} "
+                             f"confident first-round disagreements, "
+                             f"verdicts differ for images {differ}")
+
+
 def main() -> int:
     import torch
 
@@ -567,16 +773,21 @@ def main() -> int:
     rn50_kernels = [stem_fold_phase(torch, dev, "imagenet", "resnetv2", 224,
                                     2, "stem_fold_rn50")]
     rn50_kernels += gn_phases(torch, dev)
+    vit_kernels = attn_phase(torch, dev)
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     for label, argv, required, records in (
             ("CIFAR", CIFAR_ARGV, CIFAR_KERNELS, cifar_kernels),
-            ("RN50", RN50_ARGV, RN50_KERNELS, rn50_kernels)):
+            ("RN50", RN50_ARGV, RN50_KERNELS, rn50_kernels),
+            ("ViT", VIT_ARGV, VIT_KERNELS, vit_kernels)):
         t0 = time.perf_counter()
         _, counts = main_path(torch, dev, label, argv, required)
         for rec in records:
-            # stem_fold_rn50 is kernel C at RN50's stem: stem_fold's count
-            rec["launches"] = counts[rec["name"].replace("_rn50", "")]
+            # stem_fold_rn50 is kernel C at RN50's stem, and
+            # masked_kv_attn_pairs kernel H at the pair audit's shape: the
+            # counts of stem_fold and masked_kv_attn
+            rec["launches"] = counts[rec["name"].replace("_rn50", "")
+                                     .replace("_pairs", "")]
         print(f"{label} main-path phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
 
@@ -584,9 +795,13 @@ def main() -> int:
     cross_check(torch, dev, "cifar10", "resnet18", 32, 8)
     victim, x = cross_check(torch, dev, "imagenet", "resnetv2", 224, 4)
     gn_logits_check(torch, dev, victim, x)
+    del victim, x
+    for lift in (0.0, 4.0):
+        vit_cross_check(torch, dev, 4, lift)
     print(f"cross-check phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print(json.dumps({"kernels": cifar_kernels + rn50_kernels}), flush=True)
+    print(json.dumps({"kernels": cifar_kernels + rn50_kernels
+                                  + vit_kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

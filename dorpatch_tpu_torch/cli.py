@@ -5,6 +5,8 @@ Run:  python -m dorpatch_tpu_torch --synthetic --dataset imagenet \\
           --base_arch resnetv2 --img-size 224 --max-iterations 20 -b 2
       python -m dorpatch_tpu_torch --synthetic --dataset cifar10 \\
           --base_arch resnet18 --img-size 32 --max-iterations 20 -b 8
+      python -m dorpatch_tpu_torch --synthetic --dataset imagenet \\
+          --base_arch vit --img-size 224 --max-iterations 20 -b 2
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["cifar10", "imagenet", "cifar100"])
     p.add_argument("--model_dir", default="pretrained_models/")
     p.add_argument("--base_arch", "-ba", default="resnetv2",
-                   choices=["resnetv2", "resnet18", "cifar_resnet18"])
+                   choices=["resnetv2", "resnet18", "cifar_resnet18", "vit",
+                            "cifar_vit"])
     p.add_argument("--targeted", "-t", action="store_true")
     p.add_argument("--patch_budget", type=float, default=0.12)
     p.add_argument("-b", "--batch-size", type=int, default=1)
@@ -49,10 +52,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "the two-phase pruned path with verdicts identical "
                         "to 'off', the exhaustive 666-forward sweep")
     p.add_argument("--incremental", default="auto",
-                   choices=["auto", "stem", "off"],
-                   help="first-round masked forwards: 'auto'/'stem' fold "
-                        "the masks into the conv stem (kernel C on the "
-                        "card); 'off' runs full masked forwards")
+                   choices=["auto", "token", "token-exact", "stem", "off"],
+                   help="incremental masked forwards on the pruned path: "
+                        "'auto' picks per family, 'stem' for conv victims "
+                        "(the first round folded into the conv stem, "
+                        "kernel C on the card) and 'token-exact' for ViT "
+                        "victims (token-pruned forwards over a clean KV "
+                        "cache, kernel H on the card, re-certifying "
+                        "through the exhaustive sweep every image whose "
+                        "read entries come within --incremental-margin of "
+                        "the decision boundary); plain 'token' skips that "
+                        "re-certification; 'off' runs full masked "
+                        "forwards")
+    p.add_argument("--incremental-margin", type=float, default=0.5,
+                   help="token-exact escalation threshold: the top-2 logit "
+                        "gap below which a token-pruned entry is "
+                        "distrusted and its image re-certified "
+                        "exhaustively")
     return p
 
 
@@ -75,7 +91,8 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
                             dropout=args.dropout,
                             sampling_size=args.sampling_size),
         defense=DefenseConfig(prune=args.prune,
-                              incremental=args.incremental),
+                              incremental=args.incremental,
+                              incremental_margin=args.incremental_margin),
     )
 
 

@@ -65,7 +65,12 @@ class DefenseConfig:
     prune: "exact" (two-phase pruned schedule, verdicts identical to the
     exhaustive sweep) or "off" (the exhaustive 666-mask sweep).
     incremental: "auto" (the victim family's engine: "stem" for conv
-    victims), "stem" or "off" (full masked forwards for every entry).
+    victims, "token-exact" for ViT victims), "stem", "token" (token-pruned
+    forwards over a clean KV cache, verdicts up to the engine's logit
+    drift), "token-exact" ("token", plus re-certifying every image whose
+    read entries have a top-2 logit margin below `incremental_margin`
+    through the exhaustive sweep) or "off" (full masked forwards for every
+    entry).
     """
 
     ratios: Tuple[float, ...] = DEFAULT_RATIOS
@@ -75,6 +80,7 @@ class DefenseConfig:
     chunk_size: int = 64            # certification sweep chunking
     prune: str = "exact"
     incremental: str = "auto"
+    incremental_margin: float = 0.5  # "token-exact" escalation threshold
 
 
 @dataclasses.dataclass(frozen=True)

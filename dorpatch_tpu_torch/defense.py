@@ -22,6 +22,15 @@ each image's evaluated entries.
 first round through the masked-stem fold (`ops.stem_fold`); phase 2 keeps
 full masked forwards.
 
+`incremental="token"` runs all three programs (phase 1, the pair audit and
+the second-round rows) through the ViT token engine (`models.vit`), which
+returns top-2 logit margins beside its predictions. `"token-exact"` (what
+"auto" resolves to for ViT victims) adds the escalation: every image whose
+evaluated entries include a margin below `DefenseConfig.incremental_margin`
+is re-certified through the exhaustive sweep, so its record is the
+exhaustive path's. `PatchCleanserRecord.forward_equivalents` credits a
+token-pruned entry at its fraction of a full forward.
+
 Tie-breaking (as in the JAX package): the majority label on count ties is
 the smallest label with the maximal count; among several recovering
 minority masks the one with the largest mask index wins.
@@ -43,7 +52,7 @@ from dorpatch_tpu_torch.config import DefenseConfig
 from dorpatch_tpu_torch.ops.masked_fill import masked_fill
 
 PRUNE_MODES = ("off", "exact")
-INCREMENTAL_MODES = ("auto", "stem", "off")
+INCREMENTAL_MODES = ("auto", "token", "token-exact", "stem", "off")
 
 #: `preds_2` entries the pruned path never evaluated (provably unread).
 UNEVALUATED = -1
@@ -52,13 +61,17 @@ UNEVALUATED = -1
 class PatchCleanserRecord(NamedTuple):
     """Per-image verdict. `preds_2` holds `UNEVALUATED` where the pruned
     schedule proved the verdict never reads an entry; `forwards` counts the
-    masked-table entries this image evaluated (bucket padding excluded)."""
+    masked-table entries this image evaluated (bucket padding excluded);
+    `forward_equivalents` is their cost in full forwards (a token-pruned
+    entry counts its fraction of one, the clean cache included; equal to
+    `forwards` on the other paths)."""
 
     prediction: int
     certification: bool
     preds_1: np.ndarray  # [M] one-masked predictions
     preds_2: np.ndarray  # [P] double-masked predictions
     forwards: int = -1
+    forward_equivalents: float = -1.0
 
 
 class PatchCleanserResult:
@@ -212,8 +225,8 @@ def schedule_round2(p1: np.ndarray, majority: np.ndarray,
 class _PrunedPending:
     """One pruned certification batch: phase 1 runs at construction,
     `schedule()` reads the `[B, M]` first-round table (the one designed
-    host sync) and runs phase 2, `finalize()` runs `schedule()` and
-    assembles the records."""
+    host sync) and runs phase 2, `finalize()` runs `schedule()`, assembles
+    the records and, under "token-exact", escalates."""
 
     def __init__(self, pc: "PatchCleanser", imgs: torch.Tensor, n: int,
                  num_classes: int, bucket_sizes, mode: str,
@@ -224,10 +237,16 @@ class _PrunedPending:
         self.num_classes = num_classes
         self.bucket_sizes = bucket_sizes
         self.mode = mode
+        self.incr = incremental
+        # the token engine's margins; the stem fold is exact and its
+        # margins are not read
+        self.margins_on = incremental.startswith("token")
+        self.t1_margins = None
         if incremental != "off":
-            self.t1, _ = pc._phase1_incr(imgs)
+            self.t1, self.t1_margins = pc._phase1_incr(imgs)
         else:
             self.t1 = pc._phase1(imgs)
+        self.min_margin = None
         # phase-2 chunks: (prediction table, [(table_row, image[, mask])])
         self.pair_chunks = []
         self.row_chunks = []
@@ -241,6 +260,7 @@ class _PrunedPending:
             pc.num_second, self.mode)
         self.pair_idx = np.nonzero(need_pairs)[0]
         dev = self.imgs.device
+        pairs_prog = pc._pairs_incr if self.margins_on else pc._pairs
         if self.pair_idx.size:
             bs = (self.bucket_sizes if self.bucket_sizes is not None
                   else data_lib.batch_buckets(int(self.imgs.shape[0])))
@@ -250,14 +270,20 @@ class _PrunedPending:
                 xu = data_lib.pad_to_bucket(self.imgs[sel], bucket)
                 mapping = [(pos, int(self.pair_idx[off + pos]))
                            for pos in range(cnt)]
-                self.pair_chunks.append((pc._pairs(xu), mapping))
+                self.pair_chunks.append((pairs_prog(xu), mapping))
         for off, w, wb in data_lib.bucket_plan(len(self.row_list),
                                                pc.row_bucket_sizes):
             chunk = self.row_list[off:off + w]
             img_idx = [b for b, _ in chunk] + [chunk[-1][0]] * (wb - w)
             mask_idx = [i for _, i in chunk] + [chunk[-1][1]] * (wb - w)
             xg = self.imgs[torch.as_tensor(img_idx, device=dev)]
-            t = pc._rows(xg, torch.as_tensor(mask_idx, device=dev))
+            if self.margins_on:
+                # the engine's rows take each entry's row of combined-table
+                # indices
+                t = pc._rows_incr(xg, torch.as_tensor(
+                    pc._np_grid_full[mask_idx], device=dev))
+            else:
+                t = pc._rows(xg, torch.as_tensor(mask_idx, device=dev))
             self.row_chunks.append(
                 (t, [(pos, b, i) for pos, (b, i) in enumerate(chunk)]))
 
@@ -266,25 +292,49 @@ class _PrunedPending:
         pc = self.pc
         m, p = pc.num_first, pc.num_second
         p1, majority, unanimous = self.p1, self.majority, self.unanimous
-        pair_tables = {}
+
+        def split(t):
+            """(preds, margins or None) of one phase-2 chunk, on the host."""
+            if isinstance(t, tuple):
+                return t[0].cpu().numpy(), t[1].cpu().numpy()
+            return t.cpu().numpy(), None
+
+        pair_tables, pair_margins = {}, {}
         for t, mapping in self.pair_chunks:
-            tbl = t.cpu().numpy()
+            tbl, mg = split(t)
             for pos, b in mapping:
                 pair_tables[b] = tbl[pos]
-        rows = {}                      # image -> {mask i -> [M] row}
+                if mg is not None:
+                    pair_margins[b] = mg[pos]
+        rows, row_margins = {}, {}     # image -> {mask i -> [M] row}
         for t, mapping in self.row_chunks:
-            tbl = t.cpu().numpy()
+            tbl, mg = split(t)
             for pos, b, i in mapping:
                 rows.setdefault(b, {})[i] = tbl[pos]
+                if mg is not None:
+                    row_margins.setdefault(b, {})[i] = mg[pos]
+        if self.margins_on:
+            fe_first, fe_pairs, fe_rows = pc._fe_first, pc._fe_pairs, \
+                pc._fe_rows
+        else:
+            fe_first, fe_pairs = float(m), float(p)
+            fe_rows = np.full((m,), float(m))
+        # per image, the smallest top-2 margin over its evaluated token
+        # entries (+inf without margins)
+        min_margin = np.full((self.n,), np.inf)
+        if self.margins_on:
+            min_margin[:] = self.t1_margins.cpu().numpy()[:self.n].min(axis=1)
         grid = pc._np_grid
         records: List[PatchCleanserRecord] = []
         for b in range(self.n):
             mj = int(majority[b])
+            if b in pair_margins:
+                min_margin[b] = min(min_margin[b], pair_margins[b].min())
             if unanimous[b]:
                 p2 = pair_tables[b]    # "exact": the certificate audit
                 cert = bool((p2 == mj).all())
-                fwd = m + p
-                records.append(PatchCleanserRecord(mj, cert, p1[b], p2, fwd))
+                records.append(PatchCleanserRecord(
+                    mj, cert, p1[b], p2, m + p, fe_first + fe_pairs))
                 continue
             # disagreement: the certificate died in round 1; only the
             # minority rows' recovery check remains
@@ -294,7 +344,7 @@ class _PrunedPending:
                 second = p2[grid]
                 second[np.eye(m, dtype=bool)] = p1[b]
                 brows = {int(i): second[i] for i in minority}
-                fwd = m + p
+                fwd, fe = m + p, fe_first + fe_pairs
             else:
                 p2 = np.full((p,), UNEVALUATED, p1.dtype)
                 brows = {}
@@ -306,11 +356,47 @@ class _PrunedPending:
                     brows[int(i)] = row
                     off = np.arange(m) != i
                     p2[grid[i][off]] = row[off]
+                    if b in row_margins:
+                        # the pinned diagonal reads the phase-1 entry
+                        min_margin[b] = min(
+                            min_margin[b], row_margins[b][int(i)][off].min())
                 fwd = m + m * len(minority)
+                fe = fe_first + float(sum(fe_rows[i] for i in minority))
             recovered = [i for i, row in brows.items()
                          if (row == p1[b, i]).all()]
             pred = int(p1[b, max(recovered)]) if recovered else mj
-            records.append(PatchCleanserRecord(pred, False, p1[b], p2, fwd))
+            records.append(
+                PatchCleanserRecord(pred, False, p1[b], p2, fwd, fe))
+        self.min_margin = min_margin
+        if self.incr.endswith("-exact"):
+            records = self._escalate(records, min_margin)
+        return records
+
+    def _escalate(self, records, min_margin) -> List[PatchCleanserRecord]:
+        """Re-certify every image whose evaluated entries came within
+        `incremental_margin` of the argmax boundary through the exhaustive
+        sweep (bucketed); its record becomes the exhaustive path's, its
+        cost the entries already spent plus the full M + P sweep."""
+        pc = self.pc
+        esc = np.nonzero(min_margin < pc.config.incremental_margin)[0]
+        if not esc.size:
+            return records
+        m, p = pc.num_first, pc.num_second
+        bs = (self.bucket_sizes if self.bucket_sizes is not None
+              else data_lib.batch_buckets(int(self.imgs.shape[0])))
+        dev = self.imgs.device
+        for off, cnt, bucket in data_lib.bucket_plan(int(esc.size), bs):
+            xe = data_lib.pad_to_bucket(
+                self.imgs[torch.as_tensor(esc[off:off + cnt], device=dev)],
+                bucket)
+            pred, cert, p1, p2 = (t.cpu().numpy() for t in
+                                  pc._predict(xe, self.num_classes))
+            for pos in range(cnt):
+                b = int(esc[off + pos])
+                old = records[b]
+                records[b] = PatchCleanserRecord(
+                    int(pred[pos]), bool(cert[pos]), p1[pos], p2[pos],
+                    old.forwards + m + p, old.forward_equivalents + m + p)
         return records
 
 
@@ -325,6 +411,10 @@ class PatchCleanser:
     incremental_engine: Any = None
     device: Any = "cuda"
     result: Any = None
+    #: per-image smallest evaluated top-2 margin of the last pruned
+    #: `robust_predict` (+inf where no margins were read)
+    last_min_margin: Any = dataclasses.field(default=None, init=False,
+                                             repr=False)
 
     def __post_init__(self):
         if self.spec.n_patch != 1:
@@ -344,6 +434,7 @@ class PatchCleanser:
             masks_lib.second_round_table_indices(m), dtype=torch.long,
             device=self.device)
         self._np_grid = _second_round_index_grid(m)
+        self._np_grid_full = masks_lib.second_round_table_indices(m)
         self.row_bucket_sizes = data_lib.batch_buckets(
             max(1, int(self.config.chunk_size)))
         self._incr_family = None
@@ -351,6 +442,19 @@ class PatchCleanser:
                 and self.config.incremental != "off"):
             self._incr_family = self.incremental_engine.build_family(
                 rects, m, self.config.chunk_size, self.config.mask_fill)
+        # forward equivalents per combined-table mask: 1 without the token
+        # engine, its dirty-token fraction with it; `cache_fe` charges each
+        # call's clean cache once per image (phase 1, each pair-audit image,
+        # each gathered row entry)
+        fe_combined = np.ones((rects.shape[0],), np.float64)
+        cache_fe = 0.0
+        if self._incr_family is not None and \
+                self.incremental_engine.kind == "token":
+            fe_combined = np.asarray(self._incr_family.fe, np.float64)
+            cache_fe = float(self._incr_family.cache_fe)
+        self._fe_rows = fe_combined[self._np_grid_full].sum(axis=1) + cache_fe
+        self._fe_first = float(fe_combined[:m].sum()) + cache_fe
+        self._fe_pairs = float(fe_combined[m:].sum()) + cache_fe
 
     @property
     def num_first(self) -> int:
@@ -390,6 +494,12 @@ class PatchCleanser:
     def _pairs(self, imgs):
         return self._sweep(imgs, self._rects[self._num_singles:])
 
+    def _pairs_incr(self, imgs):
+        return self._incr_family.pairs(imgs)
+
+    def _rows_incr(self, imgs_g, sets_idx):
+        return self._incr_family.rows(imgs_g, sets_idx)
+
     @torch.no_grad()
     def _rows(self, imgs_g: torch.Tensor, mask_idx: torch.Tensor):
         """`[W,H,W,C]` gathered images x `[W]` first-round mask ids ->
@@ -427,8 +537,9 @@ class PatchCleanser:
 
     def resolved_incremental(self, incremental: Optional[str] = None,
                              prune: Optional[str] = None) -> str:
-        """explicit arg > config; "auto" -> the engine's kind. "off" without
-        an engine or when the pruned path is off."""
+        """explicit arg > config; "auto" -> the engine's kind ("token-exact"
+        for the token engine). "off" without an engine or when the pruned
+        path is off."""
         mode = (self.config.incremental if incremental is None
                 else incremental)
         if mode not in INCREMENTAL_MODES:
@@ -438,8 +549,8 @@ class PatchCleanser:
             return "off"
         kind = self.incremental_engine.kind
         if mode == "auto":
-            return kind
-        if mode != "off" and mode != kind:
+            return "token-exact" if kind == "token" else kind
+        if mode != "off" and mode.split("-")[0] != kind:
             raise ValueError(f"incremental={mode!r} but this victim family's "
                              f"engine is {kind!r}")
         return mode
@@ -465,13 +576,16 @@ class PatchCleanser:
                 imgs, data_lib.bucket_batch(n, bucket_sizes))
         if n and mode != "off":
             incr = self.resolved_incremental(incremental, mode)
-            return _PrunedPending(self, imgs, n, num_classes, bucket_sizes,
-                                  mode, incr).finalize()
+            pending = _PrunedPending(self, imgs, n, num_classes, bucket_sizes,
+                                     mode, incr)
+            records = pending.finalize()
+            self.last_min_margin = pending.min_margin
+            return records
         pred, certified, p1, p2 = (t.cpu().numpy() for t in
                                    self._predict(imgs, num_classes))
         full = self.num_forwards_exhaustive
         return [PatchCleanserRecord(int(pred[b]), bool(certified[b]), p1[b],
-                                    p2[b], full)
+                                    p2[b], full, float(full))
                 for b in range(n)]
 
     def reset(self):

@@ -140,6 +140,34 @@ def dropout_universe(
     return np.concatenate(parts, axis=0)
 
 
+def rect_token_coverage(rects: np.ndarray, img_size: int,
+                        patch_px: int) -> np.ndarray:
+    """`[N, K, 4]` rectangle sets -> `[N, T]` bool over the row-major ViT
+    patch tokens (`T = (img_size // patch_px) ** 2`): True where any
+    rectangle of the mask overlaps the token's pixel window. A rectangle
+    whose edge straddles a patch boundary covers both tokens."""
+    rects = np.asarray(rects, dtype=np.int64)
+    if rects.ndim == 2:
+        rects = rects[:, None, :]
+    grid = img_size // patch_px
+    starts = np.arange(grid) * patch_px
+    r0, r1 = rects[..., 0:1], rects[..., 1:2]                # [N, K, 1]
+    c0, c1 = rects[..., 2:3], rects[..., 3:4]
+    rows = (r0 < starts + patch_px) & (r1 > starts)          # [N, K, G]
+    cols = (c0 < starts + patch_px) & (c1 > starts)
+    cover = rows[..., :, None] & cols[..., None, :]          # [N, K, G, G]
+    return cover.any(axis=1).reshape(rects.shape[0], grid * grid)
+
+
+def token_coverage(spec: MaskSpec, patch_px: int) -> np.ndarray:
+    """`[M, T]` bool: first-round mask i touches patch token t."""
+    if spec.img_size % patch_px:
+        raise ValueError(f"patch_px={patch_px} does not divide "
+                         f"img_size={spec.img_size}")
+    return rect_token_coverage(first_order_rects(spec)[:, None, :],
+                               spec.img_size, patch_px)
+
+
 def rasterize(rects: torch.Tensor, img_size: int) -> torch.Tensor:
     """Rectangle sets `[..., K, 4]` -> boolean keep-masks `[..., H, W]`
     (True = keep), on the rectangles' device."""

@@ -7,6 +7,10 @@
 - `from_flax_resnetv2`: the same for the JAX package's `ResNetV2` tree, into
   timm's `resnetv2` key names; the Dense head becomes the 1x1 conv
   `head.fc.weight [K, C, 1, 1]`.
+- `from_flax_vit`: the JAX package's `ViT` tree into timm's
+  `vit_base_patch16_224` key names: the per-head query/key/value kernels
+  `[D, H, f]` fuse into `attn.qkv.weight [3D, D]`, the `[H, f, D]` output
+  kernel becomes `attn.proj.weight`, the patch embed goes HWIO to OIHW.
 - `load_state_dict`: a `.pth` checkpoint (bare or `{'state_dict': ...}`,
   DataParallel `module.` prefixes stripped), as `dorpatch_tpu.train`
   exports it or as timm saves it.
@@ -91,6 +95,46 @@ def from_flax_resnetv2(params_np: Mapping) -> Dict[str, torch.Tensor]:
         if "downsample_conv" in blk:
             sd[dst + "downsample.conv.weight"] = _conv(
                 blk["downsample_conv"]["kernel"])
+    return sd
+
+
+def from_flax_vit(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `ViT` params (`{"params": {...}}` or the inner dict, any depth
+    and width) -> the port's `ViT` state_dict (timm's key names)."""
+    p = params_np["params"] if "params" in params_np else params_np
+    dim = np.asarray(p["cls_token"]).shape[-1]
+
+    def dense(node):
+        return _t(np.asarray(node["kernel"]).T), _t(node["bias"])
+
+    sd: Dict[str, torch.Tensor] = {
+        "cls_token": _t(p["cls_token"]),
+        "pos_embed": _t(p["pos_embed"]),
+        "patch_embed.proj.weight": _conv(p["patch_embed"]["kernel"]),
+        "patch_embed.proj.bias": _t(p["patch_embed"]["bias"]),
+        "norm.weight": _t(p["norm"]["scale"]),
+        "norm.bias": _t(p["norm"]["bias"]),
+    }
+    sd["head.weight"], sd["head.bias"] = dense(p["head"])
+    depth = sum(1 for k in p if k.startswith("block"))
+    for i in range(depth):
+        blk = p[f"block{i}"]
+        dst = f"blocks.{i}."
+        for k in ("norm1", "norm2"):
+            sd[dst + k + ".weight"] = _t(blk[k]["scale"])
+            sd[dst + k + ".bias"] = _t(blk[k]["bias"])
+        attn = blk["attn"]
+        qkv = ("query", "key", "value")
+        sd[dst + "attn.qkv.weight"] = _t(np.concatenate(
+            [np.asarray(attn[n]["kernel"]).reshape(dim, dim).T for n in qkv]))
+        sd[dst + "attn.qkv.bias"] = _t(np.concatenate(
+            [np.asarray(attn[n]["bias"]).reshape(dim) for n in qkv]))
+        sd[dst + "attn.proj.weight"] = _t(
+            np.asarray(attn["out"]["kernel"]).reshape(dim, dim).T)
+        sd[dst + "attn.proj.bias"] = _t(attn["out"]["bias"])
+        for k in ("fc1", "fc2"):
+            (sd[dst + f"mlp.{k}.weight"],
+             sd[dst + f"mlp.{k}.bias"]) = dense(blk[f"mlp_{k}"])
     return sd
 
 

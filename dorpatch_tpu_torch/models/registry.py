@@ -4,8 +4,8 @@ Resolves an architecture name, loads the `<model_dir>/<dataset>/
 <arch>_cutout2_128_<dataset>.pth` checkpoint when present (seeded random
 initialization otherwise) and wraps the model as a `Victim` whose `apply`
 takes NHWC images in [0, 1] with the `(x - 0.5) / 0.5` normalization folded
-in. Port of `dorpatch_tpu.models.registry` for the CIFAR ResNet-18 and
-ResNetV2-50x1 BiT.
+in. Port of `dorpatch_tpu.models.registry` for the CIFAR ResNet-18,
+ResNetV2-50x1 BiT and the ViT family (ViT-B/16 and the small `cifar_vit`).
 """
 
 from __future__ import annotations
@@ -17,18 +17,22 @@ import torch
 
 from dorpatch_tpu_torch import utils
 from dorpatch_tpu_torch.config import NUM_CLASSES
-from dorpatch_tpu_torch.models import resnetv2, small
+from dorpatch_tpu_torch.models import resnetv2, small, vit
 from dorpatch_tpu_torch.ops.stem_fold import StemFoldEngine, same_pads
 
-#: timm model names, matched by substring as in the JAX package (the ViT and
-#: ResMLP families join with their slices)
-TIMM_MODELS = ("resnetv2_50x1_bit_distilled",)
-SUPPORTED = TIMM_MODELS + ("cifar_resnet18",)
+#: timm model names, matched by substring as in the JAX package (the ResMLP
+#: family joins with its slice)
+TIMM_MODELS = ("resnetv2_50x1_bit_distilled", "vit_base_patch16_224")
+SUPPORTED = TIMM_MODELS + ("cifar_resnet18", "cifar_vit")
+#: the families whose module is sized by the image (the position embedding)
+#: and whose incremental engine is the token-pruned one
+VIT_FAMILIES = ("vit_base_patch16_224", "cifar_vit")
 
 
 class Victim(NamedTuple):
     """A frozen classifier: `logits = apply(images01)`, images NHWC in
-    [0, 1] on `device`. `incremental` is the family's masked-stem engine."""
+    [0, 1] on `device`. `incremental` is the family's incremental engine
+    (masked-stem fold or token-pruned ViT)."""
 
     name: str
     apply: Callable[[torch.Tensor], torch.Tensor]
@@ -40,10 +44,12 @@ class Victim(NamedTuple):
 
 
 def resolve_arch(arch: str) -> str:
-    """'resnet18'/'cifar_resnet18', or a substring of a supported timm
-    name (`--base_arch resnetv2`)."""
+    """'resnet18'/'cifar_resnet18', 'cifar_vit', or a substring of a
+    supported timm name (`--base_arch resnetv2`, `--base_arch vit`)."""
     if arch in ("resnet18", "cifar_resnet18"):
         return "cifar_resnet18"
+    if arch == "cifar_vit":
+        return "cifar_vit"
     for tm in TIMM_MODELS:
         if arch in tm:
             return tm
@@ -57,13 +63,16 @@ def checkpoint_path(model_dir: str, dataset: str, timm_name: str) -> str:
                         f"{timm_name}_cutout2_128_{dataset}.pth")
 
 
-#: each family's constructor `(num_classes) -> module` and seeded
-#: initializer `(module, generator)`, by resolved name
+#: each family's constructor and seeded initializer `(module, generator)`,
+#: by resolved name; the constructor takes `(num_classes)`, and
+#: `(num_classes, img_size)` for the `VIT_FAMILIES`
 _FAMILIES = {
     "resnetv2_50x1_bit_distilled": (resnetv2.resnetv2_50x1,
                                     resnetv2.init_weights),
     "cifar_resnet18": (lambda k: small.CifarResNet18(num_classes=k),
                        small.init_weights),
+    "vit_base_patch16_224": (vit.vit_base_patch16, vit.init_weights),
+    "cifar_vit": (vit.vit_cifar, vit.init_weights),
 }
 
 
@@ -78,10 +87,15 @@ NORM_SCALE = 2.0
 
 
 def incremental_engine(timm_name: str, model, img_size: int):
-    """The family's mask-aware incremental engine: the masked-stem fold of
-    the CIFAR ResNet-18's 3x3, stride-1, pad-1 stem, or of ResNetV2's 7x7,
-    stride-2, SAME-padded std-conv stem (the fold's delta conv uses the
-    standardized kernel, the stem's effective one)."""
+    """The family's mask-aware incremental engine: the token-pruned engine
+    of a ViT (None when the patch does not divide the image), or the
+    masked-stem fold of the CIFAR ResNet-18's 3x3, stride-1, pad-1 stem or
+    of ResNetV2's 7x7, stride-2, SAME-padded std-conv stem (the fold's delta
+    conv uses the standardized kernel, the stem's effective one)."""
+    if timm_name in VIT_FAMILIES:
+        if img_size % model.patch_size:
+            return None
+        return vit.TokenPrunedViT(model, img_size, normalize=normalize)
     if timm_name == "cifar_resnet18":
         return StemFoldEngine(
             model, img_size,
@@ -114,7 +128,8 @@ def get_model(
     timm_name = resolve_arch(arch)
     num_classes = NUM_CLASSES[dataset]
     build, init_weights = _FAMILIES[timm_name]
-    model = build(num_classes)
+    model = (build(num_classes, img_size) if timm_name in VIT_FAMILIES
+             else build(num_classes))
     ckpt = checkpoint_path(model_dir, dataset, timm_name)
     if os.path.exists(ckpt):
         from dorpatch_tpu_torch.models.convert import load_state_dict

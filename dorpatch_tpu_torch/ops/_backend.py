@@ -18,7 +18,7 @@ import torch
 #: adds one exactly where it launches its kernel.
 _LAUNCHES: Dict[str, int] = {"masked_fill_fwd": 0, "masked_fill_bwd": 0,
                              "stem_fold": 0, "gn_relu_fwd": 0,
-                             "gn_relu_bwd": 0}
+                             "gn_relu_bwd": 0, "masked_kv_attn": 0}
 
 
 def on_card(t: torch.Tensor) -> bool:

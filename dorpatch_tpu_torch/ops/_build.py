@@ -41,6 +41,8 @@ SIGNATURES = {
     "dp_gn_tiles": ([_I], _I),
     "dp_gn_relu_fwd": ([_P] * 8 + [_I] * 4 + [_F, _P], _I),
     "dp_gn_relu_bwd": ([_P] * 15 + [_I] * 4 + [_P], _I),
+    "dp_masked_kv_attn_smem": ([_I] * 3, ctypes.c_longlong),
+    "dp_masked_kv_attn": ([_P] * 8 + [_I] * 6 + [_P], _I),
     "dp_error_string": ([_I], ctypes.c_char_p),
 }
 

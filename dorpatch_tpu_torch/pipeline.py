@@ -73,6 +73,8 @@ def run_experiment(cfg: ExperimentConfig, verbose: bool = True) -> Dict:
     attack_seconds: List[float] = []
     certify_seconds: List[float] = []
     forwards = forwards_exhaustive = 0
+    forward_equivalents = 0.0
+    escalated = 0
     generated_images = 0
 
     source = resolved_data_source(cfg)
@@ -148,8 +150,17 @@ def run_experiment(cfg: ExperimentConfig, verbose: bool = True) -> Dict:
                 certify_seconds.append(time.perf_counter() - tc)
                 forwards += sum(max(0, r.forwards)
                                 for recs_d in per_defense for r in recs_d)
+                # token-pruned entries count their fraction of a forward
+                forward_equivalents += sum(
+                    max(0.0, r.forward_equivalents)
+                    for recs_d in per_defense for r in recs_d)
                 forwards_exhaustive += int(x.shape[0]) * sum(
                     d.num_forwards_exhaustive for d in defenses)
+                # an escalated record paid the exhaustive sweep on top of
+                # its first round, so its forwards exceed the sweep's
+                escalated += sum(r.forwards > d.num_forwards_exhaustive
+                                 for d, recs_d in zip(defenses, per_defense)
+                                 for r in recs_d)
                 recs = [list(r) for r in zip(*per_defense)]
                 store.save_pc_records(i, recs)
 
@@ -186,7 +197,9 @@ def run_experiment(cfg: ExperimentConfig, verbose: bool = True) -> Dict:
     if certify_seconds:
         m["certify_seconds"] = certify_seconds
         m["forwards"] = int(forwards)
+        m["forward_equivalents"] = round(forward_equivalents, 2)
         m["forwards_exhaustive"] = int(forwards_exhaustive)
+        m["escalated"] = int(escalated)
     m["report"] = metrics.report_line(m)
     if verbose:
         print(m["report"], flush=True)

@@ -3,24 +3,28 @@
     python -m dorpatch_tpu_torch.trace                   # ResNetV2-50x1, 224
     python -m dorpatch_tpu_torch.trace --base_arch resnet18 --img-size 32 \\
         --batch 8                                        # CIFAR ResNet-18
+    python -m dorpatch_tpu_torch.trace --base_arch vit   # ViT-B/16, 224
 
 Runs the pieces of the main path for the victim given (by default the
 port's default victim at 224 px and 2 images, as the RN50 main path runs
 it; full width, random weights from the seed; `cifar10` for resnet18,
-`imagenet` for resnetv2; synthetic images) under `torch.profiler`, each after a warm-up:
+`imagenet` for resnetv2 and vit; synthetic images) under `torch.profiler`,
+each after a warm-up:
 
 - `attack_step`: 5 stage-0 optimizer steps at sampling size 128
   over the dropout=2 universe (2520 masks);
 - `sweep`: one full-universe failure sweep;
-- `certify`: one pruned, stem-folded certification at each of the four
-  radii.
+- `certify`: one pruned certification at each of the four radii, with the
+  family's incremental engine ("auto": the stem fold for the conv
+  victims, the token-pruned engine with its escalations for the ViT).
 
 For each phase it prints the wall time per call (host clock around work
 that ends in a synchronize), the device-busy time (union of the kernels'
 intervals), the idle share of the wall time, and device time by kernel
-group (the GroupNorm kernels, the port's other kernels, convolutions,
-reductions, elementwise, other), then one JSON line with all of it. Needs a
-CUDA device.
+group (the GroupNorm kernels, kernel H, the port's other kernels,
+convolutions and matrix products, softmax, reductions, elementwise,
+other), then one
+JSON line with all of it. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,13 +44,15 @@ from dorpatch_tpu_torch.losses import local_variance
 from dorpatch_tpu_torch.models import get_model
 
 SEED, STEPS = 1234, 5
-DATASET = {"resnet18": "cifar10", "resnetv2": "imagenet"}
+DATASET = {"resnet18": "cifar10", "resnetv2": "imagenet", "vit": "imagenet"}
 
 _GROUPS = (
     ("gn kernels", ("gn_fwd_", "gn_bwd_", "gn_param_")),
+    ("kernel H", ("masked_kv_attn",)),
     ("port kernels", ("fill_fwd", "fill_bwd", "stem_fold")),
-    ("convolution", ("conv", "cudnn", "xmma", "gemm", "cutlass", "wgrad",
+    ("conv/matmul", ("conv", "cudnn", "xmma", "gemm", "cutlass", "wgrad",
                      "dgrad", "implicit")),
+    ("softmax", ("softmax",)),
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )

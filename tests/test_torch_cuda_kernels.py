@@ -245,3 +245,40 @@ def test_resnetv2_victim_on_card_matches_cpu(dev):
         want = cpu.apply(x)
     assert _backend.launch_counts()["gn_relu_fwd"] == 49
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+
+
+# Kernel H against the float64 plain version: float32 rounding of the
+# 64-term logits, the exp-sum over T+S keys and the weighted sum.
+KV_SHAPES = [(2, 3, 4, 2, 32, 9), (2, 36, 50, 12, 64, 197),
+             (1, 5, 99, 12, 64, 197), (3, 4, 17, 4, 32, 65)]
+
+
+def _kv_case(dev, seed, b, c, s, h, f, t):
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                               device=dev)
+
+    q, kd, vd = (normal(b, c, s, h, f) for _ in range(3))
+    kc, vc = (normal(b, t, h, f) for _ in range(2))
+    cb = np.where(rng.uniform(size=(b, c, t)) < 0.2, -1e9, 0.0)
+    db = np.where(rng.uniform(size=(b, c, s)) < 0.25, -1e9, 0.0)
+    db[:, :, 0] = 0.0
+    return (q / np.sqrt(f), kd, vd, kc, vc,
+            torch.as_tensor(cb, dtype=torch.float32, device=dev),
+            torch.as_tensor(db, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("shape", KV_SHAPES)
+def test_masked_kv_attention_kernel_matches_float64_plain(dev, shape):
+    from dorpatch_tpu_torch.ops import masked_kv_attn as mka
+
+    args = _kv_case(dev, 0, *shape)
+    _backend.reset_launch_counts()
+    got = mka.masked_kv_attention(*args)
+    torch.cuda.synchronize()
+    assert _backend.launch_counts()["masked_kv_attn"] == 1
+    want = mka.masked_kv_attention_reference(*(a.double() for a in args))
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(mka.masked_kv_attention_kernel(*args), got)

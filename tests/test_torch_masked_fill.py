@@ -66,7 +66,8 @@ def test_cpu_tensor_takes_the_plain_version_without_launching():
     assert torch.equal(out, ref)
     assert _backend.launch_counts() == {"masked_fill_fwd": 0,
                                         "masked_fill_bwd": 0, "stem_fold": 0,
-                                        "gn_relu_fwd": 0, "gn_relu_bwd": 0}
+                                        "gn_relu_fwd": 0, "gn_relu_bwd": 0,
+                                        "masked_kv_attn": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

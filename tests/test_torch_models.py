@@ -119,4 +119,4 @@ def test_get_model_loads_export_checkpoint_like_jax(tmp_path):
                                   b.model.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
     with pytest.raises(ValueError, match="unknown architecture"):
-        treg.resolve_arch("vit")
+        treg.resolve_arch("resmlp")

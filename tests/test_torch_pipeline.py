@@ -128,8 +128,11 @@ def test_cli_defaults_and_flags():
     assert (cfg.defense.prune, cfg.defense.incremental) == ("off", "stem")
     assert config_from_args(build_parser().parse_args(
         ["--device", "cpu"])).device == "cpu"
-    with pytest.raises(SystemExit):
-        build_parser().parse_args(["--base_arch", "vit"])
+    vit_cfg = config_from_args(build_parser().parse_args(
+        ["--base_arch", "vit", "--incremental", "token-exact",
+         "--incremental-margin", "0.3"]))
+    assert (vit_cfg.base_arch, vit_cfg.defense.incremental,
+            vit_cfg.defense.incremental_margin) == ("vit", "token-exact", 0.3)
     # the JAX package's default victim, ResNetV2-50x1 BiT at 224 on imagenet
     default = config_from_args(build_parser().parse_args([]))
     assert (default.base_arch, default.dataset, default.img_size) == \

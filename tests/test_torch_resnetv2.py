@@ -189,4 +189,4 @@ def test_get_model_loads_timm_checkpoint_like_jax(tmp_path):
     np.testing.assert_allclose(got, want, rtol=0, atol=LOGIT_ATOL)
     assert not any(p.requires_grad for p in tv.model.parameters())
     with pytest.raises(ValueError, match="unknown architecture"):
-        treg.resolve_arch("vit")
+        treg.resolve_arch("resmlp")
