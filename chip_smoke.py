@@ -16,8 +16,11 @@ NVIDIA GPU.
    [256, 56*56, 256] and at [256, 7*7, 2048], kernel C at RN50's
    7x7/2 stem at 224, and kernel H (the masked-KV attention) at the
    ViT-B/16 token engine's phase-1 chunk and pair-audit chunk of the 0.12
-   radius, against its plain version in float64, with
-   `F.scaled_dot_product_attention` timed beside it;
+   radius, against its plain version in float64 (and bit for bit against
+   itself), with `F.scaled_dot_product_attention` timed beside it; kernel
+   C's bound is its bytes (its operations printed beside), kernel H's the
+   least time of a float32-accurate tensor-core design (three TF32 products
+   each) against its bytes (the FFMA operations bound printed beside);
 4. runs three main paths through their user entry point, the CLI, each
    with every kernel's launch count set to 0 just before and read just
    after, and fails if a kernel of that path was not launched:
@@ -66,6 +69,7 @@ import time
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 34e12
+PEAK_TF32_FLOPS = 495e12             # dense, tensor cores
 
 INNER, REPS = 20, 15                 # calls per timed graph, timed graphs
 
@@ -315,12 +319,15 @@ def stem_fold_phase(torch, dev, dataset, arch, size, b, name):
         + 16 * n_chunk
     flops = 2.0 * b * n_out * cout * k * k * cin
     bound, by = _bound(nbytes, flops)
+    ops_bound, _ = _bound(0.0, flops)
     print(f"kernel C {name} [B={b},N={n_chunk},{h}x{w}x{cout}, k={k} s={s}, "
           f"OH/OW {oh}/{ow}]: max_abs_err {c_err:.3g} (atol {TOL_C}; vs conv "
           f"of the masked batch {lib_err:.3g}), {c_ms * 1e3:.2f} us (plain "
           f"{c_plain * 1e3:.2f} us, conv2d of the masked batch "
-          f"{c_lib * 1e3:.2f} us, bound {bound * 1e3:.2f} us by {by})",
-          flush=True)
+          f"{c_lib * 1e3:.2f} us, {c_lib / c_ms:.2f}x the kernel's time; "
+          f"bound {bound * 1e3:.2f} us by {by}: {nbytes / 1e6:.2f} MB; "
+          f"operations bound {ops_bound * 1e3:.2f} us, {flops / 1e9:.3f} "
+          f"GFLOP on the FFMA pipes)", flush=True)
     return dict(name=name, route="cuda",
                 source="dorpatch_tpu_torch/csrc/stem_fold.cu",
                 replaces="dorpatch_tpu/ops/stem_fold.py:214",
@@ -498,6 +505,9 @@ def attn_phase(torch, dev):
         err32 = float((got - mka.masked_kv_attention_reference(*args))
                       .abs().max())
         torch.testing.assert_close(got.double(), want, **TOL_H)
+        if not torch.equal(mka.masked_kv_attention_kernel(*args), got):
+            raise AssertionError(f"kernel H ({name}) does not repeat bit for "
+                                 "bit")
         del want
         # the library yardstick: one SDPA call over [B*C, H, T+1+S, f]
         # keys and values, concatenated outside the timing
@@ -518,13 +528,19 @@ def attn_phase(torch, dev):
             qs, ks, vs, attn_mask=mask, scale=1.0))
         nbytes = 4 * (4 * b * c * s * h * f + 2 * b * t1 * h * f
                       + b * c * (t1 + s))
-        bound, by = _bound(nbytes, 4.0 * b * c * h * s * (t1 + s) * f)
+        flops = 4.0 * b * c * h * s * (t1 + s) * f
+        ffma_bound, _ = _bound(0.0, flops)
+        bound, by = _bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
         print(f"kernel H {name} [B={b},C={c},S={s},H={h},f={f},T+1={t1}]: "
               f"max_abs_err {err:.3g} vs float64 plain (rtol "
               f"{TOL_H['rtol']}, atol {TOL_H['atol']}), {err32:.3g} vs f32 "
               f"plain, {lib_err:.3g} vs SDPA; {ms * 1e3:.2f} us (plain "
-              f"{plain * 1e3:.2f} us, SDPA {lib * 1e3:.2f} us, bound "
-              f"{bound * 1e3:.2f} us by {by})", flush=True)
+              f"{plain * 1e3:.2f} us, SDPA {lib * 1e3:.2f} us, {lib / ms:.2f}x "
+              f"the kernel's time; bound {bound * 1e3:.2f} us by {by}: "
+              f"{flops / 1e9:.3f} GFLOP x 3 TF32 products at "
+              f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB "
+              f"at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; FFMA operations bound "
+              f"{ffma_bound * 1e3:.2f} us)", flush=True)
         recs.append(dict(name=name, route="cuda",
                          source="dorpatch_tpu_torch/csrc/masked_kv_attn.cu",
                          replaces="dorpatch_tpu/ops/masked_kv_attn.py:56",

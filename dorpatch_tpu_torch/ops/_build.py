@@ -30,6 +30,9 @@ BUILD_DIR = _PKG.parent / "build" / "dorpatch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+#: dynamic shared memory a block may take on Hopper
+MAX_SMEM_BYTES = 232448
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -37,11 +40,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     "dp_masked_fill_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
     "dp_masked_fill_bwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+    "dp_stem_fold_smem": ([_I] * 5, ctypes.c_longlong),
     "dp_stem_fold": ([_P, _P, _P, _P, _P, _P] + [_I] * 14 + [_P], _I),
     "dp_gn_tiles": ([_I], _I),
     "dp_gn_relu_fwd": ([_P] * 8 + [_I] * 4 + [_F, _P], _I),
     "dp_gn_relu_bwd": ([_P] * 15 + [_I] * 4 + [_P], _I),
-    "dp_masked_kv_attn_smem": ([_I] * 3, ctypes.c_longlong),
     "dp_masked_kv_attn": ([_P] * 8 + [_I] * 6 + [_P], _I),
     "dp_error_string": ([_I], ctypes.c_char_p),
 }

@@ -5,9 +5,10 @@ image's clean key/value cache (with an additive -1e9 on the stale rows at
 the dirty positions) and to the entry's S freshly projected keys/values
 (with -1e9 on duplicate padding slots), through one max-stabilized softmax
 over both groups. On the card a hand-written kernel (`csrc/masked_kv_attn.cu`,
-kernel H of the JAX package) does it without writing logits or
-probabilities to memory; `masked_kv_attention_reference` is the plain
-version, which a CPU tensor takes. Port of `dorpatch_tpu.ops.masked_kv_attn`
+kernel H of the JAX package: 3xTF32 tensor-core products and an online
+softmax) does it without writing logits or probabilities to memory;
+`masked_kv_attention_reference` is the plain version, which a CPU tensor
+takes. Port of `dorpatch_tpu.ops.masked_kv_attn`
 for float32 (bf16 comes with the bf16 bank).
 """
 
@@ -19,8 +20,6 @@ from dorpatch_tpu_torch.ops import _backend, _build
 
 #: head widths the kernel is built for (ViT-B/16: 64, `cifar_vit`: 32)
 HEAD_DIMS = (32, 64)
-#: dynamic shared memory a block may take on Hopper
-MAX_SMEM_BYTES = 232448
 
 
 def masked_kv_attention_reference(q, kd, vd, kc, vc, clean_bias, dirty_bias):
@@ -61,14 +60,10 @@ def masked_kv_attention_kernel(q, kd, vd, kc, vc, clean_bias, dirty_bias):
         raise ValueError(f"head width {f} not built (kernel H takes "
                          f"{HEAD_DIMS})")
     if any(x.data_ptr() % 16 for x in (q, kd, vd, kc, vc)):
-        raise ValueError("kernel H reads 16 bytes a thread: q, kd, vd, kc "
-                         "and vc must be 16-byte aligned")
+        raise ValueError("kernel H copies the clean K/V 16 bytes at a time "
+                         "and reads q, kd and vd 8 bytes at a time: q, kd, "
+                         "vd, kc and vc must be 16-byte aligned")
     lib = _build.library()
-    smem = lib.dp_masked_kv_attn_smem(t, s, f)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"kernel H stages T+S = {t + s} keys of width {f} "
-                         f"in {smem} bytes of shared memory, more than a "
-                         f"block's {MAX_SMEM_BYTES}")
     out = torch.empty_like(q)
     _backend.count_launch("masked_kv_attn")
     _build.check(lib.dp_masked_kv_attn(

@@ -186,6 +186,12 @@ def fold_masked_stem_kernel(kernel: torch.Tensor, clean: torch.Tensor,
                          "output 16 bytes at a time: they must be 16-byte "
                          "aligned")
     lib = _build.library()
+    smem = lib.dp_stem_fold_smem(cin, ow, c, k, s)
+    if smem > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"kernel C stages a {k}x{k}x{cin}x{c} stem kernel and "
+                         f"the window rows of {ow} outputs in {smem} bytes of "
+                         f"shared memory, more than a block's "
+                         f"{_build.MAX_SMEM_BYTES}")
     _backend.count_launch("stem_fold")
     _build.check(lib.dp_stem_fold(
         geo.data_ptr(), up.data_ptr(), occ.data_ptr(), clean.data_ptr(),

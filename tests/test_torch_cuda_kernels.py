@@ -76,10 +76,19 @@ def test_autograd_function_pairs_the_kernels_and_counts(dev):
     torch.testing.assert_close(gx, gr, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("img,k,s,cout,ratio", [(32, 3, 1, 64, 0.12),
-                                                (32, 3, 1, 64, 0.015),
-                                                (64, 7, 2, 64, 0.06)])
-def test_stem_fold_kernel_matches_plain(dev, img, k, s, cout, ratio):
+# (img, k, stride, cout, ratio, masks): the CIFAR 3x3/1 and RN50 7x7/2
+# stems; N = 1, 5 and 13 masks, taken from the start of the family (top
+# left) or, for a negative count, from its end, whose windows are clamped at
+# the bottom and right edges; cout 36 takes the kernel's one-quad path
+STEM_CASES = [(32, 3, 1, 64, 0.12, 5), (32, 3, 1, 64, 0.015, 5),
+              (64, 7, 2, 64, 0.06, 5), (32, 3, 1, 64, 0.12, 1),
+              (32, 3, 1, 64, 0.12, -13), (224, 7, 2, 64, 0.12, 13),
+              (224, 7, 2, 64, 0.12, -1), (224, 7, 2, 64, 0.06, -13),
+              (32, 3, 1, 36, 0.06, -5)]
+
+
+@pytest.mark.parametrize("img,k,s,cout,ratio,masks", STEM_CASES)
+def test_stem_fold_kernel_matches_plain(dev, img, k, s, cout, ratio, masks):
     rng = np.random.default_rng(img + k)
     pads = ((1, 1), (1, 1)) if k == 3 else \
         (sf.same_pads(img, k, s), sf.same_pads(img, k, s))
@@ -91,15 +100,18 @@ def test_stem_fold_kernel_matches_plain(dev, img, k, s, cout, ratio):
     u = torch.as_tensor(rng.uniform(-1, 1, (4, img, img, 3)),
                         dtype=torch.float32, device=dev)
     singles, _ = tmasks.mask_sets(tmasks.geometry(img, ratio))
-    plan = sf.plan_windows(singles, img, k, s, pads)[:5]
+    plan = sf.plan_windows(singles, img, k, s, pads)
+    plan = plan[:masks] if masks > 0 else plan[masks:]
     oh, ow, geo, occ = sf._uniform_plan(plan, h_out, h_out, k, s)
-    got = sf.fold_masked_stem_kernel(
-        kern, clean, sf.pad_for_kernel(u, pads, s),
-        torch.as_tensor(geo, device=dev), torch.as_tensor(occ, device=dev),
-        oh, ow, s)
+    args = (kern, clean, sf.pad_for_kernel(u, pads, s),
+            torch.as_tensor(geo, device=dev), torch.as_tensor(occ, device=dev),
+            oh, ow, s)
+    got = sf.fold_masked_stem_kernel(*args)
     want = sf.fold_masked_stem(kern, clean, u, plan, (s, s), pads)
     torch.cuda.synchronize()
+    assert got.shape == want.shape == (4, abs(masks), h_out, h_out, cout)
     assert (got - want).abs().max().item() <= 1e-4
+    assert torch.equal(sf.fold_masked_stem_kernel(*args), got)
 
 
 def test_stem_engine_on_card_matches_cpu_plain(dev):
@@ -249,11 +261,20 @@ def test_resnetv2_victim_on_card_matches_cpu(dev):
 
 # Kernel H against the float64 plain version: float32 rounding of the
 # 64-term logits, the exp-sum over T+S keys and the weighted sum.
+# (B, C, S, H, f, T): S of 1, 7, 50 and 99 (one to seven 16-row tiles,
+# ragged last tiles); C = 37, 13 and 5, which no entry group divides; T and
+# S off the 32-key tiles; f = 32 (`cifar_vit`) and 64 (ViT-B/16); T = 257
+# (f 64) and 401 (f 32), whose split clean group does not fit a block's
+# shared memory, so the kernel reads it from device memory
 KV_SHAPES = [(2, 3, 4, 2, 32, 9), (2, 36, 50, 12, 64, 197),
-             (1, 5, 99, 12, 64, 197), (3, 4, 17, 4, 32, 65)]
+             (1, 5, 99, 12, 64, 197), (3, 4, 17, 4, 32, 65),
+             (2, 13, 1, 3, 64, 197), (2, 9, 7, 2, 32, 65),
+             (1, 37, 50, 12, 64, 197), (2, 64, 99, 12, 64, 197),
+             (1, 3, 99, 2, 32, 200), (1, 3, 20, 2, 64, 257),
+             (1, 2, 9, 2, 32, 401)]
 
 
-def _kv_case(dev, seed, b, c, s, h, f, t):
+def _kv_case(dev, seed, b, c, s, h, f, t, scale=None):
     rng = np.random.default_rng(seed)
 
     def normal(*shape):
@@ -265,7 +286,7 @@ def _kv_case(dev, seed, b, c, s, h, f, t):
     cb = np.where(rng.uniform(size=(b, c, t)) < 0.2, -1e9, 0.0)
     db = np.where(rng.uniform(size=(b, c, s)) < 0.25, -1e9, 0.0)
     db[:, :, 0] = 0.0
-    return (q / np.sqrt(f), kd, vd, kc, vc,
+    return (q * (scale or 1 / np.sqrt(f)), kd, vd, kc, vc,
             torch.as_tensor(cb, dtype=torch.float32, device=dev),
             torch.as_tensor(db, dtype=torch.float32, device=dev))
 
@@ -282,3 +303,55 @@ def test_masked_kv_attention_kernel_matches_float64_plain(dev, shape):
     want = mka.masked_kv_attention_reference(*(a.double() for a in args))
     torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
     assert torch.equal(mka.masked_kv_attention_kernel(*args), got)
+
+
+def _kv_check(args):
+    from dorpatch_tpu_torch.ops import masked_kv_attn as mka
+
+    got = mka.masked_kv_attention_kernel(*args)
+    torch.cuda.synchronize()
+    want = mka.masked_kv_attention_reference(*(a.double() for a in args))
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(mka.masked_kv_attention_kernel(*args), got)
+    return got
+
+
+def test_masked_kv_attention_kernel_only_dirty_slot_zero_live(dev):
+    """Entries whose clean keys are all stale and whose dirty slots are all
+    duplicates but slot 0: every row attends to slot 0 alone, after whole
+    64-key tiles of masked keys."""
+    args = list(_kv_case(dev, 1, 2, 6, 50, 4, 64, 197))
+    args[5][:, ::2] = -1e9
+    args[6][:, ::2, 1:] = -1e9
+    got = _kv_check(args)
+    want = args[2][:, ::2, :1].expand(-1, -1, 50, -1, -1)
+    torch.testing.assert_close(got[:, ::2], want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("f", [32, 64])
+def test_masked_kv_attention_kernel_large_logits(dev, f):
+    """The largest logits near 30 (queries scaled by 6/sqrt(f) instead of
+    1/sqrt(f)), where the softmax is sharp: the 3xTF32 products have to keep
+    float32 accuracy."""
+    args = _kv_case(dev, 2, 2, 12, 50, 4, f, 197, scale=6 / np.sqrt(f))
+    logits = torch.einsum("bcshf,bthf->bchst", args[0], args[3]).abs()
+    assert 25 < float(logits.max()) < 45
+    _kv_check(args)
+
+
+@pytest.mark.parametrize("f", [32, 64])
+def test_masked_kv_attention_kernel_as_accurate_as_float32(dev, f):
+    """Logits near 30 on average (queries scaled by 37.6/sqrt(f)): there the
+    float32 plain version itself is 1e-5 away from float64 and more, so the
+    kernel is held to be no further from float64 than it."""
+    from dorpatch_tpu_torch.ops import masked_kv_attn as mka
+
+    args = _kv_case(dev, 3, 2, 12, 50, 4, f, 197, scale=37.6 / np.sqrt(f))
+    logits = torch.einsum("bcshf,bthf->bchst", args[0], args[3]).abs()
+    assert 20 < float(logits.mean()) < 40
+    want = mka.masked_kv_attention_reference(*(a.double() for a in args))
+    got = mka.masked_kv_attention_kernel(*args)
+    plain = mka.masked_kv_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert (float((got.double() - want).abs().max())
+            <= float((plain.double() - want).abs().max()))
