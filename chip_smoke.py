@@ -12,9 +12,13 @@ NVIDIA GPU.
    repetitions; a repetition replays a CUDA graph of INNER calls,
    bracketed by synchronizes, so host launch cost is not counted):
    kernels A, B and C at the CIFAR path's shapes, the GroupNorm+ReLU
-   forward and backward at the RN50 attack step's largest slab
-   [256, 56*56, 256] and at [256, 7*7, 2048], kernel C at RN50's
-   7x7/2 stem at 224, and kernel H (the masked-KV attention) at the
+   forward and backward at every (HW, C) of the RN50 victim at 224 with
+   the attack step's N = 256 (one-pass route; route, time, bytes bound,
+   plain and library times and calls per forward printed per shape, and
+   launches x (time - bound) summed over a forward's 49 calls) and at one
+   slab of the split route, each against float64 and repeated bit for
+   bit, kernel C at RN50's 7x7/2 stem at 224, and kernel H (the masked-KV
+   attention) at the
    ViT-B/16 token engine's phase-1 chunk and pair-audit chunk of the 0.12
    radius, against its plain version in float64 (and bit for bit against
    itself), with `F.scaled_dot_product_attention` timed beside it; kernel
@@ -23,7 +27,8 @@ NVIDIA GPU.
    each) against its bytes (the FFMA operations bound printed beside);
 4. runs three main paths through their user entry point, the CLI, each
    with every kernel's launch count set to 0 just before and read just
-   after, and fails if a kernel of that path was not launched:
+   after, and fails if a kernel of that path was not launched (or a
+   GroupNorm launch took another route than the one-pass route):
    - CIFAR: `--synthetic --dataset cifar10 --base_arch resnet18
      --img-size 32 -b 8 --sampling-size 128 --dropout 2 --max-iterations
      20 --num-batches 1` (full-width CIFAR ResNet-18; kernels A, B, C);
@@ -58,7 +63,6 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -77,14 +81,17 @@ TOL_B = dict(rtol=1e-5, atol=1e-6)   # summation order over S
 TOL_C = 1e-4                         # summation order of the delta conv
 # GroupNorm+ReLU against the float64 plain versions: f32 rounding of a few
 # flops per element (the group statistics are summed in float64); dscale and
-# dbias sum N*HW terms per channel in f32 blocks of 64 rows. Gate flips of
+# dbias sum N*HW terms per channel from per-thread f32 partials. Gate flips of
 # pre-activations within GN_NEAR of 0 are allowed for by
 # `fused_gn.gate_flip_bounds`, and those elements are left out of dx.
 TOL_GN = dict(rtol=1e-5, atol=1e-5)
 TOL_GN_PARAMS = dict(rtol=1e-5, atol=1e-3)
 GN_NEAR = 1e-5
-#: [N, HW, C] GroupNorm slabs of the RN50 attack step (2 images x 128 masks)
-GN_SLABS = ((256, 56 * 56, 256), (256, 7 * 7, 2048))
+#: GroupNorm slabs of the RN50 attack step: N = 2 images x 128 masks at
+#: every (HW, C) of the victim; and [N, HW, C] of a slab whose one-group
+#: chunk fits no cluster of CTAs (the split route)
+GN_N = 256
+GN_SPLIT_SLAB = (4, 256 * 256, 64)
 # kernel H against its plain version in float64: float32 rounding of the
 # logits (64-term dots), the exp-sum over T+1+S keys and the weighted sum;
 # the engine's logits with kernel H and with the plain attention after 12
@@ -102,6 +109,15 @@ RN50_ARGV = ["--synthetic", "--dataset", "imagenet", "--base_arch",
              "--max-iterations", "20", "--num-batches", "1"]
 VIT_ARGV = [a if a != "resnetv2" else "vit" for a in RN50_ARGV]
 CIFAR_KERNELS = ("masked_fill_fwd", "masked_fill_bwd", "stem_fold")
+#: the count each record's launches are read from: kernel C at RN50's stem
+#: and kernel H at the pair audit's shape count as stem_fold and
+#: masked_kv_attn; the GroupNorm records by their route
+COUNT_OF = {"stem_fold_rn50": "stem_fold",
+            "masked_kv_attn_pairs": "masked_kv_attn",
+            "gn_relu_fwd": "gn_relu_fwd/one_pass",
+            "gn_relu_bwd": "gn_relu_bwd/one_pass",
+            "gn_relu_fwd_split": "gn_relu_fwd/split",
+            "gn_relu_bwd_split": "gn_relu_bwd/split"}
 RN50_KERNELS = CIFAR_KERNELS + ("gn_relu_fwd", "gn_relu_bwd")
 VIT_KERNELS = ("masked_fill_fwd", "masked_fill_bwd", "masked_kv_attn")
 
@@ -117,33 +133,10 @@ def _smi() -> str:
 def _device_ms(fn, inner: int = INNER, reps: int = REPS) -> float:
     """Median device milliseconds of one `fn()` call: a CUDA graph of
     `inner` calls is replayed `reps` times, each replay bracketed by
-    synchronizes and timed with CUDA events."""
-    import torch
+    synchronizes and timed with CUDA events (`gn_bench.device_ms`)."""
+    from dorpatch_tpu_torch.gn_bench import device_ms
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+    return device_ms(fn, inner, reps)
 
 
 def _bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
@@ -335,126 +328,177 @@ def stem_fold_phase(torch, dev, dataset, arch, size, b, name):
                 bound_ms=bound, bound_by=by, library_ms=c_lib)
 
 
-def gn_phases(torch, dev):
-    """The GroupNorm+ReLU forward and backward kernels against their plain
-    versions in float64 at the RN50 attack step's slabs, and timed beside
-    the plain f32 versions and PyTorch's own group norm (which leaves out
-    the ReLU). Returns the forward and backward records of the largest
-    slab."""
+def gn_slab(torch, dev, gen, n, hw, c, calls):
+    """The GroupNorm+ReLU forward and backward kernels at one [n, hw, c]
+    slab: the route `fused_gn.gn_plan` takes, held against the plain
+    versions in float64 (gate flips allowed for), a repeated call bit-equal,
+    and timed beside the plain f32 versions and PyTorch's group norm (which
+    leaves out the ReLU). Returns the forward and backward records."""
+    from dorpatch_tpu_torch import ops
     from dorpatch_tpu_torch.ops import fused_gn as fgn
 
     import torch.nn.functional as F
 
+    side = math.isqrt(hw)
+    shape = (n, side, side, c)
+    g = 32
+
+    def rand(*size):
+        return torch.randn(size, generator=gen, device=dev)
+
+    x = rand(*shape) + 0.5 * rand(c)
+    s, b = 1 + 0.2 * rand(c), 0.3 * rand(c)
+    dy = rand(*shape)
+    label = f"[{n},{hw},{c}]"
+    routes = {d: fgn.gn_plan(d, n, hw, c) for d in ("fwd", "bwd")}
+
+    # forward against float64, and again bit for bit
+    ops.reset_launch_counts()
+    y, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
+    torch.cuda.synchronize()
+    x64, s64, b64, dy64 = (t.double() for t in (x, s, b, dy))
+    want = fgn.gn_relu_reference(x64, s64, b64)
+    fwd_err = float((y.double() - want).abs().max())
+    torch.testing.assert_close(y.double(), want, **TOL_GN)
+    del want
+    m64, r64 = fgn.gn_stats_reference(x64, g)
+    stat_err = max(float((mean.double() - m64).abs().max()),
+                   float(((rstd.double() - r64) / r64).abs().max()))
+    again = fgn.gn_relu_fwd_kernel(x, s, b)
+    if not all(torch.equal(p, q) for p, q in zip(again, (y, mean, rstd))):
+        raise AssertionError(f"GN forward {label} does not repeat bit for "
+                             "bit")
+    del again
+
+    # backward against float64, gate flips allowed for, and again
+    dx, ds, db = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd)
+    torch.cuda.synchronize()
+    again = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd)
+    if not all(torch.equal(p, q) for p, q in zip(again, (dx, ds, db))):
+        raise AssertionError(f"GN backward {label} does not repeat bit for "
+                             "bit")
+    del again
+    launched = ops.route_counts()
+    want_routes = {f"gn_relu_fwd/{routes['fwd'].route}": 2,
+                   f"gn_relu_bwd/{routes['bwd'].route}": 2}
+    if launched != want_routes:
+        raise AssertionError(f"GN {label}: routes launched {launched}, "
+                             f"planned {want_routes}")
+    wdx, wds, wdb = fgn.gn_relu_backward_reference(x64, dy64, s64, b64, m64,
+                                                   r64, g)
+    near, dx_b, ds_b, db_b = fgn.gate_flip_bounds(x64, dy64, s64, b64, m64,
+                                                  r64, g, GN_NEAR)
+    n_near = int(near.sum())
+    dx_err = (dx.double() - wdx).abs()
+    dx_bad = int(((dx_err > TOL_GN["atol"] + TOL_GN["rtol"] * wdx.abs()
+                   + dx_b) & ~near).sum())
+    dx_max = float(dx_err[~near].max())
+    flip_max = float(dx_b.max())
+    del dx_err, dx_b, wdx, near
+    param_bad = 0
+    param_err = 0.0
+    for got, want, bnd in ((ds, wds, ds_b), (db, wdb, db_b)):
+        err = (got.double() - want).abs()
+        param_err = max(param_err, float(err.max()))
+        param_bad += int((err > TOL_GN_PARAMS["atol"]
+                          + TOL_GN_PARAMS["rtol"] * want.abs()
+                          + bnd).sum())
+    print(f"GN {label}: forward max_abs_err {fwd_err:.3g} (atol "
+          f"{TOL_GN['atol']}, rtol {TOL_GN['rtol']} of float64), stats err "
+          f"{stat_err:.3g}; backward dx max_abs_err {dx_max:.3g} over the "
+          f"elements not within {GN_NEAR} of the gate ({n_near} near-zero "
+          f"pre-activations left out, flip bound up to {flip_max:.3g}), "
+          f"dscale/dbias max_abs_err {param_err:.3g} (atol "
+          f"{TOL_GN_PARAMS['atol']}, rtol {TOL_GN_PARAMS['rtol']}); both "
+          f"repeat bit for bit", flush=True)
+    if dx_bad or param_bad:
+        raise AssertionError(f"GN backward {label}: {dx_bad} dx and "
+                             f"{param_bad} dscale/dbias elements out of "
+                             "tolerance")
+    del x64, dy64, m64, r64, wds, wdb
+
+    # times: the kernels as the victim calls them (frozen affine: no
+    # parameter cotangents), the plain f32 versions, and PyTorch's group
+    # norm on the channels-last view (no ReLU)
+    fwd_ms = _device_ms(lambda: fgn.gn_relu_fwd_kernel(x, s, b), 5, 7)
+    fwd_plain = _device_ms(lambda: fgn.gn_relu_reference(x, s, b), 5, 7)
+    xv = x.permute(0, 3, 1, 2)
+    fwd_lib = _device_ms(lambda: F.group_norm(xv, g, s, b, 1e-5), 5, 7)
+    bwd_ms = _device_ms(lambda: fgn.gn_relu_bwd_kernel(
+        x, dy, s, b, mean, rstd, params=False), 5, 7)
+    bwd_plain = _device_ms(lambda: fgn.gn_relu_backward_reference(
+        x, dy, s, b, mean, rstd, g), 5, 7)
+    # PyTorch's group norm backward takes NCHW-contiguous tensors
+    xc, dyc = xv.contiguous(), dy.permute(0, 3, 1, 2).contiguous()
+    _, lmean, lrstd = torch.ops.aten.native_group_norm(
+        xc, s, b, n, c, hw, g, 1e-5)
+    bwd_lib = _device_ms(lambda: torch.ops.aten.native_group_norm_backward(
+        dyc, xc, lmean, lrstd, s, n, c, hw, g, [True, False, False]), 5, 7)
+    del xc, dyc
+    slab = 4.0 * n * hw * c
+    small = 4.0 * (2 * c + 2 * n * g)
+    fwd_bound, fwd_by = _bound(2 * slab + small, 8.0 * n * hw * c)
+    bwd_bound, bwd_by = _bound(3 * slab + small, 12.0 * n * hw * c)
+    pf, pb = routes["fwd"], routes["bwd"]
+    print(f"GN {label} ({calls} calls per RN50 forward): forward route "
+          f"{pf.route} (width {pf.width}, cluster {pf.cluster}, smem "
+          f"{pf.smem}) {fwd_ms * 1e3:.2f} us (bound {fwd_bound * 1e3:.2f} "
+          f"us by {fwd_by}, plain {fwd_plain * 1e3:.2f} us, F.group_norm "
+          f"without the ReLU {fwd_lib * 1e3:.2f} us); backward route "
+          f"{pb.route} (width {pb.width}, cluster {pb.cluster}, smem "
+          f"{pb.smem}) {bwd_ms * 1e3:.2f} us (bound {bwd_bound * 1e3:.2f} us "
+          f"by {bwd_by}, plain {bwd_plain * 1e3:.2f} us, "
+          f"native_group_norm_backward on NCHW copies, without the ReLU "
+          f"{bwd_lib * 1e3:.2f} us)", flush=True)
+    split = routes["fwd"].route == "split"
+    suffix = "_split" if split else ""
+    fwd_rec = dict(name="gn_relu_fwd" + suffix, route="cuda",
+                   source="dorpatch_tpu_torch/csrc/fused_gn.cu",
+                   replaces="dorpatch_tpu/ops/fused_gn.py:"
+                   + ("159" if split else "115"), launches=0,
+                   max_abs_err=max(fwd_err, stat_err), ms=fwd_ms,
+                   plain_ms=fwd_plain, bound_ms=fwd_bound, bound_by=fwd_by,
+                   library_ms=fwd_lib)
+    bwd_rec = dict(name="gn_relu_bwd" + suffix, route="cuda",
+                   source="dorpatch_tpu_torch/csrc/fused_gn.cu",
+                   replaces="dorpatch_tpu/ops/fused_gn.py:"
+                   + ("278" if split else "135"), launches=0,
+                   max_abs_err=max(dx_max, param_err), ms=bwd_ms,
+                   plain_ms=bwd_plain, bound_ms=bwd_bound, bound_by=bwd_by,
+                   library_ms=bwd_lib)
+    del x, dy, y, dx, xv
+    torch.cuda.empty_cache()
+    return fwd_rec, bwd_rec
+
+
+def gn_phases(torch, dev):
+    """The GroupNorm+ReLU kernels at every (HW, C) of the RN50 victim at
+    224 (N = 256, the attack step's 2 images x 128 masks), each on the
+    one-pass route, and at GN_SPLIT_SLAB on the split route. Prints the
+    launches x (time - bound) summed over a forward's 49 calls. Returns the
+    records of the largest slab [256, 3136, 256] and of the split slab."""
+    from dorpatch_tpu_torch.gn_bench import RN50_GN_CALLS
+
     gen = torch.Generator(device=dev).manual_seed(3)
-    recs = []
-    for n, hw, c in GN_SLABS:
-        side = math.isqrt(hw)
-        shape = (n, side, side, c)
-        g = 32
-
-        def rand(*size):
-            return torch.randn(size, generator=gen, device=dev)
-
-        x = rand(*shape) + 0.5 * rand(c)
-        s, b = 1 + 0.2 * rand(c), 0.3 * rand(c)
-        dy = rand(*shape)
-        label = f"[{n},{side}*{side},{c}]"
-
-        # forward against float64
-        y, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
-        torch.cuda.synchronize()
-        x64, s64, b64, dy64 = (t.double() for t in (x, s, b, dy))
-        fwd_err = float((y.double() - fgn.gn_relu_reference(x64, s64, b64))
-                        .abs().max())
-        torch.testing.assert_close(
-            y.double(), fgn.gn_relu_reference(x64, s64, b64), **TOL_GN)
-        m64, r64 = fgn.gn_stats_reference(x64, g)
-        stat_err = max(float((mean.double() - m64).abs().max()),
-                       float(((rstd.double() - r64) / r64).abs().max()))
-
-        # backward against float64, gate flips allowed for
-        dx, ds, db = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd)
-        torch.cuda.synchronize()
-        wdx, wds, wdb = fgn.gn_relu_backward_reference(x64, dy64, s64, b64,
-                                                       m64, r64, g)
-        near, dx_b, ds_b, db_b = fgn.gate_flip_bounds(x64, dy64, s64, b64,
-                                                      m64, r64, g, GN_NEAR)
-        n_near = int(near.sum())
-        dx_err = (dx.double() - wdx).abs()
-        dx_bad = int(((dx_err > TOL_GN["atol"] + TOL_GN["rtol"] * wdx.abs()
-                       + dx_b) & ~near).sum())
-        dx_max = float(dx_err[~near].max())
-        flip_max = float(dx_b.max())
-        del dx_err, dx_b, wdx, near
-        param_bad = 0
-        param_err = 0.0
-        for got, want, bnd in ((ds, wds, ds_b), (db, wdb, db_b)):
-            err = (got.double() - want).abs()
-            param_err = max(param_err, float(err.max()))
-            param_bad += int((err > TOL_GN_PARAMS["atol"]
-                              + TOL_GN_PARAMS["rtol"] * want.abs()
-                              + bnd).sum())
-        print(f"GN {label}: forward max_abs_err {fwd_err:.3g} (atol "
-              f"{TOL_GN['atol']}, rtol {TOL_GN['rtol']} of float64), stats "
-              f"err {stat_err:.3g}; backward dx max_abs_err {dx_max:.3g} "
-              f"over the elements not within {GN_NEAR} of the gate "
-              f"({n_near} near-zero pre-activations left out, flip bound "
-              f"up to {flip_max:.3g}), dscale/dbias max_abs_err "
-              f"{param_err:.3g} (atol {TOL_GN_PARAMS['atol']}, rtol "
-              f"{TOL_GN_PARAMS['rtol']})", flush=True)
-        if dx_bad or param_bad:
-            raise AssertionError(f"GN backward {label}: {dx_bad} dx and "
-                                 f"{param_bad} dscale/dbias elements out "
-                                 "of tolerance")
-        del x64, dy64, m64, r64, wds, wdb
-
-        # times: the kernels as the victim calls them (frozen affine: no
-        # parameter cotangents), the plain f32 versions, and PyTorch's
-        # group norm on the channels-last view (no ReLU)
-        fwd_ms = _device_ms(lambda: fgn.gn_relu_fwd_kernel(x, s, b), 5, 7)
-        fwd_plain = _device_ms(lambda: fgn.gn_relu_reference(x, s, b), 5, 7)
-        xv = x.permute(0, 3, 1, 2)
-        dyv = dy.permute(0, 3, 1, 2)
-        fwd_lib = _device_ms(lambda: F.group_norm(xv, g, s, b, 1e-5), 5, 7)
-        bwd_ms = _device_ms(lambda: fgn.gn_relu_bwd_kernel(
-            x, dy, s, b, mean, rstd, params=False), 5, 7)
-        bwd_plain = _device_ms(lambda: fgn.gn_relu_backward_reference(
-            x, dy, s, b, mean, rstd, g), 5, 7)
-        # PyTorch's group norm backward takes NCHW-contiguous tensors
-        xc, dyc = xv.contiguous(), dyv.contiguous()
-        _, lmean, lrstd = torch.ops.aten.native_group_norm(
-            xc, s, b, n, c, hw, g, 1e-5)
-        bwd_lib = _device_ms(lambda: torch.ops.aten.native_group_norm_backward(
-            dyc, xc, lmean, lrstd, s, n, c, hw, g, [True, False, False]), 5, 7)
-        del xc, dyc
-        slab = 4.0 * n * hw * c
-        small = 4.0 * (2 * c + 2 * n * g)
-        fwd_bound, fwd_by = _bound(2 * slab + small, 8.0 * n * hw * c)
-        bwd_bound, bwd_by = _bound(3 * slab + small, 12.0 * n * hw * c)
-        print(f"GN {label}: forward {fwd_ms * 1e3:.1f} us (bound "
-              f"{fwd_bound * 1e3:.1f} us by {fwd_by}, plain "
-              f"{fwd_plain * 1e3:.1f} us, F.group_norm without the ReLU "
-              f"{fwd_lib * 1e3:.1f} us); backward {bwd_ms * 1e3:.1f} us "
-              f"(bound {bwd_bound * 1e3:.1f} us by {bwd_by}, plain "
-              f"{bwd_plain * 1e3:.1f} us, native_group_norm_backward on "
-              f"NCHW copies, without the ReLU {bwd_lib * 1e3:.1f} us)",
-              flush=True)
-        recs.append((
-            dict(name="gn_relu_fwd", route="cuda",
-                 source="dorpatch_tpu_torch/csrc/fused_gn.cu",
-                 replaces="dorpatch_tpu/ops/fused_gn.py:115", launches=0,
-                 max_abs_err=max(fwd_err, stat_err), ms=fwd_ms,
-                 plain_ms=fwd_plain, bound_ms=fwd_bound, bound_by=fwd_by,
-                 library_ms=fwd_lib),
-            dict(name="gn_relu_bwd", route="cuda",
-                 source="dorpatch_tpu_torch/csrc/fused_gn.cu",
-                 replaces="dorpatch_tpu/ops/fused_gn.py:135", launches=0,
-                 max_abs_err=max(dx_max, param_err), ms=bwd_ms,
-                 plain_ms=bwd_plain, bound_ms=bwd_bound, bound_by=bwd_by,
-                 library_ms=bwd_lib)))
-        del x, dy, y, dx, xv, dyv
-        torch.cuda.empty_cache()
-    return list(recs[0])
+    recs, over = {}, [0.0, 0.0]
+    for (hw, c), calls in sorted(RN50_GN_CALLS.items(),
+                                 key=lambda kv: (-kv[0][0], kv[0][1])):
+        fwd, bwd = gn_slab(torch, dev, gen, GN_N, hw, c, calls)
+        if fwd["name"] != "gn_relu_fwd" or bwd["name"] != "gn_relu_bwd":
+            raise AssertionError(f"RN50 GN shape ({hw}, {c}) did not take "
+                                 "the one-pass route")
+        over[0] += calls * (fwd["ms"] - fwd["bound_ms"])
+        over[1] += calls * (bwd["ms"] - bwd["bound_ms"])
+        recs[(hw, c)] = (fwd, bwd)
+    print(f"GN over the 49 calls of an RN50 forward at N={GN_N}: forward "
+          f"{over[0]:.4f} ms over its bytes bound, backward {over[1]:.4f} "
+          f"ms", flush=True)
+    split = gn_slab(torch, dev, gen, *GN_SPLIT_SLAB, 0)
+    if split[0]["name"] != "gn_relu_fwd_split" or \
+            split[1]["name"] != "gn_relu_bwd_split":
+        raise AssertionError(f"GN slab {GN_SPLIT_SLAB} did not take the "
+                             "split route")
+    return list(recs[(3136, 256)]) + list(split)
 
 
 def attn_phase(torch, dev):
@@ -554,7 +598,9 @@ def attn_phase(torch, dev):
 def main_path(torch, dev, label, argv, required):
     """One main path through the CLI entry point, with the launch counts
     set to 0 just before and read just after; every kernel in `required`
-    must have launched. Returns (metrics, launch counts of the run)."""
+    must have launched, and every GroupNorm launch must have taken the
+    one-pass route. Returns (metrics, launch and route counts of the
+    run)."""
     from dorpatch_tpu_torch import ops
     from dorpatch_tpu_torch.cli import build_parser, config_from_args
     from dorpatch_tpu_torch.pipeline import run_experiment
@@ -568,23 +614,29 @@ def main_path(torch, dev, label, argv, required):
         m = run_experiment(cfg, verbose=True)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        routes = ops.route_counts()
         wall = time.perf_counter() - t0
     print(f"{label} main path: {wall:.2f} s wall; attack seconds "
           f"{m.get('attack_seconds')}; certify seconds "
           f"{m.get('certify_seconds')}; forwards {m.get('forwards')} of "
           f"{m.get('forwards_exhaustive')} exhaustive, forward equivalents "
           f"{m.get('forward_equivalents')}, escalated (image, radius) "
-          f"records {m.get('escalated')}; launches {counts}", flush=True)
+          f"records {m.get('escalated')}; launches {counts}; GN routes "
+          f"{routes}", flush=True)
     for name in required:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{label} main path")
+    for name in ("gn_relu_fwd", "gn_relu_bwd"):
+        if routes.get(f"{name}/one_pass", 0) != counts[name]:
+            raise AssertionError(f"{label} main path: {name} took routes "
+                                 f"{routes}, not the one-pass route alone")
     vals = ([m["clean_accuracy"], m["robust_accuracy"]] + m["acc_pc"]
             + m["certified_acc_pc"] + m["certified_asr_pc"])
     if (m["evaluated_images"] < 1 or len(m["acc_pc"]) != 4
             or not all(math.isfinite(v) for v in vals)):
         raise AssertionError(f"malformed {label} main-path metrics: {m}")
-    return m, counts
+    return m, {**counts, **routes}
 
 
 def cross_check(torch, dev, dataset, arch, size, b):
@@ -799,11 +851,8 @@ def main() -> int:
         t0 = time.perf_counter()
         _, counts = main_path(torch, dev, label, argv, required)
         for rec in records:
-            # stem_fold_rn50 is kernel C at RN50's stem, and
-            # masked_kv_attn_pairs kernel H at the pair audit's shape: the
-            # counts of stem_fold and masked_kv_attn
-            rec["launches"] = counts[rec["name"].replace("_rn50", "")
-                                     .replace("_pairs", "")]
+            rec["launches"] = counts.get(COUNT_OF.get(rec["name"],
+                                                      rec["name"]), 0)
         print(f"{label} main-path phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
 

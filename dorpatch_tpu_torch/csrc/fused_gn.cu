@@ -1,10 +1,14 @@
 // GroupNorm(G) + ReLU on NHWC float32, forward and backward (kernels D-G).
 //
 // Replaces the TPU kernels of dorpatch_tpu/ops/fused_gn.py:
-//   D  _fwd_kernel (:115), launched by _pallas_fwd (:237)
-//   E  _fwd_stats_kernel (:159) + _fwd_apply_kernel (:179), _pallas_fwd_tiled (:191)
-//   F  _bwd_kernel (:135), launched by _pallas_bwd (:387)
-//   G  _bwd_stats_kernel (:278) + _bwd_dx_kernel (:313), _pallas_bwd_tiled (:330)
+//   one-pass route (whole groups staged on chip, each slab read once):
+//     D  _fwd_kernel (:115), launched by _pallas_fwd (:237)
+//     F  _bwd_kernel (:135), launched by _pallas_bwd (:387)
+//   split route (slabs whose chunk does not fit, the JAX package's tiled
+//   plan):
+//     E  _fwd_stats_kernel (:159) + _fwd_apply_kernel (:179), _pallas_fwd_tiled (:191)
+//     G  _bwd_stats_kernel (:278) + _bwd_dx_kernel (:313), _pallas_bwd_tiled (:330)
+// ops/fused_gn.py `gn_plan` picks the route from the shape and passes it in.
 //
 // Forward, per sample n and group g over x [N, HW, C] (channels of a group
 // contiguous, cg = C / G of them):
@@ -17,13 +21,46 @@
 //   dx  = rstd * (dyr*scale - (a_g + xhat*b_g) / (HW*cg))
 //   dscale = sum_n ds_c, dbias = sum_n db_c                 (only when asked)
 //
-// What bounds it on this card: bytes. Each direction does a few flops per
-// element; the forward must read x and write y, the backward read x and dy and
-// write dx. The TPU kernels keep a whole [HW, C] slab in VMEM (or carry sums
-// across a sequential grid of HW tiles); a per-sample slab of RN50 reaches
-// 56*56*256 floats = 3.2 MB, far above a block's 227 KB of shared memory, and
-// CUDA blocks carry nothing between them. So both directions are split, the
-// normal route on this card:
+// What bounds it on this card: bytes, in both directions. Each does a few
+// flops per element; the forward must read x and write y (2 slabs), the
+// backward read x and dy and write dx (3 slabs). A group's statistics need
+// both passes over its elements, so a design that cannot hold a group on
+// chip reads its slabs twice.
+//
+// One-pass route (the normal route; every RN50 shape at 224 takes it). A
+// per-sample slab (3.2 MB at 56*56*256) exceeds a block's 227 KB, but one
+// group's [HW, cg] columns do not: a block stages a chunk of whole groups,
+// `W` channels of one sample ([HW, W] of x, and of dy in the backward), in
+// shared memory, so each slab is read from device memory once and written
+// once, in one launch:
+//   - grid (cluster * C/W, N); each thread copies its 16-byte pieces of the
+//     chunk with cp.async in kStages commit groups and reduces each group
+//     of pieces as it lands, while the later ones are still in flight. A
+//     thread's pieces all lie in one float4 column (four channels), so its
+//     partial sums need no barrier until the block adds them;
+//   - the block adds the threads' f32 partials per channel in float64, in
+//     a fixed order (a warp per channel and a fixed butterfly, or a thread
+//     per channel when a column has few threads), then the
+//     channels per group: the forward's sum x and sum x^2, the backward's
+//     db_c, ds_c, a_g and b_g;
+//   - the same thread then writes y (or dx) of its pieces from shared
+//     memory, 16 bytes a store, and rank 0 writes the [N, G] mean/rstd
+//     (forward) or the [N, C] db_c/ds_c (backward, only when the parameter
+//     cotangents are asked for);
+//   - a chunk too tall for one block is split over its HW rows between the
+//     CTAs of a thread-block cluster (up to kMaxCluster); each CTA stages
+//     its rows and the CTAs add their float64 channel partials through
+//     distributed shared memory, in rank order, so every CTA holds the same
+//     totals.
+//   `W` (ops/fused_gn.py one_pass_width) takes whole groups, rows of at
+//   least 32 bytes (C = 64 has cg = 2, so 4 groups a chunk), widened toward
+//   256-byte rows while one CTA still fits: an L2 line is 128 bytes, and a
+//   narrow row costs a request per few bytes. The backward keeps two CTAs
+//   an SM (its [3136, 256] chunk of one group, 200 KB of x and dy, over a
+//   cluster of two); the forward takes one wide chunk an SM. With the
+//   parameter cotangents, gn_param_sums adds db_c and ds_c over N in a
+//   second, small launch.
+// Split route, for slabs whose chunk fits no cluster:
 //   1. a statistics pass, grid (sample, HW tile of kTileRows rows, chunk of
 //      up to 256 channels): each thread owns one float4 column (four channels),
 //      sums its rows in f32, the block adds its thread rows in a fixed order
@@ -34,11 +71,14 @@
 //   3. an elementwise pass over NHWC, 16 bytes a thread: y (forward) or dx
 //      (backward), recomputing xhat and the ReLU gate from the saved [N, G]
 //      statistics.
-// The forward reads x twice and the backward x and dy twice: one slab pass
-// more than the bound, the price of the split. No float atomics anywhere, so
-// every result is the same from run to run.
+//   It reads x (and dy) twice: one slab pass more than the bound.
+// No float atomics on either route, so every result is the same from run
+// to run. Float32 only; the element type enters through the 16-byte
+// pieces and the float4 arithmetic.
 
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
@@ -301,6 +341,16 @@ __device__ __forceinline__ float dx1(float v, float d, float m, float r, float s
   return r * (dr * s - (a_g + xh * b_g) / cnt);
 }
 
+// dx of one element with a_g and b_g already divided by the count (the
+// one-pass route: one division per group instead of one per element).
+__device__ __forceinline__ float dx_scaled(float v, float d, float m, float r,
+                                           float s, float b, float a_n,
+                                           float b_n) {
+  float xh, dr;
+  gate1(v, d, m, r, s, b, xh, dr);
+  return r * (dr * s - (a_n + xh * b_n));
+}
+
 // dx, 16 bytes a thread.
 __global__ void __launch_bounds__(kThreads)
 gn_bwd_dx(const float* __restrict__ x, const float* __restrict__ dy,
@@ -354,7 +404,328 @@ __global__ void gn_param_sums(const float* __restrict__ dsc,
   dbias[c] = (float)b;
 }
 
-// Launch shapes shared by both directions.
+// ------------------------------------------------ one-pass route (D, F)
+
+namespace coop = cooperative_groups;
+
+constexpr int kOneThreads = 256;
+constexpr int kStages = 4;        // cp.async groups of a thread's pieces
+constexpr int kMaxCluster = 8;    // the portable cluster size
+constexpr int kMaxSmem = 232448;  // dynamic shared memory of a block
+constexpr int kSerialSum = 16;    // threads a column at most for a serial sum
+
+__device__ __forceinline__ float4 fma4(float4 a, float4 b, float4 c) {
+  return make_float4(fmaf(a.x, b.x, c.x), fmaf(a.y, b.y, c.y),
+                     fmaf(a.z, b.z, c.z), fmaf(a.w, b.w, c.w));
+}
+
+// A 16-byte copy to shared memory that leaves L1 alone and asks L2 to fetch
+// the whole 128-byte line: a narrow chunk's row is a part of a line whose
+// other parts the neighbouring chunks' CTAs read at about the same time.
+__device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's commit groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+// Where a CTA's chunk lies and which pieces its thread owns. Piece p of the
+// CTA's [rows, W] block is row p / W4, float4 column p % W4; thread t owns
+// p = t + j * active for j < count, all in column t % W4 (active is a
+// multiple of W4).
+struct Chunk {
+  int n, chunk, rank, rows, r0, W4, active, col, count;
+};
+
+__device__ __forceinline__ Chunk chunk_of(int HW, int W, int cl) {
+  Chunk k;
+  k.W4 = W / 4;
+  k.active = (kOneThreads / k.W4) * k.W4;
+  k.rank = blockIdx.x % cl;
+  k.chunk = blockIdx.x / cl;
+  k.n = blockIdx.y;
+  k.rows = (HW + cl - 1) / cl;
+  k.r0 = min(HW, k.rank * k.rows);
+  const int pieces = (min(HW, k.r0 + k.rows) - k.r0) * k.W4;
+  const int t = threadIdx.x;
+  k.col = t % k.W4;
+  k.count = (t < k.active && t < pieces) ? (pieces - 1 - t) / k.active + 1 : 0;
+  return k;
+}
+
+__device__ __forceinline__ int stage_begin(const Chunk& k, int s) {
+  return s * k.count / kStages;
+}
+
+// Issues this thread's pieces of stage s from src (the chunk's first row in
+// device memory, C4 float4 a row) to dst (the staged slab).
+__device__ __forceinline__ void issue_stage(const Chunk& k, int s, float4* dst,
+                                            const float4* src, int C4) {
+  for (int j = stage_begin(k, s); j < stage_begin(k, s + 1); ++j) {
+    const int p = threadIdx.x + j * k.active;
+    cp_async16(dst + p, src + (size_t)(p / k.W4) * C4 + k.col);
+  }
+}
+
+// Dynamic shared memory of a one-pass CTA (ops/fused_gn.py one_pass_smem):
+// the staged slabs, the threads' partials, the channel sums of this CTA and
+// of the chunk (float64), the per-group values.
+__host__ __device__ inline size_t onepass_smem(int HW, int W, int cl, int slabs) {
+  const size_t rows = (size_t)(HW + cl - 1) / cl;
+  return rows * W * 4 * slabs + (size_t)kOneThreads * 32 + (size_t)W * 40;
+}
+
+struct Smem {
+  float4* stage;   // [slabs][rows * W4]
+  float4* red;     // [kOneThreads][2]
+  double* chan;    // [2][W]
+  double* tot;     // [2][W]
+  float* grp;      // [2][W / cg]
+};
+
+__device__ __forceinline__ Smem carve(unsigned char* base, const Chunk& k,
+                                      int W, int slabs) {
+  Smem s;
+  s.stage = reinterpret_cast<float4*>(base);
+  s.red = s.stage + (size_t)slabs * k.rows * k.W4;
+  s.chan = reinterpret_cast<double*>(s.red + 2 * kOneThreads);
+  s.tot = s.chan + 2 * W;
+  s.grp = reinterpret_cast<float*>(s.tot + 2 * W);
+  return s;
+}
+
+// The chunk's per-channel sums of two per-thread partials (a, b), in
+// float64 and a fixed order, into sm.tot[0, W) and sm.tot[W, 2W). With a
+// cluster, every CTA adds the CTAs' sums in rank order, so all hold the same
+// totals. Ends with the block (and cluster) synchronized.
+__device__ __forceinline__ void channel_sums(const Chunk& k, int W, int cl,
+                                             float4 a, float4 b, const Smem& sm) {
+  sm.red[2 * threadIdx.x] = a;
+  sm.red[2 * threadIdx.x + 1] = b;
+  __syncthreads();
+  const int per = k.active / k.W4;   // threads per float4 column
+  double* own = cl == 1 ? sm.tot : sm.chan;
+  // channel j's partials are component j % 4 of threads j / 4 + m * W4
+  auto part = [&](int j, int m, int which) {
+    return (double)reinterpret_cast<const float*>(
+        sm.red + 2 * ((j >> 2) + m * k.W4) + which)[j & 3];
+  };
+  if (per <= kSerialSum) {   // wide chunk: a thread per channel
+    for (int j = threadIdx.x; j < W; j += kOneThreads) {
+      double s1 = 0.0, s2 = 0.0;
+      for (int m = 0; m < per; ++m) {
+        s1 += part(j, m, 0);
+        s2 += part(j, m, 1);
+      }
+      own[j] = s1;
+      own[W + j] = s2;
+    }
+  } else {                   // narrow chunk: a warp per channel
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int j = warp; j < W; j += kOneThreads / 32) {
+      double s1 = 0.0, s2 = 0.0;
+      for (int m = lane; m < per; m += 32) {
+        s1 += part(j, m, 0);
+        s2 += part(j, m, 1);
+      }
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+      if (lane == 0) {
+        own[j] = s1;
+        own[W + j] = s2;
+      }
+    }
+  }
+  if (cl == 1) {
+    __syncthreads();
+    return;
+  }
+  coop::cluster_group cluster = coop::this_cluster();
+  cluster.sync();
+  for (int i = threadIdx.x; i < 2 * W; i += kOneThreads) {
+    double s = 0.0;
+    for (int r = 0; r < cl; ++r) s += cluster.map_shared_rank(sm.chan, r)[i];
+    sm.tot[i] = s;
+  }
+  cluster.sync();   // no CTA leaves while another still reads its sums
+}
+
+// Forward, one CTA per (chunk of W channels, cluster rank, sample).
+__global__ void __launch_bounds__(kOneThreads)
+gn_fwd_onepass(const float* __restrict__ x, const float* __restrict__ scale,
+               const float* __restrict__ bias, float* __restrict__ y,
+               float* __restrict__ mean, float* __restrict__ rstd, int HW,
+               int C, int G, int W, int cl, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Chunk k = chunk_of(HW, W, cl);
+  const Smem sm = carve(smem, k, W, 1);
+  const int C4 = C / 4;
+  const int c0 = k.chunk * W;
+  const size_t base = ((size_t)k.n * HW + k.r0) * C4 + c0 / 4;
+  const float4* xs = reinterpret_cast<const float4*>(x) + base;
+  for (int s = 0; s < kStages; ++s) {
+    issue_stage(k, s, sm.stage, xs, C4);
+    cp_async_commit();
+  }
+  float4 a1 = f4(0.f), a2 = f4(0.f);
+  for (int s = 0; s < kStages; ++s) {
+    cp_async_wait(kStages - 1 - s);
+    for (int j = stage_begin(k, s); j < stage_begin(k, s + 1); ++j) {
+      const float4 v = sm.stage[threadIdx.x + j * k.active];
+      a1 = add4(a1, v);
+      a2 = fma4(v, v, a2);
+    }
+  }
+  channel_sums(k, W, cl, a1, a2, sm);
+
+  const int cg = C / G, kg = W / cg;
+  for (int g = threadIdx.x; g < kg; g += kOneThreads) {
+    double s1 = 0.0, s2 = 0.0;
+    for (int i = 0; i < cg; ++i) {
+      s1 += sm.tot[g * cg + i];
+      s2 += sm.tot[W + g * cg + i];
+    }
+    const double cnt = (double)HW * cg;
+    const double m = s1 / cnt;
+    const double var = fmax(s2 / cnt - m * m, 0.0);
+    const float mf = (float)m;
+    const float rf = (float)(1.0 / sqrt(var + (double)eps));
+    sm.grp[g] = mf;
+    sm.grp[kg + g] = rf;
+    if (k.rank == 0) {
+      const size_t o = (size_t)k.n * G + c0 / cg + g;
+      mean[o] = mf;
+      rstd[o] = rf;
+    }
+  }
+  __syncthreads();
+  if (k.count == 0) return;
+
+  const int c = 4 * k.col;   // first channel of the thread's column, in the chunk
+  const float4 s4 = __ldg(reinterpret_cast<const float4*>(scale + c0) + k.col);
+  const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + c0) + k.col);
+  const int g0 = c / cg, g1 = (c + 1) / cg, g2 = (c + 2) / cg, g3 = (c + 3) / cg;
+  const float4 m4 = make_float4(sm.grp[g0], sm.grp[g1], sm.grp[g2], sm.grp[g3]);
+  const float4 mul = make_float4(sm.grp[kg + g0] * s4.x, sm.grp[kg + g1] * s4.y,
+                                 sm.grp[kg + g2] * s4.z, sm.grp[kg + g3] * s4.w);
+  float4* ys = reinterpret_cast<float4*>(y) + base;
+  for (int j = 0; j < k.count; ++j) {
+    const int p = threadIdx.x + j * k.active;
+    const float4 v = sm.stage[p];
+    float4 o;
+    o.x = fmaxf((v.x - m4.x) * mul.x + b4.x, 0.f);
+    o.y = fmaxf((v.y - m4.y) * mul.y + b4.y, 0.f);
+    o.z = fmaxf((v.z - m4.z) * mul.z + b4.z, 0.f);
+    o.w = fmaxf((v.w - m4.w) * mul.w + b4.w, 0.f);
+    ys[(size_t)(p / k.W4) * C4 + k.col] = o;
+  }
+}
+
+// Backward, one CTA per (chunk of W channels, cluster rank, sample); dbc and
+// dsc null unless the parameter cotangents are asked for.
+__global__ void __launch_bounds__(kOneThreads)
+gn_bwd_onepass(const float* __restrict__ x, const float* __restrict__ dy,
+               const float* __restrict__ scale, const float* __restrict__ bias,
+               const float* __restrict__ mean, const float* __restrict__ rstd,
+               float* __restrict__ dx, float* __restrict__ dbc,
+               float* __restrict__ dsc, int HW, int C, int G, int W, int cl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Chunk k = chunk_of(HW, W, cl);
+  const Smem sm = carve(smem, k, W, 2);
+  float4* sx = sm.stage;
+  float4* sd = sm.stage + (size_t)k.rows * k.W4;
+  const int C4 = C / 4;
+  const int c0 = k.chunk * W;
+  const size_t base = ((size_t)k.n * HW + k.r0) * C4 + c0 / 4;
+  const float4* xs = reinterpret_cast<const float4*>(x) + base;
+  const float4* ds = reinterpret_cast<const float4*>(dy) + base;
+  for (int s = 0; s < kStages; ++s) {
+    issue_stage(k, s, sx, xs, C4);
+    issue_stage(k, s, sd, ds, C4);
+    cp_async_commit();
+  }
+  const int cg = C / G, kg = W / cg;
+  const Col4 col = load_col(mean + (size_t)k.n * G, rstd + (size_t)k.n * G,
+                            scale, bias, c0 / 4 + k.col, cg);
+  float4 adb = f4(0.f), ads = f4(0.f);
+  for (int s = 0; s < kStages; ++s) {
+    cp_async_wait(kStages - 1 - s);
+    for (int j = stage_begin(k, s); j < stage_begin(k, s + 1); ++j) {
+      const int p = threadIdx.x + j * k.active;
+      const float4 v = sx[p];
+      const float4 d = sd[p];
+      float xh, dr;
+      gate1(v.x, d.x, col.m.x, col.r.x, col.s.x, col.b.x, xh, dr);
+      adb.x += dr;
+      ads.x = fmaf(dr, xh, ads.x);
+      gate1(v.y, d.y, col.m.y, col.r.y, col.s.y, col.b.y, xh, dr);
+      adb.y += dr;
+      ads.y = fmaf(dr, xh, ads.y);
+      gate1(v.z, d.z, col.m.z, col.r.z, col.s.z, col.b.z, xh, dr);
+      adb.z += dr;
+      ads.z = fmaf(dr, xh, ads.z);
+      gate1(v.w, d.w, col.m.w, col.r.w, col.s.w, col.b.w, xh, dr);
+      adb.w += dr;
+      ads.w = fmaf(dr, xh, ads.w);
+    }
+  }
+  channel_sums(k, W, cl, adb, ads, sm);
+
+  if (dbc != nullptr && k.rank == 0) {
+    for (int i = threadIdx.x; i < W; i += kOneThreads) {
+      dbc[(size_t)k.n * C + c0 + i] = (float)sm.tot[i];
+      dsc[(size_t)k.n * C + c0 + i] = (float)sm.tot[W + i];
+    }
+  }
+  // a_g / (HW*cg) and b_g / (HW*cg), divided once per group in float64
+  const double cnt = (double)HW * cg;
+  for (int g = threadIdx.x; g < kg; g += kOneThreads) {
+    double a = 0.0, b = 0.0;
+    for (int i = 0; i < cg; ++i) {
+      const double s = (double)scale[c0 + g * cg + i];
+      a += s * sm.tot[g * cg + i];
+      b += s * sm.tot[W + g * cg + i];
+    }
+    sm.grp[g] = (float)(a / cnt);
+    sm.grp[kg + g] = (float)(b / cnt);
+  }
+  __syncthreads();
+  if (k.count == 0) return;
+
+  const int c = 4 * k.col;
+  const int g0 = c / cg, g1 = (c + 1) / cg, g2 = (c + 2) / cg, g3 = (c + 3) / cg;
+  const float4 ag = make_float4(sm.grp[g0], sm.grp[g1], sm.grp[g2], sm.grp[g3]);
+  const float4 bg = make_float4(sm.grp[kg + g0], sm.grp[kg + g1],
+                                sm.grp[kg + g2], sm.grp[kg + g3]);
+  float4* out = reinterpret_cast<float4*>(dx) + base;
+  for (int j = 0; j < k.count; ++j) {
+    const int p = threadIdx.x + j * k.active;
+    const float4 v = sx[p];
+    const float4 d = sd[p];
+    float4 o;
+    o.x = dx_scaled(v.x, d.x, col.m.x, col.r.x, col.s.x, col.b.x, ag.x, bg.x);
+    o.y = dx_scaled(v.y, d.y, col.m.y, col.r.y, col.s.y, col.b.y, ag.y, bg.y);
+    o.z = dx_scaled(v.z, d.z, col.m.z, col.r.z, col.s.z, col.b.z, ag.z, bg.z);
+    o.w = dx_scaled(v.w, d.w, col.m.w, col.r.w, col.s.w, col.b.w, ag.w, bg.w);
+    out[(size_t)(p / k.W4) * C4 + k.col] = o;
+  }
+}
+
+// Launch shapes of the split route, shared by both directions.
 struct Shape {
   dim3 stats_grid, stats_block, apply_grid;
   int tiles;
@@ -362,13 +733,18 @@ struct Shape {
 
 int tiles_of(int HW) { return (HW + kTileRows - 1) / kTileRows; }
 
+bool shape_ok(int N, int HW, int C, int G) {
+  return N >= 1 && N <= kMaxGrid && HW >= 1 && C >= 4 && C % 4 == 0 &&
+         G >= 1 && C % G == 0;
+}
+
 bool plan(int N, int HW, int C, int G, Shape* sh) {
-  if (N < 1 || HW < 1 || C < 4 || C % 4 || G < 1 || C % G) return false;
+  if (!shape_ok(N, HW, C, G)) return false;
   const int C4 = C / 4;
   const int cols4 = C4 < kMaxCols4 ? C4 : kMaxCols4;
   const int tiles = tiles_of(HW);
   const int chunks = (C4 + cols4 - 1) / cols4;
-  if (N > kMaxGrid || tiles > kMaxGrid) return false;
+  if (tiles > kMaxGrid) return false;
   const size_t per = (size_t)HW * C4;
   size_t blocks = (per + kThreads - 1) / kThreads;
   if (blocks > kMaxGrid) blocks = kMaxGrid;
@@ -379,24 +755,85 @@ bool plan(int N, int HW, int C, int G, Shape* sh) {
   return true;
 }
 
+// A one-pass plan the kernels take: W whole groups and a multiple of 4, at
+// most four channels a thread, a cluster of at most kMaxCluster, and smem
+// at least what the CTA carves and at most a block's limit.
+bool onepass_ok(int N, int HW, int C, int G, int W, int cl, int smem, int slabs) {
+  if (!shape_ok(N, HW, C, G)) return false;
+  const int cg = C / G;
+  return W >= 4 && W % 4 == 0 && W % cg == 0 && C % W == 0 &&
+         W / 4 <= kOneThreads && cl >= 1 && cl <= kMaxCluster &&
+         (size_t)smem >= onepass_smem(HW, W, cl, slabs) && smem <= kMaxSmem;
+}
+
+// Launches a one-pass kernel on grid (cl * C/W, N), with a cluster of cl
+// CTAs along x when cl > 1, after raising its dynamic shared-memory limit.
+template <typename... Params, typename... Args>
+int launch_onepass(void (*kernel)(Params...), int* raised, int N, int C,
+                   int W, int cl, int smem, cudaStream_t st, Args... args) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (smem > raised[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    raised[dev] = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(cl * (C / W)), (unsigned)N, 1);
+  cfg.blockDim = dim3(kOneThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cl > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+int fwd_raised[64] = {0};
+int bwd_raised[64] = {0};
+
 }  // namespace
 
 extern "C" {
 
-// T, the HW-tile count that sizes the [N,T,C] scratch of both directions.
+// T, the HW-tile count that sizes the [N,T,C] scratch of the split route.
 int dp_gn_tiles(int HW) { return HW < 1 ? 0 : tiles_of(HW); }
 
-// Forward. x, y [N,HW,C]; scale, bias [C]; mean, rstd [N,G]; p1, p2 scratch
-// [N,T,C] with T = dp_gn_tiles(HW). All f32, contiguous, on the current
-// device; C a multiple of 4 and of G, pointers 16-byte aligned (the caller
-// checks).
+// Dynamic shared memory of a one-pass CTA: HW rows split over cl CTAs, W
+// channels, slabs 1 (forward) or 2 (backward).
+long long dp_gn_onepass_smem(int HW, int W, int cl, int slabs) {
+  if (HW < 1 || W < 1 || cl < 1 || slabs < 1) return -1;
+  return (long long)onepass_smem(HW, W, cl, slabs);
+}
+
+// Forward. x, y [N,HW,C]; scale, bias [C]; mean, rstd [N,G]. All f32,
+// contiguous, on the current device; C a multiple of 4 and of G, pointers
+// 16-byte aligned (the caller checks). The plan (ops/fused_gn.py gn_plan):
+// W > 0 takes the one-pass route with chunks of W channels, cl CTAs a
+// chunk and smem bytes a CTA (p1, p2 unused); W = 0 the split route, with
+// scratch p1, p2 [N,T,C], T = dp_gn_tiles(HW).
 int dp_gn_relu_fwd(const float* x, const float* scale, const float* bias,
                    float* y, float* mean, float* rstd, float* p1, float* p2,
-                   int N, int HW, int C, int G, float eps, void* stream) {
+                   int N, int HW, int C, int G, float eps, int W, int cl,
+                   int smem, void* stream) {
   if (N == 0) return (int)cudaSuccess;
-  Shape sh;
-  if (!plan(N, HW, C, G, &sh)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (W > 0) {
+    if (!onepass_ok(N, HW, C, G, W, cl, smem, 1)) return (int)cudaErrorInvalidValue;
+    return launch_onepass(gn_fwd_onepass, fwd_raised, N, C, W, cl, smem, st,
+                          x, scale, bias, y, mean, rstd, HW, C, G, W, cl, eps);
+  }
+  Shape sh;
+  if (!plan(N, HW, C, G, &sh) || p1 == nullptr || p2 == nullptr)
+    return (int)cudaErrorInvalidValue;
   gn_fwd_stats<<<sh.stats_grid, sh.stats_block, 0, st>>>(x, p1, p2, HW, C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -410,32 +847,45 @@ int dp_gn_relu_fwd(const float* x, const float* scale, const float* bias,
   return (int)cudaGetLastError();
 }
 
-// Backward. x, dy, dx [N,HW,C]; mean, rstd [N,G] from the forward; scratch
-// pdb, pds [N,T,C], dbc, dsc [N,C], ag, bg [N,G]; dscale, dbias [C] or both
-// null (then the parameter cotangents are not summed).
+// Backward. x, dy, dx [N,HW,C]; mean, rstd [N,G] from the forward; dscale,
+// dbias [C] or both null (then the parameter cotangents are not summed),
+// and then dbc, dsc [N,C] scratch, else may be null. The plan as for the
+// forward; the split route also takes scratch pdb, pds [N,T,C], dbc, dsc
+// [N,C] and ag, bg [N,G].
 int dp_gn_relu_bwd(const float* x, const float* dy, const float* scale,
                    const float* bias, const float* mean, const float* rstd,
                    float* dx, float* pdb, float* pds, float* dbc, float* dsc,
                    float* ag, float* bg, float* dscale, float* dbias, int N,
-                   int HW, int C, int G, void* stream) {
+                   int HW, int C, int G, int W, int cl, int smem, void* stream) {
   if (N == 0) return (int)cudaSuccess;
-  Shape sh;
-  if (!plan(N, HW, C, G, &sh)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  gn_bwd_stats<<<sh.stats_grid, sh.stats_block, 0, st>>>(
-      x, dy, scale, bias, mean, rstd, pdb, pds, HW, C, G);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int ng = N * G;
-  gn_bwd_combine<<<(ng + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      pdb, pds, scale, dbc, dsc, ag, bg, N, sh.tiles, C, G);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gn_bwd_dx<<<sh.apply_grid, kThreads, 0, st>>>(x, dy, scale, bias, mean, rstd,
-                                                ag, bg, dx, HW, C, G);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || dscale == nullptr || dbias == nullptr)
-    return (int)err;
+  const bool params = dscale != nullptr && dbias != nullptr;
+  if (params && (dbc == nullptr || dsc == nullptr)) return (int)cudaErrorInvalidValue;
+  int err = 0;
+  if (W > 0) {
+    if (!onepass_ok(N, HW, C, G, W, cl, smem, 2)) return (int)cudaErrorInvalidValue;
+    err = launch_onepass(gn_bwd_onepass, bwd_raised, N, C, W, cl, smem, st,
+                         x, dy, scale, bias, mean, rstd, dx,
+                         params ? dbc : nullptr, params ? dsc : nullptr, HW,
+                         C, G, W, cl);
+  } else {
+    Shape sh;
+    if (!plan(N, HW, C, G, &sh) || !pdb || !pds || !dbc || !dsc || !ag || !bg)
+      return (int)cudaErrorInvalidValue;
+    gn_bwd_stats<<<sh.stats_grid, sh.stats_block, 0, st>>>(
+        x, dy, scale, bias, mean, rstd, pdb, pds, HW, C, G);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    const int ng = N * G;
+    gn_bwd_combine<<<(ng + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+        pdb, pds, scale, dbc, dsc, ag, bg, N, sh.tiles, C, G);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    gn_bwd_dx<<<sh.apply_grid, kThreads, 0, st>>>(x, dy, scale, bias, mean,
+                                                  rstd, ag, bg, dx, HW, C, G);
+    err = (int)cudaGetLastError();
+  }
+  if (err != 0 || !params) return err;
   gn_param_sums<<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       dsc, dbc, dscale, dbias, N, C);
   return (int)cudaGetLastError();

@@ -1,0 +1,165 @@
+"""GroupNorm+ReLU kernel times on the card at every GroupNorm shape of
+ResNetV2-50x1 at 224 px.
+
+    python -m dorpatch_tpu_torch.gn_bench                 # this checkout
+    python dorpatch_tpu_torch/gn_bench.py --tree DIR      # DIR's kernels
+    python -m dorpatch_tpu_torch.gn_bench --sweep         # other chunks too
+
+For each of the victim's 11 (HW, C) shapes at N = 256 (the attack step's
+2 images x 128 masks) it times the forward kernel and the backward kernel
+as the victim calls it (dx only), as `chip_smoke.py` does: the median of
+REPS replays of a CUDA graph of INNER calls, each replay bracketed by
+synchronizes. It prints one JSON line per shape (route, times, bytes bound
+at 3.35 TB/s, calls per forward) and last a JSON summary: the sums over
+the 49 calls of a forward of time and of time minus bound.
+
+`--tree DIR` imports `dorpatch_tpu_torch` from another checkout (the
+parent of a change, unpacked with `git archive`), so that one chip call
+times both designs in turn. `--sweep` also times, at each shape, every
+one-pass chunk width with rows of 32 bytes or more over 1, 2, 4 and 8
+CTAs of a cluster, where a CTA's shared memory fits. Needs a CUDA
+device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+
+#: (HW, C) -> calls per forward of ResNetV2-50x1 at 224
+RN50_GN_CALLS = {(3136, 64): 7, (3136, 256): 3, (3136, 128): 1,
+                 (784, 128): 7, (784, 512): 4, (784, 256): 1,
+                 (196, 256): 11, (196, 1024): 6, (196, 512): 1,
+                 (49, 512): 5, (49, 2048): 3}
+N = 256
+PEAK_BYTES_PER_S = 3.35e12
+INNER, REPS = 5, 7
+
+
+def device_ms(fn, inner: int = INNER, reps: int = REPS) -> float:
+    """Median device milliseconds of one `fn()` call: a CUDA graph of
+    `inner` calls is replayed `reps` times, each replay bracketed by
+    synchronizes and timed with CUDA events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def bytes_bound_ms(n: int, hw: int, c: int, slabs: int) -> float:
+    """Reading the inputs and writing the output once (`slabs` slabs of
+    [n, hw, c] float32) at the card's memory rate."""
+    return 4.0 * slabs * n * hw * c / PEAK_BYTES_PER_S * 1e3
+
+
+def _sweep_plans(fgn, hw, c):
+    """Other one-pass plans of one shape: every width whose rows are at
+    least MIN_ROW_BYTES, over 1, 2, 4 and 8 CTAs of a cluster, where the
+    CTA's shared memory fits a block."""
+    from dorpatch_tpu_torch.ops import _build
+
+    out = []
+    for direction, slabs in (("fwd", 1), ("bwd", 2)):
+        default = fgn.gn_plan(direction, N, hw, c)
+        for w in fgn.one_pass_widths(c, 32):
+            for cl in (1, 2, 4, 8):
+                smem = fgn.one_pass_smem(hw, w, cl, slabs)
+                if (4 * w >= fgn.MIN_ROW_BYTES
+                        and smem <= _build.MAX_SMEM_BYTES
+                        and (w, cl) != (default.width, default.cluster)):
+                    out.append((direction,
+                                fgn.GNPlan("one_pass", w, cl, smem)))
+    return out
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--tree", default=None,
+                   help="checkout whose dorpatch_tpu_torch to time")
+    p.add_argument("--sweep", action="store_true")
+    args = p.parse_args(argv)
+    if args.tree and "dorpatch_tpu_torch" in sys.modules:
+        p.error("--tree needs the script path (python "
+                "dorpatch_tpu_torch/gn_bench.py --tree DIR), not -m")
+    root = os.path.abspath(args.tree or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), os.pardir))
+    sys.path.insert(0, root)
+    import torch
+
+    from dorpatch_tpu_torch.ops import fused_gn as fgn
+
+    if not torch.cuda.is_available():
+        print("gn_bench: no CUDA device is available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    print(f"tree {root}; device {torch.cuda.get_device_name(0)}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    total = dict(fwd_ms=0.0, bwd_ms=0.0, fwd_bound_ms=0.0, bwd_bound_ms=0.0)
+    for (hw, c), calls in sorted(RN50_GN_CALLS.items(),
+                                 key=lambda kv: (-kv[0][0], kv[0][1])):
+        side = int(round(hw ** 0.5))
+        x = torch.randn((N, side, side, c), generator=gen, device=dev)
+        dy = torch.randn((N, side, side, c), generator=gen, device=dev)
+        s = 1 + 0.2 * torch.randn((c,), generator=gen, device=dev)
+        b = 0.3 * torch.randn((c,), generator=gen, device=dev)
+        _, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
+        rec = dict(hw=hw, c=c, calls=calls,
+                   fwd_ms=device_ms(lambda: fgn.gn_relu_fwd_kernel(x, s, b)),
+                   bwd_ms=device_ms(lambda: fgn.gn_relu_bwd_kernel(
+                       x, dy, s, b, mean, rstd, params=False)),
+                   fwd_bound_ms=bytes_bound_ms(N, hw, c, 2),
+                   bwd_bound_ms=bytes_bound_ms(N, hw, c, 3))
+        if hasattr(fgn, "gn_plan"):
+            rec["plans"] = {d: fgn.gn_plan(d, N, hw, c)._asdict()
+                            for d in ("fwd", "bwd")}
+        if args.sweep and hasattr(fgn, "gn_plan"):
+            rec["sweep"] = []
+            for direction, plan in _sweep_plans(fgn, hw, c):
+                if direction == "fwd":
+                    ms = device_ms(lambda: fgn.gn_relu_fwd_kernel(
+                        x, s, b, plan=plan))
+                else:
+                    ms = device_ms(lambda: fgn.gn_relu_bwd_kernel(
+                        x, dy, s, b, mean, rstd, params=False, plan=plan))
+                rec["sweep"].append(dict(direction=direction,
+                                         width=plan.width,
+                                         cluster=plan.cluster, ms=ms))
+        for k in total:
+            total[k] += calls * rec[k]
+        print(json.dumps(rec), flush=True)
+        del x, dy
+        torch.cuda.empty_cache()
+    total["fwd_over_bound_ms"] = total["fwd_ms"] - total["fwd_bound_ms"]
+    total["bwd_over_bound_ms"] = total["bwd_ms"] - total["bwd_bound_ms"]
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "n": N,
+                      "per_forward_49_calls": total}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

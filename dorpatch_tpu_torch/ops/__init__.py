@@ -6,6 +6,8 @@ tensors and runs its plain version for CPU tensors (`_backend.on_card`):
 (the GroupNorm+ReLU forward and backward).
 """
 
-from dorpatch_tpu_torch.ops._backend import launch_counts, reset_launch_counts
+from dorpatch_tpu_torch.ops._backend import (launch_counts,
+                                             reset_launch_counts,
+                                             route_counts)
 
-__all__ = ["launch_counts", "reset_launch_counts"]
+__all__ = ["launch_counts", "reset_launch_counts", "route_counts"]

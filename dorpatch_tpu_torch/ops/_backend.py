@@ -10,7 +10,7 @@ that picks the plain version on the card.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -19,6 +19,9 @@ import torch
 _LAUNCHES: Dict[str, int] = {"masked_fill_fwd": 0, "masked_fill_bwd": 0,
                              "stem_fold": 0, "gn_relu_fwd": 0,
                              "gn_relu_bwd": 0, "masked_kv_attn": 0}
+#: Of those launches, how many took each route, for kernels with more than
+#: one ("gn_relu_fwd/one_pass", "gn_relu_bwd/split", ...).
+_ROUTES: Dict[str, int] = {}
 
 
 def on_card(t: torch.Tensor) -> bool:
@@ -31,8 +34,11 @@ def on_card(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, route: Optional[str] = None) -> None:
     _LAUNCHES[name] += 1
+    if route is not None:
+        key = f"{name}/{route}"
+        _ROUTES[key] = _ROUTES.get(key, 0) + 1
 
 
 def launch_counts() -> Dict[str, int]:
@@ -40,9 +46,15 @@ def launch_counts() -> Dict[str, int]:
     return dict(_LAUNCHES)
 
 
+def route_counts() -> Dict[str, int]:
+    """A copy of the per-route launch counts ("kernel/route" -> launches)."""
+    return dict(_ROUTES)
+
+
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+    _ROUTES.clear()
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

@@ -9,6 +9,21 @@ hand-written kernels (`csrc/fused_gn.cu`) run both directions:
   saved statistics and writes `dx`, plus the parameter cotangents when they
   are asked for.
 
+Both directions are bound by bytes: the forward must read x and write y,
+the backward read x and dy and write dx, and a group's statistics need all
+of its elements before any output. `gn_plan` picks one of two routes from
+the shape, as the JAX package's `_fwd_plan`/`_bwd_plan` pick the whole-slab
+or the tiled kernels:
+
+- "one_pass" (kernels D `_fwd_kernel` and F `_bwd_kernel`): a block, or a
+  thread-block cluster that splits the rows, stages a chunk of whole groups
+  (`width` channels of one sample, all HW rows) in shared memory, reduces
+  the group sums from there and writes the output, so each slab is read
+  once and written once, in one launch. Every RN50 shape at 224 takes it.
+- "split" (kernels E and G, the tiled pair): a statistics pass, a float64
+  combine and an elementwise pass, which read x (and dy) twice; for slabs
+  whose chunk fits no cluster.
+
 `GNRelu` pairs them as a `torch.autograd.Function`; it saves only `x` and
 the `[N, G]` statistics (and the affine parameters). `gn_relu_reference` and
 `gn_relu_backward_reference` are the plain versions, which a CPU tensor
@@ -18,11 +33,119 @@ dtype-generic; bf16 comes with the bf16 bank).
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from dorpatch_tpu_torch.ops import _backend, _build
+
+#: threads of a one-pass block, and the most CTAs of its cluster (the
+#: portable cluster size); `csrc/fused_gn.cu` kOneThreads, kMaxCluster
+ONE_PASS_THREADS = 256
+MAX_CLUSTER = 8
+#: the narrowest row segment of a one-pass chunk (two 32-byte sectors), and
+#: what a chunk is widened toward: rows of 256 bytes and at least 24 KB of
+#: each staged slab ran fastest at every RN50 shape that has room for them
+#: (`gn_bench.py --sweep`, PERF.md)
+MIN_ROW_BYTES = 64
+TARGET_ROW_BYTES = 256
+MIN_STAGE_BYTES = 24 * 1024
+#: the shared memory of an SM (228 KB, 1 KB of it reserved per block) split
+#: between two blocks
+TWO_PER_SM_BYTES = (233472 - 2 * 1024) // 2
+#: the most dynamic shared memory a CTA should take, per direction, as
+#: measured at the RN50 shapes: the forward runs fastest with one wide
+#: chunk an SM, the backward (twice the bytes a chunk) with two CTAs an SM,
+#: its [3136, C] chunks of 16 channels split over a cluster of four
+PREFERRED_CTA_BYTES = {"fwd": _build.MAX_SMEM_BYTES, "bwd": TWO_PER_SM_BYTES}
+#: HW rows per statistics block of the split route, and the grid's limit
+SPLIT_TILE_ROWS = 64
+MAX_GRID = 65535
+
+
+class GNPlan(NamedTuple):
+    """How the kernels run one shape: `route` "one_pass" with chunks of
+    `width` channels (whole groups), `cluster` CTAs a chunk and `smem`
+    bytes of dynamic shared memory a CTA; or "split" (the other fields 0)."""
+    route: str
+    width: int
+    cluster: int
+    smem: int
+
+
+def one_pass_smem(hw: int, width: int, cluster: int, slabs: int) -> int:
+    """Dynamic shared memory of a one-pass CTA: its share of the chunk's
+    rows of `slabs` slabs (1 forward, 2 backward), the threads' partial
+    sums, the float64 channel sums and the per-group values (the carve of
+    `csrc/fused_gn.cu`, `dp_gn_onepass_smem`)."""
+    rows = -(-hw // cluster)
+    return 4 * rows * width * slabs + 32 * ONE_PASS_THREADS + 40 * width
+
+
+def one_pass_widths(c: int, num_groups: int):
+    """The chunk widths a one-pass CTA takes, narrowest first: whole
+    groups, a multiple of 4 channels (16-byte pieces), at most four
+    channels a thread."""
+    cg = c // num_groups
+    return [k * cg for k in range(1, num_groups + 1)
+            if num_groups % k == 0 and k * cg % 4 == 0
+            and k * cg <= 4 * ONE_PASS_THREADS]
+
+
+def one_pass_width(hw: int, c: int, num_groups: int, slabs: int,
+                   budget: int) -> Optional[int]:
+    """Channels of a one-pass chunk: the narrowest width whose rows are at
+    least MIN_ROW_BYTES (the widest if none is), widened by whole groups
+    while its rows are shorter than TARGET_ROW_BYTES or a staged slab
+    holds less than MIN_STAGE_BYTES, as long as the wider chunk fits
+    `budget` as one CTA; None when no width fits a thread's float4
+    column."""
+    widths = one_pass_widths(c, num_groups)
+    if not widths:
+        return None
+    wide = [w for w in widths if 4 * w >= MIN_ROW_BYTES] or widths[-1:]
+    width = wide[0]
+    for nxt in wide[1:]:
+        if ((4 * width >= TARGET_ROW_BYTES
+             and 4 * hw * width >= MIN_STAGE_BYTES)
+                or one_pass_smem(hw, nxt, 1, slabs) > budget):
+            break
+        width = nxt
+    return width
+
+
+@functools.lru_cache(maxsize=256)
+def gn_plan(direction: str, n: int, hw: int, c: int,
+            num_groups: int = 32) -> GNPlan:
+    """The route of one GroupNorm+ReLU call on the card, from its shape:
+    the one-pass route with chunks of `one_pass_width` channels and the
+    fewest CTAs a chunk whose shared memory fits PREFERRED_CTA_BYTES, else
+    the fewest that fit a block's limit; else the split route; a shape
+    neither takes raises. `direction` is "fwd" or "bwd"."""
+    slabs = {"fwd": 1, "bwd": 2}[direction]
+    if c % num_groups or c % 4:
+        raise ValueError(f"C={c} must be a multiple of 4 and of the "
+                         f"{num_groups} groups")
+    if n > MAX_GRID:
+        raise ValueError(f"GroupNorm kernels take at most {MAX_GRID} "
+                         f"samples a call, got {n}")
+    preferred = PREFERRED_CTA_BYTES[direction]
+    width = one_pass_width(hw, c, num_groups, slabs, preferred)
+    if width is not None:
+        for budget in (preferred, _build.MAX_SMEM_BYTES):
+            cl = 1
+            while cl <= MAX_CLUSTER:
+                smem = one_pass_smem(hw, width, cl, slabs)
+                if smem <= budget:
+                    return GNPlan("one_pass", width, cl, smem)
+                cl *= 2
+    if -(-hw // SPLIT_TILE_ROWS) <= MAX_GRID:
+        return GNPlan("split", 0, 0, 0)
+    raise ValueError(f"no GroupNorm kernel route takes HW={hw}, C={c}: its "
+                     f"chunk fits no cluster and it has more than "
+                     f"{MAX_GRID} tiles of {SPLIT_TILE_ROWS} rows")
+
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     """float32 statistics for float32 and narrower inputs, float64 for
@@ -133,35 +256,49 @@ def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                          "scale and bias must be 16-byte aligned")
 
 
+def _split_scratch(x: torch.Tensor, lib) -> torch.Tensor:
+    """An `[N, T, C]` partial-sum scratch of the split route."""
+    n, h, w, c = x.shape
+    return torch.empty((n, lib.dp_gn_tiles(h * w), c), dtype=x.dtype,
+                       device=x.device)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def gn_relu_fwd_kernel(x: torch.Tensor, scale: torch.Tensor,
                        bias: torch.Tensor, num_groups: int = 32,
-                       eps: float = 1e-5):
+                       eps: float = 1e-5, plan: Optional[GNPlan] = None):
     """The forward kernels on CUDA tensors: x `[N,H,W,C]` f32 ->
-    `(y [N,H,W,C], mean [N,G], rstd [N,G])`."""
+    `(y [N,H,W,C], mean [N,G], rstd [N,G])`. `plan` defaults to
+    `gn_plan`'s (another is for measuring other chunks)."""
     _check(x, scale, bias, num_groups)
     n, h, w, c = x.shape
+    plan = plan or gn_plan("fwd", n, h * w, c, num_groups)
     lib = _build.library()
-    tiles = lib.dp_gn_tiles(h * w)
     y = torch.empty_like(x)
     mean = torch.empty((n, num_groups), dtype=x.dtype, device=x.device)
     rstd = torch.empty_like(mean)
-    p1 = torch.empty((n, tiles, c), dtype=x.dtype, device=x.device)
-    p2 = torch.empty_like(p1)
-    _backend.count_launch("gn_relu_fwd")
+    p1 = p2 = None
+    if plan.route == "split":
+        p1, p2 = (_split_scratch(x, lib) for _ in range(2))
+    _backend.count_launch("gn_relu_fwd", plan.route)
     _build.check(lib.dp_gn_relu_fwd(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        mean.data_ptr(), rstd.data_ptr(), p1.data_ptr(), p2.data_ptr(), n,
-        h * w, c, num_groups, float(eps), _backend.stream_handle(x)),
-        "gn_relu_fwd")
+        mean.data_ptr(), rstd.data_ptr(), _ptr(p1), _ptr(p2), n, h * w, c,
+        num_groups, float(eps), plan.width, plan.cluster, plan.smem,
+        _backend.stream_handle(x)), "gn_relu_fwd")
     return y, mean, rstd
 
 
 def gn_relu_bwd_kernel(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                        bias: torch.Tensor, mean: torch.Tensor,
                        rstd: torch.Tensor, num_groups: int = 32,
-                       params: bool = True):
+                       params: bool = True, plan: Optional[GNPlan] = None):
     """The backward kernels on CUDA tensors -> `(dx, dscale, dbias)`;
-    `dscale`/`dbias` are None unless `params`."""
+    `dscale`/`dbias` are None unless `params`. `plan` as for the
+    forward."""
     _check(x, scale, bias, num_groups)
     _backend.require(dy, "dy", torch.float32, 4)
     for t, name in ((mean, "mean"), (rstd, "rstd")):
@@ -173,28 +310,29 @@ def gn_relu_bwd_kernel(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"GroupNorm backward shapes do not agree: x "
                          f"{tuple(x.shape)}, dy {tuple(dy.shape)}, mean "
                          f"{tuple(mean.shape)}, rstd {tuple(rstd.shape)}")
+    plan = plan or gn_plan("bwd", n, h * w, c, num_groups)
     lib = _build.library()
-    tiles = lib.dp_gn_tiles(h * w)
     dx = torch.empty_like(x)
-    pdb = torch.empty((n, tiles, c), dtype=x.dtype, device=x.device)
-    pds = torch.empty_like(pdb)
-    dbc = torch.empty((n, c), dtype=x.dtype, device=x.device)
-    dsc = torch.empty_like(dbc)
-    ag = torch.empty_like(mean)
-    bg = torch.empty_like(mean)
+    split = plan.route == "split"
+    pdb = pds = dbc = dsc = ag = bg = None
     dscale: Optional[torch.Tensor] = None
     dbias: Optional[torch.Tensor] = None
+    if split:
+        pdb, pds = (_split_scratch(x, lib) for _ in range(2))
+        ag, bg = torch.empty_like(mean), torch.empty_like(mean)
+    if split or params:
+        dbc = torch.empty((n, c), dtype=x.dtype, device=x.device)
+        dsc = torch.empty_like(dbc)
     if params:
         dscale = torch.empty_like(scale)
         dbias = torch.empty_like(bias)
-    _backend.count_launch("gn_relu_bwd")
+    _backend.count_launch("gn_relu_bwd", plan.route)
     _build.check(lib.dp_gn_relu_bwd(
         x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), pdb.data_ptr(),
-        pds.data_ptr(), dbc.data_ptr(), dsc.data_ptr(), ag.data_ptr(),
-        bg.data_ptr(), dscale.data_ptr() if params else None,
-        dbias.data_ptr() if params else None, n, h * w, c, num_groups,
-        _backend.stream_handle(x)), "gn_relu_bwd")
+        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), _ptr(pdb),
+        _ptr(pds), _ptr(dbc), _ptr(dsc), _ptr(ag), _ptr(bg), _ptr(dscale),
+        _ptr(dbias), n, h * w, c, num_groups, plan.width, plan.cluster,
+        plan.smem, _backend.stream_handle(x)), "gn_relu_bwd")
     return dx, dscale, dbias
 
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from dorpatch_tpu_torch import masks as tmasks
+from dorpatch_tpu_torch.gn_bench import RN50_GN_CALLS
 from dorpatch_tpu_torch.ops import _backend
 from dorpatch_tpu_torch.ops import fused_gn as fgn
 from dorpatch_tpu_torch.ops import masked_fill as mf
@@ -174,10 +175,21 @@ def test_pruned_certification_on_card_equals_cpu(dev):
 # GroupNorm+ReLU: f32 kernels against the float64 plain versions. Forward
 # and per-element dx within 1e-5 (f32 rounding of a few flops per element;
 # the group statistics are summed in float64); the parameter cotangents sum
-# N*HW terms per channel in f32 blocks of 64 rows, hence atol 1e-3. Gate
-# flips near a pre-activation of 0 are allowed for by `gate_flip_bounds`.
+# N*HW terms per channel in f32 partials, hence atol 1e-3. Gate flips near a
+# pre-activation of 0 are allowed for by `gate_flip_bounds`.
+# The 11 (HW, C) shapes of ResNetV2-50x1 at 224 at N = 2 (one-pass route),
+# odd shapes (C = 96: cg = 3, chunks of 24 channels), chunks split over
+# clusters (64*64 rows: 2 CTAs forward, 8 backward; 112*112: 4 and 8;
+# 160*160: 8 forward), and slabs whose chunk fits no cluster (160*160
+# backward, 256*256: the split route)
 GN_SHAPES = [(8, 28, 28, 128), (16, 7, 7, 2048), (3, 9, 9, 64), (2, 5, 5, 96),
-             (4, 56, 56, 256)]
+             (4, 56, 56, 256), (2, 56, 56, 64), (2, 56, 56, 128),
+             (2, 28, 28, 512), (2, 28, 28, 256), (2, 14, 14, 256),
+             (2, 14, 14, 1024), (2, 14, 14, 512), (2, 7, 7, 512),
+             (2, 64, 64, 256), (1, 112, 112, 64), (1, 160, 160, 64),
+             (1, 256, 256, 64)]
+#: (HW, C) of the 49 GroupNorm+ReLU calls of ResNetV2-50x1 at 224
+RN50_GN = set(RN50_GN_CALLS)
 
 
 def _gn_case(dev, seed, shape):
@@ -190,25 +202,35 @@ def _gn_case(dev, seed, shape):
                  for a in arrays)
 
 
+def _gn_route(direction, shape):
+    n, h, w, c = shape
+    route = fgn.gn_plan(direction, n, h * w, c).route
+    if (h * w, c) in RN50_GN:
+        assert route == "one_pass"
+    if h * w == 256 * 256:
+        assert route == "split"
+    return route
+
+
 @pytest.mark.parametrize("shape", GN_SHAPES)
 def test_gn_forward_matches_float64_plain(dev, shape):
     x, s, b, _ = _gn_case(dev, 0, shape)
+    route = _gn_route("fwd", shape)
+    _backend.reset_launch_counts()
     y, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
     torch.cuda.synchronize()
+    assert _backend.route_counts() == {f"gn_relu_fwd/{route}": 1}
     m64, r64 = fgn.gn_stats_reference(x.double(), 32)
     torch.testing.assert_close(mean.double(), m64, rtol=0, atol=1e-6)
     torch.testing.assert_close(rstd.double(), r64, rtol=1e-5, atol=0)
     want = fgn.gn_relu_reference(x.double(), s.double(), b.double())
     torch.testing.assert_close(y.double(), want, rtol=1e-5, atol=1e-5)
-    assert torch.equal(fgn.gn_relu_fwd_kernel(x, s, b)[0], y)
+    again = fgn.gn_relu_fwd_kernel(x, s, b)
+    assert all(torch.equal(p, q) for p, q in zip(again, (y, mean, rstd)))
 
 
-@pytest.mark.parametrize("shape", GN_SHAPES)
-def test_gn_backward_matches_float64_plain(dev, shape):
-    x, s, b, dy = _gn_case(dev, 1, shape)
-    _, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
-    dx, ds, db = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd)
-    torch.cuda.synchronize()
+def _check_gn_backward(x, dy, s, b, mean, rstd, got):
+    dx, ds, db = got
     args = [t.double() for t in (x, dy, s, b)]
     m64, r64 = fgn.gn_stats_reference(args[0], 32)
     wdx, wds, wdb = fgn.gn_relu_backward_reference(*args, m64, r64, 32)
@@ -218,11 +240,62 @@ def test_gn_backward_matches_float64_plain(dev, shape):
     assert (err <= 1e-5 + 1e-5 * wdx.abs()[keep] + dx_b[keep]).all()
     assert ((ds.double() - wds).abs() <= 1e-3 + 1e-5 * wds.abs() + ds_b).all()
     assert ((db.double() - wdb).abs() <= 1e-3 + 1e-5 * wdb.abs() + db_b).all()
+
+
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_gn_backward_matches_float64_plain(dev, shape):
+    x, s, b, dy = _gn_case(dev, 1, shape)
+    route = _gn_route("bwd", shape)
+    _, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
+    _backend.reset_launch_counts()
+    dx, ds, db = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd)
+    torch.cuda.synchronize()
+    assert _backend.route_counts() == {f"gn_relu_bwd/{route}": 1}
+    _check_gn_backward(x, dy, s, b, mean, rstd, (dx, ds, db))
     again = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd)
     assert all(torch.equal(p, q) for p, q in zip(again, (dx, ds, db)))
     dx_only = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd, params=False)
     assert dx_only[1] is None and dx_only[2] is None
     assert torch.equal(dx_only[0], dx)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_gn_one_pass_cluster_sizes_match_float64_plain(dev, cluster):
+    """The largest RN50 chunk, its rows split over 1, 2 and 4 CTAs of a
+    cluster: each plan within tolerance of float64 and bit-repeatable."""
+    shape = (2, 56, 56, 256)
+    x, s, b, dy = _gn_case(dev, 4, shape)
+    hw, c = 56 * 56, 256
+    width = 8                                          # one group
+    plans = [fgn.GNPlan("one_pass", width, cluster,
+                        fgn.one_pass_smem(hw, width, cluster, slabs))
+             for slabs in (1, 2)]
+    y, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b, plan=plans[0])
+    torch.cuda.synchronize()
+    want = fgn.gn_relu_reference(x.double(), s.double(), b.double())
+    torch.testing.assert_close(y.double(), want, rtol=1e-5, atol=1e-5)
+    got = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd, plan=plans[1])
+    torch.cuda.synchronize()
+    _check_gn_backward(x, dy, s, b, mean, rstd, got)
+    again = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd, plan=plans[1])
+    assert all(torch.equal(p, q) for p, q in zip(again, got))
+
+
+def test_gn_shared_memory_formula_matches_the_kernels(dev):
+    from dorpatch_tpu_torch.ops import _build
+
+    lib = _build.library()
+    for hw, c in sorted(RN50_GN) + [(4096, 256), (12544, 64)]:
+        for direction, slabs in (("fwd", 1), ("bwd", 2)):
+            p = fgn.gn_plan(direction, 2, hw, c)
+            assert p.route == "one_pass"
+            assert lib.dp_gn_onepass_smem(hw, p.width, p.cluster, slabs) \
+                == p.smem
+    # a plan whose shared memory is short of the carve is refused
+    x, s, b, _ = _gn_case(dev, 5, (1, 7, 7, 64))
+    p = fgn.gn_plan("fwd", 1, 49, 64)
+    with pytest.raises(RuntimeError, match="gn_relu_fwd"):
+        fgn.gn_relu_fwd_kernel(x, s, b, plan=p._replace(smem=p.smem - 16))
 
 
 def test_gn_autograd_function_pairs_the_kernels_and_counts(dev):
@@ -232,6 +305,8 @@ def test_gn_autograd_function_pairs_the_kernels_and_counts(dev):
     got = torch.autograd.grad((fgn.gn_relu(*leaves) * dy).sum(), leaves)
     counts = _backend.launch_counts()
     assert (counts["gn_relu_fwd"], counts["gn_relu_bwd"]) == (1, 1)
+    assert _backend.route_counts() == {"gn_relu_fwd/one_pass": 1,
+                                       "gn_relu_bwd/one_pass": 1}
     ref = [t.clone().requires_grad_(True) for t in (x, s, b)]
     want = torch.autograd.grad(
         (fgn.gn_relu_reference(*ref) * dy).sum(), ref)
@@ -256,6 +331,7 @@ def test_resnetv2_victim_on_card_matches_cpu(dev):
         got = gpu.apply(x.to(dev)).cpu()
         want = cpu.apply(x)
     assert _backend.launch_counts()["gn_relu_fwd"] == 49
+    assert _backend.route_counts() == {"gn_relu_fwd/one_pass": 49}
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
 
 

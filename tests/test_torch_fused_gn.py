@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 
 from dorpatch_tpu.ops import fused_gn as jgn
+from dorpatch_tpu_torch.gn_bench import RN50_GN_CALLS
 from dorpatch_tpu_torch.ops import _backend
 from dorpatch_tpu_torch.ops import fused_gn as tgn
 
@@ -164,3 +165,130 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     mean, rstd = tgn.gn_stats_reference(x, 32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tgn.gn_relu_bwd_kernel(x, dy, scale, bias, mean, rstd)
+
+
+def test_rn50_gn_shape_table_matches_the_victim():
+    """`gn_bench.RN50_GN_CALLS`, the (HW, C) shapes and calls per forward
+    that `gn_bench.py` and `chip_smoke.py` time, is what the ResNetV2-50x1
+    victim at 224 calls."""
+    from collections import Counter
+
+    from dorpatch_tpu_torch.models import get_model
+    from dorpatch_tpu_torch.models.resnetv2 import GroupNormRelu
+
+    victim = get_model("imagenet", "resnetv2", "/nonexistent", 224,
+                       device="cpu")
+    seen = Counter()
+    hooks = [m.register_forward_pre_hook(
+        lambda _, args: seen.update([(args[0].shape[1] * args[0].shape[2],
+                                      args[0].shape[3])]))
+        for m in victim.model.modules() if isinstance(m, GroupNormRelu)]
+    try:
+        with torch.no_grad():
+            victim.apply(torch.zeros((1, 224, 224, 3)))
+    finally:
+        for h in hooks:
+            h.remove()
+    assert dict(seen) == RN50_GN_CALLS
+    assert sum(seen.values()) == 49
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("hw,c", sorted(RN50_GN_CALLS))
+def test_every_rn50_shape_takes_the_one_pass_route(direction, hw, c):
+    """Every RN50 GroupNorm at 224 runs in one pass: whole groups of 32,
+    16-byte pieces, rows of at least 32 bytes, within a block's shared
+    memory; the backward's CTA leaves room for two CTAs an SM."""
+    from dorpatch_tpu_torch.ops import _build
+
+    plan = tgn.gn_plan(direction, 256, hw, c)
+    slabs = 1 if direction == "fwd" else 2
+    assert plan.route == "one_pass"
+    assert plan.width % (c // 32) == 0 and plan.width % 4 == 0
+    assert c % plan.width == 0 and 4 * plan.width >= tgn.MIN_ROW_BYTES
+    assert plan.smem == tgn.one_pass_smem(hw, plan.width, plan.cluster,
+                                          slabs)
+    assert plan.smem <= _build.MAX_SMEM_BYTES
+    assert 1 <= plan.cluster <= tgn.MAX_CLUSTER
+    if direction == "bwd":
+        assert plan.smem <= tgn.TWO_PER_SM_BYTES
+    # the plan does not depend on the batch
+    assert tgn.gn_plan(direction, 3, hw, c) == plan
+
+
+def test_one_pass_smem_counts_the_carve():
+    """[3136, 256] with chunks of one group (8 channels): 3136 rows x 32
+    bytes per slab, 256 threads x two float4 partials, 2 x 8 float64
+    channel sums of the CTA and of the chunk, 2 x 8 float per-group
+    values."""
+    assert tgn.one_pass_smem(3136, 8, 1, 1) == 3136 * 32 + 8192 + 320
+    assert tgn.one_pass_smem(3136, 8, 1, 2) == 2 * 3136 * 32 + 8192 + 320
+    assert tgn.one_pass_smem(3136, 8, 2, 2) == 3136 * 32 + 8192 + 320
+    assert tgn.one_pass_smem(3137, 8, 2, 1) == 1569 * 32 + 8192 + 320
+
+
+@pytest.mark.parametrize("c,groups,width", [(64, 32, 16), (96, 32, 24),
+                                            (2048, 32, 64), (8, 8, 8),
+                                            (4, 1, 4)])
+def test_one_pass_width_takes_whole_groups_of_at_least_64_bytes(c, groups,
+                                                                 width):
+    """C = 64 has 2 channels a group, so a chunk takes 8 groups; C = 96 has
+    3, so chunks are multiples of 12 (16-byte pieces), 24 for 64 bytes;
+    C = 8 and C = 4 have no 64-byte row and take all their channels. A tall
+    slab keeps the narrowest width."""
+    assert tgn.one_pass_width(4096, c, groups, 1,
+                              tgn.TWO_PER_SM_BYTES) == width
+    assert all(w % (c // groups) == 0 and w % 4 == 0
+               for w in tgn.one_pass_widths(c, groups))
+
+
+def test_a_short_slab_widens_its_chunk():
+    """At 7x7 a group's slab is 12.5 KB: the chunk takes whole groups until
+    its stage holds MIN_STAGE_BYTES; at 14x14 and 28x28 until its rows are
+    TARGET_ROW_BYTES long."""
+    plan = tgn.gn_plan("fwd", 256, 49, 2048)
+    assert plan.width == 128 and plan.cluster == 1
+    assert 4 * 49 * plan.width >= tgn.MIN_STAGE_BYTES
+    for hw in (196, 784):
+        plan = tgn.gn_plan("fwd", 256, hw, 256)
+        assert 4 * plan.width == tgn.TARGET_ROW_BYTES
+
+
+@pytest.mark.parametrize("hw,fwd,bwd", [(4096, 2, 8), (12544, 4, 8),
+                                        (3136, 1, 4)])
+def test_tall_chunks_split_their_rows_over_a_cluster(hw, fwd, bwd):
+    assert tgn.gn_plan("fwd", 1, hw, 256).cluster == fwd
+    assert tgn.gn_plan("bwd", 1, hw, 256).cluster == bwd
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_an_oversize_slab_takes_the_split_route(direction):
+    """256*256 rows of one-group chunks exceed eight CTAs' shared memory;
+    the split route takes them."""
+    assert tgn.gn_plan(direction, 1, 256 * 256, 64) == \
+        tgn.GNPlan("split", 0, 0, 0)
+
+
+@pytest.mark.parametrize("n,hw,c", [(1, 65535 * 64 + 1, 64), (65536, 49, 64),
+                                    (1, 49, 48), (1, 49, 66)])
+def test_a_shape_no_route_takes_raises(n, hw, c):
+    """Too many tiles for the split route and too tall a chunk for any
+    cluster; too many samples for the grid; C not a multiple of the 32
+    groups or of 4."""
+    for direction in ("fwd", "bwd"):
+        with pytest.raises(ValueError):
+            tgn.gn_plan(direction, n, hw, c)
+
+
+def test_route_counts_reset_with_the_launch_counts():
+    _backend.reset_launch_counts()
+    _backend.count_launch("gn_relu_fwd", "one_pass")
+    _backend.count_launch("gn_relu_bwd", "split")
+    assert _backend.route_counts() == {"gn_relu_fwd/one_pass": 1,
+                                       "gn_relu_bwd/split": 1}
+    assert _backend.launch_counts()["gn_relu_fwd"] == 1
+    _backend.reset_launch_counts()
+    assert _backend.route_counts() == {}
+    x, scale, bias, _ = _case(8, (2, 4, 4, 64))
+    tgn.gn_relu(_t(x), _t(scale), _t(bias))
+    assert _backend.route_counts() == {}
