@@ -11,8 +11,12 @@ NVIDIA GPU.
    main paths' shapes and times both (median over REPS warmed
    repetitions; a repetition replays a CUDA graph of INNER calls,
    bracketed by synchronizes, so host launch cost is not counted):
-   kernels A, B and C at the CIFAR path's shapes, the GroupNorm+ReLU
-   forward and backward at every (HW, C) of the RN50 victim at 224 with
+   kernels A and B at the CIFAR path's shapes and at the 224 paths'
+   (A exact at S = 128, 126 and 63; B against float64 autograd and bit for
+   bit on a repeat; both timed at the attack step's S = 128 beside the
+   plain versions and one-call PyTorch yardsticks), kernel C at CIFAR's
+   stem, the GroupNorm+ReLU forward and backward at every (HW, C) of the
+   RN50 victim at 224 with
    the attack step's N = 256 (one-pass route; route, time, bytes bound,
    plain and library times and calls per forward printed per shape, and
    launches x (time - bound) summed over a forward's 49 calls) and at one
@@ -41,7 +45,13 @@ NVIDIA GPU.
    random weights from the seed, certification at the four radii with
    prune="exact", incremental="auto" (-> stem for the conv victims,
    -> token-exact for the ViT);
-5. certifies one radius both ways on each conv victim (stem fold = kernel
+   and prints A's and B's launches x (time - bound) per path;
+5. computes the RN50 victim's input gradient on one masked batch 10
+   times and runs the RN50 attack's first 5 steps twice from one seed,
+   and fails unless every gradient equals the first and the patches are
+   bit-equal (`repeat.victim_repeat`, `repeat.attack_steps`; without
+   cuDNN determinism the gradient differs in almost every call);
+6. certifies one radius both ways on each conv victim (stem fold = kernel
    C, and full masked forwards = kernel A) and asserts the first-round
    tables agree wherever both top-2 margins exceed 1e-3; on RN50 also
    holds the victim's logits with the GroupNorm kernels against its plain
@@ -52,7 +62,7 @@ NVIDIA GPU.
    against full masked forwards (predictions equal wherever both margins
    exceed `incremental_margin`), and asserts that "token-exact" gives every
    image the (prediction, certification) of incremental="off";
-6. prints the per-kernel JSON line, the nvidia-smi line and, last,
+7. prints the per-kernel JSON line, the nvidia-smi line and, last,
    `{"ok": true, "device": {...}}`.
 
 Any failed phase raises: the script then exits nonzero and prints no
@@ -109,10 +119,12 @@ RN50_ARGV = ["--synthetic", "--dataset", "imagenet", "--base_arch",
              "--max-iterations", "20", "--num-batches", "1"]
 VIT_ARGV = [a if a != "resnetv2" else "vit" for a in RN50_ARGV]
 CIFAR_KERNELS = ("masked_fill_fwd", "masked_fill_bwd", "stem_fold")
-#: the count each record's launches are read from: kernel C at RN50's stem
-#: and kernel H at the pair audit's shape count as stem_fold and
-#: masked_kv_attn; the GroupNorm records by their route
+#: the count each record's launches are read from: kernels A and B at 224,
+#: kernel C at RN50's stem and kernel H at the pair audit's shape count as
+#: their kernel; the GroupNorm records by their route
 COUNT_OF = {"stem_fold_rn50": "stem_fold",
+            "masked_fill_fwd_224": "masked_fill_fwd",
+            "masked_fill_bwd_224": "masked_fill_bwd",
             "masked_kv_attn_pairs": "masked_kv_attn",
             "gn_relu_fwd": "gn_relu_fwd/one_pass",
             "gn_relu_bwd": "gn_relu_bwd/one_pass",
@@ -147,92 +159,106 @@ def _bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_phases(torch, dev):
-    """Kernels A, B, C against their plain versions at the CIFAR main
-    path's shapes. Returns the per-kernel records (launches filled in
-    later)."""
-    import numpy as np
-
+def fill_phase(torch, dev, b, size, suffix=""):
+    """Kernels A and B at one main path's image shape: A exact against its
+    plain version at the attack step's S = 128, the sweep's chunk of 126
+    and the pair audit's chunk of 63; B within TOL_B of float64 autograd
+    of the plain version and bit-equal on a repeat, at S = 128; both timed
+    at S = 128 beside the plain versions and the one-call PyTorch
+    yardsticks (`fill_bench.yardsticks`). Returns the two records."""
     from dorpatch_tpu_torch import masks as masks_lib
+    from dorpatch_tpu_torch.fill_bench import (bwd_bytes, fill_inputs,
+                                               kept_load_share, kept_share,
+                                               yardsticks)
     from dorpatch_tpu_torch.ops import masked_fill as mf
 
-    rng = np.random.default_rng(0)
-    b, size, fill = 8, 32, 0.5
-    universe = masks_lib.dropout_universe(size, 2)
-    imgs = torch.as_tensor(rng.uniform(0, 1, (b, size, size, 3)),
-                           dtype=torch.float32, device=dev)
-    out = []
-
-    # -- A: fill forward at the attack step (S=128), sweep (S=126) and the
-    #    certification pair audit (S=63 of a 630-pair chunking) --
-    for s in (128, 126, 63):
-        rects = torch.as_tensor(universe[rng.choice(len(universe), s, False)],
-                                device=dev)
+    fill = 0.5
+    label = f"[B={b},S=128,K=2,{size}x{size}x3]"
+    for s in (126, 63, 128):
+        imgs, rects, g = fill_inputs(torch, dev, b, size, s, seed=s)
         got = mf.masked_fill_fwd_kernel(imgs, rects, fill)
         want = mf.masked_fill_reference(imgs, rects, fill)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"kernel A differs from its plain version "
-                                 f"at S={s}")
-    rects = torch.as_tensor(universe[rng.choice(len(universe), 128, False)],
-                            device=dev)
+                                 f"at [B={b},S={s},{size}x{size}x3]")
+    a_err = float((got - want).abs().max())
+    del got, want
     hwc = size * size * 3
     s, k = rects.shape[0], rects.shape[1]
-    a_err = float((mf.masked_fill_fwd_kernel(imgs, rects, fill)
-                   - mf.masked_fill_reference(imgs, rects, fill))
-                  .abs().max())
+    keep = masks_lib.rasterize(rects, size)
+    plain_b, lib_a, lib_b = yardsticks(torch, imgs, keep, g, fill)
     a_ms = _device_ms(lambda: mf.masked_fill_fwd_kernel(imgs, rects, fill))
     a_plain = _device_ms(lambda: mf.masked_fill_reference(imgs, rects, fill))
+    a_lib = _device_ms(lib_a)
     bound, by = _bound(4 * b * hwc + 16 * s * k + 4 * b * s * hwc, 0.0)
-    out.append(dict(name="masked_fill_fwd", route="cuda",
-                    source="dorpatch_tpu_torch/csrc/masked_fill.cu",
-                    replaces="dorpatch_tpu/ops/masked_fill.py:53",
-                    launches=0, max_abs_err=a_err, ms=a_ms, plain_ms=a_plain,
-                    bound_ms=bound, bound_by=by, library_ms=None))
-    print(f"kernel A masked_fill_fwd [B={b},S={s},K={k},{size}x{size}x3]: "
-          f"exact, max_abs_err {a_err:.3g}, {a_ms * 1e3:.2f} us "
-          f"(plain {a_plain * 1e3:.2f} us, bound {bound * 1e3:.2f} us "
-          f"by {by})", flush=True)
+    plan = mf.fwd_plan(b, s, size, size, 3)
+    rec_a = dict(name="masked_fill_fwd" + suffix, route="cuda",
+                 source="dorpatch_tpu_torch/csrc/masked_fill.cu",
+                 replaces="dorpatch_tpu/ops/masked_fill.py:53",
+                 launches=0, max_abs_err=a_err, ms=a_ms, plain_ms=a_plain,
+                 bound_ms=bound, bound_by=by, library_ms=a_lib)
+    print(f"kernel A masked_fill_fwd {label} ({plan}): exact at S=128, 126 "
+          f"and 63, {a_ms * 1e3:.2f} us (plain {a_plain * 1e3:.2f} us, "
+          f"torch.where on a rasterized keep-mask {a_lib * 1e3:.2f} us; "
+          f"bound {bound * 1e3:.2f} us by {by}, {bound / a_ms:.0%} of it)",
+          flush=True)
 
-    # -- B: fill backward at the attack step --
-    g = torch.as_tensor(rng.standard_normal((b, s, size, size, 3)),
-                        dtype=torch.float32, device=dev)
-
+    # B against autograd of the plain version in float64: the f32 autograd
+    # sums 128 signed unit-variance terms with its own rounding (reported
+    # beside it), which alone can exceed atol 1e-6
     def plain_grad(dtype):
         x = imgs.to(dtype).requires_grad_(True)
         (gx,) = torch.autograd.grad(
             mf.masked_fill_reference(x, rects, fill), x, g.to(dtype))
         return gx.float()
 
-    # the reference is autograd of the plain version in float64: the f32
-    # autograd sums 128 signed unit-variance terms with its own rounding
-    # (reported beside it), which alone can exceed atol 1e-6
     want = plain_grad(torch.float64)
     got = mf.masked_fill_bwd_kernel(rects, g)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **TOL_B)
+    if not torch.equal(mf.masked_fill_bwd_kernel(rects, g), got):
+        raise AssertionError(f"kernel B {label} does not repeat bit for bit")
     b_err = float((got - want).abs().max())
     b_err32 = float((got - plain_grad(torch.float32)).abs().max())
-    keep = masks_lib.rasterize(rects, size)[None, :, :, :, None]
-    zero = torch.zeros((), device=dev)
+    del got, want
     b_ms = _device_ms(lambda: mf.masked_fill_bwd_kernel(rects, g))
-    b_plain = _device_ms(lambda: torch.where(keep, g, zero).sum(1))
-    bound, by = _bound(4 * b * s * hwc + 16 * s * k + 4 * b * hwc,
-                       float(b * s * hwc), PEAK_F64_FLOPS)
-    out.append(dict(name="masked_fill_bwd", route="cuda",
-                    source="dorpatch_tpu_torch/csrc/masked_fill.cu",
-                    replaces="dorpatch_tpu/ops/masked_fill.py:66",
-                    launches=0, max_abs_err=b_err, ms=b_ms, plain_ms=b_plain,
-                    bound_ms=bound, bound_by=by, library_ms=None))
-    print(f"kernel B masked_fill_bwd [B={b},S={s}]: max_abs_err {b_err:.3g} "
+    b_plain = _device_ms(plain_b)
+    b_lib = _device_ms(lib_b)
+    # B needs g only where keep is 1: its bound counts those bytes and
+    # adds; the bound over all of g is printed beside it
+    need, whole = bwd_bytes(g.shape, k, keep)
+    share = kept_share(keep)
+    bound, by = _bound(need, b * s * hwc * share, PEAK_F64_FLOPS)
+    whole_ms = whole / PEAK_BYTES_PER_S * 1e3
+    rec_b = dict(name="masked_fill_bwd" + suffix, route="cuda",
+                 source="dorpatch_tpu_torch/csrc/masked_fill.cu",
+                 replaces="dorpatch_tpu/ops/masked_fill.py:66",
+                 launches=0, max_abs_err=b_err, ms=b_ms, plain_ms=b_plain,
+                 bound_ms=bound, bound_by=by, library_ms=b_lib)
+    print(f"kernel B masked_fill_bwd {label} "
+          f"({mf.bwd_plan(b, s, size, size, 3)}): max_abs_err {b_err:.3g} "
           f"vs float64 autograd of the plain version (rtol {TOL_B['rtol']}, "
-          f"atol {TOL_B['atol']}); {b_err32:.3g} vs float32 autograd, "
-          f"{b_ms * 1e3:.2f} us (plain where+sum {b_plain * 1e3:.2f} us, "
-          f"bound {bound * 1e3:.2f} us by {by})", flush=True)
+          f"atol {TOL_B['atol']}), {b_err32:.3g} vs float32 autograd, "
+          f"repeats bit for bit; {b_ms * 1e3:.2f} us (plain where+sum "
+          f"{b_plain * 1e3:.2f} us, einsum on a keep-mask {b_lib * 1e3:.2f} "
+          f"us; bound {bound * 1e3:.2f} us by {by}, {bound / b_ms:.0%} of "
+          f"it, for the {share:.1%} of g that is kept; over all of g "
+          f"{whole_ms * 1e3:.2f} us; the kernel makes "
+          f"{kept_load_share(keep):.1%} of g's 16-byte loads)", flush=True)
+    del imgs, g, keep, plain_b, lib_a, lib_b
+    torch.cuda.empty_cache()
+    return [rec_a, rec_b]
 
+
+def kernel_phases(torch, dev):
+    """Kernels A, B and C against their plain versions at the CIFAR main
+    path's shapes. Returns the per-kernel records (launches filled in
+    later)."""
+    out = fill_phase(torch, dev, 8, 32)
     # -- C: stem fold, one phase-1 chunk (3 masks) of the 0.12 radius on
     #    the full-width CIFAR ResNet-18 stem --
-    out.append(stem_fold_phase(torch, dev, "cifar10", "resnet18", size, b,
+    out.append(stem_fold_phase(torch, dev, "cifar10", "resnet18", 32, 8,
                                "stem_fold"))
     return out
 
@@ -813,6 +839,49 @@ def vit_cross_check(torch, dev, b, lift):
                              f"verdicts differ for images {differ}")
 
 
+def fill_overhead(counts, cifar, at224) -> None:
+    """Launches of A and B on each main path and launches x (time - bound)
+    at the path's image shape (CIFAR's records for the CIFAR path, the 224
+    records for RN50 and ViT)."""
+    parts = []
+    for label in ("CIFAR", "RN50", "ViT"):
+        for rec in cifar if label == "CIFAR" else at224:
+            kernel = COUNT_OF.get(rec["name"], rec["name"])
+            n = counts[label][kernel]
+            parts.append(f"{label} {kernel} {n} x ({rec['ms']:.5f} - "
+                         f"{rec['bound_ms']:.5f}) = "
+                         f"{n * (rec['ms'] - rec['bound_ms']):.3f} ms")
+    print("A/B launches x (time - bound): " + "; ".join(parts), flush=True)
+
+
+def repeat_check(torch, dev, steps: int = 5) -> None:
+    """Under `utils.configure_numerics`, on the RN50 main path's victim
+    (ResNetV2-50x1 at 224, 2 images, sampling size 128, dropout 2): the
+    logits and input gradient of one masked batch, `repeat.TRIALS` times,
+    must all equal the first call's; the attack's first `steps` stage-0
+    steps, twice from one seed, must give bit-equal patches and step
+    metrics."""
+    from dorpatch_tpu_torch import data, repeat
+    from dorpatch_tpu_torch.models import get_model
+
+    spec = repeat.VICTIMS["resnetv2"]
+    victim = get_model(spec.dataset, "resnetv2", "/nonexistent",
+                       spec.img_size, device=dev)
+    x_np, _ = next(data.synthetic_batches(spec.dataset, spec.batch,
+                                          spec.img_size, repeat.SEED))
+    x = torch.as_tensor(x_np, device=dev)
+    grads = repeat.victim_repeat(victim, x, "repeat: RN50 victim",
+                                 repeat.TRIALS)
+    if grads["logits_differing"] or grads["input_grad_differing"]:
+        raise AssertionError(f"the RN50 victim's gradient does not repeat: "
+                             f"{grads}")
+    runs = [repeat.attack_steps(victim, x, steps) for _ in range(2)]
+    rec = repeat.compare(f"repeat: RN50 attack, {steps} steps twice from "
+                         f"seed {repeat.SEED}", *runs)
+    if rec["first_step"] is not None:
+        raise AssertionError(f"the RN50 attack does not repeat: {rec}")
+
+
 def main() -> int:
     import torch
 
@@ -838,12 +907,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     cifar_kernels = kernel_phases(torch, dev)
-    rn50_kernels = [stem_fold_phase(torch, dev, "imagenet", "resnetv2", 224,
-                                    2, "stem_fold_rn50")]
+    rn50_kernels = fill_phase(torch, dev, 2, 224, "_224")
+    rn50_kernels.append(stem_fold_phase(torch, dev, "imagenet", "resnetv2",
+                                        224, 2, "stem_fold_rn50"))
     rn50_kernels += gn_phases(torch, dev)
     vit_kernels = attn_phase(torch, dev)
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    fills = {}
     for label, argv, required, records in (
             ("CIFAR", CIFAR_ARGV, CIFAR_KERNELS, cifar_kernels),
             ("RN50", RN50_ARGV, RN50_KERNELS, rn50_kernels),
@@ -853,8 +924,14 @@ def main() -> int:
         for rec in records:
             rec["launches"] = counts.get(COUNT_OF.get(rec["name"],
                                                       rec["name"]), 0)
+        fills[label] = counts
         print(f"{label} main-path phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
+    fill_overhead(fills, cifar_kernels[:2], rn50_kernels[:2])
+
+    t0 = time.perf_counter()
+    repeat_check(torch, dev)
+    print(f"repeat phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     cross_check(torch, dev, "cifar10", "resnet18", 32, 8)

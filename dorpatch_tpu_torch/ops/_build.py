@@ -38,8 +38,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: C entry points: name -> (argtypes, restype)
 SIGNATURES = {
-    "dp_masked_fill_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
-    "dp_masked_fill_bwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+    "dp_masked_fill_fwd": ([_P] * 3 + [_I] * 6 + [_F] + [_I] * 5 + [_P], _I),
+    "dp_masked_fill_bwd": ([_P] * 3 + [_I] * 9 + [_P], _I),
     "dp_stem_fold_smem": ([_I] * 5, ctypes.c_longlong),
     "dp_stem_fold": ([_P, _P, _P, _P, _P, _P] + [_I] * 14 + [_P], _I),
     "dp_gn_tiles": ([_I], _I),

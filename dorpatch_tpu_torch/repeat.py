@@ -1,24 +1,37 @@
-"""Whether the RN50 attack repeats bit for bit on the card.
+"""Whether the attack repeats bit for bit on the card.
 
-    python -m dorpatch_tpu_torch.repeat            # 5 steps
+    python -m dorpatch_tpu_torch.repeat                        # RN50, 5 steps
     python -m dorpatch_tpu_torch.repeat --steps 20
+    python -m dorpatch_tpu_torch.repeat --base_arch resnet18   # CIFAR
+    python -m dorpatch_tpu_torch.repeat --base_arch vit        # ViT-B/16
+    python -m dorpatch_tpu_torch.repeat --trials 50            # 50 gradients
 
-From one seed, on ResNetV2-50x1 at 224 px (2 images, sampling size 128,
-dropout 2: the RN50 main path's attack), it runs:
+From one seed, on the victim given at its main path's dataset, size and
+batch (`VICTIMS`, the argv of `chip_smoke.py`'s CIFAR, RN50 and ViT paths;
+sampling size 128, dropout 2), under the default numerics
+(`utils.configure_numerics`), it runs:
 
-1. the victim's logits and their input gradient on one masked batch (256
-   images), twice each, with the GroupNorm kernels and with the plain
-   GroupNorm;
-2. the first `--steps` stage-0 attack steps twice with the GroupNorm
-   kernels and twice with the plain GroupNorm, comparing the patch (mask
-   and pattern) and the step metrics after every step bit for bit;
+1. the victim's logits and their input gradient on one masked batch,
+   `--trials` times each (TRIALS by default), counting the calls that
+   differ from the first (part of the check below);
+2. the first `--steps` stage-0 attack steps twice, comparing the patch
+   (mask and pattern) and the step metrics after every step bit for bit.
+   This and step 1 are the check: the exit code is 1 unless every
+   gradient call equals the first and the two runs are bit-equal. On
+   ResNetV2 steps 1-2 run with the GroupNorm kernels and again with the
+   plain GroupNorm.
+
+Two diagnostics follow, which name what a difference comes from:
+
 3. the same steps under `torch.use_deterministic_algorithms(True,
    warn_only=True)` twice, printing the distinct warnings (the operations
    that have no deterministic implementation) and whether those two runs
    agree;
-4. the same steps twice with only `torch.backends.cudnn.deterministic`
-   set, which restricts cuDNN's convolutions to deterministic algorithms
-   and changes nothing else.
+4. step 1's `--trials` gradients and the same steps twice with
+   `torch.backends.cudnn.deterministic` off (PyTorch's default, and the
+   numerics before `configure_numerics` set it), the one setting that
+   restricts cuDNN's convolutions to deterministic algorithms: whether
+   the victim needs it, and how often a gradient differs without it.
 
 Prints one line per comparison (first step that differs, largest
 difference) and a JSON summary last. Needs a CUDA device.
@@ -29,6 +42,7 @@ from __future__ import annotations
 import argparse
 import json
 import warnings
+from typing import NamedTuple
 
 import torch
 
@@ -39,35 +53,52 @@ from dorpatch_tpu_torch.losses import local_variance
 from dorpatch_tpu_torch.models import get_model
 from dorpatch_tpu_torch.ops import masked_fill as mf
 
-SEED, SIZE, BATCH = 1234, 224, 2
+
+class Victim(NamedTuple):
+    dataset: str
+    img_size: int
+    batch: int
+
+
+#: each victim's main path, as `chip_smoke.py` runs it through the CLI
+VICTIMS = {"resnetv2": Victim("imagenet", 224, 2),
+           "resnet18": Victim("cifar10", 32, 8),
+           "vit": Victim("imagenet", 224, 2)}
+SEED, SAMPLING_SIZE, DROPOUT = 1234, 128, 2
+#: calls of the victim's gradient the check compares: without cuDNN
+#: determinism almost every call differs from the first
+TRIALS = 10
 
 
 def _diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def _steps(victim, x, steps: int):
-    """The patch (mask, pattern) and metrics after each of `steps` attack
-    steps from the seed."""
-    cfg = AttackConfig(sampling_size=128, dropout=2)
+def attack_steps(victim, x: torch.Tensor, steps: int, seed: int = SEED):
+    """The patch (mask, pattern) and metrics after each of `steps` stage-0
+    attack steps from `seed` (sampling size 128, dropout 2)."""
+    cfg = AttackConfig(sampling_size=SAMPLING_SIZE, dropout=DROPOUT)
     attack = DorPatch(victim.apply, victim.num_classes, cfg)
-    universe = torch.as_tensor(masks.dropout_universe(SIZE, 2),
+    universe = torch.as_tensor(masks.dropout_universe(x.shape[1], DROPOUT),
                                device=x.device)
     with torch.no_grad():
         y = torch.argmax(victim.apply(x), -1)
     lvx = torch.mean(local_variance(x)[0], dim=-1)
-    state = attack._init_state(utils.generator(SEED, x.device), x, y, False,
+    state = attack._init_state(utils.generator(seed, x.device), x, y, False,
                                universe.shape[0])
     out = []
     for _ in range(steps):
         state = attack._step(state, x, lvx, universe, 0)
         out.append((state.adv_mask.clone(), state.adv_pattern.clone(),
                     state.metrics.clone()))
-    torch.cuda.synchronize()
+    if x.is_cuda:
+        torch.cuda.synchronize()
     return out
 
 
-def _compare(label: str, a, b) -> dict:
+def compare(label: str, a, b) -> dict:
+    """First step (1-based) at which two runs of `attack_steps` differ
+    (None when bit-equal) and the largest difference."""
     first, worst = None, 0.0
     for i, (sa, sb) in enumerate(zip(a, b)):
         d = max(_diff(p, q) for p, q in zip(sa, sb))
@@ -80,73 +111,102 @@ def _compare(label: str, a, b) -> dict:
     return dict(first_step=first, max_abs=worst)
 
 
-def _victim_repeat(victim, x, label: str) -> dict:
-    """Logits and input gradient of one masked batch, twice each."""
-    rects = torch.as_tensor(masks.dropout_universe(SIZE, 2)[:128],
-                            device=x.device)
-    xm = mf.masked_fill(x, rects, 0.5).reshape(-1, SIZE, SIZE, 3)
+def victim_repeat(victim, x, label: str, trials: int) -> dict:
+    """Logits and input gradient of one masked batch, `trials` times each:
+    the largest difference from the first call and how many calls
+    differ from it."""
+    rects = torch.as_tensor(
+        masks.dropout_universe(x.shape[1], DROPOUT)[:SAMPLING_SIZE],
+        device=x.device)
+    xm = mf.masked_fill(x, rects, 0.5).reshape((-1,) + tuple(x.shape[1:]))
     outs = []
-    for _ in range(2):
+    for _ in range(trials):
         xi = xm.clone().requires_grad_(True)
         logits = victim.apply(xi)
         (g,) = torch.autograd.grad(logits.logsumexp(-1).sum(), xi)
         outs.append((logits.detach(), g))
-    torch.cuda.synchronize()
-    rec = dict(logits=_diff(outs[0][0], outs[1][0]),
-               input_grad=_diff(outs[0][1], outs[1][1]))
-    same = "bit-equal" if rec["logits"] == 0 else "differ"
-    print(f"{label}: logits repeat {same} (largest difference "
-          f"{rec['logits']:.3g}); input gradient "
-          f"{'bit-equal' if rec['input_grad'] == 0 else 'differs'} "
-          f"(largest difference {rec['input_grad']:.3g})", flush=True)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    rec = {}
+    for i, key in enumerate(("logits", "input_grad")):
+        diffs = [_diff(outs[0][i], o[i]) for o in outs[1:]]
+        rec[key] = max(diffs, default=0.0)
+        rec[key + "_differing"] = sum(d > 0 for d in diffs)
+    print(f"{label}: over {trials} calls, logits differ from the first in "
+          f"{rec['logits_differing']} (largest difference "
+          f"{rec['logits']:.3g}), the input gradient in "
+          f"{rec['input_grad_differing']} (largest difference "
+          f"{rec['input_grad']:.3g})", flush=True)
     return rec
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--base_arch", default="resnetv2", choices=sorted(VICTIMS))
     p.add_argument("--steps", type=int, default=5)
-    args = p.parse_args(argv)
+    p.add_argument("--trials", type=int, default=TRIALS,
+                   help="calls of the victim's gradient to compare")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    spec = VICTIMS[args.base_arch]
     dev = utils.resolve_device("cuda")
     utils.configure_numerics()
-    victim = get_model("imagenet", "resnetv2", "/nonexistent", SIZE,
-                       device=dev)
-    x_np, _ = next(data.synthetic_batches("imagenet", BATCH, SIZE, SEED))
+    victim = get_model(spec.dataset, args.base_arch, "/nonexistent",
+                       spec.img_size, device=dev)
+    x_np, _ = next(data.synthetic_batches(spec.dataset, spec.batch,
+                                          spec.img_size, SEED))
     x = torch.as_tensor(x_np, device=dev)
-    print(f"device: {torch.cuda.get_device_name(dev)}; cudnn benchmark "
+    print(f"device: {torch.cuda.get_device_name(dev)}; {victim.name} at "
+          f"{spec.img_size} px, batch {spec.batch}; cudnn benchmark "
           f"{torch.backends.cudnn.benchmark}, deterministic "
           f"{torch.backends.cudnn.deterministic}", flush=True)
-    summary = {}
-    for impl in ("auto", "plain"):
-        victim.model.set_gn_impl(impl)
-        name = "GN kernels" if impl == "auto" else "plain GN"
-        summary[f"victim/{impl}"] = _victim_repeat(victim, x, name)
-        runs = [_steps(victim, x, args.steps) for _ in range(2)]
-        summary[f"attack/{impl}"] = _compare(f"attack steps, {name}", *runs)
-    victim.model.set_gn_impl("auto")
+    summary = {"arch": victim.name, "steps": args.steps}
+    gn = hasattr(victim.model, "set_gn_impl")
+    for impl in ("auto", "plain") if gn else ("auto",):
+        if gn:
+            victim.model.set_gn_impl(impl)
+        name = {"auto": "GN kernels", "plain": "plain GN"}[impl] if gn \
+            else "default numerics"
+        summary[f"victim/{impl}"] = victim_repeat(victim, x, name,
+                                                   args.trials)
+        runs = [attack_steps(victim, x, args.steps) for _ in range(2)]
+        summary[f"attack/{impl}"] = compare(f"attack steps, {name}", *runs)
+    if gn:
+        victim.model.set_gn_impl("auto")
+    repeats = all(summary[f"attack/{impl}"]["first_step"] is None
+                  and summary[f"victim/{impl}"]["logits_differing"] == 0
+                  and summary[f"victim/{impl}"]["input_grad_differing"] == 0
+                  for impl in (("auto", "plain") if gn else ("auto",)))
 
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            runs = [_steps(victim, x, args.steps) for _ in range(2)]
+            runs = [attack_steps(victim, x, args.steps) for _ in range(2)]
     finally:
         torch.use_deterministic_algorithms(False)
     ops = sorted({str(w.message).split("\n")[0] for w in caught})
     for msg in ops:
         print(f"deterministic-mode warning: {msg}", flush=True)
-    summary["attack/deterministic"] = _compare(
-        "attack steps, GN kernels, deterministic algorithms", *runs)
+    summary["attack/deterministic"] = compare(
+        "diagnostic: attack steps, deterministic algorithms", *runs)
     summary["deterministic_warnings"] = ops
 
-    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.deterministic = False
     try:
-        runs = [_steps(victim, x, args.steps) for _ in range(2)]
+        summary["victim/cudnn_nondeterministic"] = victim_repeat(
+            victim, x, "diagnostic: cuDNN determinism off", args.trials)
+        runs = [attack_steps(victim, x, args.steps) for _ in range(2)]
     finally:
-        torch.backends.cudnn.deterministic = False
-    summary["attack/cudnn_deterministic"] = _compare(
-        "attack steps, GN kernels, cuDNN deterministic only", *runs)
+        utils.configure_numerics()
+    summary["attack/cudnn_nondeterministic"] = compare(
+        "diagnostic: attack steps, cuDNN determinism off", *runs)
+    summary["repeats"] = repeats
     print(json.dumps(summary), flush=True)
-    return 0
+    return 0 if repeats else 1
 
 
 if __name__ == "__main__":

@@ -42,11 +42,23 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def configure_numerics() -> None:
-    """Full float32 on the card. cuDNN convolutions default to TF32 (about
-    three decimal digits), which would loosen every parity with the JAX
-    package's f32 numerics; matmuls default to full f32 but are pinned too."""
+    """Full float32 on the card, repeatable bit for bit.
+
+    - cuDNN convolutions default to TF32 (about three decimal digits),
+      which would loosen every parity with the JAX package's f32 numerics;
+      matmuls default to full f32 but are pinned too.
+    - cuDNN may pick a convolution algorithm that sums in an order that
+      changes from run to run (the data gradient of the attack's
+      backward): the patch then drifts apart between two runs from one
+      seed, and the certification's forward count with it. Deterministic
+      algorithms only, and no benchmark mode, which may time its way to a
+      different (deterministic) algorithm in each run; the JAX package's
+      resume contract is a patch bit-identical to an uninterrupted run.
+    """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
 
 
 def preds_margins(logits: torch.Tensor):

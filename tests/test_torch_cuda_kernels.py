@@ -30,17 +30,31 @@ def dev():
 
 
 def _case(dev, seed, b, size, s, k):
+    """Images and S masks of K rectangles from the dropout universe:
+    singles for K=1, pairs padded with empty rectangles for K=2 and 3, and
+    K/2 pairs side by side (as with --dual) for K=4 and 8."""
     rng = np.random.default_rng(seed)
-    universe = tmasks.pad_rects(
-        tmasks.dropout_universe(size, 1 if k == 1 else 2), k)
-    rects = universe[rng.choice(len(universe), s, replace=False)]
+    universe = tmasks.dropout_universe(size, 1 if k == 1 else 2)
+    draws = k // 2 if k in (4, 8) else 1
+    rects = np.concatenate(
+        [universe[rng.choice(len(universe), s, replace=False)]
+         for _ in range(draws)], axis=1)
+    rects = tmasks.pad_rects(rects, k)
     imgs = rng.uniform(0, 1, (b, size, size, 3)).astype(np.float32)
     return (torch.as_tensor(imgs, device=dev),
             torch.as_tensor(rects, device=dev))
 
 
-@pytest.mark.parametrize("b,size,s,k", [(8, 32, 128, 2), (3, 15, 7, 3),
-                                        (2, 32, 300, 2), (1, 16, 1, 1)])
+# (images, size, masks, K): the CIFAR attack step, odd slabs of the scalar
+# route (15 and 13 px: rows of 45 and 39 floats), more masks than a block's
+# group or B's rectangle tile, one mask, the 224 attack step, K = 4 (--dual)
+# and K = 8 (kMaxRects)
+FILL_CASES = [(8, 32, 128, 2), (3, 15, 7, 3), (2, 32, 300, 2), (1, 16, 1, 1),
+              (2, 224, 128, 2), (8, 32, 128, 4), (2, 32, 64, 8),
+              (2, 13, 40, 2)]
+
+
+@pytest.mark.parametrize("b,size,s,k", FILL_CASES)
 def test_fill_forward_equals_plain_exactly(dev, b, size, s, k):
     imgs, rects = _case(dev, 0, b, size, s, k)
     got = mf.masked_fill_fwd_kernel(imgs, rects, 0.5)
@@ -49,17 +63,115 @@ def test_fill_forward_equals_plain_exactly(dev, b, size, s, k):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("b,size,s,k", [(8, 32, 128, 2), (3, 15, 200, 3)])
-def test_fill_backward_matches_float64_autograd(dev, b, size, s, k):
-    imgs, rects = _case(dev, 1, b, size, s, k)
-    g = torch.randn((b, s, size, size, 3), device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(2))
+@pytest.mark.parametrize("vec", [4, 1])
+def test_fill_forward_every_plan_equals_plain(dev, vec):
+    """A group that does not divide S, one that exceeds it, and both store
+    policies, on both routes, at an image of more than one tile."""
+    imgs, rects = _case(dev, 4, 3, 48, 37, 2)
+    want = mf.masked_fill_reference(imgs, rects, 0.5)
+    for group in (1, 5, 32):
+        for stream in (False, True):
+            plan = mf.FwdPlan(vec, group, stream)
+            got = mf._fwd_launch(imgs, rects, 0.5, plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), plan
+
+
+def _fill_grad64(imgs, rects, g):
     x = imgs.double().requires_grad_(True)
     (want,) = torch.autograd.grad(mf.masked_fill_reference(x, rects, 0.5), x,
                                   g.double())
+    return want.float()
+
+
+@pytest.mark.parametrize("b,size,s,k", [(8, 32, 128, 2), (3, 15, 200, 3),
+                                        (2, 224, 128, 2), (8, 32, 128, 4),
+                                        (2, 32, 64, 8)])
+def test_fill_backward_matches_float64_autograd(dev, b, size, s, k):
+    """Within rtol 1e-5 / atol 1e-6 of float64 autograd of the plain
+    version (the kernel sums in float64), and bit-equal on a repeat."""
+    imgs, rects = _case(dev, 1, b, size, s, k)
+    g = torch.randn((b, s, size, size, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    want = _fill_grad64(imgs, rects, g)
     got = mf.masked_fill_bwd_kernel(rects, g)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want.float(), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(mf.masked_fill_bwd_kernel(rects, g), got)
+
+
+@pytest.mark.parametrize("vec", [4, 1])
+def test_fill_backward_every_plan_matches_float64_autograd(dev, vec):
+    imgs, rects = _case(dev, 5, 3, 32, 200, 2)
+    g = torch.randn((3, 200, 32, 32, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    want = _fill_grad64(imgs, rects, g)
+    for cols in (1, 4, 8, 32, 256):
+        got = mf._bwd_launch(rects, g, mf.BwdPlan(vec, cols))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_fill_launches_refuse_what_the_buffers_or_grid_do_not_admit(dev):
+    """16-byte lanes on a buffer off 16-byte alignment are refused before
+    the launch; the C entries launch the wrapper's grid as given and refuse
+    one that misses a lane or a mask, or covers one twice."""
+    from dorpatch_tpu_torch.ops import _build
+
+    imgs, rects = _case(dev, 6, 2, 32, 40, 2)
+    g = torch.randn((2, 40, 32, 32, 3), device=dev)
+    off = torch.empty(imgs.numel() + 1, device=dev)[1:].view(imgs.shape)
+    off.copy_(imgs)
+    with pytest.raises(ValueError, match="16-byte aligned: False"):
+        mf._fwd_launch(off, rects, 0.5, mf.FwdPlan(4, 8, False))
+    with pytest.raises(ValueError, match="rows of 13x3"):
+        mf._fwd_launch(imgs[:, :13, :13].contiguous(), rects, 0.5,
+                       mf.FwdPlan(4, 8, False))
+    assert torch.equal(mf._fwd_launch(off, rects, 0.5, None),
+                       mf.masked_fill_reference(imgs, rects, 0.5))
+    lib = _build.library()
+    plan = mf.fwd_plan(2, 40, 32, 32, 3)
+    tiles, groups, _ = mf.fwd_grid(plan, 2, 40, 32, 32, 3)
+    out = torch.empty((2, 40, 32, 32, 3), device=dev)
+    for t, gr in ((tiles - 1, groups), (tiles + 1, groups),
+                  (tiles, groups - 1), (tiles, groups + 1), (tiles, groups)):
+        rc = lib.dp_masked_fill_fwd(
+            imgs.data_ptr(), rects.data_ptr(), out.data_ptr(), 2, 40, 2, 32,
+            32, 3, 0.5, 1, plan.group, 0, t, gr,
+            _backend.stream_handle(imgs))
+        assert (rc == 0) == ((t, gr) == (tiles, groups))
+    bplan = mf.bwd_plan(2, 40, 32, 32, 3)
+    blocks, _ = mf.bwd_grid(bplan, 2, 32, 32, 3)
+    dx = torch.empty_like(imgs)
+    for nb in (blocks - 1, blocks + 1, blocks):
+        rc = lib.dp_masked_fill_bwd(
+            g.data_ptr(), rects.data_ptr(), dx.data_ptr(), 2, 40, 2, 32, 32,
+            3, 1, bplan.cols, nb, _backend.stream_handle(g))
+        assert (rc == 0) == (nb == blocks)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("arch", ["resnet18", "resnetv2"])
+def test_attack_repeats_bit_for_bit_under_configure_numerics(dev, arch):
+    """Ten calls of the victim's input gradient on one masked batch are
+    bit-equal, and two 3-step runs of the attack from one seed, at the
+    victim's main path's size and batch, give bit-equal patches."""
+    from dorpatch_tpu_torch import data, repeat, utils
+    from dorpatch_tpu_torch.models import get_model
+
+    utils.configure_numerics()
+    spec = repeat.VICTIMS[arch]
+    victim = get_model(spec.dataset, arch, "/nonexistent", spec.img_size,
+                       device=dev)
+    x_np, _ = next(data.synthetic_batches(spec.dataset, spec.batch,
+                                          spec.img_size, repeat.SEED))
+    x = torch.as_tensor(x_np, device=dev)
+    grads = repeat.victim_repeat(victim, x, arch, repeat.TRIALS)
+    assert grads["logits_differing"] == grads["input_grad_differing"] == 0
+    a, b = (repeat.attack_steps(victim, x, 3) for _ in range(2))
+    for (mask_a, pattern_a, _), (mask_b, pattern_b, _) in zip(a, b):
+        assert torch.equal(mask_a, mask_b)
+        assert torch.equal(pattern_a, pattern_b)
 
 
 def test_autograd_function_pairs_the_kernels_and_counts(dev):

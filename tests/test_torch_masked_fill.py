@@ -79,3 +79,54 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfill.masked_fill_bwd_kernel(torch.as_tensor(rects),
                                      torch.zeros(2, 9, 16, 16, 3))
+
+
+# -- the kernels' launch plans and grids (Python, which the C entries
+#    launch as given; the kernels run only on the card) --
+
+#: (images, size, masks): the attack step, the sweep's chunk and the pair
+#: audit's chunk at the CIFAR path's and the 224 paths' shapes
+MAIN_SHAPES = [(b, size, s) for b, size in ((8, 32), (2, 224))
+               for s in (128, 126, 63)]
+
+
+@pytest.mark.parametrize("b,size,s", MAIN_SHAPES + [(3, 15, 7), (1, 16, 1),
+                                                    (1, 32, 128),
+                                                    (2, 32, 300)])
+def test_fwd_plan_covers_every_lane_and_mask_once(b, size, s):
+    """Kernel A's grid (tiles x mask groups x images) holds every lane of
+    every [b, s] slab exactly once, within the kernel's limits; the main
+    paths' shapes get FWD_GROUPS mask groups, and evict-first stores
+    exactly when the output outgrows the L2."""
+    h = w = size
+    plan = tfill.fwd_plan(b, s, h, w, 3)
+    gx, gy, gz = tfill.fwd_grid(plan, b, s, h, w, 3)
+    nl = h * w * 3 // plan.vec
+    tile = tfill.THREADS * tfill.LANES
+    assert (gx - 1) * tile < nl <= gx * tile
+    assert (gy - 1) * plan.group < s <= gy * plan.group
+    assert gz == b and gy <= 65535
+    assert 1 <= plan.group <= tfill.MAX_GROUP
+    assert plan.vec == (4 if (w * 3) % 4 == 0 else 1)
+    assert plan.stream == (4 * b * s * h * w * 3 > tfill.L2_BYTES)
+    if (b, size, s) in MAIN_SHAPES:
+        assert gy == tfill.FWD_GROUPS
+        assert plan.stream == (size == 224)
+
+
+@pytest.mark.parametrize("b,size,s", MAIN_SHAPES + [(3, 15, 7)])
+def test_bwd_plan_covers_every_lane_once(b, size, s):
+    plan = tfill.bwd_plan(b, s, size, size, 3)
+    gx, gy = tfill.bwd_grid(plan, b, size, size, 3)
+    nl = size * size * 3 // plan.vec
+    assert (gx - 1) * plan.cols < nl <= gx * plan.cols and gy == b
+    assert tfill.THREADS % plan.cols == 0
+    if (b, size, s) in MAIN_SHAPES:
+        assert gx * gy >= 2 * tfill.MIN_BLOCKS
+
+
+def test_plans_take_the_scalar_route_when_unaligned():
+    assert tfill.fwd_plan(2, 8, 32, 32, 3, aligned=False).vec == 1
+    assert tfill.bwd_plan(2, 8, 32, 32, 3, aligned=False).vec == 1
+    assert tfill.lane_width(15, 3, True) == 1       # a row of 45 floats
+    assert tfill.lane_width(4, 1, True) == 4
