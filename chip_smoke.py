@@ -29,7 +29,13 @@ NVIDIA GPU.
    C's bound is its bytes (its operations printed beside), kernel H's the
    least time of a float32-accurate tensor-core design (three TF32 products
    each) against its bytes (the FFMA operations bound printed beside);
-4. runs three main paths through their user entry point, the CLI, each
+   then the bf16 forms against their plain versions on the same bf16
+   inputs, in bf16 ulps, each timed beside its plain bf16 version and a
+   bf16 library call, bounds at 2 bytes an element and 989 TFLOP/s: A at
+   the bank's chunks (S = 36, 63) at 32 and 224 px, C at both stems of the
+   victims' cast copies, D/F at [256,3136,256] and [256,49,2048], H at the
+   ViT-B/16 bank's phase-1 and pair-audit chunks;
+4. runs six main paths through their user entry point, the CLI, each
    with every kernel's launch count set to 0 just before and read just
    after, and fails if a kernel of that path was not launched (or a
    GroupNorm launch took another route than the one-pass route):
@@ -44,13 +50,18 @@ NVIDIA GPU.
      and width; kernels A, B and H);
    random weights from the seed, certification at the four radii with
    prune="exact", incremental="auto" (-> stem for the conv victims,
-   -> token-exact for the ViT);
+   -> token-exact for the ViT); then the same three runs with
+   `--compute-dtype bfloat16 --certify-dtype bfloat16` (the bf16 attack
+   fills at float32 (A, B) and runs the victim's bf16 copy (D, F on RN50);
+   the bf16 bank fills bf16 images (A's bf16 form) and runs C's and H's
+   bf16 forms);
    and prints A's and B's launches x (time - bound) per path;
 5. computes the RN50 victim's input gradient on one masked batch 10
    times and runs the RN50 attack's first 5 steps twice from one seed,
-   and fails unless every gradient equals the first and the patches are
-   bit-equal (`repeat.victim_repeat`, `repeat.attack_steps`; without
-   cuDNN determinism the gradient differs in almost every call);
+   in float32 and in bf16, and fails unless every gradient equals the
+   first and the patches are bit-equal (`repeat.victim_repeat`,
+   `repeat.attack_steps`; without cuDNN determinism the float32 gradient
+   differs in almost every call);
 6. certifies one radius both ways on each conv victim (stem fold = kernel
    C, and full masked forwards = kernel A) and asserts the first-round
    tables agree wherever both top-2 margins exceed 1e-3; on RN50 also
@@ -61,7 +72,11 @@ NVIDIA GPU.
    kernel H against the engine with the plain attention (1e-4) and
    against full masked forwards (predictions equal wherever both margins
    exceed `incremental_margin`), and asserts that "token-exact" gives every
-   image the (prediction, certification) of incremental="off";
+   image the (prediction, certification) of incremental="off"; and runs
+   the bf16 certify bank on RN50 and ViT-B/16, as seeded and lifted,
+   requiring every image's verdict to equal incremental="off" in float32,
+   the bank's bf16 kernels to launch and, lifted, an image to stay
+   unescalated;
 7. prints the per-kernel JSON line, the nvidia-smi line and, last,
    `{"ok": true, "device": {...}}`.
 
@@ -84,6 +99,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 34e12
 PEAK_TF32_FLOPS = 495e12             # dense, tensor cores
+PEAK_BF16_FLOPS = 989e12             # dense, tensor cores
 
 INNER, REPS = 20, 15                 # calls per timed graph, timed graphs
 
@@ -118,6 +134,8 @@ RN50_ARGV = ["--synthetic", "--dataset", "imagenet", "--base_arch",
              "--sampling-size", "128", "--dropout", "2",
              "--max-iterations", "20", "--num-batches", "1"]
 VIT_ARGV = [a if a != "resnetv2" else "vit" for a in RN50_ARGV]
+#: the bf16 paths: the same runs with the bf16 attack and certify bank
+BF16_FLAGS = ["--compute-dtype", "bfloat16", "--certify-dtype", "bfloat16"]
 CIFAR_KERNELS = ("masked_fill_fwd", "masked_fill_bwd", "stem_fold")
 #: the count each record's launches are read from: kernels A and B at 224,
 #: kernel C at RN50's stem and kernel H at the pair audit's shape count as
@@ -129,9 +147,27 @@ COUNT_OF = {"stem_fold_rn50": "stem_fold",
             "gn_relu_fwd": "gn_relu_fwd/one_pass",
             "gn_relu_bwd": "gn_relu_bwd/one_pass",
             "gn_relu_fwd_split": "gn_relu_fwd/split",
-            "gn_relu_bwd_split": "gn_relu_bwd/split"}
+            "gn_relu_bwd_split": "gn_relu_bwd/split",
+            "masked_fill_fwd_bf16_224": "masked_fill_fwd_bf16",
+            "stem_fold_bf16_rn50": "stem_fold_bf16",
+            "gn_relu_fwd_bf16": "gn_relu_fwd_bf16/one_pass",
+            "gn_relu_bwd_bf16": "gn_relu_bwd_bf16/one_pass",
+            "gn_relu_fwd_bf16_49x2048": "gn_relu_fwd_bf16/one_pass",
+            "gn_relu_bwd_bf16_49x2048": "gn_relu_bwd_bf16/one_pass",
+            "masked_kv_attn_bf16_pairs": "masked_kv_attn_bf16"}
 RN50_KERNELS = CIFAR_KERNELS + ("gn_relu_fwd", "gn_relu_bwd")
 VIT_KERNELS = ("masked_fill_fwd", "masked_fill_bwd", "masked_kv_attn")
+#: the bf16 paths' kernels: the attack fills at float32 (A, B) and runs the
+#: victim's bf16 copy (D, F on RN50); the bank fills bf16 images (A's bf16
+#: form) and runs the engines in bf16 (C, H)
+CIFAR_BF16_KERNELS = ("masked_fill_fwd", "masked_fill_bwd",
+                      "masked_fill_fwd_bf16", "stem_fold_bf16")
+RN50_BF16_KERNELS = CIFAR_BF16_KERNELS + ("gn_relu_fwd_bf16",
+                                          "gn_relu_bwd_bf16")
+VIT_BF16_KERNELS = ("masked_fill_fwd", "masked_fill_bwd",
+                    "masked_kv_attn_bf16")
+GN_KERNELS = ("gn_relu_fwd", "gn_relu_bwd", "gn_relu_fwd_bf16",
+              "gn_relu_bwd_bf16")
 
 
 def _smi() -> str:
@@ -263,10 +299,16 @@ def kernel_phases(torch, dev):
     return out
 
 
-def stem_fold_phase(torch, dev, dataset, arch, size, b, name):
+def stem_fold_phase(torch, dev, dataset, arch, size, b, name,
+                    dtype=None):
     """Kernel C on one phase-1 chunk of the 0.12 radius (the chunk the
     engine takes by the stem's inflation), against the plain fold and
-    against the stem conv of the masked batch."""
+    against the stem conv of the masked batch. With `dtype` bfloat16, C's
+    bf16 form on the victim's bf16 copy: within one ulp of the output and
+    one of the delta of the plain bf16 fold (the two sum the delta in
+    float32 in other orders), bit-equal on a repeat; its gap to the bf16
+    conv of the masked batch is printed, not held (that conv rounds once
+    where the fold rounds twice)."""
     import numpy as np
 
     from dorpatch_tpu_torch import masks as masks_lib
@@ -277,13 +319,15 @@ def stem_fold_phase(torch, dev, dataset, arch, size, b, name):
 
     import torch.nn.functional as F
 
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
     rng = np.random.default_rng(2)
     fill = 0.5
     imgs = torch.as_tensor(rng.uniform(0, 1, (b, size, size, 3)),
-                           dtype=torch.float32, device=dev)
+                           dtype=torch.float32, device=dev).to(dtype)
     victim = get_model(dataset, arch, "/nonexistent", size, seed=0,
                        device=dev)
-    eng = victim.incremental
+    eng = victim.incremental.at(dtype)
     k, s = eng.kernel_hw, eng.strides[0]
     spec = masks_lib.geometry(size, 0.12)
     singles, _ = masks_lib.mask_sets(spec)
@@ -296,19 +340,31 @@ def stem_fold_phase(torch, dev, dataset, arch, size, b, name):
                                                                inflation)))
         part = plan[:n_chunk]
         u = eng.norm_scale * (fill - imgs)
-        kern = eng.kernel_fn().contiguous()
+        kern = eng.kernel_fn(eng.module).contiguous()
         up = sf.pad_for_kernel(u, eng.pads, s)
         _, h, w, cout = clean.shape
         oh, ow, geo_np, occ_np = sf._uniform_plan(part, h, w, k, s)
         geo = torch.as_tensor(geo_np, device=dev)
-        occ = torch.as_tensor(occ_np, device=dev)
+        occ = torch.as_tensor(occ_np, dtype=dtype, device=dev)
         got = sf.fold_masked_stem_kernel(kern, clean, up, geo, occ, oh, ow, s)
         want = sf.fold_masked_stem(kern, clean, u, part, (s, s), eng.pads)
         torch.cuda.synchronize()
-        c_err = float((got - want).abs().max())
-        if not c_err <= TOL_C:
+        err = (got.float() - want.float()).abs()
+        c_err = float(err.max())
+        if bf16:
+            delta = want.float() - clean[:, None].float()
+            bad = int((err > _ulp16(torch, want) + _ulp16(torch, delta))
+                      .sum())
+            if bad or not torch.equal(sf.fold_masked_stem_kernel(
+                    kern, clean, up, geo, occ, oh, ow, s), got):
+                raise AssertionError(f"kernel C ({name}): {bad} elements "
+                                     f"beyond an ulp of the output and of "
+                                     f"the delta (max_abs_err {c_err}), or "
+                                     "no bit-equal repeat")
+        elif not c_err <= TOL_C:
             raise AssertionError(f"kernel C ({name}) max_abs_err {c_err} > "
                                  f"{TOL_C}")
+        del err
         # the fold's algebra: the same activations as the stem conv of the
         # masked images
         xm = mf.masked_fill_reference(
@@ -318,8 +374,9 @@ def stem_fold_phase(torch, dev, dataset, arch, size, b, name):
         xm = F.pad(xm, (0, 0, pc0, pc1, pr0, pr1)).permute(0, 3, 1, 2)
         w_oihw = kern.permute(3, 2, 0, 1).contiguous()
         lib = F.conv2d(xm, w_oihw, None, s).permute(0, 2, 3, 1)
-        lib_err = float((lib.reshape(got.shape) - got).abs().max())
-        if not lib_err <= TOL_C:
+        lib_err = float((lib.reshape(got.shape).float()
+                         - got.float()).abs().max())
+        if not bf16 and not lib_err <= TOL_C:
             raise AssertionError(f"kernel C ({name}) vs conv of the masked "
                                  f"batch: {lib_err} > {TOL_C}")
         c_ms = _device_ms(lambda: sf.fold_masked_stem_kernel(
@@ -333,20 +390,23 @@ def stem_fold_phase(torch, dev, dataset, arch, size, b, name):
         c_lib = _device_ms(lambda: F.conv2d(xm, w_oihw, None, s))
     _, hp, wp, cin = up.shape
     n_out = sum((pw.o1 - pw.o0) * (pw.oc1 - pw.oc0) for pw in part)
-    nbytes = 4 * (b * hp * wp * cin + occ.numel() + clean.numel()
-                  + kern.numel() + b * n_chunk * clean[0].numel()) \
-        + 16 * n_chunk
+    nbytes = imgs.element_size() * (
+        b * hp * wp * cin + occ.numel() + clean.numel() + kern.numel()
+        + b * n_chunk * clean[0].numel()) + 16 * n_chunk
     flops = 2.0 * b * n_out * cout * k * k * cin
-    bound, by = _bound(nbytes, flops)
-    ops_bound, _ = _bound(0.0, flops)
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+    bound, by = _bound(nbytes, flops, peak)
+    ops_bound, _ = _bound(0.0, flops, peak)
+    tol = "1 ulp of the output and of the delta" if bf16 else f"atol {TOL_C}"
     print(f"kernel C {name} [B={b},N={n_chunk},{h}x{w}x{cout}, k={k} s={s}, "
-          f"OH/OW {oh}/{ow}]: max_abs_err {c_err:.3g} (atol {TOL_C}; vs conv "
-          f"of the masked batch {lib_err:.3g}), {c_ms * 1e3:.2f} us (plain "
-          f"{c_plain * 1e3:.2f} us, conv2d of the masked batch "
-          f"{c_lib * 1e3:.2f} us, {c_lib / c_ms:.2f}x the kernel's time; "
-          f"bound {bound * 1e3:.2f} us by {by}: {nbytes / 1e6:.2f} MB; "
-          f"operations bound {ops_bound * 1e3:.2f} us, {flops / 1e9:.3f} "
-          f"GFLOP on the FFMA pipes)", flush=True)
+          f"OH/OW {oh}/{ow}, {str(dtype)[6:]}]: max_abs_err {c_err:.3g} "
+          f"({tol}; vs conv of the masked batch {lib_err:.3g}), "
+          f"{c_ms * 1e3:.2f} us (plain {c_plain * 1e3:.2f} us, conv2d of the "
+          f"masked batch {c_lib * 1e3:.2f} us, {c_lib / c_ms:.2f}x the "
+          f"kernel's time; bound {bound * 1e3:.2f} us by {by}: "
+          f"{nbytes / 1e6:.2f} MB; operations bound {ops_bound * 1e3:.2f} us, "
+          f"{flops / 1e9:.3f} GFLOP at {peak / 1e12:.0f} TFLOP/s)",
+          flush=True)
     return dict(name=name, route="cuda",
                 source="dorpatch_tpu_torch/csrc/stem_fold.cu",
                 replaces="dorpatch_tpu/ops/stem_fold.py:214",
@@ -527,7 +587,7 @@ def gn_phases(torch, dev):
     return list(recs[(3136, 256)]) + list(split)
 
 
-def attn_phase(torch, dev):
+def attn_phase(torch, dev, dtype=None):
     """Kernel H at the ViT-B/16 token engine's two shapes of the 0.12
     radius (2 images; T+1 = 197 tokens, 12 heads of 64): the phase-1 chunk
     (all 36 first-round masks) and the first pair-audit chunk (64 of the
@@ -535,7 +595,13 @@ def attn_phase(torch, dev):
     of the masks' token sets and the duplicate dirty slots of their
     padding. Held against the plain version in float64 and timed beside
     the plain f32 version and `F.scaled_dot_product_attention` over the
-    concatenated clean and dirty keys with the biases as its mask."""
+    concatenated clean and dirty keys with the biases as its mask. With
+    `dtype` bfloat16, H's bf16 form on the same inputs rounded to bf16:
+    against its plain version on them within one ulp of the output plus
+    2^-8 of the largest |v| (the kernel rounds the weights to bf16 for
+    P.V), within the JAX package's 0.06 of the float32 plain version on
+    the float32 inputs, timed beside the plain bf16 version and bf16
+    SDPA; its bound is one bf16 product at 989 TFLOP/s."""
     import numpy as np
 
     import torch.nn.functional as F
@@ -544,14 +610,16 @@ def attn_phase(torch, dev):
     from dorpatch_tpu_torch.models import vit
     from dorpatch_tpu_torch.ops import masked_kv_attn as mka
 
+    bf16 = dtype == torch.bfloat16
     size, patch, b, h, f = 224, 16, 2, 12, 64
     t1 = (size // patch) ** 2 + 1
     singles, doubles = masks_lib.mask_sets(masks_lib.geometry(size, 0.12))
     m = singles.shape[0]
-    rng = np.random.default_rng(4)
+    rng = np.random.default_rng(6 if bf16 else 4)
+    tag = "_bf16" if bf16 else ""
     recs = []
-    for name, rects, c in (("masked_kv_attn", singles, m),
-                           ("masked_kv_attn_pairs", doubles, 64)):
+    for name, rects, c in (("masked_kv_attn" + tag, singles, m),
+                           ("masked_kv_attn" + tag + "_pairs", doubles, 64)):
         table = vit.build_tables(rects, size, patch)
         idx = table.idx[:c]
         s = idx.shape[1]
@@ -567,14 +635,32 @@ def attn_phase(torch, dev):
         kc, vc = (torch.as_tensor(rng.standard_normal((b, t1, h, f)),
                                   dtype=torch.float32, device=dev)
                   for _ in range(2))
-        args = (q, kd, vd, kc, vc, cb, db)
+        args32 = (q, kd, vd, kc, vc, cb, db)
+        args = tuple(a.bfloat16() for a in args32) if bf16 else args32
         got = mka.masked_kv_attention_kernel(*args)
         torch.cuda.synchronize()
-        want = mka.masked_kv_attention_reference(*(a.double() for a in args))
-        err = float((got.double() - want).abs().max())
-        err32 = float((got - mka.masked_kv_attention_reference(*args))
-                      .abs().max())
-        torch.testing.assert_close(got.double(), want, **TOL_H)
+        err32 = float((got.float() - mka.masked_kv_attention_reference(
+            *args32)).abs().max())
+        if bf16:
+            want = mka.masked_kv_attention_reference(*args)
+            vmax = max(float(vd.abs().max()), float(vc.abs().max()))
+            e = (got.float() - want.float()).abs()
+            bad = int((e > _ulp16(torch, want) + 2.0 ** -8 * vmax).sum())
+            err = float(e.max())
+            del e
+            if bad or err32 > 0.06:
+                raise AssertionError(f"kernel H ({name}): {bad} elements out "
+                                     f"of tolerance (max {err}), {err32} "
+                                     "from float32")
+            tol = (f"vs plain bf16 (1 ulp + 2^-8 x {vmax:.3g}), {err32:.3g} "
+                   f"vs float32 plain (bar 0.06)")
+        else:
+            want = mka.masked_kv_attention_reference(
+                *(a.double() for a in args))
+            err = float((got.double() - want).abs().max())
+            torch.testing.assert_close(got.double(), want, **TOL_H)
+            tol = (f"vs float64 plain (rtol {TOL_H['rtol']}, atol "
+                   f"{TOL_H['atol']}), {err32:.3g} vs f32 plain")
         if not torch.equal(mka.masked_kv_attention_kernel(*args), got):
             raise AssertionError(f"kernel H ({name}) does not repeat bit for "
                                  "bit")
@@ -584,39 +670,45 @@ def attn_phase(torch, dev):
         def heads(t):
             return t.permute(0, 1, 3, 2, 4).reshape(b * c, h, -1, f)
 
-        qs = heads(q).contiguous()
+        qs = heads(args[0]).contiguous()
         ks, vs = (heads(torch.cat([cl[:, None].expand(b, c, t1, h, f), dt],
                                   dim=2)).contiguous()
-                  for cl, dt in ((kc, kd), (vc, vd)))
-        mask = torch.cat([cb, db], dim=-1).reshape(b * c, 1, 1, t1 + s)
+                  for cl, dt in ((args[3], args[1]), (args[4], args[2])))
+        mask = torch.cat([args[5], args[6]], dim=-1).reshape(b * c, 1, 1,
+                                                             t1 + s)
         lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
                                                  scale=1.0)
-        lib_err = float((lib_out - heads(got)).abs().max())
+        lib_err = float((lib_out.float() - heads(got).float()).abs().max())
         ms = _device_ms(lambda: mka.masked_kv_attention_kernel(*args))
         plain = _device_ms(lambda: mka.masked_kv_attention_reference(*args))
         lib = _device_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, scale=1.0))
-        nbytes = 4 * (4 * b * c * s * h * f + 2 * b * t1 * h * f
-                      + b * c * (t1 + s))
+        nbytes = got.element_size() * (4 * b * c * s * h * f
+                                       + 2 * b * t1 * h * f
+                                       + b * c * (t1 + s))
         flops = 4.0 * b * c * h * s * (t1 + s) * f
         ffma_bound, _ = _bound(0.0, flops)
-        bound, by = _bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
+        if bf16:
+            bound, by = _bound(nbytes, flops, PEAK_BF16_FLOPS)
+            products = (f"{flops / 1e9:.3f} GFLOP in bf16 at "
+                        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s")
+        else:
+            bound, by = _bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
+            products = (f"{flops / 1e9:.3f} GFLOP x 3 TF32 products at "
+                        f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s")
         print(f"kernel H {name} [B={b},C={c},S={s},H={h},f={f},T+1={t1}]: "
-              f"max_abs_err {err:.3g} vs float64 plain (rtol "
-              f"{TOL_H['rtol']}, atol {TOL_H['atol']}), {err32:.3g} vs f32 "
-              f"plain, {lib_err:.3g} vs SDPA; {ms * 1e3:.2f} us (plain "
-              f"{plain * 1e3:.2f} us, SDPA {lib * 1e3:.2f} us, {lib / ms:.2f}x "
-              f"the kernel's time; bound {bound * 1e3:.2f} us by {by}: "
-              f"{flops / 1e9:.3f} GFLOP x 3 TF32 products at "
-              f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB "
-              f"at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; FFMA operations bound "
-              f"{ffma_bound * 1e3:.2f} us)", flush=True)
+              f"max_abs_err {err:.3g} {tol}, {lib_err:.3g} vs SDPA; "
+              f"{ms * 1e3:.2f} us (plain {plain * 1e3:.2f} us, SDPA "
+              f"{lib * 1e3:.2f} us, {lib / ms:.2f}x the kernel's time; bound "
+              f"{bound * 1e3:.2f} us by {by}: {products}, {nbytes / 1e6:.1f} "
+              f"MB at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; FFMA operations "
+              f"bound {ffma_bound * 1e3:.2f} us)", flush=True)
         recs.append(dict(name=name, route="cuda",
                          source="dorpatch_tpu_torch/csrc/masked_kv_attn.cu",
                          replaces="dorpatch_tpu/ops/masked_kv_attn.py:56",
                          launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
                          bound_ms=bound, bound_by=by, library_ms=lib))
-        del args, q, kd, vd, got, qs, ks, vs, lib_out
+        del args, args32, q, kd, vd, got, qs, ks, vs, lib_out
         torch.cuda.empty_cache()
     return recs
 
@@ -653,7 +745,7 @@ def main_path(torch, dev, label, argv, required):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{label} main path")
-    for name in ("gn_relu_fwd", "gn_relu_bwd"):
+    for name in GN_KERNELS:
         if routes.get(f"{name}/one_pass", 0) != counts[name]:
             raise AssertionError(f"{label} main path: {name} took routes "
                                  f"{routes}, not the one-pass route alone")
@@ -854,13 +946,14 @@ def fill_overhead(counts, cifar, at224) -> None:
     print("A/B launches x (time - bound): " + "; ".join(parts), flush=True)
 
 
-def repeat_check(torch, dev, steps: int = 5) -> None:
+def repeat_check(torch, dev, steps: int = 5,
+                 compute_dtype: str = "float32") -> None:
     """Under `utils.configure_numerics`, on the RN50 main path's victim
-    (ResNetV2-50x1 at 224, 2 images, sampling size 128, dropout 2): the
-    logits and input gradient of one masked batch, `repeat.TRIALS` times,
-    must all equal the first call's; the attack's first `steps` stage-0
-    steps, twice from one seed, must give bit-equal patches and step
-    metrics."""
+    (ResNetV2-50x1 at 224, 2 images, sampling size 128, dropout 2) at the
+    attack's `compute_dtype`: the logits and input gradient of one masked
+    batch, `repeat.TRIALS` times, must all equal the first call's; the
+    attack's first `steps` stage-0 steps, twice from one seed, must give
+    bit-equal patches and step metrics."""
     from dorpatch_tpu_torch import data, repeat
     from dorpatch_tpu_torch.models import get_model
 
@@ -870,16 +963,255 @@ def repeat_check(torch, dev, steps: int = 5) -> None:
     x_np, _ = next(data.synthetic_batches(spec.dataset, spec.batch,
                                           spec.img_size, repeat.SEED))
     x = torch.as_tensor(x_np, device=dev)
-    grads = repeat.victim_repeat(victim, x, "repeat: RN50 victim",
-                                 repeat.TRIALS)
+    grads = repeat.victim_repeat(victim, x, f"repeat: RN50 victim, "
+                                 f"{compute_dtype}", repeat.TRIALS,
+                                 compute_dtype)
     if grads["logits_differing"] or grads["input_grad_differing"]:
         raise AssertionError(f"the RN50 victim's gradient does not repeat: "
                              f"{grads}")
-    runs = [repeat.attack_steps(victim, x, steps) for _ in range(2)]
-    rec = repeat.compare(f"repeat: RN50 attack, {steps} steps twice from "
-                         f"seed {repeat.SEED}", *runs)
+    runs = [repeat.attack_steps(victim, x, steps,
+                                compute_dtype=compute_dtype)
+            for _ in range(2)]
+    rec = repeat.compare(f"repeat: RN50 attack, {compute_dtype}, {steps} "
+                         f"steps twice from seed {repeat.SEED}", *runs)
     if rec["first_step"] is not None:
         raise AssertionError(f"the RN50 attack does not repeat: {rec}")
+
+
+
+# ------------------------------------------------------------- bf16 forms
+#
+# Each bf16 kernel against its plain version in bf16 on the same inputs, in
+# bf16 ulps (`_ulp16`: the spacing of bf16 numbers at |x|, 8 significant
+# bits), and timed beside the plain bf16 version and a bf16 library call;
+# bounds at 2 bytes an element and, for products, the bf16 tensor-core rate.
+
+
+def _ulp16(torch, x):
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def fill_phase_bf16(torch, dev, b, size, suffix=""):
+    """Kernel A's bf16 form (the bf16 bank's fill) at one path's image
+    shape: exact against its plain version at the bank's phase-1 chunk
+    (S = 36) and pair-audit chunk (S = 63), timed at S = 63."""
+    from dorpatch_tpu_torch import masks as masks_lib
+    from dorpatch_tpu_torch.fill_bench import fill_inputs
+    from dorpatch_tpu_torch.ops import masked_fill as mf
+
+    fill = 0.5
+    for s in (36, 63):
+        imgs, rects, _ = fill_inputs(torch, dev, b, size, s, seed=s)
+        imgs = imgs.bfloat16()
+        got = mf.masked_fill_fwd_kernel(imgs, rects, fill)
+        want = mf.masked_fill_reference(imgs, rects, fill)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16 or not torch.equal(got, want):
+            raise AssertionError(f"kernel A (bf16) differs from its plain "
+                                 f"version at [B={b},S={s},{size}px]")
+    err = float((got.float() - want.float()).abs().max())
+    del got, want
+    keep = masks_lib.rasterize(rects, size)[None, :, :, :, None]
+    s, k = rects.shape[0], rects.shape[1]
+    hwc = size * size * 3
+    ms = _device_ms(lambda: mf.masked_fill_fwd_kernel(imgs, rects, fill))
+    plain = _device_ms(lambda: mf.masked_fill_reference(imgs, rects, fill))
+    lib = _device_ms(lambda: torch.where(keep, imgs[:, None], fill))
+    bound, by = _bound(2 * b * hwc + 16 * s * k + 2 * b * s * hwc, 0.0)
+    plan = mf.fwd_plan(b, s, size, size, 3, True, 2)
+    print(f"kernel A bf16 masked_fill_fwd [B={b},S={s},K={k},{size}x{size}x3]"
+          f" ({plan}): exact at S=36 and 63, {ms * 1e3:.2f} us (plain "
+          f"{plain * 1e3:.2f} us, torch.where on a rasterized keep-mask "
+          f"{lib * 1e3:.2f} us; bound {bound * 1e3:.2f} us by {by}, "
+          f"{bound / ms:.0%} of it)", flush=True)
+    del imgs, keep
+    torch.cuda.empty_cache()
+    return dict(name="masked_fill_fwd_bf16" + suffix, route="cuda",
+                source="dorpatch_tpu_torch/csrc/masked_fill.cu",
+                replaces="dorpatch_tpu/ops/masked_fill.py:53", launches=0,
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=lib)
+
+
+def gn_slab_bf16(torch, dev, gen, n, hw, c, suffix=""):
+    """The GroupNorm+ReLU kernels' bf16 forms at one [n, hw, c] bf16 slab
+    (one-pass route): y within one bf16 ulp and 1e-5 of the plain bf16
+    forward (float32 statistics summed in other orders), the statistics
+    within 1e-5, dx within one ulp, 1e-5 and the gate-flip bound away from
+    pre-activations within GN_NEAR of 0, the float32 parameter cotangents
+    as the float32 kernels; both repeat bit for bit. Timed beside the plain
+    bf16 versions and PyTorch's bf16 group norm (no ReLU)."""
+    from dorpatch_tpu_torch import ops
+    from dorpatch_tpu_torch.ops import fused_gn as fgn
+
+    import torch.nn.functional as F
+
+    side = math.isqrt(hw)
+    shape = (n, side, side, c)
+    g = 32
+
+    def rand(*size):
+        return torch.randn(size, generator=gen, device=dev)
+
+    x = (rand(*shape) + 0.5 * rand(c)).bfloat16()
+    s, b = 1 + 0.2 * rand(c), 0.3 * rand(c)
+    dy = rand(*shape).bfloat16()
+    label = f"[{n},{hw},{c}] bf16"
+    routes = {d: fgn.gn_plan(d, n, hw, c, 32, 2) for d in ("fwd", "bwd")}
+    ops.reset_launch_counts()
+    y, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
+    dx, ds, db = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd)
+    torch.cuda.synchronize()
+    if ops.route_counts() != {"gn_relu_fwd_bf16/one_pass": 1,
+                              "gn_relu_bwd_bf16/one_pass": 1}:
+        raise AssertionError(f"GN {label}: routes {ops.route_counts()}")
+    again = fgn.gn_relu_fwd_kernel(x, s, b) + \
+        fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd)
+    if not all(torch.equal(p, q)
+               for p, q in zip(again, (y, mean, rstd, dx, ds, db))):
+        raise AssertionError(f"GN {label} does not repeat bit for bit")
+    del again
+    m32, r32 = fgn.gn_stats_reference(x, g)
+    stat_err = max(float((mean - m32).abs().max()),
+                   float(((rstd - r32) / r32).abs().max()))
+    want = fgn.gn_relu_reference(x, s, b)
+    err = (y.float() - want.float()).abs()
+    fwd_bad = int((err > _ulp16(torch, want) + 1e-5).sum())
+    fwd_err = float(err.max())
+    del want, err
+    wdx, wds, wdb = fgn.gn_relu_backward_reference(x, dy, s, b, mean, rstd, g)
+    near, dx_b, ds_b, db_b = fgn.gate_flip_bounds(x, dy, s, b, mean, rstd, g,
+                                                  GN_NEAR)
+    err = (dx.float() - wdx.float()).abs()
+    dx_bad = int(((err > _ulp16(torch, wdx) + 1e-5 + dx_b) & ~near).sum())
+    dx_err = float(err[~near].max())
+    del err, wdx, dx_b, near
+    param_err, param_bad = 0.0, 0
+    for got, want, bnd in ((ds, wds, ds_b), (db, wdb, db_b)):
+        e = (got - want).abs()
+        param_err = max(param_err, float(e.max()))
+        param_bad += int((e > TOL_GN_PARAMS["atol"] + TOL_GN_PARAMS["rtol"]
+                          * want.abs() + bnd).sum())
+    print(f"GN {label}: forward max_abs_err {fwd_err:.3g} vs plain bf16 "
+          f"(1 ulp + 1e-5), stats err {stat_err:.3g}; dx max_abs_err "
+          f"{dx_err:.3g} away from gate flips (1 ulp + 1e-5), dscale/dbias "
+          f"{param_err:.3g}; repeat bit for bit", flush=True)
+    if fwd_bad or dx_bad or param_bad or stat_err > 1e-5:
+        raise AssertionError(f"GN {label}: {fwd_bad} y, {dx_bad} dx, "
+                             f"{param_bad} dscale/dbias elements out of "
+                             f"tolerance, stats err {stat_err}")
+    fwd_ms = _device_ms(lambda: fgn.gn_relu_fwd_kernel(x, s, b), 5, 7)
+    fwd_plain = _device_ms(lambda: fgn.gn_relu_reference(x, s, b), 5, 7)
+    xv = x.permute(0, 3, 1, 2)
+    sb, bb = s.bfloat16(), b.bfloat16()
+    fwd_lib = _device_ms(lambda: F.group_norm(xv, g, sb, bb, 1e-5), 5, 7)
+    bwd_ms = _device_ms(lambda: fgn.gn_relu_bwd_kernel(
+        x, dy, s, b, mean, rstd, params=False), 5, 7)
+    bwd_plain = _device_ms(lambda: fgn.gn_relu_backward_reference(
+        x, dy, s, b, mean, rstd, g), 5, 7)
+    xc, dyc = xv.contiguous(), dy.permute(0, 3, 1, 2).contiguous()
+    _, lmean, lrstd = torch.ops.aten.native_group_norm(
+        xc, sb, bb, n, c, hw, g, 1e-5)
+    bwd_lib = _device_ms(lambda: torch.ops.aten.native_group_norm_backward(
+        dyc, xc, lmean, lrstd, sb, n, c, hw, g, [True, False, False]), 5, 7)
+    del xc, dyc
+    slab = 2.0 * n * hw * c
+    small = 4.0 * (2 * c + 2 * n * g)
+    fwd_bound, fwd_by = _bound(2 * slab + small, 8.0 * n * hw * c)
+    bwd_bound, bwd_by = _bound(3 * slab + small, 12.0 * n * hw * c)
+    pf, pb = routes["fwd"], routes["bwd"]
+    print(f"GN {label}: forward (width {pf.width}, cluster {pf.cluster}, "
+          f"smem {pf.smem}) {fwd_ms * 1e3:.2f} us (bound "
+          f"{fwd_bound * 1e3:.2f} us by {fwd_by}, plain {fwd_plain * 1e3:.2f}"
+          f" us, bf16 F.group_norm without the ReLU {fwd_lib * 1e3:.2f} us); "
+          f"backward (width {pb.width}, cluster {pb.cluster}, smem "
+          f"{pb.smem}) {bwd_ms * 1e3:.2f} us (bound {bwd_bound * 1e3:.2f} us "
+          f"by {bwd_by}, plain {bwd_plain * 1e3:.2f} us, bf16 "
+          f"native_group_norm_backward on NCHW copies, without the ReLU "
+          f"{bwd_lib * 1e3:.2f} us)", flush=True)
+    recs = (dict(name="gn_relu_fwd_bf16" + suffix, route="cuda",
+                 source="dorpatch_tpu_torch/csrc/fused_gn.cu",
+                 replaces="dorpatch_tpu/ops/fused_gn.py:115", launches=0,
+                 max_abs_err=max(fwd_err, stat_err), ms=fwd_ms,
+                 plain_ms=fwd_plain, bound_ms=fwd_bound, bound_by=fwd_by,
+                 library_ms=fwd_lib),
+            dict(name="gn_relu_bwd_bf16" + suffix, route="cuda",
+                 source="dorpatch_tpu_torch/csrc/fused_gn.cu",
+                 replaces="dorpatch_tpu/ops/fused_gn.py:135", launches=0,
+                 max_abs_err=max(dx_err, param_err), ms=bwd_ms,
+                 plain_ms=bwd_plain, bound_ms=bwd_bound, bound_by=bwd_by,
+                 library_ms=bwd_lib))
+    del x, dy, y, dx, xv
+    torch.cuda.empty_cache()
+    return list(recs)
+
+
+def gn_phases_bf16(torch, dev):
+    """Kernels D and F in bf16 at RN50's largest slab and its widest, at
+    the attack step's N = 256."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    return (gn_slab_bf16(torch, dev, gen, GN_N, 3136, 256)
+            + gn_slab_bf16(torch, dev, gen, GN_N, 49, 2048, "_49x2048"))
+
+
+def bank_cross_check(torch, dev, arch, b, lift):
+    """The bf16 certify bank at the 0.12 radius on the card, on the victim
+    at 224 with the head bias of class 0 raised by `lift` (as
+    `vit_cross_check`): every image's (prediction, certification) must
+    equal the float32 bank's with incremental="off"; the bank's bf16
+    kernels must launch; with a lift, at least one image must stay
+    unescalated. Prints the escalated count and the margins."""
+    from dorpatch_tpu_torch import data, ops
+    from dorpatch_tpu_torch.config import DefenseConfig
+    from dorpatch_tpu_torch.defense import PatchCleanser
+    from dorpatch_tpu_torch.masks import geometry
+    from dorpatch_tpu_torch.models import get_model
+
+    size = 224
+    victim = get_model("imagenet", arch, "/nonexistent", size, seed=0,
+                       device=dev)
+    head = victim.model.head["fc"] if arch == "resnetv2" else \
+        victim.model.head
+    with torch.no_grad():
+        head.bias[0] += lift
+    x_np, _ = next(data.synthetic_batches("imagenet", b, size, 1234))
+    x = torch.as_tensor(x_np, device=dev)
+    spec = geometry(size, 0.12)
+    cfg = DefenseConfig(compute_dtype="bfloat16")
+    pc = PatchCleanser(victim.apply, spec, cfg,
+                       incremental_engine=victim.incremental, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec16 = pc.robust_predict(x, victim.num_classes)
+    torch.cuda.synchronize()
+    wall16 = time.perf_counter() - t0
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    esc = int((pc.last_min_margin < cfg.incremental_margin).sum())
+    margins = [round(float(v), 4) for v in pc.last_min_margin]
+    pc32 = PatchCleanser(victim.apply, spec, DefenseConfig(),
+                         incremental_engine=victim.incremental, device=dev)
+    t0 = time.perf_counter()
+    rec32 = pc32.robust_predict(x, victim.num_classes, incremental="off")
+    torch.cuda.synchronize()
+    wall32 = time.perf_counter() - t0
+    differ = [i for i, (a, o) in enumerate(zip(rec16, rec32))
+              if (a.prediction, a.certification)
+              != (o.prediction, o.certification)]
+    print(f"bf16 bank {arch} 224px r=0.12, class-0 bias +{lift}: escalated "
+          f"{esc} of {b} images (min margins {margins}); forwards "
+          f"{[r.forwards for r in rec16]} ({wall16:.2f} s; float32 "
+          f"incremental=off {[r.forwards for r in rec32]}, {wall32:.2f} s); "
+          f"verdicts differ for images {differ}; launches {counts}",
+          flush=True)
+    want = ("masked_kv_attn_bf16",) if arch == "vit" else \
+        ("masked_fill_fwd_bf16", "stem_fold_bf16", "gn_relu_fwd_bf16")
+    missing = [k for k in want if not counts.get(k)]
+    if differ or missing or (lift > 0 and esc == b):
+        raise AssertionError(f"bf16 bank {arch}, lift {lift}: verdicts "
+                             f"differ for images {differ}, kernels not "
+                             f"launched {missing}, escalated {esc} of {b}")
 
 
 def main() -> int:
@@ -913,12 +1245,29 @@ def main() -> int:
     rn50_kernels += gn_phases(torch, dev)
     vit_kernels = attn_phase(torch, dev)
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    cifar_bf16 = [fill_phase_bf16(torch, dev, 8, 32),
+                  stem_fold_phase(torch, dev, "cifar10", "resnet18", 32, 8,
+                                  "stem_fold_bf16", torch.bfloat16)]
+    rn50_bf16 = [fill_phase_bf16(torch, dev, 2, 224, "_224"),
+                 stem_fold_phase(torch, dev, "imagenet", "resnetv2", 224,
+                                 2, "stem_fold_bf16_rn50", torch.bfloat16)]
+    rn50_bf16 += gn_phases_bf16(torch, dev)
+    vit_bf16 = attn_phase(torch, dev, torch.bfloat16)
+    print(f"bf16 kernel phases: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     fills = {}
     for label, argv, required, records in (
             ("CIFAR", CIFAR_ARGV, CIFAR_KERNELS, cifar_kernels),
             ("RN50", RN50_ARGV, RN50_KERNELS, rn50_kernels),
-            ("ViT", VIT_ARGV, VIT_KERNELS, vit_kernels)):
+            ("ViT", VIT_ARGV, VIT_KERNELS, vit_kernels),
+            ("CIFAR bf16", CIFAR_ARGV + BF16_FLAGS, CIFAR_BF16_KERNELS,
+             cifar_bf16),
+            ("RN50 bf16", RN50_ARGV + BF16_FLAGS, RN50_BF16_KERNELS,
+             rn50_bf16),
+            ("ViT bf16", VIT_ARGV + BF16_FLAGS, VIT_BF16_KERNELS,
+             vit_bf16)):
         t0 = time.perf_counter()
         _, counts = main_path(torch, dev, label, argv, required)
         for rec in records:
@@ -930,7 +1279,8 @@ def main() -> int:
     fill_overhead(fills, cifar_kernels[:2], rn50_kernels[:2])
 
     t0 = time.perf_counter()
-    repeat_check(torch, dev)
+    for dtype in ("float32", "bfloat16"):
+        repeat_check(torch, dev, compute_dtype=dtype)
     print(f"repeat phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
@@ -941,9 +1291,14 @@ def main() -> int:
     for lift in (0.0, 4.0):
         vit_cross_check(torch, dev, 4, lift)
     print(f"cross-check phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for arch in ("resnetv2", "vit"):
+        for lift in (0.0, 4.0):
+            bank_cross_check(torch, dev, arch, 4, lift)
+    print(f"bf16 bank phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print(json.dumps({"kernels": cifar_kernels + rn50_kernels
-                                  + vit_kernels}), flush=True)
+    print(json.dumps({"kernels": cifar_kernels + rn50_kernels + vit_kernels
+                      + cifar_bf16 + rn50_bf16 + vit_bf16}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,15 @@ flag per block.
 Stage 0 learns a continuous importance map under group-lasso/density
 regularization; stage 1 freezes the top-k hard mask (`patch_selection`) and
 refines the pattern under EOT over the occlusion universe.
+
+`AttackConfig.compute_dtype="bfloat16"` is the mixed-precision EOT step of
+the JAX package: the masked batch is filled at float32 (kernel A) and runs
+forward and backward through the victim's once-cast bf16 copy
+(`utils.forward_at`: `apply_fn.at(torch.bfloat16)` of a
+`models.registry.VictimForward`), which returns float32 logits; the patch,
+the losses and every carry field stay float32, and the failure sweep runs
+the same bf16 forward. The clean predictions (`y`, the stage-1 switch)
+stay on the float32 forward.
 """
 
 from __future__ import annotations
@@ -112,11 +121,18 @@ def _gumbel(gen: torch.Generator, n: int, device) -> torch.Tensor:
 @dataclasses.dataclass
 class DorPatch:
     """Two-stage distributed occlusion-robust patch attack on the victim's
-    device. `apply_fn(images01) -> logits`."""
+    device. `apply_fn(images01) -> logits`; a bf16 `compute_dtype` runs
+    the EOT step on `utils.forward_at(apply_fn, torch.bfloat16)`."""
 
     apply_fn: Callable[[torch.Tensor], torch.Tensor]
     num_classes: int
     config: AttackConfig = dataclasses.field(default_factory=AttackConfig)
+
+    def __post_init__(self):
+        # the EOT forward (step and sweep): the victim itself at float32,
+        # its once-cast copy at bf16
+        self._fwd = utils.forward_at(
+            self.apply_fn, utils.compute_dtype(self.config.compute_dtype))
 
     # ---------- mask sampling ----------
 
@@ -157,7 +173,7 @@ class DorPatch:
         # fused rasterize + fill (kernels A/B on the card): no [S,H,W] mask
         # tensor; gradients reach adv_x through the kept pixels
         masked = masked_fill(adv_x, rects, cfg.mask_fill)
-        logits = self.apply_fn(masked.reshape((-1,) + tuple(x.shape[1:])))
+        logits = self._fwd(masked.reshape((-1,) + tuple(x.shape[1:])))
         y_rep = state.y.repeat_interleave(s)
         targeted_rep = state.targeted.repeat_interleave(s)
         loss_adv = losses.cw_margin_switchable(
@@ -299,7 +315,7 @@ class DorPatch:
         violated under it. Returns bool `[n_mask]`."""
         delta = losses.l2_project(adv_mask, adv_pattern, x, self.config.eps)
         preds = masked_predictions(
-            self.apply_fn, x + delta, universe,
+            self._fwd, x + delta, universe,
             min(self.config.sampling_size, universe.shape[0]),
             self.config.mask_fill)
         hit = preds == y[:, None]

@@ -7,6 +7,8 @@ Run:  python -m dorpatch_tpu_torch --synthetic --dataset imagenet \\
           --base_arch resnet18 --img-size 32 --max-iterations 20 -b 8
       python -m dorpatch_tpu_torch --synthetic --dataset imagenet \\
           --base_arch vit --img-size 224 --max-iterations 20 -b 2
+      python -m dorpatch_tpu_torch --synthetic --base_arch resnetv2 \\
+          --img-size 224 -b 2 --compute-dtype bfloat16 --certify-dtype bfloat16
 """
 
 from __future__ import annotations
@@ -47,6 +49,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--img-size", type=int, default=224)
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--results-root", default="results")
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="EOT forward+backward precision (carry stays float32)")
+    p.add_argument("--certify-dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="certification sweep precision (the defense's "
+                        "compute_dtype): 'bfloat16' runs the masked "
+                        "forwards - phase-1 tables, pair audits, rows, "
+                        "and the incremental engines - in bf16 with f32 "
+                        "logit/margin readouts; images whose evaluated "
+                        "entries come within --incremental-margin of the "
+                        "argmax boundary re-certify through the f32 "
+                        "exhaustive sweep, so verdicts never weaken")
     p.add_argument("--prune", default="exact", choices=["off", "exact"],
                    help="certification scheduling: 'exact' (default) runs "
                         "the two-phase pruned path with verdicts identical "
@@ -89,10 +104,12 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
                             targeted=args.targeted,
                             max_iterations=args.max_iterations,
                             dropout=args.dropout,
-                            sampling_size=args.sampling_size),
+                            sampling_size=args.sampling_size,
+                            compute_dtype=args.compute_dtype),
         defense=DefenseConfig(prune=args.prune,
                               incremental=args.incremental,
-                              incremental_margin=args.incremental_margin),
+                              incremental_margin=args.incremental_margin,
+                              compute_dtype=args.certify_dtype),
     )
 
 

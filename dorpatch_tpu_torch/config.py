@@ -52,6 +52,9 @@ class AttackConfig:
     lr_decay: float = 0.1
     loss_decay_margin: float = 1e-3
     adapt_start: int = 200                     # stage-0 coefficient adaptation start
+    # EOT forward+backward precision, float32|bfloat16 (the patch, the
+    # losses and the carry stay float32)
+    compute_dtype: str = "float32"
 
     @property
     def scale_down(self) -> float:
@@ -71,6 +74,11 @@ class DefenseConfig:
     read entries have a top-2 logit margin below `incremental_margin`
     through the exhaustive sweep) or "off" (full masked forwards for every
     entry).
+    compute_dtype: "bfloat16" runs the pruned path's programs (phase 1,
+    pair audits, rows and the engines) on a once-cast bf16 copy of the
+    victim, reads every margin in f32, and re-certifies every image whose
+    evaluated margins come within `incremental_margin` of the argmax
+    boundary through the f32 exhaustive sweep, so verdicts never weaken.
     """
 
     ratios: Tuple[float, ...] = DEFAULT_RATIOS
@@ -81,6 +89,7 @@ class DefenseConfig:
     prune: str = "exact"
     incremental: str = "auto"
     incremental_margin: float = 0.5  # "token-exact" escalation threshold
+    compute_dtype: str = "float32"   # certify precision: float32|bfloat16
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,5 @@
-// GroupNorm(G) + ReLU on NHWC float32, forward and backward (kernels D-G).
+// GroupNorm(G) + ReLU on NHWC float32 (and bf16 on the one-pass route),
+// forward and backward (kernels D-G).
 //
 // Replaces the TPU kernels of dorpatch_tpu/ops/fused_gn.py:
 //   one-pass route (whole groups staged on chip, each slab read once):
@@ -73,12 +74,22 @@
 //      statistics.
 //   It reads x (and dy) twice: one slab pass more than the bound.
 // No float atomics on either route, so every result is the same from run
-// to run. Float32 only; the element type enters through the 16-byte
-// pieces and the float4 arithmetic.
+// to run.
+//
+// bf16 (the bf16 attack's and the bf16 certify bank's RN50 activations):
+// the one-pass kernels are templated on the activation type (`Piece`). A
+// 16-byte piece then holds 8 channels, so a thread owns an 8-channel column
+// and a chunk row of W channels is W/8 pieces; the staged slab is half the
+// bytes, and `gn_plan` widens chunks by the element size. Statistics,
+// affine parameters, mean/rstd and the parameter cotangents stay float32
+// (float64 partials as above); y and dx are rounded to bf16 once at their
+// store. The split route is float32 only: no bf16 shape of the main paths
+// reaches it, and the wrapper refuses one that would.
 
 #include <stdint.h>
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -94,6 +105,10 @@ __device__ __forceinline__ float4 f4(float v) { return make_float4(v, v, v, v); 
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
 }
 
 // --------------------------------------------------------------- forward
@@ -419,6 +434,159 @@ __device__ __forceinline__ float4 fma4(float4 a, float4 b, float4 c) {
                      fmaf(a.z, b.z, c.z), fmaf(a.w, b.w, c.w));
 }
 
+// The element types of the one-pass route. A 16-byte piece holds P channels
+// of one row: 4 floats, or 8 bf16 values. A thread's values, partial sums
+// and per-channel parameters of its piece column are a vector V of P floats:
+// float4, or float8 (two float4s) for bf16, whose operations are the float4
+// ones twice, so the float32 kernels are PR 5's code. Pieces are staged as
+// they arrive and widened to V in registers; every sum, statistic and
+// output value is float32 (float64 for the block's channel sums), and a bf16
+// output is rounded once, at its store (__float2bfloat16, to nearest).
+struct float8 {
+  float4 lo, hi;
+};
+
+__device__ __forceinline__ float8 add4(float8 a, float8 b) {
+  return {add4(a.lo, b.lo), add4(a.hi, b.hi)};
+}
+__device__ __forceinline__ float8 fma4(float8 a, float8 b, float8 c) {
+  return {fma4(a.lo, b.lo, c.lo), fma4(a.hi, b.hi, c.hi)};
+}
+__device__ __forceinline__ float8 mul4(float8 a, float8 b) {
+  return {mul4(a.lo, b.lo), mul4(a.hi, b.hi)};
+}
+
+template <typename T> struct Piece;
+template <> struct Piece<float> {
+  using V = float4;
+  static constexpr int P = 4;
+  __device__ static __forceinline__ V zero() { return f4(0.f); }
+  __device__ static __forceinline__ V widen(float4 v) { return v; }
+  __device__ static __forceinline__ float4 narrow(V v) { return v; }
+};
+template <> struct Piece<__nv_bfloat16> {
+  using V = float8;
+  static constexpr int P = 8;
+  __device__ static __forceinline__ V zero() { return {f4(0.f), f4(0.f)}; }
+  __device__ static __forceinline__ V widen(float4 v) {
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
+    return {make_float4(__bfloat162float(h[0]), __bfloat162float(h[1]),
+                        __bfloat162float(h[2]), __bfloat162float(h[3])),
+            make_float4(__bfloat162float(h[4]), __bfloat162float(h[5]),
+                        __bfloat162float(h[6]), __bfloat162float(h[7]))};
+  }
+  __device__ static __forceinline__ float4 narrow(V v) {
+    float4 o;
+    __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&o);
+    h[0] = __float2bfloat16(v.lo.x);
+    h[1] = __float2bfloat16(v.lo.y);
+    h[2] = __float2bfloat16(v.lo.z);
+    h[3] = __float2bfloat16(v.lo.w);
+    h[4] = __float2bfloat16(v.hi.x);
+    h[5] = __float2bfloat16(v.hi.y);
+    h[6] = __float2bfloat16(v.hi.z);
+    h[7] = __float2bfloat16(v.hi.w);
+    return o;
+  }
+};
+
+// A column's P parameters from a [C] float32 array, 16 bytes a load.
+__device__ __forceinline__ void load_vec(const float* p, int col, float4& v) {
+  v = __ldg(reinterpret_cast<const float4*>(p) + col);
+}
+__device__ __forceinline__ void load_vec(const float* p, int col, float8& v) {
+  load_vec(p, 2 * col, v.lo);
+  load_vec(p, 2 * col + 1, v.hi);
+}
+
+// base[g] of the groups of channels c, c+1, ... (cg channels a group).
+__device__ __forceinline__ void gather(const float* base, int c, int cg,
+                                       float4& v) {
+  const int g0 = c / cg, g1 = (c + 1) / cg, g2 = (c + 2) / cg, g3 = (c + 3) / cg;
+  v = make_float4(base[g0], base[g1], base[g2], base[g3]);
+}
+__device__ __forceinline__ void gather(const float* base, int c, int cg,
+                                       float8& v) {
+  gather(base, c, cg, v.lo);
+  gather(base, c + 4, cg, v.hi);
+}
+
+// relu((v - m) * mul + b), the forward's output.
+__device__ __forceinline__ float4 relu_affine(float4 v, float4 m, float4 mul,
+                                              float4 b) {
+  float4 o;
+  o.x = fmaxf((v.x - m.x) * mul.x + b.x, 0.f);
+  o.y = fmaxf((v.y - m.y) * mul.y + b.y, 0.f);
+  o.z = fmaxf((v.z - m.z) * mul.z + b.z, 0.f);
+  o.w = fmaxf((v.w - m.w) * mul.w + b.w, 0.f);
+  return o;
+}
+__device__ __forceinline__ float8 relu_affine(float8 v, float8 m, float8 mul,
+                                              float8 b) {
+  return {relu_affine(v.lo, m.lo, mul.lo, b.lo),
+          relu_affine(v.hi, m.hi, mul.hi, b.hi)};
+}
+
+// One piece column's statistics and affine parameters (Col4 for float4).
+struct Col8 {
+  Col4 lo, hi;
+};
+
+__device__ __forceinline__ void load_colv(const float* mn, const float* rs,
+                                          const float* scale, const float* bias,
+                                          int cp, int cg, Col4& col) {
+  col = load_col(mn, rs, scale, bias, cp, cg);
+}
+__device__ __forceinline__ void load_colv(const float* mn, const float* rs,
+                                          const float* scale, const float* bias,
+                                          int cp, int cg, Col8& col) {
+  col.lo = load_col(mn, rs, scale, bias, 2 * cp, cg);
+  col.hi = load_col(mn, rs, scale, bias, 2 * cp + 1, cg);
+}
+
+template <typename V> struct ColOf;
+template <> struct ColOf<float4> { using type = Col4; };
+template <> struct ColOf<float8> { using type = Col8; };
+
+// The backward's gated sums of one piece: db += dyr, ds += dyr * xhat.
+__device__ __forceinline__ void gate_acc(float4 v, float4 d, const Col4& col,
+                                         float4& adb, float4& ads) {
+  float xh, dr;
+  gate1(v.x, d.x, col.m.x, col.r.x, col.s.x, col.b.x, xh, dr);
+  adb.x += dr;
+  ads.x = fmaf(dr, xh, ads.x);
+  gate1(v.y, d.y, col.m.y, col.r.y, col.s.y, col.b.y, xh, dr);
+  adb.y += dr;
+  ads.y = fmaf(dr, xh, ads.y);
+  gate1(v.z, d.z, col.m.z, col.r.z, col.s.z, col.b.z, xh, dr);
+  adb.z += dr;
+  ads.z = fmaf(dr, xh, ads.z);
+  gate1(v.w, d.w, col.m.w, col.r.w, col.s.w, col.b.w, xh, dr);
+  adb.w += dr;
+  ads.w = fmaf(dr, xh, ads.w);
+}
+__device__ __forceinline__ void gate_acc(float8 v, float8 d, const Col8& col,
+                                         float8& adb, float8& ads) {
+  gate_acc(v.lo, d.lo, col.lo, adb.lo, ads.lo);
+  gate_acc(v.hi, d.hi, col.hi, adb.hi, ads.hi);
+}
+
+// dx of one piece, a_g and b_g already divided by the count.
+__device__ __forceinline__ float4 dx_vec(float4 v, float4 d, const Col4& col,
+                                         float4 ag, float4 bg) {
+  float4 o;
+  o.x = dx_scaled(v.x, d.x, col.m.x, col.r.x, col.s.x, col.b.x, ag.x, bg.x);
+  o.y = dx_scaled(v.y, d.y, col.m.y, col.r.y, col.s.y, col.b.y, ag.y, bg.y);
+  o.z = dx_scaled(v.z, d.z, col.m.z, col.r.z, col.s.z, col.b.z, ag.z, bg.z);
+  o.w = dx_scaled(v.w, d.w, col.m.w, col.r.w, col.s.w, col.b.w, ag.w, bg.w);
+  return o;
+}
+__device__ __forceinline__ float8 dx_vec(float8 v, float8 d, const Col8& col,
+                                         float8 ag, float8 bg) {
+  return {dx_vec(v.lo, d.lo, col.lo, ag.lo, bg.lo),
+          dx_vec(v.hi, d.hi, col.hi, ag.hi, bg.hi)};
+}
+
 // A 16-byte copy to shared memory that leaves L1 alone and asks L2 to fetch
 // the whole 128-byte line: a narrow chunk's row is a part of a line whose
 // other parts the neighbouring chunks' CTAs read at about the same time.
@@ -444,25 +612,26 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
 }
 
 // Where a CTA's chunk lies and which pieces its thread owns. Piece p of the
-// CTA's [rows, W] block is row p / W4, float4 column p % W4; thread t owns
-// p = t + j * active for j < count, all in column t % W4 (active is a
-// multiple of W4).
+// CTA's [rows, W] block is row p / WP, piece column p % WP (WP = W / P
+// pieces a row); thread t owns p = t + j * active for j < count, all in
+// column t % WP (active is a multiple of WP).
 struct Chunk {
-  int n, chunk, rank, rows, r0, W4, active, col, count;
+  int n, chunk, rank, rows, r0, WP, active, col, count;
 };
 
+template <int P>
 __device__ __forceinline__ Chunk chunk_of(int HW, int W, int cl) {
   Chunk k;
-  k.W4 = W / 4;
-  k.active = (kOneThreads / k.W4) * k.W4;
+  k.WP = W / P;
+  k.active = (kOneThreads / k.WP) * k.WP;
   k.rank = blockIdx.x % cl;
   k.chunk = blockIdx.x / cl;
   k.n = blockIdx.y;
   k.rows = (HW + cl - 1) / cl;
   k.r0 = min(HW, k.rank * k.rows);
-  const int pieces = (min(HW, k.r0 + k.rows) - k.r0) * k.W4;
+  const int pieces = (min(HW, k.r0 + k.rows) - k.r0) * k.WP;
   const int t = threadIdx.x;
-  k.col = t % k.W4;
+  k.col = t % k.WP;
   k.count = (t < k.active && t < pieces) ? (pieces - 1 - t) / k.active + 1 : 0;
   return k;
 }
@@ -472,36 +641,40 @@ __device__ __forceinline__ int stage_begin(const Chunk& k, int s) {
 }
 
 // Issues this thread's pieces of stage s from src (the chunk's first row in
-// device memory, C4 float4 a row) to dst (the staged slab).
+// device memory, CP pieces a row) to dst (the staged slab).
 __device__ __forceinline__ void issue_stage(const Chunk& k, int s, float4* dst,
-                                            const float4* src, int C4) {
+                                            const float4* src, int CP) {
   for (int j = stage_begin(k, s); j < stage_begin(k, s + 1); ++j) {
     const int p = threadIdx.x + j * k.active;
-    cp_async16(dst + p, src + (size_t)(p / k.W4) * C4 + k.col);
+    cp_async16(dst + p, src + (size_t)(p / k.WP) * CP + k.col);
   }
 }
 
 // Dynamic shared memory of a one-pass CTA (ops/fused_gn.py one_pass_smem):
-// the staged slabs, the threads' partials, the channel sums of this CTA and
-// of the chunk (float64), the per-group values.
-__host__ __device__ inline size_t onepass_smem(int HW, int W, int cl, int slabs) {
+// the staged slabs, the threads' partials (two V of P floats), the channel
+// sums of this CTA and of the chunk (float64), the per-group values.
+__host__ __device__ inline size_t onepass_smem(int HW, int W, int cl, int slabs,
+                                               int P) {
   const size_t rows = (size_t)(HW + cl - 1) / cl;
-  return rows * W * 4 * slabs + (size_t)kOneThreads * 32 + (size_t)W * 40;
+  return rows * W * (16 / P) * slabs + (size_t)kOneThreads * 8 * P +
+         (size_t)W * 40;
 }
 
+template <typename V>
 struct Smem {
-  float4* stage;   // [slabs][rows * W4]
-  float4* red;     // [kOneThreads][2]
+  float4* stage;   // [slabs][rows * WP]
+  V* red;          // [kOneThreads][2]
   double* chan;    // [2][W]
   double* tot;     // [2][W]
   float* grp;      // [2][W / cg]
 };
 
-__device__ __forceinline__ Smem carve(unsigned char* base, const Chunk& k,
-                                      int W, int slabs) {
-  Smem s;
+template <typename V>
+__device__ __forceinline__ Smem<V> carve(unsigned char* base, const Chunk& k,
+                                         int W, int slabs) {
+  Smem<V> s;
   s.stage = reinterpret_cast<float4*>(base);
-  s.red = s.stage + (size_t)slabs * k.rows * k.W4;
+  s.red = reinterpret_cast<V*>(s.stage + (size_t)slabs * k.rows * k.WP);
   s.chan = reinterpret_cast<double*>(s.red + 2 * kOneThreads);
   s.tot = s.chan + 2 * W;
   s.grp = reinterpret_cast<float*>(s.tot + 2 * W);
@@ -512,17 +685,19 @@ __device__ __forceinline__ Smem carve(unsigned char* base, const Chunk& k,
 // float64 and a fixed order, into sm.tot[0, W) and sm.tot[W, 2W). With a
 // cluster, every CTA adds the CTAs' sums in rank order, so all hold the same
 // totals. Ends with the block (and cluster) synchronized.
+template <typename V, int P>
 __device__ __forceinline__ void channel_sums(const Chunk& k, int W, int cl,
-                                             float4 a, float4 b, const Smem& sm) {
+                                             V a, V b, const Smem<V>& sm) {
   sm.red[2 * threadIdx.x] = a;
   sm.red[2 * threadIdx.x + 1] = b;
   __syncthreads();
-  const int per = k.active / k.W4;   // threads per float4 column
+  const int per = k.active / k.WP;   // threads per piece column
   double* own = cl == 1 ? sm.tot : sm.chan;
-  // channel j's partials are component j % 4 of threads j / 4 + m * W4
+  // channel j's partials are component j % P of threads j / P + m * WP
+  constexpr int kShift = P == 4 ? 2 : 3;
   auto part = [&](int j, int m, int which) {
     return (double)reinterpret_cast<const float*>(
-        sm.red + 2 * ((j >> 2) + m * k.W4) + which)[j & 3];
+        sm.red + 2 * ((j >> kShift) + m * k.WP) + which)[j & (P - 1)];
   };
   if (per <= kSerialSum) {   // wide chunk: a thread per channel
     for (int j = threadIdx.x; j < W; j += kOneThreads) {
@@ -564,33 +739,38 @@ __device__ __forceinline__ void channel_sums(const Chunk& k, int W, int cl,
   cluster.sync();   // no CTA leaves while another still reads its sums
 }
 
-// Forward, one CTA per (chunk of W channels, cluster rank, sample).
+// Forward, one CTA per (chunk of W channels, cluster rank, sample). T is
+// the type of x and y; scale, bias, mean and rstd are float32.
+template <typename T>
 __global__ void __launch_bounds__(kOneThreads)
-gn_fwd_onepass(const float* __restrict__ x, const float* __restrict__ scale,
-               const float* __restrict__ bias, float* __restrict__ y,
+gn_fwd_onepass(const T* __restrict__ x, const float* __restrict__ scale,
+               const float* __restrict__ bias, T* __restrict__ y,
                float* __restrict__ mean, float* __restrict__ rstd, int HW,
                int C, int G, int W, int cl, float eps) {
+  using Pc = Piece<T>;
+  using V = typename Pc::V;
+  constexpr int P = Pc::P;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Chunk k = chunk_of(HW, W, cl);
-  const Smem sm = carve(smem, k, W, 1);
-  const int C4 = C / 4;
+  const Chunk k = chunk_of<P>(HW, W, cl);
+  const Smem<V> sm = carve<V>(smem, k, W, 1);
+  const int CP = C / P;
   const int c0 = k.chunk * W;
-  const size_t base = ((size_t)k.n * HW + k.r0) * C4 + c0 / 4;
+  const size_t base = ((size_t)k.n * HW + k.r0) * CP + c0 / P;
   const float4* xs = reinterpret_cast<const float4*>(x) + base;
   for (int s = 0; s < kStages; ++s) {
-    issue_stage(k, s, sm.stage, xs, C4);
+    issue_stage(k, s, sm.stage, xs, CP);
     cp_async_commit();
   }
-  float4 a1 = f4(0.f), a2 = f4(0.f);
+  V a1 = Pc::zero(), a2 = Pc::zero();
   for (int s = 0; s < kStages; ++s) {
     cp_async_wait(kStages - 1 - s);
     for (int j = stage_begin(k, s); j < stage_begin(k, s + 1); ++j) {
-      const float4 v = sm.stage[threadIdx.x + j * k.active];
+      const V v = Pc::widen(sm.stage[threadIdx.x + j * k.active]);
       a1 = add4(a1, v);
       a2 = fma4(v, v, a2);
     }
   }
-  channel_sums(k, W, cl, a1, a2, sm);
+  channel_sums<V, P>(k, W, cl, a1, a2, sm);
 
   const int cg = C / G, kg = W / cg;
   for (int g = threadIdx.x; g < kg; g += kOneThreads) {
@@ -615,75 +795,62 @@ gn_fwd_onepass(const float* __restrict__ x, const float* __restrict__ scale,
   __syncthreads();
   if (k.count == 0) return;
 
-  const int c = 4 * k.col;   // first channel of the thread's column, in the chunk
-  const float4 s4 = __ldg(reinterpret_cast<const float4*>(scale + c0) + k.col);
-  const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + c0) + k.col);
-  const int g0 = c / cg, g1 = (c + 1) / cg, g2 = (c + 2) / cg, g3 = (c + 3) / cg;
-  const float4 m4 = make_float4(sm.grp[g0], sm.grp[g1], sm.grp[g2], sm.grp[g3]);
-  const float4 mul = make_float4(sm.grp[kg + g0] * s4.x, sm.grp[kg + g1] * s4.y,
-                                 sm.grp[kg + g2] * s4.z, sm.grp[kg + g3] * s4.w);
+  const int c = P * k.col;   // first channel of the thread's column, in the chunk
+  V s4, b4, m4, r4;
+  load_vec(scale + c0, k.col, s4);
+  load_vec(bias + c0, k.col, b4);
+  gather(sm.grp, c, cg, m4);
+  gather(sm.grp + kg, c, cg, r4);
+  const V mul = mul4(r4, s4);
   float4* ys = reinterpret_cast<float4*>(y) + base;
   for (int j = 0; j < k.count; ++j) {
     const int p = threadIdx.x + j * k.active;
-    const float4 v = sm.stage[p];
-    float4 o;
-    o.x = fmaxf((v.x - m4.x) * mul.x + b4.x, 0.f);
-    o.y = fmaxf((v.y - m4.y) * mul.y + b4.y, 0.f);
-    o.z = fmaxf((v.z - m4.z) * mul.z + b4.z, 0.f);
-    o.w = fmaxf((v.w - m4.w) * mul.w + b4.w, 0.f);
-    ys[(size_t)(p / k.W4) * C4 + k.col] = o;
+    const V v = Pc::widen(sm.stage[p]);
+    ys[(size_t)(p / k.WP) * CP + k.col] = Pc::narrow(relu_affine(v, m4, mul, b4));
   }
 }
 
 // Backward, one CTA per (chunk of W channels, cluster rank, sample); dbc and
-// dsc null unless the parameter cotangents are asked for.
+// dsc null unless the parameter cotangents are asked for. T is the type of
+// x, dy and dx; the rest is float32.
+template <typename T>
 __global__ void __launch_bounds__(kOneThreads)
-gn_bwd_onepass(const float* __restrict__ x, const float* __restrict__ dy,
+gn_bwd_onepass(const T* __restrict__ x, const T* __restrict__ dy,
                const float* __restrict__ scale, const float* __restrict__ bias,
                const float* __restrict__ mean, const float* __restrict__ rstd,
-               float* __restrict__ dx, float* __restrict__ dbc,
+               T* __restrict__ dx, float* __restrict__ dbc,
                float* __restrict__ dsc, int HW, int C, int G, int W, int cl) {
+  using Pc = Piece<T>;
+  using V = typename Pc::V;
+  constexpr int P = Pc::P;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Chunk k = chunk_of(HW, W, cl);
-  const Smem sm = carve(smem, k, W, 2);
+  const Chunk k = chunk_of<P>(HW, W, cl);
+  const Smem<V> sm = carve<V>(smem, k, W, 2);
   float4* sx = sm.stage;
-  float4* sd = sm.stage + (size_t)k.rows * k.W4;
-  const int C4 = C / 4;
+  float4* sd = sm.stage + (size_t)k.rows * k.WP;
+  const int CP = C / P;
   const int c0 = k.chunk * W;
-  const size_t base = ((size_t)k.n * HW + k.r0) * C4 + c0 / 4;
+  const size_t base = ((size_t)k.n * HW + k.r0) * CP + c0 / P;
   const float4* xs = reinterpret_cast<const float4*>(x) + base;
   const float4* ds = reinterpret_cast<const float4*>(dy) + base;
   for (int s = 0; s < kStages; ++s) {
-    issue_stage(k, s, sx, xs, C4);
-    issue_stage(k, s, sd, ds, C4);
+    issue_stage(k, s, sx, xs, CP);
+    issue_stage(k, s, sd, ds, CP);
     cp_async_commit();
   }
   const int cg = C / G, kg = W / cg;
-  const Col4 col = load_col(mean + (size_t)k.n * G, rstd + (size_t)k.n * G,
-                            scale, bias, c0 / 4 + k.col, cg);
-  float4 adb = f4(0.f), ads = f4(0.f);
+  typename ColOf<V>::type col;
+  load_colv(mean + (size_t)k.n * G, rstd + (size_t)k.n * G, scale, bias,
+            c0 / P + k.col, cg, col);
+  V adb = Pc::zero(), ads = Pc::zero();
   for (int s = 0; s < kStages; ++s) {
     cp_async_wait(kStages - 1 - s);
     for (int j = stage_begin(k, s); j < stage_begin(k, s + 1); ++j) {
       const int p = threadIdx.x + j * k.active;
-      const float4 v = sx[p];
-      const float4 d = sd[p];
-      float xh, dr;
-      gate1(v.x, d.x, col.m.x, col.r.x, col.s.x, col.b.x, xh, dr);
-      adb.x += dr;
-      ads.x = fmaf(dr, xh, ads.x);
-      gate1(v.y, d.y, col.m.y, col.r.y, col.s.y, col.b.y, xh, dr);
-      adb.y += dr;
-      ads.y = fmaf(dr, xh, ads.y);
-      gate1(v.z, d.z, col.m.z, col.r.z, col.s.z, col.b.z, xh, dr);
-      adb.z += dr;
-      ads.z = fmaf(dr, xh, ads.z);
-      gate1(v.w, d.w, col.m.w, col.r.w, col.s.w, col.b.w, xh, dr);
-      adb.w += dr;
-      ads.w = fmaf(dr, xh, ads.w);
+      gate_acc(Pc::widen(sx[p]), Pc::widen(sd[p]), col, adb, ads);
     }
   }
-  channel_sums(k, W, cl, adb, ads, sm);
+  channel_sums<V, P>(k, W, cl, adb, ads, sm);
 
   if (dbc != nullptr && k.rank == 0) {
     for (int i = threadIdx.x; i < W; i += kOneThreads) {
@@ -706,22 +873,15 @@ gn_bwd_onepass(const float* __restrict__ x, const float* __restrict__ dy,
   __syncthreads();
   if (k.count == 0) return;
 
-  const int c = 4 * k.col;
-  const int g0 = c / cg, g1 = (c + 1) / cg, g2 = (c + 2) / cg, g3 = (c + 3) / cg;
-  const float4 ag = make_float4(sm.grp[g0], sm.grp[g1], sm.grp[g2], sm.grp[g3]);
-  const float4 bg = make_float4(sm.grp[kg + g0], sm.grp[kg + g1],
-                                sm.grp[kg + g2], sm.grp[kg + g3]);
+  const int c = P * k.col;
+  V ag, bg;
+  gather(sm.grp, c, cg, ag);
+  gather(sm.grp + kg, c, cg, bg);
   float4* out = reinterpret_cast<float4*>(dx) + base;
   for (int j = 0; j < k.count; ++j) {
     const int p = threadIdx.x + j * k.active;
-    const float4 v = sx[p];
-    const float4 d = sd[p];
-    float4 o;
-    o.x = dx_scaled(v.x, d.x, col.m.x, col.r.x, col.s.x, col.b.x, ag.x, bg.x);
-    o.y = dx_scaled(v.y, d.y, col.m.y, col.r.y, col.s.y, col.b.y, ag.y, bg.y);
-    o.z = dx_scaled(v.z, d.z, col.m.z, col.r.z, col.s.z, col.b.z, ag.z, bg.z);
-    o.w = dx_scaled(v.w, d.w, col.m.w, col.r.w, col.s.w, col.b.w, ag.w, bg.w);
-    out[(size_t)(p / k.W4) * C4 + k.col] = o;
+    out[(size_t)(p / k.WP) * CP + k.col] =
+        Pc::narrow(dx_vec(Pc::widen(sx[p]), Pc::widen(sd[p]), col, ag, bg));
   }
 }
 
@@ -755,15 +915,17 @@ bool plan(int N, int HW, int C, int G, Shape* sh) {
   return true;
 }
 
-// A one-pass plan the kernels take: W whole groups and a multiple of 4, at
-// most four channels a thread, a cluster of at most kMaxCluster, and smem
-// at least what the CTA carves and at most a block's limit.
-bool onepass_ok(int N, int HW, int C, int G, int W, int cl, int smem, int slabs) {
-  if (!shape_ok(N, HW, C, G)) return false;
+// A one-pass plan the kernels take: W whole groups and a multiple of P
+// (the channels of a 16-byte piece), at most one piece column a thread, a
+// cluster of at most kMaxCluster, and smem at least what the CTA carves and
+// at most a block's limit.
+bool onepass_ok(int N, int HW, int C, int G, int W, int cl, int smem, int slabs,
+                int P) {
+  if (!shape_ok(N, HW, C, G) || C % P != 0) return false;
   const int cg = C / G;
-  return W >= 4 && W % 4 == 0 && W % cg == 0 && C % W == 0 &&
-         W / 4 <= kOneThreads && cl >= 1 && cl <= kMaxCluster &&
-         (size_t)smem >= onepass_smem(HW, W, cl, slabs) && smem <= kMaxSmem;
+  return W >= P && W % P == 0 && W % cg == 0 && C % W == 0 &&
+         W / P <= kOneThreads && cl >= 1 && cl <= kMaxCluster &&
+         (size_t)smem >= onepass_smem(HW, W, cl, slabs, P) && smem <= kMaxSmem;
 }
 
 // Launches a one-pass kernel on grid (cl * C/W, N), with a cluster of cl
@@ -799,6 +961,8 @@ int launch_onepass(void (*kernel)(Params...), int* raised, int N, int C,
 
 int fwd_raised[64] = {0};
 int bwd_raised[64] = {0};
+int fwd_bf16_raised[64] = {0};
+int bwd_bf16_raised[64] = {0};
 
 }  // namespace
 
@@ -811,7 +975,13 @@ int dp_gn_tiles(int HW) { return HW < 1 ? 0 : tiles_of(HW); }
 // channels, slabs 1 (forward) or 2 (backward).
 long long dp_gn_onepass_smem(int HW, int W, int cl, int slabs) {
   if (HW < 1 || W < 1 || cl < 1 || slabs < 1) return -1;
-  return (long long)onepass_smem(HW, W, cl, slabs);
+  return (long long)onepass_smem(HW, W, cl, slabs, Piece<float>::P);
+}
+
+// The same for the bf16 kernels (8 channels a 16-byte piece).
+long long dp_gn_onepass_smem_bf16(int HW, int W, int cl, int slabs) {
+  if (HW < 1 || W < 1 || cl < 1 || slabs < 1) return -1;
+  return (long long)onepass_smem(HW, W, cl, slabs, Piece<__nv_bfloat16>::P);
 }
 
 // Forward. x, y [N,HW,C]; scale, bias [C]; mean, rstd [N,G]. All f32,
@@ -827,8 +997,9 @@ int dp_gn_relu_fwd(const float* x, const float* scale, const float* bias,
   if (N == 0) return (int)cudaSuccess;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (W > 0) {
-    if (!onepass_ok(N, HW, C, G, W, cl, smem, 1)) return (int)cudaErrorInvalidValue;
-    return launch_onepass(gn_fwd_onepass, fwd_raised, N, C, W, cl, smem, st,
+    if (!onepass_ok(N, HW, C, G, W, cl, smem, 1, Piece<float>::P))
+      return (int)cudaErrorInvalidValue;
+    return launch_onepass(gn_fwd_onepass<float>, fwd_raised, N, C, W, cl, smem, st,
                           x, scale, bias, y, mean, rstd, HW, C, G, W, cl, eps);
   }
   Shape sh;
@@ -863,8 +1034,9 @@ int dp_gn_relu_bwd(const float* x, const float* dy, const float* scale,
   if (params && (dbc == nullptr || dsc == nullptr)) return (int)cudaErrorInvalidValue;
   int err = 0;
   if (W > 0) {
-    if (!onepass_ok(N, HW, C, G, W, cl, smem, 2)) return (int)cudaErrorInvalidValue;
-    err = launch_onepass(gn_bwd_onepass, bwd_raised, N, C, W, cl, smem, st,
+    if (!onepass_ok(N, HW, C, G, W, cl, smem, 2, Piece<float>::P))
+      return (int)cudaErrorInvalidValue;
+    err = launch_onepass(gn_bwd_onepass<float>, bwd_raised, N, C, W, cl, smem, st,
                          x, dy, scale, bias, mean, rstd, dx,
                          params ? dbc : nullptr, params ? dsc : nullptr, HW,
                          C, G, W, cl);
@@ -885,6 +1057,51 @@ int dp_gn_relu_bwd(const float* x, const float* dy, const float* scale,
                                                   rstd, ag, bg, dx, HW, C, G);
     err = (int)cudaGetLastError();
   }
+  if (err != 0 || !params) return err;
+  gn_param_sums<<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      dsc, dbc, dscale, dbias, N, C);
+  return (int)cudaGetLastError();
+}
+
+// Forward on bf16 activations (kernel D's bf16 form, the one-pass route
+// only): x, y [N,HW,C] bf16; scale, bias [C] and mean, rstd [N,G] float32.
+// C a multiple of 8 and of G, x and y 16-byte aligned; the plan as for
+// dp_gn_relu_fwd with W > 0 (its chunk widths a multiple of 8).
+int dp_gn_relu_fwd_bf16(const void* x, const float* scale, const float* bias,
+                        void* y, float* mean, float* rstd, int N, int HW,
+                        int C, int G, float eps, int W, int cl, int smem,
+                        void* stream) {
+  if (N == 0) return (int)cudaSuccess;
+  if (!onepass_ok(N, HW, C, G, W, cl, smem, 1, Piece<__nv_bfloat16>::P))
+    return (int)cudaErrorInvalidValue;
+  return launch_onepass(gn_fwd_onepass<__nv_bfloat16>, fwd_bf16_raised, N, C,
+                        W, cl, smem, reinterpret_cast<cudaStream_t>(stream),
+                        static_cast<const __nv_bfloat16*>(x), scale, bias,
+                        static_cast<__nv_bfloat16*>(y), mean, rstd, HW, C, G,
+                        W, cl, eps);
+}
+
+// Backward on bf16 activations (kernel F's bf16 form, the one-pass route
+// only): x, dy, dx [N,HW,C] bf16; scale, bias [C], mean, rstd [N,G] float32;
+// dscale, dbias [C] float32 or both null, and then dbc, dsc [N,C] float32
+// scratch. The plan as for dp_gn_relu_fwd_bf16.
+int dp_gn_relu_bwd_bf16(const void* x, const void* dy, const float* scale,
+                        const float* bias, const float* mean,
+                        const float* rstd, void* dx, float* dbc, float* dsc,
+                        float* dscale, float* dbias, int N, int HW, int C,
+                        int G, int W, int cl, int smem, void* stream) {
+  if (N == 0) return (int)cudaSuccess;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const bool params = dscale != nullptr && dbias != nullptr;
+  if (params && (dbc == nullptr || dsc == nullptr)) return (int)cudaErrorInvalidValue;
+  if (!onepass_ok(N, HW, C, G, W, cl, smem, 2, Piece<__nv_bfloat16>::P))
+    return (int)cudaErrorInvalidValue;
+  const int err = launch_onepass(
+      gn_bwd_onepass<__nv_bfloat16>, bwd_bf16_raised, N, C, W, cl, smem, st,
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(dy), scale, bias, mean, rstd,
+      static_cast<__nv_bfloat16*>(dx), params ? dbc : nullptr,
+      params ? dsc : nullptr, HW, C, G, W, cl);
   if (err != 0 || !params) return err;
   gn_param_sums<<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       dsc, dbc, dscale, dbias, N, C);

@@ -13,6 +13,11 @@
 // Indexing. A lane is V = 4 consecutive floats of one image (16 bytes) when
 // a row of W*C floats is a multiple of 4 and the buffers are 16-byte
 // aligned, so no lane straddles two rows; else V = 1 (the scalar route).
+// Kernel A also takes bf16 images (the bf16 certify bank fills bf16
+// images): the same design templated on the element, a 16-byte lane then
+// holds V = 8 values. The fill is an exact select, so the bf16 form moves
+// the values as raw 16-bit patterns and does no arithmetic on them; the
+// fill value is rounded to bf16 once, on the host (__float2bfloat16).
 // A thread works out its lane's row and the pixel column of each of its V
 // floats once, with one division by W*C and V by C, and reuses them for
 // every mask. Mask s occludes (row, col) when some rectangle k has
@@ -53,6 +58,9 @@
 //    kTileMasks masks.
 
 #include <stdint.h>
+#include <string.h>
+
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -66,21 +74,21 @@ constexpr int kMaxGroup = 32;    // A: masks a block walks
 constexpr int kTileMasks = 128;  // B: masks staged at once
 constexpr int kUnroll = 4;       // B: loads in flight a thread
 
-template <int V> struct Lane;
-template <> struct Lane<4> { using T = float4; };
-template <> struct Lane<1> { using T = float; };
+// A lane of V elements of type E: 16 bytes (float4: 4 floats; uint4: 8 bf16
+// bit patterns) or one element (the scalar route).
+template <typename E, int V> struct Lane;
+template <> struct Lane<float, 4> { using T = float4; };
+template <> struct Lane<float, 1> { using T = float; };
+template <> struct Lane<uint16_t, 8> { using T = uint4; };
+template <> struct Lane<uint16_t, 1> { using T = unsigned short; };
 
-template <int V>
-__device__ __forceinline__ float& elem(typename Lane<V>::T& v, int t) {
-  return reinterpret_cast<float*>(&v)[t];
+template <typename E, int V>
+__device__ __forceinline__ E& elem(typename Lane<E, V>::T& v, int t) {
+  return reinterpret_cast<E*>(&v)[t];
 }
 
-template <bool kStream>
-__device__ __forceinline__ void put(float4* p, const float4& v) {
-  if (kStream) __stcs(p, v); else *p = v;
-}
-template <bool kStream>
-__device__ __forceinline__ void put(float* p, const float& v) {
+template <bool kStream, typename T>
+__device__ __forceinline__ void put(T* p, const T& v) {
   if (kStream) __stcs(p, v); else *p = v;
 }
 
@@ -109,13 +117,14 @@ __device__ __forceinline__ void occlude(const int* q, int row,
   for (int t = 0; t < V; ++t) occ[t] |= (col[t] >= lo) & (col[t] < hi);
 }
 
-// grid (tiles of an image, mask groups, images)
-template <int V, bool kStream>
+// grid (tiles of an image, mask groups, images); E float, or uint16_t for
+// the bits of bf16 values
+template <typename E, int V, bool kStream>
 __global__ void __launch_bounds__(kThreads)
-fill_fwd(const float* __restrict__ imgs, const int* __restrict__ rects,
-         float* __restrict__ out, int S, int K, int H, int W, int C,
-         float fill, int group) {
-  using Vec = typename Lane<V>::T;
+fill_fwd(const E* __restrict__ imgs, const int* __restrict__ rects,
+         E* __restrict__ out, int S, int K, int H, int W, int C,
+         E fill, int group) {
+  using Vec = typename Lane<E, V>::T;
   __shared__ int r[kMaxGroup * 4 * kMaxRects];
   const int wc = W * C;
   const int nl = H * wc / V;                         // lanes of one image
@@ -162,7 +171,7 @@ fill_fwd(const float* __restrict__ imgs, const int* __restrict__ rects,
       Vec o = v[l];
 #pragma unroll
       for (int t = 0; t < V; ++t)
-        if (occ[l][t]) elem<V>(o, t) = fill;
+        if (occ[l][t]) elem<E, V>(o, t) = fill;
       put<kStream>(dst + l * kThreads, o);
     }
   }
@@ -173,7 +182,7 @@ template <int V>
 __global__ void __launch_bounds__(kThreads)
 fill_bwd(const float* __restrict__ g, const int* __restrict__ rects,
          float* __restrict__ dx, int S, int K, int H, int W, int C, int cols) {
-  using Vec = typename Lane<V>::T;
+  using Vec = typename Lane<float, V>::T;
   __shared__ int r[kTileMasks * 4 * kMaxRects];
   __shared__ double part[kThreads][V];
   const int wc = W * C;
@@ -216,7 +225,7 @@ fill_bwd(const float* __restrict__ g, const int* __restrict__ rects,
         for (int t = 0; t < V; ++t) {
           keep[u][t] = !occ[t];
           any |= keep[u][t];
-          elem<V>(x[u], t) = 0.0f;
+          elem<float, V>(x[u], t) = 0.0f;
         }
         if (any) x[u] = __ldcs(gb + (size_t)(s0 + m) * nl);
       }
@@ -224,7 +233,7 @@ fill_bwd(const float* __restrict__ g, const int* __restrict__ rects,
       for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
         for (int t = 0; t < V; ++t)
-          if (keep[u][t]) acc[t] += (double)elem<V>(x[u], t);
+          if (keep[u][t]) acc[t] += (double)elem<float, V>(x[u], t);
     }
   }
 #pragma unroll
@@ -236,7 +245,7 @@ fill_bwd(const float* __restrict__ g, const int* __restrict__ rects,
     for (int t = 0; t < V; ++t) {
       double sum = part[tx][t];
       for (int j = 1; j < split; ++j) sum += part[j * cols + tx][t];
-      elem<V>(o, t) = (float)sum;
+      elem<float, V>(o, t) = (float)sum;
     }
     reinterpret_cast<Vec*>(dx)[(size_t)b * nl + lane] = o;
   }
@@ -248,13 +257,46 @@ bool covers(long long blocks, long long per, long long n) {
   return blocks >= 1 && (blocks - 1) * per < n && n <= blocks * per;
 }
 
-template <int V, bool kStream>
-cudaError_t launch_fwd(const float* imgs, const int* rects, float* out, int B,
-                       int S, int K, int H, int W, int C, float fill,
+template <typename E, int V, bool kStream>
+cudaError_t launch_fwd(const E* imgs, const int* rects, E* out, int B,
+                       int S, int K, int H, int W, int C, E fill,
                        int group, dim3 grid, cudaStream_t st) {
-  fill_fwd<V, kStream><<<grid, kThreads, 0, st>>>(imgs, rects, out, S, K, H,
-                                                  W, C, fill, group);
+  fill_fwd<E, V, kStream><<<grid, kThreads, 0, st>>>(imgs, rects, out, S, K,
+                                                     H, W, C, fill, group);
   return cudaGetLastError();
+}
+
+// Kernel A for either element type: V-element 16-byte lanes when vec != 0
+// (else the scalar route); checks the plan and the grid as the entries
+// document.
+template <typename E, int V>
+int fill_fwd_entry(const E* imgs, const int* rects, E* out, int B, int S,
+                   int K, int H, int W, int C, E fill, int vec, int group,
+                   int stream_stores, int tiles, int groups, void* stream) {
+  if (K < 1 || K > kMaxRects || group < 1 || group > kMaxGroup ||
+      (vec && (W * C) % V != 0))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || S == 0 || H * W * C == 0) return (int)cudaSuccess;
+  const long long nl = (long long)H * W * C / (vec ? V : 1);
+  if (!covers(tiles, (long long)kThreads * kLanes, nl) ||
+      !covers(groups, group, S) || groups > 65535 || B > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)tiles, (unsigned)groups, (unsigned)B);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (vec)
+    e = stream_stores
+        ? launch_fwd<E, V, true>(imgs, rects, out, B, S, K, H, W, C, fill,
+                                 group, grid, st)
+        : launch_fwd<E, V, false>(imgs, rects, out, B, S, K, H, W, C, fill,
+                                  group, grid, st);
+  else
+    e = stream_stores
+        ? launch_fwd<E, 1, true>(imgs, rects, out, B, S, K, H, W, C, fill,
+                                 group, grid, st)
+        : launch_fwd<E, 1, false>(imgs, rects, out, B, S, K, H, W, C, fill,
+                                  group, grid, st);
+  return (int)e;
 }
 
 }  // namespace
@@ -271,30 +313,26 @@ int dp_masked_fill_fwd(const float* imgs, const int* rects, float* out, int B,
                        int S, int K, int H, int W, int C, float fill, int vec4,
                        int group, int stream_stores, int tiles, int groups,
                        void* stream) {
-  if (K < 1 || K > kMaxRects || group < 1 || group > kMaxGroup ||
-      (vec4 && (W * C) % 4 != 0))
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || S == 0 || H * W * C == 0) return (int)cudaSuccess;
-  const long long nl = (long long)H * W * C / (vec4 ? 4 : 1);
-  if (!covers(tiles, (long long)kThreads * kLanes, nl) ||
-      !covers(groups, group, S) || groups > 65535 || B > 65535)
-    return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)tiles, (unsigned)groups, (unsigned)B);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (vec4)
-    e = stream_stores
-        ? launch_fwd<4, true>(imgs, rects, out, B, S, K, H, W, C, fill,
-                                   group, grid, st)
-        : launch_fwd<4, false>(imgs, rects, out, B, S, K, H, W, C, fill,
-                                   group, grid, st);
-  else
-    e = stream_stores
-        ? launch_fwd<1, true>(imgs, rects, out, B, S, K, H, W, C, fill,
-                                   group, grid, st)
-        : launch_fwd<1, false>(imgs, rects, out, B, S, K, H, W, C, fill,
-                                   group, grid, st);
-  return (int)e;
+  return fill_fwd_entry<float, 4>(imgs, rects, out, B, S, K, H, W, C, fill,
+                                  vec4, group, stream_stores, tiles, groups,
+                                  stream);
+}
+
+// Kernel A on bf16 images: imgs [B,H,W,C] and out [B,S,H,W,C] bf16, the
+// rest as for dp_masked_fill_fwd; vec8 != 0 selects 16-byte lanes of 8
+// values (W*C % 8 == 0, 16-byte aligned); `fill` is rounded to bf16.
+int dp_masked_fill_fwd_bf16(const void* imgs, const int* rects, void* out,
+                            int B, int S, int K, int H, int W, int C,
+                            float fill, int vec8, int group,
+                            int stream_stores, int tiles, int groups,
+                            void* stream) {
+  const __nv_bfloat16 fb = __float2bfloat16(fill);
+  uint16_t bits;
+  memcpy(&bits, &fb, sizeof bits);
+  return fill_fwd_entry<uint16_t, 8>(
+      static_cast<const uint16_t*>(imgs), rects, static_cast<uint16_t*>(out),
+      B, S, K, H, W, C, bits, vec8, group, stream_stores, tiles, groups,
+      stream);
 }
 
 // Kernel B. g [B,S,H,W,C] f32, rects [S,K,4] int32, dx [B,H,W,C] f32.

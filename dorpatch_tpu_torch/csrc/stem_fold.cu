@@ -38,8 +38,19 @@
 //     plain version and the TPU kernel sum them. It writes clean + delta with
 //     16-byte stores. The per-mask window and delta never reach device memory.
 //   - One launch per call.
+//   - bf16 (the bf16 certify bank): the same kernel templated on the
+//     element type. The clean copy moves 16 bytes (8 values) at a time; the
+//     stem kernel and the masked window are widened to float32 as they are
+//     staged (exactly: a bf16 value is a float32 with a short mantissa), so
+//     the products of two bf16 operands are exact and the delta accumulates
+//     in float32 in the same order; the epilogue rounds the delta to bf16
+//     and adds it to clean with one more rounding, as the plain version's
+//     `out += delta.to(bf16)` does (and the JAX kernel's `clean +
+//     delta.astype(out.dtype)`).
 
 #include <stdint.h>
+
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -55,12 +66,44 @@ __host__ __device__ inline int win_cols(int OW, int k, int s) {
   return ((OW + kPix - 1) / kPix * kPix - 1) * s + k;
 }
 
+// A read-only element load, widened to float32.
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+// out[q] = clean[q] + delta for the quad q of 4 channels: in float32 for
+// float, and for bf16 the delta rounded to bf16 before a rounded add.
+__device__ __forceinline__ void add_store(const float* cl, float* dst,
+                                          size_t q, const float (&d)[4]) {
+  float4 v = __ldg(reinterpret_cast<const float4*>(cl) + q);
+  v.x += d[0];
+  v.y += d[1];
+  v.z += d[2];
+  v.w += d[3];
+  reinterpret_cast<float4*>(dst)[q] = v;
+}
+__device__ __forceinline__ void add_store(const __nv_bfloat16* cl,
+                                          __nv_bfloat16* dst, size_t q,
+                                          const float (&d)[4]) {
+  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(cl) + q);
+  const __nv_bfloat16* cv = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  uint2 o;
+  __nv_bfloat16* ov = reinterpret_cast<__nv_bfloat16*>(&o);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    ov[i] = __float2bfloat16(__bfloat162float(cv[i]) +
+                             __bfloat162float(__float2bfloat16(d[i])));
+  reinterpret_cast<uint2*>(dst)[q] = o;
+}
+
 // Q quads of 4 channels per thread: 2 when c is a multiple of 8, else 1.
-template <int Q>
+// T is the element type of up, occ, clean, kern and out (float or bf16).
+template <typename T, int Q>
 __global__ void __launch_bounds__(kThreads)
-stem_fold(const int* __restrict__ geo, const float* __restrict__ up,
-          const float* __restrict__ occ, const float* __restrict__ clean,
-          const float* __restrict__ kern, float* __restrict__ out, int N,
+stem_fold(const int* __restrict__ geo, const T* __restrict__ up,
+          const T* __restrict__ occ, const T* __restrict__ clean,
+          const T* __restrict__ kern, T* __restrict__ out, int N,
           int Hp, int Wp, int Cin, int IH, int IW, int OH, int OW, int h,
           int w, int c, int k, int s) {
   extern __shared__ __align__(16) float smem[];
@@ -71,20 +114,23 @@ stem_fold(const int* __restrict__ geo, const float* __restrict__ up,
   const int i0 = __ldg(geo + 4 * n + 2);
   const int ic0 = __ldg(geo + 4 * n + 3);
   const int c4 = c / 4;
+  const int cv = c * (int)sizeof(T) / 16;   // 16-byte vectors a pixel
   const int y0 = blockIdx.z * kRows;
   const int y1 = min(h, y0 + kRows);
   // the block's output rows inside the window, relative to the window
   const int wy0 = max(y0, o0) - o0;
   const int wy1 = min(y1, o0 + OH) - o0;
-  const float4* cl = reinterpret_cast<const float4*>(clean + (size_t)b * h * w * c);
-  float4* dst = reinterpret_cast<float4*>(out + ((size_t)b * N + n) * h * w * c);
+  const T* cl = clean + (size_t)b * h * w * c;
+  T* dst = out + ((size_t)b * N + n) * h * w * c;
 
   // 1. the clean cache, outside the window
-  for (int i = y0 * w * c4 + threadIdx.x; i < y1 * w * c4; i += kThreads) {
-    const int x = (i / c4) % w;
-    const int y = i / (c4 * w);
+  const float4* cl16 = reinterpret_cast<const float4*>(cl);
+  float4* dst16 = reinterpret_cast<float4*>(dst);
+  for (int i = y0 * w * cv + threadIdx.x; i < y1 * w * cv; i += kThreads) {
+    const int x = (i / cv) % w;
+    const int y = i / (cv * w);
     if (y - o0 >= 0 && y - o0 < OH && x - oc0 >= 0 && x - oc0 < OW) continue;
-    dst[i] = __ldg(cl + i);
+    dst16[i] = __ldg(cl16 + i);
   }
   if (wy0 >= wy1) return;   // block-uniform: no row of the window
 
@@ -93,20 +139,25 @@ stem_fold(const int* __restrict__ geo, const float* __restrict__ up,
   const int WC = win_cols(OW, k, s);
   float* ks = smem;                          // [taps, c]
   float* ws = smem + (size_t)taps * c;       // [WR, WC * Cin]
-  for (int i = threadIdx.x; i < taps * c4; i += kThreads)
-    reinterpret_cast<float4*>(ks)[i] = __ldg(reinterpret_cast<const float4*>(kern) + i);
+  if constexpr (sizeof(T) == 4) {
+    for (int i = threadIdx.x; i < taps * c4; i += kThreads)
+      reinterpret_cast<float4*>(ks)[i] = __ldg(reinterpret_cast<const float4*>(kern) + i);
+  } else {
+    for (int i = threadIdx.x; i < taps * c; i += kThreads)
+      ks[i] = load(kern + i);
+  }
   const int r_lo = wy0 * s;                  // first window input row staged
   const int nr = (wy1 - 1 - wy0) * s + k;
-  const float* upb = up + (size_t)b * Hp * Wp * Cin;
-  const float* occn = occ + (size_t)n * IH * IW;
+  const T* upb = up + (size_t)b * Hp * Wp * Cin;
+  const T* occn = occ + (size_t)n * IH * IW;
   for (int i = threadIdx.x; i < nr * WC * Cin; i += kThreads) {
     const int ci = i % Cin;
     const int qc = (i / Cin) % WC;
     const int r = i / (Cin * WC);
     float v = 0.f;
     if (qc < IW)
-      v = __ldg(upb + ((size_t)(i0 + r_lo + r) * Wp + ic0 + qc) * Cin + ci) *
-          __ldg(occn + (r_lo + r) * IW + qc);
+      v = load(upb + ((size_t)(i0 + r_lo + r) * Wp + ic0 + qc) * Cin + ci) *
+          load(occn + (r_lo + r) * IW + qc);
     ws[(size_t)r * WC * Cin + qc * Cin + ci] = v;
   }
   __syncthreads();
@@ -156,14 +207,7 @@ stem_fold(const int* __restrict__ geo, const float* __restrict__ up,
       if (dx0 + p < OW) {
         const size_t px = ((size_t)y * w + oc0 + dx0 + p) * c4;
 #pragma unroll
-        for (int m = 0; m < Q; ++m) {
-          float4 v = __ldg(cl + px + cg + m * cg_n);
-          v.x += acc[p][m][0];
-          v.y += acc[p][m][1];
-          v.z += acc[p][m][2];
-          v.w += acc[p][m][3];
-          dst[px + cg + m * cg_n] = v;
-        }
+        for (int m = 0; m < Q; ++m) add_store(cl, dst, px + cg + m * cg_n, acc[p][m]);
       }
     }
   }
@@ -173,24 +217,39 @@ inline size_t smem_bytes(int Cin, int OW, int c, int k, int s) {
   return 4 * ((size_t)k * k * Cin * c + (size_t)win_rows(k, s) * win_cols(OW, k, s) * Cin);
 }
 
-template <int Q>
-int launch(const int* geo, const float* up, const float* occ,
-           const float* clean, const float* kern, float* out, int B, int N,
-           int Hp, int Wp, int Cin, int IH, int IW, int OH, int OW, int h,
-           int w, int c, int k, int s, cudaStream_t st) {
+template <typename T, int Q>
+int launch(const int* geo, const T* up, const T* occ, const T* clean,
+           const T* kern, T* out, int B, int N, int Hp, int Wp, int Cin,
+           int IH, int IW, int OH, int OW, int h, int w, int c, int k, int s,
+           cudaStream_t st) {
   const size_t bytes = smem_bytes(Cin, OW, c, k, s);
   static size_t raised = 48 * 1024;   // the default dynamic limit
   if (bytes > raised) {
     cudaError_t err = cudaFuncSetAttribute(
-        stem_fold<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        stem_fold<T, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     raised = bytes;
   }
   const dim3 grid(N, B, (h + kRows - 1) / kRows);
-  stem_fold<Q><<<grid, kThreads, bytes, st>>>(geo, up, occ, clean, kern, out,
-                                             N, Hp, Wp, Cin, IH, IW, OH, OW,
-                                             h, w, c, k, s);
+  stem_fold<T, Q><<<grid, kThreads, bytes, st>>>(geo, up, occ, clean, kern,
+                                                 out, N, Hp, Wp, Cin, IH, IW,
+                                                 OH, OW, h, w, c, k, s);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int entry(const int* geo, const T* up, const T* occ, const T* clean,
+          const T* kern, T* out, int B, int N, int Hp, int Wp, int Cin, int IH,
+          int IW, int OH, int OW, int h, int w, int c, int k, int s,
+          void* stream) {
+  if (c * (int)sizeof(T) % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (B == 0 || N == 0) return (int)cudaSuccess;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (c % 8 == 0)
+    return launch<T, 2>(geo, up, occ, clean, kern, out, B, N, Hp, Wp, Cin, IH,
+                        IW, OH, OW, h, w, c, k, s, st);
+  return launch<T, 1>(geo, up, occ, clean, kern, out, B, N, Hp, Wp, Cin, IH,
+                      IW, OH, OW, h, w, c, k, s, st);
 }
 
 }  // namespace
@@ -211,14 +270,22 @@ int dp_stem_fold(const int* geo, const float* up, const float* occ,
                  const float* clean, const float* kern, float* out, int B, int N,
                  int Hp, int Wp, int Cin, int IH, int IW, int OH, int OW, int h,
                  int w, int c, int k, int s, void* stream) {
-  if (c % 4 != 0) return (int)cudaErrorInvalidValue;
-  if (B == 0 || N == 0) return (int)cudaSuccess;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (c % 8 == 0)
-    return launch<2>(geo, up, occ, clean, kern, out, B, N, Hp, Wp, Cin, IH,
-                     IW, OH, OW, h, w, c, k, s, st);
-  return launch<1>(geo, up, occ, clean, kern, out, B, N, Hp, Wp, Cin, IH, IW,
-                   OH, OW, h, w, c, k, s, st);
+  return entry<float>(geo, up, occ, clean, kern, out, B, N, Hp, Wp, Cin, IH,
+                      IW, OH, OW, h, w, c, k, s, stream);
+}
+
+// Kernel C on bf16 operands: up, occ, clean, kern and out bf16 (geo int32),
+// the rest as for dp_stem_fold; c a multiple of 8 and clean, out 16-byte
+// aligned (the caller checks both). Accumulates in float32.
+int dp_stem_fold_bf16(const int* geo, const void* up, const void* occ,
+                      const void* clean, const void* kern, void* out, int B,
+                      int N, int Hp, int Wp, int Cin, int IH, int IW, int OH,
+                      int OW, int h, int w, int c, int k, int s, void* stream) {
+  using bf = __nv_bfloat16;
+  return entry<bf>(geo, static_cast<const bf*>(up), static_cast<const bf*>(occ),
+                   static_cast<const bf*>(clean), static_cast<const bf*>(kern),
+                   static_cast<bf*>(out), B, N, Hp, Wp, Cin, IH, IW, OH, OW, h,
+                   w, c, k, s, stream);
 }
 
 }  // extern "C"

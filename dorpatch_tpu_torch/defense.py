@@ -31,6 +31,16 @@ is re-certified through the exhaustive sweep, so its record is the
 exhaustive path's. `PatchCleanserRecord.forward_equivalents` credits a
 token-pruned entry at its fraction of a full forward.
 
+bf16 certify bank (`DefenseConfig.compute_dtype="bfloat16"`, CLI
+`--certify-dtype`): phase 1, the pair audits, the rows and the engines'
+families run on the victim's once-cast bf16 copy (`utils.forward_at`), the
+images cast at each program's boundary (kernel A's bf16 form fills them),
+and every program returns its top-2 margins, read out in float32. Every
+image whose evaluated margins come within `incremental_margin` of the
+argmax boundary re-certifies through the float32 exhaustive sweep on the
+original victim (`_escalate`, the "token-exact" law), so bf16 never weakens
+a verdict. The exhaustive `_predict` never runs in bf16: it is the oracle.
+
 Tie-breaking (as in the JAX package): the majority label on count ties is
 the smallest label with the maximal count; among several recovering
 minority masks the one with the largest mask index wins.
@@ -98,12 +108,16 @@ def plan_chunks(n: int, chunk_size: int, mask_axis: int = 1):
 def masked_predictions(apply_fn: Callable[[torch.Tensor], torch.Tensor],
                        imgs: torch.Tensor, rects: torch.Tensor,
                        chunk_size: int, fill: float = 0.5,
-                       with_margins: bool = False):
+                       with_margins: bool = False,
+                       dtype: Optional[torch.dtype] = None):
     """Predictions under every mask in `rects`: `[B,H,W,C] x [N,K,4] ->
-    [B,N]` int32 (plus the `[B,N]` top-2 margins with `with_margins`).
-    The mask axis runs in chunks of at most `chunk_size` (a live-memory
-    bound of `B * chunk_size` masked images); each chunk is one fused
-    `masked_fill` (kernel A on the card) and one batched forward."""
+    [B,N]` int32 (plus the `[B,N]` float32 top-2 margins with
+    `with_margins`). The mask axis runs in chunks of at most `chunk_size`
+    (a live-memory bound of `B * chunk_size` masked images); each chunk is
+    one fused `masked_fill` (kernel A on the card) and one batched
+    forward. `dtype` casts the images before the fill (the bf16 bank)."""
+    if dtype is not None:
+        imgs = imgs.to(dtype)
     n = int(rects.shape[0])
     n_chunks, chunk = plan_chunks(n, chunk_size)
     batch = imgs.shape[0]
@@ -238,12 +252,16 @@ class _PrunedPending:
         self.bucket_sizes = bucket_sizes
         self.mode = mode
         self.incr = incremental
-        # the token engine's margins; the stem fold is exact and its
-        # margins are not read
-        self.margins_on = incremental.startswith("token")
+        self.token = incremental.startswith("token")
+        # margins are read from the token engine and from every program of
+        # the bf16 bank; the f32 stem fold is exact and its margins are not
+        # read
+        self.margins_on = self.token or pc._bf16
         self.t1_margins = None
         if incremental != "off":
             self.t1, self.t1_margins = pc._phase1_incr(imgs)
+        elif pc._bf16:
+            self.t1, self.t1_margins = pc._phase1(imgs)
         else:
             self.t1 = pc._phase1(imgs)
         self.min_margin = None
@@ -260,7 +278,7 @@ class _PrunedPending:
             pc.num_second, self.mode)
         self.pair_idx = np.nonzero(need_pairs)[0]
         dev = self.imgs.device
-        pairs_prog = pc._pairs_incr if self.margins_on else pc._pairs
+        pairs_prog = pc._pairs_incr if self.token else pc._pairs
         if self.pair_idx.size:
             bs = (self.bucket_sizes if self.bucket_sizes is not None
                   else data_lib.batch_buckets(int(self.imgs.shape[0])))
@@ -277,7 +295,7 @@ class _PrunedPending:
             img_idx = [b for b, _ in chunk] + [chunk[-1][0]] * (wb - w)
             mask_idx = [i for _, i in chunk] + [chunk[-1][1]] * (wb - w)
             xg = self.imgs[torch.as_tensor(img_idx, device=dev)]
-            if self.margins_on:
+            if self.token:
                 # the engine's rows take each entry's row of combined-table
                 # indices
                 t = pc._rows_incr(xg, torch.as_tensor(
@@ -368,15 +386,17 @@ class _PrunedPending:
             records.append(
                 PatchCleanserRecord(pred, False, p1[b], p2, fwd, fe))
         self.min_margin = min_margin
-        if self.incr.endswith("-exact"):
+        if self.incr.endswith("-exact") or pc._bf16:
             records = self._escalate(records, min_margin)
         return records
 
     def _escalate(self, records, min_margin) -> List[PatchCleanserRecord]:
-        """Re-certify every image whose evaluated entries came within
-        `incremental_margin` of the argmax boundary through the exhaustive
-        sweep (bucketed); its record becomes the exhaustive path's, its
-        cost the entries already spent plus the full M + P sweep."""
+        """For "token-exact" and every bf16 bank: re-certify every image
+        whose evaluated entries came within `incremental_margin` of the
+        argmax boundary through the float32 exhaustive sweep on the
+        original victim (bucketed); its record becomes the exhaustive
+        path's, its cost the entries already spent plus the full M + P
+        sweep."""
         pc = self.pc
         esc = np.nonzero(min_margin < pc.config.incremental_margin)[0]
         if not esc.size:
@@ -417,10 +437,16 @@ class PatchCleanser:
                                              repr=False)
 
     def __post_init__(self):
+        dtype = utils.compute_dtype(self.config.compute_dtype)
         if self.spec.n_patch != 1:
             raise NotImplementedError(
                 "the port certifies n_patch=1 mask families only")
         self.device = utils.resolve_device(self.device)
+        # the bf16 bank's programs run on the once-cast victim; `_predict`
+        # (the escalation's oracle) keeps `apply_fn`
+        self._bf16 = dtype == torch.bfloat16
+        self._dtype = dtype
+        self._capply = utils.forward_at(self.apply_fn, dtype)
         singles, doubles = masks_lib.mask_sets(self.spec)
         self._num_singles = singles.shape[0]
         self._num_doubles = doubles.shape[0]
@@ -441,7 +467,8 @@ class PatchCleanser:
         if (self.incremental_engine is not None
                 and self.config.incremental != "off"):
             self._incr_family = self.incremental_engine.build_family(
-                rects, m, self.config.chunk_size, self.config.mask_fill)
+                rects, m, self.config.chunk_size, self.config.mask_fill,
+                compute_dtype=self.config.compute_dtype)
         # forward equivalents per combined-table mask: 1 without the token
         # engine, its dirty-token fraction with it; `cache_fe` charges each
         # call's clean cache once per image (phase 1, each pair-audit image,
@@ -471,14 +498,20 @@ class PatchCleanser:
     # ---- the programs ----
 
     def _sweep(self, imgs, rects, with_margins=False):
-        return masked_predictions(self.apply_fn, imgs, rects,
-                                  self.config.chunk_size,
-                                  self.config.mask_fill, with_margins)
+        """A program of the pruned path: at the bank's dtype, with margins
+        whenever bf16."""
+        return masked_predictions(
+            self._capply, imgs, rects, self.config.chunk_size,
+            self.config.mask_fill, with_margins or self._bf16,
+            self._dtype if self._bf16 else None)
 
     def _predict(self, imgs: torch.Tensor, num_classes: int):
-        """The exhaustive 666-entry sweep and verdict: (pred, certified,
-        preds_1, preds_2) tensors."""
-        preds = self._sweep(imgs, self._rects)
+        """The exhaustive 666-entry sweep and verdict, always float32 on
+        the original victim: (pred, certified, preds_1, preds_2)
+        tensors."""
+        preds = masked_predictions(self.apply_fn, imgs, self._rects,
+                                   self.config.chunk_size,
+                                   self.config.mask_fill)
         p1, p2 = preds[:, :self._num_singles], preds[:, self._num_singles:]
         pred, certified = double_masking_verdict(p1, p2, self._num_singles,
                                                  num_classes)
@@ -503,11 +536,14 @@ class PatchCleanser:
     @torch.no_grad()
     def _rows(self, imgs_g: torch.Tensor, mask_idx: torch.Tensor):
         """`[W,H,W,C]` gathered images x `[W]` first-round mask ids ->
-        `[W, M]` second-round rows. The M second masks run in groups of G
-        columns (G the largest divisor of M with G*W <= chunk_size), each
-        group one forward of `[G*W]` images occluded by a rasterize-and-lerp
-        of per-entry rectangle sets (entry w's column j is {mask_idx[w], j}).
+        `[W, M]` second-round rows (and their `[W, M]` margins in the bf16
+        bank). The M second masks run in groups of G columns (G the largest
+        divisor of M with G*W <= chunk_size), each group one forward of
+        `[G*W]` images occluded by a rasterize-and-lerp of per-entry
+        rectangle sets (entry w's column j is {mask_idx[w], j}).
         """
+        if self._bf16:
+            imgs_g = imgs_g.to(self._dtype)     # the program boundary
         m = self.num_first
         idx_tab = self._grid_full[mask_idx.long()]            # [W, M]
         w_sz = int(imgs_g.shape[0])
@@ -516,16 +552,23 @@ class PatchCleanser:
                 if m % d == 0 and d <= cap) if cap > 1 else 1
         cols = idx_tab.t().reshape(m // g, g, w_sz)
         fill = self.config.mask_fill
-        out = []
+        out, margins = [], []
         for grp in cols:
             rects = self._rects[grp.reshape(-1)]               # [G*W, K, 4]
             mk = masks_lib.rasterize(rects, self.spec.img_size)[..., None]
             mk = mk.to(imgs_g.dtype)
             xm = imgs_g.repeat(g, 1, 1, 1) * mk + fill * (1.0 - mk)
-            logits = self.apply_fn(xm)
-            out.append(torch.argmax(logits, dim=-1).to(torch.int32)
-                       .reshape(g, w_sz))
-        return torch.cat(out, dim=0).t()                       # [W, M]
+            logits = self._capply(xm)
+            if self._bf16:
+                p, mg = utils.preds_margins(logits)
+                margins.append(mg.reshape(g, w_sz))
+            else:
+                p = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(p.reshape(g, w_sz))
+        preds = torch.cat(out, dim=0).t()                      # [W, M]
+        if self._bf16:
+            return preds, torch.cat(margins, dim=0).t()
+        return preds
 
     # ---- modes ----
 

@@ -4,6 +4,7 @@ ResNetV2-50x1 at 224 px.
     python -m dorpatch_tpu_torch.gn_bench                 # this checkout
     python dorpatch_tpu_torch/gn_bench.py --tree DIR      # DIR's kernels
     python -m dorpatch_tpu_torch.gn_bench --sweep         # other chunks too
+    python -m dorpatch_tpu_torch.gn_bench --dtype bfloat16  # the bf16 forms
 
 For each of the victim's 11 (HW, C) shapes at N = 256 (the attack step's
 2 images x 128 masks) it times the forward kernel and the backward kernel
@@ -16,9 +17,10 @@ the 49 calls of a forward of time and of time minus bound.
 `--tree DIR` imports `dorpatch_tpu_torch` from another checkout (the
 parent of a change, unpacked with `git archive`), so that one chip call
 times both designs in turn. `--sweep` also times, at each shape, every
-one-pass chunk width with rows of 32 bytes or more over 1, 2, 4 and 8
-CTAs of a cluster, where a CTA's shared memory fits. Needs a CUDA
-device.
+one-pass chunk width with rows of 64 bytes or more over 1, 2, 4 and 8
+CTAs of a cluster, where a CTA's shared memory fits. `--dtype bfloat16`
+times the bf16 forms on bf16 slabs (bounds at 2 bytes an element). Needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -71,13 +73,14 @@ def device_ms(fn, inner: int = INNER, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def bytes_bound_ms(n: int, hw: int, c: int, slabs: int) -> float:
+def bytes_bound_ms(n: int, hw: int, c: int, slabs: int,
+                   itemsize: int = 4) -> float:
     """Reading the inputs and writing the output once (`slabs` slabs of
-    [n, hw, c] float32) at the card's memory rate."""
-    return 4.0 * slabs * n * hw * c / PEAK_BYTES_PER_S * 1e3
+    [n, hw, c] elements of `itemsize` bytes) at the card's memory rate."""
+    return float(itemsize) * slabs * n * hw * c / PEAK_BYTES_PER_S * 1e3
 
 
-def _sweep_plans(fgn, hw, c):
+def _sweep_plans(fgn, hw, c, itemsize=4):
     """Other one-pass plans of one shape: every width whose rows are at
     least MIN_ROW_BYTES, over 1, 2, 4 and 8 CTAs of a cluster, where the
     CTA's shared memory fits a block."""
@@ -85,11 +88,11 @@ def _sweep_plans(fgn, hw, c):
 
     out = []
     for direction, slabs in (("fwd", 1), ("bwd", 2)):
-        default = fgn.gn_plan(direction, N, hw, c)
-        for w in fgn.one_pass_widths(c, 32):
+        default = fgn.gn_plan(direction, N, hw, c, 32, itemsize)
+        for w in fgn.one_pass_widths(c, 32, itemsize):
             for cl in (1, 2, 4, 8):
-                smem = fgn.one_pass_smem(hw, w, cl, slabs)
-                if (4 * w >= fgn.MIN_ROW_BYTES
+                smem = fgn.one_pass_smem(hw, w, cl, slabs, itemsize)
+                if (itemsize * w >= fgn.MIN_ROW_BYTES
                         and smem <= _build.MAX_SMEM_BYTES
                         and (w, cl) != (default.width, default.cluster)):
                     out.append((direction,
@@ -102,6 +105,8 @@ def main(argv=None) -> int:
     p.add_argument("--tree", default=None,
                    help="checkout whose dorpatch_tpu_torch to time")
     p.add_argument("--sweep", action="store_true")
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16"])
     args = p.parse_args(argv)
     if args.tree and "dorpatch_tpu_torch" in sys.modules:
         p.error("--tree needs the script path (python "
@@ -117,14 +122,20 @@ def main(argv=None) -> int:
         print("gn_bench: no CUDA device is available", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    print(f"tree {root}; device {torch.cuda.get_device_name(0)}", flush=True)
+    dtype = getattr(torch, args.dtype)
+    isz = torch.empty((), dtype=dtype).element_size()
+    plan_args = (32, isz) if isz != 4 else ()
+    print(f"tree {root}; device {torch.cuda.get_device_name(0)}; "
+          f"{args.dtype}", flush=True)
     gen = torch.Generator(device=dev).manual_seed(3)
     total = dict(fwd_ms=0.0, bwd_ms=0.0, fwd_bound_ms=0.0, bwd_bound_ms=0.0)
     for (hw, c), calls in sorted(RN50_GN_CALLS.items(),
                                  key=lambda kv: (-kv[0][0], kv[0][1])):
         side = int(round(hw ** 0.5))
-        x = torch.randn((N, side, side, c), generator=gen, device=dev)
-        dy = torch.randn((N, side, side, c), generator=gen, device=dev)
+        x = torch.randn((N, side, side, c), generator=gen,
+                        device=dev).to(dtype)
+        dy = torch.randn((N, side, side, c), generator=gen,
+                         device=dev).to(dtype)
         s = 1 + 0.2 * torch.randn((c,), generator=gen, device=dev)
         b = 0.3 * torch.randn((c,), generator=gen, device=dev)
         _, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
@@ -132,14 +143,14 @@ def main(argv=None) -> int:
                    fwd_ms=device_ms(lambda: fgn.gn_relu_fwd_kernel(x, s, b)),
                    bwd_ms=device_ms(lambda: fgn.gn_relu_bwd_kernel(
                        x, dy, s, b, mean, rstd, params=False)),
-                   fwd_bound_ms=bytes_bound_ms(N, hw, c, 2),
-                   bwd_bound_ms=bytes_bound_ms(N, hw, c, 3))
+                   fwd_bound_ms=bytes_bound_ms(N, hw, c, 2, isz),
+                   bwd_bound_ms=bytes_bound_ms(N, hw, c, 3, isz))
         if hasattr(fgn, "gn_plan"):
-            rec["plans"] = {d: fgn.gn_plan(d, N, hw, c)._asdict()
+            rec["plans"] = {d: fgn.gn_plan(d, N, hw, c, *plan_args)._asdict()
                             for d in ("fwd", "bwd")}
         if args.sweep and hasattr(fgn, "gn_plan"):
             rec["sweep"] = []
-            for direction, plan in _sweep_plans(fgn, hw, c):
+            for direction, plan in _sweep_plans(fgn, hw, c, isz):
                 if direction == "fwd":
                     ms = device_ms(lambda: fgn.gn_relu_fwd_kernel(
                         x, s, b, plan=plan))
@@ -157,7 +168,8 @@ def main(argv=None) -> int:
     total["fwd_over_bound_ms"] = total["fwd_ms"] - total["fwd_bound_ms"]
     total["bwd_over_bound_ms"] = total["bwd_ms"] - total["bwd_bound_ms"]
     print(json.dumps({"device": torch.cuda.get_device_name(0), "n": N,
-                      "per_forward_49_calls": total}), flush=True)
+                      "dtype": args.dtype, "per_forward_49_calls": total}),
+          flush=True)
     return 0
 
 

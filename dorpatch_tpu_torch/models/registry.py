@@ -3,8 +3,10 @@
 Resolves an architecture name, loads the `<model_dir>/<dataset>/
 <arch>_cutout2_128_<dataset>.pth` checkpoint when present (seeded random
 initialization otherwise) and wraps the model as a `Victim` whose `apply`
-takes NHWC images in [0, 1] with the `(x - 0.5) / 0.5` normalization folded
-in. Port of `dorpatch_tpu.models.registry` for the CIFAR ResNet-18,
+(a `VictimForward`) takes NHWC images in [0, 1] with the `(x - 0.5) / 0.5`
+normalization folded in; `apply.at(torch.bfloat16)` is the same forward on
+a once-cast bf16 copy of the model (the bf16 attack and certify bank).
+Port of `dorpatch_tpu.models.registry` for the CIFAR ResNet-18,
 ResNetV2-50x1 BiT and the ViT family (ViT-B/16 and the small `cifar_vit`).
 """
 
@@ -27,6 +29,41 @@ SUPPORTED = TIMM_MODELS + ("cifar_resnet18", "cifar_vit")
 #: the families whose module is sized by the image (the position embedding)
 #: and whose incremental engine is the token-pruned one
 VIT_FAMILIES = ("vit_base_patch16_224", "cifar_vit")
+
+
+def normalize(images01: torch.Tensor) -> torch.Tensor:
+    """The folded victim normalization (mean = std = 0.5)."""
+    return (images01 - 0.5) / 0.5
+
+
+class VictimForward:
+    """`logits = forward(images01)`: the model on NHWC images in [0, 1],
+    the normalization folded in. `at(dtype)` is the same forward on a
+    `dtype` copy of the model (`utils.cast_module`, made at the first call
+    and kept), which casts the images at its boundary and returns float32
+    logits; `at(float32)` is the forward itself. A change to the model's
+    weights after that first call does not reach the copy."""
+
+    def __init__(self, model: torch.nn.Module,
+                 dtype: torch.dtype = torch.float32):
+        self.model = model
+        self.dtype = dtype
+        self._casts = {}
+
+    def __call__(self, images01: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return self.model(normalize(images01))
+        return self.model(normalize(images01.to(self.dtype))).float()
+
+    def at(self, dtype: torch.dtype) -> "VictimForward":
+        if dtype == self.dtype:
+            return self
+        if self.dtype != torch.float32:
+            raise ValueError("cast copies are made from the float32 forward")
+        if dtype not in self._casts:
+            self._casts[dtype] = VictimForward(
+                utils.cast_module(self.model, dtype), dtype)
+        return self._casts[dtype]
 
 
 class Victim(NamedTuple):
@@ -76,11 +113,6 @@ _FAMILIES = {
 }
 
 
-def normalize(images01: torch.Tensor) -> torch.Tensor:
-    """The folded victim normalization (mean = std = 0.5)."""
-    return (images01 - 0.5) / 0.5
-
-
 #: d(normalized)/d(image01): the scale the masked-stem fold applies to the
 #: fill delta.
 NORM_SCALE = 2.0
@@ -91,7 +123,10 @@ def incremental_engine(timm_name: str, model, img_size: int):
     of a ViT (None when the patch does not divide the image), or the
     masked-stem fold of the CIFAR ResNet-18's 3x3, stride-1, pad-1 stem or
     of ResNetV2's 7x7, stride-2, SAME-padded std-conv stem (the fold's delta
-    conv uses the standardized kernel, the stem's effective one)."""
+    conv uses the standardized kernel, the stem's effective one). The
+    engines run at the defense's `compute_dtype`: its families are built
+    with it (`build_family(..., compute_dtype)`) and take the engine's
+    once-cast copy (`at`)."""
     if timm_name in VIT_FAMILIES:
         if img_size % model.patch_size:
             return None
@@ -99,7 +134,7 @@ def incremental_engine(timm_name: str, model, img_size: int):
     if timm_name == "cifar_resnet18":
         return StemFoldEngine(
             model, img_size,
-            kernel_fn=lambda: model.stem.weight.permute(2, 3, 1, 0),
+            kernel_fn=lambda m: m.stem.weight.permute(2, 3, 1, 0),
             kernel_hw=3, strides=(1, 1), pads=((1, 1), (1, 1)),
             normalize=normalize, norm_scale=NORM_SCALE)
     if timm_name == "resnetv2_50x1_bit_distilled":
@@ -107,7 +142,8 @@ def incremental_engine(timm_name: str, model, img_size: int):
         pads = same_pads(img_size, stem.k, stem.stride)
         return StemFoldEngine(
             model, img_size,
-            kernel_fn=lambda: stem.standardized().permute(2, 3, 1, 0),
+            kernel_fn=lambda m: m.stem["conv"].standardized().permute(
+                2, 3, 1, 0),
             kernel_hw=stem.k, strides=(stem.stride, stem.stride),
             pads=(pads, pads), normalize=normalize, norm_scale=NORM_SCALE)
     return None
@@ -140,11 +176,7 @@ def get_model(
         init_weights(model, utils.generator(seed, torch.device("cpu")))
         from_checkpoint = False
     model = model.to(dev).eval().requires_grad_(False)
-
-    def apply(images01: torch.Tensor) -> torch.Tensor:
-        return model(normalize(images01))
-
-    return Victim(name=timm_name, apply=apply, model=model,
+    return Victim(name=timm_name, apply=VictimForward(model), model=model,
                   num_classes=num_classes, from_checkpoint=from_checkpoint,
                   device=dev,
                   incremental=incremental_engine(timm_name, model, img_size))

@@ -27,7 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dorpatch_tpu_torch.ops.fused_gn import gn_relu, gn_relu_reference
+from dorpatch_tpu_torch.ops.fused_gn import (gn_preserve_dtype, gn_relu,
+                                             gn_relu_reference)
 from dorpatch_tpu_torch.ops.stem_fold import same_pads
 
 GN_IMPLS = ("auto", "plain")
@@ -64,9 +65,13 @@ class GroupNormRelu(nn.Module):
     """GroupNorm(32, eps 1e-5) + ReLU (timm `GroupNormAct`).
 
     `impl` "auto" follows the kernels' dispatch rule (a CUDA tensor runs the
-    `fused_gn` kernels, a CPU tensor the plain version); "plain", set through
-    `ResNetV2.set_gn_impl`, runs the plain version on any device (tests and
-    the card checks)."""
+    `fused_gn` kernels, a CPU tensor their plain version); "plain", set
+    through `ResNetV2.set_gn_impl`, runs the plain model code on any device
+    (tests and the card checks). At float32 the two compute the same
+    function. Below float32 they differ, as in the JAX package: "auto"
+    normalizes in float32 and rounds the output once (the kernels, and
+    `gn_relu_reference` on the CPU), "plain" is `gn_preserve_dtype` + ReLU
+    (the normalize chain in the input's type)."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
         super().__init__()
@@ -76,6 +81,9 @@ class GroupNormRelu(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.impl == "plain":
+            if x.dtype != torch.float32:
+                return torch.relu(gn_preserve_dtype(
+                    x, self.weight, self.bias, self.num_groups, self.eps))
             return gn_relu_reference(x, self.weight, self.bias,
                                      self.num_groups, self.eps)
         return gn_relu(x, self.weight, self.bias, self.num_groups, self.eps)

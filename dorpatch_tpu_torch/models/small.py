@@ -17,6 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dorpatch_tpu_torch.ops.fused_gn import gn_preserve_dtype
+
 
 class Conv2dNHWC(nn.Conv2d):
     """Bias-free conv on NHWC tensors, OIHW weight."""
@@ -38,7 +40,9 @@ class GroupNorm8(nn.Module):
     channels of the group), clipped at 0, then
     `(x - mean) * (rsqrt(var + eps) * scale) + bias`. `F.group_norm` takes a
     two-pass variance and would differ from the JAX package in the last
-    bits of every layer."""
+    bits of every layer. Inputs narrower than float32 (the bf16 certify
+    bank's cast victim) take `fused_gn.gn_preserve_dtype`: float32
+    statistics, the normalize chain in their own type."""
 
     def __init__(self, channels: int, groups: int = 8, eps: float = 1e-6):
         super().__init__()
@@ -48,6 +52,9 @@ class GroupNorm8(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.float32:
+            return gn_preserve_dtype(x, self.weight, self.bias, self.groups,
+                                     self.eps)
         n, h, w, c = x.shape
         g = self.groups
         xg = x.reshape(n, h * w, g, c // g)

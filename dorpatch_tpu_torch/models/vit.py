@@ -48,8 +48,21 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (x - mean) * (torch.rsqrt(var + eps) * weight) + bias
 
 
+def fast_ln(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """The JAX package's `_fast_ln` at `x.dtype`: the same statistics (the
+    means reduce in float32 and round back), then `(x - mean) * rsqrt(var +
+    eps) * scale + bias`, every slab-sized tensor in the input's type."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean,
+                      min=0.0)
+    return (x - mean) * torch.rsqrt(var + eps) * weight + bias
+
+
 class LayerNorm(nn.Module):
-    """LayerNorm parameters under timm's names, applied by `layer_norm`."""
+    """LayerNorm parameters under timm's names, applied by `layer_norm` at
+    float32 and by `fast_ln` below it (`LayerNormDT` of the JAX
+    package)."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
@@ -58,6 +71,8 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.float32:
+            return fast_ln(x, self.weight, self.bias, self.eps)
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
@@ -230,11 +245,15 @@ def build_tables(rects: np.ndarray, img_size: int, patch: int) -> TokenTables:
     return TokenTables(idx, keep, slot_bias, fe)
 
 
-def _on_device(tables: TokenTables, device) -> TokenTables:
+def _on_device(tables: TokenTables, device,
+               dtype: torch.dtype = torch.float32) -> TokenTables:
+    """The tables on `device`, the float ones (keep, slot_bias) in the
+    family's `dtype` (-1e9 is a bf16 value too)."""
     return TokenTables(
         torch.as_tensor(tables.idx, dtype=torch.long, device=device),
-        torch.as_tensor(tables.keep, device=device),
-        torch.as_tensor(tables.slot_bias, device=device), tables.fe)
+        torch.as_tensor(tables.keep, dtype=dtype, device=device),
+        torch.as_tensor(tables.slot_bias, dtype=dtype, device=device),
+        tables.fe)
 
 
 class TokenViTFamily:
@@ -248,19 +267,26 @@ class TokenViTFamily:
 
     each returning `(preds int32, margins f32)`. `fe` holds each combined
     mask's forward equivalents; `fe_first`/`fe_pairs` are the per-image
-    sums and `cache_fe` the clean cache's cost per image and call."""
+    sums and `cache_fe` the clean cache's cost per image and call.
+    `compute_dtype` "bfloat16" runs the engine on a once-cast bf16 copy of
+    the victim, with the tables in bf16 and the images cast at each
+    program's boundary; the margins stay float32."""
 
     def __init__(self, engine: "TokenPrunedViT", rects: np.ndarray,
-                 num_singles: int, chunk_size: int, fill: float):
-        self.engine = engine
+                 num_singles: int, chunk_size: int, fill: float,
+                 compute_dtype: str = "float32"):
+        self.dtype = utils.compute_dtype(compute_dtype)
+        self.engine = engine = engine.at(self.dtype)
         self.num_singles = int(num_singles)
         self.chunk_size = max(1, int(chunk_size))
         self.fill = float(fill)
         img, patch, dev = engine.img_size, engine.patch, engine.device
         m = self.num_singles
-        self.first = _on_device(build_tables(rects[:m], img, patch), dev)
-        self.pair_tables = _on_device(build_tables(rects[m:], img, patch), dev)
-        self.combined = _on_device(build_tables(rects, img, patch), dev)
+        dt = self.dtype
+        self.first = _on_device(build_tables(rects[:m], img, patch), dev, dt)
+        self.pair_tables = _on_device(build_tables(rects[m:], img, patch),
+                                      dev, dt)
+        self.combined = _on_device(build_tables(rects, img, patch), dev, dt)
         self.fe = self.combined.fe
         self.fe_first = float(self.fe[:m].sum())
         self.fe_pairs = float(self.fe[m:].sum())
@@ -272,17 +298,18 @@ class TokenViTFamily:
 
     @torch.no_grad()
     def phase1(self, imgs: torch.Tensor):
-        return self.engine.table(imgs, self.first, self.fill, self.chunk_size)
-
-    @torch.no_grad()
-    def pairs(self, imgs: torch.Tensor):
-        return self.engine.table(imgs, self.pair_tables, self.fill,
+        return self.engine.table(imgs.to(self.dtype), self.first, self.fill,
                                  self.chunk_size)
 
     @torch.no_grad()
+    def pairs(self, imgs: torch.Tensor):
+        return self.engine.table(imgs.to(self.dtype), self.pair_tables,
+                                 self.fill, self.chunk_size)
+
+    @torch.no_grad()
     def rows(self, imgs_g: torch.Tensor, sets_idx: torch.Tensor):
-        return self.engine.rows(imgs_g, sets_idx, self.combined, self.fill,
-                                self.chunk_size)
+        return self.engine.rows(imgs_g.to(self.dtype), sets_idx,
+                                self.combined, self.fill, self.chunk_size)
 
 
 class TokenPrunedViT:
@@ -302,14 +329,28 @@ class TokenPrunedViT:
         self.patch = int(module.patch_size)
         self.grid = self.img_size // self.patch
         self.normalize = normalize or (lambda x: (x - 0.5) / 0.5)
+        self._casts = {}
 
     @property
     def device(self) -> torch.device:
         return self.module.pos_embed.device
 
+    def at(self, dtype: torch.dtype) -> "TokenPrunedViT":
+        """This engine on a `dtype` copy of its module (`utils.cast_module`,
+        made at the first call and kept); itself at float32."""
+        if dtype == torch.float32:
+            return self
+        if dtype not in self._casts:
+            self._casts[dtype] = TokenPrunedViT(
+                utils.cast_module(self.module, dtype), self.img_size,
+                self.normalize)
+        return self._casts[dtype]
+
     def build_family(self, rects: np.ndarray, num_singles: int,
-                     chunk_size: int, fill: float) -> TokenViTFamily:
-        return TokenViTFamily(self, rects, num_singles, chunk_size, fill)
+                     chunk_size: int, fill: float,
+                     compute_dtype: str = "float32") -> TokenViTFamily:
+        return TokenViTFamily(self, rects, num_singles, chunk_size, fill,
+                              compute_dtype)
 
     # ------------------------------------------------------------ internals
 
@@ -333,13 +374,9 @@ class TokenPrunedViT:
 
     @staticmethod
     def _ln(x, norm: LayerNorm):
-        """The engine's LayerNorm, as the JAX engine's `_fast_ln` orders it:
-        `(x - mean) * rsqrt(var + eps) * scale + bias`."""
-        mean = x.mean(dim=-1, keepdim=True)
-        var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean,
-                          min=0.0)
-        return (x - mean) * torch.rsqrt(var + norm.eps) * norm.weight \
-            + norm.bias
+        """The engine's LayerNorm at every dtype, the JAX engine's
+        `_fast_ln`."""
+        return fast_ln(x, norm.weight, norm.bias, norm.eps)
 
     def _clean_kv(self, cache) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """Per block, the clean keys and values `[B, T+1, H, f]` of the

@@ -15,10 +15,14 @@ from typing import Dict, Optional
 import torch
 
 #: Launches of each kernel since the last `reset_launch_counts`; a wrapper
-#: adds one exactly where it launches its kernel.
+#: adds one exactly where it launches its kernel. A kernel's bf16 form
+#: counts under its own name ("..._bf16").
 _LAUNCHES: Dict[str, int] = {"masked_fill_fwd": 0, "masked_fill_bwd": 0,
                              "stem_fold": 0, "gn_relu_fwd": 0,
-                             "gn_relu_bwd": 0, "masked_kv_attn": 0}
+                             "gn_relu_bwd": 0, "masked_kv_attn": 0,
+                             "masked_fill_fwd_bf16": 0, "stem_fold_bf16": 0,
+                             "gn_relu_fwd_bf16": 0, "gn_relu_bwd_bf16": 0,
+                             "masked_kv_attn_bf16": 0}
 #: Of those launches, how many took each route, for kernels with more than
 #: one ("gn_relu_fwd/one_pass", "gn_relu_bwd/split", ...).
 _ROUTES: Dict[str, int] = {}
@@ -57,12 +61,12 @@ def reset_launch_counts() -> None:
     _ROUTES.clear()
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+def require(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
     """A kernel argument check: a contiguous CUDA tensor of the given type
-    and rank."""
+    (or one of a tuple of types) and rank."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have rank {ndim}, got {tuple(t.shape)}")

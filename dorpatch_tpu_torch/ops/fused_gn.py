@@ -27,8 +27,15 @@ or the tiled kernels:
 `GNRelu` pairs them as a `torch.autograd.Function`; it saves only `x` and
 the `[N, G]` statistics (and the affine parameters). `gn_relu_reference` and
 `gn_relu_backward_reference` are the plain versions, which a CPU tensor
-takes. Port of `dorpatch_tpu.ops.fused_gn` for float32 (the JAX kernels are
-dtype-generic; bf16 comes with the bf16 bank).
+takes. Port of `dorpatch_tpu.ops.fused_gn`.
+
+bf16 activations (the bf16 attack and the bf16 certify bank on RN50) take
+the one-pass kernels' bf16 forms: statistics and every intermediate in
+float32, `y` and `dx` in `x.dtype`, the parameter cotangents in the affine
+parameters' type; `gn_plan` reckons a chunk's bytes with the element size.
+The split route is float32 only: a bf16 shape it would take raises.
+`gn_preserve_dtype` is the other bf16 numerics the JAX package's plain
+model code uses: float32 statistics, the normalize chain in `x.dtype`.
 """
 
 from __future__ import annotations
@@ -54,11 +61,17 @@ MIN_STAGE_BYTES = 24 * 1024
 #: the shared memory of an SM (228 KB, 1 KB of it reserved per block) split
 #: between two blocks
 TWO_PER_SM_BYTES = (233472 - 2 * 1024) // 2
-#: the most dynamic shared memory a CTA should take, per direction, as
-#: measured at the RN50 shapes: the forward runs fastest with one wide
-#: chunk an SM, the backward (twice the bytes a chunk) with two CTAs an SM,
-#: its [3136, C] chunks of 16 channels split over a cluster of four
-PREFERRED_CTA_BYTES = {"fwd": _build.MAX_SMEM_BYTES, "bwd": TWO_PER_SM_BYTES}
+#: the most dynamic shared memory a CTA should take, per (direction,
+#: element size), as measured at the RN50 shapes: the forward runs fastest
+#: with one wide chunk an SM; the float32 backward (twice the bytes a
+#: chunk) with two CTAs an SM, its [3136, C] chunks of 16 channels split
+#: over a cluster of four; the bf16 backward with one wide chunk an SM
+#: again (`gn_bench.py --dtype bfloat16 --sweep`: two CTAs an SM took it
+#: to clusters of eight and 1.4x the time)
+PREFERRED_CTA_BYTES = {("fwd", 4): _build.MAX_SMEM_BYTES,
+                       ("bwd", 4): TWO_PER_SM_BYTES,
+                       ("fwd", 2): _build.MAX_SMEM_BYTES,
+                       ("bwd", 2): _build.MAX_SMEM_BYTES}
 #: HW rows per statistics block of the split route, and the grid's limit
 SPLIT_TILE_ROWS = 64
 MAX_GRID = 65535
@@ -74,42 +87,52 @@ class GNPlan(NamedTuple):
     smem: int
 
 
-def one_pass_smem(hw: int, width: int, cluster: int, slabs: int) -> int:
+def piece_channels(itemsize: int) -> int:
+    """Channels of a 16-byte piece: 4 float32, 8 bf16."""
+    return 16 // itemsize
+
+
+def one_pass_smem(hw: int, width: int, cluster: int, slabs: int,
+                  itemsize: int = 4) -> int:
     """Dynamic shared memory of a one-pass CTA: its share of the chunk's
-    rows of `slabs` slabs (1 forward, 2 backward), the threads' partial
-    sums, the float64 channel sums and the per-group values (the carve of
-    `csrc/fused_gn.cu`, `dp_gn_onepass_smem`)."""
+    rows of `slabs` slabs (1 forward, 2 backward) of `itemsize`-byte
+    elements, the threads' float32 partial sums (two per channel of a
+    piece), the float64 channel sums and the per-group values (the carve
+    of `csrc/fused_gn.cu`, `dp_gn_onepass_smem` and `..._bf16`)."""
     rows = -(-hw // cluster)
-    return 4 * rows * width * slabs + 32 * ONE_PASS_THREADS + 40 * width
+    return (itemsize * rows * width * slabs
+            + 8 * piece_channels(itemsize) * ONE_PASS_THREADS + 40 * width)
 
 
-def one_pass_widths(c: int, num_groups: int):
+def one_pass_widths(c: int, num_groups: int, itemsize: int = 4):
     """The chunk widths a one-pass CTA takes, narrowest first: whole
-    groups, a multiple of 4 channels (16-byte pieces), at most four
-    channels a thread."""
+    groups, a multiple of a 16-byte piece's channels, at most one piece
+    column a thread."""
     cg = c // num_groups
+    p = piece_channels(itemsize)
     return [k * cg for k in range(1, num_groups + 1)
-            if num_groups % k == 0 and k * cg % 4 == 0
-            and k * cg <= 4 * ONE_PASS_THREADS]
+            if num_groups % k == 0 and k * cg % p == 0
+            and k * cg <= p * ONE_PASS_THREADS]
 
 
 def one_pass_width(hw: int, c: int, num_groups: int, slabs: int,
-                   budget: int) -> Optional[int]:
+                   budget: int, itemsize: int = 4) -> Optional[int]:
     """Channels of a one-pass chunk: the narrowest width whose rows are at
     least MIN_ROW_BYTES (the widest if none is), widened by whole groups
     while its rows are shorter than TARGET_ROW_BYTES or a staged slab
     holds less than MIN_STAGE_BYTES, as long as the wider chunk fits
-    `budget` as one CTA; None when no width fits a thread's float4
+    `budget` as one CTA; None when no width fits a thread's piece
     column."""
-    widths = one_pass_widths(c, num_groups)
+    widths = one_pass_widths(c, num_groups, itemsize)
     if not widths:
         return None
-    wide = [w for w in widths if 4 * w >= MIN_ROW_BYTES] or widths[-1:]
+    wide = [w for w in widths if itemsize * w >= MIN_ROW_BYTES] \
+        or widths[-1:]
     width = wide[0]
     for nxt in wide[1:]:
-        if ((4 * width >= TARGET_ROW_BYTES
-             and 4 * hw * width >= MIN_STAGE_BYTES)
-                or one_pass_smem(hw, nxt, 1, slabs) > budget):
+        if ((itemsize * width >= TARGET_ROW_BYTES
+             and itemsize * hw * width >= MIN_STAGE_BYTES)
+                or one_pass_smem(hw, nxt, 1, slabs, itemsize) > budget):
             break
         width = nxt
     return width
@@ -117,26 +140,28 @@ def one_pass_width(hw: int, c: int, num_groups: int, slabs: int,
 
 @functools.lru_cache(maxsize=256)
 def gn_plan(direction: str, n: int, hw: int, c: int,
-            num_groups: int = 32) -> GNPlan:
-    """The route of one GroupNorm+ReLU call on the card, from its shape:
-    the one-pass route with chunks of `one_pass_width` channels and the
-    fewest CTAs a chunk whose shared memory fits PREFERRED_CTA_BYTES, else
-    the fewest that fit a block's limit; else the split route; a shape
-    neither takes raises. `direction` is "fwd" or "bwd"."""
+            num_groups: int = 32, itemsize: int = 4) -> GNPlan:
+    """The route of one GroupNorm+ReLU call on the card, from its shape and
+    element size (4 float32, 2 bf16): the one-pass route with chunks of
+    `one_pass_width` channels and the fewest CTAs a chunk whose shared
+    memory fits PREFERRED_CTA_BYTES, else the fewest that fit a block's
+    limit; else the split route; a shape neither takes raises.
+    `direction` is "fwd" or "bwd"."""
     slabs = {"fwd": 1, "bwd": 2}[direction]
-    if c % num_groups or c % 4:
-        raise ValueError(f"C={c} must be a multiple of 4 and of the "
+    p = piece_channels(itemsize)
+    if c % num_groups or c % p:
+        raise ValueError(f"C={c} must be a multiple of {p} and of the "
                          f"{num_groups} groups")
     if n > MAX_GRID:
         raise ValueError(f"GroupNorm kernels take at most {MAX_GRID} "
                          f"samples a call, got {n}")
-    preferred = PREFERRED_CTA_BYTES[direction]
-    width = one_pass_width(hw, c, num_groups, slabs, preferred)
+    preferred = PREFERRED_CTA_BYTES[direction, itemsize]
+    width = one_pass_width(hw, c, num_groups, slabs, preferred, itemsize)
     if width is not None:
         for budget in (preferred, _build.MAX_SMEM_BYTES):
             cl = 1
             while cl <= MAX_CLUSTER:
-                smem = one_pass_smem(hw, width, cl, slabs)
+                smem = one_pass_smem(hw, width, cl, slabs, itemsize)
                 if smem <= budget:
                     return GNPlan("one_pass", width, cl, smem)
                 cl *= 2
@@ -179,6 +204,25 @@ def gn_relu_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     mul = rstd[:, None, :, None] * scale.to(acc).reshape(1, 1, g, gs)
     y = (xf - mean[:, None, :, None]) * mul + bias.to(acc).reshape(1, 1, g, gs)
     return torch.relu(y).reshape(n, h, w, c).to(x.dtype)
+
+
+def gn_preserve_dtype(x: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, num_groups: int,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm with float32 statistics and the elementwise chain in
+    `x.dtype` (no ReLU), as `dorpatch_tpu.ops.fused_gn.gn_preserve_dtype`:
+    `(x - mean) * mul + bias` with mean, `mul = rstd * scale` and bias each
+    rounded to `x.dtype`. The plain bf16 numerics of the JAX package's
+    model code; the kernels normalize in float32 instead."""
+    dt = x.dtype
+    n, h, w, c = x.shape
+    g, gs = num_groups, c // num_groups
+    xg = x.reshape(n, h * w, g, gs)
+    mean, rstd = gn_stats_reference(x, g, eps)
+    mul = rstd[:, None, :, None] * scale.to(mean.dtype).reshape(1, 1, g, gs)
+    y = (xg - mean[:, None, :, None].to(dt)) * mul.to(dt) \
+        + bias.to(mean.dtype).reshape(1, 1, g, gs).to(dt)
+    return y.reshape(n, h, w, c)
 
 
 def gn_relu_backward_reference(x, dy, scale, bias, mean, rstd,
@@ -240,17 +284,19 @@ def gate_flip_bounds(x, dy, scale, bias, mean, rstd, num_groups: int = 32,
 
 def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
            num_groups: int) -> None:
-    _backend.require(x, "x", torch.float32, 4)
+    _backend.require(x, "x", (torch.float32, torch.bfloat16), 4)
     _backend.require(scale, "scale", torch.float32, 1)
     _backend.require(bias, "bias", torch.float32, 1)
     c = x.shape[-1]
-    if (c % num_groups or c % 4 or tuple(scale.shape) != (c,)
+    if (c % num_groups or c % piece_channels(x.element_size())
+            or tuple(scale.shape) != (c,)
             or tuple(bias.shape) != (c,) or scale.device != x.device
             or bias.device != x.device):
         raise ValueError(f"GroupNorm shapes do not agree: x {tuple(x.shape)}, "
                          f"scale {tuple(scale.shape)}, bias "
                          f"{tuple(bias.shape)}, {num_groups} groups (C must "
-                         "be a multiple of 4 and of the group count)")
+                         "be a multiple of 4, 8 at bf16, and of the group "
+                         "count)")
     if any(t.data_ptr() % 16 for t in (x, scale, bias)):
         raise ValueError("the GroupNorm kernels move 16 bytes a thread: x, "
                          "scale and bias must be 16-byte aligned")
@@ -267,19 +313,42 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _plan_of(direction: str, x: torch.Tensor, num_groups: int,
+             plan: Optional[GNPlan]) -> GNPlan:
+    """`plan`, or `gn_plan`'s for x; bf16 activations take the one-pass
+    route only (the split route has no bf16 form)."""
+    n, h, w, c = x.shape
+    plan = plan or gn_plan(direction, n, h * w, c, num_groups,
+                           x.element_size())
+    if x.dtype == torch.bfloat16 and plan.route != "one_pass":
+        raise ValueError(f"GroupNorm {direction} of a bf16 slab "
+                         f"{tuple(x.shape)} would take the {plan.route} "
+                         "route, which has no bf16 kernel")
+    return plan
+
+
 def gn_relu_fwd_kernel(x: torch.Tensor, scale: torch.Tensor,
                        bias: torch.Tensor, num_groups: int = 32,
                        eps: float = 1e-5, plan: Optional[GNPlan] = None):
-    """The forward kernels on CUDA tensors: x `[N,H,W,C]` f32 ->
-    `(y [N,H,W,C], mean [N,G], rstd [N,G])`. `plan` defaults to
-    `gn_plan`'s (another is for measuring other chunks)."""
+    """The forward kernels on CUDA tensors: x `[N,H,W,C]` f32 or bf16,
+    scale and bias f32 -> `(y [N,H,W,C] of x's type, mean [N,G] f32, rstd
+    [N,G] f32)`. `plan` defaults to `gn_plan`'s (another is for measuring
+    other chunks)."""
     _check(x, scale, bias, num_groups)
     n, h, w, c = x.shape
-    plan = plan or gn_plan("fwd", n, h * w, c, num_groups)
+    plan = _plan_of("fwd", x, num_groups, plan)
     lib = _build.library()
     y = torch.empty_like(x)
-    mean = torch.empty((n, num_groups), dtype=x.dtype, device=x.device)
+    mean = torch.empty((n, num_groups), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
+    if x.dtype == torch.bfloat16:
+        _backend.count_launch("gn_relu_fwd_bf16", plan.route)
+        _build.check(lib.dp_gn_relu_fwd_bf16(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), n, h * w, c, num_groups,
+            float(eps), plan.width, plan.cluster, plan.smem,
+            _backend.stream_handle(x)), "gn_relu_fwd_bf16")
+        return y, mean, rstd
     p1 = p2 = None
     if plan.route == "split":
         p1, p2 = (_split_scratch(x, lib) for _ in range(2))
@@ -296,11 +365,11 @@ def gn_relu_bwd_kernel(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                        bias: torch.Tensor, mean: torch.Tensor,
                        rstd: torch.Tensor, num_groups: int = 32,
                        params: bool = True, plan: Optional[GNPlan] = None):
-    """The backward kernels on CUDA tensors -> `(dx, dscale, dbias)`;
-    `dscale`/`dbias` are None unless `params`. `plan` as for the
-    forward."""
+    """The backward kernels on CUDA tensors -> `(dx, dscale, dbias)`: dx
+    of x's type, `dscale`/`dbias` f32 and None unless `params`. `plan` as
+    for the forward."""
     _check(x, scale, bias, num_groups)
-    _backend.require(dy, "dy", torch.float32, 4)
+    _backend.require(dy, "dy", x.dtype, 4)
     for t, name in ((mean, "mean"), (rstd, "rstd")):
         _backend.require(t, name, torch.float32, 2)
     n, h, w, c = x.shape
@@ -310,7 +379,7 @@ def gn_relu_bwd_kernel(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"GroupNorm backward shapes do not agree: x "
                          f"{tuple(x.shape)}, dy {tuple(dy.shape)}, mean "
                          f"{tuple(mean.shape)}, rstd {tuple(rstd.shape)}")
-    plan = plan or gn_plan("bwd", n, h * w, c, num_groups)
+    plan = _plan_of("bwd", x, num_groups, plan)
     lib = _build.library()
     dx = torch.empty_like(x)
     split = plan.route == "split"
@@ -321,11 +390,20 @@ def gn_relu_bwd_kernel(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
         pdb, pds = (_split_scratch(x, lib) for _ in range(2))
         ag, bg = torch.empty_like(mean), torch.empty_like(mean)
     if split or params:
-        dbc = torch.empty((n, c), dtype=x.dtype, device=x.device)
+        dbc = torch.empty((n, c), dtype=torch.float32, device=x.device)
         dsc = torch.empty_like(dbc)
     if params:
         dscale = torch.empty_like(scale)
         dbias = torch.empty_like(bias)
+    if x.dtype == torch.bfloat16:
+        _backend.count_launch("gn_relu_bwd_bf16", plan.route)
+        _build.check(lib.dp_gn_relu_bwd_bf16(
+            x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), _ptr(dbc),
+            _ptr(dsc), _ptr(dscale), _ptr(dbias), n, h * w, c, num_groups,
+            plan.width, plan.cluster, plan.smem, _backend.stream_handle(x)),
+            "gn_relu_bwd_bf16")
+        return dx, dscale, dbias
     _backend.count_launch("gn_relu_bwd", plan.route)
     _build.check(lib.dp_gn_relu_bwd(
         x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
@@ -337,13 +415,17 @@ def gn_relu_bwd_kernel(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
 
 
 class GNRelu(torch.autograd.Function):
-    """The forward kernels, and the backward kernels for the gradient."""
+    """The forward kernels, and the backward kernels for the gradient. The
+    kernels take float32 affine parameters: bf16 ones are widened (exactly)
+    for them, and their cotangents come back in the parameters' type."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, num_groups, eps):
-        y, mean, rstd = gn_relu_fwd_kernel(x, scale, bias, num_groups, eps)
-        ctx.save_for_backward(x, scale, bias, mean, rstd)
+        s32, b32 = scale.float().contiguous(), bias.float().contiguous()
+        y, mean, rstd = gn_relu_fwd_kernel(x, s32, b32, num_groups, eps)
+        ctx.save_for_backward(x, s32, b32, mean, rstd)
         ctx.num_groups = num_groups
+        ctx.param_dtypes = (scale.dtype, bias.dtype)
         return y
 
     @staticmethod
@@ -353,14 +435,18 @@ class GNRelu(torch.autograd.Function):
         dx, dscale, dbias = gn_relu_bwd_kernel(
             x, dy.contiguous(), scale, bias, mean, rstd, ctx.num_groups,
             params=params)
+        if params:
+            dscale = dscale.to(ctx.param_dtypes[0])
+            dbias = dbias.to(ctx.param_dtypes[1])
         return dx, dscale, dbias, None, None
 
 
 def gn_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm(num_groups, eps)+ReLU on NHWC `x` with the `[C]` affine
-    `scale`/`bias`; differentiable in all three. A CUDA tensor runs the
-    kernels (float32 only); a CPU tensor runs the plain version."""
+    `scale`/`bias`; differentiable in all three. `x` float32 or bf16; the
+    output and `dx` in `x.dtype`, the statistics in float32. A CUDA tensor
+    runs the kernels; a CPU tensor runs the plain version."""
     if x.shape[-1] % num_groups:
         raise ValueError(f"C={x.shape[-1]} not divisible by {num_groups} "
                          "groups")

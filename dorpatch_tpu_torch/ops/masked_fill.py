@@ -5,8 +5,12 @@ occlude images with rectangle sets and fill the occluded pixels with gray.
 On the card two hand-written kernels (`csrc/masked_fill.cu`) do it:
 
 - kernel A, the forward: rasterizes each mask's K rectangles inside the
-  kernel and writes `where(occluded, fill, img)`; no mask tensor exists;
-- kernel B, the backward: the image cotangent `sum_s g[b, s] * keep[s]`.
+  kernel and writes `where(occluded, fill, img)`; no mask tensor exists.
+  It takes float32 images and, for the bf16 certify bank, bf16 images
+  (an exact select in the images' type; the fill rounded to it);
+- kernel B, the backward: the image cotangent `sum_s g[b, s] * keep[s]`,
+  float32 only (the bf16 attack fills at float32 before its cast, so no
+  bf16 cotangent reaches the fill).
 
 `MaskedFill` pairs them as a `torch.autograd.Function`, so the attack
 differentiates through the fill. `masked_fill_reference` is the plain
@@ -48,9 +52,9 @@ BWD_COLS = (32, 16, 8, 4)
 
 
 class FwdPlan(NamedTuple):
-    """Kernel A's launch: `vec` floats a lane (4: 16-byte lanes; 1: the
-    scalar route), `group` masks a block walks, `stream` evict-first
-    stores."""
+    """Kernel A's launch: `vec` elements a lane (16-byte lanes: 4 floats or
+    8 bf16 values; 1: the scalar route), `group` masks a block walks,
+    `stream` evict-first stores."""
 
     vec: int
     group: int
@@ -65,10 +69,12 @@ class BwdPlan(NamedTuple):
     cols: int
 
 
-def lane_width(w: int, c: int, aligned: bool) -> int:
-    """4 when a row of `w * c` floats splits into 16-byte lanes (and the
-    buffers are 16-byte aligned), else 1."""
-    return 4 if aligned and (w * c) % 4 == 0 else 1
+def lane_width(w: int, c: int, aligned: bool, itemsize: int = 4) -> int:
+    """The elements of a 16-byte lane (4 floats, 8 bf16 values) when a row
+    of `w * c` elements splits into such lanes (and the buffers are 16-byte
+    aligned), else 1."""
+    v = 16 // itemsize
+    return v if aligned and (w * c) % v == 0 else 1
 
 
 def fwd_grid(plan: FwdPlan, b: int, s: int, h: int, w: int,
@@ -85,14 +91,15 @@ def bwd_grid(plan: BwdPlan, b: int, h: int, w: int,
 
 
 def fwd_plan(b: int, s: int, h: int, w: int, c: int,
-             aligned: bool = True) -> FwdPlan:
+             aligned: bool = True, itemsize: int = 4) -> FwdPlan:
     """FWD_GROUPS mask groups, more where the tiles leave fewer than
-    MIN_BLOCKS blocks; evict-first stores when the output outgrows L2."""
-    vec = lane_width(w, c, aligned)
+    MIN_BLOCKS blocks; evict-first stores when the output outgrows L2.
+    `itemsize` is the images' element size (4 float32, 2 bf16)."""
+    vec = lane_width(w, c, aligned, itemsize)
     tiles = math.prod(fwd_grid(FwdPlan(vec, s, False), b, s, h, w, c))
     groups = max(FWD_GROUPS, math.ceil(MIN_BLOCKS / tiles))
     group = max(1, min(MAX_GROUP, math.ceil(s / groups)))
-    return FwdPlan(vec, group, 4 * b * s * h * w * c > L2_BYTES)
+    return FwdPlan(vec, group, itemsize * b * s * h * w * c > L2_BYTES)
 
 
 def bwd_plan(b: int, s: int, h: int, w: int, c: int,
@@ -124,8 +131,9 @@ def _aligned(*ts: torch.Tensor) -> bool:
 
 def masked_fill_fwd_kernel(imgs: torch.Tensor, rects: torch.Tensor,
                            fill: float) -> torch.Tensor:
-    """Kernel A on CUDA tensors: imgs `[B,H,W,C]` f32, rects `[S,K,4]`
-    int32 -> `[B,S,H,W,C]` f32, launched with `fwd_plan`."""
+    """Kernel A on CUDA tensors: imgs `[B,H,W,C]` f32 or bf16, rects
+    `[S,K,4]` int32 -> `[B,S,H,W,C]` of the images' type, launched with
+    `fwd_plan`."""
     return _fwd_launch(imgs, rects, fill, None)
 
 
@@ -136,16 +144,22 @@ def masked_fill_bwd_kernel(rects: torch.Tensor,
     return _bwd_launch(rects, g, None)
 
 
-def _check_vec(vec: int, w: int, c: int, aligned: bool) -> None:
-    if vec not in (1, 4) or vec > lane_width(w, c, aligned):
-        raise ValueError(f"{vec} floats a lane do not fit rows of {w}x{c} "
-                         f"floats (16-byte aligned: {aligned})")
+def _check_vec(vec: int, w: int, c: int, aligned: bool,
+               itemsize: int = 4) -> None:
+    if vec not in (1, 16 // itemsize) or \
+            vec > lane_width(w, c, aligned, itemsize):
+        raise ValueError(f"{vec} elements a lane do not fit rows of {w}x{c} "
+                         f"elements of {itemsize} bytes (16-byte aligned: "
+                         f"{aligned})")
 
 
 def _fwd_launch(imgs: torch.Tensor, rects: torch.Tensor, fill: float,
                 plan: Optional[FwdPlan]) -> torch.Tensor:
-    """Kernel A with `plan` (None: `fwd_plan` of the shape)."""
-    _backend.require(imgs, "imgs", torch.float32, 4)
+    """Kernel A with `plan` (None: `fwd_plan` of the shape); the bf16 form
+    for bf16 images."""
+    bf16 = imgs.dtype == torch.bfloat16
+    _backend.require(imgs, "imgs", torch.bfloat16 if bf16 else torch.float32,
+                     4)
     _backend.require(rects, "rects", torch.int32, 3)
     if rects.shape[2] != 4 or rects.device != imgs.device:
         raise ValueError(f"rects must be [S,K,4] on {imgs.device}")
@@ -153,16 +167,19 @@ def _fwd_launch(imgs: torch.Tensor, rects: torch.Tensor, fill: float,
     s, k = int(rects.shape[0]), int(rects.shape[1])
     out = torch.empty((b, s, h, w, c), dtype=imgs.dtype, device=imgs.device)
     aligned = _aligned(imgs, out)
+    itemsize = imgs.element_size()
     if plan is None:
-        plan = fwd_plan(b, s, h, w, c, aligned)
-    _check_vec(plan.vec, w, c, aligned)
+        plan = fwd_plan(b, s, h, w, c, aligned, itemsize)
+    _check_vec(plan.vec, w, c, aligned, itemsize)
     tiles, groups, _ = fwd_grid(plan, b, s, h, w, c)
     lib = _build.library()
-    _backend.count_launch("masked_fill_fwd")
-    _build.check(lib.dp_masked_fill_fwd(
+    name = "masked_fill_fwd_bf16" if bf16 else "masked_fill_fwd"
+    entry = lib.dp_masked_fill_fwd_bf16 if bf16 else lib.dp_masked_fill_fwd
+    _backend.count_launch(name)
+    _build.check(entry(
         imgs.data_ptr(), rects.data_ptr(), out.data_ptr(), b, s, k, h, w, c,
-        float(fill), int(plan.vec == 4), plan.group, int(plan.stream), tiles,
-        groups, _backend.stream_handle(imgs)), "masked_fill_fwd")
+        float(fill), int(plan.vec > 1), plan.group, int(plan.stream), tiles,
+        groups, _backend.stream_handle(imgs)), name)
     return out
 
 
@@ -207,9 +224,10 @@ class MaskedFill(torch.autograd.Function):
 def masked_fill(imgs: torch.Tensor, rects, fill: float = 0.5) -> torch.Tensor:
     """Occlude `imgs` `[B,H,W,C]` with every rectangle set in `rects`
     `[S,K,4]` (int32 rows `(r0, r1, c0, c1)`, half-open; zero-area rows are
-    no-ops), filling with `fill`. Returns `[B,S,H,W,C]`, differentiable
-    with respect to `imgs`. CUDA tensors run kernels A and B; CPU tensors
-    run the plain version."""
+    no-ops), filling with `fill`. Returns `[B,S,H,W,C]` of the images'
+    type (float32 or bf16), differentiable with respect to float32 `imgs`.
+    CUDA tensors run kernels A and B; CPU tensors run the plain
+    version."""
     rects = _rects_i32(rects, imgs.device)
     if _backend.on_card(imgs):
         return MaskedFill.apply(imgs, rects, float(fill))

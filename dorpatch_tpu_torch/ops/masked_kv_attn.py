@@ -8,8 +8,13 @@ over both groups. On the card a hand-written kernel (`csrc/masked_kv_attn.cu`,
 kernel H of the JAX package: 3xTF32 tensor-core products and an online
 softmax) does it without writing logits or probabilities to memory;
 `masked_kv_attention_reference` is the plain version, which a CPU tensor
-takes. Port of `dorpatch_tpu.ops.masked_kv_attn`
-for float32 (bf16 comes with the bf16 bank).
+takes. Port of `dorpatch_tpu.ops.masked_kv_attn`.
+
+bf16 operands (the bf16 certify bank's token engine) take kernel H's bf16
+form: one bf16 tensor-core product per tile with float32 accumulation, the
+softmax in float32, the weights rounded to bf16 for the weighted sum, the
+output in bf16. The plain version computes in float32 from the bf16 values
+and rounds the output once, as the JAX kernel does.
 """
 
 from __future__ import annotations
@@ -25,24 +30,30 @@ HEAD_DIMS = (32, 64)
 def masked_kv_attention_reference(q, kd, vd, kc, vc, clean_bias, dirty_bias):
     """The einsum composition the kernel replaces (q pre-scaled):
     `q/kd/vd [B, C, S, H, f]`, `kc/vc [B, T, H, f]`, `clean_bias [B, C, T]`,
-    `dirty_bias [B, C, S]` -> `[B, C, S, H, f]`."""
+    `dirty_bias [B, C, S]` -> `[B, C, S, H, f]`. Inputs narrower than
+    float32 are computed in float32 and the output rounded to their type."""
+    dt = q.dtype
+    acc = torch.promote_types(dt, torch.float32)
+    q, kd, vd, kc, vc, clean_bias, dirty_bias = (
+        x.to(acc) for x in (q, kd, vd, kc, vc, clean_bias, dirty_bias))
     t = kc.shape[1]
     wc = torch.einsum("bcshf,bthf->bchst", q, kc) \
         + clean_bias[:, :, None, None, :]
     wd = torch.einsum("bcshf,bcthf->bchst", q, kd) \
         + dirty_bias[:, :, None, None, :]
     w = torch.softmax(torch.cat([wc, wd], dim=-1), dim=-1)
-    return torch.einsum("bchst,bthf->bcshf", w[..., :t], vc) \
-        + torch.einsum("bchst,bcthf->bcshf", w[..., t:], vd)
+    return (torch.einsum("bchst,bthf->bcshf", w[..., :t], vc)
+            + torch.einsum("bchst,bcthf->bcshf", w[..., t:], vd)).to(dt)
 
 
 def masked_kv_attention_kernel(q, kd, vd, kc, vc, clean_bias, dirty_bias):
-    """Kernel H on CUDA tensors (float32, contiguous, the shapes of
-    `masked_kv_attention_reference`)."""
+    """Kernel H on CUDA tensors (all float32, or all bf16 for its bf16
+    form; contiguous, the shapes of `masked_kv_attention_reference`)."""
     args = dict(q=q, kd=kd, vd=vd, kc=kc, vc=vc, clean_bias=clean_bias,
                 dirty_bias=dirty_bias)
+    bf16 = q.dtype == torch.bfloat16
     for name, t in args.items():
-        _backend.require(t, name, torch.float32,
+        _backend.require(t, name, torch.bfloat16 if bf16 else torch.float32,
                          {"kc": 4, "vc": 4, "clean_bias": 3,
                           "dirty_bias": 3}.get(name, 5))
     b, c, s, h, f = q.shape
@@ -65,12 +76,13 @@ def masked_kv_attention_kernel(q, kd, vd, kc, vc, clean_bias, dirty_bias):
                          "vd, kc and vc must be 16-byte aligned")
     lib = _build.library()
     out = torch.empty_like(q)
-    _backend.count_launch("masked_kv_attn")
-    _build.check(lib.dp_masked_kv_attn(
+    name = "masked_kv_attn_bf16" if bf16 else "masked_kv_attn"
+    _backend.count_launch(name)
+    _build.check((lib.dp_masked_kv_attn_bf16 if bf16 else
+                  lib.dp_masked_kv_attn)(
         q.data_ptr(), kd.data_ptr(), vd.data_ptr(), kc.data_ptr(),
         vc.data_ptr(), clean_bias.data_ptr(), dirty_bias.data_ptr(),
-        out.data_ptr(), b, c, s, h, f, t, _backend.stream_handle(q)),
-        "masked_kv_attn")
+        out.data_ptr(), b, c, s, h, f, t, _backend.stream_handle(q)), name)
     return out
 
 

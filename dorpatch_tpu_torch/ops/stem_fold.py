@@ -21,6 +21,13 @@ never exists.
   delta is exactly zero.
 
 The window plans are host numpy, as in `dorpatch_tpu.ops.stem_fold`.
+
+bf16 (the bf16 certify bank): `StemFoldFamily(..., compute_dtype=
+"bfloat16")` runs a once-cast bf16 copy of the victim and casts the images
+at its boundary, so the stem kernel, the clean cache, the fill delta and
+the occlusion windows are bf16 operands; the delta accumulates in float32
+and is added to clean in bf16 (kernel C's bf16 form on the card); the
+margins are read out in float32.
 """
 
 from __future__ import annotations
@@ -126,6 +133,8 @@ def _delta_conv(win: torch.Tensor, kernel: torch.Tensor, s: int) -> torch.Tensor
     oh, ow = (ih - k) // s + 1, (iw - k) // s + 1
     acc = torch.zeros((b, oh * ow, kernel.shape[-1]), dtype=torch.float32,
                       device=win.device)
+    # bf16 operands widen exactly: their products and sums are float32
+    win, kernel = win.float(), kernel.float()
     for dr in range(k):
         rows = win[:, dr:dr + (oh - 1) * s + 1:s]
         for dc in range(k):
@@ -145,7 +154,8 @@ def fold_masked_stem(kernel: torch.Tensor, clean: torch.Tensor,
                      strides: Tuple[int, int], pads) -> torch.Tensor:
     """The plain version. `[B, h, w, c]` clean stem cache, `[B, H, W, C]`
     fill delta `u = norm_scale * (fill - img)` and HWIO stem `kernel` ->
-    `[B, N, h, w, c]` masked stem activations."""
+    `[B, N, h, w, c]` masked stem activations, in clean's type; the delta
+    accumulates in float32 and is rounded to that type before the add."""
     up = _pad_nhwc(u, pads)
     out = clean[:, None].repeat(1, len(plan), 1, 1, 1)
     for n, w in enumerate(plan):
@@ -162,18 +172,20 @@ def fold_masked_stem_kernel(kernel: torch.Tensor, clean: torch.Tensor,
                             s: int) -> torch.Tensor:
     """Kernel C on CUDA tensors. `up` is the fill delta padded by the stem's
     pads plus `s - 1` rows/cols (`pad_for_kernel`); `geo`/`occ` come from
-    `_uniform_plan`. Returns `[B, N, h, w, c]`."""
-    for t, name, dt, nd in ((kernel, "kernel", torch.float32, 4),
-                            (clean, "clean", torch.float32, 4),
-                            (up, "up", torch.float32, 4),
-                            (geo, "geo", torch.int32, 2),
-                            (occ, "occ", torch.float32, 3)):
-        _backend.require(t, name, dt, nd)
+    `_uniform_plan`. kernel, clean, up and occ all float32, or all bf16 (the
+    bf16 form: float32 accumulation). Returns `[B, N, h, w, c]` of clean's
+    type."""
+    bf16 = clean.dtype == torch.bfloat16
+    dt = torch.bfloat16 if bf16 else torch.float32
+    for t, name, tt, nd in ((kernel, "kernel", dt, 4), (clean, "clean", dt, 4),
+                            (up, "up", dt, 4), (geo, "geo", torch.int32, 2),
+                            (occ, "occ", dt, 3)):
+        _backend.require(t, name, tt, nd)
     k = int(kernel.shape[0])
     b, h, w, c = clean.shape
     _, hp, wp, cin = up.shape
     n, ih, iw = occ.shape
-    if (tuple(kernel.shape) != (k, k, cin, c) or c % 4
+    if (tuple(kernel.shape) != (k, k, cin, c) or c % (8 if bf16 else 4)
             or (ih, iw) != (oh * s + k - 1, ow * s + k - 1)
             or tuple(geo.shape) != (n, 4) or up.shape[0] != b):
         raise ValueError(
@@ -192,11 +204,12 @@ def fold_masked_stem_kernel(kernel: torch.Tensor, clean: torch.Tensor,
                          f"the window rows of {ow} outputs in {smem} bytes of "
                          f"shared memory, more than a block's "
                          f"{_build.MAX_SMEM_BYTES}")
-    _backend.count_launch("stem_fold")
-    _build.check(lib.dp_stem_fold(
+    name = "stem_fold_bf16" if bf16 else "stem_fold"
+    _backend.count_launch(name)
+    _build.check((lib.dp_stem_fold_bf16 if bf16 else lib.dp_stem_fold)(
         geo.data_ptr(), up.data_ptr(), occ.data_ptr(), clean.data_ptr(),
         kernel.data_ptr(), out.data_ptr(), b, n, hp, wp, cin, ih, iw, oh, ow,
-        h, w, c, k, s, _backend.stream_handle(clean)), "stem_fold")
+        h, w, c, k, s, _backend.stream_handle(clean)), name)
     return out
 
 
@@ -209,12 +222,16 @@ def pad_for_kernel(u: torch.Tensor, pads, s: int) -> torch.Tensor:
 
 class StemFoldFamily:
     """One mask family's stem-folded first round: `phase1(imgs)` ->
-    `(preds [B, M], margins [B, M])`, the `apply_masks` + full-forward
-    table up to conv summation order."""
+    `(preds [B, M], margins [B, M] float32)`, the `apply_masks` +
+    full-forward table up to conv summation order, at `compute_dtype`
+    ("float32" or "bfloat16": a once-cast copy of the victim, the images
+    cast at the boundary)."""
 
     def __init__(self, engine: "StemFoldEngine", rects: np.ndarray,
-                 num_singles: int, chunk_size: int, fill: float):
-        self.engine = engine
+                 num_singles: int, chunk_size: int, fill: float,
+                 compute_dtype: str = "float32"):
+        self.dtype = utils.compute_dtype(compute_dtype)
+        self.engine = engine.at(self.dtype)
         self.num_singles = int(num_singles)
         self.chunk_size = max(1, int(chunk_size))
         self.fill = float(fill)
@@ -232,17 +249,18 @@ class StemFoldFamily:
                 self.plan[off:off + cnt], h, w, eng.kernel_hw, eng.strides[0])
             self._kernel_plans[key] = (
                 oh, ow, torch.as_tensor(geo, device=device),
-                torch.as_tensor(occ, device=device))
+                torch.as_tensor(occ, dtype=self.dtype, device=device))
         return self._kernel_plans[key]
 
     @torch.no_grad()
     def phase1(self, imgs: torch.Tensor):
         eng = self.engine
+        imgs = imgs.to(self.dtype)      # the program boundary
         b, h, w, ci = imgs.shape
         n = len(self.plan)
         clean = eng.module(eng.normalize(imgs), "stem")      # [B, h', w', c']
         u = eng.norm_scale * (self.fill - imgs)
-        kernel = eng.kernel_fn().contiguous()                # HWIO
+        kernel = eng.kernel_fn(eng.module).contiguous()      # HWIO
         # fold and trunk per mask chunk, so the live folded-stem tensor stays
         # within the chunk_size memory contract: a stem map is
         # (h'*w'*c')/(H*W*C) times an input image (about 21x for the CIFAR
@@ -277,7 +295,7 @@ class StemFoldEngine:
 
     `module(x, "stem")` must give the bias-free linear stem conv output and
     `module(x, "trunk")` must finish the forward from it;
-    `kernel_fn()` returns the effective HWIO stem kernel."""
+    `kernel_fn(module)` returns its effective HWIO stem kernel."""
 
     kind = "stem"
 
@@ -293,7 +311,22 @@ class StemFoldEngine:
         self.pads = (tuple(pads[0]), tuple(pads[1]))
         self.normalize = normalize or (lambda x: (x - 0.5) / 0.5)
         self.norm_scale = float(norm_scale)
+        self._casts = {}
+
+    def at(self, dtype: torch.dtype) -> "StemFoldEngine":
+        """This engine on a `dtype` copy of its module (`utils.cast_module`,
+        made at the first call and kept); itself at float32."""
+        if dtype == torch.float32:
+            return self
+        if dtype not in self._casts:
+            self._casts[dtype] = StemFoldEngine(
+                utils.cast_module(self.module, dtype), self.img_size,
+                self.kernel_fn, self.kernel_hw, self.strides, self.pads,
+                self.normalize, self.norm_scale)
+        return self._casts[dtype]
 
     def build_family(self, rects: np.ndarray, num_singles: int,
-                     chunk_size: int, fill: float) -> StemFoldFamily:
-        return StemFoldFamily(self, rects, num_singles, chunk_size, fill)
+                     chunk_size: int, fill: float,
+                     compute_dtype: str = "float32") -> StemFoldFamily:
+        return StemFoldFamily(self, rects, num_singles, chunk_size, fill,
+                              compute_dtype)

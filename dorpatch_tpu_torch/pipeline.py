@@ -7,7 +7,10 @@
 Port of `dorpatch_tpu.pipeline.run_experiment` for one device, without the
 telemetry, mesh, streaming and carry-checkpoint layers. Runs on
 `cfg.device` ("cuda" unless the caller asks for "cpu"), in full float32
-(`utils.configure_numerics`).
+(`utils.configure_numerics`) unless the config asks for bf16: the attack's
+`compute_dtype` (`--compute-dtype`) and the certify bank's
+(`--certify-dtype`) reach `DorPatch` and `build_defenses` with the
+config.
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ def run_experiment(cfg: ExperimentConfig, verbose: bool = True) -> Dict:
     if verbose:
         name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu")
-        print(f"device: {dev} ({name})", flush=True)
+        print(f"device: {dev} ({name}); attack {cfg.attack.compute_dtype}, "
+              f"certification {cfg.defense.compute_dtype}", flush=True)
 
     victim = get_model(cfg.dataset, cfg.base_arch, cfg.model_dir,
                        cfg.img_size, device=dev)

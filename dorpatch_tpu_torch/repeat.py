@@ -5,11 +5,13 @@
     python -m dorpatch_tpu_torch.repeat --base_arch resnet18   # CIFAR
     python -m dorpatch_tpu_torch.repeat --base_arch vit        # ViT-B/16
     python -m dorpatch_tpu_torch.repeat --trials 50            # 50 gradients
+    python -m dorpatch_tpu_torch.repeat --compute-dtype bfloat16  # bf16 EOT
 
 From one seed, on the victim given at its main path's dataset, size and
 batch (`VICTIMS`, the argv of `chip_smoke.py`'s CIFAR, RN50 and ViT paths;
 sampling size 128, dropout 2), under the default numerics
-(`utils.configure_numerics`), it runs:
+(`utils.configure_numerics`) and at the attack's `--compute-dtype`
+(float32, or bfloat16: the victim's once-cast bf16 copy), it runs:
 
 1. the victim's logits and their input gradient on one masked batch,
    `--trials` times each (TRIALS by default), counting the calls that
@@ -74,10 +76,13 @@ def _diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def attack_steps(victim, x: torch.Tensor, steps: int, seed: int = SEED):
+def attack_steps(victim, x: torch.Tensor, steps: int, seed: int = SEED,
+                 compute_dtype: str = "float32"):
     """The patch (mask, pattern) and metrics after each of `steps` stage-0
-    attack steps from `seed` (sampling size 128, dropout 2)."""
-    cfg = AttackConfig(sampling_size=SAMPLING_SIZE, dropout=DROPOUT)
+    attack steps from `seed` (sampling size 128, dropout 2) at
+    `compute_dtype`."""
+    cfg = AttackConfig(sampling_size=SAMPLING_SIZE, dropout=DROPOUT,
+                       compute_dtype=compute_dtype)
     attack = DorPatch(victim.apply, victim.num_classes, cfg)
     universe = torch.as_tensor(masks.dropout_universe(x.shape[1], DROPOUT),
                                device=x.device)
@@ -111,10 +116,12 @@ def compare(label: str, a, b) -> dict:
     return dict(first_step=first, max_abs=worst)
 
 
-def victim_repeat(victim, x, label: str, trials: int) -> dict:
-    """Logits and input gradient of one masked batch, `trials` times each:
-    the largest difference from the first call and how many calls
-    differ from it."""
+def victim_repeat(victim, x, label: str, trials: int,
+                  compute_dtype: str = "float32") -> dict:
+    """Logits and input gradient of one masked batch, `trials` times each,
+    through the victim's forward at `compute_dtype`: the largest
+    difference from the first call and how many calls differ from it."""
+    fwd = utils.forward_at(victim.apply, utils.compute_dtype(compute_dtype))
     rects = torch.as_tensor(
         masks.dropout_universe(x.shape[1], DROPOUT)[:SAMPLING_SIZE],
         device=x.device)
@@ -122,7 +129,7 @@ def victim_repeat(victim, x, label: str, trials: int) -> dict:
     outs = []
     for _ in range(trials):
         xi = xm.clone().requires_grad_(True)
-        logits = victim.apply(xi)
+        logits = fwd(xi)
         (g,) = torch.autograd.grad(logits.logsumexp(-1).sum(), xi)
         outs.append((logits.detach(), g))
     if x.is_cuda:
@@ -146,7 +153,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--trials", type=int, default=TRIALS,
                    help="calls of the victim's gradient to compare")
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="the attack's EOT precision (as the CLI's flag)")
     return p
+
+
+def _set_gn_impl(victim, dtype: str, impl: str) -> None:
+    """`impl` on the victim's GroupNorms and on its cast copy's, which is a
+    module of its own."""
+    victim.model.set_gn_impl(impl)
+    fwd = utils.forward_at(victim.apply, utils.compute_dtype(dtype))
+    if fwd is not victim.apply:
+        fwd.model.set_gn_impl(impl)
 
 
 def main(argv=None) -> int:
@@ -159,23 +178,28 @@ def main(argv=None) -> int:
     x_np, _ = next(data.synthetic_batches(spec.dataset, spec.batch,
                                           spec.img_size, SEED))
     x = torch.as_tensor(x_np, device=dev)
+    dt = args.compute_dtype
     print(f"device: {torch.cuda.get_device_name(dev)}; {victim.name} at "
-          f"{spec.img_size} px, batch {spec.batch}; cudnn benchmark "
-          f"{torch.backends.cudnn.benchmark}, deterministic "
+          f"{spec.img_size} px, batch {spec.batch}, compute dtype {dt}; "
+          f"cudnn benchmark {torch.backends.cudnn.benchmark}, deterministic "
           f"{torch.backends.cudnn.deterministic}", flush=True)
-    summary = {"arch": victim.name, "steps": args.steps}
+    summary = {"arch": victim.name, "steps": args.steps, "compute_dtype": dt}
+
+    def steps():
+        return attack_steps(victim, x, args.steps, compute_dtype=dt)
+
     gn = hasattr(victim.model, "set_gn_impl")
     for impl in ("auto", "plain") if gn else ("auto",):
         if gn:
-            victim.model.set_gn_impl(impl)
+            _set_gn_impl(victim, dt, impl)
         name = {"auto": "GN kernels", "plain": "plain GN"}[impl] if gn \
             else "default numerics"
         summary[f"victim/{impl}"] = victim_repeat(victim, x, name,
-                                                   args.trials)
-        runs = [attack_steps(victim, x, args.steps) for _ in range(2)]
+                                                   args.trials, dt)
+        runs = [steps() for _ in range(2)]
         summary[f"attack/{impl}"] = compare(f"attack steps, {name}", *runs)
     if gn:
-        victim.model.set_gn_impl("auto")
+        _set_gn_impl(victim, dt, "auto")
     repeats = all(summary[f"attack/{impl}"]["first_step"] is None
                   and summary[f"victim/{impl}"]["logits_differing"] == 0
                   and summary[f"victim/{impl}"]["input_grad_differing"] == 0
@@ -185,7 +209,7 @@ def main(argv=None) -> int:
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            runs = [attack_steps(victim, x, args.steps) for _ in range(2)]
+            runs = [steps() for _ in range(2)]
     finally:
         torch.use_deterministic_algorithms(False)
     ops = sorted({str(w.message).split("\n")[0] for w in caught})
@@ -198,8 +222,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.deterministic = False
     try:
         summary["victim/cudnn_nondeterministic"] = victim_repeat(
-            victim, x, "diagnostic: cuDNN determinism off", args.trials)
-        runs = [attack_steps(victim, x, args.steps) for _ in range(2)]
+            victim, x, "diagnostic: cuDNN determinism off", args.trials, dt)
+        runs = [steps() for _ in range(2)]
     finally:
         utils.configure_numerics()
     summary["attack/cudnn_nondeterministic"] = compare(

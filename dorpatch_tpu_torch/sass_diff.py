@@ -1,0 +1,97 @@
+"""Whether this checkout's kernels compile to the same machine code as
+another checkout's.
+
+    python dorpatch_tpu_torch/sass_diff.py --tree DIR
+
+Builds the kernel library of both checkouts (`ops/_build.py`), disassembles
+each with `cuobjdump -sass` and compares every kernel of DIR's library with
+this checkout's kernel of the same instantiation, instruction by
+instruction (addresses, encodings and symbol names left out). A kernel
+templated since DIR's version matches on its float32 instantiation
+(`fill_fwd<4, false>` against `fill_fwd<float, 4, false>`). Prints SAME or
+DIFF per kernel and exits 1 if any differs or is missing. Needs `nvcc`
+and `cuobjdump` (the CUDA toolkit); no GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import subprocess
+import sys
+from typing import Dict, List
+
+
+def library(root: str) -> str:
+    """Build `root`'s kernel library in its own process; returns its
+    path."""
+    out = subprocess.run(
+        [sys.executable, "-c", "from dorpatch_tpu_torch.ops import _build; "
+         "print(_build.build())"], cwd=root, check=True,
+        capture_output=True, text=True)
+    return out.stdout.strip().splitlines()[-1]
+
+
+def kernels(so: str) -> Dict[str, List[str]]:
+    """Mangled kernel name (the anonymous namespace's hash left out) ->
+    its SASS instructions."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", so], check=True,
+                          capture_output=True, text=True).stdout
+    out: Dict[str, List[str]] = {}
+    body: List[str] = []
+    for line in text.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+", "",
+                          m.group(1))
+            body = out.setdefault(name, [])
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(.*?);", line)
+        if m:
+            body.append(re.sub(r"_ZN\w+", "SYM", m.group(1)))
+    return out
+
+
+def counterpart(name: str, ours: Dict[str, List[str]]):
+    """Our kernel of `name`'s instantiation: the same name, or the float
+    instantiation of a kernel templated on its element type since (a new
+    first template argument `f`, before any it had)."""
+    if name in ours:
+        return name
+    m = re.match(r"(_ZN\d+[a-z_]\w*?)([IE])(.*)$", name)
+    if m is None:
+        return None
+    stem, kind, rest = m.groups()
+    head = stem + ("If" + rest.split("EEEv")[0] + "EEEv" if kind == "I"
+                   else "IfEEv")
+    return next((c for c in ours if c.startswith(head)), None)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--tree", required=True,
+                   help="the other checkout (e.g. the parent, unpacked "
+                        "with git archive)")
+    args = p.parse_args(argv)
+    here = os.path.abspath(os.path.join(os.path.dirname(__file__),
+                                        os.pardir))
+    theirs = kernels(library(os.path.abspath(args.tree)))
+    ours = kernels(library(here))
+    differ = 0
+    for name, body in sorted(theirs.items()):
+        mine = counterpart(name, ours)
+        same = mine is not None and ours[mine] == body
+        differ += not same
+        print(f"{'SAME' if same else 'DIFF'} {name} ({len(body)} "
+              f"instructions; ours {mine})", flush=True)
+    print(f"{len(theirs) - differ} of {len(theirs)} kernels of {args.tree} "
+          f"compile to the same instructions here ({len(ours)} kernels "
+          f"here)", flush=True)
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -4,6 +4,8 @@
     python -m dorpatch_tpu_torch.trace --base_arch resnet18 --img-size 32 \\
         --batch 8                                        # CIFAR ResNet-18
     python -m dorpatch_tpu_torch.trace --base_arch vit   # ViT-B/16, 224
+    python -m dorpatch_tpu_torch.trace --compute-dtype bfloat16 \
+        --certify-dtype bfloat16                         # the bf16 paths
 
 Runs the pieces of the main path for the victim given (by default the
 port's default victim at 224 px and 2 images, as the RN50 main path runs
@@ -17,6 +19,9 @@ each after a warm-up:
 - `certify`: one pruned certification at each of the four radii, with the
   family's incremental engine ("auto": the stem fold for the conv
   victims, the token-pruned engine with its escalations for the ViT).
+
+`--compute-dtype` sets the attack's precision (steps and sweep) and
+`--certify-dtype` the certification's, as the CLI's flags do.
 
 For each phase it prints the wall time per call (host clock around work
 that ends in a synchronize), the device-busy time (union of the kernels'
@@ -51,7 +56,7 @@ _GROUPS = (
     ("kernel H", ("masked_kv_attn",)),
     ("port kernels", ("fill_fwd", "fill_bwd", "stem_fold")),
     ("conv/matmul", ("conv", "cudnn", "xmma", "gemm", "cutlass", "wgrad",
-                     "dgrad", "implicit")),
+                     "dgrad", "implicit", "nvjet")),
     ("softmax", ("softmax",)),
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -127,6 +132,10 @@ def main(argv=None) -> int:
     p.add_argument("--base_arch", default="resnetv2", choices=sorted(DATASET))
     p.add_argument("--img-size", type=int, default=224)
     p.add_argument("--batch", type=int, default=2)
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--certify-dtype", default="float32",
+                   choices=["float32", "bfloat16"])
     args = p.parse_args(argv)
     size, batch, dataset = args.img_size, args.batch, DATASET[args.base_arch]
     dev = utils.resolve_device("cuda")
@@ -137,7 +146,8 @@ def main(argv=None) -> int:
     x = torch.as_tensor(x_np, device=dev)
     with torch.no_grad():
         y = torch.argmax(victim.apply(x), -1)
-    cfg = AttackConfig(sampling_size=128, dropout=2)
+    cfg = AttackConfig(sampling_size=128, dropout=2,
+                       compute_dtype=args.compute_dtype)
     attack = DorPatch(victim.apply, victim.num_classes, cfg)
     universe = torch.as_tensor(masks.dropout_universe(size, 2), device=dev)
     lvx = torch.mean(local_variance(x)[0], dim=-1)
@@ -153,8 +163,9 @@ def main(argv=None) -> int:
         attack.sweep_failures(s.adv_mask, s.adv_pattern, x, s.y, s.targeted,
                               universe)
 
-    defenses = build_defenses(victim.apply, size, DefenseConfig(),
-                              incremental=victim.incremental, device=dev)
+    defenses = build_defenses(
+        victim.apply, size, DefenseConfig(compute_dtype=args.certify_dtype),
+        incremental=victim.incremental, device=dev)
 
     def certify():
         for d in defenses:
@@ -167,8 +178,9 @@ def main(argv=None) -> int:
               profile_phase("sweep", sweep, 1),
               profile_phase("certify", certify, 1)]
     print(json.dumps({"device": name, "arch": victim.name, "img_size": size,
-                      "batch": batch, "phases": phases}, default=float),
-          flush=True)
+                      "batch": batch, "compute_dtype": args.compute_dtype,
+                      "certify_dtype": args.certify_dtype, "phases": phases},
+                     default=float), flush=True)
     return 0
 
 

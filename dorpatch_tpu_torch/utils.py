@@ -1,4 +1,5 @@
-"""Seeding, device selection, float32 numerics and the prediction readout.
+"""Seeding, device selection, numerics, the bf16 victim copy and the
+prediction readout.
 
 Randomness is explicit: every stochastic component takes a
 `torch.Generator` seeded from the config. `set_global_seed` covers the
@@ -7,10 +8,14 @@ host-side RNGs (python, numpy) the data and target sampling use.
 
 from __future__ import annotations
 
+import copy
 import random
 
 import numpy as np
 import torch
+
+#: the precisions of the attack's EOT step and of the certify sweep
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def set_global_seed(seed: int = 1234) -> None:
@@ -59,6 +64,45 @@ def configure_numerics() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+
+
+def compute_dtype(name: str, what: str = "compute_dtype") -> torch.dtype:
+    """The torch dtype of a `compute_dtype` config value; anything but
+    "float32" or "bfloat16" raises."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"{what}={name!r} (legal: "
+                         f"{', '.join(COMPUTE_DTYPES)})")
+    return COMPUTE_DTYPES[name]
+
+
+def cast_module(module: torch.nn.Module,
+                dtype: torch.dtype = torch.bfloat16) -> torch.nn.Module:
+    """A copy of `module` with its floating parameters and buffers cast to
+    `dtype` and integer buffers as they are. The caller makes it once and
+    keeps it (`registry.VictimForward.at`, the engines' `at`); the original
+    keeps its own weights: the f32 oracle's."""
+    out = copy.deepcopy(module)
+    for t in list(out.parameters()) + list(out.buffers()):
+        if t.is_floating_point():
+            t.data = t.data.to(dtype)
+    return out
+
+
+def forward_at(apply_fn, dtype: torch.dtype):
+    """`apply_fn`'s forward at `dtype`: itself at float32;
+    `apply_fn.at(dtype)` where it has one (a victim's forward on its
+    once-cast copy, `models.registry.VictimForward`); else, for a function
+    without weights, `apply_fn` on the images cast to `dtype`. Either way
+    the logits come back in float32."""
+    if dtype == torch.float32:
+        return apply_fn
+    if hasattr(apply_fn, "at"):
+        return apply_fn.at(dtype)
+
+    def fwd(images: torch.Tensor) -> torch.Tensor:
+        return apply_fn(images.to(dtype)).float()
+
+    return fwd
 
 
 def preds_margins(logits: torch.Tensor):

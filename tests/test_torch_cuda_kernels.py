@@ -543,3 +543,269 @@ def test_masked_kv_attention_kernel_as_accurate_as_float32(dev, f):
     torch.cuda.synchronize()
     assert (float((got.double() - want).abs().max())
             <= float((plain.double() - want).abs().max()))
+
+
+# ------------------------------------------------------------- bf16 forms
+#
+# Each bf16 kernel against its plain version in bf16 (the same function on
+# the same bf16 inputs), with tolerances in bf16 ulps: `_ulp16(x)` is the
+# spacing of bf16 numbers at |x| (8 significant bits: 2^(e-7)).
+
+
+def _ulp16(x: torch.Tensor) -> torch.Tensor:
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+@pytest.mark.parametrize("b,size,s,k", [(8, 32, 128, 2), (2, 224, 63, 2),
+                                        (3, 15, 7, 3)])
+def test_fill_forward_bf16_equals_plain_exactly(dev, b, size, s, k):
+    """Kernel A's bf16 form: an exact select at the bank's two image sizes
+    (16-byte lanes of 8 values) and at a 15 px slab (the scalar route)."""
+    imgs, rects = _case(dev, 7, b, size, s, k)
+    imgs = imgs.bfloat16()
+    _backend.reset_launch_counts()
+    got = mf.masked_fill(imgs, rects, 0.5)
+    torch.cuda.synchronize()
+    counts = _backend.launch_counts()
+    assert (counts["masked_fill_fwd_bf16"], counts["masked_fill_fwd"]) == \
+        (1, 0)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, mf.masked_fill_reference(imgs, rects, 0.5))
+
+
+@pytest.mark.parametrize("vec", [8, 1])
+def test_fill_forward_bf16_every_plan_equals_plain(dev, vec):
+    imgs, rects = _case(dev, 8, 3, 48, 37, 2)
+    imgs = imgs.bfloat16()
+    want = mf.masked_fill_reference(imgs, rects, 0.5)
+    for group in (1, 5, 32):
+        for stream in (False, True):
+            plan = mf.FwdPlan(vec, group, stream)
+            got = mf._fwd_launch(imgs, rects, 0.5, plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), plan
+    with pytest.raises(ValueError, match="elements a lane"):
+        mf._fwd_launch(imgs, rects, 0.5, mf.FwdPlan(4, 8, False))
+
+
+@pytest.mark.parametrize("img,k,s,cout,ratio,masks",
+                         [(32, 3, 1, 64, 0.12, 3), (224, 7, 2, 64, 0.12, 12),
+                          (224, 7, 2, 64, 0.06, -13)])
+def test_stem_fold_kernel_bf16_matches_plain(dev, img, k, s, cout, ratio,
+                                             masks):
+    """Kernel C's bf16 form against the plain fold on the same bf16
+    operands: both accumulate in float32 and round the delta, then the sum,
+    to bf16, so they differ by the summation order alone: within one ulp of
+    the output and one of the delta."""
+    rng = np.random.default_rng(img + k + 1)
+    pads = ((1, 1), (1, 1)) if k == 3 else \
+        (sf.same_pads(img, k, s), sf.same_pads(img, k, s))
+    h_out = (img + sum(pads[0]) - k) // s + 1
+
+    def bf(a):
+        return torch.as_tensor(a, dtype=torch.bfloat16, device=dev)
+
+    kern = bf(rng.normal(0, 0.3, (k, k, 3, cout)))
+    clean = bf(rng.normal(0, 1, (4, h_out, h_out, cout)))
+    u = bf(rng.uniform(-1, 1, (4, img, img, 3)))
+    singles, _ = tmasks.mask_sets(tmasks.geometry(img, ratio))
+    plan = sf.plan_windows(singles, img, k, s, pads)
+    plan = plan[:masks] if masks > 0 else plan[masks:]
+    oh, ow, geo, occ = sf._uniform_plan(plan, h_out, h_out, k, s)
+    args = (kern, clean, sf.pad_for_kernel(u, pads, s),
+            torch.as_tensor(geo, device=dev), bf(occ), oh, ow, s)
+    _backend.reset_launch_counts()
+    got = sf.fold_masked_stem_kernel(*args)
+    torch.cuda.synchronize()
+    assert _backend.launch_counts()["stem_fold_bf16"] == 1
+    assert _backend.launch_counts()["stem_fold"] == 0
+    want = sf.fold_masked_stem(kern, clean, u, plan, (s, s), pads)
+    assert got.dtype == want.dtype == torch.bfloat16
+    delta = want.float() - clean[:, None].float()
+    err = (got.float() - want.float()).abs()
+    assert (err <= _ulp16(want) + _ulp16(delta)).all(), float(err.max())
+    assert torch.equal(sf.fold_masked_stem_kernel(*args), got)
+
+
+def _gn_case16(dev, seed, shape):
+    x, s, b, dy = _gn_case(dev, seed, shape)
+    return x.bfloat16(), s, b, dy.bfloat16()
+
+
+@pytest.mark.parametrize("shape", [(8, 28, 28, 128), (16, 7, 7, 2048),
+                                   (2, 56, 56, 256), (2, 56, 56, 64)])
+def test_gn_bf16_kernels_match_plain_bf16(dev, shape):
+    """Kernels D and F in bf16 against the plain versions on the same bf16
+    inputs (statistics and arithmetic in float32, y and dx rounded once):
+    within one bf16 ulp and 1e-5 (float32 statistics summed in another
+    order); dx away from ReLU gates within 1e-5 of a flip, the parameter
+    cotangents (float32) as in the float32 tests. Both repeat bit for
+    bit."""
+    x, s, b, dy = _gn_case16(dev, 6, shape)
+    n, h, w, c = shape
+    for d in ("fwd", "bwd"):
+        assert fgn.gn_plan(d, n, h * w, c, 32, 2).route == "one_pass"
+    _backend.reset_launch_counts()
+    y, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
+    dx, ds, db = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd)
+    torch.cuda.synchronize()
+    assert _backend.route_counts() == {"gn_relu_fwd_bf16/one_pass": 1,
+                                       "gn_relu_bwd_bf16/one_pass": 1}
+    assert (y.dtype, dx.dtype, mean.dtype, ds.dtype) == \
+        (torch.bfloat16, torch.bfloat16, torch.float32, torch.float32)
+    m32, r32 = fgn.gn_stats_reference(x, 32)
+    torch.testing.assert_close(mean, m32, rtol=0, atol=1e-5)
+    torch.testing.assert_close(rstd, r32, rtol=1e-5, atol=0)
+    want = fgn.gn_relu_reference(x, s, b)
+    err = (y.float() - want.float()).abs()
+    assert (err <= _ulp16(want) + 1e-5).all(), float(err.max())
+    wdx, wds, wdb = fgn.gn_relu_backward_reference(x, dy, s, b, mean, rstd)
+    near, dx_b, ds_b, db_b = fgn.gate_flip_bounds(x, dy, s, b, mean, rstd)
+    keep = ~near
+    err = (dx.float() - wdx.float()).abs()[keep]
+    assert (err <= _ulp16(wdx)[keep] + 1e-5 + dx_b[keep]).all(), \
+        float(err.max())
+    assert ((ds - wds).abs() <= 1e-3 + 1e-5 * wds.abs() + ds_b).all()
+    assert ((db - wdb).abs() <= 1e-3 + 1e-5 * wdb.abs() + db_b).all()
+    assert all(torch.equal(p, q) for p, q in
+               zip(fgn.gn_relu_fwd_kernel(x, s, b), (y, mean, rstd)))
+    assert all(torch.equal(p, q) for p, q in zip(
+        fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd), (dx, ds, db)))
+
+
+def test_gn_bf16_autograd_and_shared_memory(dev):
+    """`gn_relu` on bf16 x with bf16 affine parameters: the bf16 kernels'
+    launch counts, cotangents in the parameters' type, and the bf16 shared
+    memory formula against the kernels' own."""
+    from dorpatch_tpu_torch.ops import _build
+
+    x, s, b, dy = _gn_case16(dev, 7, (2, 8, 8, 64))
+    leaves = [x.clone().requires_grad_(True),
+              s.bfloat16().requires_grad_(True),
+              b.bfloat16().requires_grad_(True)]
+    _backend.reset_launch_counts()
+    got = torch.autograd.grad((fgn.gn_relu(*leaves).float() * dy.float())
+                              .sum(), leaves)
+    counts = _backend.launch_counts()
+    assert (counts["gn_relu_fwd_bf16"], counts["gn_relu_bwd_bf16"],
+            counts["gn_relu_fwd"], counts["gn_relu_bwd"]) == (1, 1, 0, 0)
+    assert [g.dtype for g in got] == [torch.bfloat16] * 3
+    lib = _build.library()
+    for hw, c in sorted(RN50_GN):
+        for direction, slabs in (("fwd", 1), ("bwd", 2)):
+            p = fgn.gn_plan(direction, 2, hw, c, 32, 2)
+            assert lib.dp_gn_onepass_smem_bf16(hw, p.width, p.cluster,
+                                               slabs) == p.smem
+
+
+def test_resnetv2_bf16_victim_on_card_matches_cpu(dev):
+    """The full-depth ResNetV2-50x1's once-cast bf16 copy on the card (49
+    launches of kernel D's bf16 form a forward) against the same bf16 copy
+    on the CPU, which runs the kernels' numerics in plain PyTorch; bf16
+    convolutions sum in other orders on the two, so the logits are held to
+    the bf16-against-float32 drift measured on the CPU, and the argmax to
+    agree wherever the CPU's top-2 margin exceeds twice that drift."""
+    from dorpatch_tpu_torch import utils
+    from dorpatch_tpu_torch.models import get_model
+
+    cpu = get_model("imagenet", "resnetv2", "/nonexistent", 64, device="cpu")
+    gpu = get_model("imagenet", "resnetv2", "/nonexistent", 64, device=dev)
+    x = torch.rand((4, 64, 64, 3), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want32 = cpu.apply(x)
+        want = cpu.apply.at(torch.bfloat16)(x)
+        _backend.reset_launch_counts()
+        got = gpu.apply.at(torch.bfloat16)(x.to(dev)).cpu()
+    assert _backend.route_counts() == {"gn_relu_fwd_bf16/one_pass": 49}
+    drift = float((want - want32).abs().max())
+    assert float((got - want).abs().max()) <= drift
+    p, m = utils.preds_margins(want)
+    sure = m > 2 * drift
+    assert torch.equal(got.argmax(-1)[sure], p[sure].long())
+
+
+def _kv_check16(args):
+    """Kernel H's bf16 form against the plain version on the same bf16
+    inputs (float32 logits and softmax, output rounded once): the kernel
+    also rounds the weights to bf16 for P.V, which moves an output by at
+    most 2^-8 of the largest |v| of its row's keys; plus one ulp of the
+    output for the two roundings."""
+    from dorpatch_tpu_torch.ops import masked_kv_attn as mka
+
+    got = mka.masked_kv_attention_kernel(*args)
+    torch.cuda.synchronize()
+    want = mka.masked_kv_attention_reference(*args)
+    assert got.dtype == want.dtype == torch.bfloat16
+    vmax = max(float(args[2].float().abs().max()),
+               float(args[4].float().abs().max()))
+    err = (got.float() - want.float()).abs()
+    assert (err <= _ulp16(want) + 2.0 ** -8 * vmax).all(), float(err.max())
+    assert torch.equal(mka.masked_kv_attention_kernel(*args), got)
+    return got, want
+
+
+@pytest.mark.parametrize("shape", [(2, 36, 50, 12, 64, 197),
+                                   (2, 64, 99, 12, 64, 197),
+                                   (3, 4, 17, 4, 32, 65),
+                                   (1, 3, 20, 2, 64, 257)])
+def test_masked_kv_attention_bf16_matches_plain(dev, shape):
+    """The ViT-B/16 bank's phase-1 and pair-audit chunks, `cifar_vit`'s
+    head width, and a clean group too long to stage (read from device
+    memory); within the JAX package's bar of 0.06 of the float32 plain
+    version on the float32 inputs as well."""
+    from dorpatch_tpu_torch.ops import masked_kv_attn as mka
+
+    args32 = _kv_case(dev, 9, *shape)
+    args = tuple(a.bfloat16() for a in args32)
+    _backend.reset_launch_counts()
+    got = mka.masked_kv_attention(*args)
+    counts = _backend.launch_counts()
+    assert (counts["masked_kv_attn_bf16"], counts["masked_kv_attn"]) == (1, 0)
+    got, _ = _kv_check16(args)
+    want32 = mka.masked_kv_attention_reference(*args32)
+    assert float((got.float() - want32).abs().max()) <= 0.06
+
+
+def test_masked_kv_attention_bf16_only_dirty_slot_zero_live(dev):
+    args = list(_kv_case(dev, 10, 2, 6, 50, 4, 64, 197))
+    args[5][:, ::2] = -1e9
+    args[6][:, ::2, 1:] = -1e9
+    args = tuple(a.bfloat16() for a in args)
+    got, _ = _kv_check16(args)
+    want = args[2][:, ::2, :1].expand(-1, -1, 50, -1, -1)
+    assert torch.equal(got[:, ::2], want)
+
+
+def test_bf16_bank_on_card_equals_cpu(dev):
+    """The bf16 certify bank (kernel A's bf16 form in phase 1 and the pair
+    audit) on the trigger detector gives the CPU's bf16 records and the
+    float32 bank's verdicts; its one-hot margins of 1 escalate nothing."""
+    from dorpatch_tpu_torch.config import DefenseConfig
+    from dorpatch_tpu_torch.defense import PatchCleanser
+
+    x = np.full((4, 32, 32, 3), 0.5, np.float32)
+    x[1, 4:8, 4:8] = 1.0
+    x[2, 4:8, 4:8] = 1.0
+    x[2, 24:28, 24:28] = 1.0
+    x[3, 4:8, 4:8] = 1.0
+    x[3, 4:8, 24:28] = 0.0
+    spec = tmasks.geometry(32, 0.1)
+    cfg = DefenseConfig(ratios=(0.1,), compute_dtype="bfloat16")
+    want = PatchCleanser(_trigger, spec, cfg, device="cpu").robust_predict(
+        torch.as_tensor(x), 3, bucket_sizes=(1, 8))
+    _backend.reset_launch_counts()
+    pc = PatchCleanser(_trigger, spec, cfg, device=dev)
+    got = pc.robust_predict(torch.as_tensor(x, device=dev), 3,
+                            bucket_sizes=(1, 8))
+    counts = _backend.launch_counts()
+    assert counts["masked_fill_fwd_bf16"] > 0
+    assert counts["masked_fill_fwd"] == 0
+    np.testing.assert_allclose(pc.last_min_margin, 1.0)
+    for g, w in zip(got, want):
+        assert (g.prediction, g.certification, g.forwards) == \
+            (w.prediction, w.certification, w.forwards)
+        np.testing.assert_array_equal(g.preds_1, w.preds_1)
+        np.testing.assert_array_equal(g.preds_2, w.preds_2)
+    assert [(r.prediction, r.certification) for r in got] == \
+        [(0, True), (0, False), (1, False), (1, False)]

@@ -67,7 +67,12 @@ def test_cpu_tensor_takes_the_plain_version_without_launching():
     assert _backend.launch_counts() == {"masked_fill_fwd": 0,
                                         "masked_fill_bwd": 0, "stem_fold": 0,
                                         "gn_relu_fwd": 0, "gn_relu_bwd": 0,
-                                        "masked_kv_attn": 0}
+                                        "masked_kv_attn": 0,
+                                        "masked_fill_fwd_bf16": 0,
+                                        "stem_fold_bf16": 0,
+                                        "gn_relu_fwd_bf16": 0,
+                                        "gn_relu_bwd_bf16": 0,
+                                        "masked_kv_attn_bf16": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
