@@ -11,17 +11,19 @@ NVIDIA GPU.
    main paths' shapes and times both (median over REPS warmed
    repetitions; a repetition replays a CUDA graph of INNER calls,
    bracketed by synchronizes, so host launch cost is not counted):
-   kernels A and B at the CIFAR path's shapes and at the 224 paths'
-   (A exact at S = 128, 126 and 63; B against float64 autograd and bit for
-   bit on a repeat; both timed at the attack step's S = 128 beside the
-   plain versions and one-call PyTorch yardsticks), kernel C at CIFAR's
-   stem, the GroupNorm+ReLU forward and backward at every (HW, C) of the
-   RN50 victim at 224 with
-   the attack step's N = 256 (one-pass route; route, time, bytes bound,
-   plain and library times and calls per forward printed per shape, and
-   launches x (time - bound) summed over a forward's 49 calls) and at one
-   slab of the split route, each against float64 and repeated bit for
-   bit, kernel C at RN50's 7x7/2 stem at 224, and kernel H (the masked-KV
+   kernels A and B at the CIFAR path's shapes, at the 224 paths' and at
+   the 480 paths' (A exact at S = 128, 126 and 63; B against float64
+   autograd and bit for bit on a repeat; both timed at the attack step's
+   S = 128 beside the plain versions and one-call PyTorch yardsticks),
+   kernel C at CIFAR's stem, the GroupNorm+ReLU forward and backward at
+   every (HW, C) of the RN50 victim at 224 with the attack step's N = 256
+   (one-pass route) and at 480 with its N = 128 (forward one-pass, over
+   clusters of 8 at stage 1; the stage-1 backward split) (route, time,
+   bytes bound, plain and library times and calls per forward printed per
+   shape, and launches x (time - bound) summed over a forward's 49 calls),
+   and at one slab of the split route (GN_SPLIT_SLAB), each against
+   float64 and repeated bit for bit, kernel C at RN50's 7x7/2 stem at 224
+   and at 480, and kernel H (the masked-KV
    attention) at the
    ViT-B/16 token engine's phase-1 chunk and pair-audit chunk of the 0.12
    radius, against its plain version in float64 (and bit for bit against
@@ -32,13 +34,22 @@ NVIDIA GPU.
    then the bf16 forms against their plain versions on the same bf16
    inputs, in bf16 ulps, each timed beside its plain bf16 version and a
    bf16 library call, bounds at 2 bytes an element and 989 TFLOP/s: A at
-   the bank's chunks (S = 36, 63) at 32 and 224 px, C at both stems of the
-   victims' cast copies, D/F at [256,3136,256] and [256,49,2048], H at the
-   ViT-B/16 bank's phase-1 and pair-audit chunks;
-4. runs six main paths through their user entry point, the CLI, each
+   the bank's chunks (S = 36, 63) at 32, 224 and 480 px, C at the stems of
+   the victims' cast copies (RN50's at 224 and 480), D/F at
+   [256,3136,256] and [256,49,2048], E/G at GN_SPLIT_SLAB, D with F or G
+   at every (HW, C) at 480 (the GroupNorm forms also against float64,
+   within the float32 gates plus half a bf16 ulp), H at the ViT-B/16
+   bank's phase-1 and pair-audit chunks;
+4. runs eight main paths through their user entry point, the CLI, each
    with every kernel's launch count set to 0 just before and read just
-   after, and fails if a kernel of that path was not launched (or a
-   GroupNorm launch took another route than the one-pass route):
+   after, prints its seconds, forwards, escalations, the certification's
+   schedule (pair audits, minority rows) and peak device memory, and
+   fails if a kernel of that path was not launched, if a GroupNorm
+   kernel's launches took the split route at another share than its
+   shapes' plans give (`gn_split_shares`: none at 224; at 480 the
+   backward of the 11 stage-1 calls of every 49), or, on the conv bf16
+   paths, if A's bf16 form did not launch exactly when a pair audit was
+   scheduled:
    - CIFAR: `--synthetic --dataset cifar10 --base_arch resnet18
      --img-size 32 -b 8 --sampling-size 128 --dropout 2 --max-iterations
      20 --num-batches 1` (full-width CIFAR ResNet-18; kernels A, B, C);
@@ -55,6 +66,10 @@ NVIDIA GPU.
    fills at float32 (A, B) and runs the victim's bf16 copy (D, F on RN50);
    the bf16 bank fills bf16 images (A's bf16 form) and runs C's and H's
    bf16 forms);
+   - RN50 480 and RN50 480 bf16: ResNetV2-50x1 at BiT's 480 px
+     fine-tuning resolution, `--img-size 480 -b 1`, the other flags as
+     RN50's, without and with the bf16 flags (the backward of the stage-1
+     slabs takes kernel G, in float32 and in bf16);
    and prints A's and B's launches x (time - bound) per path;
 5. computes the RN50 victim's input gradient on one masked batch 10
    times and runs the RN50 attack's first 5 steps twice from one seed,
@@ -73,12 +88,13 @@ NVIDIA GPU.
    against full masked forwards (predictions equal wherever both margins
    exceed `incremental_margin`), and asserts that "token-exact" gives every
    image the (prediction, certification) of incremental="off"; and runs
-   the bf16 certify bank on RN50 and ViT-B/16, as seeded and lifted,
-   requiring every image's verdict to equal incremental="off" in float32,
-   the bank's bf16 kernels to launch and, lifted, an image to stay
+   the bf16 certify bank on RN50 and ViT-B/16 at 224, as seeded and
+   lifted, and lifted on RN50 at 480, requiring every image's verdict to
+   equal incremental="off" in float32, the bank's bf16 kernels to launch
+   (A's bf16 form in the pair audits) and, lifted, an image to stay
    unescalated;
-7. prints the per-kernel JSON line, the nvidia-smi line and, last,
-   `{"ok": true, "device": {...}}`.
+7. prints the total seconds, the per-kernel JSON line, the nvidia-smi
+   line and, last, `{"ok": true, "device": {...}}`.
 
 Any failed phase raises: the script then exits nonzero and prints no
 result line.
@@ -114,10 +130,14 @@ TOL_GN = dict(rtol=1e-5, atol=1e-5)
 TOL_GN_PARAMS = dict(rtol=1e-5, atol=1e-3)
 GN_NEAR = 1e-5
 #: GroupNorm slabs of the RN50 attack step: N = 2 images x 128 masks at
-#: every (HW, C) of the victim; and [N, HW, C] of a slab whose one-group
-#: chunk fits no cluster of CTAs (the split route)
+#: every (HW, C) of the victim; [N, HW, C] of a slab whose one-group chunk
+#: fits no cluster of CTAs (the split route, both directions); and the
+#: widest stage-1 slab of the attack step at 480 px, 1 image x 128 masks
+#: (forward one-pass over a cluster of 8, backward split), whose records
+#: stand for the 480 px sweep in the kernels line
 GN_N = 256
 GN_SPLIT_SLAB = (4, 256 * 256, 64)
+GN_480_SLAB = (128, 120 * 120, 256)
 # kernel H against its plain version in float64: float32 rounding of the
 # logits (64-term dots), the exp-sum over T+1+S keys and the weighted sum;
 # the engine's logits with kernel H and with the plain attention after 12
@@ -134,6 +154,11 @@ RN50_ARGV = ["--synthetic", "--dataset", "imagenet", "--base_arch",
              "--sampling-size", "128", "--dropout", "2",
              "--max-iterations", "20", "--num-batches", "1"]
 VIT_ARGV = [a if a != "resnetv2" else "vit" for a in RN50_ARGV]
+#: ResNetV2-50x1 at BiT's 480 px fine-tuning resolution, 1 image a batch
+RN50_480_ARGV = ["--synthetic", "--dataset", "imagenet", "--base_arch",
+                 "resnetv2", "--img-size", "480", "-b", "1",
+                 "--sampling-size", "128", "--dropout", "2",
+                 "--max-iterations", "20", "--num-batches", "1"]
 #: the bf16 paths: the same runs with the bf16 attack and certify bank
 BF16_FLAGS = ["--compute-dtype", "bfloat16", "--certify-dtype", "bfloat16"]
 CIFAR_KERNELS = ("masked_fill_fwd", "masked_fill_bwd", "stem_fold")
@@ -148,12 +173,23 @@ COUNT_OF = {"stem_fold_rn50": "stem_fold",
             "gn_relu_bwd": "gn_relu_bwd/one_pass",
             "gn_relu_fwd_split": "gn_relu_fwd/split",
             "gn_relu_bwd_split": "gn_relu_bwd/split",
+            "masked_fill_fwd_480": "masked_fill_fwd",
+            "masked_fill_bwd_480": "masked_fill_bwd",
+            "stem_fold_480": "stem_fold",
+            "gn_relu_fwd_480": "gn_relu_fwd/one_pass",
+            "gn_relu_bwd_split_480": "gn_relu_bwd/split",
             "masked_fill_fwd_bf16_224": "masked_fill_fwd_bf16",
             "stem_fold_bf16_rn50": "stem_fold_bf16",
             "gn_relu_fwd_bf16": "gn_relu_fwd_bf16/one_pass",
             "gn_relu_bwd_bf16": "gn_relu_bwd_bf16/one_pass",
             "gn_relu_fwd_bf16_49x2048": "gn_relu_fwd_bf16/one_pass",
             "gn_relu_bwd_bf16_49x2048": "gn_relu_bwd_bf16/one_pass",
+            "gn_relu_fwd_bf16_split": "gn_relu_fwd_bf16/split",
+            "gn_relu_bwd_bf16_split": "gn_relu_bwd_bf16/split",
+            "masked_fill_fwd_bf16_480": "masked_fill_fwd_bf16",
+            "stem_fold_bf16_480": "stem_fold_bf16",
+            "gn_relu_fwd_bf16_480": "gn_relu_fwd_bf16/one_pass",
+            "gn_relu_bwd_bf16_split_480": "gn_relu_bwd_bf16/split",
             "masked_kv_attn_bf16_pairs": "masked_kv_attn_bf16"}
 RN50_KERNELS = CIFAR_KERNELS + ("gn_relu_fwd", "gn_relu_bwd")
 VIT_KERNELS = ("masked_fill_fwd", "masked_fill_bwd", "masked_kv_attn")
@@ -166,6 +202,13 @@ RN50_BF16_KERNELS = CIFAR_BF16_KERNELS + ("gn_relu_fwd_bf16",
                                           "gn_relu_bwd_bf16")
 VIT_BF16_KERNELS = ("masked_fill_fwd", "masked_fill_bwd",
                     "masked_kv_attn_bf16")
+#: the bf16 bank's fill (A's bf16 form) fills only the pair audits' images
+#: (its minority rows are filled by the rows program's own lerp): at 480 px
+#: it must launch exactly when the run scheduled a pair audit
+#: (`main_path`'s `audit_fill`), which the seeded image's table may not
+#: need; the lifted 480 px bank check runs it
+RN50_480_BF16_KERNELS = tuple(k for k in RN50_BF16_KERNELS
+                              if k != "masked_fill_fwd_bf16")
 GN_KERNELS = ("gn_relu_fwd", "gn_relu_bwd", "gn_relu_fwd_bf16",
               "gn_relu_bwd_bf16")
 
@@ -305,8 +348,10 @@ def stem_fold_phase(torch, dev, dataset, arch, size, b, name,
     engine takes by the stem's inflation), against the plain fold and
     against the stem conv of the masked batch. With `dtype` bfloat16, C's
     bf16 form on the victim's bf16 copy: within one ulp of the output and
-    one of the delta of the plain bf16 fold (the two sum the delta in
-    float32 in other orders), bit-equal on a repeat; its gap to the bf16
+    one of the delta of the plain bf16 fold, plus twice the error bound of
+    a float32 sum of the delta's products (the two sum the delta in
+    float32 in other orders, and where it cancels to near 0 they may round
+    it an ulp or more apart), bit-equal on a repeat; its gap to the bf16
     conv of the masked batch is printed, not held (that conv rounds once
     where the fold rounds twice)."""
     import numpy as np
@@ -351,16 +396,40 @@ def stem_fold_phase(torch, dev, dataset, arch, size, b, name,
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
         c_err = float(err.max())
+        sums_note = ""
         if bf16:
             delta = want.float() - clean[:, None].float()
-            bad = int((err > _ulp16(torch, want) + _ulp16(torch, delta))
-                      .sum())
+            # each float32 delta lies within gamma_n * sum |w x| of the
+            # exact sum of its n = k*k*Cin products (a float32 dot
+            # product's error bound); where the sum cancels to near 0 that
+            # is more than an ulp of the delta
+            n_terms = k * k * up.shape[-1]
+            gamma = n_terms * 2.0 ** -24 / (1 - n_terms * 2.0 ** -24)
+            mag = sf.fold_masked_stem(
+                kern.float().abs(), torch.zeros_like(clean, dtype=torch.float),
+                u.float().abs(), part, (s, s), eng.pads)
+            ulps = _ulp16(torch, want) + _ulp16(torch, delta)
+            gate = ulps + 2 * gamma * mag
+            bad = int((err > gate).sum())
+            # the elements that only the sums' bound admits, and the one
+            # furthest beyond its ulps
+            beyond = (err - ulps).flatten()
+            i = int(beyond.argmax())
+            if float(beyond[i]) > 0:
+                at = [float(t.flatten()[i]) for t in (
+                    clean[:, None].expand_as(want), want, got, mag, gate)]
+                sums_note = (f"; {int((beyond > 0).sum())} elements beyond "
+                             f"the ulps alone, the furthest: clean {at[0]:.4g}"
+                             f", plain {at[1]:.4g}, kernel {at[2]:.4g}, sum "
+                             f"|w x| {at[3]:.4g}, bound {at[4]:.4g}")
+            del mag, ulps, gate, beyond
             if bad or not torch.equal(sf.fold_masked_stem_kernel(
                     kern, clean, up, geo, occ, oh, ow, s), got):
                 raise AssertionError(f"kernel C ({name}): {bad} elements "
                                      f"beyond an ulp of the output and of "
-                                     f"the delta (max_abs_err {c_err}), or "
-                                     "no bit-equal repeat")
+                                     f"the delta and the float32 sums' "
+                                     f"error bound (max_abs_err {c_err}), "
+                                     "or no bit-equal repeat")
         elif not c_err <= TOL_C:
             raise AssertionError(f"kernel C ({name}) max_abs_err {c_err} > "
                                  f"{TOL_C}")
@@ -397,10 +466,11 @@ def stem_fold_phase(torch, dev, dataset, arch, size, b, name,
     peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
     bound, by = _bound(nbytes, flops, peak)
     ops_bound, _ = _bound(0.0, flops, peak)
-    tol = "1 ulp of the output and of the delta" if bf16 else f"atol {TOL_C}"
+    tol = ("1 ulp of the output and of the delta + 2 gamma_n sum |w x|"
+           if bf16 else f"atol {TOL_C}")
     print(f"kernel C {name} [B={b},N={n_chunk},{h}x{w}x{cout}, k={k} s={s}, "
           f"OH/OW {oh}/{ow}, {str(dtype)[6:]}]: max_abs_err {c_err:.3g} "
-          f"({tol}; vs conv of the masked batch {lib_err:.3g}), "
+          f"({tol}{sums_note}; vs conv of the masked batch {lib_err:.3g}), "
           f"{c_ms * 1e3:.2f} us (plain {c_plain * 1e3:.2f} us, conv2d of the "
           f"masked batch {c_lib * 1e3:.2f} us, {c_lib / c_ms:.2f}x the "
           f"kernel's time; bound {bound * 1e3:.2f} us by {by}: "
@@ -414,17 +484,108 @@ def stem_fold_phase(torch, dev, dataset, arch, size, b, name,
                 bound_ms=bound, bound_by=by, library_ms=c_lib)
 
 
-def gn_slab(torch, dev, gen, n, hw, c, calls):
+def _gn_held(torch, x, dy, s, b, y, mean, rstd, dx, ds, db):
+    """How far one slab's kernel outputs lie from the plain versions, in
+    chunks of samples (a group's statistics are per sample; the float64
+    intermediates of a chunk stay near a GB): against float64 within
+    TOL_GN (dscale/dbias TOL_GN_PARAMS), plus, for bf16 y and dx, half a
+    bf16 ulp (their one rounding); for bf16 also against the plain bf16
+    versions on the same inputs within one ulp + 1e-5 (the statistics
+    within 1e-5). Elements whose pre-activation lies within GN_NEAR of 0
+    are left out of dx, and the moves their gate flips allow
+    (`fused_gn.gate_flip_bounds`) are added to the tolerances. Returns the
+    largest errors and the counts of elements out of tolerance."""
+    from dorpatch_tpu_torch.ops import fused_gn as fgn
+
+    g, bf16 = 32, x.dtype == torch.bfloat16
+    at, rt = TOL_GN["atol"], TOL_GN["rtol"]
+    out = dict(fwd=0.0, stat=0.0, dx=0.0, flip=0.0, near=0, bad=0, fwd16=0.0,
+               stat16=0.0, dx16=0.0, bad16=0)
+    params = [torch.zeros_like(ds, dtype=torch.float64) for _ in range(4)]
+    params16 = [torch.zeros_like(ds) for _ in range(4)]
+    s64, b64 = s.double(), b.double()
+    step = max(1, (1 << 27) // x[0].numel())
+
+    def half_ulp(t):
+        return 0.5 * _ulp16(torch, t).double() if bf16 else 0.0
+
+    for i in range(0, x.shape[0], step):
+        sl = slice(i, i + step)
+        x64, dy64 = x[sl].double(), dy[sl].double()
+        m64, r64 = fgn.gn_stats_reference(x64, g)
+        out["stat"] = max(out["stat"],
+                          float((mean[sl].double() - m64).abs().max()),
+                          float(((rstd[sl].double() - r64) / r64).abs().max()))
+        want = fgn.gn_relu_reference(x64, s64, b64)
+        err = (y[sl].double() - want).abs()
+        out["fwd"] = max(out["fwd"], float(err.max()))
+        out["bad"] += int((~(err <= at + rt * want.abs()
+                             + half_ulp(want))).sum())
+        del want, err
+        wdx, wds, wdb = fgn.gn_relu_backward_reference(x64, dy64, s64, b64,
+                                                       m64, r64, g)
+        near, dx_b, ds_b, db_b = fgn.gate_flip_bounds(x64, dy64, s64, b64,
+                                                      m64, r64, g, GN_NEAR)
+        err = (dx[sl].double() - wdx).abs()
+        out["bad"] += int((~(err <= at + rt * wdx.abs() + dx_b
+                             + half_ulp(wdx)) & ~near).sum())
+        out["dx"] = max(out["dx"], float(err[~near].max()))
+        out["flip"] = max(out["flip"], float(dx_b.max()))
+        out["near"] += int(near.sum())
+        for acc, part in zip(params, (wds, wdb, ds_b, db_b)):
+            acc += part
+        del x64, dy64, wdx, near, dx_b, err
+        if not bf16:
+            continue
+        m32, r32 = fgn.gn_stats_reference(x[sl], g)
+        out["stat16"] = max(out["stat16"],
+                            float((mean[sl] - m32).abs().max()),
+                            float(((rstd[sl] - r32) / r32).abs().max()))
+        want = fgn.gn_relu_reference(x[sl], s, b)
+        err = (y[sl].float() - want.float()).abs()
+        out["fwd16"] = max(out["fwd16"], float(err.max()))
+        out["bad16"] += int((~(err <= _ulp16(torch, want) + 1e-5)).sum())
+        wdx, wds, wdb = fgn.gn_relu_backward_reference(
+            x[sl], dy[sl], s, b, mean[sl], rstd[sl], g)
+        near, dx_b, ds_b, db_b = fgn.gate_flip_bounds(
+            x[sl], dy[sl], s, b, mean[sl], rstd[sl], g, GN_NEAR)
+        err = (dx[sl].float() - wdx.float()).abs()
+        out["bad16"] += int((~(err <= _ulp16(torch, wdx) + 1e-5 + dx_b)
+                             & ~near).sum())
+        out["dx16"] = max(out["dx16"], float(err[~near].max()))
+        for acc, part in zip(params16, (wds, wdb, ds_b, db_b)):
+            acc += part
+        del want, err, wdx, near, dx_b
+    out["bad16"] += int(not out["stat16"] <= 1e-5)
+    out["param"] = out["param16"] = 0.0
+    for key, ref in (("", params), ("16", params16 if bf16 else None)):
+        if ref is None:
+            continue
+        for got, want, bnd in ((ds, ref[0], ref[2]), (db, ref[1], ref[3])):
+            err = (got.to(want.dtype) - want).abs()
+            out["param" + key] = max(out["param" + key], float(err.max()))
+            out["bad" + key] += int((~(err <= TOL_GN_PARAMS["atol"]
+                                       + TOL_GN_PARAMS["rtol"] * want.abs()
+                                       + bnd)).sum())
+    return out
+
+
+def gn_slab(torch, dev, gen, n, hw, c, calls=0, dtype=None, suffix=""):
     """The GroupNorm+ReLU forward and backward kernels at one [n, hw, c]
-    slab: the route `fused_gn.gn_plan` takes, held against the plain
-    versions in float64 (gate flips allowed for), a repeated call bit-equal,
-    and timed beside the plain f32 versions and PyTorch's group norm (which
-    leaves out the ReLU). Returns the forward and backward records."""
+    slab of `dtype` (float32 by default, or bfloat16: the bf16 forms), on
+    the routes `fused_gn.gn_plan` takes: held to the plain versions as
+    `_gn_held` says, a repeated call bit-equal, and timed as the victim
+    calls them (no parameter cotangents) beside the plain versions and
+    PyTorch's group norm of the same type (which leaves out the ReLU).
+    Returns the forward and backward records, named by direction, type,
+    route ("_split") and `suffix`."""
     from dorpatch_tpu_torch import ops
     from dorpatch_tpu_torch.ops import fused_gn as fgn
 
     import torch.nn.functional as F
 
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
     side = math.isqrt(hw)
     shape = (n, side, side, c)
     g = 32
@@ -432,84 +593,55 @@ def gn_slab(torch, dev, gen, n, hw, c, calls):
     def rand(*size):
         return torch.randn(size, generator=gen, device=dev)
 
-    x = rand(*shape) + 0.5 * rand(c)
+    x = (rand(*shape) + 0.5 * rand(c)).to(dtype)
     s, b = 1 + 0.2 * rand(c), 0.3 * rand(c)
-    dy = rand(*shape)
-    label = f"[{n},{hw},{c}]"
-    routes = {d: fgn.gn_plan(d, n, hw, c) for d in ("fwd", "bwd")}
+    dy = rand(*shape).to(dtype)
+    label = f"[{n},{hw},{c}]" + (" bf16" if bf16 else "")
+    isz = x.element_size()
+    routes = {d: fgn.gn_plan(d, n, hw, c, g, isz) for d in ("fwd", "bwd")}
+    kind = "_bf16" if bf16 else ""
 
-    # forward against float64, and again bit for bit
     ops.reset_launch_counts()
     y, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
-    torch.cuda.synchronize()
-    x64, s64, b64, dy64 = (t.double() for t in (x, s, b, dy))
-    want = fgn.gn_relu_reference(x64, s64, b64)
-    fwd_err = float((y.double() - want).abs().max())
-    torch.testing.assert_close(y.double(), want, **TOL_GN)
-    del want
-    m64, r64 = fgn.gn_stats_reference(x64, g)
-    stat_err = max(float((mean.double() - m64).abs().max()),
-                   float(((rstd.double() - r64) / r64).abs().max()))
-    again = fgn.gn_relu_fwd_kernel(x, s, b)
-    if not all(torch.equal(p, q) for p, q in zip(again, (y, mean, rstd))):
-        raise AssertionError(f"GN forward {label} does not repeat bit for "
-                             "bit")
-    del again
-
-    # backward against float64, gate flips allowed for, and again
     dx, ds, db = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd)
     torch.cuda.synchronize()
-    again = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd)
-    if not all(torch.equal(p, q) for p, q in zip(again, (dx, ds, db))):
-        raise AssertionError(f"GN backward {label} does not repeat bit for "
-                             "bit")
+    again = fgn.gn_relu_fwd_kernel(x, s, b) + \
+        fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd)
+    if not all(torch.equal(p, q)
+               for p, q in zip(again, (y, mean, rstd, dx, ds, db))):
+        raise AssertionError(f"GN {label} does not repeat bit for bit")
     del again
     launched = ops.route_counts()
-    want_routes = {f"gn_relu_fwd/{routes['fwd'].route}": 2,
-                   f"gn_relu_bwd/{routes['bwd'].route}": 2}
+    want_routes = {f"gn_relu_{d}{kind}/{routes[d].route}": 2
+                   for d in ("fwd", "bwd")}
     if launched != want_routes:
         raise AssertionError(f"GN {label}: routes launched {launched}, "
                              f"planned {want_routes}")
-    wdx, wds, wdb = fgn.gn_relu_backward_reference(x64, dy64, s64, b64, m64,
-                                                   r64, g)
-    near, dx_b, ds_b, db_b = fgn.gate_flip_bounds(x64, dy64, s64, b64, m64,
-                                                  r64, g, GN_NEAR)
-    n_near = int(near.sum())
-    dx_err = (dx.double() - wdx).abs()
-    dx_bad = int(((dx_err > TOL_GN["atol"] + TOL_GN["rtol"] * wdx.abs()
-                   + dx_b) & ~near).sum())
-    dx_max = float(dx_err[~near].max())
-    flip_max = float(dx_b.max())
-    del dx_err, dx_b, wdx, near
-    param_bad = 0
-    param_err = 0.0
-    for got, want, bnd in ((ds, wds, ds_b), (db, wdb, db_b)):
-        err = (got.double() - want).abs()
-        param_err = max(param_err, float(err.max()))
-        param_bad += int((err > TOL_GN_PARAMS["atol"]
-                          + TOL_GN_PARAMS["rtol"] * want.abs()
-                          + bnd).sum())
-    print(f"GN {label}: forward max_abs_err {fwd_err:.3g} (atol "
-          f"{TOL_GN['atol']}, rtol {TOL_GN['rtol']} of float64), stats err "
-          f"{stat_err:.3g}; backward dx max_abs_err {dx_max:.3g} over the "
-          f"elements not within {GN_NEAR} of the gate ({n_near} near-zero "
-          f"pre-activations left out, flip bound up to {flip_max:.3g}), "
-          f"dscale/dbias max_abs_err {param_err:.3g} (atol "
-          f"{TOL_GN_PARAMS['atol']}, rtol {TOL_GN_PARAMS['rtol']}); both "
+    held = _gn_held(torch, x, dy, s, b, y, mean, rstd, dx, ds, db)
+    vs16 = (f"; vs plain bf16: y {held['fwd16']:.3g}, stats "
+            f"{held['stat16']:.3g}, dx {held['dx16']:.3g}, dscale/dbias "
+            f"{held['param16']:.3g} (1 ulp + 1e-5; {held['bad16']} out)"
+            if bf16 else "")
+    print(f"GN {label}: vs float64: forward max_abs_err {held['fwd']:.3g} "
+          f"(atol {TOL_GN['atol']}, rtol {TOL_GN['rtol']}"
+          f"{' + half a bf16 ulp' if bf16 else ''}), stats err "
+          f"{held['stat']:.3g}; backward dx max_abs_err {held['dx']:.3g} "
+          f"over the elements not within {GN_NEAR} of the gate "
+          f"({held['near']} near-zero pre-activations left out, flip bound "
+          f"up to {held['flip']:.3g}), dscale/dbias max_abs_err "
+          f"{held['param']:.3g} (atol {TOL_GN_PARAMS['atol']}, rtol "
+          f"{TOL_GN_PARAMS['rtol']}); {held['bad']} out{vs16}; both "
           f"repeat bit for bit", flush=True)
-    if dx_bad or param_bad:
-        raise AssertionError(f"GN backward {label}: {dx_bad} dx and "
-                             f"{param_bad} dscale/dbias elements out of "
-                             "tolerance")
-    del x64, dy64, m64, r64, wds, wdb
+    if held["bad"] or held["bad16"]:
+        raise AssertionError(f"GN {label}: {held['bad']} elements out of "
+                             f"tolerance of float64, {held['bad16']} of the "
+                             "plain bf16 versions")
 
-    # times: the kernels as the victim calls them (frozen affine: no
-    # parameter cotangents), the plain f32 versions, and PyTorch's group
-    # norm on the channels-last view (no ReLU)
     fwd_ms = _device_ms(lambda: fgn.gn_relu_fwd_kernel(x, s, b), 5, 7)
     fwd_plain = _device_ms(lambda: fgn.gn_relu_reference(x, s, b), 5, 7)
     xv = x.permute(0, 3, 1, 2)
-    fwd_lib = _device_ms(lambda: F.group_norm(xv, g, s, b, 1e-5), 5, 7)
+    sl, bl = s.to(dtype), b.to(dtype)
+    fwd_lib = _device_ms(lambda: F.group_norm(xv, g, sl, bl, 1e-5), 5, 7)
     bwd_ms = _device_ms(lambda: fgn.gn_relu_bwd_kernel(
         x, dy, s, b, mean, rstd, params=False), 5, 7)
     bwd_plain = _device_ms(lambda: fgn.gn_relu_backward_reference(
@@ -517,74 +649,121 @@ def gn_slab(torch, dev, gen, n, hw, c, calls):
     # PyTorch's group norm backward takes NCHW-contiguous tensors
     xc, dyc = xv.contiguous(), dy.permute(0, 3, 1, 2).contiguous()
     _, lmean, lrstd = torch.ops.aten.native_group_norm(
-        xc, s, b, n, c, hw, g, 1e-5)
+        xc, sl, bl, n, c, hw, g, 1e-5)
     bwd_lib = _device_ms(lambda: torch.ops.aten.native_group_norm_backward(
-        dyc, xc, lmean, lrstd, s, n, c, hw, g, [True, False, False]), 5, 7)
+        dyc, xc, lmean, lrstd, sl, n, c, hw, g, [True, False, False]), 5, 7)
     del xc, dyc
-    slab = 4.0 * n * hw * c
+    slab = float(isz) * n * hw * c
     small = 4.0 * (2 * c + 2 * n * g)
-    fwd_bound, fwd_by = _bound(2 * slab + small, 8.0 * n * hw * c)
-    bwd_bound, bwd_by = _bound(3 * slab + small, 12.0 * n * hw * c)
+    bounds = {"fwd": _bound(2 * slab + small, 8.0 * n * hw * c),
+              "bwd": _bound(3 * slab + small, 12.0 * n * hw * c)}
+    lib_name = "bf16 " if bf16 else ""
     pf, pb = routes["fwd"], routes["bwd"]
     print(f"GN {label} ({calls} calls per RN50 forward): forward route "
           f"{pf.route} (width {pf.width}, cluster {pf.cluster}, smem "
-          f"{pf.smem}) {fwd_ms * 1e3:.2f} us (bound {fwd_bound * 1e3:.2f} "
-          f"us by {fwd_by}, plain {fwd_plain * 1e3:.2f} us, F.group_norm "
-          f"without the ReLU {fwd_lib * 1e3:.2f} us); backward route "
-          f"{pb.route} (width {pb.width}, cluster {pb.cluster}, smem "
-          f"{pb.smem}) {bwd_ms * 1e3:.2f} us (bound {bwd_bound * 1e3:.2f} us "
-          f"by {bwd_by}, plain {bwd_plain * 1e3:.2f} us, "
+          f"{pf.smem}) {fwd_ms * 1e3:.2f} us (bound "
+          f"{bounds['fwd'][0] * 1e3:.2f} us by {bounds['fwd'][1]}, plain "
+          f"{fwd_plain * 1e3:.2f} us, {lib_name}F.group_norm without the "
+          f"ReLU {fwd_lib * 1e3:.2f} us); backward route {pb.route} (width "
+          f"{pb.width}, cluster {pb.cluster}, smem {pb.smem}) "
+          f"{bwd_ms * 1e3:.2f} us (bound {bounds['bwd'][0] * 1e3:.2f} us by "
+          f"{bounds['bwd'][1]}, plain {bwd_plain * 1e3:.2f} us, {lib_name}"
           f"native_group_norm_backward on NCHW copies, without the ReLU "
           f"{bwd_lib * 1e3:.2f} us)", flush=True)
-    split = routes["fwd"].route == "split"
-    suffix = "_split" if split else ""
-    fwd_rec = dict(name="gn_relu_fwd" + suffix, route="cuda",
-                   source="dorpatch_tpu_torch/csrc/fused_gn.cu",
-                   replaces="dorpatch_tpu/ops/fused_gn.py:"
-                   + ("159" if split else "115"), launches=0,
-                   max_abs_err=max(fwd_err, stat_err), ms=fwd_ms,
-                   plain_ms=fwd_plain, bound_ms=fwd_bound, bound_by=fwd_by,
-                   library_ms=fwd_lib)
-    bwd_rec = dict(name="gn_relu_bwd" + suffix, route="cuda",
-                   source="dorpatch_tpu_torch/csrc/fused_gn.cu",
-                   replaces="dorpatch_tpu/ops/fused_gn.py:"
-                   + ("278" if split else "135"), launches=0,
-                   max_abs_err=max(dx_max, param_err), ms=bwd_ms,
-                   plain_ms=bwd_plain, bound_ms=bwd_bound, bound_by=bwd_by,
-                   library_ms=bwd_lib)
+    lines = {("fwd", "one_pass"): "115", ("bwd", "one_pass"): "135",
+             ("fwd", "split"): "159", ("bwd", "split"): "278"}
+    errs = {"fwd": max(held["fwd16"], held["stat16"]) if bf16
+            else max(held["fwd"], held["stat"]),
+            "bwd": max(held["dx16"], held["param16"]) if bf16
+            else max(held["dx"], held["param"])}
+    times = {"fwd": (fwd_ms, fwd_plain, fwd_lib),
+             "bwd": (bwd_ms, bwd_plain, bwd_lib)}
+    recs = []
+    for d in ("fwd", "bwd"):
+        route = routes[d].route
+        recs.append(dict(
+            name=f"gn_relu_{d}{kind}" + ("_split" if route == "split"
+                                          else "") + suffix,
+            route="cuda", source="dorpatch_tpu_torch/csrc/fused_gn.cu",
+            replaces="dorpatch_tpu/ops/fused_gn.py:" + lines[d, route],
+            launches=0, max_abs_err=errs[d], ms=times[d][0],
+            plain_ms=times[d][1], bound_ms=bounds[d][0],
+            bound_by=bounds[d][1], library_ms=times[d][2]))
     del x, dy, y, dx, xv
     torch.cuda.empty_cache()
-    return fwd_rec, bwd_rec
+    return recs
+
+
+def gn_sweep(torch, dev, gen, img_size, dtype=None):
+    """The GroupNorm+ReLU kernels (of `dtype`, float32 by default) at every
+    (HW, C) of the RN50 victim at `img_size` (`gn_bench.rn50_gn_calls`),
+    at the attack step's N (`gn_bench.STEP_N`), each held and timed by
+    `gn_slab`. Every forward must take the one-pass route; so must every
+    backward but those of the shapes whose one-group chunk of x and dy fits
+    no cluster: at 480 px the 14400-row stage-1 shapes, which take the
+    split route. Prints launches x (time - bound) summed over a forward's
+    49 calls. Returns {(HW, C): (forward record, backward record)}."""
+    from dorpatch_tpu_torch.gn_bench import STEP_N, rn50_gn_calls
+
+    bf16 = dtype == torch.bfloat16
+    kind = "_bf16" if bf16 else ""
+    suffix = "" if img_size == 224 else f"_{img_size}"
+    recs, over = {}, [0.0, 0.0]
+    for (hw, c), calls in sorted(rn50_gn_calls(img_size).items(),
+                                 key=lambda kv: (-kv[0][0], kv[0][1])):
+        fwd, bwd = gn_slab(torch, dev, gen, STEP_N[img_size], hw, c, calls,
+                           dtype, suffix)
+        split = "_split" if img_size == 480 and hw == 14400 else ""
+        if (fwd["name"], bwd["name"]) != (f"gn_relu_fwd{kind}{suffix}",
+                                          f"gn_relu_bwd{kind}{split}{suffix}"):
+            raise AssertionError(f"RN50 {img_size} px GN shape ({hw}, {c}) "
+                                 f"took the routes of {fwd['name']}, "
+                                 f"{bwd['name']}")
+        over[0] += calls * (fwd["ms"] - fwd["bound_ms"])
+        over[1] += calls * (bwd["ms"] - bwd["bound_ms"])
+        recs[(hw, c)] = (fwd, bwd)
+    print(f"GN{' bf16' if bf16 else ''} over the 49 calls of an RN50 forward "
+          f"at {img_size} px, N={STEP_N[img_size]}: forward {over[0]:.4f} ms "
+          f"over its bytes bound, backward {over[1]:.4f} ms", flush=True)
+    return recs
 
 
 def gn_phases(torch, dev):
     """The GroupNorm+ReLU kernels at every (HW, C) of the RN50 victim at
-    224 (N = 256, the attack step's 2 images x 128 masks), each on the
-    one-pass route, and at GN_SPLIT_SLAB on the split route. Prints the
-    launches x (time - bound) summed over a forward's 49 calls. Returns the
-    records of the largest slab [256, 3136, 256] and of the split slab."""
-    from dorpatch_tpu_torch.gn_bench import RN50_GN_CALLS
-
+    224 (N = 256, the attack step's 2 images x 128 masks; one-pass route),
+    at GN_SPLIT_SLAB on the split route, and at every (HW, C) at 480 (N =
+    128; the stage-1 backward split). Returns the records of the largest
+    224 slab [256, 3136, 256], and those of the split slab and of the widest
+    480 slab GN_480_SLAB."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    recs, over = {}, [0.0, 0.0]
-    for (hw, c), calls in sorted(RN50_GN_CALLS.items(),
-                                 key=lambda kv: (-kv[0][0], kv[0][1])):
-        fwd, bwd = gn_slab(torch, dev, gen, GN_N, hw, c, calls)
-        if fwd["name"] != "gn_relu_fwd" or bwd["name"] != "gn_relu_bwd":
-            raise AssertionError(f"RN50 GN shape ({hw}, {c}) did not take "
-                                 "the one-pass route")
-        over[0] += calls * (fwd["ms"] - fwd["bound_ms"])
-        over[1] += calls * (bwd["ms"] - bwd["bound_ms"])
-        recs[(hw, c)] = (fwd, bwd)
-    print(f"GN over the 49 calls of an RN50 forward at N={GN_N}: forward "
-          f"{over[0]:.4f} ms over its bytes bound, backward {over[1]:.4f} "
-          f"ms", flush=True)
-    split = gn_slab(torch, dev, gen, *GN_SPLIT_SLAB, 0)
-    if split[0]["name"] != "gn_relu_fwd_split" or \
-            split[1]["name"] != "gn_relu_bwd_split":
+    at224 = gn_sweep(torch, dev, gen, 224)
+    split = gn_slab(torch, dev, gen, *GN_SPLIT_SLAB)
+    if [r["name"] for r in split] != ["gn_relu_fwd_split",
+                                      "gn_relu_bwd_split"]:
         raise AssertionError(f"GN slab {GN_SPLIT_SLAB} did not take the "
                              "split route")
-    return list(recs[(3136, 256)]) + list(split)
+    at480 = gn_sweep(torch, dev, gen, 480)
+    return list(at224[(3136, 256)]), split + list(at480[GN_480_SLAB[1:]])
+
+
+def gn_phases_bf16(torch, dev):
+    """Kernels D-G in bf16: D and F at RN50's largest slab at 224 and its
+    widest, at the attack step's N = 256; E and G at GN_SPLIT_SLAB; and
+    every (HW, C) at 480 (D, over clusters of 8 at stage 1, and F or G).
+    Returns the 224 records, and those of the split slab and of
+    GN_480_SLAB."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf = torch.bfloat16
+    at224 = (gn_slab(torch, dev, gen, GN_N, 3136, 256, 3, bf)
+             + gn_slab(torch, dev, gen, GN_N, 49, 2048, 3, bf, "_49x2048"))
+    split = gn_slab(torch, dev, gen, *GN_SPLIT_SLAB, dtype=bf)
+    names = [r["name"] for r in at224 + split]
+    if names != ["gn_relu_fwd_bf16", "gn_relu_bwd_bf16",
+                 "gn_relu_fwd_bf16_49x2048", "gn_relu_bwd_bf16_49x2048",
+                 "gn_relu_fwd_bf16_split", "gn_relu_bwd_bf16_split"]:
+        raise AssertionError(f"GN bf16 slabs took the routes of {names}")
+    at480 = gn_sweep(torch, dev, gen, 480, bf)
+    return at224, split + list(at480[GN_480_SLAB[1:]])
 
 
 def attn_phase(torch, dev, dtype=None):
@@ -713,42 +892,96 @@ def attn_phase(torch, dev, dtype=None):
     return recs
 
 
-def main_path(torch, dev, label, argv, required):
+def gn_split_shares(img_size):
+    """{GroupNorm kernel count: the share of its launches that take the
+    split route} for the RN50 victim at `img_size`: the calls per forward
+    (`gn_bench.rn50_gn_calls`) whose shape `fused_gn.gn_plan` sends to the
+    split route, over all 49 (the plan does not depend on N)."""
+    from fractions import Fraction
+
+    from dorpatch_tpu_torch.gn_bench import rn50_gn_calls
+    from dorpatch_tpu_torch.ops import fused_gn as fgn
+
+    calls = rn50_gn_calls(img_size)
+    total = sum(calls.values())
+    return {f"gn_relu_{d}{kind}": Fraction(sum(
+        n for (hw, c), n in calls.items()
+        if fgn.gn_plan(d, 1, hw, c, 32, isz).route == "split"), total)
+        for d in ("fwd", "bwd") for kind, isz in (("", 4), ("_bf16", 2))}
+
+
+def main_path(torch, dev, label, argv, required, shares=None,
+              audit_fill=None):
     """One main path through the CLI entry point, with the launch counts
     set to 0 just before and read just after; every kernel in `required`
-    must have launched, and every GroupNorm launch must have taken the
-    one-pass route. Returns (metrics, launch and route counts of the
+    must have launched. Of each GroupNorm kernel's launches, the share in
+    `shares` (`gn_split_shares`; 0 where absent) must have taken the split
+    route (so more than 0 of a kernel that launched with a share above 0)
+    and the rest the one-pass route.
+    Prints the seconds, forwards, escalations, the certification's
+    schedule (images that ran the pair audit, minority rows) and the peak
+    of device memory. `audit_fill` names the kernel that fills the pair
+    audits' images and nothing else on the path (A's bf16 form in the bf16
+    bank of a conv victim): it must have launched exactly when a pair audit
+    was scheduled. Returns (metrics, launch and route counts of the
     run)."""
-    from dorpatch_tpu_torch import ops
+    from dorpatch_tpu_torch import defense, ops
     from dorpatch_tpu_torch.cli import build_parser, config_from_args
     from dorpatch_tpu_torch.pipeline import run_experiment
+
+    shares = shares or {}
+    sched = dict(pair_audits=0, rows=0)
+    plain_schedule = defense.schedule_round2
+
+    def schedule(*args, **kwargs):
+        need_pairs, row_list = plain_schedule(*args, **kwargs)
+        sched["pair_audits"] += int(need_pairs.sum())
+        sched["rows"] += len(row_list)
+        return need_pairs, row_list
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         cfg = config_from_args(build_parser().parse_args(
             argv + ["--results-root", root]))
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        m = run_experiment(cfg, verbose=True)
-        torch.cuda.synchronize()
+        defense.schedule_round2 = schedule
+        try:
+            t0 = time.perf_counter()
+            m = run_experiment(cfg, verbose=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            defense.schedule_round2 = plain_schedule
         counts = ops.launch_counts()
         routes = ops.route_counts()
-        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"{label} main path: {wall:.2f} s wall; attack seconds "
           f"{m.get('attack_seconds')}; certify seconds "
           f"{m.get('certify_seconds')}; forwards {m.get('forwards')} of "
           f"{m.get('forwards_exhaustive')} exhaustive, forward equivalents "
           f"{m.get('forward_equivalents')}, escalated (image, radius) "
-          f"records {m.get('escalated')}; launches {counts}; GN routes "
-          f"{routes}", flush=True)
+          f"records {m.get('escalated')}; certification schedule over the "
+          f"radii: {sched['pair_audits']} pair audits (images), "
+          f"{sched['rows']} minority rows; peak device memory {peak:.2f} "
+          f"GiB; launches {counts}; GN routes {routes}", flush=True)
     for name in required:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{label} main path")
+    if audit_fill and (counts[audit_fill] > 0) != (sched["pair_audits"] > 0):
+        raise AssertionError(f"{label} main path: {audit_fill} launched "
+                             f"{counts[audit_fill]} times for "
+                             f"{sched['pair_audits']} pair audits")
     for name in GN_KERNELS:
-        if routes.get(f"{name}/one_pass", 0) != counts[name]:
+        one = routes.get(f"{name}/one_pass", 0)
+        two = routes.get(f"{name}/split", 0)
+        share = shares.get(name, 0)
+        if not (one + two == counts[name] and two == share * counts[name]):
             raise AssertionError(f"{label} main path: {name} took routes "
-                                 f"{routes}, not the one-pass route alone")
+                                 f"{routes}, launches {counts[name]}, split "
+                                 f"share wanted {share}")
     vals = ([m["clean_accuracy"], m["robust_accuracy"]] + m["acc_pc"]
             + m["certified_acc_pc"] + m["certified_asr_pc"])
     if (m["evaluated_images"] < 1 or len(m["acc_pc"]) != 4
@@ -931,13 +1164,13 @@ def vit_cross_check(torch, dev, b, lift):
                              f"verdicts differ for images {differ}")
 
 
-def fill_overhead(counts, cifar, at224) -> None:
-    """Launches of A and B on each main path and launches x (time - bound)
-    at the path's image shape (CIFAR's records for the CIFAR path, the 224
-    records for RN50 and ViT)."""
+def fill_overhead(counts, records) -> None:
+    """Launches of A and B on each main path in `records` and launches x
+    (time - bound) at the path's image shape (`records[label]`: the A and
+    B records at that shape)."""
     parts = []
-    for label in ("CIFAR", "RN50", "ViT"):
-        for rec in cifar if label == "CIFAR" else at224:
+    for label, recs in records.items():
+        for rec in recs:
             kernel = COUNT_OF.get(rec["name"], rec["name"])
             n = counts[label][kernel]
             parts.append(f"{label} {kernel} {n} x ({rec['ms']:.5f} - "
@@ -1034,141 +1267,21 @@ def fill_phase_bf16(torch, dev, b, size, suffix=""):
                 bound_by=by, library_ms=lib)
 
 
-def gn_slab_bf16(torch, dev, gen, n, hw, c, suffix=""):
-    """The GroupNorm+ReLU kernels' bf16 forms at one [n, hw, c] bf16 slab
-    (one-pass route): y within one bf16 ulp and 1e-5 of the plain bf16
-    forward (float32 statistics summed in other orders), the statistics
-    within 1e-5, dx within one ulp, 1e-5 and the gate-flip bound away from
-    pre-activations within GN_NEAR of 0, the float32 parameter cotangents
-    as the float32 kernels; both repeat bit for bit. Timed beside the plain
-    bf16 versions and PyTorch's bf16 group norm (no ReLU)."""
-    from dorpatch_tpu_torch import ops
-    from dorpatch_tpu_torch.ops import fused_gn as fgn
-
-    import torch.nn.functional as F
-
-    side = math.isqrt(hw)
-    shape = (n, side, side, c)
-    g = 32
-
-    def rand(*size):
-        return torch.randn(size, generator=gen, device=dev)
-
-    x = (rand(*shape) + 0.5 * rand(c)).bfloat16()
-    s, b = 1 + 0.2 * rand(c), 0.3 * rand(c)
-    dy = rand(*shape).bfloat16()
-    label = f"[{n},{hw},{c}] bf16"
-    routes = {d: fgn.gn_plan(d, n, hw, c, 32, 2) for d in ("fwd", "bwd")}
-    ops.reset_launch_counts()
-    y, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
-    dx, ds, db = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd)
-    torch.cuda.synchronize()
-    if ops.route_counts() != {"gn_relu_fwd_bf16/one_pass": 1,
-                              "gn_relu_bwd_bf16/one_pass": 1}:
-        raise AssertionError(f"GN {label}: routes {ops.route_counts()}")
-    again = fgn.gn_relu_fwd_kernel(x, s, b) + \
-        fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd)
-    if not all(torch.equal(p, q)
-               for p, q in zip(again, (y, mean, rstd, dx, ds, db))):
-        raise AssertionError(f"GN {label} does not repeat bit for bit")
-    del again
-    m32, r32 = fgn.gn_stats_reference(x, g)
-    stat_err = max(float((mean - m32).abs().max()),
-                   float(((rstd - r32) / r32).abs().max()))
-    want = fgn.gn_relu_reference(x, s, b)
-    err = (y.float() - want.float()).abs()
-    fwd_bad = int((err > _ulp16(torch, want) + 1e-5).sum())
-    fwd_err = float(err.max())
-    del want, err
-    wdx, wds, wdb = fgn.gn_relu_backward_reference(x, dy, s, b, mean, rstd, g)
-    near, dx_b, ds_b, db_b = fgn.gate_flip_bounds(x, dy, s, b, mean, rstd, g,
-                                                  GN_NEAR)
-    err = (dx.float() - wdx.float()).abs()
-    dx_bad = int(((err > _ulp16(torch, wdx) + 1e-5 + dx_b) & ~near).sum())
-    dx_err = float(err[~near].max())
-    del err, wdx, dx_b, near
-    param_err, param_bad = 0.0, 0
-    for got, want, bnd in ((ds, wds, ds_b), (db, wdb, db_b)):
-        e = (got - want).abs()
-        param_err = max(param_err, float(e.max()))
-        param_bad += int((e > TOL_GN_PARAMS["atol"] + TOL_GN_PARAMS["rtol"]
-                          * want.abs() + bnd).sum())
-    print(f"GN {label}: forward max_abs_err {fwd_err:.3g} vs plain bf16 "
-          f"(1 ulp + 1e-5), stats err {stat_err:.3g}; dx max_abs_err "
-          f"{dx_err:.3g} away from gate flips (1 ulp + 1e-5), dscale/dbias "
-          f"{param_err:.3g}; repeat bit for bit", flush=True)
-    if fwd_bad or dx_bad or param_bad or stat_err > 1e-5:
-        raise AssertionError(f"GN {label}: {fwd_bad} y, {dx_bad} dx, "
-                             f"{param_bad} dscale/dbias elements out of "
-                             f"tolerance, stats err {stat_err}")
-    fwd_ms = _device_ms(lambda: fgn.gn_relu_fwd_kernel(x, s, b), 5, 7)
-    fwd_plain = _device_ms(lambda: fgn.gn_relu_reference(x, s, b), 5, 7)
-    xv = x.permute(0, 3, 1, 2)
-    sb, bb = s.bfloat16(), b.bfloat16()
-    fwd_lib = _device_ms(lambda: F.group_norm(xv, g, sb, bb, 1e-5), 5, 7)
-    bwd_ms = _device_ms(lambda: fgn.gn_relu_bwd_kernel(
-        x, dy, s, b, mean, rstd, params=False), 5, 7)
-    bwd_plain = _device_ms(lambda: fgn.gn_relu_backward_reference(
-        x, dy, s, b, mean, rstd, g), 5, 7)
-    xc, dyc = xv.contiguous(), dy.permute(0, 3, 1, 2).contiguous()
-    _, lmean, lrstd = torch.ops.aten.native_group_norm(
-        xc, sb, bb, n, c, hw, g, 1e-5)
-    bwd_lib = _device_ms(lambda: torch.ops.aten.native_group_norm_backward(
-        dyc, xc, lmean, lrstd, sb, n, c, hw, g, [True, False, False]), 5, 7)
-    del xc, dyc
-    slab = 2.0 * n * hw * c
-    small = 4.0 * (2 * c + 2 * n * g)
-    fwd_bound, fwd_by = _bound(2 * slab + small, 8.0 * n * hw * c)
-    bwd_bound, bwd_by = _bound(3 * slab + small, 12.0 * n * hw * c)
-    pf, pb = routes["fwd"], routes["bwd"]
-    print(f"GN {label}: forward (width {pf.width}, cluster {pf.cluster}, "
-          f"smem {pf.smem}) {fwd_ms * 1e3:.2f} us (bound "
-          f"{fwd_bound * 1e3:.2f} us by {fwd_by}, plain {fwd_plain * 1e3:.2f}"
-          f" us, bf16 F.group_norm without the ReLU {fwd_lib * 1e3:.2f} us); "
-          f"backward (width {pb.width}, cluster {pb.cluster}, smem "
-          f"{pb.smem}) {bwd_ms * 1e3:.2f} us (bound {bwd_bound * 1e3:.2f} us "
-          f"by {bwd_by}, plain {bwd_plain * 1e3:.2f} us, bf16 "
-          f"native_group_norm_backward on NCHW copies, without the ReLU "
-          f"{bwd_lib * 1e3:.2f} us)", flush=True)
-    recs = (dict(name="gn_relu_fwd_bf16" + suffix, route="cuda",
-                 source="dorpatch_tpu_torch/csrc/fused_gn.cu",
-                 replaces="dorpatch_tpu/ops/fused_gn.py:115", launches=0,
-                 max_abs_err=max(fwd_err, stat_err), ms=fwd_ms,
-                 plain_ms=fwd_plain, bound_ms=fwd_bound, bound_by=fwd_by,
-                 library_ms=fwd_lib),
-            dict(name="gn_relu_bwd_bf16" + suffix, route="cuda",
-                 source="dorpatch_tpu_torch/csrc/fused_gn.cu",
-                 replaces="dorpatch_tpu/ops/fused_gn.py:135", launches=0,
-                 max_abs_err=max(dx_err, param_err), ms=bwd_ms,
-                 plain_ms=bwd_plain, bound_ms=bwd_bound, bound_by=bwd_by,
-                 library_ms=bwd_lib))
-    del x, dy, y, dx, xv
-    torch.cuda.empty_cache()
-    return list(recs)
-
-
-def gn_phases_bf16(torch, dev):
-    """Kernels D and F in bf16 at RN50's largest slab and its widest, at
-    the attack step's N = 256."""
-    gen = torch.Generator(device=dev).manual_seed(5)
-    return (gn_slab_bf16(torch, dev, gen, GN_N, 3136, 256)
-            + gn_slab_bf16(torch, dev, gen, GN_N, 49, 2048, "_49x2048"))
-
-
-def bank_cross_check(torch, dev, arch, b, lift):
+def bank_cross_check(torch, dev, arch, b, lift, size=224):
     """The bf16 certify bank at the 0.12 radius on the card, on the victim
-    at 224 with the head bias of class 0 raised by `lift` (as
+    at `size` px with the head bias of class 0 raised by `lift` (as
     `vit_cross_check`): every image's (prediction, certification) must
     equal the float32 bank's with incremental="off"; the bank's bf16
-    kernels must launch; with a lift, at least one image must stay
-    unescalated. Prints the escalated count and the margins."""
+    kernels must launch (for a conv victim A's bf16 form, which fills only
+    the pair audits' images, and the images the lift makes unanimous are
+    audited); with a lift, at least one image must stay unescalated.
+    Prints the escalated count and the margins."""
     from dorpatch_tpu_torch import data, ops
     from dorpatch_tpu_torch.config import DefenseConfig
     from dorpatch_tpu_torch.defense import PatchCleanser
     from dorpatch_tpu_torch.masks import geometry
     from dorpatch_tpu_torch.models import get_model
 
-    size = 224
     victim = get_model("imagenet", arch, "/nonexistent", size, seed=0,
                        device=dev)
     head = victim.model.head["fc"] if arch == "resnetv2" else \
@@ -1199,7 +1312,7 @@ def bank_cross_check(torch, dev, arch, b, lift):
     differ = [i for i, (a, o) in enumerate(zip(rec16, rec32))
               if (a.prediction, a.certification)
               != (o.prediction, o.certification)]
-    print(f"bf16 bank {arch} 224px r=0.12, class-0 bias +{lift}: escalated "
+    print(f"bf16 bank {arch} {size}px r=0.12, class-0 bias +{lift}: escalated "
           f"{esc} of {b} images (min margins {margins}); forwards "
           f"{[r.forwards for r in rec16]} ({wall16:.2f} s; float32 "
           f"incremental=off {[r.forwards for r in rec32]}, {wall32:.2f} s); "
@@ -1220,6 +1333,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    start = time.perf_counter()
     smi = _smi()
     print(f"env: python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, card: {smi}", flush=True)
@@ -1242,7 +1356,12 @@ def main() -> int:
     rn50_kernels = fill_phase(torch, dev, 2, 224, "_224")
     rn50_kernels.append(stem_fold_phase(torch, dev, "imagenet", "resnetv2",
                                         224, 2, "stem_fold_rn50"))
-    rn50_kernels += gn_phases(torch, dev)
+    rn50_480 = fill_phase(torch, dev, 1, 480, "_480")
+    rn50_480.append(stem_fold_phase(torch, dev, "imagenet", "resnetv2", 480,
+                                    1, "stem_fold_480"))
+    gn224, gn480 = gn_phases(torch, dev)
+    rn50_kernels += gn224
+    rn50_480 += gn480
     vit_kernels = attn_phase(torch, dev)
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -1252,31 +1371,44 @@ def main() -> int:
     rn50_bf16 = [fill_phase_bf16(torch, dev, 2, 224, "_224"),
                  stem_fold_phase(torch, dev, "imagenet", "resnetv2", 224,
                                  2, "stem_fold_bf16_rn50", torch.bfloat16)]
-    rn50_bf16 += gn_phases_bf16(torch, dev)
+    rn50_480_bf16 = [fill_phase_bf16(torch, dev, 1, 480, "_480"),
+                     stem_fold_phase(torch, dev, "imagenet", "resnetv2", 480,
+                                     1, "stem_fold_bf16_480",
+                                     torch.bfloat16)]
+    gn224, gn480 = gn_phases_bf16(torch, dev)
+    rn50_bf16 += gn224
+    rn50_480_bf16 += gn480
     vit_bf16 = attn_phase(torch, dev, torch.bfloat16)
     print(f"bf16 kernel phases: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     fills = {}
-    for label, argv, required, records in (
-            ("CIFAR", CIFAR_ARGV, CIFAR_KERNELS, cifar_kernels),
-            ("RN50", RN50_ARGV, RN50_KERNELS, rn50_kernels),
-            ("ViT", VIT_ARGV, VIT_KERNELS, vit_kernels),
+    at224, at480 = gn_split_shares(224), gn_split_shares(480)
+    audit = "masked_fill_fwd_bf16"
+    for label, argv, required, records, shares, audit_fill in (
+            ("CIFAR", CIFAR_ARGV, CIFAR_KERNELS, cifar_kernels, None, None),
+            ("RN50", RN50_ARGV, RN50_KERNELS, rn50_kernels, at224, None),
+            ("ViT", VIT_ARGV, VIT_KERNELS, vit_kernels, None, None),
             ("CIFAR bf16", CIFAR_ARGV + BF16_FLAGS, CIFAR_BF16_KERNELS,
-             cifar_bf16),
+             cifar_bf16, None, audit),
             ("RN50 bf16", RN50_ARGV + BF16_FLAGS, RN50_BF16_KERNELS,
-             rn50_bf16),
+             rn50_bf16, at224, audit),
             ("ViT bf16", VIT_ARGV + BF16_FLAGS, VIT_BF16_KERNELS,
-             vit_bf16)):
+             vit_bf16, None, None),
+            ("RN50 480", RN50_480_ARGV, RN50_KERNELS, rn50_480, at480, None),
+            ("RN50 480 bf16", RN50_480_ARGV + BF16_FLAGS,
+             RN50_480_BF16_KERNELS, rn50_480_bf16, at480, audit)):
         t0 = time.perf_counter()
-        _, counts = main_path(torch, dev, label, argv, required)
+        _, counts = main_path(torch, dev, label, argv, required, shares,
+                              audit_fill)
         for rec in records:
             rec["launches"] = counts.get(COUNT_OF.get(rec["name"],
                                                       rec["name"]), 0)
         fills[label] = counts
         print(f"{label} main-path phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
-    fill_overhead(fills, cifar_kernels[:2], rn50_kernels[:2])
+    fill_overhead(fills, {"CIFAR": cifar_kernels[:2], "RN50": rn50_kernels[:2],
+                          "ViT": rn50_kernels[:2], "RN50 480": rn50_480[:2]})
 
     t0 = time.perf_counter()
     for dtype in ("float32", "bfloat16"):
@@ -1295,10 +1427,14 @@ def main() -> int:
     for arch in ("resnetv2", "vit"):
         for lift in (0.0, 4.0):
             bank_cross_check(torch, dev, arch, 4, lift)
+    bank_cross_check(torch, dev, "resnetv2", 2, 4.0, 480)
     print(f"bf16 bank phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print(f"chip_smoke total: {time.perf_counter() - start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": cifar_kernels + rn50_kernels + vit_kernels
-                      + cifar_bf16 + rn50_bf16 + vit_bf16}), flush=True)
+                      + cifar_bf16 + rn50_bf16 + vit_bf16 + rn50_480
+                      + rn50_480_bf16}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

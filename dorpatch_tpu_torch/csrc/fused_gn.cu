@@ -1,5 +1,5 @@
-// GroupNorm(G) + ReLU on NHWC float32 (and bf16 on the one-pass route),
-// forward and backward (kernels D-G).
+// GroupNorm(G) + ReLU on NHWC float32 or bf16, forward and backward
+// (kernels D-G).
 //
 // Replaces the TPU kernels of dorpatch_tpu/ops/fused_gn.py:
 //   one-pass route (whole groups staged on chip, each slab read once):
@@ -28,7 +28,8 @@
 // both passes over its elements, so a design that cannot hold a group on
 // chip reads its slabs twice.
 //
-// One-pass route (the normal route; every RN50 shape at 224 takes it). A
+// One-pass route (the normal route: every RN50 shape at 224 takes it, and
+// at 480 px all but the backward of the 14400-row stage-1 slabs). A
 // per-sample slab (3.2 MB at 56*56*256) exceeds a block's 227 KB, but one
 // group's [HW, cg] columns do not: a block stages a chunk of whole groups,
 // `W` channels of one sample ([HW, W] of x, and of dy in the backward), in
@@ -61,11 +62,13 @@
 //   cluster of two); the forward takes one wide chunk an SM. With the
 //   parameter cotangents, gn_param_sums adds db_c and ds_c over N in a
 //   second, small launch.
-// Split route, for slabs whose chunk fits no cluster:
+// Split route, for slabs whose chunk fits no cluster (RN50 at 480 px: the
+// backward at [N, 14400, 64/128/256], 11 of the 49 calls):
 //   1. a statistics pass, grid (sample, HW tile of kTileRows rows, chunk of
-//      up to 256 channels): each thread owns one float4 column (four channels),
-//      sums its rows in f32, the block adds its thread rows in a fixed order
-//      and writes per-channel partial sums [N, T, C];
+//      up to kMaxCols piece columns): each thread owns one 16-byte piece
+//      column (4 float32 or 8 bf16 channels), sums its rows in f32, the
+//      block adds its thread rows in a fixed order and writes per-channel
+//      float32 partial sums [N, T, C];
 //   2. a combine pass, one warp per (sample, group): adds the partials over
 //      tiles and channels in a fixed order, in float64, to the group
 //      statistics (forward) or to db_c, ds_c, a_g, b_g (backward);
@@ -77,14 +80,17 @@
 // to run.
 //
 // bf16 (the bf16 attack's and the bf16 certify bank's RN50 activations):
-// the one-pass kernels are templated on the activation type (`Piece`). A
-// 16-byte piece then holds 8 channels, so a thread owns an 8-channel column
-// and a chunk row of W channels is W/8 pieces; the staged slab is half the
-// bytes, and `gn_plan` widens chunks by the element size. Statistics,
-// affine parameters, mean/rstd and the parameter cotangents stay float32
-// (float64 partials as above); y and dx are rounded to bf16 once at their
-// store. The split route is float32 only: no bf16 shape of the main paths
-// reaches it, and the wrapper refuses one that would.
+// the kernels of both routes that touch activations are templated on their
+// type (`Piece`). A 16-byte piece then holds 8 channels, so a thread owns
+// an 8-channel column and a chunk row of W channels is W/8 pieces; the
+// staged slab is half the bytes, and `gn_plan` widens chunks by the element
+// size. Statistics, affine parameters, mean/rstd, the split route's partial
+// sums and the parameter cotangents stay float32 (float64 where they are
+// added up, as above), and the ReLU gate is taken on the float32
+// pre-activation; y and dx are normalized in float32 and rounded to bf16
+// once, at their store, on either route, so the two routes compute the
+// same function. The combine passes read only float32 partials and have
+// one form.
 
 #include <stdint.h>
 
@@ -97,7 +103,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTileRows = 64;     // HW rows per statistics block
-constexpr int kMaxCols4 = 64;     // float4 columns (256 channels) per stats block
+constexpr int kMaxCols = 64;      // piece columns per statistics block
 constexpr int kMaxGrid = 65535;
 constexpr int kWarps = kThreads / 32;   // (sample, group) pairs per combine block
 
@@ -111,337 +117,20 @@ __device__ __forceinline__ float4 mul4(float4 a, float4 b) {
   return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
 }
 
-// --------------------------------------------------------------- forward
-
-// Per-channel partial sums of x and x*x over one HW tile of one sample.
-__global__ void __launch_bounds__(kThreads)
-gn_fwd_stats(const float* __restrict__ x, float* __restrict__ p1,
-             float* __restrict__ p2, int HW, int C) {
-  __shared__ float4 sh1[kThreads];
-  __shared__ float4 sh2[kThreads];
-  const int C4 = C / 4;
-  const int n = blockIdx.x;
-  const int t = blockIdx.y;
-  const int c4 = blockIdx.z * blockDim.x + threadIdx.x;
-  const int r0 = t * kTileRows;
-  const int r1 = min(HW, r0 + kTileRows);
-  float4 a1 = f4(0.f), a2 = f4(0.f);
-  if (c4 < C4) {
-    const float4* xs = reinterpret_cast<const float4*>(x + (size_t)n * HW * C) + c4;
-#pragma unroll 4
-    for (int r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
-      const float4 v = __ldg(xs + (size_t)r * C4);
-      a1 = add4(a1, v);
-      a2.x = fmaf(v.x, v.x, a2.x);
-      a2.y = fmaf(v.y, v.y, a2.y);
-      a2.z = fmaf(v.z, v.z, a2.z);
-      a2.w = fmaf(v.w, v.w, a2.w);
-    }
-  }
-  const int slot = threadIdx.y * blockDim.x + threadIdx.x;
-  sh1[slot] = a1;
-  sh2[slot] = a2;
-  __syncthreads();
-  if (threadIdx.y == 0 && c4 < C4) {
-    float4 s1 = sh1[threadIdx.x], s2 = sh2[threadIdx.x];
-    for (int j = 1; j < blockDim.y; ++j) {
-      s1 = add4(s1, sh1[j * blockDim.x + threadIdx.x]);
-      s2 = add4(s2, sh2[j * blockDim.x + threadIdx.x]);
-    }
-    const size_t o = ((size_t)n * gridDim.y + t) * C4 + c4;
-    reinterpret_cast<float4*>(p1)[o] = s1;
-    reinterpret_cast<float4*>(p2)[o] = s2;
-  }
-}
-
-// Sum of a double over the 32 lanes of a warp, in a fixed butterfly order.
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// One warp per (sample, group): the group's mean and rstd. The lanes stride
-// over the group's T*cg partials, then add their sums in a fixed order.
-__global__ void __launch_bounds__(kThreads)
-gn_fwd_combine(const float* __restrict__ p1, const float* __restrict__ p2,
-               float* __restrict__ mean, float* __restrict__ rstd, int N,
-               int T, int HW, int C, int G, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (i >= N * G) return;   // whole warps
-  const int n = i / G;
-  const int g = i - n * G;
-  const int cg = C / G;
-  double s1 = 0.0, s2 = 0.0;
-  for (int k = lane; k < T * cg; k += 32) {
-    const int t = k / cg;
-    const size_t o = ((size_t)n * T + t) * C + (size_t)g * cg + (k - t * cg);
-    s1 += (double)p1[o];
-    s2 += (double)p2[o];
-  }
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
-  if (lane == 0) {
-    const double cnt = (double)HW * cg;
-    const double m = s1 / cnt;
-    const double var = fmax(s2 / cnt - m * m, 0.0);
-    mean[i] = (float)m;
-    rstd[i] = (float)(1.0 / sqrt(var + (double)eps));
-  }
-}
-
-__device__ __forceinline__ float gn_relu1(float v, float m, float rs, float s,
-                                          float b) {
-  return fmaxf((v - m) * (rs * s) + b, 0.f);
-}
-
-// y = relu((x - mean) * (rstd * scale) + bias), 16 bytes a thread.
-__global__ void __launch_bounds__(kThreads)
-gn_fwd_apply(const float* __restrict__ x, const float* __restrict__ scale,
-             const float* __restrict__ bias, const float* __restrict__ mean,
-             const float* __restrict__ rstd, float* __restrict__ y, int HW,
-             int C, int G) {
-  const int n = blockIdx.y;
-  const int C4 = C / 4;
-  const int cg = C / G;
-  const size_t per = (size_t)HW * C4;
-  const float4* xs = reinterpret_cast<const float4*>(x + (size_t)n * HW * C);
-  float4* ys = reinterpret_cast<float4*>(y + (size_t)n * HW * C);
-  const float4* s4 = reinterpret_cast<const float4*>(scale);
-  const float4* b4 = reinterpret_cast<const float4*>(bias);
-  const float* mn = mean + (size_t)n * G;
-  const float* rs = rstd + (size_t)n * G;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < per;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int c4 = (int)(i % C4);
-    const int c = 4 * c4;
-    const float4 v = __ldg(xs + i);
-    const float4 s = __ldg(s4 + c4);
-    const float4 b = __ldg(b4 + c4);
-    const int g0 = c / cg, g1 = (c + 1) / cg, g2 = (c + 2) / cg, g3 = (c + 3) / cg;
-    float4 o;
-    o.x = gn_relu1(v.x, __ldg(mn + g0), __ldg(rs + g0), s.x, b.x);
-    o.y = gn_relu1(v.y, __ldg(mn + g1), __ldg(rs + g1), s.y, b.y);
-    o.z = gn_relu1(v.z, __ldg(mn + g2), __ldg(rs + g2), s.z, b.z);
-    o.w = gn_relu1(v.w, __ldg(mn + g3), __ldg(rs + g3), s.w, b.w);
-    ys[i] = o;
-  }
-}
-
-// -------------------------------------------------------------- backward
-
-struct Col4 {   // one float4 column's statistics and affine parameters
-  float4 m, r, s, b;
-};
-
-__device__ __forceinline__ Col4 load_col(const float* mn, const float* rs,
-                                         const float* scale, const float* bias,
-                                         int c4, int cg) {
-  const int c = 4 * c4;
-  const int g0 = c / cg, g1 = (c + 1) / cg, g2 = (c + 2) / cg, g3 = (c + 3) / cg;
-  Col4 col;
-  col.m = make_float4(__ldg(mn + g0), __ldg(mn + g1), __ldg(mn + g2), __ldg(mn + g3));
-  col.r = make_float4(__ldg(rs + g0), __ldg(rs + g1), __ldg(rs + g2), __ldg(rs + g3));
-  col.s = __ldg(reinterpret_cast<const float4*>(scale) + c4);
-  col.b = __ldg(reinterpret_cast<const float4*>(bias) + c4);
-  return col;
-}
-
-// xhat and the gated cotangent of one element.
-__device__ __forceinline__ void gate1(float v, float d, float m, float r, float s,
-                                      float b, float& xh, float& dr) {
-  xh = (v - m) * r;
-  dr = (xh * s + b > 0.f) ? d : 0.f;
-}
-
-// Per-channel partial sums of dyr and dyr*xhat over one HW tile of one sample.
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_stats(const float* __restrict__ x, const float* __restrict__ dy,
-             const float* __restrict__ scale, const float* __restrict__ bias,
-             const float* __restrict__ mean, const float* __restrict__ rstd,
-             float* __restrict__ pdb, float* __restrict__ pds, int HW, int C,
-             int G) {
-  __shared__ float4 sh1[kThreads];
-  __shared__ float4 sh2[kThreads];
-  const int C4 = C / 4;
-  const int n = blockIdx.x;
-  const int t = blockIdx.y;
-  const int c4 = blockIdx.z * blockDim.x + threadIdx.x;
-  const int r0 = t * kTileRows;
-  const int r1 = min(HW, r0 + kTileRows);
-  float4 adb = f4(0.f), ads = f4(0.f);
-  if (c4 < C4) {
-    const Col4 col = load_col(mean + (size_t)n * G, rstd + (size_t)n * G, scale,
-                              bias, c4, C / G);
-    const size_t off = (size_t)n * HW * C;
-    const float4* xs = reinterpret_cast<const float4*>(x + off) + c4;
-    const float4* ds = reinterpret_cast<const float4*>(dy + off) + c4;
-#pragma unroll 4
-    for (int r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
-      const float4 v = __ldg(xs + (size_t)r * C4);
-      const float4 d = __ldg(ds + (size_t)r * C4);
-      float xh, dr;
-      gate1(v.x, d.x, col.m.x, col.r.x, col.s.x, col.b.x, xh, dr);
-      adb.x += dr;
-      ads.x = fmaf(dr, xh, ads.x);
-      gate1(v.y, d.y, col.m.y, col.r.y, col.s.y, col.b.y, xh, dr);
-      adb.y += dr;
-      ads.y = fmaf(dr, xh, ads.y);
-      gate1(v.z, d.z, col.m.z, col.r.z, col.s.z, col.b.z, xh, dr);
-      adb.z += dr;
-      ads.z = fmaf(dr, xh, ads.z);
-      gate1(v.w, d.w, col.m.w, col.r.w, col.s.w, col.b.w, xh, dr);
-      adb.w += dr;
-      ads.w = fmaf(dr, xh, ads.w);
-    }
-  }
-  const int slot = threadIdx.y * blockDim.x + threadIdx.x;
-  sh1[slot] = adb;
-  sh2[slot] = ads;
-  __syncthreads();
-  if (threadIdx.y == 0 && c4 < C4) {
-    float4 s1 = sh1[threadIdx.x], s2 = sh2[threadIdx.x];
-    for (int j = 1; j < blockDim.y; ++j) {
-      s1 = add4(s1, sh1[j * blockDim.x + threadIdx.x]);
-      s2 = add4(s2, sh2[j * blockDim.x + threadIdx.x]);
-    }
-    const size_t o = ((size_t)n * gridDim.y + t) * C4 + c4;
-    reinterpret_cast<float4*>(pdb)[o] = s1;
-    reinterpret_cast<float4*>(pds)[o] = s2;
-  }
-}
-
-// One warp per (sample, group): each lane sums its channels' partials over
-// the tiles to db_c, ds_c, then the lanes add scale_c*db_c and scale_c*ds_c
-// in a fixed order to a_g, b_g.
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_combine(const float* __restrict__ pdb, const float* __restrict__ pds,
-               const float* __restrict__ scale, float* __restrict__ dbc,
-               float* __restrict__ dsc, float* __restrict__ ag,
-               float* __restrict__ bg, int N, int T, int C, int G) {
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (i >= N * G) return;   // whole warps
-  const int n = i / G;
-  const int g = i - n * G;
-  const int cg = C / G;
-  double a = 0.0, b = 0.0;
-  for (int j = lane; j < cg; j += 32) {
-    const int c = g * cg + j;
-    double db = 0.0, ds = 0.0;
-    for (int t = 0; t < T; ++t) {
-      const size_t o = ((size_t)n * T + t) * C + c;
-      db += (double)pdb[o];
-      ds += (double)pds[o];
-    }
-    dbc[(size_t)n * C + c] = (float)db;
-    dsc[(size_t)n * C + c] = (float)ds;
-    const double s = (double)scale[c];
-    a += s * db;
-    b += s * ds;
-  }
-  a = warp_sum(a);
-  b = warp_sum(b);
-  if (lane == 0) {
-    ag[i] = (float)a;
-    bg[i] = (float)b;
-  }
-}
-
-__device__ __forceinline__ float dx1(float v, float d, float m, float r, float s,
-                                     float b, float a_g, float b_g, float cnt) {
-  float xh, dr;
-  gate1(v, d, m, r, s, b, xh, dr);
-  return r * (dr * s - (a_g + xh * b_g) / cnt);
-}
-
-// dx of one element with a_g and b_g already divided by the count (the
-// one-pass route: one division per group instead of one per element).
-__device__ __forceinline__ float dx_scaled(float v, float d, float m, float r,
-                                           float s, float b, float a_n,
-                                           float b_n) {
-  float xh, dr;
-  gate1(v, d, m, r, s, b, xh, dr);
-  return r * (dr * s - (a_n + xh * b_n));
-}
-
-// dx, 16 bytes a thread.
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_dx(const float* __restrict__ x, const float* __restrict__ dy,
-          const float* __restrict__ scale, const float* __restrict__ bias,
-          const float* __restrict__ mean, const float* __restrict__ rstd,
-          const float* __restrict__ ag, const float* __restrict__ bg,
-          float* __restrict__ dx, int HW, int C, int G) {
-  const int n = blockIdx.y;
-  const int C4 = C / 4;
-  const int cg = C / G;
-  const float cnt = (float)HW * (float)cg;
-  const size_t per = (size_t)HW * C4;
-  const size_t off = (size_t)n * HW * C;
-  const float4* xs = reinterpret_cast<const float4*>(x + off);
-  const float4* ds = reinterpret_cast<const float4*>(dy + off);
-  float4* out = reinterpret_cast<float4*>(dx + off);
-  const float* mn = mean + (size_t)n * G;
-  const float* rs = rstd + (size_t)n * G;
-  const float* an = ag + (size_t)n * G;
-  const float* bn = bg + (size_t)n * G;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < per;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int c4 = (int)(i % C4);
-    const int c = 4 * c4;
-    const Col4 col = load_col(mn, rs, scale, bias, c4, cg);
-    const int g0 = c / cg, g1 = (c + 1) / cg, g2 = (c + 2) / cg, g3 = (c + 3) / cg;
-    const float4 v = __ldg(xs + i);
-    const float4 d = __ldg(ds + i);
-    float4 o;
-    o.x = dx1(v.x, d.x, col.m.x, col.r.x, col.s.x, col.b.x, __ldg(an + g0), __ldg(bn + g0), cnt);
-    o.y = dx1(v.y, d.y, col.m.y, col.r.y, col.s.y, col.b.y, __ldg(an + g1), __ldg(bn + g1), cnt);
-    o.z = dx1(v.z, d.z, col.m.z, col.r.z, col.s.z, col.b.z, __ldg(an + g2), __ldg(bn + g2), cnt);
-    o.w = dx1(v.w, d.w, col.m.w, col.r.w, col.s.w, col.b.w, __ldg(an + g3), __ldg(bn + g3), cnt);
-    out[i] = o;
-  }
-}
-
-// dscale = sum_n ds_c, dbias = sum_n db_c, one thread per channel, in order.
-__global__ void gn_param_sums(const float* __restrict__ dsc,
-                              const float* __restrict__ dbc,
-                              float* __restrict__ dscale,
-                              float* __restrict__ dbias, int N, int C) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  double s = 0.0, b = 0.0;
-  for (int n = 0; n < N; ++n) {
-    s += (double)dsc[(size_t)n * C + c];
-    b += (double)dbc[(size_t)n * C + c];
-  }
-  dscale[c] = (float)s;
-  dbias[c] = (float)b;
-}
-
-// ------------------------------------------------ one-pass route (D, F)
-
-namespace coop = cooperative_groups;
-
-constexpr int kOneThreads = 256;
-constexpr int kStages = 4;        // cp.async groups of a thread's pieces
-constexpr int kMaxCluster = 8;    // the portable cluster size
-constexpr int kMaxSmem = 232448;  // dynamic shared memory of a block
-constexpr int kSerialSum = 16;    // threads a column at most for a serial sum
-
 __device__ __forceinline__ float4 fma4(float4 a, float4 b, float4 c) {
   return make_float4(fmaf(a.x, b.x, c.x), fmaf(a.y, b.y, c.y),
                      fmaf(a.z, b.z, c.z), fmaf(a.w, b.w, c.w));
 }
 
-// The element types of the one-pass route. A 16-byte piece holds P channels
-// of one row: 4 floats, or 8 bf16 values. A thread's values, partial sums
-// and per-channel parameters of its piece column are a vector V of P floats:
-// float4, or float8 (two float4s) for bf16, whose operations are the float4
-// ones twice, so the float32 kernels are PR 5's code. Pieces are staged as
-// they arrive and widened to V in registers; every sum, statistic and
-// output value is float32 (float64 for the block's channel sums), and a bf16
-// output is rounded once, at its store (__float2bfloat16, to nearest).
+// The element types. A 16-byte piece holds P channels of one row: 4 floats,
+// or 8 bf16 values. A thread's values, partial sums and per-channel
+// parameters of its piece column are a vector V of P floats: float4, or
+// float8 (two float4s) for bf16, whose operations are the float4 ones
+// twice, so the float32 kernels are the float4 code they were before bf16.
+// Pieces are widened to V in registers as they are read; every sum,
+// statistic and output value is float32 (float64 where blocks' sums are
+// added), and a bf16 output is rounded once, at its store
+// (__float2bfloat16, to nearest).
 struct float8 {
   float4 lo, hi;
 };
@@ -499,6 +188,16 @@ __device__ __forceinline__ void load_vec(const float* p, int col, float8& v) {
   load_vec(p, 2 * col + 1, v.hi);
 }
 
+// A piece column's P float32 sums into piece o of a float32 array, 16
+// bytes a store.
+__device__ __forceinline__ void store_vec(float* p, size_t o, float4 v) {
+  reinterpret_cast<float4*>(p)[o] = v;
+}
+__device__ __forceinline__ void store_vec(float* p, size_t o, float8 v) {
+  store_vec(p, 2 * o, v.lo);
+  store_vec(p, 2 * o + 1, v.hi);
+}
+
 // base[g] of the groups of channels c, c+1, ... (cg channels a group).
 __device__ __forceinline__ void gather(const float* base, int c, int cg,
                                        float4& v) {
@@ -511,20 +210,175 @@ __device__ __forceinline__ void gather(const float* base, int c, int cg,
   gather(base, c + 4, cg, v.hi);
 }
 
-// relu((v - m) * mul + b), the forward's output.
-__device__ __forceinline__ float4 relu_affine(float4 v, float4 m, float4 mul,
-                                              float4 b) {
+// ------------------------------------------------- split route, forward
+
+// Per-channel partial sums of x and x*x over one HW tile of one sample. Each
+// thread owns one piece column (P channels) and sums its rows in float32.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gn_fwd_stats(const T* __restrict__ x, float* __restrict__ p1,
+             float* __restrict__ p2, int HW, int C) {
+  using Pc = Piece<T>;
+  using V = typename Pc::V;
+  constexpr int P = Pc::P;
+  __shared__ V sh1[kThreads];
+  __shared__ V sh2[kThreads];
+  const int CP = C / P;
+  const int n = blockIdx.x;
+  const int t = blockIdx.y;
+  const int cp = blockIdx.z * blockDim.x + threadIdx.x;
+  const int r0 = t * kTileRows;
+  const int r1 = min(HW, r0 + kTileRows);
+  V a1 = Pc::zero(), a2 = Pc::zero();
+  if (cp < CP) {
+    const float4* xs = reinterpret_cast<const float4*>(x + (size_t)n * HW * C) + cp;
+#pragma unroll 4
+    for (int r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
+      const V v = Pc::widen(__ldg(xs + (size_t)r * CP));
+      a1 = add4(a1, v);
+      if constexpr (P == 4) {
+        // float32 a component at a time, as before bf16: through fma4 or
+        // a helper, ptxas orders two instructions otherwise (sass_diff.py)
+        a2.x = fmaf(v.x, v.x, a2.x);
+        a2.y = fmaf(v.y, v.y, a2.y);
+        a2.z = fmaf(v.z, v.z, a2.z);
+        a2.w = fmaf(v.w, v.w, a2.w);
+      } else {
+        a2 = fma4(v, v, a2);
+      }
+    }
+  }
+  const int slot = threadIdx.y * blockDim.x + threadIdx.x;
+  sh1[slot] = a1;
+  sh2[slot] = a2;
+  __syncthreads();
+  if (threadIdx.y == 0 && cp < CP) {
+    V s1 = sh1[threadIdx.x], s2 = sh2[threadIdx.x];
+    for (int j = 1; j < blockDim.y; ++j) {
+      s1 = add4(s1, sh1[j * blockDim.x + threadIdx.x]);
+      s2 = add4(s2, sh2[j * blockDim.x + threadIdx.x]);
+    }
+    const size_t o = ((size_t)n * gridDim.y + t) * CP + cp;
+    store_vec(p1, o, s1);
+    store_vec(p2, o, s2);
+  }
+}
+
+// Sum of a double over the 32 lanes of a warp, in a fixed butterfly order.
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// One warp per (sample, group): the group's mean and rstd. The lanes stride
+// over the group's T*cg partials, then add their sums in a fixed order.
+__global__ void __launch_bounds__(kThreads)
+gn_fwd_combine(const float* __restrict__ p1, const float* __restrict__ p2,
+               float* __restrict__ mean, float* __restrict__ rstd, int N,
+               int T, int HW, int C, int G, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (i >= N * G) return;   // whole warps
+  const int n = i / G;
+  const int g = i - n * G;
+  const int cg = C / G;
+  double s1 = 0.0, s2 = 0.0;
+  for (int k = lane; k < T * cg; k += 32) {
+    const int t = k / cg;
+    const size_t o = ((size_t)n * T + t) * C + (size_t)g * cg + (k - t * cg);
+    s1 += (double)p1[o];
+    s2 += (double)p2[o];
+  }
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  if (lane == 0) {
+    const double cnt = (double)HW * cg;
+    const double m = s1 / cnt;
+    const double var = fmax(s2 / cnt - m * m, 0.0);
+    mean[i] = (float)m;
+    rstd[i] = (float)(1.0 / sqrt(var + (double)eps));
+  }
+}
+
+__device__ __forceinline__ float gn_relu1(float v, float m, float rs, float s,
+                                          float b) {
+  return fmaxf((v - m) * (rs * s) + b, 0.f);
+}
+
+// relu((x - mean) * (rstd * scale) + bias) of one piece whose first channel
+// is c.
+__device__ __forceinline__ float4 apply_vec(float4 v, const float* mn,
+                                            const float* rs, float4 s,
+                                            float4 b, int c, int cg) {
+  const int g0 = c / cg, g1 = (c + 1) / cg, g2 = (c + 2) / cg, g3 = (c + 3) / cg;
   float4 o;
-  o.x = fmaxf((v.x - m.x) * mul.x + b.x, 0.f);
-  o.y = fmaxf((v.y - m.y) * mul.y + b.y, 0.f);
-  o.z = fmaxf((v.z - m.z) * mul.z + b.z, 0.f);
-  o.w = fmaxf((v.w - m.w) * mul.w + b.w, 0.f);
+  o.x = gn_relu1(v.x, __ldg(mn + g0), __ldg(rs + g0), s.x, b.x);
+  o.y = gn_relu1(v.y, __ldg(mn + g1), __ldg(rs + g1), s.y, b.y);
+  o.z = gn_relu1(v.z, __ldg(mn + g2), __ldg(rs + g2), s.z, b.z);
+  o.w = gn_relu1(v.w, __ldg(mn + g3), __ldg(rs + g3), s.w, b.w);
   return o;
 }
-__device__ __forceinline__ float8 relu_affine(float8 v, float8 m, float8 mul,
-                                              float8 b) {
-  return {relu_affine(v.lo, m.lo, mul.lo, b.lo),
-          relu_affine(v.hi, m.hi, mul.hi, b.hi)};
+__device__ __forceinline__ float8 apply_vec(float8 v, const float* mn,
+                                            const float* rs, float8 s,
+                                            float8 b, int c, int cg) {
+  return {apply_vec(v.lo, mn, rs, s.lo, b.lo, c, cg),
+          apply_vec(v.hi, mn, rs, s.hi, b.hi, c + 4, cg)};
+}
+
+// y = relu((x - mean) * (rstd * scale) + bias), 16 bytes a thread.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gn_fwd_apply(const T* __restrict__ x, const float* __restrict__ scale,
+             const float* __restrict__ bias, const float* __restrict__ mean,
+             const float* __restrict__ rstd, T* __restrict__ y, int HW,
+             int C, int G) {
+  using Pc = Piece<T>;
+  using V = typename Pc::V;
+  constexpr int P = Pc::P;
+  const int n = blockIdx.y;
+  const int CP = C / P;
+  const int cg = C / G;
+  const size_t per = (size_t)HW * CP;
+  const float4* xs = reinterpret_cast<const float4*>(x + (size_t)n * HW * C);
+  float4* ys = reinterpret_cast<float4*>(y + (size_t)n * HW * C);
+  const float* mn = mean + (size_t)n * G;
+  const float* rs = rstd + (size_t)n * G;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < per;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int cp = (int)(i % CP);
+    const V v = Pc::widen(__ldg(xs + i));
+    V s, b;
+    load_vec(scale, cp, s);
+    load_vec(bias, cp, b);
+    ys[i] = Pc::narrow(apply_vec(v, mn, rs, s, b, P * cp, cg));
+  }
+}
+
+// -------------------------------------------------------------- backward
+
+struct Col4 {   // one float4 column's statistics and affine parameters
+  float4 m, r, s, b;
+};
+
+__device__ __forceinline__ Col4 load_col(const float* mn, const float* rs,
+                                         const float* scale, const float* bias,
+                                         int c4, int cg) {
+  const int c = 4 * c4;
+  const int g0 = c / cg, g1 = (c + 1) / cg, g2 = (c + 2) / cg, g3 = (c + 3) / cg;
+  Col4 col;
+  col.m = make_float4(__ldg(mn + g0), __ldg(mn + g1), __ldg(mn + g2), __ldg(mn + g3));
+  col.r = make_float4(__ldg(rs + g0), __ldg(rs + g1), __ldg(rs + g2), __ldg(rs + g3));
+  col.s = __ldg(reinterpret_cast<const float4*>(scale) + c4);
+  col.b = __ldg(reinterpret_cast<const float4*>(bias) + c4);
+  return col;
+}
+
+// xhat and the gated cotangent of one element.
+__device__ __forceinline__ void gate1(float v, float d, float m, float r, float s,
+                                      float b, float& xh, float& dr) {
+  xh = (v - m) * r;
+  dr = (xh * s + b > 0.f) ? d : 0.f;
 }
 
 // One piece column's statistics and affine parameters (Col4 for float4).
@@ -569,6 +423,207 @@ __device__ __forceinline__ void gate_acc(float8 v, float8 d, const Col8& col,
                                          float8& adb, float8& ads) {
   gate_acc(v.lo, d.lo, col.lo, adb.lo, ads.lo);
   gate_acc(v.hi, d.hi, col.hi, adb.hi, ads.hi);
+}
+
+// Per-channel partial sums of dyr and dyr*xhat over one HW tile of one
+// sample, a piece column a thread as in gn_fwd_stats.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gn_bwd_stats(const T* __restrict__ x, const T* __restrict__ dy,
+             const float* __restrict__ scale, const float* __restrict__ bias,
+             const float* __restrict__ mean, const float* __restrict__ rstd,
+             float* __restrict__ pdb, float* __restrict__ pds, int HW, int C,
+             int G) {
+  using Pc = Piece<T>;
+  using V = typename Pc::V;
+  constexpr int P = Pc::P;
+  __shared__ V sh1[kThreads];
+  __shared__ V sh2[kThreads];
+  const int CP = C / P;
+  const int n = blockIdx.x;
+  const int t = blockIdx.y;
+  const int cp = blockIdx.z * blockDim.x + threadIdx.x;
+  const int r0 = t * kTileRows;
+  const int r1 = min(HW, r0 + kTileRows);
+  V adb = Pc::zero(), ads = Pc::zero();
+  if (cp < CP) {
+    typename ColOf<V>::type col;
+    load_colv(mean + (size_t)n * G, rstd + (size_t)n * G, scale, bias, cp,
+              C / G, col);
+    const size_t off = (size_t)n * HW * C;
+    const float4* xs = reinterpret_cast<const float4*>(x + off) + cp;
+    const float4* ds = reinterpret_cast<const float4*>(dy + off) + cp;
+#pragma unroll 4
+    for (int r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
+      const V v = Pc::widen(__ldg(xs + (size_t)r * CP));
+      const V d = Pc::widen(__ldg(ds + (size_t)r * CP));
+      gate_acc(v, d, col, adb, ads);
+    }
+  }
+  const int slot = threadIdx.y * blockDim.x + threadIdx.x;
+  sh1[slot] = adb;
+  sh2[slot] = ads;
+  __syncthreads();
+  if (threadIdx.y == 0 && cp < CP) {
+    V s1 = sh1[threadIdx.x], s2 = sh2[threadIdx.x];
+    for (int j = 1; j < blockDim.y; ++j) {
+      s1 = add4(s1, sh1[j * blockDim.x + threadIdx.x]);
+      s2 = add4(s2, sh2[j * blockDim.x + threadIdx.x]);
+    }
+    const size_t o = ((size_t)n * gridDim.y + t) * CP + cp;
+    store_vec(pdb, o, s1);
+    store_vec(pds, o, s2);
+  }
+}
+
+// One warp per (sample, group): each lane sums its channels' partials over
+// the tiles to db_c, ds_c, then the lanes add scale_c*db_c and scale_c*ds_c
+// in a fixed order to a_g, b_g.
+__global__ void __launch_bounds__(kThreads)
+gn_bwd_combine(const float* __restrict__ pdb, const float* __restrict__ pds,
+               const float* __restrict__ scale, float* __restrict__ dbc,
+               float* __restrict__ dsc, float* __restrict__ ag,
+               float* __restrict__ bg, int N, int T, int C, int G) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (i >= N * G) return;   // whole warps
+  const int n = i / G;
+  const int g = i - n * G;
+  const int cg = C / G;
+  double a = 0.0, b = 0.0;
+  for (int j = lane; j < cg; j += 32) {
+    const int c = g * cg + j;
+    double db = 0.0, ds = 0.0;
+    for (int t = 0; t < T; ++t) {
+      const size_t o = ((size_t)n * T + t) * C + c;
+      db += (double)pdb[o];
+      ds += (double)pds[o];
+    }
+    dbc[(size_t)n * C + c] = (float)db;
+    dsc[(size_t)n * C + c] = (float)ds;
+    const double s = (double)scale[c];
+    a += s * db;
+    b += s * ds;
+  }
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if (lane == 0) {
+    ag[i] = (float)a;
+    bg[i] = (float)b;
+  }
+}
+
+__device__ __forceinline__ float dx1(float v, float d, float m, float r, float s,
+                                     float b, float a_g, float b_g, float cnt) {
+  float xh, dr;
+  gate1(v, d, m, r, s, b, xh, dr);
+  return r * (dr * s - (a_g + xh * b_g) / cnt);
+}
+
+// dx of one element with a_g and b_g already divided by the count (the
+// one-pass route: one division per group instead of one per element).
+__device__ __forceinline__ float dx_scaled(float v, float d, float m, float r,
+                                           float s, float b, float a_n,
+                                           float b_n) {
+  float xh, dr;
+  gate1(v, d, m, r, s, b, xh, dr);
+  return r * (dr * s - (a_n + xh * b_n));
+}
+
+// dx of one piece whose first channel is c, from the group sums a_g, b_g.
+__device__ __forceinline__ float4 dx1_vec(float4 v, float4 d, const Col4& col,
+                                          const float* an, const float* bn,
+                                          int c, int cg, float cnt) {
+  const int g0 = c / cg, g1 = (c + 1) / cg, g2 = (c + 2) / cg, g3 = (c + 3) / cg;
+  float4 o;
+  o.x = dx1(v.x, d.x, col.m.x, col.r.x, col.s.x, col.b.x, __ldg(an + g0), __ldg(bn + g0), cnt);
+  o.y = dx1(v.y, d.y, col.m.y, col.r.y, col.s.y, col.b.y, __ldg(an + g1), __ldg(bn + g1), cnt);
+  o.z = dx1(v.z, d.z, col.m.z, col.r.z, col.s.z, col.b.z, __ldg(an + g2), __ldg(bn + g2), cnt);
+  o.w = dx1(v.w, d.w, col.m.w, col.r.w, col.s.w, col.b.w, __ldg(an + g3), __ldg(bn + g3), cnt);
+  return o;
+}
+__device__ __forceinline__ float8 dx1_vec(float8 v, float8 d, const Col8& col,
+                                          const float* an, const float* bn,
+                                          int c, int cg, float cnt) {
+  return {dx1_vec(v.lo, d.lo, col.lo, an, bn, c, cg, cnt),
+          dx1_vec(v.hi, d.hi, col.hi, an, bn, c + 4, cg, cnt)};
+}
+
+// dx, 16 bytes a thread.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gn_bwd_dx(const T* __restrict__ x, const T* __restrict__ dy,
+          const float* __restrict__ scale, const float* __restrict__ bias,
+          const float* __restrict__ mean, const float* __restrict__ rstd,
+          const float* __restrict__ ag, const float* __restrict__ bg,
+          T* __restrict__ dx, int HW, int C, int G) {
+  using Pc = Piece<T>;
+  using V = typename Pc::V;
+  constexpr int P = Pc::P;
+  const int n = blockIdx.y;
+  const int CP = C / P;
+  const int cg = C / G;
+  const float cnt = (float)HW * (float)cg;
+  const size_t per = (size_t)HW * CP;
+  const size_t off = (size_t)n * HW * C;
+  const float4* xs = reinterpret_cast<const float4*>(x + off);
+  const float4* ds = reinterpret_cast<const float4*>(dy + off);
+  float4* out = reinterpret_cast<float4*>(dx + off);
+  const float* mn = mean + (size_t)n * G;
+  const float* rs = rstd + (size_t)n * G;
+  const float* an = ag + (size_t)n * G;
+  const float* bn = bg + (size_t)n * G;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < per;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int cp = (int)(i % CP);
+    typename ColOf<V>::type col;
+    load_colv(mn, rs, scale, bias, cp, cg, col);
+    const V v = Pc::widen(__ldg(xs + i));
+    const V d = Pc::widen(__ldg(ds + i));
+    out[i] = Pc::narrow(dx1_vec(v, d, col, an, bn, P * cp, cg, cnt));
+  }
+}
+
+// dscale = sum_n ds_c, dbias = sum_n db_c, one thread per channel, in order.
+__global__ void gn_param_sums(const float* __restrict__ dsc,
+                              const float* __restrict__ dbc,
+                              float* __restrict__ dscale,
+                              float* __restrict__ dbias, int N, int C) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  double s = 0.0, b = 0.0;
+  for (int n = 0; n < N; ++n) {
+    s += (double)dsc[(size_t)n * C + c];
+    b += (double)dbc[(size_t)n * C + c];
+  }
+  dscale[c] = (float)s;
+  dbias[c] = (float)b;
+}
+
+// ------------------------------------------------ one-pass route (D, F)
+
+namespace coop = cooperative_groups;
+
+constexpr int kOneThreads = 256;
+constexpr int kStages = 4;        // cp.async groups of a thread's pieces
+constexpr int kMaxCluster = 8;    // the portable cluster size
+constexpr int kMaxSmem = 232448;  // dynamic shared memory of a block
+constexpr int kSerialSum = 16;    // threads a column at most for a serial sum
+
+// relu((v - m) * mul + b), the forward's output.
+__device__ __forceinline__ float4 relu_affine(float4 v, float4 m, float4 mul,
+                                              float4 b) {
+  float4 o;
+  o.x = fmaxf((v.x - m.x) * mul.x + b.x, 0.f);
+  o.y = fmaxf((v.y - m.y) * mul.y + b.y, 0.f);
+  o.z = fmaxf((v.z - m.z) * mul.z + b.z, 0.f);
+  o.w = fmaxf((v.w - m.w) * mul.w + b.w, 0.f);
+  return o;
+}
+__device__ __forceinline__ float8 relu_affine(float8 v, float8 m, float8 mul,
+                                              float8 b) {
+  return {relu_affine(v.lo, m.lo, mul.lo, b.lo),
+          relu_affine(v.hi, m.hi, mul.hi, b.hi)};
 }
 
 // dx of one piece, a_g and b_g already divided by the count.
@@ -898,18 +953,21 @@ bool shape_ok(int N, int HW, int C, int G) {
          G >= 1 && C % G == 0;
 }
 
-bool plan(int N, int HW, int C, int G, Shape* sh) {
-  if (!shape_ok(N, HW, C, G)) return false;
-  const int C4 = C / 4;
-  const int cols4 = C4 < kMaxCols4 ? C4 : kMaxCols4;
+// The split route's grids at P channels a piece: statistics blocks of up to
+// kMaxCols piece columns by kThreads / columns rows over (sample, tile,
+// column chunk), and elementwise blocks of kThreads pieces.
+bool plan(int N, int HW, int C, int G, int P, Shape* sh) {
+  if (!shape_ok(N, HW, C, G) || C % P != 0) return false;
+  const int CP = C / P;
+  const int cols = CP < kMaxCols ? CP : kMaxCols;
   const int tiles = tiles_of(HW);
-  const int chunks = (C4 + cols4 - 1) / cols4;
+  const int chunks = (CP + cols - 1) / cols;
   if (tiles > kMaxGrid) return false;
-  const size_t per = (size_t)HW * C4;
+  const size_t per = (size_t)HW * CP;
   size_t blocks = (per + kThreads - 1) / kThreads;
   if (blocks > kMaxGrid) blocks = kMaxGrid;
   sh->stats_grid = dim3(N, tiles, chunks);
-  sh->stats_block = dim3(cols4, kThreads / cols4);
+  sh->stats_block = dim3(cols, kThreads / cols);
   sh->apply_grid = dim3((unsigned)blocks, N);
   sh->tiles = tiles;
   return true;
@@ -964,6 +1022,85 @@ int bwd_raised[64] = {0};
 int fwd_bf16_raised[64] = {0};
 int bwd_bf16_raised[64] = {0};
 
+// The forward on activations of type T, either route (the arguments of
+// dp_gn_relu_fwd).
+template <typename T>
+int relu_fwd(const T* x, const float* scale, const float* bias, T* y,
+             float* mean, float* rstd, float* p1, float* p2, int N, int HW,
+             int C, int G, float eps, int W, int cl, int smem, void* stream) {
+  if (N == 0) return (int)cudaSuccess;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  constexpr int P = Piece<T>::P;
+  if (W > 0) {
+    if (!onepass_ok(N, HW, C, G, W, cl, smem, 1, P))
+      return (int)cudaErrorInvalidValue;
+    return launch_onepass(gn_fwd_onepass<T>,
+                          P == 4 ? fwd_raised : fwd_bf16_raised, N, C, W, cl,
+                          smem, st, x, scale, bias, y, mean, rstd, HW, C, G,
+                          W, cl, eps);
+  }
+  Shape sh;
+  if (!plan(N, HW, C, G, P, &sh) || p1 == nullptr || p2 == nullptr)
+    return (int)cudaErrorInvalidValue;
+  gn_fwd_stats<T><<<sh.stats_grid, sh.stats_block, 0, st>>>(x, p1, p2, HW, C);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int ng = N * G;
+  gn_fwd_combine<<<(ng + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+      p1, p2, mean, rstd, N, sh.tiles, HW, C, G, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gn_fwd_apply<T><<<sh.apply_grid, kThreads, 0, st>>>(x, scale, bias, mean,
+                                                      rstd, y, HW, C, G);
+  return (int)cudaGetLastError();
+}
+
+// The backward on activations of type T, either route (the arguments of
+// dp_gn_relu_bwd).
+template <typename T>
+int relu_bwd(const T* x, const T* dy, const float* scale, const float* bias,
+             const float* mean, const float* rstd, T* dx, float* pdb,
+             float* pds, float* dbc, float* dsc, float* ag, float* bg,
+             float* dscale, float* dbias, int N, int HW, int C, int G, int W,
+             int cl, int smem, void* stream) {
+  if (N == 0) return (int)cudaSuccess;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  constexpr int P = Piece<T>::P;
+  const bool params = dscale != nullptr && dbias != nullptr;
+  if (params && (dbc == nullptr || dsc == nullptr)) return (int)cudaErrorInvalidValue;
+  int err = 0;
+  if (W > 0) {
+    if (!onepass_ok(N, HW, C, G, W, cl, smem, 2, P))
+      return (int)cudaErrorInvalidValue;
+    err = launch_onepass(gn_bwd_onepass<T>,
+                         P == 4 ? bwd_raised : bwd_bf16_raised, N, C, W, cl,
+                         smem, st, x, dy, scale, bias, mean, rstd, dx,
+                         params ? dbc : nullptr, params ? dsc : nullptr, HW,
+                         C, G, W, cl);
+  } else {
+    Shape sh;
+    if (!plan(N, HW, C, G, P, &sh) || !pdb || !pds || !dbc || !dsc || !ag ||
+        !bg)
+      return (int)cudaErrorInvalidValue;
+    gn_bwd_stats<T><<<sh.stats_grid, sh.stats_block, 0, st>>>(
+        x, dy, scale, bias, mean, rstd, pdb, pds, HW, C, G);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    const int ng = N * G;
+    gn_bwd_combine<<<(ng + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+        pdb, pds, scale, dbc, dsc, ag, bg, N, sh.tiles, C, G);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    gn_bwd_dx<T><<<sh.apply_grid, kThreads, 0, st>>>(
+        x, dy, scale, bias, mean, rstd, ag, bg, dx, HW, C, G);
+    err = (int)cudaGetLastError();
+  }
+  if (err != 0 || !params) return err;
+  gn_param_sums<<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      dsc, dbc, dscale, dbias, N, C);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -989,123 +1126,55 @@ long long dp_gn_onepass_smem_bf16(int HW, int W, int cl, int slabs) {
 // 16-byte aligned (the caller checks). The plan (ops/fused_gn.py gn_plan):
 // W > 0 takes the one-pass route with chunks of W channels, cl CTAs a
 // chunk and smem bytes a CTA (p1, p2 unused); W = 0 the split route, with
-// scratch p1, p2 [N,T,C], T = dp_gn_tiles(HW).
+// float32 scratch p1, p2 [N,T,C], T = dp_gn_tiles(HW).
 int dp_gn_relu_fwd(const float* x, const float* scale, const float* bias,
                    float* y, float* mean, float* rstd, float* p1, float* p2,
                    int N, int HW, int C, int G, float eps, int W, int cl,
                    int smem, void* stream) {
-  if (N == 0) return (int)cudaSuccess;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (W > 0) {
-    if (!onepass_ok(N, HW, C, G, W, cl, smem, 1, Piece<float>::P))
-      return (int)cudaErrorInvalidValue;
-    return launch_onepass(gn_fwd_onepass<float>, fwd_raised, N, C, W, cl, smem, st,
-                          x, scale, bias, y, mean, rstd, HW, C, G, W, cl, eps);
-  }
-  Shape sh;
-  if (!plan(N, HW, C, G, &sh) || p1 == nullptr || p2 == nullptr)
-    return (int)cudaErrorInvalidValue;
-  gn_fwd_stats<<<sh.stats_grid, sh.stats_block, 0, st>>>(x, p1, p2, HW, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int ng = N * G;
-  gn_fwd_combine<<<(ng + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      p1, p2, mean, rstd, N, sh.tiles, HW, C, G, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gn_fwd_apply<<<sh.apply_grid, kThreads, 0, st>>>(x, scale, bias, mean, rstd,
-                                                   y, HW, C, G);
-  return (int)cudaGetLastError();
+  return relu_fwd(x, scale, bias, y, mean, rstd, p1, p2, N, HW, C, G, eps, W,
+                  cl, smem, stream);
 }
 
 // Backward. x, dy, dx [N,HW,C]; mean, rstd [N,G] from the forward; dscale,
 // dbias [C] or both null (then the parameter cotangents are not summed),
 // and then dbc, dsc [N,C] scratch, else may be null. The plan as for the
-// forward; the split route also takes scratch pdb, pds [N,T,C], dbc, dsc
-// [N,C] and ag, bg [N,G].
+// forward; the split route also takes float32 scratch pdb, pds [N,T,C],
+// dbc, dsc [N,C] and ag, bg [N,G].
 int dp_gn_relu_bwd(const float* x, const float* dy, const float* scale,
                    const float* bias, const float* mean, const float* rstd,
                    float* dx, float* pdb, float* pds, float* dbc, float* dsc,
                    float* ag, float* bg, float* dscale, float* dbias, int N,
                    int HW, int C, int G, int W, int cl, int smem, void* stream) {
-  if (N == 0) return (int)cudaSuccess;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const bool params = dscale != nullptr && dbias != nullptr;
-  if (params && (dbc == nullptr || dsc == nullptr)) return (int)cudaErrorInvalidValue;
-  int err = 0;
-  if (W > 0) {
-    if (!onepass_ok(N, HW, C, G, W, cl, smem, 2, Piece<float>::P))
-      return (int)cudaErrorInvalidValue;
-    err = launch_onepass(gn_bwd_onepass<float>, bwd_raised, N, C, W, cl, smem, st,
-                         x, dy, scale, bias, mean, rstd, dx,
-                         params ? dbc : nullptr, params ? dsc : nullptr, HW,
-                         C, G, W, cl);
-  } else {
-    Shape sh;
-    if (!plan(N, HW, C, G, &sh) || !pdb || !pds || !dbc || !dsc || !ag || !bg)
-      return (int)cudaErrorInvalidValue;
-    gn_bwd_stats<<<sh.stats_grid, sh.stats_block, 0, st>>>(
-        x, dy, scale, bias, mean, rstd, pdb, pds, HW, C, G);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
-    const int ng = N * G;
-    gn_bwd_combine<<<(ng + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-        pdb, pds, scale, dbc, dsc, ag, bg, N, sh.tiles, C, G);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
-    gn_bwd_dx<<<sh.apply_grid, kThreads, 0, st>>>(x, dy, scale, bias, mean,
-                                                  rstd, ag, bg, dx, HW, C, G);
-    err = (int)cudaGetLastError();
-  }
-  if (err != 0 || !params) return err;
-  gn_param_sums<<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      dsc, dbc, dscale, dbias, N, C);
-  return (int)cudaGetLastError();
+  return relu_bwd(x, dy, scale, bias, mean, rstd, dx, pdb, pds, dbc, dsc, ag,
+                  bg, dscale, dbias, N, HW, C, G, W, cl, smem, stream);
 }
 
-// Forward on bf16 activations (kernel D's bf16 form, the one-pass route
-// only): x, y [N,HW,C] bf16; scale, bias [C] and mean, rstd [N,G] float32.
-// C a multiple of 8 and of G, x and y 16-byte aligned; the plan as for
-// dp_gn_relu_fwd with W > 0 (its chunk widths a multiple of 8).
+// Forward on bf16 activations (kernels D and E in bf16): x, y [N,HW,C]
+// bf16; scale, bias [C], mean, rstd [N,G] and the split route's scratch
+// float32. C a multiple of 8 and of G, x and y 16-byte aligned; the plan as
+// for dp_gn_relu_fwd (one-pass chunk widths a multiple of 8).
 int dp_gn_relu_fwd_bf16(const void* x, const float* scale, const float* bias,
-                        void* y, float* mean, float* rstd, int N, int HW,
-                        int C, int G, float eps, int W, int cl, int smem,
-                        void* stream) {
-  if (N == 0) return (int)cudaSuccess;
-  if (!onepass_ok(N, HW, C, G, W, cl, smem, 1, Piece<__nv_bfloat16>::P))
-    return (int)cudaErrorInvalidValue;
-  return launch_onepass(gn_fwd_onepass<__nv_bfloat16>, fwd_bf16_raised, N, C,
-                        W, cl, smem, reinterpret_cast<cudaStream_t>(stream),
-                        static_cast<const __nv_bfloat16*>(x), scale, bias,
-                        static_cast<__nv_bfloat16*>(y), mean, rstd, HW, C, G,
-                        W, cl, eps);
+                        void* y, float* mean, float* rstd, float* p1,
+                        float* p2, int N, int HW, int C, int G, float eps,
+                        int W, int cl, int smem, void* stream) {
+  using bf = __nv_bfloat16;
+  return relu_fwd(static_cast<const bf*>(x), scale, bias, static_cast<bf*>(y),
+                  mean, rstd, p1, p2, N, HW, C, G, eps, W, cl, smem, stream);
 }
 
-// Backward on bf16 activations (kernel F's bf16 form, the one-pass route
-// only): x, dy, dx [N,HW,C] bf16; scale, bias [C], mean, rstd [N,G] float32;
-// dscale, dbias [C] float32 or both null, and then dbc, dsc [N,C] float32
-// scratch. The plan as for dp_gn_relu_fwd_bf16.
+// Backward on bf16 activations (kernels F and G in bf16): x, dy, dx
+// [N,HW,C] bf16; everything else float32 and as for dp_gn_relu_bwd.
 int dp_gn_relu_bwd_bf16(const void* x, const void* dy, const float* scale,
                         const float* bias, const float* mean,
-                        const float* rstd, void* dx, float* dbc, float* dsc,
+                        const float* rstd, void* dx, float* pdb, float* pds,
+                        float* dbc, float* dsc, float* ag, float* bg,
                         float* dscale, float* dbias, int N, int HW, int C,
                         int G, int W, int cl, int smem, void* stream) {
-  if (N == 0) return (int)cudaSuccess;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const bool params = dscale != nullptr && dbias != nullptr;
-  if (params && (dbc == nullptr || dsc == nullptr)) return (int)cudaErrorInvalidValue;
-  if (!onepass_ok(N, HW, C, G, W, cl, smem, 2, Piece<__nv_bfloat16>::P))
-    return (int)cudaErrorInvalidValue;
-  const int err = launch_onepass(
-      gn_bwd_onepass<__nv_bfloat16>, bwd_bf16_raised, N, C, W, cl, smem, st,
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(dy), scale, bias, mean, rstd,
-      static_cast<__nv_bfloat16*>(dx), params ? dbc : nullptr,
-      params ? dsc : nullptr, HW, C, G, W, cl);
-  if (err != 0 || !params) return err;
-  gn_param_sums<<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      dsc, dbc, dscale, dbias, N, C);
-  return (int)cudaGetLastError();
+  using bf = __nv_bfloat16;
+  return relu_bwd(static_cast<const bf*>(x), static_cast<const bf*>(dy),
+                  scale, bias, mean, rstd, static_cast<bf*>(dx), pdb, pds,
+                  dbc, dsc, ag, bg, dscale, dbias, N, HW, C, G, W, cl, smem,
+                  stream);
 }
 
 }  // extern "C"

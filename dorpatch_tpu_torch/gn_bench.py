@@ -1,18 +1,21 @@
 """GroupNorm+ReLU kernel times on the card at every GroupNorm shape of
-ResNetV2-50x1 at 224 px.
+ResNetV2-50x1 at 224 px (or 480 px).
 
     python -m dorpatch_tpu_torch.gn_bench                 # this checkout
     python dorpatch_tpu_torch/gn_bench.py --tree DIR      # DIR's kernels
     python -m dorpatch_tpu_torch.gn_bench --sweep         # other chunks too
     python -m dorpatch_tpu_torch.gn_bench --dtype bfloat16  # the bf16 forms
+    python -m dorpatch_tpu_torch.gn_bench --img-size 480  # BiT's 480 px
 
-For each of the victim's 11 (HW, C) shapes at N = 256 (the attack step's
-2 images x 128 masks) it times the forward kernel and the backward kernel
-as the victim calls it (dx only), as `chip_smoke.py` does: the median of
-REPS replays of a CUDA graph of INNER calls, each replay bracketed by
-synchronizes. It prints one JSON line per shape (route, times, bytes bound
-at 3.35 TB/s, calls per forward) and last a JSON summary: the sums over
-the 49 calls of a forward of time and of time minus bound.
+For each of the victim's 11 (HW, C) shapes at the image size
+(`rn50_gn_calls`) and the attack step's N masked images (`STEP_N`: 2
+images x 128 masks at 224, 1 x 128 at 480) it times the forward kernel and
+the backward kernel as the victim calls it (dx only), as `chip_smoke.py`
+does: the median of REPS replays of a CUDA graph of INNER calls, each
+replay bracketed by synchronizes. It prints one JSON line per shape
+(route, times, bytes bound at 3.35 TB/s, calls per forward) and last a
+JSON summary: the sums over the 49 calls of a forward of time and of time
+minus bound.
 
 `--tree DIR` imports `dorpatch_tpu_torch` from another checkout (the
 parent of a change, unpacked with `git archive`), so that one chip call
@@ -26,17 +29,44 @@ a CUDA device.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
 import sys
+from collections import Counter
+from typing import Dict, Tuple
 
-#: (HW, C) -> calls per forward of ResNetV2-50x1 at 224
-RN50_GN_CALLS = {(3136, 64): 7, (3136, 256): 3, (3136, 128): 1,
-                 (784, 128): 7, (784, 512): 4, (784, 256): 1,
-                 (196, 256): 11, (196, 1024): 6, (196, 512): 1,
-                 (49, 512): 5, (49, 2048): 3}
-N = 256
+
+@functools.lru_cache(maxsize=None)
+def rn50_gn_calls(img_size: int) -> Dict[Tuple[int, int], int]:
+    """(HW, C) -> calls per forward of ResNetV2-50x1's GroupNorm+ReLU at
+    `img_size` px, counted by forward pre-hooks on one forward of one
+    image through the victim's module on the CPU (its default
+    initialization: only the shapes are read). The dict is shared between
+    calls; do not change it."""
+    import torch
+
+    from dorpatch_tpu_torch.models import resnetv2
+
+    model = resnetv2.resnetv2_50x1(1000).eval()
+    calls: Counter = Counter()
+
+    def count(_, args):
+        _, h, w, c = args[0].shape
+        calls[h * w, c] += 1
+
+    for m in model.modules():
+        if isinstance(m, resnetv2.GroupNormRelu):
+            m.register_forward_pre_hook(count)
+    with torch.no_grad():
+        model(torch.zeros((1, img_size, img_size, 3)))
+    return dict(calls)
+
+
+#: the attack step's masked images at each image size: the main paths'
+#: batch (2 at 224, 1 at 480) x 128 masks
+STEP_N = {224: 256, 480: 128}
 PEAK_BYTES_PER_S = 3.35e12
 INNER, REPS = 5, 7
 
@@ -80,7 +110,7 @@ def bytes_bound_ms(n: int, hw: int, c: int, slabs: int,
     return float(itemsize) * slabs * n * hw * c / PEAK_BYTES_PER_S * 1e3
 
 
-def _sweep_plans(fgn, hw, c, itemsize=4):
+def _sweep_plans(fgn, n, hw, c, itemsize=4):
     """Other one-pass plans of one shape: every width whose rows are at
     least MIN_ROW_BYTES, over 1, 2, 4 and 8 CTAs of a cluster, where the
     CTA's shared memory fits a block."""
@@ -88,7 +118,7 @@ def _sweep_plans(fgn, hw, c, itemsize=4):
 
     out = []
     for direction, slabs in (("fwd", 1), ("bwd", 2)):
-        default = fgn.gn_plan(direction, N, hw, c, 32, itemsize)
+        default = fgn.gn_plan(direction, n, hw, c, 32, itemsize)
         for w in fgn.one_pass_widths(c, 32, itemsize):
             for cl in (1, 2, 4, 8):
                 smem = fgn.one_pass_smem(hw, w, cl, slabs, itemsize)
@@ -107,6 +137,8 @@ def main(argv=None) -> int:
     p.add_argument("--sweep", action="store_true")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16"])
+    p.add_argument("--img-size", type=int, default=224,
+                   choices=sorted(STEP_N))
     args = p.parse_args(argv)
     if args.tree and "dorpatch_tpu_torch" in sys.modules:
         p.error("--tree needs the script path (python "
@@ -125,16 +157,17 @@ def main(argv=None) -> int:
     dtype = getattr(torch, args.dtype)
     isz = torch.empty((), dtype=dtype).element_size()
     plan_args = (32, isz) if isz != 4 else ()
+    n = STEP_N[args.img_size]
     print(f"tree {root}; device {torch.cuda.get_device_name(0)}; "
-          f"{args.dtype}", flush=True)
+          f"{args.dtype}; RN50 at {args.img_size} px, N = {n}", flush=True)
     gen = torch.Generator(device=dev).manual_seed(3)
     total = dict(fwd_ms=0.0, bwd_ms=0.0, fwd_bound_ms=0.0, bwd_bound_ms=0.0)
-    for (hw, c), calls in sorted(RN50_GN_CALLS.items(),
+    for (hw, c), calls in sorted(rn50_gn_calls(args.img_size).items(),
                                  key=lambda kv: (-kv[0][0], kv[0][1])):
         side = int(round(hw ** 0.5))
-        x = torch.randn((N, side, side, c), generator=gen,
+        x = torch.randn((n, side, side, c), generator=gen,
                         device=dev).to(dtype)
-        dy = torch.randn((N, side, side, c), generator=gen,
+        dy = torch.randn((n, side, side, c), generator=gen,
                          device=dev).to(dtype)
         s = 1 + 0.2 * torch.randn((c,), generator=gen, device=dev)
         b = 0.3 * torch.randn((c,), generator=gen, device=dev)
@@ -143,14 +176,14 @@ def main(argv=None) -> int:
                    fwd_ms=device_ms(lambda: fgn.gn_relu_fwd_kernel(x, s, b)),
                    bwd_ms=device_ms(lambda: fgn.gn_relu_bwd_kernel(
                        x, dy, s, b, mean, rstd, params=False)),
-                   fwd_bound_ms=bytes_bound_ms(N, hw, c, 2, isz),
-                   bwd_bound_ms=bytes_bound_ms(N, hw, c, 3, isz))
+                   fwd_bound_ms=bytes_bound_ms(n, hw, c, 2, isz),
+                   bwd_bound_ms=bytes_bound_ms(n, hw, c, 3, isz))
         if hasattr(fgn, "gn_plan"):
-            rec["plans"] = {d: fgn.gn_plan(d, N, hw, c, *plan_args)._asdict()
+            rec["plans"] = {d: fgn.gn_plan(d, n, hw, c, *plan_args)._asdict()
                             for d in ("fwd", "bwd")}
         if args.sweep and hasattr(fgn, "gn_plan"):
             rec["sweep"] = []
-            for direction, plan in _sweep_plans(fgn, hw, c, isz):
+            for direction, plan in _sweep_plans(fgn, n, hw, c, isz):
                 if direction == "fwd":
                     ms = device_ms(lambda: fgn.gn_relu_fwd_kernel(
                         x, s, b, plan=plan))
@@ -167,8 +200,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     total["fwd_over_bound_ms"] = total["fwd_ms"] - total["fwd_bound_ms"]
     total["bwd_over_bound_ms"] = total["bwd_ms"] - total["bwd_bound_ms"]
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "n": N,
-                      "dtype": args.dtype, "per_forward_49_calls": total}),
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "n": n,
+                      "img_size": args.img_size, "dtype": args.dtype,
+                      "per_forward_49_calls": total}),
           flush=True)
     return 0
 

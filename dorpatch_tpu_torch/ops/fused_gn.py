@@ -19,10 +19,12 @@ or the tiled kernels:
   thread-block cluster that splits the rows, stages a chunk of whole groups
   (`width` channels of one sample, all HW rows) in shared memory, reduces
   the group sums from there and writes the output, so each slab is read
-  once and written once, in one launch. Every RN50 shape at 224 takes it.
+  once and written once, in one launch. Every RN50 shape at 224 takes it,
+  and at 480 px every forward.
 - "split" (kernels E and G, the tiled pair): a statistics pass, a float64
   combine and an elementwise pass, which read x (and dy) twice; for slabs
-  whose chunk fits no cluster.
+  whose chunk fits no cluster. RN50 at 480 px takes it for the backward of
+  its 14400-row stage-1 slabs, 11 of the 49 calls.
 
 `GNRelu` pairs them as a `torch.autograd.Function`; it saves only `x` and
 the `[N, G]` statistics (and the affine parameters). `gn_relu_reference` and
@@ -30,10 +32,10 @@ the `[N, G]` statistics (and the affine parameters). `gn_relu_reference` and
 takes. Port of `dorpatch_tpu.ops.fused_gn`.
 
 bf16 activations (the bf16 attack and the bf16 certify bank on RN50) take
-the one-pass kernels' bf16 forms: statistics and every intermediate in
-float32, `y` and `dx` in `x.dtype`, the parameter cotangents in the affine
-parameters' type; `gn_plan` reckons a chunk's bytes with the element size.
-The split route is float32 only: a bf16 shape it would take raises.
+the kernels' bf16 forms on either route: statistics, the split route's
+partial sums and every intermediate in float32, `y` and `dx` in `x.dtype`,
+the parameter cotangents in the affine parameters' type; `gn_plan` reckons
+a chunk's bytes with the element size.
 `gn_preserve_dtype` is the other bf16 numerics the JAX package's plain
 model code uses: float32 statistics, the normalize chain in `x.dtype`.
 """
@@ -165,7 +167,7 @@ def gn_plan(direction: str, n: int, hw: int, c: int,
                 if smem <= budget:
                     return GNPlan("one_pass", width, cl, smem)
                 cl *= 2
-    if -(-hw // SPLIT_TILE_ROWS) <= MAX_GRID:
+    if split_tiles(hw) <= MAX_GRID:
         return GNPlan("split", 0, 0, 0)
     raise ValueError(f"no GroupNorm kernel route takes HW={hw}, C={c}: its "
                      f"chunk fits no cluster and it has more than "
@@ -302,10 +304,18 @@ def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                          "scale and bias must be 16-byte aligned")
 
 
-def _split_scratch(x: torch.Tensor, lib) -> torch.Tensor:
-    """An `[N, T, C]` partial-sum scratch of the split route."""
+def split_tiles(hw: int) -> int:
+    """T, the HW tiles of SPLIT_TILE_ROWS rows of the split route
+    (`csrc/fused_gn.cu` `dp_gn_tiles`)."""
+    return -(-hw // SPLIT_TILE_ROWS)
+
+
+def split_scratch(x: torch.Tensor) -> torch.Tensor:
+    """An `[N, T, C]` partial-sum scratch of the split route on x's device:
+    float32 for float32 and bf16 activations alike (bf16 partial sums would
+    wreck the statistics)."""
     n, h, w, c = x.shape
-    return torch.empty((n, lib.dp_gn_tiles(h * w), c), dtype=x.dtype,
+    return torch.empty((n, split_tiles(h * w), c), dtype=torch.float32,
                        device=x.device)
 
 
@@ -315,16 +325,17 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _plan_of(direction: str, x: torch.Tensor, num_groups: int,
              plan: Optional[GNPlan]) -> GNPlan:
-    """`plan`, or `gn_plan`'s for x; bf16 activations take the one-pass
-    route only (the split route has no bf16 form)."""
+    """`plan`, or `gn_plan`'s for x at its element size."""
     n, h, w, c = x.shape
-    plan = plan or gn_plan(direction, n, h * w, c, num_groups,
+    return plan or gn_plan(direction, n, h * w, c, num_groups,
                            x.element_size())
-    if x.dtype == torch.bfloat16 and plan.route != "one_pass":
-        raise ValueError(f"GroupNorm {direction} of a bf16 slab "
-                         f"{tuple(x.shape)} would take the {plan.route} "
-                         "route, which has no bf16 kernel")
-    return plan
+
+
+def _entry(lib, direction: str, x: torch.Tensor):
+    """The C entry point and launch-count name of x's type."""
+    name = f"gn_relu_{direction}" + ("_bf16" if x.dtype == torch.bfloat16
+                                     else "")
+    return getattr(lib, "dp_" + name), name
 
 
 def gn_relu_fwd_kernel(x: torch.Tensor, scale: torch.Tensor,
@@ -341,23 +352,16 @@ def gn_relu_fwd_kernel(x: torch.Tensor, scale: torch.Tensor,
     y = torch.empty_like(x)
     mean = torch.empty((n, num_groups), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
-    if x.dtype == torch.bfloat16:
-        _backend.count_launch("gn_relu_fwd_bf16", plan.route)
-        _build.check(lib.dp_gn_relu_fwd_bf16(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), n, h * w, c, num_groups,
-            float(eps), plan.width, plan.cluster, plan.smem,
-            _backend.stream_handle(x)), "gn_relu_fwd_bf16")
-        return y, mean, rstd
     p1 = p2 = None
     if plan.route == "split":
-        p1, p2 = (_split_scratch(x, lib) for _ in range(2))
-    _backend.count_launch("gn_relu_fwd", plan.route)
-    _build.check(lib.dp_gn_relu_fwd(
+        p1, p2 = (split_scratch(x) for _ in range(2))
+    fn, name = _entry(lib, "fwd", x)
+    _backend.count_launch(name, plan.route)
+    _build.check(fn(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), _ptr(p1), _ptr(p2), n, h * w, c,
         num_groups, float(eps), plan.width, plan.cluster, plan.smem,
-        _backend.stream_handle(x)), "gn_relu_fwd")
+        _backend.stream_handle(x)), name)
     return y, mean, rstd
 
 
@@ -387,7 +391,7 @@ def gn_relu_bwd_kernel(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
     dscale: Optional[torch.Tensor] = None
     dbias: Optional[torch.Tensor] = None
     if split:
-        pdb, pds = (_split_scratch(x, lib) for _ in range(2))
+        pdb, pds = (split_scratch(x) for _ in range(2))
         ag, bg = torch.empty_like(mean), torch.empty_like(mean)
     if split or params:
         dbc = torch.empty((n, c), dtype=torch.float32, device=x.device)
@@ -395,22 +399,14 @@ def gn_relu_bwd_kernel(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
     if params:
         dscale = torch.empty_like(scale)
         dbias = torch.empty_like(bias)
-    if x.dtype == torch.bfloat16:
-        _backend.count_launch("gn_relu_bwd_bf16", plan.route)
-        _build.check(lib.dp_gn_relu_bwd_bf16(
-            x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), _ptr(dbc),
-            _ptr(dsc), _ptr(dscale), _ptr(dbias), n, h * w, c, num_groups,
-            plan.width, plan.cluster, plan.smem, _backend.stream_handle(x)),
-            "gn_relu_bwd_bf16")
-        return dx, dscale, dbias
-    _backend.count_launch("gn_relu_bwd", plan.route)
-    _build.check(lib.dp_gn_relu_bwd(
+    fn, name = _entry(lib, "bwd", x)
+    _backend.count_launch(name, plan.route)
+    _build.check(fn(
         x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), _ptr(pdb),
         _ptr(pds), _ptr(dbc), _ptr(dsc), _ptr(ag), _ptr(bg), _ptr(dscale),
         _ptr(dbias), n, h * w, c, num_groups, plan.width, plan.cluster,
-        plan.smem, _backend.stream_handle(x)), "gn_relu_bwd")
+        plan.smem, _backend.stream_handle(x)), name)
     return dx, dscale, dbias
 
 

@@ -6,10 +6,12 @@
     python -m dorpatch_tpu_torch.repeat --base_arch vit        # ViT-B/16
     python -m dorpatch_tpu_torch.repeat --trials 50            # 50 gradients
     python -m dorpatch_tpu_torch.repeat --compute-dtype bfloat16  # bf16 EOT
+    python -m dorpatch_tpu_torch.repeat --img-size 480 --batch 1  # BiT 480
 
 From one seed, on the victim given at its main path's dataset, size and
 batch (`VICTIMS`, the argv of `chip_smoke.py`'s CIFAR, RN50 and ViT paths;
-sampling size 128, dropout 2), under the default numerics
+sampling size 128, dropout 2; `--img-size` and `--batch` set another size
+and batch, as the RN50 480 paths' 480 and 1), under the default numerics
 (`utils.configure_numerics`) and at the attack's `--compute-dtype`
 (float32, or bfloat16: the victim's once-cast bf16 copy), it runs:
 
@@ -150,6 +152,10 @@ def victim_repeat(victim, x, label: str, trials: int,
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--base_arch", default="resnetv2", choices=sorted(VICTIMS))
+    p.add_argument("--img-size", type=int, default=None,
+                   help="image size (default: the victim's main path's)")
+    p.add_argument("--batch", type=int, default=None,
+                   help="images (default: the victim's main path's)")
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--trials", type=int, default=TRIALS,
                    help="calls of the victim's gradient to compare")
@@ -171,6 +177,8 @@ def _set_gn_impl(victim, dtype: str, impl: str) -> None:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     spec = VICTIMS[args.base_arch]
+    spec = spec._replace(img_size=args.img_size or spec.img_size,
+                         batch=args.batch or spec.batch)
     dev = utils.resolve_device("cuda")
     utils.configure_numerics()
     victim = get_model(spec.dataset, args.base_arch, "/nonexistent",
@@ -183,7 +191,8 @@ def main(argv=None) -> int:
           f"{spec.img_size} px, batch {spec.batch}, compute dtype {dt}; "
           f"cudnn benchmark {torch.backends.cudnn.benchmark}, deterministic "
           f"{torch.backends.cudnn.deterministic}", flush=True)
-    summary = {"arch": victim.name, "steps": args.steps, "compute_dtype": dt}
+    summary = {"arch": victim.name, "img_size": spec.img_size,
+               "batch": spec.batch, "steps": args.steps, "compute_dtype": dt}
 
     def steps():
         return attack_steps(victim, x, args.steps, compute_dtype=dt)

@@ -30,7 +30,7 @@ from dorpatch_tpu_torch import utils
 from dorpatch_tpu_torch.attack import DorPatch
 from dorpatch_tpu_torch.cli import build_parser, config_from_args
 from dorpatch_tpu_torch.config import AttackConfig, DefenseConfig
-from dorpatch_tpu_torch.gn_bench import RN50_GN_CALLS
+from dorpatch_tpu_torch.gn_bench import rn50_gn_calls
 from dorpatch_tpu_torch.ops import _backend
 from dorpatch_tpu_torch.ops import fused_gn as tgn
 from dorpatch_tpu_torch.ops import masked_fill as tfill
@@ -145,7 +145,7 @@ def test_gn_relu_bf16_backward_reference_matches_jax_kernel():
                                    atol=0.05)
 
 
-@pytest.mark.parametrize("hw,c", sorted(RN50_GN_CALLS))
+@pytest.mark.parametrize("hw,c", sorted(rn50_gn_calls(224)))
 def test_gn_plan_bf16_takes_the_one_pass_route_at_every_rn50_shape(hw, c):
     """Every bf16 GroupNorm of ResNetV2-50x1 at 224 takes the one-pass
     route at the attack step's N = 256 and at the bank's chunks (the split
@@ -168,15 +168,28 @@ def test_gn_plan_bf16_takes_the_one_pass_route_at_every_rn50_shape(hw, c):
         1568 * 32 * 2 * 2 + 64 * 256 + 40 * 32
 
 
-def test_gn_bf16_split_shape_raises_before_any_launch():
-    """A bf16 slab whose chunk fits no cluster would take the split route,
-    which has no bf16 kernel: the wrapper refuses it (on any device, before
-    touching the library)."""
+def test_gn_bf16_split_shape_plans_split_with_float32_scratch():
+    """A bf16 slab whose chunk fits no cluster plans the split route (the
+    bf16 forms of kernels E and G on the card); its [N, T, C] partial-sum
+    scratch is float32, as at float32; a CPU tensor of that shape runs the
+    plain version and launches nothing."""
     x = torch.zeros((1, 256, 256, 64), dtype=BF)
-    plan = tgn.gn_plan("fwd", 1, 256 * 256, 64, 32, 2)
-    assert plan.route == "split"
-    with pytest.raises(ValueError, match="no bf16 kernel"):
-        tgn._plan_of("fwd", x, 32, None)
+    for direction in ("fwd", "bwd"):
+        assert tgn._plan_of(direction, x, 32, None) == \
+            tgn.GNPlan("split", 0, 0, 0)
+    scratch = tgn.split_scratch(x)
+    assert scratch.dtype == torch.float32 and scratch.device == x.device
+    assert tuple(scratch.shape) == (1, 256 * 256 // tgn.SPLIT_TILE_ROWS, 64)
+    assert tgn.split_tiles(14400) == 225 and tgn.split_tiles(65) == 2
+    xs, scale, bias, _ = _gn_case(4, (1, 256, 256, 64))
+    _backend.reset_launch_counts()
+    y = tgn.gn_relu(_t16(xs), torch.as_tensor(scale), torch.as_tensor(bias))
+    assert y.dtype == BF and y.shape == x.shape
+    assert not any(_backend.launch_counts().values())
+    assert _backend.route_counts() == {}
+    want = tgn.gn_relu_reference(_t16(xs), torch.as_tensor(scale),
+                                 torch.as_tensor(bias))
+    assert torch.equal(y, want)
 
 
 @pytest.mark.parametrize("groups,eps", [(32, 1e-5), (8, 1e-6)])

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from dorpatch_tpu_torch import masks as tmasks
-from dorpatch_tpu_torch.gn_bench import RN50_GN_CALLS
+from dorpatch_tpu_torch.gn_bench import rn50_gn_calls
 from dorpatch_tpu_torch.ops import _backend
 from dorpatch_tpu_torch.ops import fused_gn as fgn
 from dorpatch_tpu_torch.ops import masked_fill as mf
@@ -192,12 +192,14 @@ def test_autograd_function_pairs_the_kernels_and_counts(dev):
 # (img, k, stride, cout, ratio, masks): the CIFAR 3x3/1 and RN50 7x7/2
 # stems; N = 1, 5 and 13 masks, taken from the start of the family (top
 # left) or, for a negative count, from its end, whose windows are clamped at
-# the bottom and right edges; cout 36 takes the kernel's one-quad path
+# the bottom and right edges; cout 36 takes the kernel's one-quad path; the
+# RN50 stem at 480 px (240 x 240 outputs, the widest staged window rows)
 STEM_CASES = [(32, 3, 1, 64, 0.12, 5), (32, 3, 1, 64, 0.015, 5),
               (64, 7, 2, 64, 0.06, 5), (32, 3, 1, 64, 0.12, 1),
               (32, 3, 1, 64, 0.12, -13), (224, 7, 2, 64, 0.12, 13),
               (224, 7, 2, 64, 0.12, -1), (224, 7, 2, 64, 0.06, -13),
-              (32, 3, 1, 36, 0.06, -5)]
+              (32, 3, 1, 36, 0.06, -5), (480, 7, 2, 64, 0.12, 12),
+              (480, 7, 2, 64, 0.015, -5)]
 
 
 @pytest.mark.parametrize("img,k,s,cout,ratio,masks", STEM_CASES)
@@ -292,16 +294,16 @@ def test_pruned_certification_on_card_equals_cpu(dev):
 # The 11 (HW, C) shapes of ResNetV2-50x1 at 224 at N = 2 (one-pass route),
 # odd shapes (C = 96: cg = 3, chunks of 24 channels), chunks split over
 # clusters (64*64 rows: 2 CTAs forward, 8 backward; 112*112: 4 and 8;
-# 160*160: 8 forward), and slabs whose chunk fits no cluster (160*160
-# backward, 256*256: the split route)
+# 160*160 and RN50's 120*120 at 480 px: 8 forward), and slabs whose chunk
+# fits no cluster (160*160 and 120*120 backward, 256*256: the split route)
 GN_SHAPES = [(8, 28, 28, 128), (16, 7, 7, 2048), (3, 9, 9, 64), (2, 5, 5, 96),
              (4, 56, 56, 256), (2, 56, 56, 64), (2, 56, 56, 128),
              (2, 28, 28, 512), (2, 28, 28, 256), (2, 14, 14, 256),
              (2, 14, 14, 1024), (2, 14, 14, 512), (2, 7, 7, 512),
              (2, 64, 64, 256), (1, 112, 112, 64), (1, 160, 160, 64),
-             (1, 256, 256, 64)]
+             (1, 256, 256, 64), (1, 120, 120, 256)]
 #: (HW, C) of the 49 GroupNorm+ReLU calls of ResNetV2-50x1 at 224
-RN50_GN = set(RN50_GN_CALLS)
+RN50_GN = set(rn50_gn_calls(224))
 
 
 def _gn_case(dev, seed, shape):
@@ -591,7 +593,8 @@ def test_fill_forward_bf16_every_plan_equals_plain(dev, vec):
 
 @pytest.mark.parametrize("img,k,s,cout,ratio,masks",
                          [(32, 3, 1, 64, 0.12, 3), (224, 7, 2, 64, 0.12, 12),
-                          (224, 7, 2, 64, 0.06, -13)])
+                          (224, 7, 2, 64, 0.06, -13),
+                          (480, 7, 2, 64, 0.12, 12)])
 def test_stem_fold_kernel_bf16_matches_plain(dev, img, k, s, cout, ratio,
                                              masks):
     """Kernel C's bf16 form against the plain fold on the same bf16
@@ -633,6 +636,30 @@ def _gn_case16(dev, seed, shape):
     return x.bfloat16(), s, b, dy.bfloat16()
 
 
+def _check_gn_bf16(x, s, b, dy, y, mean, rstd, dx, ds, db):
+    """The bf16 kernels' outputs against the plain versions on the same bf16
+    inputs (statistics and arithmetic in float32, y and dx rounded once):
+    the statistics within 1e-5, y within one bf16 ulp and 1e-5, dx away
+    from ReLU gates within that and the gate-flip bound, the float32
+    parameter cotangents as in the float32 tests."""
+    assert (y.dtype, dx.dtype, mean.dtype, ds.dtype) == \
+        (torch.bfloat16, torch.bfloat16, torch.float32, torch.float32)
+    m32, r32 = fgn.gn_stats_reference(x, 32)
+    torch.testing.assert_close(mean, m32, rtol=0, atol=1e-5)
+    torch.testing.assert_close(rstd, r32, rtol=1e-5, atol=0)
+    want = fgn.gn_relu_reference(x, s, b)
+    err = (y.float() - want.float()).abs()
+    assert (err <= _ulp16(want) + 1e-5).all(), float(err.max())
+    wdx, wds, wdb = fgn.gn_relu_backward_reference(x, dy, s, b, mean, rstd)
+    near, dx_b, ds_b, db_b = fgn.gate_flip_bounds(x, dy, s, b, mean, rstd)
+    keep = ~near
+    err = (dx.float() - wdx.float()).abs()[keep]
+    assert (err <= _ulp16(wdx)[keep] + 1e-5 + dx_b[keep]).all(), \
+        float(err.max())
+    assert ((ds - wds).abs() <= 1e-3 + 1e-5 * wds.abs() + ds_b).all()
+    assert ((db - wdb).abs() <= 1e-3 + 1e-5 * wdb.abs() + db_b).all()
+
+
 @pytest.mark.parametrize("shape", [(8, 28, 28, 128), (16, 7, 7, 2048),
                                    (2, 56, 56, 256), (2, 56, 56, 64)])
 def test_gn_bf16_kernels_match_plain_bf16(dev, shape):
@@ -652,22 +679,7 @@ def test_gn_bf16_kernels_match_plain_bf16(dev, shape):
     torch.cuda.synchronize()
     assert _backend.route_counts() == {"gn_relu_fwd_bf16/one_pass": 1,
                                        "gn_relu_bwd_bf16/one_pass": 1}
-    assert (y.dtype, dx.dtype, mean.dtype, ds.dtype) == \
-        (torch.bfloat16, torch.bfloat16, torch.float32, torch.float32)
-    m32, r32 = fgn.gn_stats_reference(x, 32)
-    torch.testing.assert_close(mean, m32, rtol=0, atol=1e-5)
-    torch.testing.assert_close(rstd, r32, rtol=1e-5, atol=0)
-    want = fgn.gn_relu_reference(x, s, b)
-    err = (y.float() - want.float()).abs()
-    assert (err <= _ulp16(want) + 1e-5).all(), float(err.max())
-    wdx, wds, wdb = fgn.gn_relu_backward_reference(x, dy, s, b, mean, rstd)
-    near, dx_b, ds_b, db_b = fgn.gate_flip_bounds(x, dy, s, b, mean, rstd)
-    keep = ~near
-    err = (dx.float() - wdx.float()).abs()[keep]
-    assert (err <= _ulp16(wdx)[keep] + 1e-5 + dx_b[keep]).all(), \
-        float(err.max())
-    assert ((ds - wds).abs() <= 1e-3 + 1e-5 * wds.abs() + ds_b).all()
-    assert ((db - wdb).abs() <= 1e-3 + 1e-5 * wdb.abs() + db_b).all()
+    _check_gn_bf16(x, s, b, dy, y, mean, rstd, dx, ds, db)
     assert all(torch.equal(p, q) for p, q in
                zip(fgn.gn_relu_fwd_kernel(x, s, b), (y, mean, rstd)))
     assert all(torch.equal(p, q) for p, q in zip(
@@ -697,6 +709,84 @@ def test_gn_bf16_autograd_and_shared_memory(dev):
             p = fgn.gn_plan(direction, 2, hw, c, 32, 2)
             assert lib.dp_gn_onepass_smem_bf16(hw, p.width, p.cluster,
                                                slabs) == p.smem
+
+
+# Kernels E and G in bf16 (the split route): slabs whose chunk fits no
+# cluster (256*256 rows both ways; RN50's 480 px stage-1 slab [N, 14400, 256],
+# split backward only), and the split route forced on smaller slabs: a piece
+# of 8 channels over groups of 3 (C = 96), a ragged last tile (HW = 81) and
+# more piece columns than one statistics block (C = 1024).
+GN_SPLIT16_SHAPES = [((1, 256, 256, 64), False), ((2, 120, 120, 256), False),
+                     ((2, 5, 5, 96), True), ((3, 9, 9, 64), True),
+                     ((2, 8, 8, 1024), True)]
+SPLIT = fgn.GNPlan("split", 0, 0, 0)
+
+
+@pytest.mark.parametrize("shape,forced", GN_SPLIT16_SHAPES)
+def test_gn_bf16_split_kernels_match_plain_bf16(dev, shape, forced):
+    """Kernels E and G in bf16 against the plain bf16 versions, as D and F
+    are held; both repeat bit for bit, and each launch counts under its
+    route."""
+    x, s, b, dy = _gn_case16(dev, 8, shape)
+    n, h, w, c = shape
+    plans = {d: SPLIT if forced else fgn.gn_plan(d, n, h * w, c, 32, 2)
+             for d in ("fwd", "bwd")}
+    assert plans["bwd"].route == "split"
+    _backend.reset_launch_counts()
+    y, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b, plan=plans["fwd"])
+    dx, ds, db = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd,
+                                        plan=plans["bwd"])
+    torch.cuda.synchronize()
+    assert _backend.route_counts() == {
+        f"gn_relu_fwd_bf16/{plans['fwd'].route}": 1,
+        "gn_relu_bwd_bf16/split": 1}
+    _check_gn_bf16(x, s, b, dy, y, mean, rstd, dx, ds, db)
+    assert all(torch.equal(p, q) for p, q in zip(
+        fgn.gn_relu_fwd_kernel(x, s, b, plan=plans["fwd"]), (y, mean, rstd)))
+    assert all(torch.equal(p, q) for p, q in zip(
+        fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd, plan=plans["bwd"]),
+        (dx, ds, db)))
+    dx_only = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd, params=False,
+                                     plan=plans["bwd"])
+    assert dx_only[1] is None and torch.equal(dx_only[0], dx)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 5, 96), (2, 56, 56, 64)])
+def test_gn_bf16_split_and_one_pass_routes_agree(dev, shape):
+    """The two routes compute one function: normalize in float32 and round
+    once. Their statistics are summed in other orders, so y and dx may
+    differ by one bf16 ulp and 1e-5 (dx away from gate flips)."""
+    x, s, b, dy = _gn_case16(dev, 9, shape)
+    n, h, w, c = shape
+    one = {d: fgn.gn_plan(d, n, h * w, c, 32, 2) for d in ("fwd", "bwd")}
+    assert one["fwd"].route == one["bwd"].route == "one_pass"
+    y1, m1, r1 = fgn.gn_relu_fwd_kernel(x, s, b, plan=one["fwd"])
+    y2, m2, r2 = fgn.gn_relu_fwd_kernel(x, s, b, plan=SPLIT)
+    torch.testing.assert_close(m2, m1, rtol=0, atol=1e-5)
+    torch.testing.assert_close(r2, r1, rtol=1e-5, atol=0)
+    err = (y2.float() - y1.float()).abs()
+    assert (err <= _ulp16(y1) + 1e-5).all(), float(err.max())
+    dx1, _, _ = fgn.gn_relu_bwd_kernel(x, dy, s, b, m1, r1, params=False,
+                                       plan=one["bwd"])
+    dx2, _, _ = fgn.gn_relu_bwd_kernel(x, dy, s, b, m1, r1, params=False,
+                                       plan=SPLIT)
+    torch.cuda.synchronize()
+    near = fgn.gate_flip_bounds(x, dy, s, b, m1, r1)[0]
+    err = (dx2.float() - dx1.float()).abs()[~near]
+    assert (err <= _ulp16(dx1)[~near] + 1e-5).all(), float(err.max())
+
+
+def test_gn_split_scratch_matches_the_kernels_tiles(dev):
+    """The wrapper's float32 [N, T, C] scratch has the kernels' T."""
+    from dorpatch_tpu_torch.ops import _build
+
+    lib = _build.library()
+    for hw in (1, 63, 64, 65, 14400, 65536):
+        assert lib.dp_gn_tiles(hw) == fgn.split_tiles(hw)
+    x = torch.zeros((2, 120, 120, 64), dtype=torch.bfloat16, device=dev)
+    scratch = fgn.split_scratch(x)
+    assert scratch.dtype == torch.float32
+    assert tuple(scratch.shape) == (2, lib.dp_gn_tiles(14400), 64)
 
 
 def test_resnetv2_bf16_victim_on_card_matches_cpu(dev):

@@ -12,7 +12,7 @@ import jax
 import jax.numpy as jnp
 
 from dorpatch_tpu.ops import fused_gn as jgn
-from dorpatch_tpu_torch.gn_bench import RN50_GN_CALLS
+from dorpatch_tpu_torch.gn_bench import rn50_gn_calls
 from dorpatch_tpu_torch.ops import _backend
 from dorpatch_tpu_torch.ops import fused_gn as tgn
 
@@ -102,6 +102,40 @@ def test_plain_versions_match_the_jax_tiled_kernels():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **BWD_TOL)
 
 
+def test_plain_bf16_versions_match_the_jax_tiled_kernels():
+    """The function of the split route's bf16 kernels (E and G in bf16 on
+    the card): the plain versions on bf16 x and dy with float32 affine
+    parameters, against the JAX tiled kernels at bf16 in interpret mode (4
+    HW tiles). The statistics of the same bf16 values as at float32; y
+    (bf16 both) within the JAX tests' bf16 bar of the tiled forward (0.02),
+    dx (bf16 both), dscale and dbias within their bar of the tiled
+    backward (0.05)."""
+    shape = (2, 8, 8, 64)
+    x, scale, bias, dy = _case(3, shape)
+    jx, jdy = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, dy))
+    js, jb = jnp.asarray(scale), jnp.asarray(bias)
+    tx, tdy = (_t(a).to(torch.bfloat16) for a in (x, dy))
+    y, jmean, jrstd = jgn._pallas_fwd_tiled(jx, js, jb, 32, 1e-5, 4, True)
+    assert y.dtype == jnp.bfloat16
+    mean, rstd = tgn.gn_stats_reference(tx, 32)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(jmean)[:, 0],
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(jrstd)[:, 0],
+                               rtol=1e-5, atol=0)
+    ty = tgn.gn_relu_reference(tx, _t(scale), _t(bias))
+    assert ty.dtype == torch.bfloat16
+    np.testing.assert_allclose(ty.float().numpy(),
+                               np.asarray(y, np.float32), rtol=0, atol=0.02)
+    want = jgn._pallas_bwd_tiled(jx, jdy, js, jb, jmean, jrstd, 32, 4, True)
+    got = tgn.gn_relu_backward_reference(tx, tdy, _t(scale), _t(bias),
+                                         mean, rstd, 32)
+    assert got[0].dtype == torch.bfloat16 and want[0].dtype == jnp.bfloat16
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w, np.float32), atol=0.05,
+                                   rtol=0.05)
+
+
 def test_float64_plain_versions_agree_with_float32():
     """The card checks hold the kernels against the plain versions in
     float64; those compute in float64 and agree with the float32 ones."""
@@ -167,34 +201,62 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tgn.gn_relu_bwd_kernel(x, dy, scale, bias, mean, rstd)
 
 
+#: (HW, C) -> calls per forward of ResNetV2-50x1 at 224 px, from its layout
+#: (3, 4, 6, 3 bottlenecks of widths 64-512, a 64-wide stem): in each
+#: bottleneck norm1 on its input, norm2 after the 1x1 conv and norm3 after
+#: the 3x3 conv (stride 2 in the first bottleneck of stages 2-4), and the
+#: final norm
+RN50_224_LAYOUT = {(3136, 64): 7, (3136, 256): 3, (3136, 128): 1,
+                   (784, 128): 7, (784, 512): 4, (784, 256): 1,
+                   (196, 256): 11, (196, 1024): 6, (196, 512): 1,
+                   (49, 512): 5, (49, 2048): 3}
+
+
 def test_rn50_gn_shape_table_matches_the_victim():
-    """`gn_bench.RN50_GN_CALLS`, the (HW, C) shapes and calls per forward
-    that `gn_bench.py` and `chip_smoke.py` time, is what the ResNetV2-50x1
-    victim at 224 calls."""
-    from collections import Counter
-
-    from dorpatch_tpu_torch.models import get_model
-    from dorpatch_tpu_torch.models.resnetv2 import GroupNormRelu
-
-    victim = get_model("imagenet", "resnetv2", "/nonexistent", 224,
-                       device="cpu")
-    seen = Counter()
-    hooks = [m.register_forward_pre_hook(
-        lambda _, args: seen.update([(args[0].shape[1] * args[0].shape[2],
-                                      args[0].shape[3])]))
-        for m in victim.model.modules() if isinstance(m, GroupNormRelu)]
-    try:
-        with torch.no_grad():
-            victim.apply(torch.zeros((1, 224, 224, 3)))
-    finally:
-        for h in hooks:
-            h.remove()
-    assert dict(seen) == RN50_GN_CALLS
+    """`gn_bench.rn50_gn_calls(224)`, the (HW, C) shapes and calls per
+    forward that `gn_bench.py` and `chip_smoke.py` time, counted on the
+    victim's module, is ResNetV2-50x1's layout at 224."""
+    seen = rn50_gn_calls(224)
+    assert seen == RN50_224_LAYOUT
     assert sum(seen.values()) == 49
 
 
+def test_rn50_gn_shape_table_at_480_matches_the_victim():
+    """`gn_bench.rn50_gn_calls(480)`, the table `gn_bench.py --img-size 480`
+    times, is the layout at BiT's 480 px fine-tuning resolution: the stem
+    and pool take 480 to 120, so the stages run at 14400, 3600, 900 and
+    225 rows where 224 has 3136, 784, 196 and 49, at the same widths and
+    calls."""
+    rows = {3136: 14400, 784: 3600, 196: 900, 49: 225}
+    assert rn50_gn_calls(480) == {(rows[hw], c): n
+                                  for (hw, c), n in RN50_224_LAYOUT.items()}
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("hw,c", sorted(rn50_gn_calls(480)))
+def test_rn50_480_shapes_take_split_backward_at_stage_1(hw, c, itemsize):
+    """ResNetV2-50x1 at 480 px at the attack step's N = 128 (1 image x 128
+    masks), in float32 and bf16: every forward takes the one-pass route
+    (stage 1's 14400 rows over clusters of 8 CTAs); the backward of the
+    three stage-1 shapes, 11 of the 49 calls, takes the split route (its
+    one-group chunk of x and dy fits no cluster), every other backward the
+    one-pass route. The plan does not depend on N."""
+    fwd = tgn.gn_plan("fwd", 128, hw, c, 32, itemsize)
+    bwd = tgn.gn_plan("bwd", 128, hw, c, 32, itemsize)
+    assert fwd.route == "one_pass"
+    if hw == 14400:
+        assert fwd.cluster == tgn.MAX_CLUSTER
+        assert bwd == tgn.GNPlan("split", 0, 0, 0)
+    else:
+        assert bwd.route == "one_pass"
+    assert (fwd, bwd) == tuple(tgn.gn_plan(d, 1, hw, c, 32, itemsize)
+                               for d in ("fwd", "bwd"))
+    calls = rn50_gn_calls(480)
+    assert sum(n for (h, _), n in calls.items() if h == 14400) == 11
+
+
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
-@pytest.mark.parametrize("hw,c", sorted(RN50_GN_CALLS))
+@pytest.mark.parametrize("hw,c", sorted(rn50_gn_calls(224)))
 def test_every_rn50_shape_takes_the_one_pass_route(direction, hw, c):
     """Every RN50 GroupNorm at 224 runs in one pass: whole groups of 32,
     16-byte pieces, rows of at least 32 bytes, within a block's shared

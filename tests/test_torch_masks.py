@@ -25,7 +25,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 RATIOS = (0.015, 0.03, 0.06, 0.12)
 
 
-@pytest.mark.parametrize("img_size", [32, 224])
+@pytest.mark.parametrize("img_size", [32, 224, 480])
 @pytest.mark.parametrize("n_patch", [1, 2])
 def test_geometry_and_mask_sets_equal_jax(img_size, n_patch):
     for ratio in RATIOS:
@@ -43,7 +43,7 @@ def test_geometry_and_mask_sets_equal_jax(img_size, n_patch):
                                       jmasks.pad_rects(singles, k))
 
 
-@pytest.mark.parametrize("img_size", [32, 224])
+@pytest.mark.parametrize("img_size", [32, 224, 480])
 @pytest.mark.parametrize("dropout", [0, 1, 2])
 def test_dropout_universe_equals_jax(img_size, dropout):
     np.testing.assert_array_equal(

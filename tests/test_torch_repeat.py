@@ -75,6 +75,22 @@ def test_repeat_victims_are_chip_smoke_main_paths(path, arch):
     assert set(repeat.VICTIMS) == {"resnet18", "resnetv2", "vit"}
 
 
+def test_repeat_size_and_batch_flags_take_the_480_main_path():
+    """`--img-size 480 --batch 1` is the victim of `chip_smoke.py`'s RN50
+    480 paths; without them the size and batch are the victim's 224
+    path's."""
+    cfg = config_from_args(build_parser().parse_args(
+        _chip_smoke().RN50_480_ARGV))
+    args = repeat.build_parser().parse_args(["--img-size", "480",
+                                             "--batch", "1"])
+    assert (cfg.base_arch, cfg.img_size, cfg.batch_size) == \
+        (args.base_arch, args.img_size, args.batch) == ("resnetv2", 480, 1)
+    assert (cfg.attack.sampling_size, cfg.attack.dropout) == \
+        (repeat.SAMPLING_SIZE, repeat.DROPOUT)
+    args = repeat.build_parser().parse_args([])
+    assert args.img_size is None and args.batch is None
+
+
 def test_attack_steps_repeat_and_compare_finds_a_difference():
     """Two runs from one seed on the CPU are bit-equal step by step, and
     `compare` names the first step where a run differs."""

@@ -37,11 +37,12 @@ NAME = "resnetv2_50x1_bit_distilled"
 LAYERS = (1, 1)
 
 
-def _synced(img, seed, classes=10):
-    """Shallow full-width ResNetV2 in both packages with the same flax-init
-    weights, GroupNorm affines perturbed so they are exercised and the head
-    scaled up so that masks move the random victim's predictions."""
-    fnet = JaxResNetV2(num_classes=classes, layers=LAYERS)
+def _synced(img, seed, classes=10, stem=64):
+    """Shallow ResNetV2 in both packages (full width, or a narrower stem of
+    `stem` channels) with the same flax-init weights, GroupNorm affines
+    perturbed so they are exercised and the head scaled up so that masks
+    move the random victim's predictions."""
+    fnet = JaxResNetV2(num_classes=classes, layers=LAYERS, stem_features=stem)
     params = jax.jit(fnet.init)(jax.random.PRNGKey(seed),
                                 jnp.zeros((1, img, img, 3)))
     rng = np.random.default_rng(seed)
@@ -58,7 +59,7 @@ def _synced(img, seed, classes=10):
         return leaf
 
     params_np = jax.tree_util.tree_map_with_path(perturb, params)
-    tnet = ResNetV2(classes, LAYERS)
+    tnet = ResNetV2(classes, LAYERS, stem_features=stem)
     tnet.load_state_dict(from_flax_resnetv2(params_np))
     tnet = tnet.eval().requires_grad_(False)
     params = jax.tree_util.tree_map(jnp.asarray, params_np)
@@ -103,6 +104,53 @@ def test_step_loss_and_gradients_match_jax(stage):
     p = _t(pattern).requires_grad_(True)
     ttotal, _ = tatk._loss_and_aux(m, p, _t(x), _t(lvx), _t(universe[idx]),
                                    state, stage)
+    tg_mask, tg_pat = torch.autograd.grad(ttotal, (m, p))
+    np.testing.assert_allclose(float(ttotal.detach()), float(jtotal),
+                               rtol=1e-4)
+    np.testing.assert_allclose(tg_pat.numpy(), np.asarray(jg_pat),
+                               rtol=1e-3, atol=1e-5)
+    np.testing.assert_allclose(tg_mask.numpy(), np.asarray(jg_mask),
+                               rtol=1e-3, atol=1e-5)
+    assert np.abs(np.asarray(jg_pat)).max() > 0
+
+
+def test_step_loss_and_gradients_at_480_match_jax():
+    """One stage-0 attack step at BiT's 480 px fine-tuning resolution on the
+    shallow ResNetV2 with a 32-channel stem (stage 1 at 120 x 120 = 14400
+    rows, the slabs whose GroupNorm backward takes the split route on the
+    card): the loss and its gradients with respect to the patch's mask and
+    pattern, the attack's input gradient, against the JAX package with the
+    same two double-mask samples of the dropout=2 universe; the
+    tolerances of the step test above."""
+    img = 480
+    _, params, japply, _, tapply = _synced(img, 3, stem=32)
+    rng = np.random.default_rng(480)
+    base = dict(sampling_size=2, dropout=2)
+    jcfg, tcfg = JaxAttackConfig(**base), AttackConfig(**base)
+    universe = jmasks.dropout_universe(img, 2)
+    np.testing.assert_array_equal(tmasks.dropout_universe(img, 2), universe)
+    idx = np.asarray([17, 2000])
+    x, mask, pattern = (rng.uniform(0, 1, (1, img, img, c))
+                        .astype(np.float32) for c in (3, 1, 3))
+    y = np.asarray([4])
+    lvx = np.asarray(jnp.mean(jlosses.local_variance(jnp.asarray(x))[0], -1))
+
+    jatk = JaxDorPatch(japply, params, 10, jcfg, remat=False)
+    jstate = jatk._init_state(jax.random.PRNGKey(0), jnp.asarray(x),
+                              jnp.asarray(y), False, universe.shape[0])
+    (jtotal, _), (jg_mask, jg_pat) = jax.jit(jax.value_and_grad(
+        jatk._loss_and_aux, argnums=(0, 1), has_aux=True),
+        static_argnums=6)(
+        jnp.asarray(mask), jnp.asarray(pattern), jnp.asarray(x),
+        jnp.asarray(lvx), jnp.asarray(universe[idx]), jstate, 0)
+
+    tatk = DorPatch(tapply, 10, tcfg)
+    state = tatk._init_state(tutils.generator(0, torch.device("cpu")), _t(x),
+                             _t(y), False, universe.shape[0])
+    m = _t(mask).requires_grad_(True)
+    p = _t(pattern).requires_grad_(True)
+    ttotal, _ = tatk._loss_and_aux(m, p, _t(x), _t(lvx), _t(universe[idx]),
+                                   state, 0)
     tg_mask, tg_pat = torch.autograd.grad(ttotal, (m, p))
     np.testing.assert_allclose(float(ttotal.detach()), float(jtotal),
                                rtol=1e-4)

@@ -71,6 +71,37 @@ def test_plain_fold_matches_jax_xla_fold(img, k, s, pads, cout, ratio):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=FOLD_ATOL)
 
 
+def test_plain_fold_at_480_matches_jax_xla_fold():
+    """ResNetV2's 7x7/2 SAME stem at BiT's 480 px fine-tuning resolution
+    (240 x 240 outputs): the window plan of the 0.12 radius and the plain
+    fold of a narrow stem (8 channels) on 2 images, at four masks (the two
+    corners of the first row, the interior, the last corner), against the
+    JAX package's."""
+    img, k, s, ratio, cout = 480, 7, 2, 0.12, 8
+    pads = (jsf.same_pads(img, k, s), jsf.same_pads(img, k, s))
+    assert tsf.same_pads(img, k, s) == pads[0]
+    h_out = (img + sum(pads[0]) - k) // s + 1
+    assert h_out == 240
+    jplan, tplan = _plan_pair(img, k, s, pads, ratio)
+    assert len(jplan) == len(tplan) == 36
+    pick = [0, 5, 14, 35]
+    for i in pick:
+        assert tuple(jplan[i][:8]) == tuple(tplan[i][:8])
+        np.testing.assert_array_equal(jplan[i].occ, tplan[i].occ)
+    rng = np.random.default_rng(480)
+    kern = rng.normal(0, 0.3, (k, k, 3, cout)).astype(np.float32)
+    clean = rng.normal(0, 1, (2, h_out, h_out, cout)).astype(np.float32)
+    u = rng.uniform(-1, 1, (2, img, img, 3)).astype(np.float32)
+    want = np.asarray(jsf.fold_masked_stem(
+        jnp.asarray(kern), jnp.asarray(clean), jnp.asarray(u),
+        [jplan[i] for i in pick], (s, s), pads))
+    got = tsf.fold_masked_stem(torch.as_tensor(kern), torch.as_tensor(clean),
+                               torch.as_tensor(u), [tplan[i] for i in pick],
+                               (s, s), pads)
+    assert got.shape == want.shape == (2, len(pick), h_out, h_out, cout)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=FOLD_ATOL)
+
+
 def _synced_shallow(seed=0, img=16):
     fnet = JaxCifarResNet18(num_classes=10, stage_sizes=(1, 1, 1, 1))
     params = jax.jit(fnet.init)(jax.random.PRNGKey(seed),
