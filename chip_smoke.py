@@ -768,13 +768,14 @@ def gn_phases_bf16(torch, dev):
 
 def attn_phase(torch, dev, dtype=None):
     """Kernel H at the ViT-B/16 token engine's two shapes of the 0.12
-    radius (2 images; T+1 = 197 tokens, 12 heads of 64): the phase-1 chunk
-    (all 36 first-round masks) and the first pair-audit chunk (64 of the
-    630 pairs). The biases are the engine's own: the stale clean columns
-    of the masks' token sets and the duplicate dirty slots of their
-    padding. Held against the plain version in float64 and timed beside
-    the plain f32 version and `F.scaled_dot_product_attention` over the
-    concatenated clean and dirty keys with the biases as its mask. With
+    radius (2 images; T+1 = 197 tokens, 12 heads of 64;
+    `attn_bench.SHAPES`): the phase-1 chunk (all 36 first-round masks) and
+    the first pair-audit chunk (64 of the 630 pairs). The biases are the
+    engine's own: the stale clean columns of the masks' token sets and the
+    duplicate dirty slots of their padding. Held against the plain version
+    in float64 and timed beside the plain f32 version and
+    `F.scaled_dot_product_attention` over the concatenated clean and dirty
+    keys with the biases as its mask. With
     `dtype` bfloat16, H's bf16 form on the same inputs rounded to bf16:
     against its plain version on them within one ulp of the output plus
     2^-8 of the largest |v| (the kernel rounds the weights to bf16 for
@@ -785,36 +786,19 @@ def attn_phase(torch, dev, dtype=None):
 
     import torch.nn.functional as F
 
-    from dorpatch_tpu_torch import masks as masks_lib
-    from dorpatch_tpu_torch.models import vit
+    from dorpatch_tpu_torch import attn_bench
     from dorpatch_tpu_torch.ops import masked_kv_attn as mka
 
     bf16 = dtype == torch.bfloat16
-    size, patch, b, h, f = 224, 16, 2, 12, 64
-    t1 = (size // patch) ** 2 + 1
-    singles, doubles = masks_lib.mask_sets(masks_lib.geometry(size, 0.12))
-    m = singles.shape[0]
     rng = np.random.default_rng(6 if bf16 else 4)
     tag = "_bf16" if bf16 else ""
     recs = []
-    for name, rects, c in (("masked_kv_attn" + tag, singles, m),
-                           ("masked_kv_attn" + tag + "_pairs", doubles, 64)):
-        table = vit.build_tables(rects, size, patch)
-        idx = table.idx[:c]
-        s = idx.shape[1]
-        stale = (idx[:, :, None] == np.arange(t1)).any(axis=1)   # [c, T+1]
-        biases = (np.where(stale, -1e9, 0.0), table.slot_bias[:c])
-        cb, db = (torch.as_tensor(np.tile(a, (b, 1, 1)), dtype=torch.float32,
-                                  device=dev)
-                  for a in biases)
-        q, kd, vd = (torch.as_tensor(rng.standard_normal((b, c, s, h, f)),
-                                     dtype=torch.float32, device=dev)
-                     for _ in range(3))
-        q = q / math.sqrt(f)
-        kc, vc = (torch.as_tensor(rng.standard_normal((b, t1, h, f)),
-                                  dtype=torch.float32, device=dev)
-                  for _ in range(2))
-        args32 = (q, kd, vd, kc, vc, cb, db)
+    for name, (_, kind, c) in zip(("masked_kv_attn" + tag,
+                                   "masked_kv_attn" + tag + "_pairs"),
+                                  attn_bench.SHAPES):
+        args32 = attn_bench.engine_case(torch, dev, kind, c, rng)
+        b, c, s, h, f = args32[0].shape
+        t1 = args32[3].shape[1]
         args = tuple(a.bfloat16() for a in args32) if bf16 else args32
         got = mka.masked_kv_attention_kernel(*args)
         torch.cuda.synchronize()
@@ -822,7 +806,8 @@ def attn_phase(torch, dev, dtype=None):
             *args32)).abs().max())
         if bf16:
             want = mka.masked_kv_attention_reference(*args)
-            vmax = max(float(vd.abs().max()), float(vc.abs().max()))
+            vmax = max(float(args32[2].abs().max()),
+                       float(args32[4].abs().max()))
             e = (got.float() - want.float()).abs()
             bad = int((e > _ulp16(torch, want) + 2.0 ** -8 * vmax).sum())
             err = float(e.max())
@@ -846,50 +831,65 @@ def attn_phase(torch, dev, dtype=None):
         del want
         # the library yardstick: one SDPA call over [B*C, H, T+1+S, f]
         # keys and values, concatenated outside the timing
-        def heads(t):
-            return t.permute(0, 1, 3, 2, 4).reshape(b * c, h, -1, f)
-
-        qs = heads(args[0]).contiguous()
-        ks, vs = (heads(torch.cat([cl[:, None].expand(b, c, t1, h, f), dt],
-                                  dim=2)).contiguous()
-                  for cl, dt in ((args[3], args[1]), (args[4], args[2])))
-        mask = torch.cat([args[5], args[6]], dim=-1).reshape(b * c, 1, 1,
-                                                             t1 + s)
+        qs, ks, vs, mask = attn_bench.sdpa_inputs(torch, args)
         lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
                                                  scale=1.0)
-        lib_err = float((lib_out.float() - heads(got).float()).abs().max())
+        lib_err = float((lib_out.float() - got.permute(0, 1, 3, 2, 4)
+                         .reshape(b * c, h, s, f).float()).abs().max())
         ms = _device_ms(lambda: mka.masked_kv_attention_kernel(*args))
         plain = _device_ms(lambda: mka.masked_kv_attention_reference(*args))
         lib = _device_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, scale=1.0))
-        nbytes = got.element_size() * (4 * b * c * s * h * f
-                                       + 2 * b * t1 * h * f
-                                       + b * c * (t1 + s))
-        flops = 4.0 * b * c * h * s * (t1 + s) * f
+        bound, by, nbytes, flops = attn_bench.bound(args)
         ffma_bound, _ = _bound(0.0, flops)
-        if bf16:
-            bound, by = _bound(nbytes, flops, PEAK_BF16_FLOPS)
-            products = (f"{flops / 1e9:.3f} GFLOP in bf16 at "
-                        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s")
-        else:
-            bound, by = _bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
-            products = (f"{flops / 1e9:.3f} GFLOP x 3 TF32 products at "
-                        f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s")
+        products = (f"{flops / 1e9:.3f} GFLOP in bf16 at "
+                    f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s" if bf16 else
+                    f"{flops / 1e9:.3f} GFLOP x 3 TF32 products at "
+                    f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = (f"; {mka.bf16_plan(b, c, s, h, t1, f, sms)}" if bf16
+                else "")
         print(f"kernel H {name} [B={b},C={c},S={s},H={h},f={f},T+1={t1}]: "
               f"max_abs_err {err:.3g} {tol}, {lib_err:.3g} vs SDPA; "
               f"{ms * 1e3:.2f} us (plain {plain * 1e3:.2f} us, SDPA "
               f"{lib * 1e3:.2f} us, {lib / ms:.2f}x the kernel's time; bound "
               f"{bound * 1e3:.2f} us by {by}: {products}, {nbytes / 1e6:.1f} "
               f"MB at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; FFMA operations "
-              f"bound {ffma_bound * 1e3:.2f} us)", flush=True)
+              f"bound {ffma_bound * 1e3:.2f} us){plan}", flush=True)
         recs.append(dict(name=name, route="cuda",
                          source="dorpatch_tpu_torch/csrc/masked_kv_attn.cu",
                          replaces="dorpatch_tpu/ops/masked_kv_attn.py:56",
                          launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
                          bound_ms=bound, bound_by=by, library_ms=lib))
-        del args, args32, q, kd, vd, got, qs, ks, vs, lib_out
+        del args, args32, got, qs, ks, vs, lib_out
         torch.cuda.empty_cache()
     return recs
+
+
+def attn_classes(routes, kernel, size=224, patch=16):
+    """Kernel H's launches on one ViT main path by shape class, from its
+    launches by dirty rows S (`ops.route_counts`, "kernel/S<S>") and the S
+    of each default radius's singles and pairs tables: (phase-1 chunks,
+    pair audits and second-round rows (the rows program takes the combined
+    table, whose S is the pairs'), launches by S). A launch at an S of
+    neither raises."""
+    from dorpatch_tpu_torch import masks as masks_lib
+    from dorpatch_tpu_torch.config import DEFAULT_RATIOS
+    from dorpatch_tpu_torch.models import vit
+
+    single, pair = set(), set()
+    for r in DEFAULT_RATIOS:
+        singles, doubles = masks_lib.mask_sets(masks_lib.geometry(size, r))
+        single.add(vit.build_tables(singles, size, patch).idx.shape[1])
+        pair.add(vit.build_tables(doubles, size, patch).idx.shape[1])
+    by_s = {int(k.rsplit("/S", 1)[1]): v for k, v in routes.items()
+            if k.startswith(kernel + "/S")}
+    if set(by_s) - single - pair or single & pair:
+        raise AssertionError(f"{kernel} launched at dirty rows {by_s}, the "
+                             f"tables have {sorted(single)} (singles) and "
+                             f"{sorted(pair)} (pairs)")
+    return (sum(by_s.get(s, 0) for s in single),
+            sum(by_s.get(s, 0) for s in pair), dict(sorted(by_s.items())))
 
 
 def gn_split_shares(img_size):
@@ -965,7 +965,8 @@ def main_path(torch, dev, label, argv, required, shares=None,
           f"records {m.get('escalated')}; certification schedule over the "
           f"radii: {sched['pair_audits']} pair audits (images), "
           f"{sched['rows']} minority rows; peak device memory {peak:.2f} "
-          f"GiB; launches {counts}; GN routes {routes}", flush=True)
+          f"GiB; launches {counts}; routes and shape classes {routes}",
+          flush=True)
     for name in required:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
@@ -1405,6 +1406,12 @@ def main() -> int:
             rec["launches"] = counts.get(COUNT_OF.get(rec["name"],
                                                       rec["name"]), 0)
         fills[label] = counts
+        if label.startswith("ViT"):
+            kern = "masked_kv_attn" + ("_bf16" if "bf16" in label else "")
+            first, pairs, by_s = attn_classes(counts, kern)
+            print(f"{label} kernel H ({kern}) launches by dirty rows S "
+                  f"{by_s}: phase-1 chunks {first}, pair audits and "
+                  f"second-round rows {pairs}", flush=True)
         print(f"{label} main-path phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
     fill_overhead(fills, {"CIFAR": cifar_kernels[:2], "RN50": rn50_kernels[:2],

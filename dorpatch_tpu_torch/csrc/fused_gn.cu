@@ -63,7 +63,7 @@
 //   parameter cotangents, gn_param_sums adds db_c and ds_c over N in a
 //   second, small launch.
 // Split route, for slabs whose chunk fits no cluster (RN50 at 480 px: the
-// backward at [N, 14400, 64/128/256], 11 of the 49 calls):
+// backward at [N, 14400, 64/128/256], 11 of the 49 calls). Forward (E):
 //   1. a statistics pass, grid (sample, HW tile of kTileRows rows, chunk of
 //      up to kMaxCols piece columns): each thread owns one 16-byte piece
 //      column (4 float32 or 8 bf16 channels), sums its rows in f32, the
@@ -71,11 +71,14 @@
 //      float32 partial sums [N, T, C];
 //   2. a combine pass, one warp per (sample, group): adds the partials over
 //      tiles and channels in a fixed order, in float64, to the group
-//      statistics (forward) or to db_c, ds_c, a_g, b_g (backward);
-//   3. an elementwise pass over NHWC, 16 bytes a thread: y (forward) or dx
-//      (backward), recomputing xhat and the ReLU gate from the saved [N, G]
-//      statistics.
-//   It reads x (and dy) twice: one slab pass more than the bound.
+//      statistics;
+//   3. an elementwise pass over NHWC, 16 bytes a thread: y.
+// Backward (G; see gn_bwd_stats below): a statistics pass over
+// thread-block clusters that also adds the sums up, to db_c, ds_c and the
+// [N, G] group sums a_g, b_g (no [N, T, C] partials and no combine launch),
+// and a dx pass that keeps each thread on one piece column with its
+// coefficients in registers.
+// Both read x (and dy) twice: one slab pass more than the bound.
 // No float atomics on either route, so every result is the same from run
 // to run.
 //
@@ -89,8 +92,8 @@
 // added up, as above), and the ReLU gate is taken on the float32
 // pre-activation; y and dx are normalized in float32 and rounded to bf16
 // once, at their store, on either route, so the two routes compute the
-// same function. The combine passes read only float32 partials and have
-// one form.
+// same function. The forward's combine pass reads only float32 partials
+// and has one form.
 
 #include <stdint.h>
 
@@ -425,163 +428,14 @@ __device__ __forceinline__ void gate_acc(float8 v, float8 d, const Col8& col,
   gate_acc(v.hi, d.hi, col.hi, adb.hi, ads.hi);
 }
 
-// Per-channel partial sums of dyr and dyr*xhat over one HW tile of one
-// sample, a piece column a thread as in gn_fwd_stats.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_stats(const T* __restrict__ x, const T* __restrict__ dy,
-             const float* __restrict__ scale, const float* __restrict__ bias,
-             const float* __restrict__ mean, const float* __restrict__ rstd,
-             float* __restrict__ pdb, float* __restrict__ pds, int HW, int C,
-             int G) {
-  using Pc = Piece<T>;
-  using V = typename Pc::V;
-  constexpr int P = Pc::P;
-  __shared__ V sh1[kThreads];
-  __shared__ V sh2[kThreads];
-  const int CP = C / P;
-  const int n = blockIdx.x;
-  const int t = blockIdx.y;
-  const int cp = blockIdx.z * blockDim.x + threadIdx.x;
-  const int r0 = t * kTileRows;
-  const int r1 = min(HW, r0 + kTileRows);
-  V adb = Pc::zero(), ads = Pc::zero();
-  if (cp < CP) {
-    typename ColOf<V>::type col;
-    load_colv(mean + (size_t)n * G, rstd + (size_t)n * G, scale, bias, cp,
-              C / G, col);
-    const size_t off = (size_t)n * HW * C;
-    const float4* xs = reinterpret_cast<const float4*>(x + off) + cp;
-    const float4* ds = reinterpret_cast<const float4*>(dy + off) + cp;
-#pragma unroll 4
-    for (int r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
-      const V v = Pc::widen(__ldg(xs + (size_t)r * CP));
-      const V d = Pc::widen(__ldg(ds + (size_t)r * CP));
-      gate_acc(v, d, col, adb, ads);
-    }
-  }
-  const int slot = threadIdx.y * blockDim.x + threadIdx.x;
-  sh1[slot] = adb;
-  sh2[slot] = ads;
-  __syncthreads();
-  if (threadIdx.y == 0 && cp < CP) {
-    V s1 = sh1[threadIdx.x], s2 = sh2[threadIdx.x];
-    for (int j = 1; j < blockDim.y; ++j) {
-      s1 = add4(s1, sh1[j * blockDim.x + threadIdx.x]);
-      s2 = add4(s2, sh2[j * blockDim.x + threadIdx.x]);
-    }
-    const size_t o = ((size_t)n * gridDim.y + t) * CP + cp;
-    store_vec(pdb, o, s1);
-    store_vec(pds, o, s2);
-  }
-}
-
-// One warp per (sample, group): each lane sums its channels' partials over
-// the tiles to db_c, ds_c, then the lanes add scale_c*db_c and scale_c*ds_c
-// in a fixed order to a_g, b_g.
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_combine(const float* __restrict__ pdb, const float* __restrict__ pds,
-               const float* __restrict__ scale, float* __restrict__ dbc,
-               float* __restrict__ dsc, float* __restrict__ ag,
-               float* __restrict__ bg, int N, int T, int C, int G) {
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (i >= N * G) return;   // whole warps
-  const int n = i / G;
-  const int g = i - n * G;
-  const int cg = C / G;
-  double a = 0.0, b = 0.0;
-  for (int j = lane; j < cg; j += 32) {
-    const int c = g * cg + j;
-    double db = 0.0, ds = 0.0;
-    for (int t = 0; t < T; ++t) {
-      const size_t o = ((size_t)n * T + t) * C + c;
-      db += (double)pdb[o];
-      ds += (double)pds[o];
-    }
-    dbc[(size_t)n * C + c] = (float)db;
-    dsc[(size_t)n * C + c] = (float)ds;
-    const double s = (double)scale[c];
-    a += s * db;
-    b += s * ds;
-  }
-  a = warp_sum(a);
-  b = warp_sum(b);
-  if (lane == 0) {
-    ag[i] = (float)a;
-    bg[i] = (float)b;
-  }
-}
-
-__device__ __forceinline__ float dx1(float v, float d, float m, float r, float s,
-                                     float b, float a_g, float b_g, float cnt) {
-  float xh, dr;
-  gate1(v, d, m, r, s, b, xh, dr);
-  return r * (dr * s - (a_g + xh * b_g) / cnt);
-}
-
-// dx of one element with a_g and b_g already divided by the count (the
-// one-pass route: one division per group instead of one per element).
+// dx of one element with a_g and b_g already divided by the count (one
+// division per group instead of one per element).
 __device__ __forceinline__ float dx_scaled(float v, float d, float m, float r,
                                            float s, float b, float a_n,
                                            float b_n) {
   float xh, dr;
   gate1(v, d, m, r, s, b, xh, dr);
   return r * (dr * s - (a_n + xh * b_n));
-}
-
-// dx of one piece whose first channel is c, from the group sums a_g, b_g.
-__device__ __forceinline__ float4 dx1_vec(float4 v, float4 d, const Col4& col,
-                                          const float* an, const float* bn,
-                                          int c, int cg, float cnt) {
-  const int g0 = c / cg, g1 = (c + 1) / cg, g2 = (c + 2) / cg, g3 = (c + 3) / cg;
-  float4 o;
-  o.x = dx1(v.x, d.x, col.m.x, col.r.x, col.s.x, col.b.x, __ldg(an + g0), __ldg(bn + g0), cnt);
-  o.y = dx1(v.y, d.y, col.m.y, col.r.y, col.s.y, col.b.y, __ldg(an + g1), __ldg(bn + g1), cnt);
-  o.z = dx1(v.z, d.z, col.m.z, col.r.z, col.s.z, col.b.z, __ldg(an + g2), __ldg(bn + g2), cnt);
-  o.w = dx1(v.w, d.w, col.m.w, col.r.w, col.s.w, col.b.w, __ldg(an + g3), __ldg(bn + g3), cnt);
-  return o;
-}
-__device__ __forceinline__ float8 dx1_vec(float8 v, float8 d, const Col8& col,
-                                          const float* an, const float* bn,
-                                          int c, int cg, float cnt) {
-  return {dx1_vec(v.lo, d.lo, col.lo, an, bn, c, cg, cnt),
-          dx1_vec(v.hi, d.hi, col.hi, an, bn, c + 4, cg, cnt)};
-}
-
-// dx, 16 bytes a thread.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_dx(const T* __restrict__ x, const T* __restrict__ dy,
-          const float* __restrict__ scale, const float* __restrict__ bias,
-          const float* __restrict__ mean, const float* __restrict__ rstd,
-          const float* __restrict__ ag, const float* __restrict__ bg,
-          T* __restrict__ dx, int HW, int C, int G) {
-  using Pc = Piece<T>;
-  using V = typename Pc::V;
-  constexpr int P = Pc::P;
-  const int n = blockIdx.y;
-  const int CP = C / P;
-  const int cg = C / G;
-  const float cnt = (float)HW * (float)cg;
-  const size_t per = (size_t)HW * CP;
-  const size_t off = (size_t)n * HW * C;
-  const float4* xs = reinterpret_cast<const float4*>(x + off);
-  const float4* ds = reinterpret_cast<const float4*>(dy + off);
-  float4* out = reinterpret_cast<float4*>(dx + off);
-  const float* mn = mean + (size_t)n * G;
-  const float* rs = rstd + (size_t)n * G;
-  const float* an = ag + (size_t)n * G;
-  const float* bn = bg + (size_t)n * G;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < per;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int cp = (int)(i % CP);
-    typename ColOf<V>::type col;
-    load_colv(mn, rs, scale, bias, cp, cg, col);
-    const V v = Pc::widen(__ldg(xs + i));
-    const V d = Pc::widen(__ldg(ds + i));
-    out[i] = Pc::narrow(dx1_vec(v, d, col, an, bn, P * cp, cg, cnt));
-  }
 }
 
 // dscale = sum_n ds_c, dbias = sum_n db_c, one thread per channel, in order.
@@ -940,6 +794,228 @@ gn_bwd_onepass(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
+// ------------------------------------ split route, backward (kernel G)
+//
+// Two launches, no scratch but the [N, G] group sums:
+//   1. gn_bwd_stats, grid (cl * C/W, N) in clusters of cl CTAs: a cluster
+//      takes one sample's chunk of W channels (whole groups) and its CTAs
+//      split the HW rows. A thread owns one piece column and every
+//      (kSplitThreads / (W/P))-th row of its CTA's share; it keeps
+//      kSplitUnroll rows of x and dy in flight and sums dyr and dyr*xhat in
+//      float32 over kSplitFlush x kSplitUnroll rows at most before it adds
+//      them to its float64 sums. The CTA adds its threads' sums per channel
+//      in a fixed order, the cluster's rank 0 adds the CTAs' through
+//      distributed shared memory in rank order, then writes db_c, ds_c (only
+//      when the parameter cotangents are asked for) and a_g / (HW*cg),
+//      b_g / (HW*cg), divided once per group in float64.
+//   2. gn_bwd_dx, grid (row blocks, piece-column blocks, N): a thread keeps
+//      one piece column, loads its channels' mean, rstd, scale, bias and
+//      the two group sums once, and streams kDxRows rows of it, 16 bytes a
+//      load and a store, with the one-pass route's dx formula (`dx_vec`).
+// ops/fused_gn.py `bwd_split_plan` picks W and cl from the shape so that
+// the statistics pass has enough CTAs to keep the card's memory busy.
+
+constexpr int kSplitThreads = 256;     // threads of a G block
+constexpr int kSplitMaxW = 256;        // channels of a statistics chunk
+constexpr int kSplitMaxCluster = 16;   // CTAs of a cluster (non-portable)
+constexpr int kSplitUnroll = 4;        // rows of x and dy in flight a thread
+constexpr int kSplitFlush = 4;         // unrolled steps summed in float32
+constexpr int kDxRows = 16;            // rows a dx thread
+
+struct dsum4 {
+  double x, y, z, w;
+};
+struct dsum8 {
+  dsum4 lo, hi;
+};
+__device__ __forceinline__ void dadd(dsum4& a, float4 v) {
+  a.x += (double)v.x;
+  a.y += (double)v.y;
+  a.z += (double)v.z;
+  a.w += (double)v.w;
+}
+__device__ __forceinline__ void dadd(dsum8& a, float8 v) {
+  dadd(a.lo, v.lo);
+  dadd(a.hi, v.hi);
+}
+template <typename V> struct DSumOf;
+template <> struct DSumOf<float4> { using type = dsum4; };
+template <> struct DSumOf<float8> { using type = dsum8; };
+
+// The statistics pass of the backward split route, with the combine.
+template <typename T>
+__global__ void __launch_bounds__(kSplitThreads)
+gn_bwd_stats(const T* __restrict__ x, const T* __restrict__ dy,
+             const float* __restrict__ scale, const float* __restrict__ bias,
+             const float* __restrict__ mean, const float* __restrict__ rstd,
+             float* __restrict__ dbc, float* __restrict__ dsc,
+             float* __restrict__ an, float* __restrict__ bn, int HW, int C,
+             int G, int W, int cl) {
+  using Pc = Piece<T>;
+  using V = typename Pc::V;
+  using D = typename DSumOf<V>::type;
+  constexpr int P = Pc::P;
+  __shared__ D red[2][kSplitThreads];
+  __shared__ double chan[2 * kSplitMaxW];
+  __shared__ double tot[2 * kSplitMaxW];
+  const int rank = blockIdx.x % cl;
+  const int c0 = (blockIdx.x / cl) * W;
+  const int n = blockIdx.y;
+  const int CP = C / P, WP = W / P, cg = C / G;
+  const int per = kSplitThreads / WP;   // row lanes of a piece column
+  const int active = per * WP;
+  const int rows = (HW + cl - 1) / cl;
+  const int r1 = min(HW, (rank + 1) * rows);
+  D db64 = {}, ds64 = {};
+  if (threadIdx.x < active) {
+    const int col = threadIdx.x % WP;
+    typename ColOf<V>::type cv;
+    load_colv(mean + (size_t)n * G, rstd + (size_t)n * G, scale, bias,
+              c0 / P + col, cg, cv);
+    const size_t off = (size_t)n * HW * CP + c0 / P + col;
+    const float4* xs = reinterpret_cast<const float4*>(x) + off;
+    const float4* ds = reinterpret_cast<const float4*>(dy) + off;
+    int r = rank * rows + threadIdx.x / WP;
+    while (r < r1) {
+      V adb = Pc::zero(), ads = Pc::zero();
+      for (int f = 0; f < kSplitFlush && r < r1; ++f) {
+        if (r + (kSplitUnroll - 1) * per < r1) {
+          float4 a[kSplitUnroll], d[kSplitUnroll];
+#pragma unroll
+          for (int u = 0; u < kSplitUnroll; ++u) {
+            a[u] = __ldg(xs + (size_t)(r + u * per) * CP);
+            d[u] = __ldg(ds + (size_t)(r + u * per) * CP);
+          }
+#pragma unroll
+          for (int u = 0; u < kSplitUnroll; ++u)
+            gate_acc(Pc::widen(a[u]), Pc::widen(d[u]), cv, adb, ads);
+          r += kSplitUnroll * per;
+        } else {
+          gate_acc(Pc::widen(__ldg(xs + (size_t)r * CP)),
+                   Pc::widen(__ldg(ds + (size_t)r * CP)), cv, adb, ads);
+          r += per;
+        }
+      }
+      dadd(db64, adb);
+      dadd(ds64, ads);
+    }
+  }
+  red[0][threadIdx.x] = db64;
+  red[1][threadIdx.x] = ds64;
+  __syncthreads();
+  // channel j's sums are component j % P of threads j / P + m * WP, m < per
+  auto part = [&](int which, int j, int m) {
+    return reinterpret_cast<const double*>(&red[which][j / P + m * WP])[j % P];
+  };
+  double* own = cl == 1 ? tot : chan;
+  if (per <= kSerialSum) {   // a thread a channel
+    for (int j = threadIdx.x; j < W; j += kSplitThreads) {
+      double s1 = 0.0, s2 = 0.0;
+      for (int m = 0; m < per; ++m) {
+        s1 += part(0, j, m);
+        s2 += part(1, j, m);
+      }
+      own[j] = s1;
+      own[W + j] = s2;
+    }
+  } else {                   // a warp a channel, a fixed butterfly
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int j = warp; j < W; j += kSplitThreads / 32) {
+      double s1 = 0.0, s2 = 0.0;
+      for (int m = lane; m < per; m += 32) {
+        s1 += part(0, j, m);
+        s2 += part(1, j, m);
+      }
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+      if (lane == 0) {
+        own[j] = s1;
+        own[W + j] = s2;
+      }
+    }
+  }
+  if (cl > 1) {
+    coop::cluster_group cluster = coop::this_cluster();
+    cluster.sync();
+    if (rank == 0) {
+      for (int i = threadIdx.x; i < 2 * W; i += kSplitThreads) {
+        double s = 0.0;
+        for (int q = 0; q < cl; ++q) s += cluster.map_shared_rank(chan, q)[i];
+        tot[i] = s;
+      }
+    }
+    cluster.sync();   // no CTA leaves while rank 0 still reads its sums
+  }
+  if (rank != 0) return;
+  __syncthreads();
+  if (dbc != nullptr) {
+    for (int i = threadIdx.x; i < W; i += kSplitThreads) {
+      dbc[(size_t)n * C + c0 + i] = (float)tot[i];
+      dsc[(size_t)n * C + c0 + i] = (float)tot[W + i];
+    }
+  }
+  const double cnt = (double)HW * cg;
+  for (int g = threadIdx.x; g < W / cg; g += kSplitThreads) {
+    double a = 0.0, b = 0.0;
+    for (int i = 0; i < cg; ++i) {
+      const double s = (double)scale[c0 + g * cg + i];
+      a += s * tot[g * cg + i];
+      b += s * tot[W + g * cg + i];
+    }
+    const size_t o = (size_t)n * G + c0 / cg + g;
+    an[o] = (float)(a / cnt);
+    bn[o] = (float)(b / cnt);
+  }
+}
+
+// dx of the backward split route: block (cols, kSplitThreads / cols) over
+// grid (row blocks of blockDim.y * kDxRows rows, piece-column blocks, N).
+template <typename T>
+__global__ void __launch_bounds__(kSplitThreads)
+gn_bwd_dx(const T* __restrict__ x, const T* __restrict__ dy,
+          const float* __restrict__ scale, const float* __restrict__ bias,
+          const float* __restrict__ mean, const float* __restrict__ rstd,
+          const float* __restrict__ an, const float* __restrict__ bn,
+          T* __restrict__ dx, int HW, int C, int G) {
+  using Pc = Piece<T>;
+  using V = typename Pc::V;
+  constexpr int P = Pc::P;
+  const int CP = C / P, cg = C / G;
+  const int n = blockIdx.z;
+  const int cp = blockIdx.y * blockDim.x + threadIdx.x;
+  if (cp >= CP) return;
+  typename ColOf<V>::type cv;
+  load_colv(mean + (size_t)n * G, rstd + (size_t)n * G, scale, bias, cp, cg,
+            cv);
+  V ag, bg;
+  gather(an + (size_t)n * G, P * cp, cg, ag);
+  gather(bn + (size_t)n * G, P * cp, cg, bg);
+  const size_t off = (size_t)n * HW * CP + cp;
+  const float4* xs = reinterpret_cast<const float4*>(x) + off;
+  const float4* ds = reinterpret_cast<const float4*>(dy) + off;
+  float4* out = reinterpret_cast<float4*>(dx) + off;
+  const int r0 = blockIdx.x * blockDim.y * kDxRows + threadIdx.y;
+#pragma unroll
+  for (int k0 = 0; k0 < kDxRows; k0 += kSplitUnroll) {
+    float4 a[kSplitUnroll], d[kSplitUnroll];
+#pragma unroll
+    for (int u = 0; u < kSplitUnroll; ++u) {
+      const int r = r0 + (k0 + u) * blockDim.y;
+      if (r < HW) {
+        a[u] = __ldg(xs + (size_t)r * CP);
+        d[u] = __ldg(ds + (size_t)r * CP);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSplitUnroll; ++u) {
+      const int r = r0 + (k0 + u) * blockDim.y;
+      if (r < HW)
+        out[(size_t)r * CP] =
+            Pc::narrow(dx_vec(Pc::widen(a[u]), Pc::widen(d[u]), cv, ag, bg));
+    }
+  }
+}
+
 // Launch shapes of the split route, shared by both directions.
 struct Shape {
   dim3 stats_grid, stats_block, apply_grid;
@@ -1055,21 +1131,74 @@ int relu_fwd(const T* x, const float* scale, const float* bias, T* y,
   return (int)cudaGetLastError();
 }
 
+// A backward split plan the kernels take: W whole groups, a multiple of P
+// channels and at most kSplitMaxW of them, dividing C; a cluster of 1 to
+// kSplitMaxCluster CTAs, no more than the rows.
+bool split_ok(int N, int HW, int C, int G, int W, int cl, int P) {
+  if (!shape_ok(N, HW, C, G) || C % P != 0) return false;
+  const int cg = C / G;
+  return W >= P && W % P == 0 && W % cg == 0 && C % W == 0 &&
+         W <= kSplitMaxW && W / P <= kSplitThreads && cl >= 1 &&
+         cl <= kSplitMaxCluster && cl <= HW &&
+         (long long)cl * (C / W) <= 0x7fffffffLL;
+}
+
+// The backward split route's two launches (the arguments of relu_bwd).
+template <typename T>
+int split_bwd(const T* x, const T* dy, const float* scale, const float* bias,
+              const float* mean, const float* rstd, T* dx, float* dbc,
+              float* dsc, float* an, float* bn, int N, int HW, int C, int G,
+              int W, int cl, cudaStream_t st) {
+  constexpr int P = Piece<T>::P;
+  static bool wide = false;   // clusters above the portable 8 allowed
+  cudaError_t err;
+  if (!wide) {
+    err = cudaFuncSetAttribute(gn_bwd_stats<T>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    wide = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(cl * (C / W)), (unsigned)N, 1);
+  cfg.blockDim = dim3(kSplitThreads, 1, 1);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cl > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, gn_bwd_stats<T>, x, dy, scale, bias, mean,
+                           rstd, dbc, dsc, an, bn, HW, C, G, W, cl);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int CP = C / P;
+  const int cols = CP < 64 ? CP : 64;
+  const dim3 block(cols, kSplitThreads / cols);
+  const int rows = (int)block.y * kDxRows;
+  const dim3 grid((HW + rows - 1) / rows, (CP + cols - 1) / cols, N);
+  if (grid.y > (unsigned)kMaxGrid) return (int)cudaErrorInvalidValue;
+  gn_bwd_dx<T><<<grid, block, 0, st>>>(x, dy, scale, bias, mean, rstd, an, bn,
+                                       dx, HW, C, G);
+  return (int)cudaGetLastError();
+}
+
 // The backward on activations of type T, either route (the arguments of
 // dp_gn_relu_bwd).
 template <typename T>
 int relu_bwd(const T* x, const T* dy, const float* scale, const float* bias,
-             const float* mean, const float* rstd, T* dx, float* pdb,
-             float* pds, float* dbc, float* dsc, float* ag, float* bg,
-             float* dscale, float* dbias, int N, int HW, int C, int G, int W,
-             int cl, int smem, void* stream) {
+             const float* mean, const float* rstd, T* dx, float* dbc,
+             float* dsc, float* an, float* bn, float* dscale, float* dbias,
+             int N, int HW, int C, int G, int split, int W, int cl, int smem,
+             void* stream) {
   if (N == 0) return (int)cudaSuccess;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   constexpr int P = Piece<T>::P;
   const bool params = dscale != nullptr && dbias != nullptr;
   if (params && (dbc == nullptr || dsc == nullptr)) return (int)cudaErrorInvalidValue;
   int err = 0;
-  if (W > 0) {
+  if (!split) {
     if (!onepass_ok(N, HW, C, G, W, cl, smem, 2, P))
       return (int)cudaErrorInvalidValue;
     err = launch_onepass(gn_bwd_onepass<T>,
@@ -1078,22 +1207,11 @@ int relu_bwd(const T* x, const T* dy, const float* scale, const float* bias,
                          params ? dbc : nullptr, params ? dsc : nullptr, HW,
                          C, G, W, cl);
   } else {
-    Shape sh;
-    if (!plan(N, HW, C, G, P, &sh) || !pdb || !pds || !dbc || !dsc || !ag ||
-        !bg)
+    if (!split_ok(N, HW, C, G, W, cl, P) || an == nullptr || bn == nullptr)
       return (int)cudaErrorInvalidValue;
-    gn_bwd_stats<T><<<sh.stats_grid, sh.stats_block, 0, st>>>(
-        x, dy, scale, bias, mean, rstd, pdb, pds, HW, C, G);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
-    const int ng = N * G;
-    gn_bwd_combine<<<(ng + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-        pdb, pds, scale, dbc, dsc, ag, bg, N, sh.tiles, C, G);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
-    gn_bwd_dx<T><<<sh.apply_grid, kThreads, 0, st>>>(
-        x, dy, scale, bias, mean, rstd, ag, bg, dx, HW, C, G);
-    err = (int)cudaGetLastError();
+    err = split_bwd(x, dy, scale, bias, mean, rstd, dx,
+                    params ? dbc : nullptr, params ? dsc : nullptr, an, bn, N,
+                    HW, C, G, W, cl, st);
   }
   if (err != 0 || !params) return err;
   gn_param_sums<<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(
@@ -1105,7 +1223,8 @@ int relu_bwd(const T* x, const T* dy, const float* scale, const float* bias,
 
 extern "C" {
 
-// T, the HW-tile count that sizes the [N,T,C] scratch of the split route.
+// T, the HW-tile count that sizes the [N,T,C] scratch of the forward's
+// split route.
 int dp_gn_tiles(int HW) { return HW < 1 ? 0 : tiles_of(HW); }
 
 // Dynamic shared memory of a one-pass CTA: HW rows split over cl CTAs, W
@@ -1135,18 +1254,20 @@ int dp_gn_relu_fwd(const float* x, const float* scale, const float* bias,
                   cl, smem, stream);
 }
 
-// Backward. x, dy, dx [N,HW,C]; mean, rstd [N,G] from the forward; dscale,
-// dbias [C] or both null (then the parameter cotangents are not summed),
-// and then dbc, dsc [N,C] scratch, else may be null. The plan as for the
-// forward; the split route also takes float32 scratch pdb, pds [N,T,C],
-// dbc, dsc [N,C] and ag, bg [N,G].
+// Backward. x, dy, dx [N,HW,C]; mean, rstd [N,G] from the forward;
+// dscale, dbias [C] or both null (then the parameter cotangents are not
+// summed), and then dbc, dsc [N,C] scratch, else may be null. split 0 takes
+// the one-pass route with the plan as for the forward; split 1 the split
+// route with statistics chunks of W channels over clusters of cl CTAs
+// (ops/fused_gn.py bwd_split_plan; smem unused) and float32 scratch an, bn
+// [N,G] for the group sums.
 int dp_gn_relu_bwd(const float* x, const float* dy, const float* scale,
                    const float* bias, const float* mean, const float* rstd,
-                   float* dx, float* pdb, float* pds, float* dbc, float* dsc,
-                   float* ag, float* bg, float* dscale, float* dbias, int N,
-                   int HW, int C, int G, int W, int cl, int smem, void* stream) {
-  return relu_bwd(x, dy, scale, bias, mean, rstd, dx, pdb, pds, dbc, dsc, ag,
-                  bg, dscale, dbias, N, HW, C, G, W, cl, smem, stream);
+                   float* dx, float* dbc, float* dsc, float* an, float* bn,
+                   float* dscale, float* dbias, int N, int HW, int C, int G,
+                   int split, int W, int cl, int smem, void* stream) {
+  return relu_bwd(x, dy, scale, bias, mean, rstd, dx, dbc, dsc, an, bn,
+                  dscale, dbias, N, HW, C, G, split, W, cl, smem, stream);
 }
 
 // Forward on bf16 activations (kernels D and E in bf16): x, y [N,HW,C]
@@ -1166,15 +1287,14 @@ int dp_gn_relu_fwd_bf16(const void* x, const float* scale, const float* bias,
 // [N,HW,C] bf16; everything else float32 and as for dp_gn_relu_bwd.
 int dp_gn_relu_bwd_bf16(const void* x, const void* dy, const float* scale,
                         const float* bias, const float* mean,
-                        const float* rstd, void* dx, float* pdb, float* pds,
-                        float* dbc, float* dsc, float* ag, float* bg,
-                        float* dscale, float* dbias, int N, int HW, int C,
-                        int G, int W, int cl, int smem, void* stream) {
+                        const float* rstd, void* dx, float* dbc, float* dsc,
+                        float* an, float* bn, float* dscale, float* dbias,
+                        int N, int HW, int C, int G, int split, int W, int cl,
+                        int smem, void* stream) {
   using bf = __nv_bfloat16;
   return relu_bwd(static_cast<const bf*>(x), static_cast<const bf*>(dy),
-                  scale, bias, mean, rstd, static_cast<bf*>(dx), pdb, pds,
-                  dbc, dsc, ag, bg, dscale, dbias, N, HW, C, G, W, cl, smem,
-                  stream);
+                  scale, bias, mean, rstd, static_cast<bf*>(dx), dbc, dsc, an,
+                  bn, dscale, dbias, N, HW, C, G, split, W, cl, smem, stream);
 }
 
 }  // extern "C"

@@ -73,7 +73,8 @@
 // Not yet: wgmma tiles of 64 rows stacked across entries, TMA staging, and
 // the dirty group staged in shared memory.
 //
-// A bf16 form (masked_kv_attn_bf16, below) serves the bf16 certify bank.
+// A bf16 form (masked_kv_attn_bf16, below) serves the bf16 certify bank; it
+// stages both groups.
 
 #include <stdint.h>
 
@@ -469,29 +470,55 @@ int launch(const float* q, const float* kd, const float* vd, const float* kc,
 // ------------------------------------------------------------ bf16 form
 //
 // The bf16 certify bank's token engine hands kernel H bf16 q/kd/vd/kc/vc,
-// bf16 biases and wants a bf16 output. The design follows the float32 one
-// (work items of 16 query rows, 8 warps a block, G entries a block, online
-// softmax over 32-key steps, the clean group staged once per block), with
-// one bf16 tensor-core product in place of each 3xTF32 one:
+// bf16 biases and wants a bf16 output. Arithmetic (as the float32 form, with
+// one bf16 tensor-core product in place of each 3xTF32 one):
 //   - Q.K^T: mma.sync.m16n8k16 (bf16 in, float32 accumulation) per 8-key
-//     tile and 16 features; the standard fragment layout already gives a
-//     lane two neighbouring features of one row, so A and B fragments are
-//     single 32-bit loads of q and of K rows;
-//   - the softmax in float32 (running max and exp-sum in registers);
+//     tile and 16 features;
+//   - the softmax in float32 (running max and exp-sum in registers, 32
+//     keys a step: the clean group, then the entry's dirty group; exps as
+//     2^x by ex2.approx, and the accumulator rescaled only where a row's
+//     max moved);
 //   - P.V: P rounded to bf16 (as flash attention does) and one m16n8k16 per
 //     16 keys and 8 features: the accumulators of two 8-key logit tiles are
 //     exactly the A fragment of their 16 keys, so P never leaves the
 //     registers; the exp-sum adds the rounded weights, so the output is a
 //     convex combination of the values;
-//   - the output divided once in float32 and rounded to bf16 at its store.
-// The staged clean group is K [T, F+8] row-major and V transposed
-// [F, Tp+8] (Tp = T rounded up to 32, the pad keys zero), so that a lane's
-// B fragment of P.V (two neighbouring keys of one feature) is one 32-bit
-// read too; the row strides put the 32 lanes of a warp on 32 distinct
-// banks. At T 197, F 64 that is 58 KB: three blocks an SM. The dirty group
-// is read from device memory, its V pairs as two 2-byte loads.
+//   - the output times the row's reciprocal exp-sum in float32, rounded to
+//     bf16 at its store.
+// What bounds it: at the ViT-B/16 pair audit (S 99 of T+S 296 keys) the
+// dirty group is a third of the keys, and every one of an entry's
+// ceil(S/16) work items reads all of it, so both groups live in shared
+// memory; with them there, the issue of each step's instructions (about
+// 14 warps an SM), which the choices below keep few:
+//   - a block (1 to 8 warps) takes G entries of one (image, head); it
+//     stages the clean K and V [T, f] once (a T too long for a block's
+//     shared memory is read from device memory instead, K as 4-byte
+//     pairs and V as 2-byte values, as the first bf16 form read the dirty
+//     group), and the entries' dirty K and V
+//     [S, f] E entries at a time (a "phase"), in two slots: the cp.async
+//     copy of phase p+1 lands while phase p computes. A phase's
+//     E * ceil(S/16) items go to the warps, one each when they fit
+//     (E = 8 / ceil(S/16));
+//   - every group is stored row-major, rows of f bf16 in 16-byte chunks
+//     swizzled by row (chunk c of row r at c ^ (r mod 8), f 64; at
+//     c ^ ((r / 2) mod 4), f 32), so that the 8 rows of an ldmatrix phase
+//     hit 8 distinct bank quads: K's B fragments come from ldmatrix.x4,
+//     V's from ldmatrix.x4.trans (no transposed copy);
+//   - each slot also holds its entries' clean and dirty biases, widened to
+//     float32 and padded with -1e9 to whole 32-key steps: a lane reads its
+//     two keys' biases of a tile in one 8-byte load, with no bounds check;
+//   - keys past a group's end read its last row (the ldmatrix row address
+//     is clamped, in the group's last step only) and take the bias -1e9,
+//     so their weight is exactly 0; no K or V row is padded;
+//   - a row's exp-sum is one more MMA per 16 keys: the rounded weights
+//     times a column of ones, rescaled with the output accumulator.
+// ops/masked_kv_attn.py `bf16_plan` chooses G, E and the warps from the
+// shape and the SM count and passes them in with the shared memory, which
+// fits two blocks an SM at the ViT-B/16 shapes (104 KB at T 197, S 99).
 
 using bf16 = __nv_bfloat16;
+
+constexpr int kMaxSlotPhases = 2;   // dirty slots (double buffer)
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -501,6 +528,98 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ uint32_t ldg_pair(const bf16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+// Four 8x8 bf16 matrices from shared memory, lane l giving a row address
+// of matrix l / 8; .trans hands each lane a column pair instead of a row
+// pair. Volatile, so that none is moved across the barriers between the
+// phases that rewrite a slot; no "memory" clobber, so that the biases'
+// device loads may be issued ahead of them.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// The staged rows: row R (counted over the whole carve) of F bf16, its
+// 16-byte chunk c at a swizzled place.
+template <int F> struct RowsBf {
+  static constexpr int CPR = F / 8;           // chunks a row
+  static constexpr int SH = F == 64 ? 0 : 1;  // rows sharing a swizzle
+  static constexpr int RB = 2 * F;            // bytes a row
+  __device__ static __forceinline__ uint32_t addr(uint32_t base, int r, int c) {
+    return base + (uint32_t)(r * RB + 16 * (c ^ ((r >> SH) & (CPR - 1))));
+  }
+};
+
+// Keys of a group rounded up to whole 32-key steps: the length of its
+// float32 bias row in shared memory (padded with -1e9).
+__host__ __device__ inline int padded(int n) { return (n + 31) / 32 * 32; }
+
+// Bytes of the carve: the clean K and V [T, F] rows (where `clean`), `slots`
+// dirty slots of E entries' K and V [S, F] rows each, then per slot E
+// entries' float32 biases, clean and dirty, each padded to whole steps.
+template <int F>
+__host__ __device__ inline size_t carve_bytes(int T, int S, int E, int slots,
+                                              bool clean) {
+  return (size_t)2 * F * (2 * (size_t)T * clean + 2 * (size_t)slots * E * S) +
+         (size_t)4 * slots * E * (padded(T) + padded(S));
+}
+
+// Rows [R, R + n) of the carve from n rows of F bf16 `stride` elements
+// apart at src, 16 bytes a cp.async.
+template <int F>
+__device__ __forceinline__ void stage_rows(uint32_t base, int R,
+                                           const bf16* src, size_t stride,
+                                           int n) {
+  using L = RowsBf<F>;
+  for (int i = threadIdx.x; i < n * L::CPR; i += blockDim.x) {
+    const int r = i / L::CPR, c = i % L::CPR;
+    cp_async16(L::addr(base, R + r, c), src + r * stride + 8 * c);
+  }
+}
+
+template <int F>
+struct ItemBf {
+  static constexpr int K16 = F / 16, K8 = F / 8;
+  uint32_t qa[K16][4];   // query A fragments, per 16 features
+  float o[K8][4];        // output accumulator, per 8 features
+  float l[4];            // exp-sums of rows g (l[0]) and g+8 (l[2])
+  float m[2];            // running max
+};
+
+// A group of keys: `valid` keys with float32 biases bp[key] in shared
+// memory (-1e9 past `valid`, to the end of the last step). Staged: K rows
+// from carve row rk, V rows from rv. Otherwise (a clean group too long to
+// stage) rows of `stride` elements at kg and vg in device memory.
+struct GroupBf {
+  int rk, rv, valid;
+  const float* bp;
+  const bf16* kg;
+  const bf16* vg;
+  int stride;
+};
+
 // Two bf16 values in one register, the first in the low half (the
 // fragments' element order).
 __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
@@ -508,75 +627,73 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
-// Two neighbouring bf16 values (4-byte aligned) as one register.
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// bf16 1.0 twice: the B fragment whose product with P adds its rows up.
+constexpr uint32_t kOnes = 0x3f803f80u;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x, ex2.approx.ftz: within 2 ulp of float32, far below the bf16 rounding
+// of the weights; 2^-inf and 2^x far below -126 are +0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
-__device__ __forceinline__ uint32_t ldg_pair(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-template <int F> struct StagedBf {
-  static constexpr int KS = F + 8;          // bf16 a K row: 4 (mod 32) words
-  __host__ __device__ static int tp(int T) { return (T + 31) / 32 * 32; }
-  __host__ __device__ static int vs(int T) { return tp(T) + 8; }   // bf16 a V^T row
-  static size_t bytes(int T) {
-    return 2 * ((size_t)T * KS + (size_t)F * vs(T));
-  }
-};
-
-template <int F>
-struct ItemBf {
-  static constexpr int K16 = F / 16, K8 = F / 8;
-  uint32_t qa[K16][4];   // query A fragments, per 16 features
-  float o[K8][4];        // output accumulator, per 8 features
-  float m[2], l[2];      // running max, this lane's exp-sum share
-};
-
-// A group of keys: `valid` rows with biases bp[key]. Staged: K rows of
-// StagedBf::KS at kp and V^T rows of `vstride` at vp. Otherwise rows of
-// `stride` elements in device memory, K(key, f) = kp[key * stride + f].
-struct GroupBf {
-  const bf16* kp;
-  const bf16* vp;
-  const bf16* bp;
-  int stride;
-  int vstride;
-  int valid;
-};
 
 // One softmax step over kTile 8-key tiles from key n0 (a multiple of 32).
-// Keys at or past `valid` read the group's last row and take the bias -1e9,
-// so their weight is exactly 0, as in the float32 form.
-template <int F, bool kStaged>
-__device__ __forceinline__ void step_bf(ItemBf<F>& it, const GroupBf& gr,
-                                        int n0, int g, int t) {
-  constexpr int K16 = F / 16, K8 = F / 8;
+// kTail: the group's last step, whose keys at or past `valid` read the
+// group's last row and take the bias -1e9 (the padding of the bias rows),
+// so their weight is exactly 0, as in the float32 form. A full step needs no clamp: the swizzle of its
+// rows (key + 8j, key + 16jj) is the same for every tile, so each lane's
+// ldmatrix addresses are one base and constant offsets. !kStaged: the
+// group's B fragments are read from device memory, K as 4-byte pairs and V
+// as 2-byte values.
+template <int F, bool kTail, bool kStaged>
+__device__ __forceinline__ void step_bf(ItemBf<F>& it, uint32_t base,
+                                        const GroupBf& gr, int n0, int lane) {
+  constexpr int K8 = F / 8, CPR = F / 8;
+  using L = RowsBf<F>;
+  const int g = lane >> 2, t = lane & 3, m = lane >> 3, i7 = lane & 7;
+  const int last = gr.valid - 1;
+  // the biases of this lane's keys (2t, 2t+1) of each tile
+  float2 bias[kTile];
+#pragma unroll
+  for (int j = 0; j < kTile; ++j)
+    bias[j] = *reinterpret_cast<const float2*>(gr.bp + n0 + 8 * j + 2 * t);
   float s[kTile][4];
+  // logits: matrix m of an x4 is chunk 4q + m of 8 keys, the B fragments
+  // (b0, b1) of 16-feature slices 2q and 2q+1
+  const int rk = gr.rk + n0 + i7;
+  const int swk = (rk >> L::SH) & (CPR - 1);
 #pragma unroll
   for (int j = 0; j < kTile; ++j) {
-    const int key = min(n0 + 8 * j + g, gr.valid - 1);
-    const bf16* kr = gr.kp + (size_t)key * (kStaged ? StagedBf<F>::KS : gr.stride);
     s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    if (!kStaged) {
+      const int key = kTail ? min(n0 + 8 * j + g, last) : n0 + 8 * j + g;
+      const bf16* kr = gr.kg + (size_t)key * gr.stride + 2 * t;
 #pragma unroll
-    for (int kk = 0; kk < K16; ++kk) {
-      const uint32_t b0 = kStaged ? ld_pair(kr + 16 * kk + 2 * t)
-                                  : ldg_pair(kr + 16 * kk + 2 * t);
-      const uint32_t b1 = kStaged ? ld_pair(kr + 16 * kk + 8 + 2 * t)
-                                  : ldg_pair(kr + 16 * kk + 8 + 2 * t);
-      mma_bf16(s[j], it.qa[kk], b0, b1);
+      for (int kk = 0; kk < F / 16; ++kk)
+        mma_bf16(s[j], it.qa[kk], ldg_pair(kr + 16 * kk),
+                 ldg_pair(kr + 16 * kk + 8));
+      continue;
+    }
+    const int r = kTail ? gr.rk + min(n0 + 8 * j + i7, last) : rk + 8 * j;
+    const int sw = kTail ? (r >> L::SH) & (CPR - 1) : swk;
+#pragma unroll
+    for (int q = 0; q < CPR / 4; ++q) {
+      uint32_t b[4];
+      ldsm4(b, base + r * L::RB + 16 * ((4 * q + m) ^ sw));
+      mma_bf16(s[j], it.qa[2 * q], b[0], b[1]);
+      mma_bf16(s[j], it.qa[2 * q + 1], b[2], b[3]);
     }
   }
   float mx0 = it.m[0], mx1 = it.m[1];
 #pragma unroll
   for (int j = 0; j < kTile; ++j) {
-    const int key = n0 + 8 * j + 2 * t;
-    const float b0 = key < gr.valid ? __bfloat162float(gr.bp[key]) : kMasked;
-    const float b1 = key + 1 < gr.valid ? __bfloat162float(gr.bp[key + 1]) : kMasked;
-    s[j][0] += b0;
-    s[j][1] += b1;
-    s[j][2] += b0;
-    s[j][3] += b1;
+    s[j][0] += bias[j].x;
+    s[j][1] += bias[j].y;
+    s[j][2] += bias[j].x;
+    s[j][3] += bias[j].y;
     mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
     mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
   }
@@ -585,58 +702,85 @@ __device__ __forceinline__ void step_bf(ItemBf<F>& it, const GroupBf& gr,
     mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, o));
     mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, o));
   }
-  const float sc0 = expf(it.m[0] - mx0);   // 0 on the first step (-inf)
-  const float sc1 = expf(it.m[1] - mx1);
+  // e^(x - max) as 2^((x - max) log2 e): the difference first, exact
+  // enough where every key so far is masked (x and max near -1e9, whose
+  // products with log2 e would round apart by up to 64); the scales are 0
+  // on the first step (-inf) and exactly 1 where the max held
+  const float sc0 = ex2((it.m[0] - mx0) * kLog2e);
+  const float sc1 = ex2((it.m[1] - mx1) * kLog2e);
   it.m[0] = mx0;
   it.m[1] = mx1;
-  // the weights, rounded to bf16: lane (g, t) holds keys (2t, 2t+1) of each
-  // 8-key tile for rows g and g+8, the A fragment's own positions
-  bf16 p[kTile][4];
-  float sum0 = 0.f, sum1 = 0.f;
+  // the weights, rounded to bf16 in pairs: lane (g, t) holds keys (2t,
+  // 2t+1) of each 8-key tile for rows g (pw[j][0]) and g+8 (pw[j][1]), the
+  // A fragment's own positions
+  uint32_t pw[kTile][2];
 #pragma unroll
   for (int j = 0; j < kTile; ++j) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[j][i] = __float2bfloat16(expf(s[j][i] - (i < 2 ? mx0 : mx1)));
-    sum0 += __bfloat162float(p[j][0]) + __bfloat162float(p[j][1]);
-    sum1 += __bfloat162float(p[j][2]) + __bfloat162float(p[j][3]);
+    const __nv_bfloat162 p0 = __floats2bfloat162_rn(
+        ex2((s[j][0] - mx0) * kLog2e), ex2((s[j][1] - mx0) * kLog2e));
+    const __nv_bfloat162 p1 = __floats2bfloat162_rn(
+        ex2((s[j][2] - mx1) * kLog2e), ex2((s[j][3] - mx1) * kLog2e));
+    pw[j][0] = *reinterpret_cast<const uint32_t*>(&p0);
+    pw[j][1] = *reinterpret_cast<const uint32_t*>(&p1);
   }
-  it.l[0] = it.l[0] * sc0 + sum0;
-  it.l[1] = it.l[1] * sc1 + sum1;
-#pragma unroll
-  for (int jf = 0; jf < K8; ++jf) {
-    it.o[jf][0] *= sc0;
-    it.o[jf][1] *= sc0;
-    it.o[jf][2] *= sc1;
-    it.o[jf][3] *= sc1;
-  }
-  // weighted values, 16 keys an MMA: tiles 2jj and 2jj+1
-#pragma unroll
-  for (int jj = 0; jj < kTile / 2; ++jj) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * jj][0], p[2 * jj][1]),
-                            pack_bf16(p[2 * jj][2], p[2 * jj][3]),
-                            pack_bf16(p[2 * jj + 1][0], p[2 * jj + 1][1]),
-                            pack_bf16(p[2 * jj + 1][2], p[2 * jj + 1][3])};
-    const int k0 = n0 + 16 * jj + 2 * t;   // b0: keys k0, k0+1; b1: k0+8, k0+9
+  if (__any_sync(kFull, sc0 != 1.f || sc1 != 1.f)) {
 #pragma unroll
     for (int jf = 0; jf < K8; ++jf) {
-      const int feat = 8 * jf + g;
-      uint32_t b0, b1;
-      if (kStaged) {
-        const bf16* vr = gr.vp + (size_t)feat * gr.vstride + k0;
-        b0 = ld_pair(vr);
-        b1 = ld_pair(vr + 8);
-      } else {
-        const bf16* vc = gr.vp + feat;
-        const int last = gr.valid - 1;
-        b0 = pack_bf16(vc[(size_t)min(k0, last) * gr.stride],
-                       vc[(size_t)min(k0 + 1, last) * gr.stride]);
-        b1 = pack_bf16(vc[(size_t)min(k0 + 8, last) * gr.stride],
-                       vc[(size_t)min(k0 + 9, last) * gr.stride]);
-      }
-      mma_bf16(it.o[jf], pa, b0, b1);
+      it.o[jf][0] *= sc0;
+      it.o[jf][1] *= sc0;
+      it.o[jf][2] *= sc1;
+      it.o[jf][3] *= sc1;
     }
+    it.l[0] *= sc0;
+    it.l[1] *= sc0;
+    it.l[2] *= sc1;
+    it.l[3] *= sc1;
   }
+  // weighted values, 16 keys an MMA: tiles 2jj and 2jj+1. Matrix m of an
+  // x4.trans is keys 8(m & 1).. of feature chunk 2u + m/2: (b0, b1) of
+  // 8-feature blocks 2u and 2u+1
+  const int rv = gr.rv + n0 + 8 * (m & 1) + i7;
+  const int swv = (rv >> L::SH) & (CPR - 1);
+#pragma unroll
+  for (int jj = 0; jj < kTile / 2; ++jj) {
+    const uint32_t pa[4] = {pw[2 * jj][0], pw[2 * jj][1], pw[2 * jj + 1][0],
+                            pw[2 * jj + 1][1]};
+    if (kStaged) {
+      const int r = kTail ? gr.rv + min(n0 + 16 * jj + 8 * (m & 1) + i7, last)
+                          : rv + 16 * jj;
+      const int sw = kTail ? (r >> L::SH) & (CPR - 1) : swv;
+#pragma unroll
+      for (int u = 0; u < CPR / 2; ++u) {
+        uint32_t b[4];
+        ldsm4t(b, base + r * L::RB + 16 * ((2 * u + (m >> 1)) ^ sw));
+        mma_bf16(it.o[2 * u], pa, b[0], b[1]);
+        mma_bf16(it.o[2 * u + 1], pa, b[2], b[3]);
+      }
+    } else {
+      // b0: keys k0, k0+1 of feature 8jf + g; b1: keys k0+8, k0+9
+      const int k0 = n0 + 16 * jj + 2 * t;
+      const bf16* vc = gr.vg + g;
+      auto at = [&](int k) {
+        return vc[(size_t)(kTail ? min(k, last) : k) * gr.stride];
+      };
+#pragma unroll
+      for (int jf = 0; jf < K8; ++jf, vc += 8)
+        mma_bf16(it.o[jf], pa, pack_bf16(at(k0), at(k0 + 1)),
+                 pack_bf16(at(k0 + 8), at(k0 + 9)));
+    }
+    // the exp-sums: the same rounded weights times a column of ones
+    mma_bf16(it.l, pa, kOnes, kOnes);
+  }
+}
+
+// A group's softmax steps: full steps of 32 keys, then its last, clamped.
+template <int F, bool kStaged>
+__device__ __forceinline__ void steps_bf(ItemBf<F>& it, uint32_t base,
+                                         const GroupBf& gr, int lane) {
+  int n0 = 0;
+  for (; n0 + 8 * kTile <= gr.valid; n0 += 8 * kTile)
+    step_bf<F, false, kStaged>(it, base, gr, n0, lane);
+  if (n0 < gr.valid) step_bf<F, true, kStaged>(it, base, gr, n0, lane);
 }
 
 // The query A fragments of rows r0+g and r0+g+8 of entry e (zero past S).
@@ -656,137 +800,151 @@ __device__ __forceinline__ void load_queries_bf(ItemBf<F>& it, const bf16* q,
   }
 }
 
-template <int F, bool kStaged>
-__global__ void __launch_bounds__(kThreads)
+// One block per (group of G entries, head, image), blockDim.x / 32 warps;
+// phases of E entries (see the notes above). kClean: the clean group staged
+// (else read from device memory, for a T too long to stage).
+template <int F, bool kClean>
+__global__ void __launch_bounds__(kThreads, 2)
 masked_kv_attn_bf16(const bf16* __restrict__ q, const bf16* __restrict__ kd,
                     const bf16* __restrict__ vd, const bf16* __restrict__ kc,
                     const bf16* __restrict__ vc, const bf16* __restrict__ cb,
                     const bf16* __restrict__ db, bf16* __restrict__ out, int C,
-                    int S, int H, int T, int G) {
+                    int S, int H, int T, int G, int E) {
   constexpr int K8 = F / 8;
-  using L = StagedBf<F>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [T, KS] clean K
-  bf16* vt = ks + (size_t)T * L::KS;              // [F, vs] clean V^T
-  const int vstride = L::vs(T);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int c0 = (int)blockIdx.x * G;
+  const int entries = min(C, c0 + G) - c0;
+  const int phases = (entries + E - 1) / E;
   const int tiles = (S + kRows - 1) / kRows;
-  const int items = (min(C, c0 + G) - c0) * tiles;
-
-  if (kStaged) {
-    const bf16* kcb = kc + ((size_t)b * T * H + h) * F;
-    const bf16* vcb = vc + ((size_t)b * T * H + h) * F;
-    for (int i = threadIdx.x; i < T * (F / 8); i += kThreads) {
-      const int r = i / (F / 8), c8 = i % (F / 8);
-      const uint4 kx = __ldg(reinterpret_cast<const uint4*>(
-          kcb + (size_t)r * H * F + 8 * c8));
-      *reinterpret_cast<uint4*>(ks + r * L::KS + 8 * c8) = kx;
-      const uint4 vx = __ldg(reinterpret_cast<const uint4*>(
-          vcb + (size_t)r * H * F + 8 * c8));
-      const bf16* ve = reinterpret_cast<const bf16*>(&vx);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) vt[(size_t)(8 * c8 + u) * vstride + r] = ve[u];
+  const int slot_rows = 2 * E * S;   // K rows, then V rows, of E entries
+  const int slots = min(kMaxSlotPhases, (min(G, C) + E - 1) / E);
+  const int Tp = padded(T), Sp = padded(S);
+  const int R0 = kClean ? 2 * T : 0;   // the first dirty slot's row
+  float* const sbias = reinterpret_cast<float*>(
+      smem_raw + (size_t)RowsBf<F>::RB * (R0 + slots * slot_rows));
+  const size_t stride = (size_t)H * F;
+  // phase p's dirty K and V into slot p % 2 (carve rows from R0), by
+  // cp.async; its entries' biases, widened and padded, by the threads
+  auto stage_phase = [&](int p) {
+    const int ne = min(E, entries - p * E);
+    const int R = R0 + (p & 1) * slot_rows;
+    const size_t e0 = (size_t)b * C + c0 + p * E;
+    const size_t off = (e0 * S * H + h) * F;
+    stage_rows<F>(base, R, kd + off, stride, ne * S);
+    stage_rows<F>(base, R + E * S, vd + off, stride, ne * S);
+    float* sb = sbias + (p & 1) * E * (Tp + Sp);
+    for (int i = threadIdx.x; i < ne * (Tp + Sp); i += blockDim.x) {
+      const size_t e = e0 + i / (Tp + Sp);
+      const int k = i % (Tp + Sp);
+      float v = kMasked;
+      if (k < T)
+        v = __bfloat162float(cb[e * T + k]);
+      else if (k >= Tp && k - Tp < S)
+        v = __bfloat162float(db[e * S + k - Tp]);
+      sb[i] = v;
     }
-    const int pad = L::tp(T) - T;
-    for (int i = threadIdx.x; i < F * pad; i += kThreads)
-      vt[(size_t)(i / pad) * vstride + T + i % pad] = __float2bfloat16(0.f);
-    __syncthreads();
+  };
+  const size_t coff = ((size_t)b * T * H + h) * F;
+  if (kClean) {
+    stage_rows<F>(base, 0, kc + coff, stride, T);
+    stage_rows<F>(base, T, vc + coff, stride, T);
   }
+  stage_phase(0);
+  cp_async_commit();
+  if (phases > 1) stage_phase(1);
+  cp_async_commit();
 
   ItemBf<F> it;
-  for (int item = warp; item < items; item += kWarps) {
-    const size_t e = (size_t)b * C + c0 + item / tiles;
-    const int r0 = (item % tiles) * kRows;
-    load_queries_bf<F>(it, q, e, r0, S, H, h, g, t);
-    it.m[0] = it.m[1] = __int_as_float((int)0xff800000u);   // -inf
-    it.l[0] = it.l[1] = 0.f;
+  for (int p = 0; p < phases; ++p) {
+    cp_async_wait1();   // this thread's copies of phase p (group p) landed
+    __syncthreads();    // and everyone's, and the biases
+    const int ne = min(E, entries - p * E);
+    const int R = R0 + (p & 1) * slot_rows;
+    const float* sb = sbias + (p & 1) * E * (Tp + Sp);
+    for (int item = warp; item < ne * tiles; item += warps) {
+      const int el = item / tiles;
+      const size_t e = (size_t)b * C + c0 + p * E + el;
+      const int r0 = (item % tiles) * kRows;
+      load_queries_bf<F>(it, q, e, r0, S, H, h, g, t);
+      it.m[0] = it.m[1] = __int_as_float((int)0xff800000u);   // -inf
+      it.l[0] = it.l[1] = it.l[2] = it.l[3] = 0.f;
 #pragma unroll
-    for (int jf = 0; jf < K8; ++jf)
-      it.o[jf][0] = it.o[jf][1] = it.o[jf][2] = it.o[jf][3] = 0.f;
-    if (kStaged) {
-      const GroupBf clean{ks, vt, cb + e * T, 0, vstride, T};
-      for (int n0 = 0; n0 < T; n0 += 8 * kTile) step_bf<F, true>(it, clean, n0, g, t);
-    } else {
-      const GroupBf clean{kc + ((size_t)b * T * H + h) * F,
-                          vc + ((size_t)b * T * H + h) * F, cb + e * T, H * F,
-                          0, T};
-      for (int n0 = 0; n0 < T; n0 += 8 * kTile) step_bf<F, false>(it, clean, n0, g, t);
-    }
-    const GroupBf dirty{kd + (e * S * H + h) * F, vd + (e * S * H + h) * F,
-                        db + e * S, H * F, 0, S};
-    for (int n0 = 0; n0 < S; n0 += 8 * kTile) step_bf<F, false>(it, dirty, n0, g, t);
-    float l0 = it.l[0], l1 = it.l[1];
+      for (int jf = 0; jf < K8; ++jf)
+        it.o[jf][0] = it.o[jf][1] = it.o[jf][2] = it.o[jf][3] = 0.f;
+      const float* eb = sb + el * (Tp + Sp);
+      steps_bf<F, kClean>(it, base, GroupBf{0, T, T, eb, kc + coff,
+                                            vc + coff, (int)stride}, lane);
+      steps_bf<F, true>(it, base, GroupBf{R + el * S, R + E * S + el * S, S,
+                                          eb + Tp, nullptr, nullptr, 0},
+                        lane);
+      // one division a row, then products (l >= 1: slot 0 is live)
+      const float l0 = 1.f / it.l[0], l1 = 1.f / it.l[2];
 #pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      l0 += __shfl_xor_sync(kFull, l0, o);
-      l1 += __shfl_xor_sync(kFull, l1, o);
+      for (int jf = 0; jf < K8; ++jf) {
+        const int d = 8 * jf + 2 * t;
+        const __nv_bfloat162 y0 = __floats2bfloat162_rn(it.o[jf][0] * l0,
+                                                        it.o[jf][1] * l0);
+        const __nv_bfloat162 y1 = __floats2bfloat162_rn(it.o[jf][2] * l1,
+                                                        it.o[jf][3] * l1);
+        if (r0 + g < S)
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + ((e * S + r0 + g) * H + h) * F + d) = y0;
+        if (r0 + g + 8 < S)
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + ((e * S + r0 + g + 8) * H + h) * F + d) = y1;
+      }
     }
-#pragma unroll
-    for (int jf = 0; jf < K8; ++jf) {
-      const int d = 8 * jf + 2 * t;
-      if (r0 + g < S)
-        *reinterpret_cast<uint32_t*>(out + ((e * S + r0 + g) * H + h) * F + d) =
-            pack_bf16(__float2bfloat16(it.o[jf][0] / l0),
-                      __float2bfloat16(it.o[jf][1] / l0));
-      if (r0 + g + 8 < S)
-        *reinterpret_cast<uint32_t*>(out + ((e * S + r0 + g + 8) * H + h) * F + d) =
-            pack_bf16(__float2bfloat16(it.o[jf][2] / l1),
-                      __float2bfloat16(it.o[jf][3] / l1));
-    }
+    __syncthreads();   // slot p % 2 is free
+    if (p + 2 < phases) stage_phase(p + 2);
+    cp_async_commit();
   }
+}
+
+// The dirty slots a block of G entries in phases of E carves.
+inline int slots_of(int C, int G, int E) {
+  const int phases = ((G < C ? G : C) + E - 1) / E;
+  return phases < kMaxSlotPhases ? phases : kMaxSlotPhases;
+}
+
+template <int F, bool kClean>
+int launch_bf16(const bf16* q, const bf16* kd, const bf16* vd, const bf16* kc,
+                const bf16* vc, const bf16* cb, const bf16* db, bf16* out,
+                int B, int C, int S, int H, int T, int G, int E, int warps,
+                int smem, cudaStream_t st) {
+  static bool raised = false;
+  if (!raised) {
+    cudaError_t err = cudaFuncSetAttribute(
+        masked_kv_attn_bf16<F, kClean>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    raised = true;
+  }
+  if (G < 1 || E < 1 || warps < 1 || warps > kWarps || T < 1 || smem < 0 ||
+      smem > kMaxSmemBytes ||
+      (size_t)smem < carve_bytes<F>(T, S, E, slots_of(C, G, E), kClean))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((C + G - 1) / G, H, B);
+  masked_kv_attn_bf16<F, kClean><<<grid, 32 * warps, smem, st>>>(
+      q, kd, vd, kc, vc, cb, db, out, C, S, H, T, G, E);
+  return (int)cudaGetLastError();
 }
 
 template <int F>
 int launch_bf16(const bf16* q, const bf16* kd, const bf16* vd, const bf16* kc,
                 const bf16* vc, const bf16* cb, const bf16* db, bf16* out,
-                int B, int C, int S, int H, int T, cudaStream_t st) {
-  static int sms = 0;
-  if (sms == 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        masked_kv_attn_bf16<F, true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    int dev = 0, n = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-    if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess)
-      return (int)err;
-    sms = n;
-  }
-  const size_t bytes = StagedBf<F>::bytes(T);
-  const bool staged = bytes <= (size_t)kMaxSmemBytes;
-  // blocks an SM: its 228 KB (1 KB reserved a block) and 64 warps
-  long long per_sm = staged ? 233472LL / (long long)(bytes + 1024) : 8;
-  per_sm = per_sm < 1 ? 1 : (per_sm > 8 ? 8 : per_sm);
-  // entries per block, as for the float32 form, with per_sm blocks an SM
-  const int tiles = (S + kRows - 1) / kRows;
-  int G = 1;
-  long long best = -1, best_waves = 0;
-  for (int g = 1; g <= C; ++g) {
-    const long long blocks = (long long)((C + g - 1) / g) * B * H;
-    const long long waves = (blocks + sms * per_sm - 1) / (sms * per_sm);
-    const long long cost = waves * ((g * tiles + kWarps - 1) / kWarps);
-    const bool fewer_waves =
-        waves >= 2 && (best_waves < 2 || waves < best_waves);
-    if (best < 0 || cost < best || (cost == best && fewer_waves)) {
-      best = cost;
-      best_waves = waves;
-      G = g;
-    }
-  }
-  const dim3 grid((C + G - 1) / G, H, B);
-  if (staged)
-    masked_kv_attn_bf16<F, true><<<grid, kThreads, bytes, st>>>(
-        q, kd, vd, kc, vc, cb, db, out, C, S, H, T, G);
-  else
-    masked_kv_attn_bf16<F, false><<<grid, kThreads, 0, st>>>(
-        q, kd, vd, kc, vc, cb, db, out, C, S, H, T, G);
-  return (int)cudaGetLastError();
+                int B, int C, int S, int H, int T, int G, int E, int warps,
+                int clean, int smem, cudaStream_t st) {
+  return clean ? launch_bf16<F, true>(q, kd, vd, kc, vc, cb, db, out, B, C, S,
+                                      H, T, G, E, warps, smem, st)
+               : launch_bf16<F, false>(q, kd, vd, kc, vc, cb, db, out, B, C,
+                                       S, H, T, G, E, warps, smem, st);
 }
 
 }  // namespace
@@ -811,11 +969,15 @@ int dp_masked_kv_attn(const float* q, const float* kd, const float* vd,
 
 // Kernel H on bf16 operands: every tensor bf16 (the shapes of
 // dp_masked_kv_attn), contiguous, 16-byte aligned; float32 accumulation
-// and softmax. f is 32 or 64.
+// and softmax. f is 32 or 64. The plan (ops/masked_kv_attn.py bf16_plan):
+// G entries a block in phases of E, `warps` warps a block, the clean group
+// staged (`clean` 1) or read from device memory (0), smem bytes of dynamic
+// shared memory, at least dp_masked_kv_attn_bf16_smem's carve.
 int dp_masked_kv_attn_bf16(const void* q, const void* kd, const void* vd,
                            const void* kc, const void* vc, const void* cb,
                            const void* db, void* out, int B, int C, int S,
-                           int H, int f, int T, void* stream) {
+                           int H, int f, int T, int G, int E, int warps,
+                           int clean, int smem, void* stream) {
   if (B == 0 || C == 0 || S == 0 || H == 0) return (int)cudaSuccess;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bf16* a[7] = {static_cast<const bf16*>(q), static_cast<const bf16*>(kd),
@@ -824,9 +986,22 @@ int dp_masked_kv_attn_bf16(const void* q, const void* kd, const void* vd,
                       static_cast<const bf16*>(db)};
   bf16* o = static_cast<bf16*>(out);
   switch (f) {
-    case 32: return launch_bf16<32>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], o, B, C, S, H, T, st);
-    case 64: return launch_bf16<64>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], o, B, C, S, H, T, st);
+    case 32: return launch_bf16<32>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], o, B, C, S, H, T, G, E, warps, clean, smem, st);
+    case 64: return launch_bf16<64>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], o, B, C, S, H, T, G, E, warps, clean, smem, st);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The bytes of shared memory kernel H's bf16 form carves for head width f:
+// the clean K and V [T, f] (where `clean`), `slots` dirty slots of E
+// entries' K and V [S, f], and their float32 biases padded to whole steps;
+// -1 for an f it is not built for.
+long long dp_masked_kv_attn_bf16_smem(int T, int S, int f, int E, int slots,
+                                      int clean) {
+  switch (f) {
+    case 32: return (long long)carve_bytes<32>(T, S, E, slots, clean);
+    case 64: return (long long)carve_bytes<64>(T, S, E, slots, clean);
+    default: return -1;
   }
 }
 

@@ -15,13 +15,16 @@ does: the median of REPS replays of a CUDA graph of INNER calls, each
 replay bracketed by synchronizes. It prints one JSON line per shape
 (route, times, bytes bound at 3.35 TB/s, calls per forward) and last a
 JSON summary: the sums over the 49 calls of a forward of time and of time
-minus bound.
+minus bound (`--split`'s slab counts 0 calls).
 
 `--tree DIR` imports `dorpatch_tpu_torch` from another checkout (the
 parent of a change, unpacked with `git archive`), so that one chip call
 times both designs in turn. `--sweep` also times, at each shape, every
 one-pass chunk width with rows of 64 bytes or more over 1, 2, 4 and 8
-CTAs of a cluster, where a CTA's shared memory fits. `--dtype bfloat16`
+CTAs of a cluster, where a CTA's shared memory fits, and at a split
+backward the statistics pass's other chunks and clusters. `--split`
+times the split route's slab [4, 65536, 64] (`SPLIT_SLAB`) after the
+victim's shapes. `--dtype bfloat16`
 times the bf16 forms on bf16 slabs (bounds at 2 bytes an element). Needs
 a CUDA device.
 """
@@ -67,6 +70,8 @@ def rn50_gn_calls(img_size: int) -> Dict[Tuple[int, int], int]:
 #: the attack step's masked images at each image size: the main paths'
 #: batch (2 at 224, 1 at 480) x 128 masks
 STEP_N = {224: 256, 480: 128}
+#: [N, HW, C] of a slab on the split route both ways (`--split`)
+SPLIT_SLAB = (4, 256 * 256, 64)
 PEAK_BYTES_PER_S = 3.35e12
 INNER, REPS = 5, 7
 
@@ -113,10 +118,20 @@ def bytes_bound_ms(n: int, hw: int, c: int, slabs: int,
 def _sweep_plans(fgn, n, hw, c, itemsize=4):
     """Other one-pass plans of one shape: every width whose rows are at
     least MIN_ROW_BYTES, over 1, 2, 4 and 8 CTAs of a cluster, where the
-    CTA's shared memory fits a block."""
+    CTA's shared memory fits a block. A backward on the split route also
+    tries its statistics pass's other plans (`bwd_split_plan`'s widths of
+    rows of 64 bytes or more, over clusters of 1 to 16 CTAs)."""
     from dorpatch_tpu_torch.ops import _build
 
     out = []
+    if (hasattr(fgn, "bwd_split_plan")
+            and fgn.gn_plan("bwd", n, hw, c, 32, itemsize).route == "split"):
+        default = fgn.bwd_split_plan(n, hw, c, 32, itemsize)
+        for w in fgn.split_widths(c, 32, itemsize):
+            for cl in (1, 2, 4, 8, 16):
+                if (itemsize * w >= fgn.MIN_ROW_BYTES
+                        and (w, cl) != tuple(default)):
+                    out.append(("bwd", fgn.GNPlan("split", w, cl, 0)))
     for direction, slabs in (("fwd", 1), ("bwd", 2)):
         default = fgn.gn_plan(direction, n, hw, c, 32, itemsize)
         for w in fgn.one_pass_widths(c, 32, itemsize):
@@ -135,6 +150,8 @@ def main(argv=None) -> int:
     p.add_argument("--tree", default=None,
                    help="checkout whose dorpatch_tpu_torch to time")
     p.add_argument("--sweep", action="store_true")
+    p.add_argument("--split", action="store_true",
+                   help="also time SPLIT_SLAB (not one of the victim's)")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--img-size", type=int, default=224,
@@ -157,13 +174,18 @@ def main(argv=None) -> int:
     dtype = getattr(torch, args.dtype)
     isz = torch.empty((), dtype=dtype).element_size()
     plan_args = (32, isz) if isz != 4 else ()
-    n = STEP_N[args.img_size]
+    step_n = STEP_N[args.img_size]
     print(f"tree {root}; device {torch.cuda.get_device_name(0)}; "
-          f"{args.dtype}; RN50 at {args.img_size} px, N = {n}", flush=True)
+          f"{args.dtype}; RN50 at {args.img_size} px, N = {step_n}",
+          flush=True)
     gen = torch.Generator(device=dev).manual_seed(3)
     total = dict(fwd_ms=0.0, bwd_ms=0.0, fwd_bound_ms=0.0, bwd_bound_ms=0.0)
-    for (hw, c), calls in sorted(rn50_gn_calls(args.img_size).items(),
-                                 key=lambda kv: (-kv[0][0], kv[0][1])):
+    slabs = [(step_n, hw, c, calls) for (hw, c), calls in sorted(
+        rn50_gn_calls(args.img_size).items(),
+        key=lambda kv: (-kv[0][0], kv[0][1]))]
+    if args.split:
+        slabs.append(SPLIT_SLAB + (0,))
+    for n, hw, c, calls in slabs:
         side = int(round(hw ** 0.5))
         x = torch.randn((n, side, side, c), generator=gen,
                         device=dev).to(dtype)
@@ -172,7 +194,7 @@ def main(argv=None) -> int:
         s = 1 + 0.2 * torch.randn((c,), generator=gen, device=dev)
         b = 0.3 * torch.randn((c,), generator=gen, device=dev)
         _, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
-        rec = dict(hw=hw, c=c, calls=calls,
+        rec = dict(n=n, hw=hw, c=c, calls=calls,
                    fwd_ms=device_ms(lambda: fgn.gn_relu_fwd_kernel(x, s, b)),
                    bwd_ms=device_ms(lambda: fgn.gn_relu_bwd_kernel(
                        x, dy, s, b, mean, rstd, params=False)),
@@ -181,6 +203,10 @@ def main(argv=None) -> int:
         if hasattr(fgn, "gn_plan"):
             rec["plans"] = {d: fgn.gn_plan(d, n, hw, c, *plan_args)._asdict()
                             for d in ("fwd", "bwd")}
+            if (rec["plans"]["bwd"]["route"] == "split"
+                    and hasattr(fgn, "bwd_split_plan")):
+                rec["plans"]["bwd_split"] = fgn.bwd_split_plan(
+                    n, hw, c, 32, isz)._asdict()
         if args.sweep and hasattr(fgn, "gn_plan"):
             rec["sweep"] = []
             for direction, plan in _sweep_plans(fgn, n, hw, c, isz):
@@ -191,6 +217,7 @@ def main(argv=None) -> int:
                     ms = device_ms(lambda: fgn.gn_relu_bwd_kernel(
                         x, dy, s, b, mean, rstd, params=False, plan=plan))
                 rec["sweep"].append(dict(direction=direction,
+                                         route=plan.route,
                                          width=plan.width,
                                          cluster=plan.cluster, ms=ms))
         for k in total:
@@ -200,7 +227,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     total["fwd_over_bound_ms"] = total["fwd_ms"] - total["fwd_bound_ms"]
     total["bwd_over_bound_ms"] = total["bwd_ms"] - total["bwd_bound_ms"]
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "n": n,
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "n": step_n,
                       "img_size": args.img_size, "dtype": args.dtype,
                       "per_forward_49_calls": total}),
           flush=True)

@@ -24,7 +24,8 @@ _LAUNCHES: Dict[str, int] = {"masked_fill_fwd": 0, "masked_fill_bwd": 0,
                              "gn_relu_fwd_bf16": 0, "gn_relu_bwd_bf16": 0,
                              "masked_kv_attn_bf16": 0}
 #: Of those launches, how many took each route, for kernels with more than
-#: one ("gn_relu_fwd/one_pass", "gn_relu_bwd/split", ...).
+#: one ("gn_relu_fwd/one_pass", "gn_relu_bwd/split", ...), or each shape
+#: class (kernel H by its dirty rows per entry: "masked_kv_attn_bf16/S99").
 _ROUTES: Dict[str, int] = {}
 
 
@@ -51,7 +52,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def route_counts() -> Dict[str, int]:
-    """A copy of the per-route launch counts ("kernel/route" -> launches)."""
+    """A copy of the per-route and per-shape-class launch counts
+    ("kernel/route" -> launches)."""
     return dict(_ROUTES)
 
 

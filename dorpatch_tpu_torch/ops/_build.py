@@ -48,13 +48,14 @@ SIGNATURES = {
     "dp_gn_tiles": ([_I], _I),
     "dp_gn_onepass_smem": ([_I] * 4, ctypes.c_longlong),
     "dp_gn_relu_fwd": ([_P] * 8 + [_I] * 4 + [_F] + [_I] * 3 + [_P], _I),
-    "dp_gn_relu_bwd": ([_P] * 15 + [_I] * 7 + [_P], _I),
+    "dp_gn_relu_bwd": ([_P] * 13 + [_I] * 8 + [_P], _I),
     "dp_gn_onepass_smem_bf16": ([_I] * 4, ctypes.c_longlong),
     "dp_gn_relu_fwd_bf16": ([_P] * 8 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
                             _I),
-    "dp_gn_relu_bwd_bf16": ([_P] * 15 + [_I] * 7 + [_P], _I),
+    "dp_gn_relu_bwd_bf16": ([_P] * 13 + [_I] * 8 + [_P], _I),
     "dp_masked_kv_attn": ([_P] * 8 + [_I] * 6 + [_P], _I),
-    "dp_masked_kv_attn_bf16": ([_P] * 8 + [_I] * 6 + [_P], _I),
+    "dp_masked_kv_attn_bf16": ([_P] * 8 + [_I] * 11 + [_P], _I),
+    "dp_masked_kv_attn_bf16_smem": ([_I] * 6, ctypes.c_longlong),
     "dp_error_string": ([_I], ctypes.c_char_p),
 }
 

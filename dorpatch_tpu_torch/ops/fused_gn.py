@@ -21,10 +21,13 @@ or the tiled kernels:
   the group sums from there and writes the output, so each slab is read
   once and written once, in one launch. Every RN50 shape at 224 takes it,
   and at 480 px every forward.
-- "split" (kernels E and G, the tiled pair): a statistics pass, a float64
-  combine and an elementwise pass, which read x (and dy) twice; for slabs
-  whose chunk fits no cluster. RN50 at 480 px takes it for the backward of
-  its 14400-row stage-1 slabs, 11 of the 49 calls.
+- "split" (kernels E and G, the tiled pair): a statistics pass and an
+  elementwise pass, which read x (and dy) twice; for slabs whose chunk fits
+  no cluster. The forward adds its [N, T, C] partial sums in a third,
+  float64 combine launch; the backward's statistics pass adds its sums up
+  itself, over thread-block clusters that `bwd_split_plan` sizes. RN50 at
+  480 px takes it for the backward of its 14400-row stage-1 slabs, 11 of
+  the 49 calls.
 
 `GNRelu` pairs them as a `torch.autograd.Function`; it saves only `x` and
 the `[N, G]` statistics (and the affine parameters). `gn_relu_reference` and
@@ -74,9 +77,24 @@ PREFERRED_CTA_BYTES = {("fwd", 4): _build.MAX_SMEM_BYTES,
                        ("bwd", 4): TWO_PER_SM_BYTES,
                        ("fwd", 2): _build.MAX_SMEM_BYTES,
                        ("bwd", 2): _build.MAX_SMEM_BYTES}
-#: HW rows per statistics block of the split route, and the grid's limit
+#: HW rows per statistics block of the forward's split route, and the
+#: grid's limit
 SPLIT_TILE_ROWS = 64
 MAX_GRID = 65535
+#: the backward split route's statistics pass. The kernels take chunks of
+#: at most SPLIT_MAX_WIDTH channels over clusters of at most
+#: SPLIT_MAX_CLUSTER CTAs (`csrc/fused_gn.cu` kSplitMaxW, kSplitMaxCluster).
+#: The plan takes chunks of at most SPLIT_WIDTH channels, at least
+#: SPLIT_MIN_CTAS CTAs (about two on each of the H100's 132 SMs), at most
+#: SPLIT_CTA_BYTES of x and dy and at least SPLIT_MIN_ROWS rows a CTA: at
+#: RN50's 480 px stage-1 slabs those plans came within 3% of the best
+#: tried (`gn_bench.py --img-size 480 --sweep`, PERF.md)
+SPLIT_MAX_WIDTH = 256
+SPLIT_MAX_CLUSTER = 16
+SPLIT_WIDTH = 64
+SPLIT_MIN_CTAS = 256
+SPLIT_CTA_BYTES = 4 << 20
+SPLIT_MIN_ROWS = 128
 
 
 class GNPlan(NamedTuple):
@@ -87,6 +105,14 @@ class GNPlan(NamedTuple):
     width: int
     cluster: int
     smem: int
+
+
+class SplitPlan(NamedTuple):
+    """How the backward split route's statistics pass runs one shape: a
+    cluster of `cluster` CTAs takes `width` channels (whole groups) of one
+    sample, its CTAs a share of the HW rows each."""
+    width: int
+    cluster: int
 
 
 def piece_channels(itemsize: int) -> int:
@@ -172,6 +198,56 @@ def gn_plan(direction: str, n: int, hw: int, c: int,
     raise ValueError(f"no GroupNorm kernel route takes HW={hw}, C={c}: its "
                      f"chunk fits no cluster and it has more than "
                      f"{MAX_GRID} tiles of {SPLIT_TILE_ROWS} rows")
+
+
+def split_widths(c: int, num_groups: int, itemsize: int = 4):
+    """The chunk widths of the backward split route's statistics pass,
+    narrowest first: whole groups, a multiple of a 16-byte piece's
+    channels, at most SPLIT_MAX_WIDTH channels."""
+    cg = c // num_groups
+    p = piece_channels(itemsize)
+    return [k * cg for k in range(1, num_groups + 1)
+            if num_groups % k == 0 and k * cg % p == 0
+            and k * cg <= SPLIT_MAX_WIDTH]
+
+
+def split_target_ctas(n: int, hw: int, c: int, itemsize: int = 4) -> int:
+    """The CTAs the backward split route's statistics pass aims for: at
+    least SPLIT_MIN_CTAS, and enough that none reads more than
+    SPLIT_CTA_BYTES of x and dy."""
+    return max(SPLIT_MIN_CTAS,
+               -(-2 * itemsize * n * hw * c // SPLIT_CTA_BYTES))
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_split_plan(n: int, hw: int, c: int, num_groups: int = 32,
+                   itemsize: int = 4) -> SplitPlan:
+    """The backward split route's statistics plan for `[n, hw, c]`: the
+    widest chunk of at most SPLIT_WIDTH channels (the narrowest chunk
+    where a group is wider), then, while the pass has fewer CTAs than
+    `split_target_ctas`, its rows split over a cluster twice as large
+    (while each CTA keeps SPLIT_MIN_ROWS rows, up to SPLIT_MAX_CLUSTER),
+    else a narrower chunk whose rows are still MIN_ROW_BYTES long. A
+    shape with no width raises."""
+    widths = split_widths(c, num_groups, itemsize)
+    if not widths:
+        raise ValueError(f"no split-route chunk of whole groups of "
+                         f"{c // num_groups} channels is at most "
+                         f"{SPLIT_MAX_WIDTH} channels and a multiple of "
+                         f"{piece_channels(itemsize)}")
+    wide = [w for w in widths if itemsize * w >= MIN_ROW_BYTES] \
+        or widths[-1:]
+    wide = [w for w in wide if w <= SPLIT_WIDTH] or wide[:1]
+    width, cl = wide[-1], 1
+    target = split_target_ctas(n, hw, c, itemsize)
+    while n * (c // width) * cl < target:
+        if cl < SPLIT_MAX_CLUSTER and -(-hw // (2 * cl)) >= SPLIT_MIN_ROWS:
+            cl *= 2
+        elif width != wide[0]:
+            width = wide[wide.index(width) - 1]
+        else:
+            break
+    return SplitPlan(width, cl)
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -305,15 +381,15 @@ def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def split_tiles(hw: int) -> int:
-    """T, the HW tiles of SPLIT_TILE_ROWS rows of the split route
+    """T, the HW tiles of SPLIT_TILE_ROWS rows of the forward's split route
     (`csrc/fused_gn.cu` `dp_gn_tiles`)."""
     return -(-hw // SPLIT_TILE_ROWS)
 
 
 def split_scratch(x: torch.Tensor) -> torch.Tensor:
-    """An `[N, T, C]` partial-sum scratch of the split route on x's device:
-    float32 for float32 and bf16 activations alike (bf16 partial sums would
-    wreck the statistics)."""
+    """An `[N, T, C]` partial-sum scratch of the forward's split route on
+    x's device: float32 for float32 and bf16 activations alike (bf16
+    partial sums would wreck the statistics)."""
     n, h, w, c = x.shape
     return torch.empty((n, split_tiles(h * w), c), dtype=torch.float32,
                        device=x.device)
@@ -371,7 +447,8 @@ def gn_relu_bwd_kernel(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                        params: bool = True, plan: Optional[GNPlan] = None):
     """The backward kernels on CUDA tensors -> `(dx, dscale, dbias)`: dx
     of x's type, `dscale`/`dbias` f32 and None unless `params`. `plan` as
-    for the forward."""
+    for the forward; a split plan's `width` and `cluster`, when not 0, are
+    the statistics pass's chunk and cluster instead of `bwd_split_plan`'s."""
     _check(x, scale, bias, num_groups)
     _backend.require(dy, "dy", x.dtype, 4)
     for t, name in ((mean, "mean"), (rstd, "rstd")):
@@ -384,29 +461,30 @@ def gn_relu_bwd_kernel(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                          f"{tuple(x.shape)}, dy {tuple(dy.shape)}, mean "
                          f"{tuple(mean.shape)}, rstd {tuple(rstd.shape)}")
     plan = _plan_of("bwd", x, num_groups, plan)
+    split = plan.route == "split"
+    if split and not plan.width:
+        plan = plan._replace(**bwd_split_plan(
+            n, h * w, c, num_groups, x.element_size())._asdict())
     lib = _build.library()
     dx = torch.empty_like(x)
-    split = plan.route == "split"
-    pdb = pds = dbc = dsc = ag = bg = None
+    dbc = dsc = an = bn = None
     dscale: Optional[torch.Tensor] = None
     dbias: Optional[torch.Tensor] = None
     if split:
-        pdb, pds = (split_scratch(x) for _ in range(2))
-        ag, bg = torch.empty_like(mean), torch.empty_like(mean)
-    if split or params:
+        an, bn = torch.empty_like(mean), torch.empty_like(mean)
+    if params:
         dbc = torch.empty((n, c), dtype=torch.float32, device=x.device)
         dsc = torch.empty_like(dbc)
-    if params:
         dscale = torch.empty_like(scale)
         dbias = torch.empty_like(bias)
     fn, name = _entry(lib, "bwd", x)
     _backend.count_launch(name, plan.route)
     _build.check(fn(
         x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), _ptr(pdb),
-        _ptr(pds), _ptr(dbc), _ptr(dsc), _ptr(ag), _ptr(bg), _ptr(dscale),
-        _ptr(dbias), n, h * w, c, num_groups, plan.width, plan.cluster,
-        plan.smem, _backend.stream_handle(x)), name)
+        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), _ptr(dbc),
+        _ptr(dsc), _ptr(an), _ptr(bn), _ptr(dscale), _ptr(dbias), n, h * w,
+        c, num_groups, int(split), plan.width, plan.cluster, plan.smem,
+        _backend.stream_handle(x)), name)
     return dx, dscale, dbias
 
 

@@ -2,6 +2,7 @@
 another checkout's.
 
     python dorpatch_tpu_torch/sass_diff.py --tree DIR
+    python dorpatch_tpu_torch/sass_diff.py --tree DIR --changed NAME...
 
 Builds the kernel library of both checkouts (`ops/_build.py`), disassembles
 each with `cuobjdump -sass` and compares every kernel of DIR's library with
@@ -9,8 +10,11 @@ this checkout's kernel of the same instantiation, instruction by
 instruction (addresses, encodings and symbol names left out). A kernel
 templated since DIR's version matches on its float32 instantiation
 (`fill_fwd<4, false>` against `fill_fwd<float, 4, false>`). Prints SAME or
-DIFF per kernel and exits 1 if any differs or is missing. Needs `nvcc`
-and `cuobjdump` (the CUDA toolkit); no GPU.
+DIFF per kernel and exits 1 if any differs or is missing. `--changed`
+names kernels (every instantiation of each name, e.g. `gn_bwd_dx`) that a
+change is expected to alter or remove: they print CHANGED (or SAME) and
+do not fail the run. Kernels only this checkout has print NEW. Needs
+`nvcc` and `cuobjdump` (the CUDA toolkit); no GPU.
 """
 
 from __future__ import annotations
@@ -70,26 +74,44 @@ def counterpart(name: str, ours: Dict[str, List[str]]):
     return next((c for c in ours if c.startswith(head)), None)
 
 
+def named(mangled: str, names) -> bool:
+    """Whether a mangled kernel name is an instantiation of one of
+    `names`: the identifier after a digit (its length, or the end of the
+    namespace hash `kernels` leaves in part) and before its template
+    arguments or parameters."""
+    return any(re.search(rf"[0-9]{n}[IE]", mangled) for n in names)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--tree", required=True,
                    help="the other checkout (e.g. the parent, unpacked "
                         "with git archive)")
+    p.add_argument("--changed", nargs="*", default=[], metavar="NAME",
+                   help="kernels expected to differ or go")
     args = p.parse_args(argv)
     here = os.path.abspath(os.path.join(os.path.dirname(__file__),
                                         os.pardir))
     theirs = kernels(library(os.path.abspath(args.tree)))
     ours = kernels(library(here))
-    differ = 0
+    differ = changed = 0
+    matched = set()
     for name, body in sorted(theirs.items()):
         mine = counterpart(name, ours)
+        matched.add(mine)
         same = mine is not None and ours[mine] == body
-        differ += not same
-        print(f"{'SAME' if same else 'DIFF'} {name} ({len(body)} "
-              f"instructions; ours {mine})", flush=True)
-    print(f"{len(theirs) - differ} of {len(theirs)} kernels of {args.tree} "
-          f"compile to the same instructions here ({len(ours)} kernels "
-          f"here)", flush=True)
+        expected = not same and named(name, args.changed)
+        changed += expected
+        differ += not same and not expected
+        print(f"{'SAME' if same else 'CHANGED' if expected else 'DIFF'} "
+              f"{name} ({len(body)} instructions; ours {mine})", flush=True)
+    for name in sorted(set(ours) - matched):
+        print(f"NEW {name} ({len(ours[name])} instructions)", flush=True)
+    print(f"{len(theirs) - differ - changed} of {len(theirs)} kernels of "
+          f"{args.tree} compile to the same instructions here, {changed} "
+          f"changed as expected ({' '.join(args.changed) or 'none named'}),"
+          f" {differ} differ or are missing ({len(ours)} kernels here)",
+          flush=True)
     return 1 if differ else 0
 
 

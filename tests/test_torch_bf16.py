@@ -304,6 +304,87 @@ def test_masked_kv_attention_bf16_plain_within_jax_bar(shape, seed, scaled):
     assert (err <= _ulp16(_np(jk))).all(), err.max()
 
 
+@pytest.mark.parametrize("shape,seed", [((1, 2, 99, 2, 64, 197), 9),
+                                        ((2, 3, 17, 2, 32, 65), 11)])
+def test_masked_kv_attention_bf16_plain_within_jax_bar_at_engine_shapes(
+        shape, seed):
+    """H's plain version on bf16 inputs at the ViT-B/16 pair audit's S 99
+    and T 197, and at `cifar_vit`'s head width 32, queries scaled: within
+    0.06 of the JAX float32 reference, and of the JAX kernel (interpret
+    mode) on the same bf16 inputs within one bf16 ulp plus what float32
+    rounding of the T+S-term weighted sums, taken in other orders, can
+    move an output: (T+S) 2^-24 max|v| (at S 99 an output of 5e-7 left by
+    cancellation sits 5.6e-8 from the JAX kernel's, 15 of its ulps)."""
+    b, c, s, h, f, t = shape
+    rng = np.random.default_rng(seed)
+    q, kd, vd = (rng.standard_normal((b, c, s, h, f)).astype(np.float32)
+                 for _ in range(3))
+    q = q / np.float32(np.sqrt(f))
+    kc, vc = (rng.standard_normal((b, t, h, f)).astype(np.float32)
+              for _ in range(2))
+    cb = np.where(rng.uniform(size=(b, c, t)) < 0.2, -1e9, 0.0)
+    db = np.where(rng.uniform(size=(b, c, s)) < 0.25, -1e9, 0.0)
+    db[:, :, 0] = 0.0
+    args = [a.astype(np.float32) for a in (q, kd, vd, kc, vc, cb, db)]
+    ref = np.asarray(jkv.masked_kv_attention_reference(
+        *(jnp.asarray(a) for a in args)))
+    t16 = [_t16(a) for a in args]
+    got = tkv.masked_kv_attention(*t16)
+    assert got.dtype == BF
+    assert float(np.abs(_np(got) - ref).max()) <= 0.06
+    jk = jkv.masked_kv_attention(*(_j16(a) for a in args), interpret=True)
+    vmax = max(float(t16[2].float().abs().max()),
+               float(t16[4].float().abs().max()))
+    err = np.abs(_np(got) - _np(jk))
+    assert (err <= _ulp16(_np(jk)) + (t + s) * 2.0 ** -24 * vmax).all(), \
+        err.max()
+
+
+@pytest.mark.parametrize("b,c,s,h,t,f", [
+    (2, 36, 50, 12, 197, 64), (2, 64, 99, 12, 197, 64), (3, 4, 17, 4, 65, 32),
+    (2, 13, 1, 3, 197, 64), (2, 64, 196, 12, 197, 64), (1, 3, 20, 2, 257, 64),
+    (1, 1, 1, 1, 1, 32), (2, 64, 170, 12, 785, 64), (1, 3, 20, 2, 1000, 64)])
+def test_masked_kv_attention_bf16_plan_keeps_its_limits(b, c, s, h, t, f):
+    """H-bf16's plan: a block's shared memory is the carve of its clean
+    group and its dirty slots (two where it has two phases or more, else
+    one), with their entries' float32 biases padded to 32-key steps, and
+    fits a block; a phase gives each warp one 16-row item where
+    ceil(S/16) <= 8; at most 8 warps and C entries; at ViT-B/16's phase-1
+    and pair-audit chunks two blocks fit an SM."""
+    plan = tkv.bf16_plan(b, c, s, h, t, f, 132)
+    g, e, warps, clean, smem = plan
+    tiles = -(-s // tkv.ITEM_ROWS)
+    slots = min(tkv.MAX_SLOTS, -(-g // e))
+    assert 1 <= e <= g <= c
+    assert smem == tkv.bf16_smem(t, s, f, e, slots, clean) <= 232448
+    assert smem == (2 * f * (2 * t * clean + 2 * slots * e * s)
+                    + 4 * slots * e * (-(-t // 32) * 32 + -(-s // 32) * 32))
+    # the clean group is staged wherever one entry's carve with it fits
+    assert clean == (tkv.bf16_smem(t, s, f, 1, 1) <= 232448)
+    assert 1 <= warps <= tkv.MAX_WARPS
+    if tiles <= tkv.MAX_WARPS:
+        assert warps == e * tiles and e <= tkv.MAX_WARPS // tiles
+    else:
+        assert e == 1 and warps == tkv.MAX_WARPS
+    if (t, f) == (197, 64) and s in (50, 99):
+        assert 2 * (smem + 1024) <= tkv.SM_SMEM_BYTES
+
+
+def test_masked_kv_attention_bf16_plan_at_the_vit_shapes():
+    """On 132 SMs: the pair audit (C 64, S 99) six entries a block, one a
+    phase on 7 warps, 264 blocks (two an SM); phase 1 (C 36, S 50) four
+    entries a block in phases of two on 8 warps. A clean group too long
+    for a block's shared memory is read from device memory (ViT-B/16 at
+    448 px: T 785); a dirty group too long for it raises."""
+    assert tkv.bf16_plan(2, 64, 99, 12, 197, 64, 132) == \
+        tkv.Bf16Plan(6, 1, 7, 1, 103936)
+    assert tkv.bf16_plan(2, 36, 50, 12, 197, 64, 132) == \
+        tkv.Bf16Plan(4, 2, 8, 1, 106240)
+    assert tkv.bf16_plan(2, 64, 170, 12, 785, 64, 132).clean == 0
+    with pytest.raises(ValueError):
+        tkv.bf16_plan(1, 1, 1000, 1, 1000, 64, 132)
+
+
 # --------------------------------------------------------- model pieces
 
 

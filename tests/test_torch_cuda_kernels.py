@@ -777,7 +777,8 @@ def test_gn_bf16_split_and_one_pass_routes_agree(dev, shape):
 
 
 def test_gn_split_scratch_matches_the_kernels_tiles(dev):
-    """The wrapper's float32 [N, T, C] scratch has the kernels' T."""
+    """The wrapper's float32 [N, T, C] scratch of the forward's split route
+    (kernel E) has the kernels' T."""
     from dorpatch_tpu_torch.ops import _build
 
     lib = _build.library()
@@ -787,6 +788,78 @@ def test_gn_split_scratch_matches_the_kernels_tiles(dev):
     scratch = fgn.split_scratch(x)
     assert scratch.dtype == torch.float32
     assert tuple(scratch.shape) == (2, lib.dp_gn_tiles(14400), 64)
+
+
+# Kernel G (the backward split route) in both types, at its default plans
+# (`fused_gn.bwd_split_plan`) and at forced ones, (width, cluster): HW off
+# the dx pass's row blocks (81, 225, 14400), cg 2 (C 64) and cg 8 (C 256),
+# N 1 and 128, the [4, 65536, 64] slab (chunks of 16 or 32 channels over
+# clusters of 16), one CTA and no cluster, and a cluster of 16 over few rows.
+GN_G_CASES = [((1, 9, 9, 64), None), ((3, 9, 9, 256), (32, 2)),
+              ((128, 15, 15, 64), None), ((2, 120, 120, 256), None),
+              ((1, 120, 120, 64), (64, 1)), ((4, 256, 256, 64), None),
+              ((2, 7, 7, 256), (256, 16))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,split", GN_G_CASES)
+def test_gn_split_backward_matches_plain(dev, dtype, shape, split):
+    """The statistics pass with its combine over a cluster, and the dx
+    pass: float32 against the float64 plain version, bf16 against the plain
+    bf16 version (as `_check_gn_backward` and `_check_gn_bf16` hold them);
+    bit-equal on a repeat; without the parameter cotangents the same dx."""
+    bf16 = dtype == torch.bfloat16
+    x, s, b, dy = (_gn_case16 if bf16 else _gn_case)(dev, 12, shape)
+    plan = fgn.GNPlan("split", *(split or (0, 0)), 0)
+    y, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
+    _backend.reset_launch_counts()
+    got = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd, plan=plan)
+    torch.cuda.synchronize()
+    kind = "_bf16" if bf16 else ""
+    assert _backend.route_counts() == {f"gn_relu_bwd{kind}/split": 1}
+    if bf16:
+        _check_gn_bf16(x, s, b, dy, y, mean, rstd, *got)
+    else:
+        _check_gn_backward(x, dy, s, b, mean, rstd, got)
+    again = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd, plan=plan)
+    assert all(torch.equal(p, q) for p, q in zip(again, got))
+    dx_only = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd, params=False,
+                                     plan=plan)
+    assert dx_only[1] is None and dx_only[2] is None
+    assert torch.equal(dx_only[0], got[0])
+
+
+@pytest.mark.parametrize("shape", [(2, 56, 56, 64), (3, 28, 28, 256),
+                                   (1, 7, 7, 96)])
+def test_gn_split_and_one_pass_backward_agree(dev, shape):
+    """Kernels F and G in float32 compute one dx formula (the group sums
+    divided by the count once, in float64) from sums taken in other
+    orders: within 1e-5 of each other away from gate flips, and the
+    parameter cotangents within 1e-3."""
+    x, s, b, dy = _gn_case(dev, 13, shape)
+    n, h, w, c = shape
+    one = fgn.gn_plan("bwd", n, h * w, c)
+    assert one.route == "one_pass"
+    _, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
+    dx1, ds1, db1 = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd, plan=one)
+    dx2, ds2, db2 = fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd,
+                                           plan=SPLIT)
+    torch.cuda.synchronize()
+    near = fgn.gate_flip_bounds(x, dy, s, b, mean, rstd)[0]
+    torch.testing.assert_close(dx2[~near], dx1[~near], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ds2, ds1, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(db2, db1, rtol=1e-5, atol=1e-3)
+
+
+def test_gn_split_backward_refuses_a_plan_it_does_not_take(dev):
+    """A chunk that splits a group, one wider than kSplitMaxW and a
+    cluster above 16 are refused by the kernels' own check."""
+    x, s, b, dy = _gn_case(dev, 14, (1, 8, 8, 512))
+    _, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
+    for width, cluster in ((12, 1), (512, 1), (16, 32)):
+        with pytest.raises(RuntimeError, match="gn_relu_bwd"):
+            fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd,
+                                   plan=fgn.GNPlan("split", width, cluster, 0))
 
 
 def test_resnetv2_bf16_victim_on_card_matches_cpu(dev):
@@ -838,12 +911,15 @@ def _kv_check16(args):
 @pytest.mark.parametrize("shape", [(2, 36, 50, 12, 64, 197),
                                    (2, 64, 99, 12, 64, 197),
                                    (3, 4, 17, 4, 32, 65),
-                                   (1, 3, 20, 2, 64, 257)])
+                                   (1, 3, 20, 2, 64, 257),
+                                   (2, 13, 1, 3, 64, 197),
+                                   (1, 3, 20, 2, 64, 1000)])
 def test_masked_kv_attention_bf16_matches_plain(dev, shape):
     """The ViT-B/16 bank's phase-1 and pair-audit chunks, `cifar_vit`'s
-    head width, and a clean group too long to stage (read from device
-    memory); within the JAX package's bar of 0.06 of the float32 plain
-    version on the float32 inputs as well."""
+    head width, a long clean group (T 257), one dirty row an entry, and a
+    clean group too long to stage (T 1000: read from device memory);
+    within the JAX package's bar of 0.06 of the float32 plain version on
+    the float32 inputs as well. Each launch counts under its shape class."""
     from dorpatch_tpu_torch.ops import masked_kv_attn as mka
 
     args32 = _kv_case(dev, 9, *shape)
@@ -852,6 +928,7 @@ def test_masked_kv_attention_bf16_matches_plain(dev, shape):
     got = mka.masked_kv_attention(*args)
     counts = _backend.launch_counts()
     assert (counts["masked_kv_attn_bf16"], counts["masked_kv_attn"]) == (1, 0)
+    assert _backend.route_counts() == {f"masked_kv_attn_bf16/S{shape[2]}": 1}
     got, _ = _kv_check16(args)
     want32 = mka.masked_kv_attention_reference(*args32)
     assert float((got.float() - want32).abs().max()) <= 0.06
@@ -865,6 +942,61 @@ def test_masked_kv_attention_bf16_only_dirty_slot_zero_live(dev):
     got, _ = _kv_check16(args)
     want = args[2][:, ::2, :1].expand(-1, -1, 50, -1, -1)
     assert torch.equal(got[:, ::2], want)
+
+
+# Kernel H's bf16 form at forced block plans, (entries G, per phase E,
+# warps, clean group staged): G not dividing C, phases of E entries through
+# both dirty slots and back, fewer warps than a phase's items; S 1, 17, 50
+# and 99 (ragged 16-row items), T off the 32-key steps; the clean group
+# read from device memory.
+KV16_PLANS = [((2, 13, 17, 3, 64, 70), (5, 2, 3, 1)),
+              ((1, 9, 1, 2, 32, 33), (4, 3, 2, 1)),
+              ((2, 7, 99, 2, 64, 197), (3, 1, 7, 1)),
+              ((1, 11, 50, 2, 64, 197), (11, 2, 5, 1)),
+              ((1, 6, 50, 4, 32, 65), (6, 2, 8, 1)),
+              ((2, 7, 99, 2, 64, 197), (3, 1, 7, 0)),
+              ((1, 9, 17, 2, 32, 65), (4, 2, 4, 0))]
+
+
+@pytest.mark.parametrize("shape,plan", KV16_PLANS)
+def test_masked_kv_attention_bf16_every_plan_matches_plain(dev, shape, plan):
+    """Every plan runs each 16-row item the same way, so its output equals
+    the default plan's bit for bit, and the plain bf16 version's within the
+    bf16 tolerance."""
+    from dorpatch_tpu_torch.ops import masked_kv_attn as mka
+
+    b, c, s, h, f, t = shape
+    g, e, warps, clean = plan
+    slots = min(mka.MAX_SLOTS, -(-min(g, c) // e))
+    forced = mka.Bf16Plan(g, e, warps, clean,
+                          mka.bf16_smem(t, s, f, e, slots, clean))
+    args = tuple(a.bfloat16() for a in _kv_case(dev, 11, *shape))
+    got = mka.masked_kv_attention_kernel(*args, plan=forced)
+    got_default, _ = _kv_check16(args)
+    assert torch.equal(got, got_default)
+    assert torch.equal(mka.masked_kv_attention_kernel(*args, plan=forced),
+                       got)
+
+
+def test_masked_kv_attention_bf16_carve_matches_the_kernel(dev):
+    """`bf16_smem` counts the kernel's own carve, and a plan short of it is
+    refused by the kernel's check."""
+    from dorpatch_tpu_torch.ops import _build
+    from dorpatch_tpu_torch.ops import masked_kv_attn as mka
+
+    lib = _build.library()
+    for t, s, f, e, slots, clean in ((197, 99, 64, 1, 2, 1),
+                                     (197, 50, 64, 2, 2, 1),
+                                     (65, 17, 32, 4, 1, 1),
+                                     (33, 1, 32, 8, 2, 1),
+                                     (1000, 20, 64, 1, 2, 0)):
+        assert lib.dp_masked_kv_attn_bf16_smem(t, s, f, e, slots, clean) == \
+            mka.bf16_smem(t, s, f, e, slots, clean)
+    args = tuple(a.bfloat16() for a in _kv_case(dev, 12, 1, 4, 17, 2, 64, 70))
+    plan = mka.bf16_plan(1, 4, 17, 2, 70, 64, 132)
+    with pytest.raises(RuntimeError, match="masked_kv_attn_bf16"):
+        mka.masked_kv_attention_kernel(*args,
+                                       plan=plan._replace(smem=plan.smem - 16))
 
 
 def test_bf16_bank_on_card_equals_cpu(dev):

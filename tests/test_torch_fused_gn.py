@@ -342,6 +342,58 @@ def test_a_shape_no_route_takes_raises(n, hw, c):
             tgn.gn_plan(direction, n, hw, c)
 
 
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("n,hw,c", [(128, 14400, 64), (128, 14400, 128),
+                                    (128, 14400, 256), (4, 65536, 64),
+                                    (1, 65536, 64), (2, 81, 64), (2, 25, 96),
+                                    (2, 64, 1024), (1, 49, 256),
+                                    (65535, 49, 64)])
+def test_bwd_split_plan_keeps_its_limits(n, hw, c, itemsize):
+    """The backward split route's statistics plan: whole groups, 16-byte
+    pieces, at most SPLIT_WIDTH channels (SPLIT_MAX_WIDTH where a group is
+    wider) dividing C, rows of at least MIN_ROW_BYTES where C allows;
+    clusters a power of two up to SPLIT_MAX_CLUSTER whose CTAs keep
+    SPLIT_MIN_ROWS rows; and fewer CTAs than `split_target_ctas` only
+    where neither a larger cluster nor a narrower chunk is left."""
+    plan = tgn.bwd_split_plan(n, hw, c, 32, itemsize)
+    cg, p = c // 32, 16 // itemsize
+    w, cl = plan
+    assert w % cg == 0 and w % p == 0 and c % w == 0
+    assert w <= tgn.SPLIT_MAX_WIDTH and w in tgn.split_widths(c, 32, itemsize)
+    assert w <= tgn.SPLIT_WIDTH or w == tgn.split_widths(c, 32, itemsize)[0]
+    if any(itemsize * v >= tgn.MIN_ROW_BYTES
+           for v in tgn.split_widths(c, 32, itemsize)):
+        assert itemsize * w >= tgn.MIN_ROW_BYTES
+    assert cl in (1, 2, 4, 8, 16) and cl <= tgn.SPLIT_MAX_CLUSTER
+    assert cl == 1 or -(-hw // cl) >= tgn.SPLIT_MIN_ROWS
+    target = tgn.split_target_ctas(n, hw, c, itemsize)
+    assert target >= tgn.SPLIT_MIN_CTAS
+    assert target * tgn.SPLIT_CTA_BYTES >= 2 * itemsize * n * hw * c
+    if n * (c // w) * cl < target:
+        narrower = [v for v in tgn.split_widths(c, 32, itemsize)
+                    if v < w and itemsize * v >= tgn.MIN_ROW_BYTES]
+        assert not narrower
+        assert cl == tgn.SPLIT_MAX_CLUSTER or \
+            -(-hw // (2 * cl)) < tgn.SPLIT_MIN_ROWS
+
+
+def test_bwd_split_plan_at_the_measured_shapes():
+    """RN50's 480 px stage-1 slabs take chunks of 64 channels over clusters
+    that leave each CTA at most 4 MiB of x and dy (at least 256 CTAs): at
+    float32 clusters of 2; at bf16 of 2 at C 64, of 1 at C 128 and 256. The [4, 65536, 64] slab fills the card
+    with clusters of 16 and narrower chunks: 16 channels (64-byte rows) at
+    float32, 32 at bf16. A channel count of no whole-group chunk of at most
+    SPLIT_MAX_WIDTH channels raises."""
+    for c, f32, bf16 in ((64, 2, 2), (128, 2, 1), (256, 2, 1)):
+        assert tgn.bwd_split_plan(128, 14400, c) == tgn.SplitPlan(64, f32)
+        assert tgn.bwd_split_plan(128, 14400, c, 32, 2) == \
+            tgn.SplitPlan(64, bf16)
+    assert tgn.bwd_split_plan(4, 65536, 64) == tgn.SplitPlan(16, 16)
+    assert tgn.bwd_split_plan(4, 65536, 64, 32, 2) == tgn.SplitPlan(32, 16)
+    with pytest.raises(ValueError):
+        tgn.bwd_split_plan(1, 49, 32 * 264)
+
+
 def test_route_counts_reset_with_the_launch_counts():
     _backend.reset_launch_counts()
     _backend.count_launch("gn_relu_fwd", "one_pass")
