@@ -346,137 +346,75 @@ def stem_fold_phase(torch, dev, dataset, arch, size, b, name,
                     dtype=None):
     """Kernel C on one phase-1 chunk of the 0.12 radius (the chunk the
     engine takes by the stem's inflation), against the plain fold and
-    against the stem conv of the masked batch. With `dtype` bfloat16, C's
-    bf16 form on the victim's bf16 copy: within one ulp of the output and
-    one of the delta of the plain bf16 fold, plus twice the error bound of
-    a float32 sum of the delta's products (the two sum the delta in
-    float32 in other orders, and where it cancels to near 0 they may round
-    it an ulp or more apart), bit-equal on a repeat; its gap to the bf16
-    conv of the masked batch is printed, not held (that conv rounds once
-    where the fold rounds twice)."""
-    import numpy as np
-
-    from dorpatch_tpu_torch import masks as masks_lib
-    from dorpatch_tpu_torch.config import DefenseConfig
-    from dorpatch_tpu_torch.models.registry import get_model, normalize
-    from dorpatch_tpu_torch.ops import masked_fill as mf
+    against the stem conv of the masked batch (`stem_bench.stem_case`).
+    With `dtype` bfloat16, C's bf16 form on the victim's bf16 copy: within
+    one ulp of the output and one of the delta of the plain bf16 fold,
+    plus twice the error bound of a float32 sum of the delta's products
+    (`stem_bench.stem_gate`: the two sum the delta in float32 in other
+    orders, and where it cancels to near 0 they may round it an ulp or
+    more apart), bit-equal on a repeat; its gap to the bf16 conv of the
+    masked batch is printed, not held (that conv rounds once where the
+    fold rounds twice)."""
+    from dorpatch_tpu_torch import stem_bench as sb
     from dorpatch_tpu_torch.ops import stem_fold as sf
 
     import torch.nn.functional as F
 
-    dtype = dtype or torch.float32
-    bf16 = dtype == torch.bfloat16
-    rng = np.random.default_rng(2)
-    fill = 0.5
-    imgs = torch.as_tensor(rng.uniform(0, 1, (b, size, size, 3)),
-                           dtype=torch.float32, device=dev).to(dtype)
-    victim = get_model(dataset, arch, "/nonexistent", size, seed=0,
-                       device=dev)
-    eng = victim.incremental.at(dtype)
-    k, s = eng.kernel_hw, eng.strides[0]
-    spec = masks_lib.geometry(size, 0.12)
-    singles, _ = masks_lib.mask_sets(spec)
-    plan = sf.plan_windows(singles, size, k, s, eng.pads)
+    case = sb.stem_case(torch, dev, dataset, arch, size, b,
+                        dtype or torch.float32)
+    args = sb.kernel_args(case)
     with torch.no_grad():
-        clean = eng.module(normalize(imgs), "stem").contiguous()
-        # the engine's chunk: chunk_size shrunk by the stem's inflation
-        inflation = clean[0].numel() / imgs[0].numel()
-        n_chunk = max(1, int(DefenseConfig().chunk_size / max(1.0,
-                                                               inflation)))
-        part = plan[:n_chunk]
-        u = eng.norm_scale * (fill - imgs)
-        kern = eng.kernel_fn(eng.module).contiguous()
-        up = sf.pad_for_kernel(u, eng.pads, s)
-        _, h, w, cout = clean.shape
-        oh, ow, geo_np, occ_np = sf._uniform_plan(part, h, w, k, s)
-        geo = torch.as_tensor(geo_np, device=dev)
-        occ = torch.as_tensor(occ_np, dtype=dtype, device=dev)
-        got = sf.fold_masked_stem_kernel(kern, clean, up, geo, occ, oh, ow, s)
-        want = sf.fold_masked_stem(kern, clean, u, part, (s, s), eng.pads)
+        got = sf.fold_masked_stem_kernel(*args)
+        want = sb.plain(case)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        c_err = float(err.max())
-        sums_note = ""
-        if bf16:
-            delta = want.float() - clean[:, None].float()
-            # each float32 delta lies within gamma_n * sum |w x| of the
-            # exact sum of its n = k*k*Cin products (a float32 dot
-            # product's error bound); where the sum cancels to near 0 that
-            # is more than an ulp of the delta
-            n_terms = k * k * up.shape[-1]
-            gamma = n_terms * 2.0 ** -24 / (1 - n_terms * 2.0 ** -24)
-            mag = sf.fold_masked_stem(
-                kern.float().abs(), torch.zeros_like(clean, dtype=torch.float),
-                u.float().abs(), part, (s, s), eng.pads)
-            ulps = _ulp16(torch, want) + _ulp16(torch, delta)
-            gate = ulps + 2 * gamma * mag
-            bad = int((err > gate).sum())
-            # the elements that only the sums' bound admits, and the one
-            # furthest beyond its ulps
-            beyond = (err - ulps).flatten()
-            i = int(beyond.argmax())
-            if float(beyond[i]) > 0:
-                at = [float(t.flatten()[i]) for t in (
-                    clean[:, None].expand_as(want), want, got, mag, gate)]
-                sums_note = (f"; {int((beyond > 0).sum())} elements beyond "
-                             f"the ulps alone, the furthest: clean {at[0]:.4g}"
-                             f", plain {at[1]:.4g}, kernel {at[2]:.4g}, sum "
-                             f"|w x| {at[3]:.4g}, bound {at[4]:.4g}")
-            del mag, ulps, gate, beyond
-            if bad or not torch.equal(sf.fold_masked_stem_kernel(
-                    kern, clean, up, geo, occ, oh, ow, s), got):
+        c_err, bad, sums_note = sb.stem_gate(torch, case, got, want)
+        del want
+        if case.bf16:
+            if bad or not torch.equal(sf.fold_masked_stem_kernel(*args),
+                                      got):
                 raise AssertionError(f"kernel C ({name}): {bad} elements "
                                      f"beyond an ulp of the output and of "
                                      f"the delta and the float32 sums' "
                                      f"error bound (max_abs_err {c_err}), "
                                      "or no bit-equal repeat")
-        elif not c_err <= TOL_C:
+        elif bad:
             raise AssertionError(f"kernel C ({name}) max_abs_err {c_err} > "
                                  f"{TOL_C}")
-        del err
         # the fold's algebra: the same activations as the stem conv of the
         # masked images
-        xm = mf.masked_fill_reference(
-            imgs, torch.as_tensor(singles[:n_chunk], device=dev), fill)
-        xm = normalize(xm.reshape(-1, size, size, 3))
-        (pr0, pr1), (pc0, pc1) = eng.pads
-        xm = F.pad(xm, (0, 0, pc0, pc1, pr0, pr1)).permute(0, 3, 1, 2)
-        w_oihw = kern.permute(3, 2, 0, 1).contiguous()
-        lib = F.conv2d(xm, w_oihw, None, s).permute(0, 2, 3, 1)
+        lib = F.conv2d(case.xm, case.w_oihw, None, case.s).permute(0, 2, 3, 1)
         lib_err = float((lib.reshape(got.shape).float()
                          - got.float()).abs().max())
-        if not bf16 and not lib_err <= TOL_C:
+        del lib
+        if not case.bf16 and not lib_err <= TOL_C:
             raise AssertionError(f"kernel C ({name}) vs conv of the masked "
                                  f"batch: {lib_err} > {TOL_C}")
-        c_ms = _device_ms(lambda: sf.fold_masked_stem_kernel(
-            kern, clean, up, geo, occ, oh, ow, s))
+        c_ms = _device_ms(lambda: sf.fold_masked_stem_kernel(*args))
         # the plain fold with its occlusion windows already on the card (a
         # host-to-device copy cannot be captured in a CUDA graph)
-        part_dev = [pw._replace(occ=torch.as_tensor(pw.occ, device=dev))
-                    for pw in part]
-        c_plain = _device_ms(lambda: sf.fold_masked_stem(
-            kern, clean, u, part_dev, (s, s), eng.pads))
-        c_lib = _device_ms(lambda: F.conv2d(xm, w_oihw, None, s))
-    _, hp, wp, cin = up.shape
-    n_out = sum((pw.o1 - pw.o0) * (pw.oc1 - pw.oc0) for pw in part)
-    nbytes = imgs.element_size() * (
-        b * hp * wp * cin + occ.numel() + clean.numel() + kern.numel()
-        + b * n_chunk * clean[0].numel()) + 16 * n_chunk
-    flops = 2.0 * b * n_out * cout * k * k * cin
-    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
-    bound, by = _bound(nbytes, flops, peak)
-    ops_bound, _ = _bound(0.0, flops, peak)
+        case.part = [pw._replace(occ=torch.as_tensor(pw.occ, device=dev))
+                     for pw in case.part]
+        c_plain = _device_ms(lambda: sb.plain(case))
+        c_lib = _device_ms(lambda: F.conv2d(case.xm, case.w_oihw, None,
+                                            case.s))
+    nbytes, flops, bytes_ms, ops_ms, _ = sb.bounds(case)
+    bound, by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else \
+        (ops_ms, "operations")
+    peak = PEAK_BF16_FLOPS if case.bf16 else PEAK_F32_FLOPS
+    _, h, w, cout = case.clean.shape
     tol = ("1 ulp of the output and of the delta + 2 gamma_n sum |w x|"
-           if bf16 else f"atol {TOL_C}")
-    print(f"kernel C {name} [B={b},N={n_chunk},{h}x{w}x{cout}, k={k} s={s}, "
-          f"OH/OW {oh}/{ow}, {str(dtype)[6:]}]: max_abs_err {c_err:.3g} "
-          f"({tol}{sums_note}; vs conv of the masked batch {lib_err:.3g}), "
-          f"{c_ms * 1e3:.2f} us (plain {c_plain * 1e3:.2f} us, conv2d of the "
-          f"masked batch {c_lib * 1e3:.2f} us, {c_lib / c_ms:.2f}x the "
-          f"kernel's time; bound {bound * 1e3:.2f} us by {by}: "
-          f"{nbytes / 1e6:.2f} MB; operations bound {ops_bound * 1e3:.2f} us, "
-          f"{flops / 1e9:.3f} GFLOP at {peak / 1e12:.0f} TFLOP/s)",
-          flush=True)
+           if case.bf16 else f"atol {TOL_C}")
+    print(f"kernel C {name} [B={b},N={case.n},{h}x{w}x{cout}, k={case.k} "
+          f"s={case.s}, OH/OW {case.oh}/{case.ow}, {str(case.dtype)[6:]}]: "
+          f"max_abs_err {c_err:.3g} ({tol}{sums_note}; vs conv of the masked "
+          f"batch {lib_err:.3g}), {c_ms * 1e3:.2f} us (plain "
+          f"{c_plain * 1e3:.2f} us, conv2d of the masked batch "
+          f"{c_lib * 1e3:.2f} us, {c_lib / c_ms:.2f}x the kernel's time; "
+          f"bound {bound * 1e3:.2f} us by {by}: {nbytes / 1e6:.2f} MB; "
+          f"operations bound {ops_ms * 1e3:.2f} us, {flops / 1e9:.3f} GFLOP "
+          f"at {peak / 1e12:.0f} TFLOP/s)", flush=True)
+    del case, args, got
+    torch.cuda.empty_cache()
     return dict(name=name, route="cuda",
                 source="dorpatch_tpu_torch/csrc/stem_fold.cu",
                 replaces="dorpatch_tpu/ops/stem_fold.py:214",

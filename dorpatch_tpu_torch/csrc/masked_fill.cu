@@ -14,10 +14,10 @@
 // a row of W*C floats is a multiple of 4 and the buffers are 16-byte
 // aligned, so no lane straddles two rows; else V = 1 (the scalar route).
 // Kernel A also takes bf16 images (the bf16 certify bank fills bf16
-// images): the same design templated on the element, a 16-byte lane then
-// holds V = 8 values. The fill is an exact select, so the bf16 form moves
-// the values as raw 16-bit patterns and does no arithmetic on them; the
-// fill value is rounded to bf16 once, on the host (__float2bfloat16).
+// images): `fill_fwd16` below, a 16-byte lane then holds V = 8 values.
+// The fill is an exact select, so the bf16 form moves the values as raw
+// 16-bit patterns and does no arithmetic on them; the fill value is
+// rounded to bf16 once, on the host (__float2bfloat16).
 // A thread works out its lane's row and the pixel column of each of its V
 // floats once, with one division by W*C and V by C, and reuses them for
 // every mask. Mask s occludes (row, col) when some rectangle k has
@@ -299,6 +299,113 @@ int fill_fwd_entry(const E* imgs, const int* rects, E* out, int B, int S,
   return (int)e;
 }
 
+// ---------------------------------------------------------------- A, bf16
+//
+// fill_fwd16: kernel A on bf16 images (the bf16 certify bank's fill, S 36
+// and 63 masks a chunk). A block pays fixed costs (the image tile's load,
+// the rectangles' staging and a barrier) over the masks it walks, and the
+// bank's chunks have few masks, so the per-mask work has to be small:
+//   - a rectangle's occluded values on a row are one interval of the row's
+//     elements, [c0 * C, c1 * C): staged so once a block, it cuts an
+//     8-bit mask from a lane's 8 values with two subtractions and two
+//     clamps, and a lane no rectangle touches is stored as loaded;
+//   - a thread holds `lanes` (1-8) lanes and a block walks `group` (up to
+//     64: a whole chunk) masks, so the plan sets the per-block cost against
+//     the blocks the card needs (`ops/masked_fill.py` `fwd_plan16`).
+// The fill is an exact select of 16-bit patterns.
+
+constexpr int kMaxGroup16 = 64;
+constexpr int kMaxLanes16 = 8;
+
+// The V-bit mask of lane values [e0, e0 + V) that fall in [lo, hi).
+template <int V>
+__device__ __forceinline__ uint32_t cut(int lo, int hi, int e0) {
+  lo = min(max(lo - e0, 0), V);
+  hi = min(max(hi - e0, 0), V);
+  return ((1u << hi) - 1u) & ~((1u << lo) - 1u);
+}
+
+// Replace the values of a lane whose bit is set by the fill (both halves
+// of `fill2` hold its bits).
+__device__ __forceinline__ void patch(uint4& v, uint32_t bits, uint32_t fill2) {
+  uint32_t* wv = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t lo = 0u - ((bits >> (2 * i)) & 1u);
+    const uint32_t hi = 0u - ((bits >> (2 * i + 1)) & 1u);
+    const uint32_t m = __byte_perm(lo, hi, 0x7610);
+    wv[i] = (wv[i] & ~m) | (fill2 & m);
+  }
+}
+__device__ __forceinline__ void patch(unsigned short& v, uint32_t bits,
+                                      uint32_t fill2) {
+  if (bits) v = (unsigned short)fill2;
+}
+
+// grid (tiles of lanes * kThreads lanes, mask groups, images)
+template <int V, bool kStream>
+__global__ void __launch_bounds__(kThreads)
+fill_fwd16(const uint16_t* __restrict__ imgs, const int* __restrict__ rects,
+           uint16_t* __restrict__ out, int S, int K, int H, int W, int C,
+           uint32_t fill2, int group, int lanes) {
+  using Vec = typename Lane<uint16_t, V>::T;
+  __shared__ int r[kMaxGroup16 * kMaxRects * 4];   // r0, r1, c0 * C, c1 * C
+  const int wc = W * C;
+  const int nl = H * wc / V;
+  const int b = blockIdx.z;
+  const int s0 = blockIdx.y * group;
+  const int gs = min(group, S - s0);
+  const int base = blockIdx.x * kThreads * lanes + threadIdx.x;
+  for (int i = threadIdx.x; i < gs * K * 4; i += kThreads) {
+    const int v = rects[(size_t)s0 * K * 4 + i];
+    r[i] = (i & 2) ? v * C : v;
+  }
+
+  const Vec* src = reinterpret_cast<const Vec*>(imgs) + (size_t)b * nl;
+  Vec v[kMaxLanes16];
+  int row[kMaxLanes16], e0[kMaxLanes16];
+#pragma unroll
+  for (int l = 0; l < kMaxLanes16; ++l) {
+    const int lane = base + l * kThreads;
+    row[l] = -1;                                     // no lane
+    e0[l] = 0;
+    if (l < lanes && lane < nl) {
+      v[l] = __ldg(src + lane);
+      row[l] = lane * V / wc;
+      e0[l] = lane * V - row[l] * wc;
+    }
+  }
+  __syncthreads();
+
+  Vec* dst = reinterpret_cast<Vec*>(out) + ((size_t)b * S + s0) * nl + base;
+  for (int m = 0; m < gs; ++m, dst += nl) {
+    const int* q = r + m * K * 4;
+#pragma unroll
+    for (int l = 0; l < kMaxLanes16; ++l) {
+      if (row[l] < 0) continue;
+      uint32_t bits = 0;
+      for (int k = 0; k < K; ++k) {
+        const int* p = q + 4 * k;
+        if (row[l] >= p[0] && row[l] < p[1]) bits |= cut<V>(p[2], p[3], e0[l]);
+      }
+      Vec o = v[l];
+      if (bits) patch(o, bits, fill2);
+      put<kStream>(dst + l * kThreads, o);
+    }
+  }
+}
+
+template <int V, bool kStream>
+cudaError_t launch_fwd16(const uint16_t* imgs, const int* rects,
+                         uint16_t* out, int S, int K, int H, int W, int C,
+                         uint32_t fill2, int group, int lanes, dim3 grid,
+                         cudaStream_t st) {
+  fill_fwd16<V, kStream><<<grid, kThreads, 0, st>>>(imgs, rects, out, S, K,
+                                                    H, W, C, fill2, group,
+                                                    lanes);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -320,19 +427,44 @@ int dp_masked_fill_fwd(const float* imgs, const int* rects, float* out, int B,
 
 // Kernel A on bf16 images: imgs [B,H,W,C] and out [B,S,H,W,C] bf16, the
 // rest as for dp_masked_fill_fwd; vec8 != 0 selects 16-byte lanes of 8
-// values (W*C % 8 == 0, 16-byte aligned); `fill` is rounded to bf16.
+// values (W*C % 8 == 0, 16-byte aligned); `fill` is rounded to bf16; group
+// (1..64) masks and lanes (1..8) lanes a thread, the grid (tiles, groups,
+// B) with tiles of 256 * lanes lanes: `ops/masked_fill.fwd_plan`, `fwd_grid`.
 int dp_masked_fill_fwd_bf16(const void* imgs, const int* rects, void* out,
                             int B, int S, int K, int H, int W, int C,
                             float fill, int vec8, int group,
-                            int stream_stores, int tiles, int groups,
-                            void* stream) {
+                            int stream_stores, int lanes, int tiles,
+                            int groups, void* stream) {
+  if (K < 1 || K > kMaxRects || group < 1 || group > kMaxGroup16 ||
+      lanes < 1 || lanes > kMaxLanes16 || (vec8 && (W * C) % 8 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || S == 0 || H * W * C == 0) return (int)cudaSuccess;
+  const long long nl = (long long)H * W * C / (vec8 ? 8 : 1);
+  if (!covers(tiles, (long long)kThreads * lanes, nl) ||
+      !covers(groups, group, S) || groups > 65535 || B > 65535)
+    return (int)cudaErrorInvalidConfiguration;
   const __nv_bfloat16 fb = __float2bfloat16(fill);
   uint16_t bits;
   memcpy(&bits, &fb, sizeof bits);
-  return fill_fwd_entry<uint16_t, 8>(
-      static_cast<const uint16_t*>(imgs), rects, static_cast<uint16_t*>(out),
-      B, S, K, H, W, C, bits, vec8, group, stream_stores, tiles, groups,
-      stream);
+  const uint32_t fill2 = (uint32_t)bits * 0x10001u;
+  const dim3 grid((unsigned)tiles, (unsigned)groups, (unsigned)B);
+  const uint16_t* x = static_cast<const uint16_t*>(imgs);
+  uint16_t* y = static_cast<uint16_t*>(out);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (vec8)
+    e = stream_stores
+        ? launch_fwd16<8, true>(x, rects, y, S, K, H, W, C, fill2, group,
+                                lanes, grid, st)
+        : launch_fwd16<8, false>(x, rects, y, S, K, H, W, C, fill2, group,
+                                 lanes, grid, st);
+  else
+    e = stream_stores
+        ? launch_fwd16<1, true>(x, rects, y, S, K, H, W, C, fill2, group,
+                                lanes, grid, st)
+        : launch_fwd16<1, false>(x, rects, y, S, K, H, W, C, fill2, group,
+                                 lanes, grid, st);
+  return (int)e;
 }
 
 // Kernel B. g [B,S,H,W,C] f32, rects [S,K,4] int32, dx [B,H,W,C] f32.

@@ -4,6 +4,7 @@ paths' shapes.
     python -m dorpatch_tpu_torch.fill_bench               # this checkout
     python dorpatch_tpu_torch/fill_bench.py --tree DIR    # DIR's kernels
     python -m dorpatch_tpu_torch.fill_bench --sweep       # other plans too
+    python -m dorpatch_tpu_torch.fill_bench --dtype bfloat16   # A's bf16 form
 
 At the CIFAR shape (8 images, 32x32x3) and the 224 shape (2 images,
 224x224x3), each with the attack step's S = 128 masks, the failure sweep's
@@ -20,11 +21,21 @@ all of g and the share of 16-byte loads the kernel makes
 (`kept_load_share`: lanes with a kept float). It prints one
 JSON line per shape and a summary last.
 
+`--dtype bfloat16` times kernel A's bf16 form instead, at the bf16
+certify bank's shapes (`SHAPES16`: the CIFAR path's 8 images at 32 px, the
+224 path's 2 and the 480 path's 1, each at the bank's phase-1 chunk of
+S = 36 masks and pair-audit chunk of 63, K = 2), exact against its plain
+version, beside the plain version, one bf16 `torch.where` on the
+keep-mask, the bytes bound (2 bytes an element) and a one-element `zero_`
+(the floor a launch pays in the same graph).
+
 `--tree DIR` imports `dorpatch_tpu_torch` from another checkout (the
 parent of a change, unpacked with `git archive`), so that one chip call
 times both designs in turn. `--sweep` also times, at each shape, every
 plan of A (1-32 masks a block; plain or evict-first stores) and of B (4,
-8, 16 or 32 lanes a block). Needs a CUDA device.
+8, 16 or 32 lanes a block); with `--dtype bfloat16`, every plan of A's
+bf16 form (1-8 lanes a thread, 1 to S masks a block, both store
+policies; each exact), where the checkout has them. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -39,6 +50,11 @@ import sys
 SHAPES = [("cifar_step", 8, 32, 128), ("cifar_sweep", 8, 32, 126),
           ("cifar_pairs", 8, 32, 63), ("224_step", 2, 224, 128),
           ("224_sweep", 2, 224, 126), ("224_pairs", 2, 224, 63)]
+#: (label, images, size, masks): the bf16 bank's phase-1 and pair-audit
+#: chunks at the CIFAR, 224 and 480 paths' shapes
+SHAPES16 = [(f"{name}_bank{s}", b, size, s)
+            for name, b, size in (("cifar", 8, 32), ("224", 2, 224),
+                                  ("480", 1, 480)) for s in (36, 63)]
 PEAK_BYTES_PER_S = 3.35e12
 INNER, REPS = 20, 15
 
@@ -119,11 +135,93 @@ def _sweep(mf, device_ms, imgs, rects, g, fill):
     return out
 
 
+def torch_equal(a, b) -> bool:
+    """Whether two card tensors are equal, after a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    return bool(torch.equal(a, b))
+
+
+def _sweep16(mf, device_ms, imgs, rects, fill, want):
+    """Every plan of A's bf16 form at one shape, each held exact: 1, 2, 4
+    or 8 lanes a thread, 1, 2, 4, 8, 16, 32 or all S masks a block (up to
+    MAX_GROUP16), both store policies. Returns the records and the count
+    of plans that differ from the plain version."""
+    s = rects.shape[0]
+    out, bad = [], 0
+    for lanes in (1, 2, 4, 8):
+        for group in sorted({g for g in (1, 2, 4, 8, 16, 32, s)
+                             if g <= min(s, mf.MAX_GROUP16)}):
+            for stream in (False, True):
+                plan = mf.FwdPlan(8, group, stream, lanes)
+                exact = torch_equal(mf._fwd_launch(imgs, rects, fill, plan),
+                                    want)
+                bad += not exact
+                out.append(dict(lanes=lanes, group=group, stream=stream,
+                                exact=exact, ms=device_ms(
+                                    lambda: mf._fwd_launch(imgs, rects, fill,
+                                                           plan))))
+    return out, bad
+
+
+def main16(args, root, torch, mf, device_ms) -> int:
+    """`--dtype bfloat16`: kernel A's bf16 form at SHAPES16."""
+    from dorpatch_tpu_torch import masks as masks_lib
+
+    dev = torch.device("cuda")
+    fill = 0.5
+    one = torch.zeros(1, device=dev)
+    plans = "lanes" in mf.FwdPlan._fields
+    bad = 0
+    summary = []
+    for label, b, size, s in SHAPES16:
+        imgs, rects, _ = fill_inputs(torch, dev, b, size, s)
+        imgs = imgs.bfloat16()
+        k = rects.shape[1]
+        hwc = size * size * 3
+        keep = masks_lib.rasterize(rects, size)[None, :, :, :, None]
+        want = mf.masked_fill_reference(imgs, rects, fill)
+        exact = torch_equal(mf.masked_fill_fwd_kernel(imgs, rects, fill),
+                            want)
+        bad += not exact
+        rec = dict(
+            shape=label, dtype="bfloat16", b=b, size=size, s=s, k=k,
+            exact=exact,
+            a_ms=device_ms(lambda: mf.masked_fill_fwd_kernel(imgs, rects,
+                                                             fill),
+                           INNER, REPS),
+            a_plain_ms=device_ms(lambda: mf.masked_fill_reference(
+                imgs, rects, fill), INNER, REPS),
+            a_library_ms=device_ms(lambda: torch.where(keep, imgs[:, None],
+                                                       fill), INNER, REPS),
+            a_bound_ms=bytes_bound_ms(2 * b * hwc + 16 * s * k
+                                      + 2 * b * s * hwc),
+            launch_floor_ms=device_ms(one.zero_, INNER, REPS))
+        rec["plan"] = mf.fwd_plan(b, s, size, size, 3, True, 2)._asdict()
+        if args.sweep and plans:
+            rec["sweep"], n_bad = _sweep16(
+                mf, lambda fn: device_ms(fn, INNER, REPS), imgs, rects, fill,
+                want)
+            bad += n_bad
+        summary.append({key: rec[key] for key in
+                        ("shape", "a_ms", "a_bound_ms", "exact")})
+        print(json.dumps(rec), flush=True)
+        del imgs, keep, want
+        torch.cuda.empty_cache()
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "tree": root, "dtype": "bfloat16",
+                      "shapes": summary}), flush=True)
+    return 1 if bad else 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--tree", default=None,
                    help="checkout whose dorpatch_tpu_torch to time")
     p.add_argument("--sweep", action="store_true")
+    p.add_argument("--dtype", default="float32",
+                   choices=("float32", "bfloat16"))
     args = p.parse_args(argv)
     if args.tree and "dorpatch_tpu_torch" in sys.modules:
         p.error("--tree needs the script path (python "
@@ -142,6 +240,8 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda")
     print(f"tree {root}; device {torch.cuda.get_device_name(0)}", flush=True)
+    if args.dtype == "bfloat16":
+        return main16(args, root, torch, mf, device_ms)
     fill = 0.5
     plans = hasattr(mf, "_fwd_launch")
     summary = []

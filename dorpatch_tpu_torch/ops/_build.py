@@ -40,11 +40,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     "dp_masked_fill_fwd": ([_P] * 3 + [_I] * 6 + [_F] + [_I] * 5 + [_P], _I),
     "dp_masked_fill_bwd": ([_P] * 3 + [_I] * 9 + [_P], _I),
-    "dp_masked_fill_fwd_bf16": ([_P] * 3 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    "dp_masked_fill_fwd_bf16": ([_P] * 3 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
                                 _I),
     "dp_stem_fold_smem": ([_I] * 5, ctypes.c_longlong),
     "dp_stem_fold": ([_P, _P, _P, _P, _P, _P] + [_I] * 14 + [_P], _I),
-    "dp_stem_fold_bf16": ([_P] * 6 + [_I] * 14 + [_P], _I),
+    "dp_stem_fold_bf16_smem": ([_I] * 6, ctypes.c_longlong),
+    "dp_stem_fold_bf16": ([_P] * 6 + [_I] * 18 + [_P], _I),
     "dp_gn_tiles": ([_I], _I),
     "dp_gn_onepass_smem": ([_I] * 4, ctypes.c_longlong),
     "dp_gn_relu_fwd": ([_P] * 8 + [_I] * 4 + [_F] + [_I] * 3 + [_P], _I),

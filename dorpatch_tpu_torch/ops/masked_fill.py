@@ -18,8 +18,9 @@ version, which a CPU tensor takes. Rectangles and the fill value carry no
 gradient.
 
 `fwd_plan` and `bwd_plan` choose each launch's geometry from the shape:
-16-byte lanes or the scalar route, masks per block (A), lanes per block
-(B), and A's store policy from the output's size against the L2.
+16-byte lanes or the scalar route, masks per block (A; at bf16 also the
+lanes a thread holds), lanes per block (B), and A's store policy from the
+output's size against the L2.
 `fwd_grid` and `bwd_grid` turn a plan into the grid, which the C entries
 launch as given (they refuse a grid that does not cover the work once).
 """
@@ -49,16 +50,27 @@ MIN_BLOCKS = 128
 FWD_GROUPS = 16
 MAX_GROUP = 32                     # kMaxGroup
 BWD_COLS = (32, 16, 8, 4)
+#: kernel A's bf16 form (`fill_fwd16`): the most masks a block walks
+#: (`kMaxGroup16`) and lanes a thread holds (`kMaxLanes16`), and its
+#: default plan: 4 lanes a thread and 2 masks a block, 8 stores a thread
+#: (the sweep's optimum lies along lanes x masks = 8 at every bank shape;
+#: `fill_bench.py --dtype bfloat16 --sweep`, `PERF.md` §6 PR 10)
+MAX_GROUP16 = 64
+MAX_LANES16 = 8
+BF16_LANES = 4
+BF16_GROUP = 2
 
 
 class FwdPlan(NamedTuple):
     """Kernel A's launch: `vec` elements a lane (16-byte lanes: 4 floats or
     8 bf16 values; 1: the scalar route), `group` masks a block walks,
-    `stream` evict-first stores."""
+    `stream` evict-first stores, `lanes` lanes a thread holds (LANES for
+    float32; 1-8 for the bf16 form)."""
 
     vec: int
     group: int
     stream: bool
+    lanes: int = LANES
 
 
 class BwdPlan(NamedTuple):
@@ -81,7 +93,7 @@ def fwd_grid(plan: FwdPlan, b: int, s: int, h: int, w: int,
              c: int) -> Tuple[int, int, int]:
     """Kernel A's grid: (tiles of an image, mask groups, images)."""
     nl = h * w * c // plan.vec
-    return math.ceil(nl / (THREADS * LANES)), math.ceil(s / plan.group), b
+    return math.ceil(nl / (THREADS * plan.lanes)), math.ceil(s / plan.group), b
 
 
 def bwd_grid(plan: BwdPlan, b: int, h: int, w: int,
@@ -94,12 +106,23 @@ def fwd_plan(b: int, s: int, h: int, w: int, c: int,
              aligned: bool = True, itemsize: int = 4) -> FwdPlan:
     """FWD_GROUPS mask groups, more where the tiles leave fewer than
     MIN_BLOCKS blocks; evict-first stores when the output outgrows L2.
-    `itemsize` is the images' element size (4 float32, 2 bf16)."""
+    `itemsize` is the images' element size (4 float32, 2 bf16; the bf16
+    form's plan is `fwd_plan16`)."""
+    if itemsize == 2:
+        return fwd_plan16(b, s, h, w, c, aligned)
     vec = lane_width(w, c, aligned, itemsize)
     tiles = math.prod(fwd_grid(FwdPlan(vec, s, False), b, s, h, w, c))
     groups = max(FWD_GROUPS, math.ceil(MIN_BLOCKS / tiles))
     group = max(1, min(MAX_GROUP, math.ceil(s / groups)))
     return FwdPlan(vec, group, itemsize * b * s * h * w * c > L2_BYTES)
+
+
+def fwd_plan16(b: int, s: int, h: int, w: int, c: int,
+               aligned: bool = True) -> FwdPlan:
+    """The bf16 form's plan: BF16_LANES lanes a thread, BF16_GROUP masks a
+    block; evict-first stores when the output outgrows L2."""
+    return FwdPlan(lane_width(w, c, aligned, 2), min(s, BF16_GROUP),
+                   2 * b * s * h * w * c > L2_BYTES, BF16_LANES)
 
 
 def bwd_plan(b: int, s: int, h: int, w: int, c: int,
@@ -171,15 +194,24 @@ def _fwd_launch(imgs: torch.Tensor, rects: torch.Tensor, fill: float,
     if plan is None:
         plan = fwd_plan(b, s, h, w, c, aligned, itemsize)
     _check_vec(plan.vec, w, c, aligned, itemsize)
+    if not bf16 and plan.lanes != LANES:
+        raise ValueError(f"kernel A's float32 form holds {LANES} lanes a "
+                         f"thread, not {plan.lanes}")
     tiles, groups, _ = fwd_grid(plan, b, s, h, w, c)
     lib = _build.library()
-    name = "masked_fill_fwd_bf16" if bf16 else "masked_fill_fwd"
-    entry = lib.dp_masked_fill_fwd_bf16 if bf16 else lib.dp_masked_fill_fwd
-    _backend.count_launch(name)
-    _build.check(entry(
+    stream = _backend.stream_handle(imgs)
+    if bf16:
+        _backend.count_launch("masked_fill_fwd_bf16")
+        _build.check(lib.dp_masked_fill_fwd_bf16(
+            imgs.data_ptr(), rects.data_ptr(), out.data_ptr(), b, s, k, h, w,
+            c, float(fill), int(plan.vec > 1), plan.group, int(plan.stream),
+            plan.lanes, tiles, groups, stream), "masked_fill_fwd_bf16")
+        return out
+    _backend.count_launch("masked_fill_fwd")
+    _build.check(lib.dp_masked_fill_fwd(
         imgs.data_ptr(), rects.data_ptr(), out.data_ptr(), b, s, k, h, w, c,
         float(fill), int(plan.vec > 1), plan.group, int(plan.stream), tiles,
-        groups, _backend.stream_handle(imgs)), name)
+        groups, stream), "masked_fill_fwd")
     return out
 
 

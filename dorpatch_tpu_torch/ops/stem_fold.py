@@ -18,7 +18,9 @@ never exists.
 - `fold_masked_stem_kernel` launches kernel C (`csrc/stem_fold.cu`) over the
   family-uniform window plan (`_uniform_plan`): outputs in an enlarged
   window but outside a mask's true region see only occ = 0 input, so their
-  delta is exactly zero.
+  delta is exactly zero. Its bf16 form runs the delta on the bf16 tensor
+  cores with the taps zero-padded to the MMA depth (`mma_taps`), in delta
+  blocks beside copy blocks whose shape `bf16_plan` chooses.
 
 The window plans are host numpy, as in `dorpatch_tpu.ops.stem_fold`.
 
@@ -40,6 +42,83 @@ import torch.nn.functional as F
 
 from dorpatch_tpu_torch import utils
 from dorpatch_tpu_torch.ops import _backend, _build
+
+
+#: kernel C's bf16 form (`stem_fold_tc`): the depth of one
+#: mma.m16n8k16, the window pixels of one m-tile of each of a delta block's
+#: 8 warps, the most m-tiles a warp takes, the channels of one accumulator
+#: pass, and the most 16-byte chunks a thread of a copy block holds
+MMA_K = 16
+TILE_PIX = 128
+MAX_MTILES = 2
+WARPS = 8
+SLICE = 64
+MAX_COPY_LANES = 4
+MAX_CIN = 4
+THREADS = 256
+#: its default plan: 16-byte chunks a copy thread, masks a copy block, and
+#: two m-tiles a warp for windows of at least MTILES2_PIX pixels
+#: (`stem_bench.py --sweep`, `PERF.md` §6 PR 10)
+BF16_LANES = 2
+BF16_GROUP = 4
+MTILES2_PIX = 1024
+#: the card's L2 (H100: 50 MB): a larger output is stored evict-first
+L2_BYTES = 50 * 2**20
+
+
+class Bf16FoldPlan(NamedTuple):
+    """Kernel C's bf16 launch: `lanes` 16-byte chunks of clean a thread of
+    a copy block holds, `group` masks a copy block writes them to,
+    `mtiles` 16-pixel m-tiles each warp of a delta block computes (a block
+    of `mtiles * TILE_PIX` window pixels), `stream` evict-first stores."""
+
+    lanes: int
+    group: int
+    mtiles: int
+    stream: bool
+
+
+def mma_taps(k: int, cin: int) -> int:
+    """The taps `k * k * cin` zero-padded to a multiple of the MMA depth
+    (27 -> 32 at the CIFAR stem, 147 -> 160 at RN50's)."""
+    return -(-k * k * cin // MMA_K) * MMA_K
+
+
+def bf16_smem(cin: int, ow: int, c: int, k: int, s: int,
+              mtiles: int) -> int:
+    """Shared memory of one block of the bf16 form
+    (`dp_stem_fold_bf16_smem`): the stem kernel `[kpad, c + 8]` bf16, the
+    tap offsets `[kpad]` int32, the window rows a delta block stages (its
+    `pix = mtiles * TILE_PIX` pixels span at most `(ow + pix - 2) // ow + 1`
+    output rows) and the warps' staged deltas `[8, 16, 72]` bf16."""
+    kpad = mma_taps(k, cin)
+    iw = ow * s + k - 1
+    rows = (ow + mtiles * TILE_PIX - 2) // ow * s + k
+    return (2 * kpad * (c + 8) + 4 * kpad + -(-2 * rows * iw * cin // 16) * 16
+            + 2 * WARPS * 16 * (SLICE + 8))
+
+
+def bf16_items(plan: Bf16FoldPlan, b: int, n: int, h: int, w: int, c: int,
+               oh: int, ow: int) -> Tuple[int, int]:
+    """(delta blocks, copy blocks) of one bf16 launch: a delta block is
+    `mtiles * TILE_PIX` pixels of one mask's window on one image, a copy
+    block a tile of `lanes * THREADS` 16-byte chunks of one image's clean
+    map for a group of masks."""
+    tiles = -(-(h * w * c // 8) // (THREADS * plan.lanes))
+    pix = plan.mtiles * TILE_PIX
+    return b * n * -(-oh * ow // pix), b * -(-n // plan.group) * tiles
+
+
+def bf16_plan(b: int, n: int, h: int, w: int, c: int, oh: int,
+              ow: int) -> Bf16FoldPlan:
+    """The bf16 form's launch for `[B, N, h, w, c]` outputs and `[oh, ow]`
+    windows: BF16_LANES chunks a copy thread, BF16_GROUP masks a copy
+    block, two m-tiles a warp for windows of MTILES2_PIX pixels or more
+    (one below, so that a small window still splits over several delta
+    blocks); evict-first stores when the output outgrows the L2."""
+    return Bf16FoldPlan(BF16_LANES, min(BF16_GROUP, n),
+                        2 if oh * ow >= MTILES2_PIX else 1,
+                        2 * b * n * h * w * c > L2_BYTES)
 
 
 class _Window(NamedTuple):
@@ -124,10 +203,15 @@ def _uniform_plan(plan: Sequence[_Window], h_out: int, w_out: int,
     return oh, ow, geo, occ
 
 
-def _delta_conv(win: torch.Tensor, kernel: torch.Tensor, s: int) -> torch.Tensor:
+def _delta_conv(win: torch.Tensor, kernel: torch.Tensor, s: int,
+                kpad: int = 0) -> torch.Tensor:
     """VALID conv `[B, IH, IW, Cin] x [k, k, Cin, Cout] -> [B, OH, OW, Cout]`
     (stride s) as the k*k chain of strided-slice matmuls, summed in the
-    order dr, dc, then Cin inside each product."""
+    order dr, dc, then Cin inside each product. With `kpad` (at least
+    k*k*Cin), the same sum over the taps flattened in the order (dr, dc,
+    Cin) and zero-padded to `kpad`, as kernel C's bf16 form lays out its
+    operands (`mma_taps`): the window's im2col columns and the kernel's
+    rows, Cin taps a product, the padded taps last."""
     k = int(kernel.shape[0])
     b, ih, iw, cin = win.shape
     oh, ow = (ih - k) // s + 1, (iw - k) // s + 1
@@ -135,12 +219,20 @@ def _delta_conv(win: torch.Tensor, kernel: torch.Tensor, s: int) -> torch.Tensor
                       device=win.device)
     # bf16 operands widen exactly: their products and sums are float32
     win, kernel = win.float(), kernel.float()
-    for dr in range(k):
-        rows = win[:, dr:dr + (oh - 1) * s + 1:s]
-        for dc in range(k):
-            cols = rows[:, :, dc:dc + (ow - 1) * s + 1:s]
-            acc = acc + torch.matmul(cols.reshape(b, oh * ow, cin),
-                                     kernel[dr, dc])
+    slices = [win[:, dr:dr + (oh - 1) * s + 1:s, dc:dc + (ow - 1) * s + 1:s]
+              for dr in range(k) for dc in range(k)]
+    if kpad:
+        taps = k * k * cin
+        cols = F.pad(torch.cat(slices, dim=-1).reshape(b, oh * ow, taps),
+                     (0, kpad - taps))
+        kmat = F.pad(kernel.reshape(taps, -1), (0, 0, 0, kpad - taps))
+        for g0 in range(0, kpad, cin):
+            acc = acc + torch.matmul(cols[:, :, g0:g0 + cin].contiguous(),
+                                     kmat[g0:g0 + cin])
+        return acc.reshape(b, oh, ow, -1)
+    for i, cols in enumerate(slices):
+        acc = acc + torch.matmul(cols.reshape(b, oh * ow, cin),
+                                 kernel[i // k, i % k])
     return acc.reshape(b, oh, ow, -1)
 
 
@@ -151,30 +243,34 @@ def _pad_nhwc(u: torch.Tensor, pads) -> torch.Tensor:
 
 def fold_masked_stem(kernel: torch.Tensor, clean: torch.Tensor,
                      u: torch.Tensor, plan: Sequence[_Window],
-                     strides: Tuple[int, int], pads) -> torch.Tensor:
+                     strides: Tuple[int, int], pads,
+                     kpad: int = 0) -> torch.Tensor:
     """The plain version. `[B, h, w, c]` clean stem cache, `[B, H, W, C]`
     fill delta `u = norm_scale * (fill - img)` and HWIO stem `kernel` ->
     `[B, N, h, w, c]` masked stem activations, in clean's type; the delta
-    accumulates in float32 and is rounded to that type before the add."""
+    accumulates in float32 and is rounded to that type before the add.
+    `kpad`: the taps zero-padded to it (`_delta_conv`)."""
     up = _pad_nhwc(u, pads)
     out = clean[:, None].repeat(1, len(plan), 1, 1, 1)
     for n, w in enumerate(plan):
         occ = torch.as_tensor(w.occ, dtype=up.dtype, device=up.device)
         win = up[:, w.i0:w.i1, w.ic0:w.ic1, :] * occ
-        d = _delta_conv(win, kernel, int(strides[0]))
+        d = _delta_conv(win, kernel, int(strides[0]), kpad)
         out[:, n, w.o0:w.o1, w.oc0:w.oc1, :] += d.to(out.dtype)
     return out
 
 
 def fold_masked_stem_kernel(kernel: torch.Tensor, clean: torch.Tensor,
                             up: torch.Tensor, geo: torch.Tensor,
-                            occ: torch.Tensor, oh: int, ow: int,
-                            s: int) -> torch.Tensor:
+                            occ: torch.Tensor, oh: int, ow: int, s: int,
+                            plan: Optional[Bf16FoldPlan] = None
+                            ) -> torch.Tensor:
     """Kernel C on CUDA tensors. `up` is the fill delta padded by the stem's
     pads plus `s - 1` rows/cols (`pad_for_kernel`); `geo`/`occ` come from
     `_uniform_plan`. kernel, clean, up and occ all float32, or all bf16 (the
-    bf16 form: float32 accumulation). Returns `[B, N, h, w, c]` of clean's
-    type."""
+    bf16 form: the delta on the bf16 tensor cores, float32 accumulation,
+    launched with `plan`, by default `bf16_plan`). Returns `[B, N, h, w, c]`
+    of clean's type."""
     bf16 = clean.dtype == torch.bfloat16
     dt = torch.bfloat16 if bf16 else torch.float32
     for t, name, tt, nd in ((kernel, "kernel", dt, 4), (clean, "clean", dt, 4),
@@ -192,24 +288,46 @@ def fold_masked_stem_kernel(kernel: torch.Tensor, clean: torch.Tensor,
             f"stem fold shapes do not agree: kernel {tuple(kernel.shape)}, "
             f"clean {tuple(clean.shape)}, up {tuple(up.shape)}, "
             f"geo {tuple(geo.shape)}, occ {tuple(occ.shape)}, OH/OW {oh}/{ow}")
+    if plan is not None and not bf16:
+        raise ValueError("a launch plan is for kernel C's bf16 form only")
+    if bf16 and cin > MAX_CIN:
+        raise ValueError(f"kernel C's bf16 form stages at most {MAX_CIN} "
+                         f"input channels, not {cin}")
     out = torch.empty((b, n, h, w, c), dtype=clean.dtype, device=clean.device)
     if any(t.data_ptr() % 16 for t in (kernel, clean, out)):
         raise ValueError("stem fold reads kernel and clean and writes its "
                          "output 16 bytes at a time: they must be 16-byte "
                          "aligned")
     lib = _build.library()
-    smem = lib.dp_stem_fold_smem(cin, ow, c, k, s)
+    if bf16:
+        plan = plan or bf16_plan(b, n, h, w, c, oh, ow)
+        if not (1 <= plan.lanes <= MAX_COPY_LANES and plan.group >= 1
+                and 1 <= plan.mtiles <= MAX_MTILES):
+            raise ValueError(f"kernel C's bf16 form takes 1-{MAX_COPY_LANES} "
+                             f"lanes, a group of at least 1 and 1-"
+                             f"{MAX_MTILES} m-tiles: {plan}")
+        smem = lib.dp_stem_fold_bf16_smem(cin, ow, c, k, s, plan.mtiles)
+    else:
+        smem = lib.dp_stem_fold_smem(cin, ow, c, k, s)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(f"kernel C stages a {k}x{k}x{cin}x{c} stem kernel and "
                          f"the window rows of {ow} outputs in {smem} bytes of "
                          f"shared memory, more than a block's "
                          f"{_build.MAX_SMEM_BYTES}")
-    name = "stem_fold_bf16" if bf16 else "stem_fold"
-    _backend.count_launch(name)
-    _build.check((lib.dp_stem_fold_bf16 if bf16 else lib.dp_stem_fold)(
+    stream = _backend.stream_handle(clean)
+    if bf16:
+        _backend.count_launch("stem_fold_bf16")
+        _build.check(lib.dp_stem_fold_bf16(
+            geo.data_ptr(), up.data_ptr(), occ.data_ptr(), clean.data_ptr(),
+            kernel.data_ptr(), out.data_ptr(), b, n, hp, wp, cin, ih, iw, oh,
+            ow, h, w, c, k, s, plan.lanes, plan.group, plan.mtiles,
+            int(plan.stream), stream), "stem_fold_bf16")
+        return out
+    _backend.count_launch("stem_fold")
+    _build.check(lib.dp_stem_fold(
         geo.data_ptr(), up.data_ptr(), occ.data_ptr(), clean.data_ptr(),
         kernel.data_ptr(), out.data_ptr(), b, n, hp, wp, cin, ih, iw, oh, ow,
-        h, w, c, k, s, _backend.stream_handle(clean)), name)
+        h, w, c, k, s, stream), "stem_fold")
     return out
 
 

@@ -11,9 +11,11 @@ instruction (addresses, encodings and symbol names left out). A kernel
 templated since DIR's version matches on its float32 instantiation
 (`fill_fwd<4, false>` against `fill_fwd<float, 4, false>`). Prints SAME or
 DIFF per kernel and exits 1 if any differs or is missing. `--changed`
-names kernels (every instantiation of each name, e.g. `gn_bwd_dx`) that a
-change is expected to alter or remove: they print CHANGED (or SAME) and
-do not fail the run. Kernels only this checkout has print NEW. Needs
+names kernels that a change is expected to alter or remove: a name (every
+instantiation of it, e.g. `gn_bwd_dx`) or a name with its first template
+argument (`stem_fold<__nv_bfloat16>`, `fill_fwd<uint16_t>`: those
+instantiations only); they print CHANGED (or SAME) and do not fail the
+run. Kernels only this checkout has print NEW. Needs
 `nvcc` and `cuobjdump` (the CUDA toolkit); no GPU.
 """
 
@@ -38,8 +40,8 @@ def library(root: str) -> str:
 
 
 def kernels(so: str) -> Dict[str, List[str]]:
-    """Mangled kernel name (the anonymous namespace's hash left out) ->
-    its SASS instructions."""
+    """Mangled kernel name (the anonymous namespace's hash, 8 hex digits,
+    left out) -> its SASS instructions."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", so], check=True,
@@ -49,8 +51,8 @@ def kernels(so: str) -> Dict[str, List[str]]:
     for line in text.splitlines():
         m = re.match(r"\s+Function : (\S+)", line)
         if m:
-            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+", "",
-                          m.group(1))
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}",
+                          "", m.group(1))
             body = out.setdefault(name, [])
             continue
         m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(.*?);", line)
@@ -74,12 +76,25 @@ def counterpart(name: str, ours: Dict[str, List[str]]):
     return next((c for c in ours if c.startswith(head)), None)
 
 
+#: the mangled form of the first template arguments `--changed` takes
+MANGLED_TYPES = {"float": "f", "uint16_t": "t",
+                 "__nv_bfloat16": "13__nv_bfloat16"}
+
+
 def named(mangled: str, names) -> bool:
     """Whether a mangled kernel name is an instantiation of one of
-    `names`: the identifier after a digit (its length, or the end of the
-    namespace hash `kernels` leaves in part) and before its template
-    arguments or parameters."""
-    return any(re.search(rf"[0-9]{n}[IE]", mangled) for n in names)
+    `names`: the identifier after a digit (its length) and before its
+    template arguments or parameters; for `name<type>`, an instantiation
+    whose first template argument is `type`."""
+    for n in names:
+        base, _, arg = n.partition("<")
+        if arg:
+            pattern = rf"[0-9]{base}I{MANGLED_TYPES[arg.rstrip('>')]}"
+        else:
+            pattern = rf"[0-9]{base}[IE]"
+        if re.search(pattern, mangled):
+            return True
+    return False
 
 
 def main(argv=None) -> int:

@@ -594,7 +594,8 @@ def test_fill_forward_bf16_every_plan_equals_plain(dev, vec):
 @pytest.mark.parametrize("img,k,s,cout,ratio,masks",
                          [(32, 3, 1, 64, 0.12, 3), (224, 7, 2, 64, 0.12, 12),
                           (224, 7, 2, 64, 0.06, -13),
-                          (480, 7, 2, 64, 0.12, 12)])
+                          (480, 7, 2, 64, 0.12, 12),
+                          (480, 7, 2, 64, 0.015, -5)])
 def test_stem_fold_kernel_bf16_matches_plain(dev, img, k, s, cout, ratio,
                                              masks):
     """Kernel C's bf16 form against the plain fold on the same bf16
@@ -1031,3 +1032,103 @@ def test_bf16_bank_on_card_equals_cpu(dev):
         np.testing.assert_array_equal(g.preds_2, w.preds_2)
     assert [(r.prediction, r.certification) for r in got] == \
         [(0, True), (0, False), (1, False), (1, False)]
+
+
+# -- kernel C's bf16 form on the tensor cores: its launch plans, channel
+#    passes and shared-memory carve --
+
+
+def _stem16_case(dev, img, k, s, cout, ratio, masks, b=2):
+    rng = np.random.default_rng(img + k + cout)
+    pads = ((1, 1), (1, 1)) if k == 3 else \
+        (sf.same_pads(img, k, s), sf.same_pads(img, k, s))
+    h_out = (img + sum(pads[0]) - k) // s + 1
+
+    def bf(a):
+        return torch.as_tensor(a, dtype=torch.bfloat16, device=dev)
+
+    kern = bf(rng.normal(0, 0.3, (k, k, 3, cout)))
+    clean = bf(rng.normal(0, 1, (b, h_out, h_out, cout)))
+    u = bf(rng.uniform(-1, 1, (b, img, img, 3)))
+    singles, _ = tmasks.mask_sets(tmasks.geometry(img, ratio))
+    plan = sf.plan_windows(singles, img, k, s, pads)
+    plan = plan[:masks] if masks > 0 else plan[masks:]
+    oh, ow, geo, occ = sf._uniform_plan(plan, h_out, h_out, k, s)
+    args = (kern, clean, sf.pad_for_kernel(u, pads, s),
+            torch.as_tensor(geo, device=dev), bf(occ), oh, ow, s)
+    want = sf.fold_masked_stem(kern, clean, u, plan, (s, s), pads)
+    return args, want
+
+
+@pytest.mark.parametrize("img,k,s,cout,ratio,masks",
+                         [(224, 7, 2, 64, 0.12, 12), (32, 3, 1, 72, 0.12, 3),
+                          (64, 7, 2, 128, 0.06, -5), (32, 3, 1, 8, 0.06, 4)])
+def test_stem_fold_kernel_bf16_every_plan_equals_default(dev, img, k, s, cout,
+                                                         ratio, masks):
+    """Kernel C's bf16 form under every launch plan `stem_bench.py
+    --sweep` tries (copy lanes, mask groups, m-tiles, store policies): the same
+    bits as the default plan, which holds the plain
+    version within one ulp of the output and one of the delta; channels
+    in two passes of 64 and 8 (72: an odd n-tile) or 64 and 64 (128), and
+    one n-tile (8)."""
+    args, want = _stem16_case(dev, img, k, s, cout, ratio, masks)
+    got = sf.fold_masked_stem_kernel(*args)
+    torch.cuda.synchronize()
+    delta = want.float() - args[1][:, None].float()
+    err = (got.float() - want.float()).abs()
+    assert (err <= _ulp16(want) + _ulp16(delta)).all(), float(err.max())
+    n = args[4].shape[0]
+    for lanes in (1, 2, 4):
+        for group in sorted({1, 2, 4, n}):
+            for mtiles in (1, 2):
+                for stream in (False, True):
+                    plan = sf.Bf16FoldPlan(lanes, min(group, n), mtiles,
+                                           stream)
+                    other = sf.fold_masked_stem_kernel(*args, plan=plan)
+                    torch.cuda.synchronize()
+                    assert torch.equal(other, got), plan
+    for bad in (sf.Bf16FoldPlan(5, 1, 1, False),
+                sf.Bf16FoldPlan(1, 1, 3, False)):
+        with pytest.raises(ValueError, match="lanes"):
+            sf.fold_masked_stem_kernel(*args, plan=bad)
+
+
+def test_stem_fold_bf16_smem_formula_matches_the_kernel(dev):
+    from dorpatch_tpu_torch.ops import _build
+
+    lib = _build.library()
+    for cin, ow, c, k, s in ((3, 16, 64, 3, 1), (3, 54, 64, 7, 2),
+                             (3, 112, 64, 7, 2), (3, 5, 72, 7, 2),
+                             (3, 240, 128, 7, 2), (4, 1, 8, 3, 1)):
+        for mtiles in (1, 2):
+            assert lib.dp_stem_fold_bf16_smem(cin, ow, c, k, s, mtiles) == \
+                sf.bf16_smem(cin, ow, c, k, s, mtiles)
+
+
+@pytest.mark.parametrize("s", [1, 36, 63, 126])
+@pytest.mark.parametrize("k", [1, 2, 8])
+def test_fill_forward_bf16_every_sweep_plan_equals_plain(dev, s, k):
+    """Kernel A's bf16 form bit-equal to its plain version under every plan
+    `fill_bench.py --dtype bfloat16 --sweep` tries (1, 2, 4 or 8 lanes a
+    thread; 1, 2, 4, 8, 16, 32 or all S masks a block, up to 64; both
+    store policies) and its default plan, at an image of several tiles;
+    the scalar route (a 15 px image) under its own plans."""
+    imgs, rects = _case(dev, 11 + s + k, 2, 48, s, k)
+    imgs = imgs.bfloat16()
+    want = mf.masked_fill_reference(imgs, rects, 0.5)
+    assert torch.equal(mf.masked_fill_fwd_kernel(imgs, rects, 0.5), want)
+    small, rects15 = _case(dev, 12 + s + k, 2, 15, s, k)
+    small = small.bfloat16()
+    want15 = mf.masked_fill_reference(small, rects15, 0.5)
+    for lanes in (1, 2, 4, 8):
+        for group in sorted({g for g in (1, 2, 4, 8, 16, 32, s)
+                             if g <= min(s, mf.MAX_GROUP16)}):
+            for stream in (False, True):
+                plan = mf.FwdPlan(8, group, stream, lanes)
+                got = mf._fwd_launch(imgs, rects, 0.5, plan)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), plan
+                got = mf._fwd_launch(small, rects15, 0.5,
+                                     plan._replace(vec=1))
+                torch.cuda.synchronize()
+                assert torch.equal(got, want15), plan

@@ -135,3 +135,40 @@ def test_plans_take_the_scalar_route_when_unaligned():
     assert tfill.bwd_plan(2, 8, 32, 32, 3, aligned=False).vec == 1
     assert tfill.lane_width(15, 3, True) == 1       # a row of 45 floats
     assert tfill.lane_width(4, 1, True) == 4
+
+
+#: (images, size, masks): the bf16 bank's phase-1 and pair-audit chunks at
+#: the CIFAR, 224 and 480 paths' shapes
+BANK_SHAPES = [(b, size, s) for b, size in ((8, 32), (2, 224), (1, 480))
+               for s in (36, 63)]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("b,size,s", BANK_SHAPES + [(3, 15, 7), (1, 16, 1),
+                                                    (2, 32, 126)])
+def test_bf16_fwd_plan_covers_every_lane_and_mask_once(b, size, s, aligned):
+    """Kernel A's bf16 form: its grid (tiles of 256 x `lanes` lanes x mask
+    groups x images) holds every lane of every [b, s] slab exactly once,
+    within the kernel's limits, on the 16-byte route (8 values a lane) and
+    the scalar route (unaligned buffers, or rows of W*C not a multiple of
+    8); evict-first stores exactly when the output outgrows the L2."""
+    h = w = size
+    plan = tfill.fwd_plan(b, s, h, w, 3, aligned, itemsize=2)
+    gx, gy, gz = tfill.fwd_grid(plan, b, s, h, w, 3)
+    assert plan.vec == (8 if aligned and (w * 3) % 8 == 0 else 1)
+    assert 1 <= plan.lanes <= tfill.MAX_LANES16
+    assert 1 <= plan.group <= tfill.MAX_GROUP16
+    nl = h * w * 3 // plan.vec
+    # every (tile, thread, lane slot) of the kernel's indexing, once
+    lane = (np.arange(gx)[:, None, None] * tfill.THREADS * plan.lanes
+            + np.arange(plan.lanes)[None, :, None] * tfill.THREADS
+            + np.arange(tfill.THREADS)[None, None, :]).ravel()
+    live = lane[lane < nl]
+    assert np.array_equal(np.sort(live), np.arange(nl))
+    masks = (np.arange(gy)[:, None] * plan.group
+             + np.arange(plan.group)[None, :]).ravel()
+    assert np.array_equal(np.sort(masks[masks < s]), np.arange(s))
+    assert (gy - 1) * plan.group < s and gz == b and gy <= 65535
+    assert plan.stream == (2 * b * s * h * w * 3 > tfill.L2_BYTES)
+    assert (plan.lanes, plan.group) == (tfill.BF16_LANES,
+                                        min(s, tfill.BF16_GROUP))

@@ -148,3 +148,81 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         tsf.fold_masked_stem_kernel(z(3, 3, 3, 64), z(1, 8, 8, 64),
                                     z(1, 10, 10, 3), z(1, 4, dtype=torch.int32),
                                     z(1, 5, 5), 3, 3, 1)
+
+
+# -- kernel C's bf16 form: its plan and its padded taps (Python, which the
+#    kernel's launch and carve follow; the kernel runs only on the card) --
+
+#: (img, k, stride, pads): the CIFAR 3x3/1 stem and RN50's 7x7/2 SAME stem
+#: at 224 and at 480 px
+STEMS = [(32, 3, 1, ((1, 1), (1, 1))),
+         (224, 7, 2, (tsf.same_pads(224, 7, 2), tsf.same_pads(224, 7, 2))),
+         (480, 7, 2, (tsf.same_pads(480, 7, 2), tsf.same_pads(480, 7, 2)))]
+
+
+@pytest.mark.parametrize("img,k,s,pads", STEMS)
+def test_bf16_plan_fits_every_chunk_the_engine_takes(img, k, s, pads):
+    """At each stem, for every chunk size (1 to all 36 first-round masks
+    of the 0.12 radius) and every chunk of it: the taps padded to the MMA
+    depth, a block's shared memory within MAX_SMEM_BYTES, delta blocks
+    that cover every window pixel of every (image, mask) once and copy
+    blocks every 16-byte chunk of every clean map for every mask once (2
+    images, 64 channels), and evict-first stores exactly when the output
+    outgrows the L2."""
+    from dorpatch_tpu_torch.ops import _build
+
+    b, c = 2, 64
+    h_out = (img + sum(pads[0]) - k) // s + 1
+    singles, _ = jmasks.mask_sets(jmasks.geometry(img, 0.12))
+    plan = tsf.plan_windows(singles, img, k, s, pads)
+    kpad = tsf.mma_taps(k, 3)
+    assert kpad % tsf.MMA_K == 0 and 0 <= kpad - k * k * 3 < tsf.MMA_K
+    assert kpad == (32 if k == 3 else 160)
+    for cnt in range(1, len(plan) + 1):
+        for off in range(0, len(plan), cnt):
+            part = plan[off:off + cnt]
+            n = len(part)
+            oh, ow, _, _ = tsf._uniform_plan(part, h_out, h_out, k, s)
+            p = tsf.bf16_plan(b, n, h_out, h_out, c, oh, ow)
+            assert 1 <= p.lanes <= tsf.MAX_COPY_LANES and 1 <= p.group <= n
+            assert p.mtiles == (2 if oh * ow >= tsf.MTILES2_PIX else 1)
+            for mtiles in range(1, tsf.MAX_MTILES + 1):
+                assert tsf.bf16_smem(3, ow, c, k, s, mtiles) \
+                    <= _build.MAX_SMEM_BYTES
+            delta, copy = tsf.bf16_items(p, b, n, h_out, h_out, c, oh, ow)
+            pix = p.mtiles * tsf.TILE_PIX
+            assert delta * pix >= b * n * oh * ow > (delta - b * n) * pix
+            tile = tsf.THREADS * p.lanes
+            chunks = h_out * h_out * c // 8
+            groups = -(-n // p.group)
+            tiles = copy // (b * groups)
+            assert copy == b * groups * tiles
+            assert (tiles - 1) * tile < chunks <= tiles * tile
+            assert (groups - 1) * p.group < n <= groups * p.group
+            assert p.stream == (2 * b * n * h_out * h_out * c
+                                > tsf.L2_BYTES)
+
+
+@pytest.mark.parametrize("img,k,s,pads", STEMS[:2])
+def test_plain_bf16_fold_with_padded_taps_equals_unpadded(img, k, s, pads):
+    """The plain bf16 fold with the taps zero-padded to the MMA depth
+    (flattened in the order (dr, dc, Cin) as kernel C's bf16 form lays
+    them out) equals the unpadded fold bit for bit: the padded products
+    are exact zeros."""
+    rng = np.random.default_rng(img)
+    h_out = (img + sum(pads[0]) - k) // s + 1
+
+    def bf(a):
+        return torch.as_tensor(a, dtype=torch.bfloat16)
+
+    kern = bf(rng.normal(0, 0.3, (k, k, 3, 16)))
+    clean = bf(rng.normal(0, 1, (2, h_out, h_out, 16)))
+    u = bf(rng.uniform(-1, 1, (2, img, img, 3)))
+    singles, _ = jmasks.mask_sets(jmasks.geometry(img, 0.12))
+    plan = tsf.plan_windows(singles, img, k, s, pads)[::7]
+    want = tsf.fold_masked_stem(kern, clean, u, plan, (s, s), pads)
+    got = tsf.fold_masked_stem(kern, clean, u, plan, (s, s), pads,
+                               kpad=tsf.mma_taps(k, 3))
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+    assert not torch.equal(want, clean[:, None].expand_as(want))
