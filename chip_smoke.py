@@ -22,8 +22,9 @@ NVIDIA GPU.
    bytes bound, plain and library times and calls per forward printed per
    shape, and launches x (time - bound) summed over a forward's 49 calls),
    and at one slab of the split route (GN_SPLIT_SLAB), each against
-   float64 and repeated bit for bit, kernel C at RN50's 7x7/2 stem at 224
-   and at 480, and kernel H (the masked-KV
+   float64 and repeated bit for bit, kernel E (the forward split route)
+   forced at the three 480 stage-1 shapes beside kernel D there, kernel C
+   at RN50's 7x7/2 stem at 224 and at 480, and kernel H (the masked-KV
    attention) at the
    ViT-B/16 token engine's phase-1 chunk and pair-audit chunk of the 0.12
    radius, against its plain version in float64 (and bit for bit against
@@ -37,7 +38,8 @@ NVIDIA GPU.
    the bank's chunks (S = 36, 63) at 32, 224 and 480 px, C at the stems of
    the victims' cast copies (RN50's at 224 and 480), D/F at
    [256,3136,256] and [256,49,2048], E/G at GN_SPLIT_SLAB, D with F or G
-   at every (HW, C) at 480 (the GroupNorm forms also against float64,
+   at every (HW, C) at 480 and E forced at its stage-1 shapes (the
+   GroupNorm forms also against float64,
    within the float32 gates plus half a bf16 ulp), H at the ViT-B/16
    bank's phase-1 and pair-audit chunks;
 4. runs eight main paths through their user entry point, the CLI, each
@@ -190,7 +192,9 @@ COUNT_OF = {"stem_fold_rn50": "stem_fold",
             "stem_fold_bf16_480": "stem_fold_bf16",
             "gn_relu_fwd_bf16_480": "gn_relu_fwd_bf16/one_pass",
             "gn_relu_bwd_bf16_split_480": "gn_relu_bwd_bf16/split",
-            "masked_kv_attn_bf16_pairs": "masked_kv_attn_bf16"}
+            "masked_kv_attn_bf16_pairs": "masked_kv_attn_bf16",
+            **{f"gn_relu_fwd{k}_split_480x{c}": f"gn_relu_fwd{k}/split"
+               for k in ("", "_bf16") for c in (64, 128, 256)}}
 RN50_KERNELS = CIFAR_KERNELS + ("gn_relu_fwd", "gn_relu_bwd")
 VIT_KERNELS = ("masked_fill_fwd", "masked_fill_bwd", "masked_kv_attn")
 #: the bf16 paths' kernels: the attack fills at float32 (A, B) and runs the
@@ -422,10 +426,46 @@ def stem_fold_phase(torch, dev, dataset, arch, size, b, name,
                 bound_ms=bound, bound_by=by, library_ms=c_lib)
 
 
+def _gn_step(x):
+    """Samples a chunk of the held comparisons (a group's statistics are
+    per sample; the float64 intermediates of a chunk stay near a GB)."""
+    return max(1, (1 << 27) // x[0].numel())
+
+
+def _gn_fwd_held(torch, x, s, b, y, mean, rstd, sl, out):
+    """Adds one chunk `sl` of samples of a forward to `out` (`_gn_held`'s
+    forward keys): y against float64 within TOL_GN (plus half a bf16 ulp
+    for bf16), the statistics' errors, and for bf16 also against the plain
+    bf16 version on the same inputs within one ulp + 1e-5."""
+    from dorpatch_tpu_torch.ops import fused_gn as fgn
+
+    g, bf16 = 32, x.dtype == torch.bfloat16
+    at, rt = TOL_GN["atol"], TOL_GN["rtol"]
+    x64 = x[sl].double()
+    m64, r64 = fgn.gn_stats_reference(x64, g)
+    out["stat"] = max(out["stat"],
+                      float((mean[sl].double() - m64).abs().max()),
+                      float(((rstd[sl].double() - r64) / r64).abs().max()))
+    want = fgn.gn_relu_reference(x64, s.double(), b.double())
+    err = (y[sl].double() - want).abs()
+    half = 0.5 * _ulp16(torch, want).double() if bf16 else 0.0
+    out["fwd"] = max(out["fwd"], float(err.max()))
+    out["bad"] += int((~(err <= at + rt * want.abs() + half)).sum())
+    del x64, want, err, half
+    if not bf16:
+        return
+    m32, r32 = fgn.gn_stats_reference(x[sl], g)
+    out["stat16"] = max(out["stat16"], float((mean[sl] - m32).abs().max()),
+                        float(((rstd[sl] - r32) / r32).abs().max()))
+    want = fgn.gn_relu_reference(x[sl], s, b)
+    err = (y[sl].float() - want.float()).abs()
+    out["fwd16"] = max(out["fwd16"], float(err.max()))
+    out["bad16"] += int((~(err <= _ulp16(torch, want) + 1e-5)).sum())
+
+
 def _gn_held(torch, x, dy, s, b, y, mean, rstd, dx, ds, db):
     """How far one slab's kernel outputs lie from the plain versions, in
-    chunks of samples (a group's statistics are per sample; the float64
-    intermediates of a chunk stay near a GB): against float64 within
+    chunks of samples (`_gn_step`): against float64 within
     TOL_GN (dscale/dbias TOL_GN_PARAMS), plus, for bf16 y and dx, half a
     bf16 ulp (their one rounding); for bf16 also against the plain bf16
     versions on the same inputs within one ulp + 1e-5 (the statistics
@@ -442,24 +482,16 @@ def _gn_held(torch, x, dy, s, b, y, mean, rstd, dx, ds, db):
     params = [torch.zeros_like(ds, dtype=torch.float64) for _ in range(4)]
     params16 = [torch.zeros_like(ds) for _ in range(4)]
     s64, b64 = s.double(), b.double()
-    step = max(1, (1 << 27) // x[0].numel())
+    step = _gn_step(x)
 
     def half_ulp(t):
         return 0.5 * _ulp16(torch, t).double() if bf16 else 0.0
 
     for i in range(0, x.shape[0], step):
         sl = slice(i, i + step)
+        _gn_fwd_held(torch, x, s, b, y, mean, rstd, sl, out)
         x64, dy64 = x[sl].double(), dy[sl].double()
         m64, r64 = fgn.gn_stats_reference(x64, g)
-        out["stat"] = max(out["stat"],
-                          float((mean[sl].double() - m64).abs().max()),
-                          float(((rstd[sl].double() - r64) / r64).abs().max()))
-        want = fgn.gn_relu_reference(x64, s64, b64)
-        err = (y[sl].double() - want).abs()
-        out["fwd"] = max(out["fwd"], float(err.max()))
-        out["bad"] += int((~(err <= at + rt * want.abs()
-                             + half_ulp(want))).sum())
-        del want, err
         wdx, wds, wdb = fgn.gn_relu_backward_reference(x64, dy64, s64, b64,
                                                        m64, r64, g)
         near, dx_b, ds_b, db_b = fgn.gate_flip_bounds(x64, dy64, s64, b64,
@@ -475,14 +507,6 @@ def _gn_held(torch, x, dy, s, b, y, mean, rstd, dx, ds, db):
         del x64, dy64, wdx, near, dx_b, err
         if not bf16:
             continue
-        m32, r32 = fgn.gn_stats_reference(x[sl], g)
-        out["stat16"] = max(out["stat16"],
-                            float((mean[sl] - m32).abs().max()),
-                            float(((rstd[sl] - r32) / r32).abs().max()))
-        want = fgn.gn_relu_reference(x[sl], s, b)
-        err = (y[sl].float() - want.float()).abs()
-        out["fwd16"] = max(out["fwd16"], float(err.max()))
-        out["bad16"] += int((~(err <= _ulp16(torch, want) + 1e-5)).sum())
         wdx, wds, wdb = fgn.gn_relu_backward_reference(
             x[sl], dy[sl], s, b, mean[sl], rstd[sl], g)
         near, dx_b, ds_b, db_b = fgn.gate_flip_bounds(
@@ -493,7 +517,7 @@ def _gn_held(torch, x, dy, s, b, y, mean, rstd, dx, ds, db):
         out["dx16"] = max(out["dx16"], float(err[~near].max()))
         for acc, part in zip(params16, (wds, wdb, ds_b, db_b)):
             acc += part
-        del want, err, wdx, near, dx_b
+        del err, wdx, near, dx_b
     out["bad16"] += int(not out["stat16"] <= 1e-5)
     out["param"] = out["param16"] = 0.0
     for key, ref in (("", params), ("16", params16 if bf16 else None)):
@@ -666,13 +690,101 @@ def gn_sweep(torch, dev, gen, img_size, dtype=None):
     return recs
 
 
+def gn_split_forward(torch, dev, gen, n, hw, c, dtype, one_pass):
+    """Kernel E (the forward split route) forced on one [n, hw, c] slab of
+    `dtype` whose plan is the one-pass route (RN50's 480 px stage-1 shapes,
+    which kernel D takes), with `fused_gn.split_plan`'s chunks and
+    clusters: held to the plain versions as `_gn_held` holds a forward,
+    within TOL_GN (bf16: one ulp) of kernel D's y on the same inputs, a
+    repeated call bit-equal, and timed beside the plain version and
+    PyTorch's group norm. `one_pass` is kernel D's record of the same
+    shape (`gn_slab`), whose time is printed beside E's. Returns E's
+    record, named "gn_relu_fwd[_bf16]_split_480x{c}"."""
+    from dorpatch_tpu_torch.ops import fused_gn as fgn
+
+    import torch.nn.functional as F
+
+    bf16 = dtype == torch.bfloat16
+    side = math.isqrt(hw)
+    shape = (n, side, side, c)
+
+    def rand(*size):
+        return torch.randn(size, generator=gen, device=dev)
+
+    x = (rand(*shape) + 0.5 * rand(c)).to(dtype)
+    s, b = 1 + 0.2 * rand(c), 0.3 * rand(c)
+    label = f"[{n},{hw},{c}]" + (" bf16" if bf16 else "")
+    isz = x.element_size()
+    if fgn.gn_plan("fwd", n, hw, c, 32, isz).route != "one_pass":
+        raise AssertionError(f"GN {label}: the forward plan is not D's")
+    split = fgn.GNPlan("split", *fgn.split_plan("fwd", n, hw, c, 32, isz), 0)
+    y, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b, plan=split)
+    y1, m1, r1 = fgn.gn_relu_fwd_kernel(x, s, b)
+    torch.cuda.synchronize()
+    again = fgn.gn_relu_fwd_kernel(x, s, b, plan=split)
+    if not all(torch.equal(p, q) for p, q in zip(again, (y, mean, rstd))):
+        raise AssertionError(f"GN {label} split forward does not repeat")
+    del again
+    out = dict(fwd=0.0, stat=0.0, bad=0, fwd16=0.0, stat16=0.0, bad16=0)
+    step = _gn_step(x)
+    for i in range(0, n, step):
+        _gn_fwd_held(torch, x, s, b, y, mean, rstd, slice(i, i + step), out)
+    out["bad16"] += int(not out["stat16"] <= 1e-5)
+    d_err = float((y.float() - y1.float()).abs().max())
+    tol = _ulp16(torch, y1) if bf16 else TOL_GN["rtol"] * y1.float().abs()
+    d_bad = int((~((y.float() - y1.float()).abs()
+                   <= tol + TOL_GN["atol"])).sum())
+    del y1, m1, r1
+    print(f"GN {label} forward on the split route (kernel E, width "
+          f"{split.width}, cluster {split.cluster}): vs float64 max_abs_err "
+          f"{out['fwd']:.3g}, stats err {out['stat']:.3g}; "
+          + (f"vs plain bf16 {out['fwd16']:.3g}, stats {out['stat16']:.3g}; "
+             if bf16 else "")
+          + f"vs kernel D {d_err:.3g} ({out['bad']} + {out['bad16']} + "
+          f"{d_bad} out); repeats bit for bit", flush=True)
+    if out["bad"] or out["bad16"] or d_bad:
+        raise AssertionError(f"GN {label} split forward out of tolerance")
+    ms = _device_ms(lambda: fgn.gn_relu_fwd_kernel(x, s, b, plan=split), 5, 7)
+    plain = _device_ms(lambda: fgn.gn_relu_reference(x, s, b), 5, 7)
+    xv = x.permute(0, 3, 1, 2)
+    sl, bl = s.to(dtype), b.to(dtype)
+    lib = _device_ms(lambda: F.group_norm(xv, 32, sl, bl, 1e-5), 5, 7)
+    bound = one_pass["bound_ms"]
+    print(f"GN {label}: kernel E {ms * 1e3:.2f} us, kernel D (its plan) "
+          f"{one_pass['ms'] * 1e3:.2f} us, bound {bound * 1e3:.2f} us, "
+          f"split 3-pass floor {1.5 * bound * 1e3:.2f} us, plain "
+          f"{plain * 1e3:.2f} us, library {lib * 1e3:.2f} us", flush=True)
+    del x, xv, y
+    torch.cuda.empty_cache()
+    return dict(
+        name=f"gn_relu_fwd{'_bf16' if bf16 else ''}_split_480x{c}",
+        route="cuda", source="dorpatch_tpu_torch/csrc/fused_gn.cu",
+        replaces="dorpatch_tpu/ops/fused_gn.py:159", launches=0,
+        max_abs_err=max(out["fwd16"], out["stat16"]) if bf16
+        else max(out["fwd"], out["stat"]),
+        ms=ms, plain_ms=plain, bound_ms=bound, bound_by=one_pass["bound_by"],
+        library_ms=lib)
+
+
+def gn_split_480(torch, dev, gen, at480, dtype=None):
+    """Kernel E forced at RN50's three 480 px stage-1 shapes (N = 128),
+    beside kernel D's records of them (`gn_sweep`'s `at480`)."""
+    from dorpatch_tpu_torch.gn_bench import STEP_N
+
+    dtype = dtype or torch.float32
+    return [gn_split_forward(torch, dev, gen, STEP_N[480], hw, c, dtype,
+                             at480[(hw, c)][0])
+            for hw, c in sorted(at480) if hw == 14400]
+
+
 def gn_phases(torch, dev):
     """The GroupNorm+ReLU kernels at every (HW, C) of the RN50 victim at
     224 (N = 256, the attack step's 2 images x 128 masks; one-pass route),
     at GN_SPLIT_SLAB on the split route, and at every (HW, C) at 480 (N =
-    128; the stage-1 backward split). Returns the records of the largest
-    224 slab [256, 3136, 256], and those of the split slab and of the widest
-    480 slab GN_480_SLAB."""
+    128; the stage-1 backward split), with kernel E forced at the three
+    480 stage-1 shapes (`gn_split_480`). Returns the records of the
+    largest 224 slab [256, 3136, 256], and those of the split slab, of the
+    widest 480 slab GN_480_SLAB and of E at 480."""
     gen = torch.Generator(device=dev).manual_seed(3)
     at224 = gn_sweep(torch, dev, gen, 224)
     split = gn_slab(torch, dev, gen, *GN_SPLIT_SLAB)
@@ -681,15 +793,16 @@ def gn_phases(torch, dev):
         raise AssertionError(f"GN slab {GN_SPLIT_SLAB} did not take the "
                              "split route")
     at480 = gn_sweep(torch, dev, gen, 480)
-    return list(at224[(3136, 256)]), split + list(at480[GN_480_SLAB[1:]])
+    return (list(at224[(3136, 256)]), split + list(at480[GN_480_SLAB[1:]])
+            + gn_split_480(torch, dev, gen, at480))
 
 
 def gn_phases_bf16(torch, dev):
     """Kernels D-G in bf16: D and F at RN50's largest slab at 224 and its
     widest, at the attack step's N = 256; E and G at GN_SPLIT_SLAB; and
-    every (HW, C) at 480 (D, over clusters of 8 at stage 1, and F or G).
-    Returns the 224 records, and those of the split slab and of
-    GN_480_SLAB."""
+    every (HW, C) at 480 (D, over clusters of 8 at stage 1, and F or G),
+    and E forced at the 480 stage-1 shapes. Returns the 224 records, and
+    those of the split slab, of GN_480_SLAB and of E at 480."""
     gen = torch.Generator(device=dev).manual_seed(5)
     bf = torch.bfloat16
     at224 = (gn_slab(torch, dev, gen, GN_N, 3136, 256, 3, bf)
@@ -701,7 +814,8 @@ def gn_phases_bf16(torch, dev):
                  "gn_relu_fwd_bf16_split", "gn_relu_bwd_bf16_split"]:
         raise AssertionError(f"GN bf16 slabs took the routes of {names}")
     at480 = gn_sweep(torch, dev, gen, 480, bf)
-    return at224, split + list(at480[GN_480_SLAB[1:]])
+    return at224, (split + list(at480[GN_480_SLAB[1:]])
+                   + gn_split_480(torch, dev, gen, at480, bf))
 
 
 def attn_phase(torch, dev, dtype=None):

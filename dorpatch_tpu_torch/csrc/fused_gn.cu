@@ -63,21 +63,15 @@
 //   parameter cotangents, gn_param_sums adds db_c and ds_c over N in a
 //   second, small launch.
 // Split route, for slabs whose chunk fits no cluster (RN50 at 480 px: the
-// backward at [N, 14400, 64/128/256], 11 of the 49 calls). Forward (E):
-//   1. a statistics pass, grid (sample, HW tile of kTileRows rows, chunk of
-//      up to kMaxCols piece columns): each thread owns one 16-byte piece
-//      column (4 float32 or 8 bf16 channels), sums its rows in f32, the
-//      block adds its thread rows in a fixed order and writes per-channel
-//      float32 partial sums [N, T, C];
-//   2. a combine pass, one warp per (sample, group): adds the partials over
-//      tiles and channels in a fixed order, in float64, to the group
-//      statistics;
-//   3. an elementwise pass over NHWC, 16 bytes a thread: y.
-// Backward (G; see gn_bwd_stats below): a statistics pass over
-// thread-block clusters that also adds the sums up, to db_c, ds_c and the
-// [N, G] group sums a_g, b_g (no [N, T, C] partials and no combine launch),
-// and a dx pass that keeps each thread on one piece column with its
-// coefficients in registers.
+// backward at [N, 14400, 64/128/256], 11 of the 49 calls). Both directions
+// take a statistics pass over thread-block clusters that also adds the
+// sums up (no partial-sum scratch and no combine launch), then write their
+// output by piece column, each thread with its column's coefficients in
+// registers:
+//   forward (E; see gn_fwd_split below): the group mean and rstd, then y
+//   in the same launch, each CTA reading its rows again;
+//   backward (G; see gn_bwd_stats below): db_c, ds_c and the [N, G] group
+//   sums a_g, b_g, then dx.
 // Both read x (and dy) twice: one slab pass more than the bound.
 // No float atomics on either route, so every result is the same from run
 // to run.
@@ -87,13 +81,12 @@
 // type (`Piece`). A 16-byte piece then holds 8 channels, so a thread owns
 // an 8-channel column and a chunk row of W channels is W/8 pieces; the
 // staged slab is half the bytes, and `gn_plan` widens chunks by the element
-// size. Statistics, affine parameters, mean/rstd, the split route's partial
-// sums and the parameter cotangents stay float32 (float64 where they are
+// size. Statistics, affine parameters, mean/rstd and the parameter
+// cotangents stay float32 (float64 where they are
 // added up, as above), and the ReLU gate is taken on the float32
 // pre-activation; y and dx are normalized in float32 and rounded to bf16
 // once, at their store, on either route, so the two routes compute the
-// same function. The forward's combine pass reads only float32 partials
-// and has one form.
+// same function.
 
 #include <stdint.h>
 
@@ -105,10 +98,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileRows = 64;     // HW rows per statistics block
-constexpr int kMaxCols = 64;      // piece columns per statistics block
 constexpr int kMaxGrid = 65535;
-constexpr int kWarps = kThreads / 32;   // (sample, group) pairs per combine block
 
 __device__ __forceinline__ float4 f4(float v) { return make_float4(v, v, v, v); }
 
@@ -191,16 +181,6 @@ __device__ __forceinline__ void load_vec(const float* p, int col, float8& v) {
   load_vec(p, 2 * col + 1, v.hi);
 }
 
-// A piece column's P float32 sums into piece o of a float32 array, 16
-// bytes a store.
-__device__ __forceinline__ void store_vec(float* p, size_t o, float4 v) {
-  reinterpret_cast<float4*>(p)[o] = v;
-}
-__device__ __forceinline__ void store_vec(float* p, size_t o, float8 v) {
-  store_vec(p, 2 * o, v.lo);
-  store_vec(p, 2 * o + 1, v.hi);
-}
-
 // base[g] of the groups of channels c, c+1, ... (cg channels a group).
 __device__ __forceinline__ void gather(const float* base, int c, int cg,
                                        float4& v) {
@@ -213,149 +193,11 @@ __device__ __forceinline__ void gather(const float* base, int c, int cg,
   gather(base, c + 4, cg, v.hi);
 }
 
-// ------------------------------------------------- split route, forward
-
-// Per-channel partial sums of x and x*x over one HW tile of one sample. Each
-// thread owns one piece column (P channels) and sums its rows in float32.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gn_fwd_stats(const T* __restrict__ x, float* __restrict__ p1,
-             float* __restrict__ p2, int HW, int C) {
-  using Pc = Piece<T>;
-  using V = typename Pc::V;
-  constexpr int P = Pc::P;
-  __shared__ V sh1[kThreads];
-  __shared__ V sh2[kThreads];
-  const int CP = C / P;
-  const int n = blockIdx.x;
-  const int t = blockIdx.y;
-  const int cp = blockIdx.z * blockDim.x + threadIdx.x;
-  const int r0 = t * kTileRows;
-  const int r1 = min(HW, r0 + kTileRows);
-  V a1 = Pc::zero(), a2 = Pc::zero();
-  if (cp < CP) {
-    const float4* xs = reinterpret_cast<const float4*>(x + (size_t)n * HW * C) + cp;
-#pragma unroll 4
-    for (int r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
-      const V v = Pc::widen(__ldg(xs + (size_t)r * CP));
-      a1 = add4(a1, v);
-      if constexpr (P == 4) {
-        // float32 a component at a time, as before bf16: through fma4 or
-        // a helper, ptxas orders two instructions otherwise (sass_diff.py)
-        a2.x = fmaf(v.x, v.x, a2.x);
-        a2.y = fmaf(v.y, v.y, a2.y);
-        a2.z = fmaf(v.z, v.z, a2.z);
-        a2.w = fmaf(v.w, v.w, a2.w);
-      } else {
-        a2 = fma4(v, v, a2);
-      }
-    }
-  }
-  const int slot = threadIdx.y * blockDim.x + threadIdx.x;
-  sh1[slot] = a1;
-  sh2[slot] = a2;
-  __syncthreads();
-  if (threadIdx.y == 0 && cp < CP) {
-    V s1 = sh1[threadIdx.x], s2 = sh2[threadIdx.x];
-    for (int j = 1; j < blockDim.y; ++j) {
-      s1 = add4(s1, sh1[j * blockDim.x + threadIdx.x]);
-      s2 = add4(s2, sh2[j * blockDim.x + threadIdx.x]);
-    }
-    const size_t o = ((size_t)n * gridDim.y + t) * CP + cp;
-    store_vec(p1, o, s1);
-    store_vec(p2, o, s2);
-  }
-}
-
 // Sum of a double over the 32 lanes of a warp, in a fixed butterfly order.
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// One warp per (sample, group): the group's mean and rstd. The lanes stride
-// over the group's T*cg partials, then add their sums in a fixed order.
-__global__ void __launch_bounds__(kThreads)
-gn_fwd_combine(const float* __restrict__ p1, const float* __restrict__ p2,
-               float* __restrict__ mean, float* __restrict__ rstd, int N,
-               int T, int HW, int C, int G, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (i >= N * G) return;   // whole warps
-  const int n = i / G;
-  const int g = i - n * G;
-  const int cg = C / G;
-  double s1 = 0.0, s2 = 0.0;
-  for (int k = lane; k < T * cg; k += 32) {
-    const int t = k / cg;
-    const size_t o = ((size_t)n * T + t) * C + (size_t)g * cg + (k - t * cg);
-    s1 += (double)p1[o];
-    s2 += (double)p2[o];
-  }
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
-  if (lane == 0) {
-    const double cnt = (double)HW * cg;
-    const double m = s1 / cnt;
-    const double var = fmax(s2 / cnt - m * m, 0.0);
-    mean[i] = (float)m;
-    rstd[i] = (float)(1.0 / sqrt(var + (double)eps));
-  }
-}
-
-__device__ __forceinline__ float gn_relu1(float v, float m, float rs, float s,
-                                          float b) {
-  return fmaxf((v - m) * (rs * s) + b, 0.f);
-}
-
-// relu((x - mean) * (rstd * scale) + bias) of one piece whose first channel
-// is c.
-__device__ __forceinline__ float4 apply_vec(float4 v, const float* mn,
-                                            const float* rs, float4 s,
-                                            float4 b, int c, int cg) {
-  const int g0 = c / cg, g1 = (c + 1) / cg, g2 = (c + 2) / cg, g3 = (c + 3) / cg;
-  float4 o;
-  o.x = gn_relu1(v.x, __ldg(mn + g0), __ldg(rs + g0), s.x, b.x);
-  o.y = gn_relu1(v.y, __ldg(mn + g1), __ldg(rs + g1), s.y, b.y);
-  o.z = gn_relu1(v.z, __ldg(mn + g2), __ldg(rs + g2), s.z, b.z);
-  o.w = gn_relu1(v.w, __ldg(mn + g3), __ldg(rs + g3), s.w, b.w);
-  return o;
-}
-__device__ __forceinline__ float8 apply_vec(float8 v, const float* mn,
-                                            const float* rs, float8 s,
-                                            float8 b, int c, int cg) {
-  return {apply_vec(v.lo, mn, rs, s.lo, b.lo, c, cg),
-          apply_vec(v.hi, mn, rs, s.hi, b.hi, c + 4, cg)};
-}
-
-// y = relu((x - mean) * (rstd * scale) + bias), 16 bytes a thread.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gn_fwd_apply(const T* __restrict__ x, const float* __restrict__ scale,
-             const float* __restrict__ bias, const float* __restrict__ mean,
-             const float* __restrict__ rstd, T* __restrict__ y, int HW,
-             int C, int G) {
-  using Pc = Piece<T>;
-  using V = typename Pc::V;
-  constexpr int P = Pc::P;
-  const int n = blockIdx.y;
-  const int CP = C / P;
-  const int cg = C / G;
-  const size_t per = (size_t)HW * CP;
-  const float4* xs = reinterpret_cast<const float4*>(x + (size_t)n * HW * C);
-  float4* ys = reinterpret_cast<float4*>(y + (size_t)n * HW * C);
-  const float* mn = mean + (size_t)n * G;
-  const float* rs = rstd + (size_t)n * G;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < per;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int cp = (int)(i % CP);
-    const V v = Pc::widen(__ldg(xs + i));
-    V s, b;
-    load_vec(scale, cp, s);
-    load_vec(bias, cp, b);
-    ys[i] = Pc::narrow(apply_vec(v, mn, rs, s, b, P * cp, cg));
-  }
 }
 
 // -------------------------------------------------------------- backward
@@ -812,7 +654,7 @@ gn_bwd_onepass(const T* __restrict__ x, const T* __restrict__ dy,
 //      one piece column, loads its channels' mean, rstd, scale, bias and
 //      the two group sums once, and streams kDxRows rows of it, 16 bytes a
 //      load and a store, with the one-pass route's dx formula (`dx_vec`).
-// ops/fused_gn.py `bwd_split_plan` picks W and cl from the shape so that
+// ops/fused_gn.py `split_plan` picks W and cl from the shape so that
 // the statistics pass has enough CTAs to keep the card's memory busy.
 
 constexpr int kSplitThreads = 256;     // threads of a G block
@@ -1016,37 +858,203 @@ gn_bwd_dx(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-// Launch shapes of the split route, shared by both directions.
-struct Shape {
-  dim3 stats_grid, stats_block, apply_grid;
-  int tiles;
-};
+// ------------------------------------- split route, forward (kernel E)
+//
+// One launch, no scratch: gn_fwd_split, grid (cl * C/W, N) in clusters of
+// cl CTAs. A cluster takes one sample's chunk of W channels (whole groups)
+// and its CTAs split the HW rows. A thread owns one piece column and every
+// (kFwdThreads / (W/P))-th row of its CTA's share; it keeps kFwdUnroll rows
+// in flight and sums x and x*x in float32 over at most kFwdFlush x
+// kFwdUnroll rows before it adds them to its float64 sums. The CTA adds
+// its threads' sums per channel in a fixed order; every CTA of the cluster
+// adds the CTAs' sums through distributed shared memory in rank order (so
+// all hold the same totals) and takes the group mean and rstd in float64;
+// rank 0 writes them. Each thread then reads its rows again, the last
+// first (the rows its CTA read last are the likeliest still in L2), and
+// writes y, the one-pass route's `relu_affine` of the same statistics, so
+// the routes differ only in the order their sums are taken. Loads of that
+// second read and the stores of y are evict-first: neither is read again
+// by this launch.
+// What holds it (`gn_bench.py --split --sweep`, PERF.md): a CTA takes a
+// whole SM (512 threads of up to 128 registers), and the card holds only
+// 7 clusters of 10 to 16 CTAs at once (15 of 7 or 8), so a slab of few
+// samples (the [4, 65536, 64] split slab: 8 clusters of 8) keeps only 64
+// SMs busy, each streaming at the rate its loads in flight allow; more or
+// larger clusters ran in a second wave, which was slower. A second launch
+// for y (by piece column, as gn_bwd_dx) was slower at every measured
+// shape, and so was a first-to-last re-read with plain loads and stores.
 
-int tiles_of(int HW) { return (HW + kTileRows - 1) / kTileRows; }
+constexpr int kFwdThreads = 512;  // threads of a CTA
+constexpr int kFwdUnroll = 16;    // rows of x in flight a thread
+constexpr int kFwdFlush = 2;      // unrolled steps summed in float32
+
+__device__ __forceinline__ void stats_acc(float4 v, float4& a1, float4& a2) {
+  a1 = add4(a1, v);
+  a2 = fma4(v, v, a2);
+}
+__device__ __forceinline__ void stats_acc(float8 v, float8& a1, float8& a2) {
+  stats_acc(v.lo, a1.lo, a2.lo);
+  stats_acc(v.hi, a1.hi, a2.hi);
+}
+
+// Dynamic shared memory of a CTA of gn_fwd_split at P channels a piece: the threads' two float64 partials (P doubles each), the channel
+// sums of this CTA and of the chunk (float64) and the per-group values.
+__host__ __device__ constexpr size_t fwd_split_smem(int P) {
+  return (size_t)kFwdThreads * 16 * P + (size_t)kSplitMaxW * 40;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kFwdThreads)
+gn_fwd_split(const T* __restrict__ x, const float* __restrict__ scale,
+             const float* __restrict__ bias, T* __restrict__ y,
+             float* __restrict__ mean, float* __restrict__ rstd, int HW,
+             int C, int G, int W, int cl, float eps) {
+  using Pc = Piece<T>;
+  using V = typename Pc::V;
+  using D = typename DSumOf<V>::type;
+  constexpr int P = Pc::P;
+  constexpr int U = kFwdUnroll;
+  extern __shared__ __align__(16) unsigned char smem[];
+  D* red[2] = {reinterpret_cast<D*>(smem),
+               reinterpret_cast<D*>(smem) + kFwdThreads};
+  double* chan = reinterpret_cast<double*>(red[1] + kFwdThreads);
+  double* tot = chan + 2 * kSplitMaxW;
+  float* grp = reinterpret_cast<float*>(tot + 2 * kSplitMaxW);
+  const int rank = blockIdx.x % cl;
+  const int c0 = (blockIdx.x / cl) * W;
+  const int n = blockIdx.y;
+  const int CP = C / P, WP = W / P, cg = C / G, kg = W / cg;
+  const int per = kFwdThreads / WP;   // row lanes of a piece column
+  const int active = per * WP;
+  const int rows = (HW + cl - 1) / cl;
+  const int r0 = min(HW, rank * rows) + threadIdx.x / WP;
+  const int r1 = min(HW, (rank + 1) * rows);
+  // this thread's rows: r0 + k * per, k < count
+  const int count =
+      (threadIdx.x < active && r0 < r1) ? (r1 - 1 - r0) / per + 1 : 0;
+  const int col = threadIdx.x % WP;
+  const size_t off = (size_t)n * HW * CP + c0 / P + col;
+  const float4* xs = reinterpret_cast<const float4*>(x) + off;
+  D s1 = {}, s2 = {};
+  int k = 0;
+  while (k < count) {
+    V a1 = Pc::zero(), a2 = Pc::zero();
+    for (int f = 0; f < kFwdFlush && k < count; ++f) {
+      if (k + U <= count) {
+        float4 a[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          a[u] = __ldg(xs + (size_t)(r0 + (k + u) * per) * CP);
+#pragma unroll
+        for (int u = 0; u < U; ++u) stats_acc(Pc::widen(a[u]), a1, a2);
+        k += U;
+      } else {
+        stats_acc(Pc::widen(__ldg(xs + (size_t)(r0 + k * per) * CP)), a1, a2);
+        ++k;
+      }
+    }
+    dadd(s1, a1);
+    dadd(s2, a2);
+  }
+  red[0][threadIdx.x] = s1;
+  red[1][threadIdx.x] = s2;
+  __syncthreads();
+  // channel j's sums are component j % P of threads j / P + m * WP, m < per
+  auto part = [&](int which, int j, int m) {
+    return reinterpret_cast<const double*>(&red[which][j / P + m * WP])[j % P];
+  };
+  double* own = cl == 1 ? tot : chan;
+  if (per <= kSerialSum) {   // a thread a channel
+    for (int j = threadIdx.x; j < W; j += kFwdThreads) {
+      double t1 = 0.0, t2 = 0.0;
+      for (int m = 0; m < per; ++m) {
+        t1 += part(0, j, m);
+        t2 += part(1, j, m);
+      }
+      own[j] = t1;
+      own[W + j] = t2;
+    }
+  } else {                   // a warp a channel, a fixed butterfly
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int j = warp; j < W; j += kFwdThreads / 32) {
+      double t1 = 0.0, t2 = 0.0;
+      for (int m = lane; m < per; m += 32) {
+        t1 += part(0, j, m);
+        t2 += part(1, j, m);
+      }
+      t1 = warp_sum(t1);
+      t2 = warp_sum(t2);
+      if (lane == 0) {
+        own[j] = t1;
+        own[W + j] = t2;
+      }
+    }
+  }
+  if (cl > 1) {
+    coop::cluster_group cluster = coop::this_cluster();
+    cluster.sync();
+    for (int i = threadIdx.x; i < 2 * W; i += kFwdThreads) {
+      double v[kSplitMaxCluster];   // every rank's load in flight at once
+#pragma unroll
+      for (int q = 0; q < kSplitMaxCluster; ++q)
+        if (q < cl) v[q] = cluster.map_shared_rank(chan, q)[i];
+      double t = 0.0;
+#pragma unroll
+      for (int q = 0; q < kSplitMaxCluster; ++q)
+        if (q < cl) t += v[q];
+      tot[i] = t;
+    }
+    cluster.sync();   // no CTA leaves while another still reads its sums
+  } else {
+    __syncthreads();
+  }
+  for (int g = threadIdx.x; g < kg; g += kFwdThreads) {
+    double t1 = 0.0, t2 = 0.0;
+    for (int i = 0; i < cg; ++i) {
+      t1 += tot[g * cg + i];
+      t2 += tot[W + g * cg + i];
+    }
+    const double cnt = (double)HW * cg;
+    const double m = t1 / cnt;
+    const double var = fmax(t2 / cnt - m * m, 0.0);
+    const float mf = (float)m;
+    const float rf = (float)(1.0 / sqrt(var + (double)eps));
+    grp[g] = mf;
+    grp[kg + g] = rf;
+    if (rank == 0) {
+      const size_t o = (size_t)n * G + c0 / cg + g;
+      mean[o] = mf;
+      rstd[o] = rf;
+    }
+  }
+  __syncthreads();
+  if (count == 0) return;
+  V s4, b4, m4, r4;
+  load_vec(scale + c0, col, s4);
+  load_vec(bias + c0, col, b4);
+  gather(grp, P * col, cg, m4);
+  gather(grp + kg, P * col, cg, r4);
+  const V mul = mul4(r4, s4);
+  float4* ys = reinterpret_cast<float4*>(y) + off;
+  k = count;
+  while (k > 0) {
+    const int u0 = k >= U ? k - U : 0;
+    float4 a[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (u0 + u < k) a[u] = __ldcs(xs + (size_t)(r0 + (u0 + u) * per) * CP);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (u0 + u < k)
+        __stcs(ys + (size_t)(r0 + (u0 + u) * per) * CP,
+               Pc::narrow(relu_affine(Pc::widen(a[u]), m4, mul, b4)));
+    k = u0;
+  }
+}
 
 bool shape_ok(int N, int HW, int C, int G) {
   return N >= 1 && N <= kMaxGrid && HW >= 1 && C >= 4 && C % 4 == 0 &&
          G >= 1 && C % G == 0;
-}
-
-// The split route's grids at P channels a piece: statistics blocks of up to
-// kMaxCols piece columns by kThreads / columns rows over (sample, tile,
-// column chunk), and elementwise blocks of kThreads pieces.
-bool plan(int N, int HW, int C, int G, int P, Shape* sh) {
-  if (!shape_ok(N, HW, C, G) || C % P != 0) return false;
-  const int CP = C / P;
-  const int cols = CP < kMaxCols ? CP : kMaxCols;
-  const int tiles = tiles_of(HW);
-  const int chunks = (CP + cols - 1) / cols;
-  if (tiles > kMaxGrid) return false;
-  const size_t per = (size_t)HW * CP;
-  size_t blocks = (per + kThreads - 1) / kThreads;
-  if (blocks > kMaxGrid) blocks = kMaxGrid;
-  sh->stats_grid = dim3(N, tiles, chunks);
-  sh->stats_block = dim3(cols, kThreads / cols);
-  sh->apply_grid = dim3((unsigned)blocks, N);
-  sh->tiles = tiles;
-  return true;
 }
 
 // A one-pass plan the kernels take: W whole groups and a multiple of P
@@ -1098,41 +1106,8 @@ int bwd_raised[64] = {0};
 int fwd_bf16_raised[64] = {0};
 int bwd_bf16_raised[64] = {0};
 
-// The forward on activations of type T, either route (the arguments of
-// dp_gn_relu_fwd).
-template <typename T>
-int relu_fwd(const T* x, const float* scale, const float* bias, T* y,
-             float* mean, float* rstd, float* p1, float* p2, int N, int HW,
-             int C, int G, float eps, int W, int cl, int smem, void* stream) {
-  if (N == 0) return (int)cudaSuccess;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  constexpr int P = Piece<T>::P;
-  if (W > 0) {
-    if (!onepass_ok(N, HW, C, G, W, cl, smem, 1, P))
-      return (int)cudaErrorInvalidValue;
-    return launch_onepass(gn_fwd_onepass<T>,
-                          P == 4 ? fwd_raised : fwd_bf16_raised, N, C, W, cl,
-                          smem, st, x, scale, bias, y, mean, rstd, HW, C, G,
-                          W, cl, eps);
-  }
-  Shape sh;
-  if (!plan(N, HW, C, G, P, &sh) || p1 == nullptr || p2 == nullptr)
-    return (int)cudaErrorInvalidValue;
-  gn_fwd_stats<T><<<sh.stats_grid, sh.stats_block, 0, st>>>(x, p1, p2, HW, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int ng = N * G;
-  gn_fwd_combine<<<(ng + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      p1, p2, mean, rstd, N, sh.tiles, HW, C, G, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gn_fwd_apply<T><<<sh.apply_grid, kThreads, 0, st>>>(x, scale, bias, mean,
-                                                      rstd, y, HW, C, G);
-  return (int)cudaGetLastError();
-}
-
-// A backward split plan the kernels take: W whole groups, a multiple of P
-// channels and at most kSplitMaxW of them, dividing C; a cluster of 1 to
+// A split plan the kernels take: W whole groups, a multiple of P channels
+// and at most kSplitMaxW of them, dividing C; a cluster of 1 to
 // kSplitMaxCluster CTAs, no more than the rows.
 bool split_ok(int N, int HW, int C, int G, int W, int cl, int P) {
   if (!shape_ok(N, HW, C, G) || C % P != 0) return false;
@@ -1143,24 +1118,30 @@ bool split_ok(int N, int HW, int C, int G, int W, int cl, int P) {
          (long long)cl * (C / W) <= 0x7fffffffLL;
 }
 
-// The backward split route's two launches (the arguments of relu_bwd).
-template <typename T>
-int split_bwd(const T* x, const T* dy, const float* scale, const float* bias,
-              const float* mean, const float* rstd, T* dx, float* dbc,
-              float* dsc, float* an, float* bn, int N, int HW, int C, int G,
-              int W, int cl, cudaStream_t st) {
-  constexpr int P = Piece<T>::P;
-  static bool wide = false;   // clusters above the portable 8 allowed
+// Launches a split-route statistics kernel of `threads` threads and `smem`
+// bytes of dynamic shared memory a CTA on grid (cl * C/W, N), in clusters
+// of cl CTAs along x when cl > 1; `ready` records that the kernel's
+// attributes are set: clusters above the portable 8, and the shared memory.
+template <typename... Params, typename... Args>
+int launch_split_stats(void (*kernel)(Params...), bool& ready, int threads,
+                       int smem, int N, int C, int W, int cl, cudaStream_t st,
+                       Args... args) {
   cudaError_t err;
-  if (!wide) {
-    err = cudaFuncSetAttribute(gn_bwd_stats<T>,
+  if (!ready) {
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
-    wide = true;
+    if (smem > 0) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    ready = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(cl * (C / W)), (unsigned)N, 1);
-  cfg.blockDim = dim3(kSplitThreads, 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1169,10 +1150,75 @@ int split_bwd(const T* x, const T* dy, const float* scale, const float* bias,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = cl > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, gn_bwd_stats<T>, x, dy, scale, bias, mean,
-                           rstd, dbc, dsc, an, bn, HW, C, G, W, cl);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of cl CTAs of gn_fwd_split<T> the current device holds
+// at once (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
+template <typename T>
+int fwd_split_clusters(int cl) {
+  if (cl < 1 || cl > kSplitMaxCluster) return -(int)cudaErrorInvalidValue;
+  const int bytes = (int)fwd_split_smem(Piece<T>::P);
+  cudaError_t err = cudaFuncSetAttribute(
+      gn_fwd_split<T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        gn_fwd_split<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cl, 1, 1);
+  cfg.blockDim = dim3(kFwdThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)bytes;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, gn_fwd_split<T>, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// The forward on activations of type T, either route (the arguments of
+// dp_gn_relu_fwd).
+template <typename T>
+int relu_fwd(const T* x, const float* scale, const float* bias, T* y,
+             float* mean, float* rstd, int N, int HW, int C, int G, float eps,
+             int split, int W, int cl, int smem, void* stream) {
+  if (N == 0) return (int)cudaSuccess;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  constexpr int P = Piece<T>::P;
+  if (!split) {
+    if (!onepass_ok(N, HW, C, G, W, cl, smem, 1, P))
+      return (int)cudaErrorInvalidValue;
+    return launch_onepass(gn_fwd_onepass<T>,
+                          P == 4 ? fwd_raised : fwd_bf16_raised, N, C, W, cl,
+                          smem, st, x, scale, bias, y, mean, rstd, HW, C, G,
+                          W, cl, eps);
+  }
+  static bool ready = false;
+  if (!split_ok(N, HW, C, G, W, cl, P)) return (int)cudaErrorInvalidValue;
+  return launch_split_stats(gn_fwd_split<T>, ready, kFwdThreads,
+                            (int)fwd_split_smem(P), N, C, W, cl, st, x, scale,
+                            bias, y, mean, rstd, HW, C, G, W, cl, eps);
+}
+
+// The backward split route's two launches (the arguments of relu_bwd).
+template <typename T>
+int split_bwd(const T* x, const T* dy, const float* scale, const float* bias,
+              const float* mean, const float* rstd, T* dx, float* dbc,
+              float* dsc, float* an, float* bn, int N, int HW, int C, int G,
+              int W, int cl, cudaStream_t st) {
+  constexpr int P = Piece<T>::P;
+  static bool ready = false;
+  const int err = launch_split_stats(gn_bwd_stats<T>, ready, kSplitThreads, 0,
+                                     N, C, W, cl, st, x, dy, scale, bias, mean,
+                                     rstd, dbc, dsc, an, bn, HW, C, G, W, cl);
+  if (err != 0) return err;
   const int CP = C / P;
   const int cols = CP < 64 ? CP : 64;
   const dim3 block(cols, kSplitThreads / cols);
@@ -1223,10 +1269,6 @@ int relu_bwd(const T* x, const T* dy, const float* scale, const float* bias,
 
 extern "C" {
 
-// T, the HW-tile count that sizes the [N,T,C] scratch of the forward's
-// split route.
-int dp_gn_tiles(int HW) { return HW < 1 ? 0 : tiles_of(HW); }
-
 // Dynamic shared memory of a one-pass CTA: HW rows split over cl CTAs, W
 // channels, slabs 1 (forward) or 2 (backward).
 long long dp_gn_onepass_smem(int HW, int W, int cl, int slabs) {
@@ -1240,17 +1282,25 @@ long long dp_gn_onepass_smem_bf16(int HW, int W, int cl, int slabs) {
   return (long long)onepass_smem(HW, W, cl, slabs, Piece<__nv_bfloat16>::P);
 }
 
+// Clusters of cl CTAs of kernel E (float32, or bf16 when bf16 != 0) the
+// current device holds at once; minus a CUDA error code on failure.
+int dp_gn_fwd_split_clusters(int cl, int bf16) {
+  return bf16 ? fwd_split_clusters<__nv_bfloat16>(cl)
+              : fwd_split_clusters<float>(cl);
+}
+
 // Forward. x, y [N,HW,C]; scale, bias [C]; mean, rstd [N,G]. All f32,
 // contiguous, on the current device; C a multiple of 4 and of G, pointers
 // 16-byte aligned (the caller checks). The plan (ops/fused_gn.py gn_plan):
-// W > 0 takes the one-pass route with chunks of W channels, cl CTAs a
-// chunk and smem bytes a CTA (p1, p2 unused); W = 0 the split route, with
-// float32 scratch p1, p2 [N,T,C], T = dp_gn_tiles(HW).
+// split 0 takes the one-pass route with chunks of W channels, cl CTAs a
+// chunk and smem bytes a CTA; split 1 the split route with chunks of W
+// channels over clusters of cl CTAs (ops/fused_gn.py split_plan; smem
+// unused).
 int dp_gn_relu_fwd(const float* x, const float* scale, const float* bias,
-                   float* y, float* mean, float* rstd, float* p1, float* p2,
-                   int N, int HW, int C, int G, float eps, int W, int cl,
-                   int smem, void* stream) {
-  return relu_fwd(x, scale, bias, y, mean, rstd, p1, p2, N, HW, C, G, eps, W,
+                   float* y, float* mean, float* rstd, int N, int HW, int C,
+                   int G, float eps, int split, int W, int cl, int smem,
+                   void* stream) {
+  return relu_fwd(x, scale, bias, y, mean, rstd, N, HW, C, G, eps, split, W,
                   cl, smem, stream);
 }
 
@@ -1259,7 +1309,7 @@ int dp_gn_relu_fwd(const float* x, const float* scale, const float* bias,
 // summed), and then dbc, dsc [N,C] scratch, else may be null. split 0 takes
 // the one-pass route with the plan as for the forward; split 1 the split
 // route with statistics chunks of W channels over clusters of cl CTAs
-// (ops/fused_gn.py bwd_split_plan; smem unused) and float32 scratch an, bn
+// (ops/fused_gn.py split_plan; smem unused) and float32 scratch an, bn
 // [N,G] for the group sums.
 int dp_gn_relu_bwd(const float* x, const float* dy, const float* scale,
                    const float* bias, const float* mean, const float* rstd,
@@ -1271,16 +1321,16 @@ int dp_gn_relu_bwd(const float* x, const float* dy, const float* scale,
 }
 
 // Forward on bf16 activations (kernels D and E in bf16): x, y [N,HW,C]
-// bf16; scale, bias [C], mean, rstd [N,G] and the split route's scratch
-// float32. C a multiple of 8 and of G, x and y 16-byte aligned; the plan as
-// for dp_gn_relu_fwd (one-pass chunk widths a multiple of 8).
+// bf16; scale, bias [C] and mean, rstd [N,G] float32. C a multiple of 8
+// and of G, x and y 16-byte aligned; the plan as for dp_gn_relu_fwd
+// (chunk widths a multiple of 8).
 int dp_gn_relu_fwd_bf16(const void* x, const float* scale, const float* bias,
-                        void* y, float* mean, float* rstd, float* p1,
-                        float* p2, int N, int HW, int C, int G, float eps,
-                        int W, int cl, int smem, void* stream) {
+                        void* y, float* mean, float* rstd, int N, int HW,
+                        int C, int G, float eps, int split, int W, int cl,
+                        int smem, void* stream) {
   using bf = __nv_bfloat16;
   return relu_fwd(static_cast<const bf*>(x), scale, bias, static_cast<bf*>(y),
-                  mean, rstd, p1, p2, N, HW, C, G, eps, W, cl, smem, stream);
+                  mean, rstd, N, HW, C, G, eps, split, W, cl, smem, stream);
 }
 
 // Backward on bf16 activations (kernels F and G in bf16): x, dy, dx

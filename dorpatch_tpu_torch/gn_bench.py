@@ -13,20 +13,25 @@ images x 128 masks at 224, 1 x 128 at 480) it times the forward kernel and
 the backward kernel as the victim calls it (dx only), as `chip_smoke.py`
 does: the median of REPS replays of a CUDA graph of INNER calls, each
 replay bracketed by synchronizes. It prints one JSON line per shape
-(route, times, bytes bound at 3.35 TB/s, calls per forward) and last a
+(route, times, bytes bound at 3.35 TB/s, calls per forward; the forward
+split route's floor of three slab passes is `bwd_bound_ms`) and last a
 JSON summary: the sums over the 49 calls of a forward of time and of time
 minus bound (`--split`'s slab counts 0 calls).
 
 `--tree DIR` imports `dorpatch_tpu_torch` from another checkout (the
 parent of a change, unpacked with `git archive`), so that one chip call
-times both designs in turn. `--sweep` also times, at each shape, every
-one-pass chunk width with rows of 64 bytes or more over 1, 2, 4 and 8
-CTAs of a cluster, where a CTA's shared memory fits, and at a split
-backward the statistics pass's other chunks and clusters. `--split`
-times the split route's slab [4, 65536, 64] (`SPLIT_SLAB`) after the
-victim's shapes. `--dtype bfloat16`
-times the bf16 forms on bf16 slabs (bounds at 2 bytes an element). Needs
-a CUDA device.
+times both designs in turn. `--split` times the split route's slab [4,
+65536, 64] (`SPLIT_SLAB`) after the victim's shapes, and at every shape
+also the forward forced to the split route (`fwd_split_ms`), so that one
+call sets kernel E beside kernel D, and first prints how many clusters of
+1 to 16 of E's CTAs the card holds at once (`fwd_split_max_clusters`, from
+`cudaOccupancyMaxActiveClusters`). `--sweep` also times, at each shape,
+every one-pass chunk width with rows of 64 bytes or more over 1, 2, 4 and
+8 CTAs of a cluster, where a CTA's shared memory fits, at a split
+backward the statistics pass's other chunks and clusters, and with
+`--split` at the tallest shapes the forward split route's chunks and
+clusters. `--dtype bfloat16` times the bf16 forms on bf16 slabs (bounds
+at 2 bytes an element). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -115,23 +120,38 @@ def bytes_bound_ms(n: int, hw: int, c: int, slabs: int,
     return float(itemsize) * slabs * n * hw * c / PEAK_BYTES_PER_S * 1e3
 
 
-def _sweep_plans(fgn, n, hw, c, itemsize=4):
-    """Other one-pass plans of one shape: every width whose rows are at
+def _split_planner(fgn):
+    """(direction, n, hw, c, itemsize) -> the tree's split plan of the
+    statistics pass, or None where the tree has none for `direction`."""
+    if hasattr(fgn, "split_plan"):
+        return lambda d, n, hw, c, isz: fgn.split_plan(d, n, hw, c, 32, isz)
+    if hasattr(fgn, "bwd_split_plan"):
+        return lambda d, n, hw, c, isz: (
+            fgn.bwd_split_plan(n, hw, c, 32, isz) if d == "bwd" else None)
+    return lambda *_: None
+
+
+def _sweep_plans(fgn, n, hw, c, itemsize=4, fwd_split=False):
+    """Other plans of one shape: every one-pass width whose rows are at
     least MIN_ROW_BYTES, over 1, 2, 4 and 8 CTAs of a cluster, where the
-    CTA's shared memory fits a block. A backward on the split route also
-    tries its statistics pass's other plans (`bwd_split_plan`'s widths of
-    rows of 64 bytes or more, over clusters of 1 to 16 CTAs)."""
+    CTA's shared memory fits a block. A direction on the split route (the
+    forward too, with `fwd_split`) also tries its statistics pass's other
+    plans (the widths of rows of 64 bytes or more, over clusters of 1 to 16
+    CTAs). Yields (direction, plan)."""
     from dorpatch_tpu_torch.ops import _build
 
-    out = []
-    if (hasattr(fgn, "bwd_split_plan")
-            and fgn.gn_plan("bwd", n, hw, c, 32, itemsize).route == "split"):
-        default = fgn.bwd_split_plan(n, hw, c, 32, itemsize)
+    planner = _split_planner(fgn)
+    for direction in ("fwd", "bwd"):
+        split = fgn.gn_plan(direction, n, hw, c, 32, itemsize).route == "split"
+        default = planner(direction, n, hw, c, itemsize)
+        if default is None or not (split or (fwd_split
+                                             and direction == "fwd")):
+            continue
         for w in fgn.split_widths(c, 32, itemsize):
             for cl in (1, 2, 4, 8, 16):
                 if (itemsize * w >= fgn.MIN_ROW_BYTES
                         and (w, cl) != tuple(default)):
-                    out.append(("bwd", fgn.GNPlan("split", w, cl, 0)))
+                    yield direction, fgn.GNPlan("split", w, cl, 0)
     for direction, slabs in (("fwd", 1), ("bwd", 2)):
         default = fgn.gn_plan(direction, n, hw, c, 32, itemsize)
         for w in fgn.one_pass_widths(c, 32, itemsize):
@@ -140,9 +160,7 @@ def _sweep_plans(fgn, n, hw, c, itemsize=4):
                 if (itemsize * w >= fgn.MIN_ROW_BYTES
                         and smem <= _build.MAX_SMEM_BYTES
                         and (w, cl) != (default.width, default.cluster)):
-                    out.append((direction,
-                                fgn.GNPlan("one_pass", w, cl, smem)))
-    return out
+                    yield direction, fgn.GNPlan("one_pass", w, cl, smem)
 
 
 def main(argv=None) -> int:
@@ -178,6 +196,13 @@ def main(argv=None) -> int:
     print(f"tree {root}; device {torch.cuda.get_device_name(0)}; "
           f"{args.dtype}; RN50 at {args.img_size} px, N = {step_n}",
           flush=True)
+    if args.split and hasattr(fgn, "split_plan"):
+        from dorpatch_tpu_torch.ops import _build
+
+        lib = _build.library()
+        print(json.dumps({"fwd_split_max_clusters": {
+            cl: lib.dp_gn_fwd_split_clusters(cl, int(isz == 2))
+            for cl in range(1, fgn.SPLIT_MAX_CLUSTER + 1)}}), flush=True)
     gen = torch.Generator(device=dev).manual_seed(3)
     total = dict(fwd_ms=0.0, bwd_ms=0.0, fwd_bound_ms=0.0, bwd_bound_ms=0.0)
     slabs = [(step_n, hw, c, calls) for (hw, c), calls in sorted(
@@ -203,13 +228,20 @@ def main(argv=None) -> int:
         if hasattr(fgn, "gn_plan"):
             rec["plans"] = {d: fgn.gn_plan(d, n, hw, c, *plan_args)._asdict()
                             for d in ("fwd", "bwd")}
-            if (rec["plans"]["bwd"]["route"] == "split"
-                    and hasattr(fgn, "bwd_split_plan")):
-                rec["plans"]["bwd_split"] = fgn.bwd_split_plan(
-                    n, hw, c, 32, isz)._asdict()
+            for d in ("fwd", "bwd"):
+                sp = _split_planner(fgn)(d, n, hw, c, isz)
+                if sp is not None and (rec["plans"][d]["route"] == "split"
+                                       or args.split):
+                    rec["plans"][f"{d}_split"] = sp._asdict()
+        if args.split:
+            split = fgn.GNPlan("split", 0, 0, 0)
+            rec["fwd_split_ms"] = device_ms(
+                lambda: fgn.gn_relu_fwd_kernel(x, s, b, plan=split))
         if args.sweep and hasattr(fgn, "gn_plan"):
             rec["sweep"] = []
-            for direction, plan in _sweep_plans(fgn, n, hw, c, isz):
+            tall = hw >= max(rn50_gn_calls(args.img_size))[0]
+            for direction, plan in _sweep_plans(fgn, n, hw, c, isz,
+                                                args.split and tall):
                 if direction == "fwd":
                     ms = device_ms(lambda: fgn.gn_relu_fwd_kernel(
                         x, s, b, plan=plan))

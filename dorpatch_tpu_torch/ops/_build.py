@@ -46,12 +46,12 @@ SIGNATURES = {
     "dp_stem_fold": ([_P, _P, _P, _P, _P, _P] + [_I] * 14 + [_P], _I),
     "dp_stem_fold_bf16_smem": ([_I] * 6, ctypes.c_longlong),
     "dp_stem_fold_bf16": ([_P] * 6 + [_I] * 18 + [_P], _I),
-    "dp_gn_tiles": ([_I], _I),
     "dp_gn_onepass_smem": ([_I] * 4, ctypes.c_longlong),
-    "dp_gn_relu_fwd": ([_P] * 8 + [_I] * 4 + [_F] + [_I] * 3 + [_P], _I),
+    "dp_gn_fwd_split_clusters": ([_I] * 2, _I),
+    "dp_gn_relu_fwd": ([_P] * 6 + [_I] * 4 + [_F] + [_I] * 4 + [_P], _I),
     "dp_gn_relu_bwd": ([_P] * 13 + [_I] * 8 + [_P], _I),
     "dp_gn_onepass_smem_bf16": ([_I] * 4, ctypes.c_longlong),
-    "dp_gn_relu_fwd_bf16": ([_P] * 8 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
+    "dp_gn_relu_fwd_bf16": ([_P] * 6 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
                             _I),
     "dp_gn_relu_bwd_bf16": ([_P] * 13 + [_I] * 8 + [_P], _I),
     "dp_masked_kv_attn": ([_P] * 8 + [_I] * 6 + [_P], _I),

@@ -21,13 +21,12 @@ or the tiled kernels:
   the group sums from there and writes the output, so each slab is read
   once and written once, in one launch. Every RN50 shape at 224 takes it,
   and at 480 px every forward.
-- "split" (kernels E and G, the tiled pair): a statistics pass and an
-  elementwise pass, which read x (and dy) twice; for slabs whose chunk fits
-  no cluster. The forward adds its [N, T, C] partial sums in a third,
-  float64 combine launch; the backward's statistics pass adds its sums up
-  itself, over thread-block clusters that `bwd_split_plan` sizes. RN50 at
-  480 px takes it for the backward of its 14400-row stage-1 slabs, 11 of
-  the 49 calls.
+- "split" (kernels E and G, the tiled pair): a statistics pass over
+  thread-block clusters that adds its sums up itself (`split_plan` sizes
+  the chunks and clusters), then the output from a second read of x (and
+  dy): the forward's in the same launch, the backward's in a dx launch;
+  for slabs whose chunk fits no cluster. RN50 at 480 px takes it for the
+  backward of its 14400-row stage-1 slabs, 11 of the 49 calls.
 
 `GNRelu` pairs them as a `torch.autograd.Function`; it saves only `x` and
 the `[N, G]` statistics (and the affine parameters). `gn_relu_reference` and
@@ -35,8 +34,8 @@ the `[N, G]` statistics (and the affine parameters). `gn_relu_reference` and
 takes. Port of `dorpatch_tpu.ops.fused_gn`.
 
 bf16 activations (the bf16 attack and the bf16 certify bank on RN50) take
-the kernels' bf16 forms on either route: statistics, the split route's
-partial sums and every intermediate in float32, `y` and `dx` in `x.dtype`,
+the kernels' bf16 forms on either route: statistics and every
+intermediate in float32, `y` and `dx` in `x.dtype`,
 the parameter cotangents in the affine parameters' type; `gn_plan` reckons
 a chunk's bytes with the element size.
 `gn_preserve_dtype` is the other bf16 numerics the JAX package's plain
@@ -77,21 +76,29 @@ PREFERRED_CTA_BYTES = {("fwd", 4): _build.MAX_SMEM_BYTES,
                        ("bwd", 4): TWO_PER_SM_BYTES,
                        ("fwd", 2): _build.MAX_SMEM_BYTES,
                        ("bwd", 2): _build.MAX_SMEM_BYTES}
-#: HW rows per statistics block of the forward's split route, and the
-#: grid's limit
-SPLIT_TILE_ROWS = 64
+#: the grid's limit on samples
 MAX_GRID = 65535
-#: the backward split route's statistics pass. The kernels take chunks of
+#: the split route's statistics pass. The kernels take chunks of
 #: at most SPLIT_MAX_WIDTH channels over clusters of at most
 #: SPLIT_MAX_CLUSTER CTAs (`csrc/fused_gn.cu` kSplitMaxW, kSplitMaxCluster).
-#: The plan takes chunks of at most SPLIT_WIDTH channels, at least
-#: SPLIT_MIN_CTAS CTAs (about two on each of the H100's 132 SMs), at most
-#: SPLIT_CTA_BYTES of x and dy and at least SPLIT_MIN_ROWS rows a CTA: at
-#: RN50's 480 px stage-1 slabs those plans came within 3% of the best
-#: tried (`gn_bench.py --img-size 480 --sweep`, PERF.md)
+#: The plan takes chunks whose rows are MIN_ROW_BYTES to SPLIT_WIDTH
+#: channels long backward, at least SPLIT_MIN_CTAS CTAs (about two on each
+#: of the H100's 132 SMs), at most SPLIT_CTA_BYTES of x (and dy) and at
+#: least SPLIT_MIN_ROWS rows a CTA: at RN50's 480 px stage-1 slabs those
+#: backward plans came within 3% of the best tried (`gn_bench.py
+#: --img-size 480 --sweep`, PERF.md). The forward (kernel E) starts from
+#: the widest chunk of rows of at most FWD_SPLIT_ROW_BYTES, splits rows
+#: over clusters of at most MAX_CLUSTER and narrows the chunk down to
+#: FWD_SPLIT_MIN_WIDTH channels: its CTAs take a whole SM each and the card
+#: holds only 7 clusters of 10 to 16 of them at once (15 of 7 or 8), so
+#: larger clusters or narrower chunks ran in a second wave; these plans
+#: were the fastest tried at the [4, 65536, 64] slab and within 3% of it
+#: at the 480 stage-1 shapes (`gn_bench.py --split --sweep`, PERF.md)
 SPLIT_MAX_WIDTH = 256
 SPLIT_MAX_CLUSTER = 16
 SPLIT_WIDTH = 64
+FWD_SPLIT_ROW_BYTES = 512
+FWD_SPLIT_MIN_WIDTH = 32
 SPLIT_MIN_CTAS = 256
 SPLIT_CTA_BYTES = 4 << 20
 SPLIT_MIN_ROWS = 128
@@ -108,9 +115,9 @@ class GNPlan(NamedTuple):
 
 
 class SplitPlan(NamedTuple):
-    """How the backward split route's statistics pass runs one shape: a
-    cluster of `cluster` CTAs takes `width` channels (whole groups) of one
-    sample, its CTAs a share of the HW rows each."""
+    """How the split route's statistics pass runs one shape: a cluster of
+    `cluster` CTAs takes `width` channels (whole groups) of one sample, its
+    CTAs a share of the HW rows each."""
     width: int
     cluster: int
 
@@ -173,8 +180,8 @@ def gn_plan(direction: str, n: int, hw: int, c: int,
     element size (4 float32, 2 bf16): the one-pass route with chunks of
     `one_pass_width` channels and the fewest CTAs a chunk whose shared
     memory fits PREFERRED_CTA_BYTES, else the fewest that fit a block's
-    limit; else the split route; a shape neither takes raises.
-    `direction` is "fwd" or "bwd"."""
+    limit; else the split route, where `split_widths` has a chunk; a shape
+    neither takes raises. `direction` is "fwd" or "bwd"."""
     slabs = {"fwd": 1, "bwd": 2}[direction]
     p = piece_channels(itemsize)
     if c % num_groups or c % p:
@@ -193,15 +200,15 @@ def gn_plan(direction: str, n: int, hw: int, c: int,
                 if smem <= budget:
                     return GNPlan("one_pass", width, cl, smem)
                 cl *= 2
-    if split_tiles(hw) <= MAX_GRID:
+    if split_widths(c, num_groups, itemsize):
         return GNPlan("split", 0, 0, 0)
     raise ValueError(f"no GroupNorm kernel route takes HW={hw}, C={c}: its "
-                     f"chunk fits no cluster and it has more than "
-                     f"{MAX_GRID} tiles of {SPLIT_TILE_ROWS} rows")
+                     f"chunk fits no cluster and its groups of "
+                     f"{c // num_groups} channels no split-route chunk")
 
 
 def split_widths(c: int, num_groups: int, itemsize: int = 4):
-    """The chunk widths of the backward split route's statistics pass,
+    """The chunk widths of the split route's statistics pass,
     narrowest first: whole groups, a multiple of a 16-byte piece's
     channels, at most SPLIT_MAX_WIDTH channels."""
     cg = c // num_groups
@@ -211,37 +218,52 @@ def split_widths(c: int, num_groups: int, itemsize: int = 4):
             and k * cg <= SPLIT_MAX_WIDTH]
 
 
-def split_target_ctas(n: int, hw: int, c: int, itemsize: int = 4) -> int:
-    """The CTAs the backward split route's statistics pass aims for: at
-    least SPLIT_MIN_CTAS, and enough that none reads more than
-    SPLIT_CTA_BYTES of x and dy."""
+def split_target_ctas(direction: str, n: int, hw: int, c: int,
+                      itemsize: int = 4) -> int:
+    """The CTAs the split route's statistics pass aims for: at least
+    SPLIT_MIN_CTAS, and enough that none reads more than SPLIT_CTA_BYTES of
+    x (and, backward, dy)."""
+    slabs = {"fwd": 1, "bwd": 2}[direction]
     return max(SPLIT_MIN_CTAS,
-               -(-2 * itemsize * n * hw * c // SPLIT_CTA_BYTES))
+               -(-slabs * itemsize * n * hw * c // SPLIT_CTA_BYTES))
+
+
+def split_limits(direction: str, itemsize: int = 4):
+    """`(least, most, cluster)` of the split plan in `direction`: the least
+    and the most bytes a row of a statistics chunk should take, and the
+    largest cluster. Backward MIN_ROW_BYTES to SPLIT_WIDTH channels over
+    up to SPLIT_MAX_CLUSTER CTAs; forward FWD_SPLIT_MIN_WIDTH channels to
+    FWD_SPLIT_ROW_BYTES over up to MAX_CLUSTER."""
+    if direction == "fwd":
+        return (itemsize * FWD_SPLIT_MIN_WIDTH, FWD_SPLIT_ROW_BYTES,
+                MAX_CLUSTER)
+    return MIN_ROW_BYTES, itemsize * SPLIT_WIDTH, SPLIT_MAX_CLUSTER
 
 
 @functools.lru_cache(maxsize=256)
-def bwd_split_plan(n: int, hw: int, c: int, num_groups: int = 32,
-                   itemsize: int = 4) -> SplitPlan:
-    """The backward split route's statistics plan for `[n, hw, c]`: the
-    widest chunk of at most SPLIT_WIDTH channels (the narrowest chunk
-    where a group is wider), then, while the pass has fewer CTAs than
-    `split_target_ctas`, its rows split over a cluster twice as large
-    (while each CTA keeps SPLIT_MIN_ROWS rows, up to SPLIT_MAX_CLUSTER),
-    else a narrower chunk whose rows are still MIN_ROW_BYTES long. A
-    shape with no width raises."""
+def split_plan(direction: str, n: int, hw: int, c: int, num_groups: int = 32,
+               itemsize: int = 4) -> SplitPlan:
+    """The split route's statistics plan for `[n, hw, c]` in `direction`
+    ("fwd" or "bwd"): the widest chunk whose rows are at most the most of
+    `split_limits` (the narrowest chunk where a group is wider), then,
+    while the pass has fewer CTAs than `split_target_ctas`, its rows split
+    over a cluster twice as large (while each CTA keeps SPLIT_MIN_ROWS
+    rows, up to the largest cluster of `split_limits`), else a narrower
+    chunk whose rows are still the least of `split_limits` long. A shape
+    with no width raises."""
     widths = split_widths(c, num_groups, itemsize)
     if not widths:
         raise ValueError(f"no split-route chunk of whole groups of "
                          f"{c // num_groups} channels is at most "
                          f"{SPLIT_MAX_WIDTH} channels and a multiple of "
                          f"{piece_channels(itemsize)}")
-    wide = [w for w in widths if itemsize * w >= MIN_ROW_BYTES] \
-        or widths[-1:]
-    wide = [w for w in wide if w <= SPLIT_WIDTH] or wide[:1]
+    least, most, largest = split_limits(direction, itemsize)
+    wide = [w for w in widths if itemsize * w >= least] or widths[-1:]
+    wide = [w for w in wide if itemsize * w <= most] or wide[:1]
     width, cl = wide[-1], 1
-    target = split_target_ctas(n, hw, c, itemsize)
+    target = split_target_ctas(direction, n, hw, c, itemsize)
     while n * (c // width) * cl < target:
-        if cl < SPLIT_MAX_CLUSTER and -(-hw // (2 * cl)) >= SPLIT_MIN_ROWS:
+        if cl < largest and -(-hw // (2 * cl)) >= SPLIT_MIN_ROWS:
             cl *= 2
         elif width != wide[0]:
             width = wide[wide.index(width) - 1]
@@ -380,31 +402,21 @@ def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                          "scale and bias must be 16-byte aligned")
 
 
-def split_tiles(hw: int) -> int:
-    """T, the HW tiles of SPLIT_TILE_ROWS rows of the forward's split route
-    (`csrc/fused_gn.cu` `dp_gn_tiles`)."""
-    return -(-hw // SPLIT_TILE_ROWS)
-
-
-def split_scratch(x: torch.Tensor) -> torch.Tensor:
-    """An `[N, T, C]` partial-sum scratch of the forward's split route on
-    x's device: float32 for float32 and bf16 activations alike (bf16
-    partial sums would wreck the statistics)."""
-    n, h, w, c = x.shape
-    return torch.empty((n, split_tiles(h * w), c), dtype=torch.float32,
-                       device=x.device)
-
-
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
 def _plan_of(direction: str, x: torch.Tensor, num_groups: int,
              plan: Optional[GNPlan]) -> GNPlan:
-    """`plan`, or `gn_plan`'s for x at its element size."""
+    """`plan`, or `gn_plan`'s for x at its element size; a split plan
+    without a width takes `split_plan`'s chunk and cluster."""
     n, h, w, c = x.shape
-    return plan or gn_plan(direction, n, h * w, c, num_groups,
+    plan = plan or gn_plan(direction, n, h * w, c, num_groups,
                            x.element_size())
+    if plan.route == "split" and not plan.width:
+        plan = plan._replace(**split_plan(
+            direction, n, h * w, c, num_groups, x.element_size())._asdict())
+    return plan
 
 
 def _entry(lib, direction: str, x: torch.Tensor):
@@ -420,7 +432,8 @@ def gn_relu_fwd_kernel(x: torch.Tensor, scale: torch.Tensor,
     """The forward kernels on CUDA tensors: x `[N,H,W,C]` f32 or bf16,
     scale and bias f32 -> `(y [N,H,W,C] of x's type, mean [N,G] f32, rstd
     [N,G] f32)`. `plan` defaults to `gn_plan`'s (another is for measuring
-    other chunks)."""
+    other chunks); a split plan's `width` and `cluster`, when not 0, are
+    the statistics pass's chunk and cluster instead of `split_plan`'s."""
     _check(x, scale, bias, num_groups)
     n, h, w, c = x.shape
     plan = _plan_of("fwd", x, num_groups, plan)
@@ -428,15 +441,13 @@ def gn_relu_fwd_kernel(x: torch.Tensor, scale: torch.Tensor,
     y = torch.empty_like(x)
     mean = torch.empty((n, num_groups), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
-    p1 = p2 = None
-    if plan.route == "split":
-        p1, p2 = (split_scratch(x) for _ in range(2))
     fn, name = _entry(lib, "fwd", x)
     _backend.count_launch(name, plan.route)
     _build.check(fn(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        mean.data_ptr(), rstd.data_ptr(), _ptr(p1), _ptr(p2), n, h * w, c,
-        num_groups, float(eps), plan.width, plan.cluster, plan.smem,
+        mean.data_ptr(), rstd.data_ptr(), n, h * w, c, num_groups,
+        float(eps), int(plan.route == "split"), plan.width, plan.cluster,
+        plan.smem,
         _backend.stream_handle(x)), name)
     return y, mean, rstd
 
@@ -447,8 +458,7 @@ def gn_relu_bwd_kernel(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                        params: bool = True, plan: Optional[GNPlan] = None):
     """The backward kernels on CUDA tensors -> `(dx, dscale, dbias)`: dx
     of x's type, `dscale`/`dbias` f32 and None unless `params`. `plan` as
-    for the forward; a split plan's `width` and `cluster`, when not 0, are
-    the statistics pass's chunk and cluster instead of `bwd_split_plan`'s."""
+    for the forward."""
     _check(x, scale, bias, num_groups)
     _backend.require(dy, "dy", x.dtype, 4)
     for t, name in ((mean, "mean"), (rstd, "rstd")):
@@ -462,9 +472,6 @@ def gn_relu_bwd_kernel(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                          f"{tuple(mean.shape)}, rstd {tuple(rstd.shape)}")
     plan = _plan_of("bwd", x, num_groups, plan)
     split = plan.route == "split"
-    if split and not plan.width:
-        plan = plan._replace(**bwd_split_plan(
-            n, h * w, c, num_groups, x.element_size())._asdict())
     lib = _build.library()
     dx = torch.empty_like(x)
     dbc = dsc = an = bn = None

@@ -170,17 +170,19 @@ def test_gn_plan_bf16_takes_the_one_pass_route_at_every_rn50_shape(hw, c):
 
 def test_gn_bf16_split_shape_plans_split_with_float32_scratch():
     """A bf16 slab whose chunk fits no cluster plans the split route (the
-    bf16 forms of kernels E and G on the card); its [N, T, C] partial-sum
-    scratch is float32, as at float32; a CPU tensor of that shape runs the
-    plain version and launches nothing."""
+    bf16 forms of kernels E and G on the card), with no partial-sum scratch
+    since the statistics passes add their sums up over clusters: the
+    forward over chunks of 32 channels in both types over clusters of 8,
+    the backward over chunks of 32 channels (64-byte rows; 16 at float32)
+    over clusters of 16; a CPU tensor of that shape runs the plain version
+    and launches nothing."""
     x = torch.zeros((1, 256, 256, 64), dtype=BF)
-    for direction in ("fwd", "bwd"):
+    for direction, w16, w32, cl in (("fwd", 32, 32, 8), ("bwd", 32, 16, 16)):
         assert tgn._plan_of(direction, x, 32, None) == \
-            tgn.GNPlan("split", 0, 0, 0)
-    scratch = tgn.split_scratch(x)
-    assert scratch.dtype == torch.float32 and scratch.device == x.device
-    assert tuple(scratch.shape) == (1, 256 * 256 // tgn.SPLIT_TILE_ROWS, 64)
-    assert tgn.split_tiles(14400) == 225 and tgn.split_tiles(65) == 2
+            tgn.GNPlan("split", w16, cl, 0)
+        assert tgn._plan_of(direction, x.float(), 32, None) == \
+            tgn.GNPlan("split", w32, cl, 0)
+    assert not hasattr(tgn, "split_scratch")
     xs, scale, bias, _ = _gn_case(4, (1, 256, 256, 64))
     _backend.reset_launch_counts()
     y = tgn.gn_relu(_t16(xs), torch.as_tensor(scale), torch.as_tensor(bias))

@@ -778,21 +778,177 @@ def test_gn_bf16_split_and_one_pass_routes_agree(dev, shape):
 
 
 def test_gn_split_scratch_matches_the_kernels_tiles(dev):
-    """The wrapper's float32 [N, T, C] scratch of the forward's split route
-    (kernel E) has the kernels' T."""
+    """The split route has no partial-sum scratch: its statistics passes
+    add their sums up over clusters. Every plan `fused_gn.split_plan` gives
+    at the split route's shapes (both directions, both types) lies within
+    the C entries' own limits and launches; a chunk that splits a group,
+    one wider than kSplitMaxW, one that does not divide C and a cluster
+    above kSplitMaxCluster are refused by the C entry. The C entry that
+    counts kernel E's co-resident clusters (`gn_bench.py --split`) answers
+    for every cluster size the kernels take and refuses a larger one."""
     from dorpatch_tpu_torch.ops import _build
 
+    assert "dp_gn_tiles" not in _build.SIGNATURES
     lib = _build.library()
-    for hw in (1, 63, 64, 65, 14400, 65536):
-        assert lib.dp_gn_tiles(hw) == fgn.split_tiles(hw)
-    x = torch.zeros((2, 120, 120, 64), dtype=torch.bfloat16, device=dev)
-    scratch = fgn.split_scratch(x)
-    assert scratch.dtype == torch.float32
-    assert tuple(scratch.shape) == (2, lib.dp_gn_tiles(14400), 64)
+    for bf16 in (0, 1):
+        held = [lib.dp_gn_fwd_split_clusters(cl, bf16)
+                for cl in range(1, fgn.SPLIT_MAX_CLUSTER + 1)]
+        assert held[0] >= 1 and all(h >= 1 for h in held)
+        assert lib.dp_gn_fwd_split_clusters(fgn.SPLIT_MAX_CLUSTER + 1,
+                                            bf16) < 0
+    for dtype in (torch.float32, torch.bfloat16):
+        isz = torch.empty((), dtype=dtype).element_size()
+        for n, hw, c in ((128, 14400, 64), (128, 14400, 256),
+                         (4, 65536, 64), (1, 225, 96), (3, 49, 1024)):
+            for d in ("fwd", "bwd"):
+                w, cl = fgn.split_plan(d, n, hw, c, 32, isz)
+                assert w <= fgn.SPLIT_MAX_WIDTH and w % (c // 32) == 0
+                assert c % w == 0 and w % fgn.piece_channels(isz) == 0
+                assert 1 <= cl <= min(fgn.SPLIT_MAX_CLUSTER, hw)
+        x, s, b, dy = _gn_case(dev, 15, (1, 8, 8, 512))
+        x, dy = x.to(dtype), dy.to(dtype)
+        _, mean, rstd = fgn.gn_relu_fwd_kernel(x, s, b)
+        for width, cluster in ((16, 1), (256, 16), (64, 8)):
+            plan = fgn.GNPlan("split", width, cluster, 0)
+            fgn.gn_relu_fwd_kernel(x, s, b, plan=plan)
+            fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd, plan=plan)
+        torch.cuda.synchronize()
+        for width, cluster in ((12, 1), (512, 1), (48, 1), (16, 32)):
+            plan = fgn.GNPlan("split", width, cluster, 0)
+            with pytest.raises(RuntimeError, match="gn_relu_fwd"):
+                fgn.gn_relu_fwd_kernel(x, s, b, plan=plan)
+            with pytest.raises(RuntimeError, match="gn_relu_bwd"):
+                fgn.gn_relu_bwd_kernel(x, dy, s, b, mean, rstd, plan=plan)
+
+
+def _check_gn_forward(x, s, b, y, mean, rstd):
+    """A forward's outputs under the GroupNorm gates: float32 against the
+    float64 plain version (mean atol 1e-6, rstd rtol 1e-5, y 1e-5); bf16
+    against the plain bf16 version on the same inputs (statistics within
+    1e-5, y within one bf16 ulp and 1e-5) and against float64 within the
+    float32 gates plus half a bf16 ulp (its one rounding)."""
+    assert (y.dtype, mean.dtype, rstd.dtype) == (x.dtype, torch.float32,
+                                                 torch.float32)
+    x64, s64, b64 = x.double(), s.double(), b.double()
+    m64, r64 = fgn.gn_stats_reference(x64, 32)
+    torch.testing.assert_close(mean.double(), m64, rtol=0, atol=1e-6)
+    torch.testing.assert_close(rstd.double(), r64, rtol=1e-5, atol=0)
+    want = fgn.gn_relu_reference(x64, s64, b64)
+    half = 0.5 * _ulp16(want).double() if x.dtype == torch.bfloat16 else 0.0
+    err = (y.double() - want).abs()
+    assert (err <= 1e-5 + 1e-5 * want.abs() + half).all(), float(err.max())
+    if x.dtype == torch.bfloat16:
+        m32, r32 = fgn.gn_stats_reference(x, 32)
+        torch.testing.assert_close(mean, m32, rtol=0, atol=1e-5)
+        torch.testing.assert_close(rstd, r32, rtol=1e-5, atol=0)
+        want = fgn.gn_relu_reference(x, s, b)
+        err = (y.float() - want.float()).abs()
+        assert (err <= _ulp16(want) + 1e-5).all(), float(err.max())
+
+
+def _e_case(dev, dtype, seed, shape):
+    x, s, b, _ = _gn_case(dev, seed, shape)
+    return x.to(dtype), s, b
+
+
+# Kernel E (the forward split route) in both types: the [4, 65536, 64]
+# split slab on its own plan; RN50's three 480 px stage-1 shapes forced to
+# the split route with the plans of the attack step's N = 128, on N = 3;
+# HW that no cluster share divides (15*15 over 16 CTAs: the last has no
+# row; 127*127 over 16, 8 and 2), groups of 3 channels (C = 96) and more
+# piece columns than a block (C = 1024); (width, cluster) or None for the
+# plan of the shape itself.
+GN_E_CASES = [((4, 256, 256, 64), None),
+              ((3, 120, 120, 64), ("fwd", 128, 14400, 64)),
+              ((3, 120, 120, 128), ("fwd", 128, 14400, 128)),
+              ((3, 120, 120, 256), ("fwd", 128, 14400, 256)),
+              ((2, 15, 15, 64), (16, 16)), ((1, 127, 127, 64), (16, 16)),
+              ((2, 127, 127, 256), (64, 8)), ((1, 127, 127, 96), (24, 2)),
+              ((2, 8, 8, 1024), None), ((5, 9, 9, 256), (256, 1))]
+
+
+def _e_plan(shape, split, isz):
+    n, h, w, c = shape
+    if split is None:
+        return fgn.GNPlan("split", *fgn.split_plan("fwd", n, h * w, c, 32,
+                                                   isz), 0)
+    if split[0] == "fwd":
+        return fgn.GNPlan("split", *fgn.split_plan(*split, 32, isz), 0)
+    return fgn.GNPlan("split", *split, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,split", GN_E_CASES)
+def test_gn_split_forward_matches_plain(dev, dtype, shape, split):
+    """Kernel E's statistics over a cluster and its y: under the GroupNorm
+    gates (`_check_gn_forward`) and bit-equal on a repeat; each launch
+    counts under the split route."""
+    x, s, b = _e_case(dev, dtype, 16, shape)
+    plan = _e_plan(shape, split, x.element_size())
+    kind = "_bf16" if dtype == torch.bfloat16 else ""
+    _backend.reset_launch_counts()
+    got = fgn.gn_relu_fwd_kernel(x, s, b, plan=plan)
+    torch.cuda.synchronize()
+    assert _backend.route_counts() == {f"gn_relu_fwd{kind}/split": 1}
+    _check_gn_forward(x, s, b, *got)
+    again = fgn.gn_relu_fwd_kernel(x, s, b, plan=plan)
+    assert all(torch.equal(p, q) for p, q in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_split_forward_every_sweep_plan_matches_plain(dev, dtype):
+    """Every plan `gn_bench.py --split --sweep` tries for the forward split
+    route (rows of 64 bytes or more over clusters of 1 to 16), at a shape
+    of several chunks: each within the GroupNorm gates."""
+    from dorpatch_tpu_torch.gn_bench import _sweep_plans
+
+    shape = (2, 40, 40, 256)
+    x, s, b = _e_case(dev, dtype, 17, shape)
+    isz = x.element_size()
+    plans = [p for d, p in _sweep_plans(fgn, 2, 1600, 256, isz, True)
+             if d == "fwd" and p.route == "split"]
+    assert len(plans) >= 19
+    for plan in plans:
+        got = fgn.gn_relu_fwd_kernel(x, s, b, plan=plan)
+        torch.cuda.synchronize()
+        _check_gn_forward(x, s, b, *got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 56, 56, 64), (3, 28, 28, 256),
+                                   (1, 7, 7, 96), (2, 120, 120, 64)])
+def test_gn_split_and_one_pass_forward_agree(dev, dtype, shape):
+    """Kernels D and E compute one function from statistics summed in
+    other orders: mean within 1e-6 (bf16 1e-5), rstd within 1e-5, y within
+    1e-5 (bf16: one ulp and 1e-5) of each other."""
+    x, s, b = _e_case(dev, dtype, 18, shape)
+    n, h, w, c = shape
+    one = fgn.gn_plan("fwd", n, h * w, c, 32, x.element_size())
+    assert one.route == "one_pass"
+    y1, m1, r1 = fgn.gn_relu_fwd_kernel(x, s, b, plan=one)
+    y2, m2, r2 = fgn.gn_relu_fwd_kernel(x, s, b, plan=SPLIT)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    torch.testing.assert_close(m2, m1, rtol=0, atol=1e-5 if bf16 else 1e-6)
+    torch.testing.assert_close(r2, r1, rtol=1e-5, atol=0)
+    err = (y2.float() - y1.float()).abs()
+    tol = (_ulp16(y1) if bf16 else 1e-5 * y1.abs()) + 1e-5
+    assert (err <= tol).all(), float(err.max())
+
+
+def test_gn_split_forward_refuses_a_plan_it_does_not_take(dev):
+    """A chunk that splits a group, one wider than kSplitMaxW, one that does
+    not divide C, a cluster above 16 and one above the rows are refused by
+    the kernels' own check."""
+    x, s, b = _e_case(dev, torch.float32, 19, (1, 3, 3, 512))
+    for width, cluster in ((12, 1), (512, 1), (48, 1), (16, 32), (16, 10)):
+        with pytest.raises(RuntimeError, match="gn_relu_fwd"):
+            fgn.gn_relu_fwd_kernel(x, s, b,
+                                   plan=fgn.GNPlan("split", width, cluster, 0))
 
 
 # Kernel G (the backward split route) in both types, at its default plans
-# (`fused_gn.bwd_split_plan`) and at forced ones, (width, cluster): HW off
+# (`fused_gn.split_plan`) and at forced ones, (width, cluster): HW off
 # the dx pass's row blocks (81, 225, 14400), cg 2 (C 64) and cg 8 (C 256),
 # N 1 and 128, the [4, 65536, 64] slab (chunks of 16 or 32 channels over
 # clusters of 16), one CTA and no cluster, and a cluster of 16 over few rows.

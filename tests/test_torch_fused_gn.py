@@ -331,50 +331,87 @@ def test_an_oversize_slab_takes_the_split_route(direction):
         tgn.GNPlan("split", 0, 0, 0)
 
 
-@pytest.mark.parametrize("n,hw,c", [(1, 65535 * 64 + 1, 64), (65536, 49, 64),
+@pytest.mark.parametrize("n,hw,c", [(1, 65536, 32 * 264), (65536, 49, 64),
                                     (1, 49, 48), (1, 49, 66)])
 def test_a_shape_no_route_takes_raises(n, hw, c):
-    """Too many tiles for the split route and too tall a chunk for any
-    cluster; too many samples for the grid; C not a multiple of the 32
-    groups or of 4."""
+    """Groups of 264 channels: too tall a chunk for any cluster and wider
+    than a split-route chunk; too many samples for the grid; C not a
+    multiple of the 32 groups or of 4."""
     for direction in ("fwd", "bwd"):
         with pytest.raises(ValueError):
             tgn.gn_plan(direction, n, hw, c)
 
 
+SPLIT_PLAN_SHAPES = [(128, 14400, 64), (128, 14400, 128), (128, 14400, 256),
+                     (4, 65536, 64), (1, 65536, 64), (2, 81, 64), (2, 25, 96),
+                     (2, 64, 1024), (1, 49, 256), (65535, 49, 64)]
+
+
+def _split_plan_keeps_its_limits(direction, n, hw, c, itemsize):
+    plan = tgn.split_plan(direction, n, hw, c, 32, itemsize)
+    cg, p = c // 32, 16 // itemsize
+    w, cl = plan
+    widths = tgn.split_widths(c, 32, itemsize)
+    least, most, largest = tgn.split_limits(direction, itemsize)
+    assert w % cg == 0 and w % p == 0 and c % w == 0
+    assert w <= tgn.SPLIT_MAX_WIDTH and w in widths
+    assert itemsize * w <= most or w == widths[0]
+    if any(itemsize * v >= least for v in widths):
+        assert itemsize * w >= least
+    assert cl in (1, 2, 4, 8, 16) and cl <= largest <= tgn.SPLIT_MAX_CLUSTER
+    assert cl == 1 or -(-hw // cl) >= tgn.SPLIT_MIN_ROWS
+    slabs = {"fwd": 1, "bwd": 2}[direction]
+    target = tgn.split_target_ctas(direction, n, hw, c, itemsize)
+    assert target >= tgn.SPLIT_MIN_CTAS
+    assert target * tgn.SPLIT_CTA_BYTES >= slabs * itemsize * n * hw * c
+    if n * (c // w) * cl < target:
+        narrower = [v for v in widths if v < w and itemsize * v >= least]
+        assert not narrower
+        assert cl == largest or -(-hw // (2 * cl)) < tgn.SPLIT_MIN_ROWS
+
+
 @pytest.mark.parametrize("itemsize", [4, 2])
-@pytest.mark.parametrize("n,hw,c", [(128, 14400, 64), (128, 14400, 128),
-                                    (128, 14400, 256), (4, 65536, 64),
-                                    (1, 65536, 64), (2, 81, 64), (2, 25, 96),
-                                    (2, 64, 1024), (1, 49, 256),
-                                    (65535, 49, 64)])
+@pytest.mark.parametrize("n,hw,c", SPLIT_PLAN_SHAPES)
 def test_bwd_split_plan_keeps_its_limits(n, hw, c, itemsize):
     """The backward split route's statistics plan: whole groups, 16-byte
     pieces, at most SPLIT_WIDTH channels (SPLIT_MAX_WIDTH where a group is
-    wider) dividing C, rows of at least MIN_ROW_BYTES where C allows;
+    wider) dividing C, rows of at least MIN_ROW_BYTES where C allows
+    (`split_limits`);
     clusters a power of two up to SPLIT_MAX_CLUSTER whose CTAs keep
     SPLIT_MIN_ROWS rows; and fewer CTAs than `split_target_ctas` only
     where neither a larger cluster nor a narrower chunk is left."""
-    plan = tgn.bwd_split_plan(n, hw, c, 32, itemsize)
-    cg, p = c // 32, 16 // itemsize
-    w, cl = plan
-    assert w % cg == 0 and w % p == 0 and c % w == 0
-    assert w <= tgn.SPLIT_MAX_WIDTH and w in tgn.split_widths(c, 32, itemsize)
-    assert w <= tgn.SPLIT_WIDTH or w == tgn.split_widths(c, 32, itemsize)[0]
-    if any(itemsize * v >= tgn.MIN_ROW_BYTES
-           for v in tgn.split_widths(c, 32, itemsize)):
-        assert itemsize * w >= tgn.MIN_ROW_BYTES
-    assert cl in (1, 2, 4, 8, 16) and cl <= tgn.SPLIT_MAX_CLUSTER
-    assert cl == 1 or -(-hw // cl) >= tgn.SPLIT_MIN_ROWS
-    target = tgn.split_target_ctas(n, hw, c, itemsize)
-    assert target >= tgn.SPLIT_MIN_CTAS
-    assert target * tgn.SPLIT_CTA_BYTES >= 2 * itemsize * n * hw * c
-    if n * (c // w) * cl < target:
-        narrower = [v for v in tgn.split_widths(c, 32, itemsize)
-                    if v < w and itemsize * v >= tgn.MIN_ROW_BYTES]
-        assert not narrower
-        assert cl == tgn.SPLIT_MAX_CLUSTER or \
-            -(-hw // (2 * cl)) < tgn.SPLIT_MIN_ROWS
+    _split_plan_keeps_its_limits("bwd", n, hw, c, itemsize)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("n,hw,c", SPLIT_PLAN_SHAPES)
+def test_fwd_split_plan_keeps_its_limits(n, hw, c, itemsize):
+    """The forward split route's plan (kernel E) keeps the backward's
+    limits with its own (`split_limits`): rows of FWD_SPLIT_ROW_BYTES at
+    most and FWD_SPLIT_MIN_WIDTH channels at least where C allows,
+    clusters of at most MAX_CLUSTER (the portable size), its CTAs sized by
+    the bytes of x alone."""
+    assert tgn.split_limits("fwd", itemsize) == (
+        itemsize * tgn.FWD_SPLIT_MIN_WIDTH, tgn.FWD_SPLIT_ROW_BYTES,
+        tgn.MAX_CLUSTER)
+    _split_plan_keeps_its_limits("fwd", n, hw, c, itemsize)
+
+
+def test_fwd_split_plan_at_the_measured_shapes():
+    """The [4, 65536, 64] slab takes chunks of 32 channels over 8 clusters
+    of 8 in both types, one wave (the fastest plans of `gn_bench.py --split
+    --sweep`); RN50's 480 px stage-1 shapes (which kernel D takes) the
+    widest chunk of at most 512-byte rows over clusters of 2, as many CTAs
+    as at least 256 and 4 MiB of x a CTA need. A channel count of no
+    whole-group chunk raises."""
+    assert tgn.split_plan("fwd", 4, 65536, 64) == tgn.SplitPlan(32, 8)
+    assert tgn.split_plan("fwd", 4, 65536, 64, 32, 2) == tgn.SplitPlan(32, 8)
+    for c, f32, bf16 in ((64, 64, 64), (128, 128, 128), (256, 128, 256)):
+        assert tgn.split_plan("fwd", 128, 14400, c) == tgn.SplitPlan(f32, 2)
+        assert tgn.split_plan("fwd", 128, 14400, c, 32, 2) == \
+            tgn.SplitPlan(bf16, 2)
+    with pytest.raises(ValueError):
+        tgn.split_plan("fwd", 1, 49, 32 * 264)
 
 
 def test_bwd_split_plan_at_the_measured_shapes():
@@ -385,13 +422,13 @@ def test_bwd_split_plan_at_the_measured_shapes():
     float32, 32 at bf16. A channel count of no whole-group chunk of at most
     SPLIT_MAX_WIDTH channels raises."""
     for c, f32, bf16 in ((64, 2, 2), (128, 2, 1), (256, 2, 1)):
-        assert tgn.bwd_split_plan(128, 14400, c) == tgn.SplitPlan(64, f32)
-        assert tgn.bwd_split_plan(128, 14400, c, 32, 2) == \
+        assert tgn.split_plan("bwd", 128, 14400, c) == tgn.SplitPlan(64, f32)
+        assert tgn.split_plan("bwd", 128, 14400, c, 32, 2) == \
             tgn.SplitPlan(64, bf16)
-    assert tgn.bwd_split_plan(4, 65536, 64) == tgn.SplitPlan(16, 16)
-    assert tgn.bwd_split_plan(4, 65536, 64, 32, 2) == tgn.SplitPlan(32, 16)
+    assert tgn.split_plan("bwd", 4, 65536, 64) == tgn.SplitPlan(16, 16)
+    assert tgn.split_plan("bwd", 4, 65536, 64, 32, 2) == tgn.SplitPlan(32, 16)
     with pytest.raises(ValueError):
-        tgn.bwd_split_plan(1, 49, 32 * 264)
+        tgn.split_plan("bwd", 1, 49, 32 * 264)
 
 
 def test_route_counts_reset_with_the_launch_counts():
