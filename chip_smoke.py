@@ -41,8 +41,9 @@ NVIDIA GPU.
    at every (HW, C) at 480 and E forced at its stage-1 shapes (the
    GroupNorm forms also against float64,
    within the float32 gates plus half a bf16 ulp), H at the ViT-B/16
-   bank's phase-1 and pair-audit chunks;
-4. runs eight main paths through their user entry point, the CLI, each
+   bank's phase-1 and pair-audit chunks; and A and A's bf16 form at
+   K = 3, the n_patch=2 sweep's chunk of triples at 32 px (exact);
+4. runs fifteen main paths through their user entry point, the CLI, each
    with every kernel's launch count set to 0 just before and read just
    after, prints its seconds, forwards, escalations, the certification's
    schedule (pair audits, minority rows) and peak device memory, and
@@ -72,6 +73,18 @@ NVIDIA GPU.
      fine-tuning resolution, `--img-size 480 -b 1`, the other flags as
      RN50's, without and with the bf16 flags (the backward of the stage-1
      slabs takes kernel G, in float32 and in bf16);
+   - ResMLP and ResMLP bf16: RN50's flags with `--base_arch resmlp`
+     (ResMLP-24 at full depth and width; kernels A and B, the mixer
+     engine's gathers and cuBLAS matmuls, A in escalations);
+   - CIFAR n_patch=2 and its bf16 twin: CIFAR's flags with `-b 2
+     --defense-n-patch 2` (the exhaustive sweep of 630 + 22680 masks a
+     radius, kernel A at K = 3; the bf16 bank keeps the float32 sweep);
+   - RN50 consensus and its bf16 twin: RN50's flags with `--prune
+     consensus`, whose records are then held against the RN50 runs' (same
+     prediction, every certificate kept, at most the forwards);
+   - CIFAR disk, where Pillow is installed: CIFAR's flags without
+     `--synthetic`, reading a seeded CIFAR-10 `test_batch` it writes into
+     a temporary `--data_dir`;
    and prints A's and B's launches x (time - bound) per path;
 5. computes the RN50 victim's input gradient on one masked batch 10
    times and runs the RN50 attack's first 5 steps twice from one seed,
@@ -94,7 +107,14 @@ NVIDIA GPU.
    lifted, and lifted on RN50 at 480, requiring every image's verdict to
    equal incremental="off" in float32, the bank's bf16 kernels to launch
    (A's bf16 form in the pair audits) and, lifted, an image to stay
-   unescalated;
+   unescalated; holds "consensus" against "exact" on the lifted RN50, in
+   float32 and in the bf16 bank (an image must stop after the first
+   round); and cross-checks the ResMLP mixer engine like the token engine
+   (first round against full forwards above `incremental_margin`;
+   "mixer-exact" f32 and bf16-bank verdicts equal incremental="off"),
+   gated with every layerscale at 0.1, plain and with class 0's head bias
+   raised, and measured ungated on the victim as built (the JAX init's
+   layerscales of 1, where the engine's drift can exceed the margin);
 7. prints the total seconds, the per-kernel JSON line, the nvidia-smi
    line and, last, `{"ok": true, "device": {...}}`.
 
@@ -163,6 +183,15 @@ RN50_480_ARGV = ["--synthetic", "--dataset", "imagenet", "--base_arch",
                  "--max-iterations", "20", "--num-batches", "1"]
 #: the bf16 paths: the same runs with the bf16 attack and certify bank
 BF16_FLAGS = ["--compute-dtype", "bfloat16", "--certify-dtype", "bfloat16"]
+#: ResMLP-24 (24 blocks, D 384, 196 tokens) at 224, RN50's other flags
+RESMLP_ARGV = [a if a != "resnetv2" else "resmlp" for a in RN50_ARGV]
+#: the n_patch=2 defense bank (630 pairs, 22680 triples a radius, the
+#: exhaustive sweep) on the CIFAR ResNet-18, 2 images a batch
+CIFAR_NP2_ARGV = [a if a != "8" else "2" for a in CIFAR_ARGV] + [
+    "--defense-n-patch", "2"]
+CONSENSUS = ["--prune", "consensus"]
+#: the CIFAR path without --synthetic: the disk source over --data_dir
+CIFAR_DISK_ARGV = [a for a in CIFAR_ARGV if a != "--synthetic"]
 CIFAR_KERNELS = ("masked_fill_fwd", "masked_fill_bwd", "stem_fold")
 #: the count each record's launches are read from: kernels A and B at 224,
 #: kernel C at RN50's stem and kernel H at the pair audit's shape count as
@@ -193,6 +222,8 @@ COUNT_OF = {"stem_fold_rn50": "stem_fold",
             "gn_relu_fwd_bf16_480": "gn_relu_fwd_bf16/one_pass",
             "gn_relu_bwd_bf16_split_480": "gn_relu_bwd_bf16/split",
             "masked_kv_attn_bf16_pairs": "masked_kv_attn_bf16",
+            "masked_fill_fwd_k3": "masked_fill_fwd",
+            "masked_fill_fwd_bf16_k3": "masked_fill_fwd_bf16",
             **{f"gn_relu_fwd{k}_split_480x{c}": f"gn_relu_fwd{k}/split"
                for k in ("", "_bf16") for c in (64, 128, 256)}}
 RN50_KERNELS = CIFAR_KERNELS + ("gn_relu_fwd", "gn_relu_bwd")
@@ -215,6 +246,13 @@ RN50_480_BF16_KERNELS = tuple(k for k in RN50_BF16_KERNELS
                               if k != "masked_fill_fwd_bf16")
 GN_KERNELS = ("gn_relu_fwd", "gn_relu_bwd", "gn_relu_fwd_bf16",
               "gn_relu_bwd_bf16")
+#: the ResMLP paths' kernels: the attack's fills (A, B); the mixer engine
+#: is gathers and cuBLAS matmuls (no TPU kernel), and its escalations, the
+#: float32 exhaustive sweep, fill with A. The n_patch=2 paths: A and B in
+#: the attack, A (K = 3) in the float32 exhaustive sweep, which their bf16
+#: bank keeps as the JAX package does
+MIXER_KERNELS = ("masked_fill_fwd", "masked_fill_bwd")
+NP2_KERNELS = ("masked_fill_fwd", "masked_fill_bwd")
 
 
 def _smi() -> str:
@@ -975,9 +1013,10 @@ def main_path(torch, dev, label, argv, required, shares=None,
     of device memory. `audit_fill` names the kernel that fills the pair
     audits' images and nothing else on the path (A's bf16 form in the bf16
     bank of a conv victim): it must have launched exactly when a pair audit
-    was scheduled. Returns (metrics, launch and route counts of the
-    run)."""
+    was scheduled. Returns (metrics, launch and route counts of the run,
+    the first batch's certification records: per image, one per radius)."""
     from dorpatch_tpu_torch import defense, ops
+    from dorpatch_tpu_torch.artifacts import ArtifactStore, results_path
     from dorpatch_tpu_torch.cli import build_parser, config_from_args
     from dorpatch_tpu_torch.pipeline import run_experiment
 
@@ -1008,6 +1047,7 @@ def main_path(torch, dev, label, argv, required, shares=None,
             defense.schedule_round2 = plain_schedule
         counts = ops.launch_counts()
         routes = ops.route_counts()
+        records = ArtifactStore(results_path(cfg)).load_pc_records(0)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"{label} main path: {wall:.2f} s wall; attack seconds "
           f"{m.get('attack_seconds')}; certify seconds "
@@ -1040,7 +1080,7 @@ def main_path(torch, dev, label, argv, required, shares=None,
     if (m["evaluated_images"] < 1 or len(m["acc_pc"]) != 4
             or not all(math.isfinite(v) for v in vals)):
         raise AssertionError(f"malformed {label} main-path metrics: {m}")
-    return m, {**counts, **routes}
+    return m, {**counts, **routes}, records
 
 
 def cross_check(torch, dev, dataset, arch, size, b):
@@ -1217,6 +1257,129 @@ def vit_cross_check(torch, dev, b, lift):
                              f"verdicts differ for images {differ}")
 
 
+def consensus_check(label, exact, consensus) -> None:
+    """The consensus run's records against the "exact" run's, image by
+    image and radius by radius (the attack repeats bit for bit, so both
+    certify the same patched images): the same prediction, certified
+    wherever "exact" certifies, and at most its forwards."""
+    pairs = [(e, c) for er, cr in zip(exact, consensus)
+             for e, c in zip(er, cr)]
+    bad = [i for i, (e, c) in enumerate(pairs)
+           if e.prediction != c.prediction
+           or (e.certification and not c.certification)
+           or c.forwards > e.forwards]
+    print(f"{label}: consensus vs exact over {len(pairs)} (image, radius) "
+          f"records: forwards {sum(c.forwards for _, c in pairs)} vs "
+          f"{sum(e.forwards for e, _ in pairs)}, certified "
+          f"{sum(c.certification for _, c in pairs)} vs "
+          f"{sum(e.certification for e, _ in pairs)}, round-1 stops "
+          f"{sum(c.forwards == len(c.preds_1) for _, c in pairs)}; records "
+          f"out of contract {bad}", flush=True)
+    if bad or len(exact) != len(consensus) or not pairs:
+        raise AssertionError(f"{label}: consensus records {bad} break the "
+                             f"contract against exact")
+
+
+def write_cifar_disk(torch, dev, root, n=8, seed=1234):
+    """A CIFAR-10 `test_batch` pickle of `n` seeded random images under
+    `root/cifar10/cifar-10-batches-py`, labelled with the CIFAR path's
+    seeded victim's own predictions on the disk source's transform (so
+    every image passes the correctness filter)."""
+    import os
+    import pickle
+
+    import numpy as np
+
+    from dorpatch_tpu_torch import data
+    from dorpatch_tpu_torch.models import get_model
+
+    rng = np.random.default_rng(seed)
+    flat = rng.integers(0, 256, (n, 3 * 32 * 32), dtype=np.uint8)
+    imgs = flat.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    x = np.stack([data._pil_resize_center_crop(im, 32) for im in imgs])
+    victim = get_model("cifar10", "resnet18", "pretrained_models/", 32,
+                       device=dev)
+    with torch.no_grad():
+        labels = victim.apply(torch.as_tensor(x, device=dev)).argmax(-1)
+    base = os.path.join(root, "cifar10", "cifar-10-batches-py")
+    os.makedirs(base)
+    with open(os.path.join(base, "test_batch"), "wb") as f:
+        pickle.dump({b"data": flat, b"labels": labels.cpu().tolist()}, f)
+
+
+def mixer_cross_check(torch, dev, b, lift, layerscale=None, gate=True):
+    """The ResMLP-24 victim at 224 and the 0.12 radius on the card, its head
+    bias of class 0 raised by `lift` and, with `layerscale`, every block's
+    ls1 and ls2 set to it:
+    - the mixer engine's first-round predictions against full masked
+      forwards (kernel A), where both margins exceed `incremental_margin`;
+    - "mixer-exact" certification, float32 and in the bf16 bank, against
+      incremental="off" in float32: every image's (prediction,
+      certification).
+    With `gate` any disagreement fails; without it (the victim as the main
+    path builds it, at the JAX package's layerscale init of 1) they are
+    printed as measured."""
+    from dorpatch_tpu_torch import data
+    from dorpatch_tpu_torch.config import DefenseConfig
+    from dorpatch_tpu_torch.defense import PatchCleanser
+    from dorpatch_tpu_torch.masks import geometry
+    from dorpatch_tpu_torch.models import get_model
+
+    size, cfg = 224, DefenseConfig()
+    victim = get_model("imagenet", "resmlp", "/nonexistent", size, seed=0,
+                       device=dev)
+    with torch.no_grad():
+        victim.model.head.bias[0] += lift
+        if layerscale is not None:
+            for block in victim.model.blocks:
+                block.ls1.fill_(layerscale)
+                block.ls2.fill_(layerscale)
+    x_np, _ = next(data.synthetic_batches("imagenet", b, size, 1234))
+    x = torch.as_tensor(x_np, device=dev)
+    spec = geometry(size, 0.12)
+    pc = PatchCleanser(victim.apply, spec, cfg,
+                       incremental_engine=victim.incremental, device=dev)
+    with torch.no_grad():
+        p_mix, m_mix = pc._phase1_incr(x)
+        p_full, m_full = pc._phase1(x, with_margins=True)
+    sure = torch.minimum(m_mix, m_full) > cfg.incremental_margin
+    full_bad = int(((p_mix != p_full) & sure).sum())
+    rec_mix = pc.robust_predict(x, victim.num_classes)
+    esc = int((pc.last_min_margin < cfg.incremental_margin).sum())
+    rec_off = pc.robust_predict(x, victim.num_classes, incremental="off")
+    pc16 = PatchCleanser(victim.apply, spec,
+                         DefenseConfig(compute_dtype="bfloat16"),
+                         incremental_engine=victim.incremental, device=dev)
+    rec16 = pc16.robust_predict(x, victim.num_classes)
+    esc16 = int((pc16.last_min_margin < cfg.incremental_margin).sum())
+
+    def differ(recs):
+        return [i for i, (a, o) in enumerate(zip(recs, rec_off))
+                if (a.prediction, a.certification)
+                != (o.prediction, o.certification)]
+
+    d32, d16 = differ(rec_mix), differ(rec16)
+    ls = "the JAX init (1)" if layerscale is None else layerscale
+    print(f"ResMLP cross-check 224px r=0.12, layerscales {ls}, class-0 bias "
+          f"+{lift}: mixer vs full forwards {full_bad} first-round "
+          f"disagreements among {int(sure.sum())} of {sure.numel()} entries "
+          f"with both margins > {cfg.incremental_margin} (margins "
+          f"{float(m_full.min()):.4g}..{float(m_full.max()):.4g}; largest "
+          f"margin gap {float((m_mix - m_full).abs().max()):.4g});"
+          f" escalated {esc} (bf16 bank {esc16}) of {b} images; verdicts "
+          f"mixer-exact vs off differ for images {d32}, bf16 bank vs off "
+          f"{d16}; forwards {[r.forwards for r in rec_mix]} / bf16 "
+          f"{[r.forwards for r in rec16]}" + ("" if gate else
+                                              " (measured, not gated)"),
+          flush=True)
+    if gate and (full_bad or d32 or d16):
+        raise AssertionError(f"mixer engine vs full forwards: {full_bad} "
+                             f"confident first-round disagreements, "
+                             f"verdicts differ for images {d32} (f32), "
+                             f"{d16} (bf16 bank)")
+    return full_bad, d32, d16
+
+
 def fill_overhead(counts, records) -> None:
     """Launches of A and B on each main path in `records` and launches x
     (time - bound) at the path's image shape (`records[label]`: the A and
@@ -1320,6 +1483,65 @@ def fill_phase_bf16(torch, dev, b, size, suffix=""):
                 bound_by=by, library_ms=lib)
 
 
+def fill_phase_k3(torch, dev, b=2, size=32):
+    """Kernel A and its bf16 form at the n_patch=2 sweep's shape: a chunk of
+    S = 64 of the 0.12 radius's basic-major triples (K = 3 rectangles a
+    mask) over the CIFAR path's `b` images, exact against the plain
+    versions at that chunk and at a chunk of the pairs padded to K = 3,
+    timed at the triples beside the plain version and `torch.where` on a
+    rasterized keep-mask. Returns the two records."""
+    import numpy as np
+
+    from dorpatch_tpu_torch import masks as masks_lib
+    from dorpatch_tpu_torch.defense import plan_chunks
+    from dorpatch_tpu_torch.ops import masked_fill as mf
+
+    fill = 0.5
+    pairs, triples = masks_lib.mask_sets(masks_lib.geometry(size, 0.12, 2))
+    _, s = plan_chunks(len(pairs) + len(triples), 64)
+    rng = np.random.default_rng(3)
+    imgs = torch.as_tensor(rng.uniform(0, 1, (b, size, size, 3)),
+                           dtype=torch.float32, device=dev)
+    chunks = [masks_lib.pad_rects(pairs[:s], 3),
+              triples[rng.choice(len(triples), s, replace=False)]]
+    out = []
+    for dtype, name in ((torch.float32, "masked_fill_fwd_k3"),
+                        (torch.bfloat16, "masked_fill_fwd_bf16_k3")):
+        x = imgs.to(dtype)
+        for part in chunks:
+            rects = torch.as_tensor(part, dtype=torch.int32, device=dev)
+            got = mf.masked_fill_fwd_kernel(x, rects, fill)
+            want = mf.masked_fill_reference(x, rects, fill)
+            torch.cuda.synchronize()
+            if got.dtype != dtype or not torch.equal(got, want):
+                raise AssertionError(f"kernel A ({dtype}) differs from its "
+                                     f"plain version at K=3, [B={b},S={s},"
+                                     f"{size}px]")
+        err = float((got.float() - want.float()).abs().max())
+        del got, want
+        keep = masks_lib.rasterize(rects, size)[None, :, :, :, None]
+        esz = 4 if dtype == torch.float32 else 2
+        hwc = size * size * 3
+        ms = _device_ms(lambda: mf.masked_fill_fwd_kernel(x, rects, fill))
+        plain = _device_ms(lambda: mf.masked_fill_reference(x, rects, fill))
+        lib = _device_ms(lambda: torch.where(keep, x[:, None], fill))
+        bound, by = _bound(esz * b * hwc + 16 * s * 3 + esz * b * s * hwc,
+                           0.0)
+        print(f"kernel A {name} [B={b},S={s},K=3,{size}x{size}x3]: exact "
+              f"at the triples and at the padded pairs, {ms * 1e3:.2f} us "
+              f"(plain {plain * 1e3:.2f} us, torch.where on a rasterized "
+              f"keep-mask {lib * 1e3:.2f} us; bound {bound * 1e3:.2f} us by "
+              f"{by}, {bound / ms:.0%} of it)", flush=True)
+        out.append(dict(name=name, route="cuda",
+                        source="dorpatch_tpu_torch/csrc/masked_fill.cu",
+                        replaces="dorpatch_tpu/ops/masked_fill.py:53",
+                        launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
+                        bound_ms=bound, bound_by=by, library_ms=lib))
+        del keep
+    torch.cuda.empty_cache()
+    return out
+
+
 def bank_cross_check(torch, dev, arch, b, lift, size=224):
     """The bf16 certify bank at the 0.12 radius on the card, on the victim
     at `size` px with the head bias of class 0 raised by `lift` (as
@@ -1380,6 +1602,68 @@ def bank_cross_check(torch, dev, arch, b, lift, size=224):
                              f"launched {missing}, escalated {esc} of {b}")
 
 
+def consensus_cross_check(torch, dev, b, lift, size=224):
+    """prune="consensus" against "exact" at the 0.12 radius on the RN50
+    victim at `size` px with the head bias of class 0 raised by `lift`, so
+    that images are first-round unanimous, in float32 (stem fold) and in
+    the bf16 bank: per image the same prediction, every exact certificate
+    kept, at most the exact forwards, and at least one image stopped after
+    the first round (the consensus certificate)."""
+    from dorpatch_tpu_torch import data
+    from dorpatch_tpu_torch.config import DefenseConfig
+    from dorpatch_tpu_torch.defense import PatchCleanser
+    from dorpatch_tpu_torch.masks import geometry
+    from dorpatch_tpu_torch.models import get_model
+
+    victim = get_model("imagenet", "resnetv2", "/nonexistent", size, seed=0,
+                       device=dev)
+    with torch.no_grad():
+        victim.model.head["fc"].bias[0] += lift
+    x_np, _ = next(data.synthetic_batches("imagenet", b, size, 1234))
+    x = torch.as_tensor(x_np, device=dev)
+    for dtype in ("float32", "bfloat16"):
+        recs = {}
+        for prune in ("exact", "consensus"):
+            pc = PatchCleanser(victim.apply, geometry(size, 0.12),
+                               DefenseConfig(prune=prune,
+                                             compute_dtype=dtype),
+                               incremental_engine=victim.incremental,
+                               device=dev)
+            recs[prune] = pc.robust_predict(x, victim.num_classes)
+        stops = sum(r.forwards == pc.num_first for r in recs["consensus"])
+        label = f"consensus cross-check RN50 {size}px {dtype}, class-0 bias " \
+                f"+{lift}"
+        consensus_check(label, [[r] for r in recs["exact"]],
+                        [[r] for r in recs["consensus"]])
+        if not stops:
+            raise AssertionError(f"{label}: no image stopped after the "
+                                 f"first round")
+
+
+def disk_phase(torch, dev) -> None:
+    """The CIFAR path without --synthetic, reading a seeded CIFAR-10
+    `test_batch` (`write_cifar_disk`) from a temporary --data_dir: all 8
+    images evaluated, kernels A, B and C launched. Left out, and said so,
+    where Pillow is not installed."""
+    import importlib.util
+
+    if importlib.util.find_spec("PIL") is None:
+        print("CIFAR disk main path: left out, Pillow (PIL) is not "
+              "installed on this machine", flush=True)
+        return
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as root:
+        write_cifar_disk(torch, dev, root)
+        m, _, _ = main_path(torch, dev, "CIFAR disk",
+                            CIFAR_DISK_ARGV + ["--data_dir", root],
+                            CIFAR_KERNELS)
+    if m["evaluated_images"] != 8 or m["clean_accuracy"] != 100.0:
+        raise AssertionError(f"CIFAR disk main path evaluated "
+                             f"{m['evaluated_images']} of 8 images: {m}")
+    print(f"CIFAR disk main-path phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1432,10 +1716,11 @@ def main() -> int:
     rn50_bf16 += gn224
     rn50_480_bf16 += gn480
     vit_bf16 = attn_phase(torch, dev, torch.bfloat16)
+    np2_kernels = fill_phase_k3(torch, dev)
     print(f"bf16 kernel phases: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    fills = {}
+    fills, records_of = {}, {}
     at224, at480 = gn_split_shares(224), gn_split_shares(480)
     audit = "masked_fill_fwd_bf16"
     for label, argv, required, records, shares, audit_fill in (
@@ -1450,10 +1735,21 @@ def main() -> int:
              vit_bf16, None, None),
             ("RN50 480", RN50_480_ARGV, RN50_KERNELS, rn50_480, at480, None),
             ("RN50 480 bf16", RN50_480_ARGV + BF16_FLAGS,
-             RN50_480_BF16_KERNELS, rn50_480_bf16, at480, audit)):
+             RN50_480_BF16_KERNELS, rn50_480_bf16, at480, audit),
+            ("ResMLP", RESMLP_ARGV, MIXER_KERNELS, [], None, None),
+            ("ResMLP bf16", RESMLP_ARGV + BF16_FLAGS, MIXER_KERNELS, [],
+             None, None),
+            ("CIFAR n_patch=2", CIFAR_NP2_ARGV, NP2_KERNELS, np2_kernels[:1],
+             None, None),
+            ("CIFAR n_patch=2 bf16", CIFAR_NP2_ARGV + BF16_FLAGS,
+             NP2_KERNELS, np2_kernels[1:], None, None),
+            ("RN50 consensus", RN50_ARGV + CONSENSUS, RN50_KERNELS, [],
+             at224, None),
+            ("RN50 consensus bf16", RN50_ARGV + BF16_FLAGS + CONSENSUS,
+             RN50_480_BF16_KERNELS, [], at224, audit)):
         t0 = time.perf_counter()
-        _, counts = main_path(torch, dev, label, argv, required, shares,
-                              audit_fill)
+        _, counts, records_of[label] = main_path(
+            torch, dev, label, argv, required, shares, audit_fill)
         for rec in records:
             rec["launches"] = counts.get(COUNT_OF.get(rec["name"],
                                                       rec["name"]), 0)
@@ -1467,7 +1763,14 @@ def main() -> int:
         print(f"{label} main-path phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
     fill_overhead(fills, {"CIFAR": cifar_kernels[:2], "RN50": rn50_kernels[:2],
-                          "ViT": rn50_kernels[:2], "RN50 480": rn50_480[:2]})
+                          "ViT": rn50_kernels[:2], "RN50 480": rn50_480[:2],
+                          "ResMLP": rn50_kernels[:2],
+                          "CIFAR n_patch=2": np2_kernels[:1]})
+    for label in ("RN50", "RN50 bf16"):
+        consensus_check(label.replace("RN50", "RN50 consensus"),
+                        records_of[label],
+                        records_of[label.replace("RN50", "RN50 consensus")])
+    disk_phase(torch, dev)
 
     t0 = time.perf_counter()
     for dtype in ("float32", "bfloat16"):
@@ -1481,19 +1784,23 @@ def main() -> int:
     del victim, x
     for lift in (0.0, 4.0):
         vit_cross_check(torch, dev, 4, lift)
+    mixer_cross_check(torch, dev, 4, 0.0, gate=False)
+    for lift in (0.0, 4.0):
+        mixer_cross_check(torch, dev, 4, lift, layerscale=0.1)
     print(f"cross-check phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     for arch in ("resnetv2", "vit"):
         for lift in (0.0, 4.0):
             bank_cross_check(torch, dev, arch, 4, lift)
     bank_cross_check(torch, dev, "resnetv2", 2, 4.0, 480)
+    consensus_cross_check(torch, dev, 4, 4.0)
     print(f"bf16 bank phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(f"chip_smoke total: {time.perf_counter() - start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": cifar_kernels + rn50_kernels + vit_kernels
                       + cifar_bf16 + rn50_bf16 + vit_bf16 + rn50_480
-                      + rn50_480_bf16}), flush=True)
+                      + rn50_480_bf16 + np2_kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

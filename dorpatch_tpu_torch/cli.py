@@ -1,5 +1,7 @@
-"""Command line of the port: the flags of `dorpatch_tpu.cli` that this
-slice runs, plus `--device`.
+"""Command line of the port: the main-path flags of `dorpatch_tpu.cli`
+(names, aliases, defaults and choices), plus `--device`. The JAX package's
+mesh, pallas, remat, gn-impl, serving, farm, aot, recert, chaos, trace,
+sanitize and heartbeat flags are not offered.
 
 Run:  python -m dorpatch_tpu_torch --synthetic --dataset imagenet \\
           --base_arch resnetv2 --img-size 224 --max-iterations 20 -b 2
@@ -9,6 +11,12 @@ Run:  python -m dorpatch_tpu_torch --synthetic --dataset imagenet \\
           --base_arch vit --img-size 224 --max-iterations 20 -b 2
       python -m dorpatch_tpu_torch --synthetic --base_arch resnetv2 \\
           --img-size 224 -b 2 --compute-dtype bfloat16 --certify-dtype bfloat16
+      python -m dorpatch_tpu_torch --synthetic --dataset imagenet \\
+          --base_arch resmlp --img-size 224 --max-iterations 20 -b 2
+      python -m dorpatch_tpu_torch --synthetic --dataset cifar10 \\
+          --base_arch resnet18 --img-size 32 --defense-n-patch 2
+      python -m dorpatch_tpu_torch --dataset cifar10 --data_dir DIR \\
+          --base_arch resnet18 --img-size 32 --prune consensus
 """
 
 from __future__ import annotations
@@ -28,24 +36,46 @@ def build_parser() -> argparse.ArgumentParser:
                         "the CPU with the kernels' plain versions")
     p.add_argument("--dataset", "-d", default="imagenet",
                    choices=["cifar10", "imagenet", "cifar100"])
+    p.add_argument("--data_dir", default="/home/data/data",
+                   help="dataset root of the disk source: "
+                        "<dir>/cifar10/cifar-10-batches-py, "
+                        "<dir>/cifar100/cifar-100-python, "
+                        "<dir>/imagenet/val/<class>/<image>")
     p.add_argument("--model_dir", default="pretrained_models/")
     p.add_argument("--base_arch", "-ba", default="resnetv2",
                    choices=["resnetv2", "resnet18", "cifar_resnet18", "vit",
-                            "cifar_vit"])
+                            "cifar_vit", "resmlp", "cifar_resmlp"])
     p.add_argument("--targeted", "-t", action="store_true")
     p.add_argument("--patch_budget", type=float, default=0.12)
+    p.add_argument("--attack", "-a", default="DorPatch", choices=["DorPatch"])
     p.add_argument("-b", "--batch-size", type=int, default=1)
+    p.add_argument("-e", "--epsilon", type=float, default=4.0,
+                   help="L2 bound")
+    p.add_argument("--lr", "--learning-rate", type=float, default=0.01)
+    p.add_argument("--num_patch", type=int, default=-1)
     p.add_argument("--dropout", type=int, default=2, choices=[0, 1, 2])
+    p.add_argument("--density", type=float, default=1e-3)
+    p.add_argument("--structured", type=float, default=1e-3)
     p.add_argument("--synthetic", action="store_true",
                    help="synthetic data (no dataset on disk needed)")
     p.add_argument("--data-source", default="auto",
-                   choices=["auto", "synthetic", "procedural"],
-                   help="image stream: 'procedural' = the learnable "
-                        "generated task with genuine labels; 'auto' follows "
+                   choices=["auto", "disk", "synthetic", "procedural"],
+                   help="image stream: 'disk' reads --data_dir (needs "
+                        "Pillow); 'procedural' = the learnable generated "
+                        "task with genuine labels; 'auto' follows "
                         "--synthetic")
     p.add_argument("--num-batches", type=int, default=10)
     p.add_argument("--max-iterations", type=int, default=5000)
     p.add_argument("--sampling-size", type=int, default=128)
+    p.add_argument("--basic-unit", type=int, default=7,
+                   help="patch group cell size")
+    p.add_argument("--switch-iteration", type=int, default=500,
+                   help="stage-0 untargeted->targeted switch iteration")
+    p.add_argument("--sweep-interval", type=int, default=100,
+                   help="full-universe failure-sweep cadence in iterations")
+    p.add_argument("--failure-sampling-start", type=int, default=1000,
+                   help="iteration from which mask sampling biases toward "
+                        "the failure set")
     p.add_argument("--img-size", type=int, default=224)
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--results-root", default="results")
@@ -62,26 +92,41 @@ def build_parser() -> argparse.ArgumentParser:
                         "entries come within --incremental-margin of the "
                         "argmax boundary re-certify through the f32 "
                         "exhaustive sweep, so verdicts never weaken")
-    p.add_argument("--prune", default="exact", choices=["off", "exact"],
+    p.add_argument("--dual", action="store_true",
+                   help="second independent occlusion layer per EOT sample")
+    p.add_argument("--defense-n-patch", type=int, default=1, choices=[1, 2],
+                   help="PatchCleanser mask-set patch count of the defense "
+                        "bank: 2 = pair/triple mask sets, certified by the "
+                        "exhaustive sweep (--prune resolves to 'off')")
+    p.add_argument("--prune", default="exact",
+                   choices=["off", "exact", "consensus"],
                    help="certification scheduling: 'exact' (default) runs "
                         "the two-phase pruned path with verdicts identical "
-                        "to 'off', the exhaustive 666-forward sweep")
+                        "to 'off', the exhaustive 666-forward sweep; "
+                        "'consensus' also stops first-round-unanimous "
+                        "images after the first round (weaker, "
+                        "consensus-only certificates)")
+    p.add_argument("--no-prune", dest="prune", action="store_const",
+                   const="off", help="alias for --prune off")
     p.add_argument("--incremental", default="auto",
-                   choices=["auto", "token", "token-exact", "stem", "off"],
+                   choices=["auto", "token", "token-exact", "mixer",
+                            "mixer-exact", "stem", "off"],
                    help="incremental masked forwards on the pruned path: "
                         "'auto' picks per family, 'stem' for conv victims "
                         "(the first round folded into the conv stem, "
-                        "kernel C on the card) and 'token-exact' for ViT "
+                        "kernel C on the card), 'token-exact' for ViT "
                         "victims (token-pruned forwards over a clean KV "
-                        "cache, kernel H on the card, re-certifying "
-                        "through the exhaustive sweep every image whose "
-                        "read entries come within --incremental-margin of "
-                        "the decision boundary); plain 'token' skips that "
-                        "re-certification; 'off' runs full masked "
-                        "forwards")
+                        "cache, kernel H on the card) and 'mixer-exact' "
+                        "for ResMLP victims (dirty-row tracking through a "
+                        "skinny slice of the token-mixing matmul); the "
+                        "'-exact' modes re-certify through the exhaustive "
+                        "sweep every image whose read entries come within "
+                        "--incremental-margin of the decision boundary, "
+                        "plain 'token'/'mixer' skip that; 'off' runs full "
+                        "masked forwards")
     p.add_argument("--incremental-margin", type=float, default=0.5,
-                   help="token-exact escalation threshold: the top-2 logit "
-                        "gap below which a token-pruned entry is "
+                   help="token/mixer-exact escalation threshold: the top-2 "
+                        "logit gap below which an incremental entry is "
                         "distrusted and its image re-certified "
                         "exhaustively")
     return p
@@ -90,8 +135,10 @@ def build_parser() -> argparse.ArgumentParser:
 def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
     return ExperimentConfig(
         dataset=args.dataset,
+        data_dir=args.data_dir,
         model_dir=args.model_dir,
         base_arch=args.base_arch,
+        attack_name=args.attack,
         batch_size=args.batch_size,
         num_batches=args.num_batches,
         seed=args.seed,
@@ -102,11 +149,22 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         img_size=args.img_size,
         attack=AttackConfig(patch_budget=args.patch_budget,
                             targeted=args.targeted,
+                            lr=args.lr,
                             max_iterations=args.max_iterations,
+                            switch_iteration=args.switch_iteration,
+                            sweep_interval=args.sweep_interval,
+                            failure_sampling_start=args.failure_sampling_start,
+                            basic_unit=args.basic_unit,
                             dropout=args.dropout,
                             sampling_size=args.sampling_size,
+                            density=args.density,
+                            structured=args.structured,
+                            eps=args.epsilon,
+                            num_patch=args.num_patch,
+                            dual=args.dual,
                             compute_dtype=args.compute_dtype),
-        defense=DefenseConfig(prune=args.prune,
+        defense=DefenseConfig(n_patch=args.defense_n_patch,
+                              prune=args.prune,
                               incremental=args.incremental,
                               incremental_margin=args.incremental_margin,
                               compute_dtype=args.certify_dtype),

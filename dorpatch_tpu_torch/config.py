@@ -66,14 +66,18 @@ class DefenseConfig:
     """PatchCleanser double-masking defense.
 
     prune: "exact" (two-phase pruned schedule, verdicts identical to the
-    exhaustive sweep) or "off" (the exhaustive 666-mask sweep).
+    exhaustive sweep), "consensus" ("exact", but a first-round-unanimous
+    image stops after the first round with the weaker round-1
+    certificate) or "off" (the exhaustive 666-mask sweep). n_patch=2
+    families always run the exhaustive sweep.
     incremental: "auto" (the victim family's engine: "stem" for conv
-    victims, "token-exact" for ViT victims), "stem", "token" (token-pruned
-    forwards over a clean KV cache, verdicts up to the engine's logit
-    drift), "token-exact" ("token", plus re-certifying every image whose
-    read entries have a top-2 logit margin below `incremental_margin`
-    through the exhaustive sweep) or "off" (full masked forwards for every
-    entry).
+    victims, "token-exact" for ViT victims, "mixer-exact" for ResMLP
+    victims), "stem", "token" (token-pruned forwards over a clean KV cache,
+    verdicts up to the engine's logit drift), "token-exact" ("token", plus
+    re-certifying every image whose read entries have a top-2 logit margin
+    below `incremental_margin` through the exhaustive sweep), "mixer" and
+    "mixer-exact" (the same pair for the ResMLP dirty-row engine) or "off"
+    (full masked forwards for every entry).
     compute_dtype: "bfloat16" runs the pruned path's programs (phase 1,
     pair audits, rows and the engines) on a once-cast bf16 copy of the
     victim, reads every margin in f32, and re-certifies every image whose
@@ -97,6 +101,7 @@ class ExperimentConfig:
     """One end-to-end experiment."""
 
     dataset: str = "imagenet"
+    data_dir: str = "/home/data/data"
     model_dir: str = "pretrained_models/"
     base_arch: str = "resnetv2"
     attack_name: str = "DorPatch"
@@ -106,7 +111,7 @@ class ExperimentConfig:
     device: str = "cuda"            # "cuda" (default) or "cpu" on request
     results_root: str = "results"
     synthetic_data: bool = False
-    data_source: str = "auto"       # auto|synthetic|procedural
+    data_source: str = "auto"       # auto|disk|synthetic|procedural
     img_size: int = 224
 
     attack: AttackConfig = dataclasses.field(default_factory=AttackConfig)

@@ -8,11 +8,18 @@
   dependency of the port).
 - `procedural_arrays` / `procedural_batches`: the learnable generated task
   with genuine labels.
+- the disk source: `_load_cifar` (the CIFAR-10/100 pickle batches),
+  `_imagenet_val_entries` (an ImageNet-style `val/<class>/<image>` tree) and
+  the eval transform `_pil_resize_center_crop`, the JAX package's loaders.
+  They need Pillow, imported when the disk source is read, never when this
+  module is imported; without it the disk source raises an `ImportError`.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import pickle
 from typing import Iterator, Sequence, Tuple
 
 import numpy as np
@@ -218,15 +225,123 @@ def procedural_batches(dataset: str, batch_size: int, img_size: int,
         yield imgs[sel], labels[sel]
 
 
+# ------------------------------------------------------------ disk source
+
+
+def _pil():
+    """PIL's `Image` module, or an `ImportError` that says what needs it."""
+    try:
+        from PIL import Image
+    except ImportError as err:
+        raise ImportError(
+            "the disk data source needs Pillow (PIL) to decode and resize "
+            "images; install Pillow or use --synthetic / --data-source "
+            "procedural") from err
+    return Image
+
+
+def _pil_resize_center_crop(img: np.ndarray, size: int) -> np.ndarray:
+    """PIL bilinear resize of the short side to size/0.875, center crop,
+    [0,1] float32: the disk source's eval transform."""
+    image = _pil()
+    resize_to = int(size / 0.875)
+    pil = image.fromarray(img)
+    w, h = pil.size
+    scale = resize_to / min(w, h)
+    pil = pil.resize((max(1, round(w * scale)), max(1, round(h * scale))),
+                     image.BILINEAR)
+    w, h = pil.size
+    left, top = (w - size) // 2, (h - size) // 2
+    pil = pil.crop((left, top, left + size, top + size))
+    return np.asarray(pil, dtype=np.float32) / 255.0
+
+
+def _load_cifar(data_dir: str, name: str, split: str = "test"):
+    """uint8 NHWC images and int64 labels from the standard pickle batches:
+    `<data_dir>/cifar10/cifar-10-batches-py/{test_batch,data_batch_1..5}`
+    or `<data_dir>/cifar100/cifar-100-python/{test,train}`. Missing
+    cifar10 train batches are skipped (at least one must exist)."""
+    if name == "cifar10":
+        base = os.path.join(data_dir, name, "cifar-10-batches-py")
+        if split == "train":
+            paths = [p for i in range(1, 6) if os.path.exists(
+                p := os.path.join(base, f"data_batch_{i}"))]
+            if not paths:
+                raise FileNotFoundError(f"no data_batch_* under {base}")
+        else:
+            paths = [os.path.join(base, "test_batch")]
+        label_key = b"labels"
+    else:
+        base = os.path.join(data_dir, name, "cifar-100-python")
+        paths = [os.path.join(base, "train" if split == "train" else "test")]
+        label_key = b"fine_labels"
+    imgs, labels = [], []
+    for p in paths:
+        with open(p, "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        imgs.append(d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1))
+        labels.extend(d[label_key])
+    return np.concatenate(imgs), np.asarray(labels, np.int64)
+
+
+def _imagenet_val_entries(data_dir: str):
+    """`[(path, class index)]` of `<data_dir>/imagenet/val/<class>/<file>`,
+    classes and files in sorted order."""
+    root = os.path.join(data_dir, "imagenet", "val")
+    classes = sorted(d for d in os.listdir(root)
+                     if os.path.isdir(os.path.join(root, d)))
+    entries = []
+    for ci, cname in enumerate(classes):
+        cdir = os.path.join(root, cname)
+        for fname in sorted(os.listdir(cdir)):
+            entries.append((os.path.join(cdir, fname), ci))
+    return entries
+
+
+def disk_batches(dataset: str, data_dir: str, batch_size: int,
+                 img_size: int = 224, seed: int = 1234
+                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Shuffled eval-split batches from `data_dir` (the test split of
+    CIFAR, ImageNet's val folder), NHWC float32 in [0,1]: the order is
+    `default_rng(seed).permutation`, each image resized and center-cropped
+    by `_pil_resize_center_crop`."""
+    image = _pil()
+    rng = np.random.default_rng(seed)
+    if dataset in ("cifar10", "cifar100"):
+        imgs, labels = _load_cifar(data_dir, dataset)
+        order = rng.permutation(len(imgs))
+        for i in range(0, len(order), batch_size):
+            sel = order[i:i + batch_size]
+            batch = np.stack([_pil_resize_center_crop(imgs[j], img_size)
+                              for j in sel])
+            yield batch, labels[sel]
+    elif dataset == "imagenet":
+        entries = _imagenet_val_entries(data_dir)
+        order = rng.permutation(len(entries))
+        for i in range(0, len(order), batch_size):
+            batch, labs = [], []
+            for j in order[i:i + batch_size]:
+                path, lab = entries[j]
+                img = np.asarray(image.open(path).convert("RGB"))
+                batch.append(_pil_resize_center_crop(img, img_size))
+                labs.append(lab)
+            yield np.stack(batch), np.asarray(labs, np.int64)
+    else:
+        raise ValueError(f"unknown dataset {dataset!r}")
+
+
 def dataset_batches(dataset: str, batch_size: int, img_size: int = 224,
-                    seed: int = 1234, source: str = "synthetic"
+                    seed: int = 1234, source: str = "synthetic",
+                    data_dir: str = "/home/data/data"
                     ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-    """The evaluation stream: "synthetic" or "procedural" (the port reads
-    no datasets from disk yet)."""
+    """The evaluation stream: "disk" (`disk_batches` over `data_dir`),
+    "synthetic" or "procedural"."""
     if source == "synthetic":
         return synthetic_batches(dataset, batch_size, img_size, seed)
     if source == "procedural":
         return procedural_batches(dataset, batch_size, img_size, seed,
                                   split="test")
-    raise ValueError(f"data source {source!r} is not supported by the port "
-                     "(use 'synthetic' or 'procedural')")
+    if source == "disk":
+        _pil()
+        return disk_batches(dataset, data_dir, batch_size, img_size, seed)
+    raise ValueError(f"unknown data source {source!r}")

@@ -16,7 +16,18 @@ and schedules only the second-round entries the verdict reads: minority
 rows for disagreeing images, the 630-pair audit for unanimous ones. Both
 worklists dispatch in `data.bucket_plan` buckets. Verdicts equal the
 exhaustive path's by construction; `PatchCleanserRecord.forwards` counts
-each image's evaluated entries.
+each image's evaluated entries. `prune="consensus"` also stops every
+first-round-unanimous image after the first round (36 forwards): its
+certificate then asserts round-1 consensus only, weaker than the pair
+audit's. A disagreeing image takes the same recovery as under "exact".
+
+`n_patch=2` families (pairs as the first round, basic-major triples as the
+second; 630 + 22680 masks at the 6x6 grid) are certified by the exhaustive
+sweep alone, as the JAX package certifies them: any requested `prune`
+resolves to "off" (one line on stderr per certifier says so), and with it
+`incremental` and the bf16 bank's programs. Their verdict reads a
+`[630, 630]` second-round grid that points past the 22680-entry table;
+those entries read `OUT_OF_TABLE`, as the JAX verdict's gather fills them.
 
 `incremental="stem"` (what "auto" resolves to for conv victims) computes the
 first round through the masked-stem fold (`ops.stem_fold`); phase 2 keeps
@@ -24,12 +35,15 @@ full masked forwards.
 
 `incremental="token"` runs all three programs (phase 1, the pair audit and
 the second-round rows) through the ViT token engine (`models.vit`), which
-returns top-2 logit margins beside its predictions. `"token-exact"` (what
-"auto" resolves to for ViT victims) adds the escalation: every image whose
-evaluated entries include a margin below `DefenseConfig.incremental_margin`
-is re-certified through the exhaustive sweep, so its record is the
-exhaustive path's. `PatchCleanserRecord.forward_equivalents` credits a
-token-pruned entry at its fraction of a full forward.
+returns top-2 logit margins beside its predictions; `"mixer"` does the same
+through the ResMLP dirty-row engine (`models.resmlp`). `"token-exact"` and
+`"mixer-exact"` (what "auto" resolves to for ViT and ResMLP victims) add the
+escalation: every image whose evaluated entries include a margin below
+`DefenseConfig.incremental_margin` is re-certified through the exhaustive
+sweep, so its record is the exhaustive path's (under "consensus" with the
+round-1 certificate re-derived from the sweep's first-round table).
+`PatchCleanserRecord.forward_equivalents` credits an engine entry at its
+fraction of a full forward.
 
 bf16 certify bank (`DefenseConfig.compute_dtype="bfloat16"`, CLI
 `--certify-dtype`): phase 1, the pair audits, the rows and the engines'
@@ -49,6 +63,7 @@ minority masks the one with the largest mask index wins.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -61,11 +76,18 @@ from dorpatch_tpu_torch import utils
 from dorpatch_tpu_torch.config import DefenseConfig
 from dorpatch_tpu_torch.ops.masked_fill import masked_fill
 
-PRUNE_MODES = ("off", "exact")
-INCREMENTAL_MODES = ("auto", "token", "token-exact", "stem", "off")
+PRUNE_MODES = ("off", "exact", "consensus")
+INCREMENTAL_MODES = ("auto", "token", "token-exact", "mixer", "mixer-exact",
+                     "stem", "off")
+#: the engine kinds whose programs return margins and take combined-table
+#: index rows, and whose "-exact" modes escalate
+MARGIN_KINDS = ("token", "mixer")
 
 #: `preds_2` entries the pruned path never evaluated (provably unread).
 UNEVALUATED = -1
+#: what the verdict reads at a second-round grid index past the table (the
+#: n_patch=2 family): int32's least value, the JAX gather's fill
+OUT_OF_TABLE = -2 ** 31
 
 
 class PatchCleanserRecord(NamedTuple):
@@ -161,7 +183,11 @@ def double_masking_verdict(preds_1: torch.Tensor, preds_2: torch.Tensor,
     majority = torch.argmax(counts, dim=-1).to(preds_1.dtype)
     unanimous = (preds_1 == preds_1[:, :1]).all(dim=1)
     certified = unanimous & (preds_2 == majority[:, None]).all(dim=1)
-    second = preds_2[:, grid]                                   # [B, M, M]
+    p = int(preds_2.shape[1])
+    second = preds_2[:, grid.clamp(max=max(p - 1, 0))]          # [B, M, M]
+    if int(grid.max()) >= p:
+        second = torch.where(grid < p, second,
+                             torch.full_like(second, OUT_OF_TABLE))
     eye = torch.eye(num_masks, dtype=torch.bool, device=dev)[None]
     second = torch.where(eye, preds_1[:, :, None], second)
     is_minority = preds_1 != majority[:, None]
@@ -194,7 +220,11 @@ def double_masking_verdict_np(preds_1: np.ndarray, preds_2: np.ndarray,
     majority = _majority_np(preds_1, num_classes)
     unanimous = (preds_1 == preds_1[:, :1]).all(axis=1)
     certified = unanimous & (preds_2 == majority[:, None]).all(axis=1)
-    second = preds_2[:, grid]
+    p = preds_2.shape[1]
+    second = preds_2[:, np.minimum(grid, max(p - 1, 0))]
+    if grid.max() >= p:
+        second = np.where(grid < p, second,
+                          np.asarray(OUT_OF_TABLE, second.dtype))
     eye = np.eye(num_masks, dtype=bool)[None]
     second = np.where(eye, preds_1[:, :, None], second)
     is_minority = preds_1 != majority[:, None]
@@ -223,7 +253,8 @@ def schedule_round2(p1: np.ndarray, majority: np.ndarray,
     `(need_pairs [B] bool, row_list)`, `row_list` the ragged worklist of
     `(image, minority-mask)` rows. A disagreeing image needs only its
     minority rows, unless they would cost at least the whole pair table
-    (k*M >= P); a unanimous image needs the pair audit ("exact")."""
+    (k*M >= P); a unanimous image needs the pair audit ("exact") or
+    nothing ("consensus")."""
     minority = p1 != majority[:, None]
     k = minority.sum(axis=1)
     rows_cheaper = (~unanimous) & (k * num_singles < num_pairs)
@@ -240,7 +271,8 @@ class _PrunedPending:
     """One pruned certification batch: phase 1 runs at construction,
     `schedule()` reads the `[B, M]` first-round table (the one designed
     host sync) and runs phase 2, `finalize()` runs `schedule()`, assembles
-    the records and, under "token-exact", escalates."""
+    the records and, under the "-exact" modes and in the bf16 bank,
+    escalates."""
 
     def __init__(self, pc: "PatchCleanser", imgs: torch.Tensor, n: int,
                  num_classes: int, bucket_sizes, mode: str,
@@ -252,11 +284,13 @@ class _PrunedPending:
         self.bucket_sizes = bucket_sizes
         self.mode = mode
         self.incr = incremental
-        self.token = incremental.startswith("token")
-        # margins are read from the token engine and from every program of
-        # the bf16 bank; the f32 stem fold is exact and its margins are not
-        # read
-        self.margins_on = self.token or pc._bf16
+        # the margin engines' programs (token, mixer) return margins and
+        # take combined-table index rows
+        self.rowsets = incremental.split("-")[0] in MARGIN_KINDS
+        # margins are read from the margin engines and from every program
+        # of the bf16 bank; the f32 stem fold is exact and its margins are
+        # not read
+        self.margins_on = self.rowsets or pc._bf16
         self.t1_margins = None
         if incremental != "off":
             self.t1, self.t1_margins = pc._phase1_incr(imgs)
@@ -278,7 +312,7 @@ class _PrunedPending:
             pc.num_second, self.mode)
         self.pair_idx = np.nonzero(need_pairs)[0]
         dev = self.imgs.device
-        pairs_prog = pc._pairs_incr if self.token else pc._pairs
+        pairs_prog = pc._pairs_incr if self.rowsets else pc._pairs
         if self.pair_idx.size:
             bs = (self.bucket_sizes if self.bucket_sizes is not None
                   else data_lib.batch_buckets(int(self.imgs.shape[0])))
@@ -295,7 +329,7 @@ class _PrunedPending:
             img_idx = [b for b, _ in chunk] + [chunk[-1][0]] * (wb - w)
             mask_idx = [i for _, i in chunk] + [chunk[-1][1]] * (wb - w)
             xg = self.imgs[torch.as_tensor(img_idx, device=dev)]
-            if self.token:
+            if self.rowsets:
                 # the engine's rows take each entry's row of combined-table
                 # indices
                 t = pc._rows_incr(xg, torch.as_tensor(
@@ -331,13 +365,14 @@ class _PrunedPending:
                 rows.setdefault(b, {})[i] = tbl[pos]
                 if mg is not None:
                     row_margins.setdefault(b, {})[i] = mg[pos]
-        if self.margins_on:
-            fe_first, fe_pairs, fe_rows = pc._fe_first, pc._fe_pairs, \
-                pc._fe_rows
-        else:
+        if self.incr == "off":
+            # full masked forwards, also where an engine family was built
             fe_first, fe_pairs = float(m), float(p)
             fe_rows = np.full((m,), float(m))
-        # per image, the smallest top-2 margin over its evaluated token
+        else:
+            fe_first, fe_pairs, fe_rows = pc._fe_first, pc._fe_pairs, \
+                pc._fe_rows
+        # per image, the smallest top-2 margin over its evaluated engine
         # entries (+inf without margins)
         min_margin = np.full((self.n,), np.inf)
         if self.margins_on:
@@ -349,10 +384,15 @@ class _PrunedPending:
             if b in pair_margins:
                 min_margin[b] = min(min_margin[b], pair_margins[b].min())
             if unanimous[b]:
-                p2 = pair_tables[b]    # "exact": the certificate audit
-                cert = bool((p2 == mj).all())
-                records.append(PatchCleanserRecord(
-                    mj, cert, p1[b], p2, m + p, fe_first + fe_pairs))
+                if b in pair_tables:   # "exact": the certificate audit
+                    p2 = pair_tables[b]
+                    cert = bool((p2 == mj).all())
+                    fwd, fe = m + p, fe_first + fe_pairs
+                else:                  # "consensus": round-1 certificate
+                    p2 = np.full((p,), UNEVALUATED, p1.dtype)
+                    cert, fwd, fe = True, m, fe_first
+                records.append(
+                    PatchCleanserRecord(mj, cert, p1[b], p2, fwd, fe))
                 continue
             # disagreement: the certificate died in round 1; only the
             # minority rows' recovery check remains
@@ -391,12 +431,16 @@ class _PrunedPending:
         return records
 
     def _escalate(self, records, min_margin) -> List[PatchCleanserRecord]:
-        """For "token-exact" and every bf16 bank: re-certify every image
-        whose evaluated entries came within `incremental_margin` of the
-        argmax boundary through the float32 exhaustive sweep on the
+        """For the "-exact" modes and every bf16 bank: re-certify every
+        image whose evaluated entries came within `incremental_margin` of
+        the argmax boundary through the float32 exhaustive sweep on the
         original victim (bucketed); its record becomes the exhaustive
         path's, its cost the entries already spent plus the full M + P
-        sweep."""
+        sweep. Under "consensus" the certificate is re-derived from the
+        sweep's first-round table (round-1 unanimity), so the record is
+        the one the float32 consensus bank gives; the prediction needs no
+        fixup (the majority on unanimity, and the same full-table
+        recovery otherwise)."""
         pc = self.pc
         esc = np.nonzero(min_margin < pc.config.incremental_margin)[0]
         if not esc.size:
@@ -411,6 +455,8 @@ class _PrunedPending:
                 bucket)
             pred, cert, p1, p2 = (t.cpu().numpy() for t in
                                   pc._predict(xe, self.num_classes))
+            if self.mode == "consensus":
+                cert = (p1 == p1[:, :1]).all(axis=1)
             for pos in range(cnt):
                 b = int(esc[off + pos])
                 old = records[b]
@@ -438,10 +484,8 @@ class PatchCleanser:
 
     def __post_init__(self):
         dtype = utils.compute_dtype(self.config.compute_dtype)
-        if self.spec.n_patch != 1:
-            raise NotImplementedError(
-                "the port certifies n_patch=1 mask families only")
         self.device = utils.resolve_device(self.device)
+        self._downgrade_said = False
         # the bf16 bank's programs run on the once-cast victim; `_predict`
         # (the escalation's oracle) keeps `apply_fn`
         self._bf16 = dtype == torch.bfloat16
@@ -455,6 +499,13 @@ class PatchCleanser:
                                 masks_lib.pad_rects(doubles, k)], axis=0)
         self._rects = torch.as_tensor(rects, dtype=torch.int32,
                                       device=self.device)
+        self._incr_family = None
+        if self.spec.n_patch == 1:
+            self._build_pruned(rects)
+
+    def _build_pruned(self, rects: np.ndarray) -> None:
+        """The pruned path's tables, the engine family and the forward
+        equivalents (n_patch=1 families; n_patch=2 ones run exhaustive)."""
         m = self._num_singles
         self._grid_full = torch.as_tensor(
             masks_lib.second_round_table_indices(m), dtype=torch.long,
@@ -463,20 +514,19 @@ class PatchCleanser:
         self._np_grid_full = masks_lib.second_round_table_indices(m)
         self.row_bucket_sizes = data_lib.batch_buckets(
             max(1, int(self.config.chunk_size)))
-        self._incr_family = None
         if (self.incremental_engine is not None
                 and self.config.incremental != "off"):
             self._incr_family = self.incremental_engine.build_family(
                 rects, m, self.config.chunk_size, self.config.mask_fill,
                 compute_dtype=self.config.compute_dtype)
-        # forward equivalents per combined-table mask: 1 without the token
-        # engine, its dirty-token fraction with it; `cache_fe` charges each
+        # forward equivalents per combined-table mask: 1 without a margin
+        # engine, its dirty-token fraction with one; `cache_fe` charges each
         # call's clean cache once per image (phase 1, each pair-audit image,
         # each gathered row entry)
         fe_combined = np.ones((rects.shape[0],), np.float64)
         cache_fe = 0.0
         if self._incr_family is not None and \
-                self.incremental_engine.kind == "token":
+                self.incremental_engine.kind in MARGIN_KINDS:
             fe_combined = np.asarray(self._incr_family.fe, np.float64)
             cache_fe = float(self._incr_family.cache_fe)
         self._fe_rows = fe_combined[self._np_grid_full].sum(axis=1) + cache_fe
@@ -573,16 +623,26 @@ class PatchCleanser:
     # ---- modes ----
 
     def resolved_prune(self, prune: Optional[str] = None) -> str:
+        """explicit arg > config; "off" for every n_patch != 1 family (its
+        verdict reads the whole combined table), said once on stderr."""
         mode = self.config.prune if prune is None else prune
         if mode not in PRUNE_MODES:
             raise ValueError(f"prune={mode!r} (legal: {', '.join(PRUNE_MODES)})")
+        if self.spec.n_patch != 1:
+            if mode != "off" and not self._downgrade_said:
+                self._downgrade_said = True
+                print(f"defense: prune={mode!r} runs as 'off' for the "
+                      f"n_patch={self.spec.n_patch} mask family at ratio "
+                      f"{self.spec.patch_ratio} (the exhaustive sweep)",
+                      file=sys.stderr, flush=True)
+            return "off"
         return mode
 
     def resolved_incremental(self, incremental: Optional[str] = None,
                              prune: Optional[str] = None) -> str:
-        """explicit arg > config; "auto" -> the engine's kind ("token-exact"
-        for the token engine). "off" without an engine or when the pruned
-        path is off."""
+        """explicit arg > config; "auto" -> the engine's kind, with
+        "-exact" for the margin engines ("token-exact", "mixer-exact").
+        "off" without an engine or when the pruned path is off."""
         mode = (self.config.incremental if incremental is None
                 else incremental)
         if mode not in INCREMENTAL_MODES:
@@ -592,7 +652,7 @@ class PatchCleanser:
             return "off"
         kind = self.incremental_engine.kind
         if mode == "auto":
-            return "token-exact" if kind == "token" else kind
+            return f"{kind}-exact" if kind in MARGIN_KINDS else kind
         if mode != "off" and mode.split("-")[0] != kind:
             raise ValueError(f"incremental={mode!r} but this victim family's "
                              f"engine is {kind!r}")
@@ -610,7 +670,8 @@ class PatchCleanser:
         `bucket_sizes` rounds a ragged batch up to a bucket (padding repeats
         the first image; padded rows never reach the records). `prune`
         overrides the config: "off" = the exhaustive sweep, "exact" = the
-        pruned schedule with identical verdicts."""
+        pruned schedule with identical verdicts, "consensus" = "exact" with
+        unanimous images stopped after the first round."""
         imgs = imgs.to(self.device)
         n = int(imgs.shape[0])
         mode = self.resolved_prune(prune)

@@ -11,6 +11,14 @@
   `vit_base_patch16_224` key names: the per-head query/key/value kernels
   `[D, H, f]` fuse into `attn.qkv.weight [3D, D]`, the `[H, f, D]` output
   kernel becomes `attn.proj.weight`, the patch embed goes HWIO to OIHW.
+- `from_flax_resmlp`: the JAX package's `ResMLP` tree into timm's
+  `resmlp_24_distilled_224` key names: the key map of the JAX package's
+  `convert_resmlp` run the other way (the patch embed `stem.proj`, HWIO to
+  OIHW; the Affines' `[D]` alpha and beta to timm's `[1, 1, D]`;
+  `linear_tokens` and `mlp_channels.fc1/fc2` from `[in, out]` kernels to
+  `[out, in]` weights; `ls1`/`ls2` as they are). The port's `ResMLP`
+  carries timm's names and shapes, so a timm `.pth` loads into it with
+  `strict=True`.
 - `load_state_dict`: a `.pth` checkpoint (bare or `{'state_dict': ...}`,
   DataParallel `module.` prefixes stripped), as `dorpatch_tpu.train`
   exports it or as timm saves it.
@@ -135,6 +143,39 @@ def from_flax_vit(params_np: Mapping) -> Dict[str, torch.Tensor]:
         for k in ("fc1", "fc2"):
             (sd[dst + f"mlp.{k}.weight"],
              sd[dst + f"mlp.{k}.bias"]) = dense(blk[f"mlp_{k}"])
+    return sd
+
+
+def from_flax_resmlp(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `ResMLP` params (`{"params": {...}}` or the inner dict, any depth
+    and width) -> the port's `ResMLP` state_dict (timm's key names)."""
+    p = params_np["params"] if "params" in params_np else params_np
+
+    def dense(sd, key, node):
+        sd[key + ".weight"] = _t(np.asarray(node["kernel"]).T)
+        sd[key + ".bias"] = _t(node["bias"])
+
+    def affine(sd, key, node):
+        sd[key + ".alpha"] = _t(np.asarray(node["alpha"]).reshape(1, 1, -1))
+        sd[key + ".beta"] = _t(np.asarray(node["beta"]).reshape(1, 1, -1))
+
+    sd: Dict[str, torch.Tensor] = {
+        "stem.proj.weight": _conv(p["patch_embed"]["kernel"]),
+        "stem.proj.bias": _t(p["patch_embed"]["bias"]),
+    }
+    depth = sum(1 for k in p if k.startswith("block"))
+    for i in range(depth):
+        blk = p[f"block{i}"]
+        dst = f"blocks.{i}."
+        affine(sd, dst + "norm1", blk["norm1"])
+        dense(sd, dst + "linear_tokens", blk["linear_tokens"])
+        affine(sd, dst + "norm2", blk["norm2"])
+        dense(sd, dst + "mlp_channels.fc1", blk["mlp_fc1"])
+        dense(sd, dst + "mlp_channels.fc2", blk["mlp_fc2"])
+        sd[dst + "ls1"] = _t(blk["ls1"])
+        sd[dst + "ls2"] = _t(blk["ls2"])
+    affine(sd, "norm", p["norm"])
+    dense(sd, "head", p["head"])
     return sd
 
 

@@ -7,7 +7,8 @@ initialization otherwise) and wraps the model as a `Victim` whose `apply`
 normalization folded in; `apply.at(torch.bfloat16)` is the same forward on
 a once-cast bf16 copy of the model (the bf16 attack and certify bank).
 Port of `dorpatch_tpu.models.registry` for the CIFAR ResNet-18,
-ResNetV2-50x1 BiT and the ViT family (ViT-B/16 and the small `cifar_vit`).
+ResNetV2-50x1 BiT, the ViT family (ViT-B/16 and the small `cifar_vit`) and
+the ResMLP family (ResMLP-24 and the small `cifar_resmlp`).
 """
 
 from __future__ import annotations
@@ -19,16 +20,20 @@ import torch
 
 from dorpatch_tpu_torch import utils
 from dorpatch_tpu_torch.config import NUM_CLASSES
-from dorpatch_tpu_torch.models import resnetv2, small, vit
+from dorpatch_tpu_torch.models import resmlp, resnetv2, small, vit
 from dorpatch_tpu_torch.ops.stem_fold import StemFoldEngine, same_pads
 
-#: timm model names, matched by substring as in the JAX package (the ResMLP
-#: family joins with its slice)
-TIMM_MODELS = ("resnetv2_50x1_bit_distilled", "vit_base_patch16_224")
-SUPPORTED = TIMM_MODELS + ("cifar_resnet18", "cifar_vit")
-#: the families whose module is sized by the image (the position embedding)
-#: and whose incremental engine is the token-pruned one
+#: timm model names, matched by substring as in the JAX package
+TIMM_MODELS = ("resnetv2_50x1_bit_distilled", "vit_base_patch16_224",
+               "resmlp_24_distilled_224")
+SUPPORTED = TIMM_MODELS + ("cifar_resnet18", "cifar_vit", "cifar_resmlp")
+#: the families whose incremental engine is the token-pruned one
 VIT_FAMILIES = ("vit_base_patch16_224", "cifar_vit")
+#: the families whose incremental engine is the mixer-pruned one
+RESMLP_FAMILIES = ("resmlp_24_distilled_224", "cifar_resmlp")
+#: the families whose module is sized by the image (ViT's position
+#: embedding, ResMLP's token-mixing matrix)
+SIZED_FAMILIES = VIT_FAMILIES + RESMLP_FAMILIES
 
 
 def normalize(images01: torch.Tensor) -> torch.Tensor:
@@ -69,7 +74,7 @@ class VictimForward:
 class Victim(NamedTuple):
     """A frozen classifier: `logits = apply(images01)`, images NHWC in
     [0, 1] on `device`. `incremental` is the family's incremental engine
-    (masked-stem fold or token-pruned ViT)."""
+    (masked-stem fold, token-pruned ViT or mixer-pruned ResMLP)."""
 
     name: str
     apply: Callable[[torch.Tensor], torch.Tensor]
@@ -81,12 +86,13 @@ class Victim(NamedTuple):
 
 
 def resolve_arch(arch: str) -> str:
-    """'resnet18'/'cifar_resnet18', 'cifar_vit', or a substring of a
-    supported timm name (`--base_arch resnetv2`, `--base_arch vit`)."""
+    """'resnet18'/'cifar_resnet18', 'cifar_vit', 'cifar_resmlp', or a
+    substring of a supported timm name (`--base_arch resnetv2`, `vit`,
+    `resmlp`)."""
     if arch in ("resnet18", "cifar_resnet18"):
         return "cifar_resnet18"
-    if arch == "cifar_vit":
-        return "cifar_vit"
+    if arch in ("cifar_vit", "cifar_resmlp"):
+        return arch
     for tm in TIMM_MODELS:
         if arch in tm:
             return tm
@@ -102,7 +108,7 @@ def checkpoint_path(model_dir: str, dataset: str, timm_name: str) -> str:
 
 #: each family's constructor and seeded initializer `(module, generator)`,
 #: by resolved name; the constructor takes `(num_classes)`, and
-#: `(num_classes, img_size)` for the `VIT_FAMILIES`
+#: `(num_classes, img_size)` for the `SIZED_FAMILIES`
 _FAMILIES = {
     "resnetv2_50x1_bit_distilled": (resnetv2.resnetv2_50x1,
                                     resnetv2.init_weights),
@@ -110,6 +116,8 @@ _FAMILIES = {
                        small.init_weights),
     "vit_base_patch16_224": (vit.vit_base_patch16, vit.init_weights),
     "cifar_vit": (vit.vit_cifar, vit.init_weights),
+    "resmlp_24_distilled_224": (resmlp.resmlp_24, resmlp.init_weights),
+    "cifar_resmlp": (resmlp.resmlp_cifar, resmlp.init_weights),
 }
 
 
@@ -120,7 +128,8 @@ NORM_SCALE = 2.0
 
 def incremental_engine(timm_name: str, model, img_size: int):
     """The family's mask-aware incremental engine: the token-pruned engine
-    of a ViT (None when the patch does not divide the image), or the
+    of a ViT or the mixer-pruned engine of a ResMLP (None when the patch
+    does not divide the image), or the
     masked-stem fold of the CIFAR ResNet-18's 3x3, stride-1, pad-1 stem or
     of ResNetV2's 7x7, stride-2, SAME-padded std-conv stem (the fold's delta
     conv uses the standardized kernel, the stem's effective one). The
@@ -131,6 +140,10 @@ def incremental_engine(timm_name: str, model, img_size: int):
         if img_size % model.patch_size:
             return None
         return vit.TokenPrunedViT(model, img_size, normalize=normalize)
+    if timm_name in RESMLP_FAMILIES:
+        if img_size % model.patch_size:
+            return None
+        return resmlp.MixerPrunedResMLP(model, img_size, normalize=normalize)
     if timm_name == "cifar_resnet18":
         return StemFoldEngine(
             model, img_size,
@@ -158,13 +171,14 @@ def get_model(
     device="cuda",
 ) -> Victim:
     """Build the victim on `device` ("cuda" unless the caller asks for
-    "cpu"). Loads the checkpoint when present, else initializes from
-    `seed`."""
+    "cpu"). Loads the checkpoint when present (timm's key names: every
+    module here carries them, so the `.pth` loads with `strict=True`), else
+    initializes from `seed`."""
     dev = utils.resolve_device(device)
     timm_name = resolve_arch(arch)
     num_classes = NUM_CLASSES[dataset]
     build, init_weights = _FAMILIES[timm_name]
-    model = (build(num_classes, img_size) if timm_name in VIT_FAMILIES
+    model = (build(num_classes, img_size) if timm_name in SIZED_FAMILIES
              else build(num_classes))
     ckpt = checkpoint_path(model_dir, dataset, timm_name)
     if os.path.exists(ckpt):

@@ -83,7 +83,8 @@ def run_experiment(cfg: ExperimentConfig, verbose: bool = True) -> Dict:
 
     source = resolved_data_source(cfg)
     batches = data.dataset_batches(cfg.dataset, cfg.batch_size, cfg.img_size,
-                                   cfg.seed, source=source)
+                                   cfg.seed, source=source,
+                                   data_dir=cfg.data_dir)
     with torch.no_grad():
         for i, (x_np, y_np) in enumerate(batches):
             if i == cfg.num_batches:

@@ -286,6 +286,60 @@ def test_pruned_certification_on_card_equals_cpu(dev):
         [(0, True), (0, False), (1, False), (1, False)]
 
 
+@pytest.mark.parametrize("prune", ["exact", "consensus"])
+def test_n_patch2_and_consensus_certification_on_card_equal_cpu(dev, prune):
+    """The n_patch=2 exhaustive sweep (kernel A filling 3 rectangles a mask,
+    630 + 22680 masks) and the consensus schedule give the CPU's records on
+    the card."""
+    from dorpatch_tpu_torch.config import DefenseConfig
+    from dorpatch_tpu_torch.defense import PatchCleanser
+
+    x = np.full((4, 32, 32, 3), 0.5, np.float32)
+    x[1, 4:8, 4:8] = 1.0
+    x[2, 4:8, 4:8] = 1.0
+    x[2, 24:28, 24:28] = 1.0
+    x[3, 4:8, 24:28] = 0.0
+    for n_patch in (1, 2):
+        spec = tmasks.geometry(32, 0.1, n_patch)
+        cfg = DefenseConfig(ratios=(0.1,), n_patch=n_patch, prune=prune)
+        want = PatchCleanser(_trigger, spec, cfg, device="cpu") \
+            .robust_predict(torch.as_tensor(x), 3, bucket_sizes=(1, 8))
+        _backend.reset_launch_counts()
+        got = PatchCleanser(_trigger, spec, cfg, device=dev).robust_predict(
+            torch.as_tensor(x, device=dev), 3, bucket_sizes=(1, 8))
+        assert _backend.launch_counts()["masked_fill_fwd"] > 0
+        for g, w in zip(got, want):
+            assert (g.prediction, g.certification, g.forwards) == \
+                (w.prediction, w.certification, w.forwards)
+            np.testing.assert_array_equal(g.preds_1, w.preds_1)
+            np.testing.assert_array_equal(g.preds_2, w.preds_2)
+
+
+def test_mixer_engine_on_card_matches_cpu(dev):
+    """The ResMLP mixer engine's programs (gathers and batched matmuls on
+    cuBLAS, no kernel of its own) on the card against the CPU: margins
+    within 1e-4, predictions equal wherever both margins exceed it."""
+    from dorpatch_tpu_torch.models import get_model
+
+    victim = get_model("cifar10", "cifar_resmlp", "/nonexistent", 32,
+                       device="cpu")
+    singles, doubles = tmasks.mask_sets(tmasks.geometry(32, 0.12))
+    rects = np.concatenate([tmasks.pad_rects(singles, 2), doubles])
+    x = torch.rand((2, 32, 32, 3), generator=torch.Generator().manual_seed(3))
+    sets = torch.as_tensor(tmasks.second_round_table_indices(36)[[3, 20]])
+    cpu = victim.incremental.build_family(rects, 36, 64, 0.5)
+    want = [cpu.phase1(x), cpu.pairs(x), cpu.rows(x, sets)]
+    victim.model.to(dev)
+    card = victim.incremental.build_family(rects, 36, 64, 0.5)
+    got = [card.phase1(x.to(dev)), card.pairs(x.to(dev)),
+           card.rows(x.to(dev), sets.to(dev))]
+    for (gp, gm), (wp, wm) in zip(got, want):
+        gp, gm = gp.cpu().numpy(), gm.cpu().numpy()
+        np.testing.assert_allclose(gm, wm.numpy(), atol=1e-4, rtol=0)
+        sure = np.minimum(gm, wm.numpy()) > 1e-4
+        np.testing.assert_array_equal(gp[sure], wp.numpy()[sure])
+
+
 # GroupNorm+ReLU: f32 kernels against the float64 plain versions. Forward
 # and per-element dx within 1e-5 (f32 rounding of a few flops per element;
 # the group statistics are summed in float64); the parameter cotangents sum

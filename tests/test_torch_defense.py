@@ -62,6 +62,43 @@ def test_verdicts_match_jax_on_random_tables(seed):
     assert got[1] == want[1]
 
 
+def _n_patch2_tables(seed, m=36, p=324, c=3):
+    """Tables of an n_patch=2 family's shape (the 36 pairs of a 3x3 grid as
+    the first round, its 324 basic-major triples as the second): the
+    verdict's `[M, M]` grid points past the P entries, where the JAX
+    verdict's gather reads int32's least value. One minority mask an
+    image, each second-round table its label: image 0's minority row lies
+    inside the table and recovers, image 1's reaches past it (it would
+    recover if the gather clamped), images 2 and 3 at random, 3 with 2% of
+    its entries flipped."""
+    rng = np.random.default_rng(seed)
+    minority = [int(rng.integers(0, 3)), int(rng.integers(30, m)),
+                int(rng.integers(0, m)), int(rng.integers(0, m))]
+    labels = rng.integers(1, c, 4)
+    p1 = np.zeros((4, m), np.int32)
+    p1[np.arange(4), minority] = labels
+    p2 = np.repeat(labels[:, None], p, axis=1).astype(np.int32)
+    flip = rng.random(p) < 0.02
+    p2[3, flip] = rng.integers(0, c, int(flip.sum()))
+    return p1, p2, m, c
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_verdicts_match_jax_on_n_patch2_tables(seed):
+    p1, p2, m, c = _n_patch2_tables(seed)
+    assert tdef._second_round_index_grid(m).max() >= p2.shape[1]
+    want_p, want_c = map(np.asarray, jdef.double_masking_verdict(
+        jnp.asarray(p1), jnp.asarray(p2), m, c))
+    tp, tc = tdef.double_masking_verdict(torch.as_tensor(p1),
+                                         torch.as_tensor(p2), m, c)
+    np.testing.assert_array_equal(tp.numpy(), want_p)
+    np.testing.assert_array_equal(tc.numpy(), want_c)
+    tp, tc = tdef.double_masking_verdict_np(p1, p2, m, c)
+    np.testing.assert_array_equal(tp, want_p)
+    np.testing.assert_array_equal(tc, want_c)
+    assert want_p[0] == p1[0].max() and want_p[1] == 0
+
+
 @pytest.mark.parametrize("n,chunk", [(666, 64), (630, 64), (36, 64),
                                      (2520, 126), (7, 3), (0, 8)])
 def test_plan_chunks_equals_jax(n, chunk):
@@ -140,6 +177,100 @@ def test_trigger_detector_all_verdict_classes_match_jax(prune, bucket_sizes):
     assert tpc.result is None
 
 
+@pytest.mark.parametrize("prune,dtype,axis", [("exact", "float32", 6),
+                                              ("consensus", "float32", 3),
+                                              ("off", "float32", 3),
+                                              ("exact", "bfloat16", 3)])
+def test_n_patch2_trigger_detector_matches_jax(prune, dtype, axis, capsys):
+    """n_patch=2 (630 pairs and 22680 triples at the default 6x6 grid, 36
+    and 324 at 3x3): every prune mode resolves to the exhaustive sweep,
+    said once on stderr, and the bf16 bank keeps the JAX package's float32
+    sweep; verdicts, tables and forwards bit-identical to
+    `dorpatch_tpu.defense`, kernel A's plain version filling three
+    rectangles a mask."""
+    x = _trigger_batch()
+    jcfg = JaxDefenseConfig(ratios=(0.1,), n_patch=2, prune=prune,
+                            compute_dtype=dtype, num_mask_per_axis=axis)
+    jpc = jdef.PatchCleanser(_jax_trigger,
+                             jmasks.geometry(IMG, 0.1, 2, axis), jcfg)
+    want = jpc.robust_predict(None, jnp.asarray(x), CLASSES,
+                              bucket_sizes=(1, 8))
+    tpc = tdef.PatchCleanser(_torch_trigger,
+                             tmasks.geometry(IMG, 0.1, 2, axis),
+                             DefenseConfig(ratios=(0.1,), n_patch=2,
+                                           prune=prune, compute_dtype=dtype,
+                                           num_mask_per_axis=axis),
+                             device="cpu")
+    m = (axis * axis) * (axis * axis - 1) // 2
+    assert (tpc.num_first, tpc.num_second) == (m, axis * axis * m)
+    assert tuple(tpc._rects.shape) == (m + axis * axis * m, 3, 4)
+    capsys.readouterr()
+    got = tpc.robust_predict(torch.as_tensor(x), CLASSES,
+                             bucket_sizes=(1, 8))
+    assert tpc.resolved_prune() == jpc.resolved_prune() == "off"
+    assert tpc.resolved_incremental() == "off"
+    tpc.robust_predict(torch.as_tensor(x[:1]), CLASSES)
+    said = capsys.readouterr().err
+    assert said.count("runs as 'off'") == (prune != "off")
+    _assert_records_equal(got, want)
+    assert all(r.forwards == r.forward_equivalents == tpc.num_first
+               + tpc.num_second for r in got)
+    assert [(r.prediction, r.certification) for r in got][0] == (0, True)
+
+
+@pytest.mark.parametrize("bucket_sizes", [None, (1, 8)])
+def test_consensus_trigger_detector_matches_jax(bucket_sizes):
+    """prune="consensus": the unanimous images stop after the 36 first-round
+    forwards with the round-1 certificate (image 2, whose pair audit would
+    kill it, stays certified), the disagreeing ones take the rows; records
+    bit-identical to `dorpatch_tpu.defense`."""
+    spec = jmasks.geometry(IMG, 0.1)
+    x = _trigger_batch()
+    jpc = jdef.PatchCleanser(_jax_trigger, spec,
+                             JaxDefenseConfig(ratios=(0.1,),
+                                              prune="consensus"))
+    want = jpc.robust_predict(None, jnp.asarray(x), CLASSES,
+                              bucket_sizes=bucket_sizes)
+    tpc = tdef.PatchCleanser(_torch_trigger, tmasks.geometry(IMG, 0.1),
+                             DefenseConfig(ratios=(0.1,), prune="consensus"),
+                             device="cpu")
+    got = tpc.robust_predict(torch.as_tensor(x), CLASSES,
+                             bucket_sizes=bucket_sizes)
+    _assert_records_equal(got, want)
+    assert [(r.prediction, r.certification) for r in got] == \
+        [(0, True), (0, False), (1, True), (1, False)]
+    assert [r.forwards for r in got][0::2] == [36, 36]
+    assert (got[0].preds_2 == tdef.UNEVALUATED).all()
+    exact = tpc.robust_predict(torch.as_tensor(x), CLASSES, prune="exact")
+    assert all(c.forwards <= e.forwards for c, e in zip(got, exact))
+    assert [r.prediction for r in exact] == [r.prediction for r in got]
+
+
+@pytest.mark.parametrize("margin", [float("inf"), 0.5])
+def test_consensus_bf16_escalation_rederives_the_round1_certificate(margin):
+    """The bf16 bank under "consensus": at margin inf every image escalates
+    to the float32 sweep and the certificate is re-derived from its
+    first-round table (image 2 stays certified, as in the f32 consensus
+    bank); at 0.5 nothing escalates. Records equal the JAX bf16 bank's."""
+    x = _trigger_batch()
+    spec = jmasks.geometry(IMG, 0.1)
+    cfg = dict(ratios=(0.1,), prune="consensus", compute_dtype="bfloat16",
+               incremental_margin=margin)
+    want = jdef.PatchCleanser(_jax_trigger, spec, JaxDefenseConfig(**cfg)) \
+        .robust_predict(None, jnp.asarray(x), CLASSES)
+    tpc = tdef.PatchCleanser(_torch_trigger, tmasks.geometry(IMG, 0.1),
+                             DefenseConfig(**cfg), device="cpu")
+    got = tpc.robust_predict(torch.as_tensor(x), CLASSES)
+    _assert_records_equal(got, want)
+    assert [(r.prediction, r.certification) for r in got] == \
+        [(0, True), (0, False), (1, True), (1, False)]
+    escalated = [r.forwards > tpc.num_forwards_exhaustive for r in got]
+    assert escalated == [margin == float("inf")] * 4
+    if margin == float("inf"):
+        assert got[2].forwards == 36 + 666
+        assert (got[2].preds_2 != tdef.UNEVALUATED).all()
+
+
 def _synced_shallow(img):
     """Shallow full-width CIFAR ResNet-18 in both packages with the same
     (perturbed) weights."""
@@ -192,6 +323,7 @@ def shallow_bank():
                                                          fnet, img))
     want = jpc.robust_predict(params, jnp.asarray(x), 10, prune="exact",
                               incremental="off")
+    jpc._test_params = params
     tpc = tdef.PatchCleanser(lambda z: tnet(normalize(z)),
                              tmasks.geometry(img, ratio),
                              DefenseConfig(ratios=(ratio,)),
@@ -227,6 +359,22 @@ def test_shallow_resnet_certification_matches_jax(shallow_bank, prune,
             assert g.forwards == 666
 
 
+@pytest.mark.parametrize("incremental", ["stem", "off"])
+def test_shallow_resnet_consensus_matches_jax(shallow_bank, incremental):
+    """prune="consensus" composes with the stem fold: the records equal the
+    JAX package's consensus bank (the unanimous image stops after round 1,
+    the disagreeing one takes its 5 minority rows)."""
+    jpc, tpc, x, _ = shallow_bank
+    want = jpc.robust_predict(jpc._test_params, jnp.asarray(x), 10,
+                              prune="consensus", incremental="off")
+    got = tpc.robust_predict(torch.as_tensor(x), 10, prune="consensus",
+                             incremental=incremental)
+    _assert_records_equal(got, want)
+    assert [r.forwards for r in got] == [36 + 5 * 36, 36]
+    assert [(r.prediction, r.certification) for r in got] == \
+        [(1, False), (6, True)]
+
+
 def test_auto_resolves_to_stem_and_rejects_unknown_modes(shallow_bank):
     _, tpc, _, _ = shallow_bank
     assert tpc.resolved_incremental("auto") == "stem"
@@ -234,7 +382,11 @@ def test_auto_resolves_to_stem_and_rejects_unknown_modes(shallow_bank):
     with pytest.raises(ValueError):
         tpc.resolved_incremental("token")
     with pytest.raises(ValueError):
-        tpc.resolved_prune("consensus")
+        tpc.resolved_incremental("mixer")
+    assert tpc.resolved_prune("consensus") == "consensus"
+    assert tpc.resolved_incremental("auto", prune="consensus") == "stem"
+    with pytest.raises(ValueError, match="legal: off, exact, consensus"):
+        tpc.resolved_prune("bogus")
 
 
 def test_build_defenses_bank_matches_jax():

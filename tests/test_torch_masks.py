@@ -131,8 +131,10 @@ def test_device_gate_cpu_request_and_cuda_refusal(monkeypatch):
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    """Import every module of the port in a fresh interpreter: neither jax
-    nor any module of `dorpatch_tpu` may load."""
+    """Import every module of the port in a fresh interpreter, the ResMLP
+    victim and the disk loaders' module among them: neither jax nor any
+    module of `dorpatch_tpu` may load, and PIL only when the disk source
+    is read."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import dorpatch_tpu_torch
@@ -140,12 +142,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             dorpatch_tpu_torch.__path__, "dorpatch_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
+        from dorpatch_tpu_torch.data import disk_batches
+        from dorpatch_tpu_torch.models.resmlp import MixerPrunedResMLP
+        need = {"dorpatch_tpu_torch.data", "dorpatch_tpu_torch.models.resmlp"}
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "flax" or m.startswith("flax.")
+                     or m == "PIL" or m.startswith("PIL.")
                      or m == "dorpatch_tpu" or m.startswith("dorpatch_tpu."))
-        print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 15 else 0)
+        print(len(names), bad, sorted(need - set(names)))
+        sys.exit(1 if bad or len(names) < 15 or need - set(names) else 0)
     """)
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")

@@ -118,5 +118,6 @@ def test_get_model_loads_export_checkpoint_like_jax(tmp_path):
     for (ka, va), (kb, vb) in zip(a.model.state_dict().items(),
                                   b.model.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
+    assert treg.resolve_arch("resmlp") == "resmlp_24_distilled_224"
     with pytest.raises(ValueError, match="unknown architecture"):
-        treg.resolve_arch("resmlp")
+        treg.resolve_arch("mlp_mixer")

@@ -142,5 +142,75 @@ def test_cli_defaults_and_flags():
         "resnetv2_50x1_bit_distilled"
     assert config_from_args(build_parser().parse_args(
         ["--base_arch", "resnetv2"])).base_arch == "resnetv2"
+    assert config_from_args(build_parser().parse_args(
+        ["--base_arch", "resmlp"])).base_arch == "resmlp"
     with pytest.raises(SystemExit):
-        build_parser().parse_args(["--base_arch", "resmlp"])
+        build_parser().parse_args(["--base_arch", "mlp_mixer"])
+
+
+#: one case per main-path flag of `dorpatch_tpu.cli` the port took over,
+#: its aliases, and all the results-path keys at once
+NEW_FLAGS = [
+    ["--data_dir", "/data/elsewhere"],
+    ["--attack", "DorPatch"], ["-a", "DorPatch"],
+    ["-e", "2.5"], ["--epsilon", "6"],
+    ["--lr", "0.05"], ["--learning-rate", "0.002"],
+    ["--num_patch", "3"],
+    ["--density", "0.01"],
+    ["--structured", "0.002"],
+    ["--basic-unit", "5"],
+    ["--switch-iteration", "10"],
+    ["--sweep-interval", "7"],
+    ["--failure-sampling-start", "40"],
+    ["--dual"],
+    ["--defense-n-patch", "2"],
+    ["--prune", "consensus"],
+    ["--no-prune"],
+    ["--incremental", "mixer"], ["--incremental", "mixer-exact"],
+    ["--data-source", "disk"],
+    ["--base_arch", "resmlp"],
+    ["--density", "0.004", "--structured", "0.0", "--num_patch", "2",
+     "--dual", "--defense-n-patch", "2", "--patch_budget", "0.06", "-t",
+     "--dropout", "1", "--dataset", "cifar100", "--base_arch", "resnet18"],
+]
+
+
+@pytest.mark.parametrize("argv", NEW_FLAGS, ids=lambda a: " ".join(a))
+def test_cli_flag_matches_jax_and_results_path(argv):
+    """Each flag lands in the same config fields as in `dorpatch_tpu.cli`,
+    and the results tree is byte-equal to
+    `dorpatch_tpu.artifacts.results_path`'s."""
+    from dorpatch_tpu import cli as jcli
+
+    argv = argv + ["--results-root", "/r"]
+    cfg = config_from_args(build_parser().parse_args(argv))
+    jcfg = jcli.config_from_args(jcli.build_parser().parse_args(argv))
+    for name in ("dataset", "data_dir", "base_arch", "attack_name",
+                 "data_source", "synthetic_data"):
+        assert getattr(cfg, name) == getattr(jcfg, name), name
+    for name in ("patch_budget", "targeted", "lr", "max_iterations",
+                 "switch_iteration", "sweep_interval",
+                 "failure_sampling_start", "basic_unit", "dropout",
+                 "sampling_size", "density", "structured", "eps",
+                 "num_patch", "dual", "compute_dtype"):
+        assert getattr(cfg.attack, name) == getattr(jcfg.attack, name), name
+    for name in ("n_patch", "prune", "incremental", "incremental_margin",
+                 "compute_dtype"):
+        assert getattr(cfg.defense, name) == getattr(jcfg.defense, name), \
+            name
+    path = tart.results_path(cfg)
+    assert isinstance(path, str)
+    assert path.encode() == jax_results_path(jcfg).encode()
+
+
+@pytest.mark.parametrize("argv", [["--attack", "PGD"],
+                                  ["--defense-n-patch", "3"],
+                                  ["--prune", "greedy"],
+                                  ["--incremental", "mixer-approx"],
+                                  ["--data-source", "hdf5"]])
+def test_cli_rejects_what_the_jax_cli_rejects(argv):
+    from dorpatch_tpu import cli as jcli
+
+    for parser in (build_parser(), jcli.build_parser()):
+        with pytest.raises(SystemExit):
+            parser.parse_args(argv)

@@ -188,5 +188,6 @@ def test_get_model_loads_timm_checkpoint_like_jax(tmp_path):
         got = tv.apply(torch.as_tensor(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=LOGIT_ATOL)
     assert not any(p.requires_grad for p in tv.model.parameters())
+    assert treg.resolve_arch("resmlp") == "resmlp_24_distilled_224"
     with pytest.raises(ValueError, match="unknown architecture"):
-        treg.resolve_arch("resmlp")
+        treg.resolve_arch("mlp_mixer")

@@ -84,6 +84,41 @@ def test_token_exact_records_match_jax(seed, some):
                if g.forwards <= exhaustive)
 
 
+def test_token_exact_consensus_records_match_jax():
+    """prune="consensus" under "token-exact": the threshold in the widest
+    gap of the images' smallest margins (some escalate, their round-1
+    certificate re-derived from the exhaustive first round); records equal
+    `dorpatch_tpu.defense`'s."""
+    seed = 17
+    fnet, params, tnet = synced_vit(NARROW, IMG, seed, head_scale=HEAD_SCALE)
+    x = np.random.default_rng(seed).uniform(0, 1, (4, IMG, IMG, 3)) \
+        .astype(np.float32)
+    probe = _port_bank(tnet, 0.5)
+    probe.robust_predict(torch.as_tensor(x), CLASSES, prune="consensus",
+                         incremental="token")
+    mins = np.sort(probe.last_min_margin)
+    cut = int(np.argmax(np.diff(mins))) + 1
+    margin = float((mins[cut - 1] + mins[cut]) / 2)
+    jpc = jdef.PatchCleanser(
+        lambda p, z: fnet.apply(p, (z - 0.5) / 0.5),
+        jmasks.geometry(IMG, RATIO),
+        JaxDefenseConfig(ratios=(RATIO,), incremental_margin=margin),
+        incremental_engine=j_engine(NAME, fnet, IMG))
+    want = jpc.robust_predict(params, jnp.asarray(x), CLASSES,
+                              prune="consensus", incremental="token-exact")
+    tpc = _port_bank(tnet, margin)
+    got = tpc.robust_predict(torch.as_tensor(x), CLASSES, prune="consensus")
+    assert np.abs(tpc.last_min_margin - margin).min() > 1e-3
+    assert int((tpc.last_min_margin < margin).sum()) == cut
+    for g, w in zip(got, want):
+        assert (g.prediction, g.certification, g.forwards) == \
+            (w.prediction, w.certification, w.forwards)
+        assert g.forward_equivalents == pytest.approx(w.forward_equivalents,
+                                                      rel=1e-12)
+        np.testing.assert_array_equal(g.preds_1, w.preds_1)
+        np.testing.assert_array_equal(g.preds_2, w.preds_2)
+
+
 def test_escalation_gives_the_exhaustive_verdicts():
     """With a threshold above every margin, "token-exact" re-certifies
     every image: its verdicts and tables are the exhaustive sweep's."""
