@@ -8,6 +8,8 @@
   dependency of the port).
 - `procedural_arrays` / `procedural_batches`: the learnable generated task
   with genuine labels.
+- `training_arrays`: a whole split for victim training (`train.py`), from
+  the procedural task or the CIFAR pickle batches.
 - the disk source: `_load_cifar` (the CIFAR-10/100 pickle batches),
   `_imagenet_val_entries` (an ImageNet-style `val/<class>/<image>` tree) and
   the eval transform `_pil_resize_center_crop`, the JAX package's loaders.
@@ -328,6 +330,28 @@ def disk_batches(dataset: str, data_dir: str, batch_size: int,
             yield np.stack(batch), np.asarray(labs, np.int64)
     else:
         raise ValueError(f"unknown dataset {dataset!r}")
+
+
+def training_arrays(dataset: str, source: str, data_dir: str = "data/",
+                    n_per_class: int = 1500, img_size: int = 32,
+                    seed: int = 1234, split: str = "train"
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Whole-split arrays for victim training: NHWC float32 [0,1] and
+    int64. source="procedural" generates the labeled task; source="disk"
+    loads the CIFAR pickle batches (`_load_cifar`; the train split is
+    `data_batch_1..5` / `train`) at their native 32 px, with no resize or
+    crop (no Pillow needed)."""
+    if source == "procedural":
+        return procedural_arrays(dataset, n_per_class, img_size, seed, split)
+    if source == "disk":
+        if dataset not in ("cifar10", "cifar100"):
+            raise ValueError(
+                f"disk training data supports cifar only, got {dataset!r}")
+        if img_size != 32:
+            raise ValueError("disk cifar training is native-32px only")
+        imgs, labels = _load_cifar(data_dir, dataset, split)
+        return imgs.astype(np.float32) / 255.0, labels
+    raise ValueError(f"unknown training data source {source!r}")
 
 
 def dataset_batches(dataset: str, batch_size: int, img_size: int = 224,

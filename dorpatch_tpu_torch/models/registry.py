@@ -6,9 +6,11 @@ initialization otherwise) and wraps the model as a `Victim` whose `apply`
 (a `VictimForward`) takes NHWC images in [0, 1] with the `(x - 0.5) / 0.5`
 normalization folded in; `apply.at(torch.bfloat16)` is the same forward on
 a once-cast bf16 copy of the model (the bf16 attack and certify bank).
-Port of `dorpatch_tpu.models.registry` for the CIFAR ResNet-18,
-ResNetV2-50x1 BiT, the ViT family (ViT-B/16 and the small `cifar_vit`) and
-the ResMLP family (ResMLP-24 and the small `cifar_resmlp`).
+`build_bare_model` gives a family's seeded, trainable module and
+`trainable_arch` the families `train.py` trains. Port of
+`dorpatch_tpu.models.registry` for the CIFAR ResNet-18, ResNetV2-50x1
+BiT, the ViT family (ViT-B/16 and the small `cifar_vit`) and the ResMLP
+family (ResMLP-24 and the small `cifar_resmlp`).
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ RESMLP_FAMILIES = ("resmlp_24_distilled_224", "cifar_resmlp")
 #: the families whose module is sized by the image (ViT's position
 #: embedding, ResMLP's token-mixing matrix)
 SIZED_FAMILIES = VIT_FAMILIES + RESMLP_FAMILIES
+#: the families `train.py` trains offline: the small 32 px victims
+TRAINABLE = ("cifar_resnet18", "cifar_vit")
 
 
 def normalize(images01: torch.Tensor) -> torch.Tensor:
@@ -100,6 +104,17 @@ def resolve_arch(arch: str) -> str:
                      f"{SUPPORTED}")
 
 
+def trainable_arch(arch: str) -> str:
+    """The resolved name of a trainable victim family (`TRAINABLE`); any
+    other family raises."""
+    name = resolve_arch(arch)
+    if name not in TRAINABLE:
+        raise ValueError(
+            f"arch {arch!r} is not trainable offline; use cifar_resnet18 "
+            "or cifar_vit (the 224px timm families need real datasets)")
+    return name
+
+
 def checkpoint_path(model_dir: str, dataset: str, timm_name: str) -> str:
     """The PatchCleanser-release checkpoint naming contract."""
     return os.path.join(model_dir, dataset,
@@ -162,6 +177,19 @@ def incremental_engine(timm_name: str, model, img_size: int):
     return None
 
 
+def build_bare_model(timm_name: str, num_classes: int, img_size: int = 224,
+                     seed: int = 0) -> torch.nn.Module:
+    """The family's module for a resolved name, on the CPU, initialized
+    from `seed` and trainable (gradients on, train mode); no
+    normalization folded in and no checkpoint read. `train.py` trains it;
+    `get_model` freezes it."""
+    build, init_weights = _FAMILIES[timm_name]
+    model = (build(num_classes, img_size) if timm_name in SIZED_FAMILIES
+             else build(num_classes))
+    init_weights(model, utils.generator(seed, torch.device("cpu")))
+    return model.train().requires_grad_(True)
+
+
 def get_model(
     dataset: str,
     arch: str = "resnetv2",
@@ -177,18 +205,13 @@ def get_model(
     dev = utils.resolve_device(device)
     timm_name = resolve_arch(arch)
     num_classes = NUM_CLASSES[dataset]
-    build, init_weights = _FAMILIES[timm_name]
-    model = (build(num_classes, img_size) if timm_name in SIZED_FAMILIES
-             else build(num_classes))
+    model = build_bare_model(timm_name, num_classes, img_size, seed)
     ckpt = checkpoint_path(model_dir, dataset, timm_name)
-    if os.path.exists(ckpt):
+    from_checkpoint = os.path.exists(ckpt)
+    if from_checkpoint:
         from dorpatch_tpu_torch.models.convert import load_state_dict
 
         model.load_state_dict(load_state_dict(ckpt))
-        from_checkpoint = True
-    else:
-        init_weights(model, utils.generator(seed, torch.device("cpu")))
-        from_checkpoint = False
     model = model.to(dev).eval().requires_grad_(False)
     return Victim(name=timm_name, apply=VictimForward(model), model=model,
                   num_classes=num_classes, from_checkpoint=from_checkpoint,

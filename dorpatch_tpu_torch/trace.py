@@ -6,6 +6,7 @@
     python -m dorpatch_tpu_torch.trace --base_arch vit   # ViT-B/16, 224
     python -m dorpatch_tpu_torch.trace --compute-dtype bfloat16 \
         --certify-dtype bfloat16                         # the bf16 paths
+    python -m dorpatch_tpu_torch.trace --train --base_arch resnet18 # training
 
 Runs the pieces of the main path for the victim given (by default the
 port's default victim at 224 px and 2 images, as the RN50 main path runs
@@ -22,6 +23,12 @@ each after a warm-up:
 
 `--compute-dtype` sets the attack's precision (steps and sweep) and
 `--certify-dtype` the certification's, as the CLI's flags do.
+
+`--train` traces victim training instead (`--base_arch resnet18` or
+`cifar_vit`): 20 calls of `train.train_step` at batch 128 on the
+procedural task, from the seeded init, under `utils.configure_numerics`,
+then 20 more with cuDNN's nondeterministic algorithms allowed (the cost
+of determinism; the numerics are set back after).
 
 For each phase it prints the wall time per call (host clock around work
 that ends in a synchronize), the device-busy time (union of the kernels'
@@ -49,7 +56,9 @@ from dorpatch_tpu_torch.losses import local_variance
 from dorpatch_tpu_torch.models import get_model
 
 SEED, STEPS = 1234, 5
-DATASET = {"resnet18": "cifar10", "resnetv2": "imagenet", "vit": "imagenet"}
+DATASET = {"resnet18": "cifar10", "resnetv2": "imagenet", "vit": "imagenet",
+           "cifar_vit": "cifar10"}
+TRAIN_BATCH, TRAIN_STEPS = 128, 20
 
 _GROUPS = (
     ("gn kernels", ("gn_fwd_", "gn_bwd_", "gn_param_")),
@@ -127,6 +136,37 @@ def profile_phase(name: str, fn, calls: int) -> dict:
     return rec
 
 
+def trace_training(arch: str, dev: torch.device) -> list:
+    """`train.train_step` at batch 128 with cuDNN determinism on, then
+    off."""
+    from dorpatch_tpu_torch import train
+    from dorpatch_tpu_torch.models import registry
+
+    cfg = train.TrainConfig(arch=arch)
+    name = registry.trainable_arch(arch)
+    imgs, labels = data.procedural_arrays(cfg.dataset, 13, cfg.img_size,
+                                          SEED)
+    x = torch.as_tensor(train.quantize(imgs[:TRAIN_BATCH]), device=dev)
+    y = torch.as_tensor(labels[:TRAIN_BATCH], device=dev)
+    model = registry.build_bare_model(name, 10, cfg.img_size).to(dev)
+    opt = train.make_optimizer(cfg, model)
+    gen = utils.generator(SEED, dev)
+
+    def step():
+        off, flip = train.draw_augment(gen, TRAIN_BATCH)
+        train.train_step(model, opt, cfg.lr, x, y, off, flip,
+                         cfg.label_smoothing)
+
+    phases = [profile_phase("train_step", step, TRAIN_STEPS)]
+    torch.backends.cudnn.deterministic = False
+    try:
+        phases.append(profile_phase("train_step, cudnn nondeterministic",
+                                    step, TRAIN_STEPS))
+    finally:
+        utils.configure_numerics()
+    return phases
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--base_arch", default="resnetv2", choices=sorted(DATASET))
@@ -136,10 +176,20 @@ def main(argv=None) -> int:
                    choices=["float32", "bfloat16"])
     p.add_argument("--certify-dtype", default="float32",
                    choices=["float32", "bfloat16"])
+    p.add_argument("--train", action="store_true",
+                   help="trace victim-training steps (resnet18, cifar_vit)")
     args = p.parse_args(argv)
     size, batch, dataset = args.img_size, args.batch, DATASET[args.base_arch]
     dev = utils.resolve_device("cuda")
     utils.configure_numerics()
+    if args.train:
+        name = torch.cuda.get_device_name(dev)
+        print(f"device: {name}", flush=True)
+        phases = trace_training(args.base_arch, dev)
+        print(json.dumps({"device": name, "arch": args.base_arch,
+                          "train_batch": TRAIN_BATCH, "phases": phases},
+                         default=float), flush=True)
+        return 0
     victim = get_model(dataset, args.base_arch, "/nonexistent", size,
                        device=dev)
     x_np, _ = next(data.synthetic_batches(dataset, batch, size, SEED))

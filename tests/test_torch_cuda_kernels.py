@@ -1342,3 +1342,63 @@ def test_fill_forward_bf16_every_sweep_plan_equals_plain(dev, s, k):
                                      plan._replace(vec=1))
                 torch.cuda.synchronize()
                 assert torch.equal(got, want15), plan
+
+
+@pytest.mark.parametrize("arch", ["cifar_resnet18", "cifar_vit"])
+def test_train_step_on_card_matches_cpu(dev, arch):
+    """One victim-training step (`train.train_step`, batch 32) on the card
+    against the same step on the CPU, from one init, batch and augment
+    draws: loss within rtol 1e-5, accuracy equal; the updated weights
+    within rtol 1e-5, atol 1e-6 where the element's gradient is at least
+    1e-3 of its tensor's largest; elsewhere within twice the step's rate
+    (Adam's first step is lr * g / (|g| + eps): a gradient at rounding
+    level takes a full step of either sign on either device)."""
+    from dorpatch_tpu_torch import data as tdata
+    from dorpatch_tpu_torch import train, utils
+    from dorpatch_tpu_torch.models import registry
+
+    utils.configure_numerics()
+    cfg = train.TrainConfig(arch=arch)
+    lr = cfg.lr
+    imgs, labels = tdata.procedural_arrays("cifar10", 4, 32, seed=3)
+    x = torch.as_tensor(train.quantize(imgs[:32]))
+    y = torch.as_tensor(labels[:32])
+    off, flip = train.draw_augment(utils.generator(0, torch.device("cpu")),
+                                   32)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        model = registry.build_bare_model(arch, 10, 32, seed=0).to(d)
+        opt = train.make_optimizer(cfg, model)
+        loss, acc = train.train_step(model, opt, lr, x.to(d), y.to(d),
+                                     off.to(d), flip.to(d),
+                                     cfg.label_smoothing)
+        sq = {n: opt.state[p]["exp_avg_sq"].cpu()
+              for n, p in model.named_parameters()}
+        out[d.type] = (float(loss), float(acc),
+                       {k: v.cpu() for k, v in model.state_dict().items()},
+                       sq)
+    (l0, a0, w0, sq), (l1, a1, w1, _) = out["cpu"], out["cuda"]
+    assert abs(l1 - l0) <= 1e-5 * l0 and a1 == a0
+    for k, want in w0.items():
+        r = sq[k].sqrt()
+        sure = r >= 1e-3 * r.max()
+        torch.testing.assert_close(w1[k][sure], want[sure], rtol=1e-5,
+                                   atol=1e-6)
+        assert float((w1[k] - want).abs().max()) <= 2 * lr, k
+
+
+@pytest.mark.parametrize("arch", ["cifar_resnet18", "cifar_vit"])
+def test_training_repeats_bit_for_bit_on_card(dev, arch):
+    """Two 10-step runs of `train.train_victim` on the card from one seed
+    (batch 128, the JAX defaults otherwise): every weight bit-equal."""
+    from dorpatch_tpu_torch import train
+
+    cfg = train.TrainConfig(arch=arch, n_per_class_train=128,
+                            n_per_class_test=2, epochs=1)
+    runs = [train.train_victim(cfg, device="cuda", log=lambda *a: None)
+            for _ in range(2)]
+    assert runs[0][1]["steps"] == 10
+    assert runs[0][1]["test_acc"] == runs[1][1]["test_acc"]
+    for (k, a), (_, b) in zip(runs[0][0].state_dict().items(),
+                              runs[1][0].state_dict().items()):
+        assert torch.equal(a, b), k

@@ -132,9 +132,9 @@ def test_device_gate_cpu_request_and_cuda_refusal(monkeypatch):
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     """Import every module of the port in a fresh interpreter, the ResMLP
-    victim and the disk loaders' module among them: neither jax nor any
-    module of `dorpatch_tpu` may load, and PIL only when the disk source
-    is read."""
+    victim, the disk loaders' module and victim training among them:
+    neither jax nor any module of `dorpatch_tpu` may load, and PIL only
+    when the disk source is read."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import dorpatch_tpu_torch
@@ -144,7 +144,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             importlib.import_module(name)
         from dorpatch_tpu_torch.data import disk_batches
         from dorpatch_tpu_torch.models.resmlp import MixerPrunedResMLP
-        need = {"dorpatch_tpu_torch.data", "dorpatch_tpu_torch.models.resmlp"}
+        from dorpatch_tpu_torch.train import train_victim
+        need = {"dorpatch_tpu_torch.data", "dorpatch_tpu_torch.models.resmlp",
+                "dorpatch_tpu_torch.train"}
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "flax" or m.startswith("flax.")
