@@ -131,8 +131,27 @@ NVIDIA GPU.
    failure set; and repeats the stem-fold, token-engine and bf16-bank
    cross-checks of 6 on the trained weights (the token engine's largest
    logit drift over unescalated images printed beside the 0.5 margin);
-9. prints the total seconds, the per-kernel JSON line, the nvidia-smi
-   line and, last, `{"ok": true, "device": {...}}`.
+9. serves (`serve_phase`): holds the serve paths' kernels at their shapes
+   (A, C, D and their bf16 forms at RN50's bucket of 8 at 224, A and C at
+   CIFAR's, H's bf16 form at ViT-B/16's batch of 1), then runs
+   `dorpatch_tpu_torch.serve`'s service and HTTP front-end in this
+   process on each serving path and sends it requests over HTTP from
+   stdlib clients: RN50 at 224 (`--serve-max-batch 8`, buckets 1 and 8,
+   16 requests at concurrency 8) with 1 and 2 replicas in float32, with 2
+   in the bf16 bank; the CIFAR ResNet-18 trained in 7 with 2 replicas
+   and `--chaos wedge_dispatch` at concurrency 16 (replica 0 wedges its
+   first batch: the supervisor must fail its requests over and restart
+   it); ViT-B/16's
+   bf16 bank at batch 1 (2 requests). Each path fails unless every answer
+   is ok inside its deadline, equals the port's `robust_predict` on the
+   same images in the same batches, no program ran a shape its warmup did
+   not, `GET /metrics` counts what the clients sent and the path's
+   kernels launched (`serve_path`); it prints, beside the card's name and
+   power limit, the warmup seconds per replica, the latency percentiles,
+   images/s, batch occupancy and forwards per image;
+10. prints the total seconds, the per-kernel JSON line (the serve paths'
+   records last), the nvidia-smi line and, last,
+   `{"ok": true, "device": {...}}`.
 
 Any failed phase raises: the script then exits nonzero and prints no
 result line.
@@ -296,6 +315,47 @@ TRAINED_ARGV = ["--data-source", "procedural", "--dataset", "cifar10",
 #: not schedule (`main_path`'s `audit_fill` holds it to them)
 TRAINED_CIFAR_BF16_KERNELS = tuple(k for k in CIFAR_BF16_KERNELS
                                    if k != "masked_fill_fwd_bf16")
+#: the serving paths (`python -m dorpatch_tpu_torch.serve`'s flags, run in
+#: this process through `CertifiedInferenceService.from_config` and
+#: `HttpFrontend` so that the launch counts hold the kernels): RN50 at 224
+#: with the (1, 8) buckets, SERVE_REQUESTS requests at closed-loop
+#: concurrency SERVE_CONCURRENCY over HTTP, with 1 and 2 replicas on the
+#: card in float32, with 2 in the bf16 bank; the trained CIFAR ResNet-18
+#: with 2 replicas and the wedge_dispatch failover drill (replica 0 wedges
+#: its first batch; stale after SERVE_STALE_S) at concurrency 16: two full
+#: batches wait at once and each replica takes one (at 8 the clients wait
+#: for each batch, and replica 1 may take them all); ViT-B/16's bf16 bank
+#: at batch 1, SERVE_VIT_REQUESTS requests at concurrency 2
+SERVE_RN50_ARGV = ["--synthetic", "--dataset", "imagenet", "--base_arch",
+                   "resnetv2", "--img-size", "224", "--serve-max-batch", "8",
+                   "--serve-deadline-ms", "60000"]
+SERVE_VIT_ARGV = [a if a != "resnetv2" else "vit" for a in SERVE_RN50_ARGV
+                  ][:-4] + ["--serve-max-batch", "1", "--serve-deadline-ms",
+                            "60000", "--certify-dtype", "bfloat16"]
+SERVE_STALE_S = 3.0
+SERVE_CIFAR_ARGV = ["--dataset", "cifar10", "--base_arch", "resnet18",
+                    "--img-size", "32", "--serve-max-batch", "8",
+                    "--serve-deadline-ms", "60000", "--serve-replicas", "2",
+                    "--serve-replica-stale-s", str(SERVE_STALE_S),
+                    "--serve-restart-backoff-base", "0.5",
+                    "--chaos", "wedge_dispatch"]
+CERTIFY_BF16 = ["--certify-dtype", "bfloat16"]
+SERVE_REQUESTS, SERVE_CONCURRENCY, SERVE_VIT_REQUESTS = 16, 8, 2
+#: the RN50 2-replica runs' `POST /profile` capture (seconds) of one more
+#: batch served after the measured traffic: the device's busy share of a
+#: served batch
+SERVE_PROFILE_S = 2.0
+#: the serve paths' kernels: phase 1 folds the stem (C), the pair audits
+#: fill with A, every RN50 forward runs D; the bf16 bank runs their bf16
+#: forms, its escalations (the float32 exhaustive sweep) A and D, and the
+#: clean forward D; the ViT bank runs H's bf16 form. A (or its bf16 form)
+#: must launch exactly when a pair audit was scheduled, and float32 A in
+#: the RN50 bf16 bank exactly when an image escalated (`serve_path`)
+SERVE_KERNELS = {"RN50": ("stem_fold", "gn_relu_fwd"),
+                 "RN50 bf16": ("stem_fold_bf16", "gn_relu_fwd_bf16",
+                               "gn_relu_fwd"),
+                 "CIFAR": ("stem_fold",),
+                 "ViT bf16": ("masked_kv_attn_bf16",)}
 
 
 def _smi() -> str:
@@ -899,9 +959,9 @@ def gn_phases_bf16(torch, dev):
                    + gn_split_480(torch, dev, gen, at480, bf))
 
 
-def attn_phase(torch, dev, dtype=None):
+def attn_phase(torch, dev, dtype=None, images=None, suffix=""):
     """Kernel H at the ViT-B/16 token engine's two shapes of the 0.12
-    radius (2 images; T+1 = 197 tokens, 12 heads of 64;
+    radius (2 images, or `images`; T+1 = 197 tokens, 12 heads of 64;
     `attn_bench.SHAPES`): the phase-1 chunk (all 36 first-round masks) and
     the first pair-audit chunk (64 of the 630 pairs). The biases are the
     engine's own: the stale clean columns of the masks' token sets and the
@@ -926,10 +986,12 @@ def attn_phase(torch, dev, dtype=None):
     rng = np.random.default_rng(6 if bf16 else 4)
     tag = "_bf16" if bf16 else ""
     recs = []
-    for name, (_, kind, c) in zip(("masked_kv_attn" + tag,
-                                   "masked_kv_attn" + tag + "_pairs"),
+    for name, (_, kind, c) in zip(("masked_kv_attn" + tag + suffix,
+                                   "masked_kv_attn" + tag + "_pairs"
+                                   + suffix),
                                   attn_bench.SHAPES):
-        args32 = attn_bench.engine_case(torch, dev, kind, c, rng)
+        args32 = attn_bench.engine_case(torch, dev, kind, c, rng,
+                                        images or attn_bench.B)
         b, c, s, h, f = args32[0].shape
         t1 = args32[3].shape[1]
         args = tuple(a.bfloat16() for a in args32) if bf16 else args32
@@ -1555,23 +1617,27 @@ def _ulp16(torch, x):
     return torch.exp2(e - 7)
 
 
-def fill_phase_bf16(torch, dev, b, size, suffix=""):
+def fill_phase_bf16(torch, dev, b, size, suffix="", dtype=None):
     """Kernel A's bf16 form (the bf16 bank's fill) at one path's image
     shape: exact against its plain version at the bank's phase-1 chunk
-    (S = 36) and pair-audit chunk (S = 63), timed at S = 63."""
+    (S = 36) and pair-audit chunk (S = 63), timed at S = 63. With `dtype`
+    float32, kernel A itself the same way (the serve paths' pair audits)."""
     from dorpatch_tpu_torch import masks as masks_lib
     from dorpatch_tpu_torch.fill_bench import fill_inputs
     from dorpatch_tpu_torch.ops import masked_fill as mf
 
+    dtype = dtype or torch.bfloat16
+    item = 2 if dtype == torch.bfloat16 else 4
+    form = "bf16" if item == 2 else "float32"
     fill = 0.5
     for s in (36, 63):
         imgs, rects, _ = fill_inputs(torch, dev, b, size, s, seed=s)
-        imgs = imgs.bfloat16()
+        imgs = imgs.to(dtype)
         got = mf.masked_fill_fwd_kernel(imgs, rects, fill)
         want = mf.masked_fill_reference(imgs, rects, fill)
         torch.cuda.synchronize()
-        if got.dtype != torch.bfloat16 or not torch.equal(got, want):
-            raise AssertionError(f"kernel A (bf16) differs from its plain "
+        if got.dtype != dtype or not torch.equal(got, want):
+            raise AssertionError(f"kernel A ({form}) differs from its plain "
                                  f"version at [B={b},S={s},{size}px]")
     err = float((got.float() - want.float()).abs().max())
     del got, want
@@ -1581,16 +1647,18 @@ def fill_phase_bf16(torch, dev, b, size, suffix=""):
     ms = _device_ms(lambda: mf.masked_fill_fwd_kernel(imgs, rects, fill))
     plain = _device_ms(lambda: mf.masked_fill_reference(imgs, rects, fill))
     lib = _device_ms(lambda: torch.where(keep, imgs[:, None], fill))
-    bound, by = _bound(2 * b * hwc + 16 * s * k + 2 * b * s * hwc, 0.0)
-    plan = mf.fwd_plan(b, s, size, size, 3, True, 2)
-    print(f"kernel A bf16 masked_fill_fwd [B={b},S={s},K={k},{size}x{size}x3]"
+    bound, by = _bound(item * b * hwc + 16 * s * k + item * b * s * hwc,
+                       0.0)
+    plan = mf.fwd_plan(b, s, size, size, 3, True, item)
+    print(f"kernel A {form} masked_fill_fwd [B={b},S={s},K={k},{size}x{size}x3]"
           f" ({plan}): exact at S=36 and 63, {ms * 1e3:.2f} us (plain "
           f"{plain * 1e3:.2f} us, torch.where on a rasterized keep-mask "
           f"{lib * 1e3:.2f} us; bound {bound * 1e3:.2f} us by {by}, "
           f"{bound / ms:.0%} of it)", flush=True)
     del imgs, keep
     torch.cuda.empty_cache()
-    return dict(name="masked_fill_fwd_bf16" + suffix, route="cuda",
+    return dict(name="masked_fill_fwd" + ("_bf16" if item == 2 else "")
+                + suffix, route="cuda",
                 source="dorpatch_tpu_torch/csrc/masked_fill.cu",
                 replaces="dorpatch_tpu/ops/masked_fill.py:53", launches=0,
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
@@ -1895,6 +1963,434 @@ def trained_phase(torch, dev, out) -> None:
           flush=True)
 
 
+# ------------------------------------------------------------- serving
+
+
+def serve_kernels(torch, dev):
+    """The serve paths' kernels at their shapes, held and timed as above:
+    at the RN50 serve bucket of 8 images at 224, A (float32 and bf16) at
+    the pair audit's chunk (S = 63), C (float32 and bf16) at phase 1's
+    chunk and D (float32 and bf16) at a pair-audit slab (8 x 63 images at
+    (784, 512)); at the CIFAR bucket of 8, A and C; H's bf16 form at the
+    ViT-B/16 bank's chunks with 1 image (the serve path's batch). Returns
+    the records by path, launches filled in by `serve_phase`."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    rn50 = [fill_phase_bf16(torch, dev, 8, 224, "_serve_rn50",
+                            torch.float32),
+            stem_fold_phase(torch, dev, "imagenet", "resnetv2", 224, 8,
+                            "stem_fold_serve_rn50"),
+            gn_slab(torch, dev, gen, 8 * 63, 784, 512, 4,
+                    suffix="_serve_rn50")[0]]
+    rn50_bf16 = [fill_phase_bf16(torch, dev, 8, 224, "_serve_rn50"),
+                 stem_fold_phase(torch, dev, "imagenet", "resnetv2", 224, 8,
+                                 "stem_fold_bf16_serve_rn50",
+                                 torch.bfloat16),
+                 gn_slab(torch, dev, gen, 8 * 63, 784, 512, 4,
+                         torch.bfloat16, "_serve_rn50")[0]]
+    cifar = [fill_phase_bf16(torch, dev, 8, 32, "_serve_cifar",
+                             torch.float32),
+             stem_fold_phase(torch, dev, "cifar10", "resnet18", 32, 8,
+                             "stem_fold_serve_cifar")]
+    return {"RN50": rn50, "RN50 bf16": rn50_bf16, "CIFAR": cifar,
+            "ViT bf16": attn_phase(torch, dev, torch.bfloat16, 1,
+                                   "_serve_vit")}
+
+
+def _serve_images(size, n, seed):
+    """Seeded smooth random images (`tools/loadgen.py`'s), NHWC in [0, 1]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(0.0, 1.0, (n, 4, 4, 3)).astype(np.float32)
+    return np.kron(base, np.ones((1, size // 4, size // 4, 1), np.float32))
+
+
+def _closed_loop(url, images, concurrency, deadline_ms, tag="r"):
+    """SERVE_CONCURRENCY stdlib clients over `images`, each request with
+    its own X-Trace-Id (`tag` + its index): [(HTTP status, answer, client
+    seconds)]."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    out = [None] * len(images)
+    nxt, lock = [0], threading.Lock()
+
+    def one(i):
+        body = json.dumps({"image": images[i].tolist()}).encode()
+        req = urllib.request.Request(
+            url + "/predict", data=body, headers={
+                "Content-Type": "application/json",
+                "X-Trace-Id": f"{tag}{i}"})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(
+                    req, timeout=deadline_ms / 1e3 + 60) as r:
+                code, ans = r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            code, ans = e.code, json.loads(e.read())
+        out[i] = (code, ans, time.perf_counter() - t0)
+
+    def worker():
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= len(images):
+                return
+            one(i)
+
+    threads = [threading.Thread(target=worker) for _ in range(concurrency)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=deadline_ms / 1e3 + 120)
+    if any(t.is_alive() for t in threads) or None in out:
+        raise AssertionError("a serve client did not get its answer")
+    return out
+
+
+def _get(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _busy_share(trace_path, window_s):
+    """(device busy share, kernels) of a `torch.profiler` Chrome trace:
+    the union of its CUDA kernel, memcpy and memset intervals over the
+    capture's `window_s` seconds."""
+    with open(trace_path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in events if e.get("ph") == "X" and e.get("cat")
+                   in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -math.inf
+    for t0, t1 in spans:
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    return min(1.0, busy / (window_s * 1e6)), len(spans)
+
+
+def serve_path(torch, dev, label, argv, images, required, smi,
+               concurrency=SERVE_CONCURRENCY, drill=False, profile_s=0.0,
+               ref_cache=None):
+    """One serving path: `CertifiedInferenceService.from_config` on the
+    CLI flags `argv` and `HttpFrontend` on a free port, in this process;
+    `images` sent over HTTP by `_closed_loop`, with the launch counts set
+    to 0 just before the first request and read just after the last
+    answer. Fails unless every answer is ok inside its deadline; every
+    replica's per-program signature counts after the traffic equal those
+    after its warmup; `serve_requests_total` and `serve_batch_images_total`
+    on `GET /metrics` equal the client's count; every kernel in `required`
+    launched, A (or its bf16 form) exactly when a pair audit was
+    scheduled, and, in the RN50 bf16 bank, A exactly when an image
+    escalated; and every answer (per radius prediction and certificate,
+    the clean prediction, the forwards summed over the radii) equals the
+    port's `robust_predict` on the same images in the same batches (the
+    `serve.batch` spans of the service's events.jsonl name each batch's
+    requests), on a bank built apart from the service's. A `drill` run
+    (chaos wedge_dispatch on replica 0) must also write the
+    serve.replica.{sick,quarantine,restart} events, replica 0 wedged and
+    then restarted, and answer every request once. With `profile_s`, one
+    more batch of the first images is served after the measured traffic
+    (its own trace ids), and a client asks `POST /profile` for that many
+    seconds once it runs: the device's busy share of the capture is
+    printed (the rest is the share of a served batch the host holds the
+    card idle). `ref_cache` keeps the reference's answers by bank and
+    batch across paths that serve the same images. Prints,
+    beside the card, the warmup seconds per replica, the latency
+    percentiles, images/s, batch occupancy and forwards per image. Returns
+    the launch counts."""
+    import threading
+    import urllib.request
+
+    from dorpatch_tpu_torch import data, defense, ops
+    from dorpatch_tpu_torch.cli import build_parser, config_from_args
+    from dorpatch_tpu_torch.observe import parse_exposition
+    from dorpatch_tpu_torch.serve import CertifiedInferenceService, HttpFrontend
+
+    n = len(images)
+    sched = dict(pair_audits=0, rows=0)
+    plain, lock = defense.schedule_round2, threading.Lock()
+
+    def schedule(*args, **kwargs):
+        need_pairs, row_list = plain(*args, **kwargs)
+        with lock:
+            sched["pair_audits"] += int(need_pairs.sum())
+            sched["rows"] += len(row_list)
+        return need_pairs, row_list
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as root:
+        cfg = config_from_args(build_parser().parse_args(
+            argv + ["--results-root", root, "--serve-port", "0"]))
+        deadline_ms = cfg.serve.deadline_ms
+        t0 = time.perf_counter()
+        svc = CertifiedInferenceService.from_config(cfg)
+        svc.start()
+        start_s = time.perf_counter() - t0
+
+        def counts_of_banks():
+            return [svc._bank_trace_counts(r.clean, r.defenses)
+                    for r in svc._pool.replicas]
+
+        warm = counts_of_banks()
+        defense.schedule_round2 = schedule
+        try:
+            with HttpFrontend(svc, "127.0.0.1", 0) as fe:
+                url = f"http://127.0.0.1:{fe.port}"
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                answers = _closed_loop(url, images, concurrency, deadline_ms)
+                wall = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                counts, routes = ops.launch_counts(), ops.route_counts()
+                metrics = parse_exposition(_get(url + "/metrics")[1])
+                if drill:
+                    t1 = time.perf_counter()
+                    while time.perf_counter() - t1 < 120:
+                        snap = svc.stats()["replicas"][0]
+                        if (snap["state"], snap["generation"]) == \
+                                ("healthy", 1):
+                            break
+                        time.sleep(0.2)
+                health = json.loads(_get(url + "/healthz")[1])
+                stats = svc.stats()
+                prof = {}
+                if profile_s:
+
+                    def capture():
+                        time.sleep(2.0)     # the batch is on the card
+                        req = urllib.request.Request(
+                            url + "/profile", data=json.dumps(
+                                {"duration_ms": profile_s * 1e3}).encode(),
+                            headers={"Content-Type": "application/json"})
+                        with urllib.request.urlopen(req, timeout=300) as r:
+                            prof.update(json.loads(r.read()))
+
+                    profiler = threading.Thread(target=capture)
+                    profiler.start()
+                    extra = _closed_loop(url, images[:SERVE_CONCURRENCY],
+                                         concurrency, deadline_ms, "p")
+                    profiler.join(timeout=300)
+                    if any(c != 200 for c, _, _ in extra):
+                        raise AssertionError(f"{label} serve path: the "
+                                             f"profiled batch answered {extra}")
+        finally:
+            defense.schedule_round2 = plain
+        after = counts_of_banks()
+        svc.stop()
+        with open(f"{root}/serve/events.jsonl") as fh:
+            events = [json.loads(line) for line in fh]
+        busy = None
+        if profile_s:
+            if prof.get("status") != "ok":
+                raise AssertionError(f"{label} serve path: POST /profile "
+                                     f"answered {prof}")
+            from dorpatch_tpu_torch.observe import timing
+
+            busy = _busy_share(f"{prof['dir']}/{timing.TRACE_FILE}",
+                               profile_s)
+    # -- every answer ok, inside its deadline, once --
+    bad = [(i, c, a.get("status")) for i, (c, a, _) in enumerate(answers)
+           if c != 200 or a.get("status") != "ok"
+           or a["latency_ms"] > deadline_ms or a["trace_id"] != f"r{i}"]
+    if bad:
+        raise AssertionError(f"{label} serve path: answers not ok: {bad}")
+    if after != warm:
+        raise AssertionError(f"{label} serve path: signatures after the "
+                             f"traffic {after} != after warmup {warm}")
+    by_status = {dict(k).get("status"): v for k, v in
+                 metrics.get("serve_requests_total", {}).items()}
+    images_total = sum(metrics.get("serve_batch_images_total", {}).values())
+    if by_status != {"ok": float(n)} or images_total != n:
+        raise AssertionError(f"{label} serve path: /metrics counts "
+                             f"{by_status}, {images_total} batch images for "
+                             f"{n} client requests")
+    # -- the reference: robust_predict on each served batch --
+    batches = [e for e in events if e.get("kind") == "span"
+               and e.get("name") == "serve.batch"
+               and e["traces"][0].startswith("r")]
+    served = sorted(t for e in batches for t in e["traces"])
+    if served != sorted(f"r{i}" for i in range(n)):
+        raise AssertionError(f"{label} serve path: batches served {served}")
+    cache = {} if ref_cache is None else ref_cache
+    bank, escalated, mismatch = None, 0, []
+    with torch.no_grad():
+        for e in batches:
+            idx = [int(t[1:]) for t in e["traces"]]
+            key = (cfg.base_arch, cfg.img_size, cfg.model_dir, cfg.defense,
+                   tuple(idx))
+            if key not in cache:
+                if bank is None:
+                    bank = defense.build_defenses(
+                        svc.apply_fn, cfg.img_size, cfg.defense,
+                        incremental=svc._incremental_engine, device=dev)
+                x = torch.as_tensor(images[idx], device=dev)
+                recs = [d.robust_predict(x, svc.num_classes,
+                                         bucket_sizes=svc.bucket_sizes)
+                        for d in bank]
+                esc = sum(int((d.last_min_margin
+                               < cfg.defense.incremental_margin).sum())
+                          for d in bank if d.last_min_margin is not None)
+                clean = svc.apply_fn(data.pad_to_bucket(
+                    x, e["bucket"])).argmax(dim=-1).cpu().numpy()
+                cache[key] = esc, [
+                    ([(r.prediction, bool(r.certification))
+                      for r in (rs[pos] for rs in recs)], int(clean[pos]),
+                     sum(int(rs[pos].forwards) for rs in recs))
+                    for pos in range(len(idx))]
+            esc, wants = cache[key]
+            escalated += esc
+            for i, want in zip(idx, wants):
+                a = answers[i][1]
+                got = ([(v["prediction"], v["certified"])
+                        for v in a["verdicts"]], a["clean_prediction"],
+                       a["certify_forwards"])
+                if got != want:
+                    mismatch.append((i, got, want))
+    del bank
+    torch.cuda.empty_cache()
+    if mismatch:
+        raise AssertionError(f"{label} serve path: answers differ from "
+                             f"robust_predict: {mismatch}")
+    # -- the kernels --
+    need = list(required)
+    bf16 = cfg.defense.compute_dtype == "bfloat16"
+    audit = "masked_fill_fwd_bf16" if bf16 else "masked_fill_fwd"
+    if cfg.base_arch != "vit" and \
+            (counts[audit] > 0) != (sched["pair_audits"] > 0):
+        raise AssertionError(f"{label} serve path: {audit} launched "
+                             f"{counts[audit]} times for "
+                             f"{sched['pair_audits']} pair audits")
+    if bf16 and cfg.base_arch == "resnetv2" and \
+            (counts["masked_fill_fwd"] > 0) != (escalated > 0):
+        raise AssertionError(f"{label} serve path: masked_fill_fwd launched "
+                             f"{counts['masked_fill_fwd']} times for "
+                             f"{escalated} escalated (image, radius) records")
+    for name in need:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{label} serve path")
+    # -- the drill --
+    names = [e.get("name") for e in events]
+    if drill:
+        sick = [e for e in events if e.get("name") == "serve.replica.sick"]
+        if (not sick or sick[0]["cause"] != "wedged"
+                or sick[0]["replica"] != 0
+                or "serve.replica.quarantine" not in names
+                or "serve.replica.restart" not in names
+                or stats["failover"]["redispatched"] < 1
+                or health["replicas"]["healthy"] != 2):
+            raise AssertionError(f"{label} failover drill: sick {sick}, "
+                                 f"events {sorted(set(names) - {None})}, "
+                                 f"failover {stats['failover']}, health "
+                                 f"{health}")
+    # -- the numbers: each replica's boot warmup (a restart warms again
+    #    after its replica's start event) --
+    warm_sum = {}
+    for i, e in enumerate(events):
+        if e.get("name") in ("serve.warmup", "serve.warmup_pruned") and \
+                i < _first_start(events, e["replica"]):
+            warm_sum[e["replica"]] = round(
+                warm_sum.get(e["replica"], 0.0) + e["dur_s"], 3)
+    lat = sorted(a[2] * 1e3 for a in answers)
+
+    def pct(q):
+        return lat[max(0, min(n - 1, math.ceil(q * n) - 1))]
+
+    cf = stats["certify_forwards"]
+    print(f"{label} serve path ({cfg.serve.replicas} replica"
+          f"{'s' if cfg.serve.replicas > 1 else ''}, buckets "
+          f"{list(svc.bucket_sizes)}, {n} requests at concurrency "
+          f"{concurrency}; {smi}): start {start_s:.1f} s, warmup s per "
+          f"replica {warm_sum}; client latency p50/p95/p99 "
+          f"{pct(0.5):.0f}/{pct(0.95):.0f}/{pct(0.99):.0f} ms (server "
+          f"{stats['latency_ms']}); {n / wall:.2f} images/s over "
+          f"{wall:.2f} s; {stats['batches']} batches, occupancy "
+          f"{stats['occupancy']}; forwards per image {cf['per_request']} "
+          f"(forward equivalents {cf['forward_equivalents_per_request']}, "
+          f"prune rate {cf['prune_rate']}); {sched['pair_audits']} pair "
+          f"audits, {sched['rows']} minority rows, {escalated} escalated "
+          f"(image, radius) records; failover {stats.get('failover')}; "
+          + (f"device busy {busy[0]:.3f} of a {profile_s:g} s torch.profiler "
+             f"capture ({busy[1]} kernels and copies); " if busy and busy[1]
+             else "device busy share not measured (the capture holds no "
+             "device event); " if busy else "")
+          + f"launches {counts}; routes {routes}", flush=True)
+    return counts
+
+
+def _first_start(events, replica):
+    """Index of `replica`'s first serve.replica.start event: its warmup
+    events before it are its boot warmup (a restart warms again later)."""
+    for i, e in enumerate(events):
+        if e.get("name") == "serve.replica.start" and \
+                e.get("replica") == replica:
+            return i
+    return len(events)
+
+
+def serve_phase(torch, dev, out, smi):
+    """The serving paths (SERVE_*), each held by `serve_path`: RN50 at 224
+    with 1 and 2 replicas in float32, with 2 in the bf16 bank; the CIFAR
+    ResNet-18 trained into `out` with 2 replicas and the wedge_dispatch
+    drill; ViT-B/16's bf16 bank at batch 1. Returns the serve paths'
+    kernel records with their launches (from the 2-replica runs)."""
+    from dorpatch_tpu_torch import data
+
+    t0 = time.perf_counter()
+    recs = serve_kernels(torch, dev)
+    print(f"serve kernels: {time.perf_counter() - t0:.1f} s", flush=True)
+    rn50 = _serve_images(224, SERVE_REQUESTS, 1234)
+    counts, ref_cache = {}, {}
+    for label, flags, reps in (("RN50", [], (1, 2)),
+                               ("RN50 bf16", CERTIFY_BF16, (2,))):
+        for replicas in reps:
+            t0 = time.perf_counter()
+            counts[label] = serve_path(
+                torch, dev, label, SERVE_RN50_ARGV + flags + [
+                    "--serve-replicas", str(replicas)], rn50,
+                SERVE_KERNELS[label], smi,
+                profile_s=SERVE_PROFILE_S if replicas == 2 else 0.0,
+                ref_cache=ref_cache)
+            print(f"{label} serve phase ({replicas} replicas): "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    held_out, _ = data.procedural_arrays("cifar10", 3, 32, 1234, "test")
+    counts["CIFAR"] = serve_path(
+        torch, dev, "trained CIFAR", SERVE_CIFAR_ARGV + [
+            "--model_dir", out, "--data-source", "procedural"],
+        held_out[:SERVE_REQUESTS], SERVE_KERNELS["CIFAR"], smi,
+        concurrency=2 * SERVE_CONCURRENCY, drill=True)
+    print(f"trained CIFAR serve phase (failover drill): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    counts["ViT bf16"] = serve_path(
+        torch, dev, "ViT bf16", SERVE_VIT_ARGV,
+        _serve_images(224, SERVE_VIT_REQUESTS, 99),
+        SERVE_KERNELS["ViT bf16"], smi, concurrency=2)
+    print(f"ViT bf16 serve phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    out_recs = []
+    for path, rs in recs.items():
+        for rec in rs:
+            name = rec["name"].replace("_serve_rn50", "").replace(
+                "_serve_cifar", "").replace("_serve_vit", "")
+            rec["launches"] = counts[path][
+                name.replace("_pairs", "")]
+            out_recs.append(rec)
+    return out_recs
+
+
 def main() -> int:
     import torch
 
@@ -2035,12 +2531,16 @@ def main() -> int:
         trained_phase(torch, dev, out)
         print(f"trained-victim phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
+        t0 = time.perf_counter()
+        serve_kernels_recs = serve_phase(torch, dev, out, smi)
+        print(f"serve phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(f"chip_smoke total: {time.perf_counter() - start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": cifar_kernels + rn50_kernels + vit_kernels
                       + cifar_bf16 + rn50_bf16 + vit_bf16 + rn50_480
-                      + rn50_480_bf16 + np2_kernels}), flush=True)
+                      + rn50_480_bf16 + np2_kernels + serve_kernels_recs}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

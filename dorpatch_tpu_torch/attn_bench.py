@@ -45,9 +45,10 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 
 
-def engine_case(torch, dev, kind: str, c, rng):
-    """Kernel H's float32 inputs at one engine shape: `(q, kd, vd, kc, vc,
-    clean_bias, dirty_bias)` with q scaled by 1/sqrt(f), from `rng`."""
+def engine_case(torch, dev, kind: str, c, rng, b: int = B):
+    """Kernel H's float32 inputs at one engine shape for `b` images: `(q,
+    kd, vd, kc, vc, clean_bias, dirty_bias)` with q scaled by 1/sqrt(f),
+    from `rng`."""
     import numpy as np
 
     from dorpatch_tpu_torch import masks as masks_lib
@@ -60,13 +61,13 @@ def engine_case(torch, dev, kind: str, c, rng):
     idx = table.idx[:c] if c else table.idx
     c, s = idx.shape[0], idx.shape[1]
     stale = (idx[:, :, None] == np.arange(t1)).any(axis=1)   # [c, T+1]
-    cb, db = (torch.as_tensor(np.tile(a, (B, 1, 1)), dtype=torch.float32,
+    cb, db = (torch.as_tensor(np.tile(a, (b, 1, 1)), dtype=torch.float32,
                               device=dev)
               for a in (np.where(stale, -1e9, 0.0), table.slot_bias[:c]))
-    q, kd, vd = (torch.as_tensor(rng.standard_normal((B, c, s, H, F)),
+    q, kd, vd = (torch.as_tensor(rng.standard_normal((b, c, s, H, F)),
                                  dtype=torch.float32, device=dev)
                  for _ in range(3))
-    kc, vc = (torch.as_tensor(rng.standard_normal((B, t1, H, F)),
+    kc, vc = (torch.as_tensor(rng.standard_normal((b, t1, H, F)),
                               dtype=torch.float32, device=dev)
               for _ in range(2))
     return q / math.sqrt(F), kd, vd, kc, vc, cb, db

@@ -1,6 +1,8 @@
-"""Command line of the port: the main-path flags of `dorpatch_tpu.cli`
-(names, aliases, defaults and choices), plus `--device`. The JAX package's
-mesh, pallas, remat, gn-impl, serving, farm, aot, recert, chaos, trace,
+"""Command line of the port: the main-path and serving flags of
+`dorpatch_tpu.cli` (names, aliases, defaults and choices), plus `--device`.
+`python -m dorpatch_tpu_torch.serve` reuses this parser (the `--serve-*`
+group, `--chaos` with the serve faults, `--no-metrics-log`). The JAX
+package's mesh, pallas, remat, gn-impl, farm, aot, recert, gateway, trace,
 sanitize and heartbeat flags are not offered.
 
 Run:  python -m dorpatch_tpu_torch --synthetic --dataset imagenet \\
@@ -24,7 +26,7 @@ from __future__ import annotations
 import argparse
 
 from dorpatch_tpu_torch.config import (AttackConfig, DefenseConfig,
-                                       ExperimentConfig)
+                                       ExperimentConfig, ServeConfig)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -129,6 +131,49 @@ def build_parser() -> argparse.ArgumentParser:
                         "logit gap below which an incremental entry is "
                         "distrusted and its image re-certified "
                         "exhaustively")
+    p.add_argument("--no-metrics-log", action="store_true",
+                   help="disable run telemetry (run.json, events.jsonl, "
+                        "heartbeats, metrics.json) in the results dir")
+    # serving (`python -m dorpatch_tpu_torch.serve` reuses this parser)
+    p.add_argument("--serve-port", type=int, default=8700,
+                   help="HTTP front-end port for the certified-inference "
+                        "service (0 = ephemeral)")
+    p.add_argument("--serve-max-batch", type=int, default=8,
+                   help="largest serving micro-batch; shape buckets are "
+                        "data.batch_buckets(max_batch), e.g. 8 -> 1/8")
+    p.add_argument("--serve-queue-depth", type=int, default=64,
+                   help="backpressure bound: requests past this queue depth "
+                        "are rejected with a typed Overloaded response")
+    p.add_argument("--serve-deadline-ms", type=float, default=2000.0,
+                   help="default per-request latency budget; the batcher "
+                        "flushes a partial batch once half of it is spent")
+    p.add_argument("--serve-replicas", type=int, default=1,
+                   help="replica pool size: worker threads sharing the one "
+                        "micro-batcher queue, each owning its own defense "
+                        "bank and CUDA stream; a supervisor quarantines "
+                        "and restarts sick replicas (serve/pool.py)")
+    p.add_argument("--serve-max-restarts", type=int, default=2,
+                   help="restarts a quarantined replica gets before it "
+                        "retires and the pool degrades to reduced capacity")
+    p.add_argument("--serve-restart-backoff-base", type=float, default=0.5,
+                   help="replica restart backoff base seconds (shared "
+                        "backoff.retry_delay: base * 2^(n-1), capped, "
+                        "deterministic jitter)")
+    p.add_argument("--serve-restart-backoff-cap", type=float, default=30.0,
+                   help="replica restart backoff cap seconds")
+    p.add_argument("--serve-replica-stale-s", type=float, default=0.0,
+                   help="missed-beat staleness window before the "
+                        "supervisor declares a replica wedged (0 = derive "
+                        "from --serve-deadline-ms); raise it above the "
+                        "slowest legitimate batch — replicas beat only at "
+                        "batch boundaries, so a window shorter than one "
+                        "batch false-positives a healthy replica as wedged")
+    p.add_argument("--chaos", default="",
+                   help="deterministic fault injection (recovery testing; "
+                        "dorpatch_tpu_torch.chaos): comma-joined list of "
+                        "serve faults (python -m dorpatch_tpu_torch.serve): "
+                        "wedge_dispatch, raise_in_worker, wedge_heartbeat, "
+                        "kill_backend")
     return p
 
 
@@ -147,6 +192,7 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         synthetic_data=args.synthetic,
         data_source=args.data_source,
         img_size=args.img_size,
+        metrics_log=not args.no_metrics_log,
         attack=AttackConfig(patch_budget=args.patch_budget,
                             targeted=args.targeted,
                             lr=args.lr,
@@ -168,6 +214,16 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
                               incremental=args.incremental,
                               incremental_margin=args.incremental_margin,
                               compute_dtype=args.certify_dtype),
+        serve=ServeConfig(port=args.serve_port,
+                          max_batch=args.serve_max_batch,
+                          max_queue_depth=args.serve_queue_depth,
+                          deadline_ms=args.serve_deadline_ms,
+                          replicas=args.serve_replicas,
+                          max_restarts=args.serve_max_restarts,
+                          restart_backoff_base=args.serve_restart_backoff_base,
+                          restart_backoff_cap=args.serve_restart_backoff_cap,
+                          replica_stale_s=args.serve_replica_stale_s,
+                          chaos=args.chaos),
     )
 
 

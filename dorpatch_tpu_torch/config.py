@@ -3,7 +3,8 @@
 The fields of `dorpatch_tpu.config` that this package reads, with the same
 defaults, so a results directory, a flag and a default mean the same thing in
 both packages. `ExperimentConfig.device` is new: entry points run on "cuda"
-unless the caller asks for "cpu".
+unless the caller asks for "cpu". `ServeConfig` configures the
+certified-inference service (`serve/`).
 """
 
 from __future__ import annotations
@@ -97,6 +98,42 @@ class DefenseConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Online certified-inference service (`dorpatch_tpu_torch/serve/`).
+
+    The micro-batcher admits requests into a bounded queue and flushes a
+    batch when a full bucket's worth is pending (size trigger) or when the
+    oldest request has spent `flush_fraction` of its latency budget
+    (deadline trigger). Batches pad up to fixed bucket sizes
+    (`data.batch_buckets(max_batch)`, e.g. 1/8) so every program runs only
+    the shapes warmup ran, the shape budget of `observe.timed_first_call`
+    enforcing it."""
+
+    max_batch: int = 8              # largest micro-batch (top bucket size)
+    bucket_sizes: Tuple[int, ...] = ()  # () = derive data.batch_buckets(max_batch)
+    max_queue_depth: int = 64       # backpressure bound: submissions past
+                                    # this many queued requests get a typed
+                                    # Overloaded reject, never unbounded queueing
+    deadline_ms: float = 2000.0     # default per-request latency budget
+    flush_fraction: float = 0.5     # flush when this fraction of the oldest
+                                    # queued request's budget is spent
+    host: str = "127.0.0.1"
+    port: int = 8700                # HTTP front-end bind port (0 = ephemeral)
+    warmup: bool = True             # run every bucket's programs at start
+    # -- replica pool / failover (serve/pool.py) --
+    replicas: int = 1               # worker threads sharing the queue, each
+                                    # with its own defense bank and stream
+    max_restarts: int = 2           # quarantined-replica restarts before it
+                                    # retires (0 = a failed replica is gone)
+    restart_backoff_base: float = 0.5   # shared backoff.retry_delay knobs
+    restart_backoff_cap: float = 30.0   # for replica restarts (seconds)
+    replica_stale_s: float = 0.0    # missed-beat staleness threshold for
+                                    # the supervisor; 0 = deadline_ms/1e3
+    chaos: str = ""                 # serve-side fault injection (comma list
+                                    # of chaos.SERVE_FAULTS)
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     """One end-to-end experiment."""
 
@@ -113,9 +150,11 @@ class ExperimentConfig:
     synthetic_data: bool = False
     data_source: str = "auto"       # auto|disk|synthetic|procedural
     img_size: int = 224
+    metrics_log: bool = True        # telemetry (run.json, events.jsonl, ...)
 
     attack: AttackConfig = dataclasses.field(default_factory=AttackConfig)
     defense: DefenseConfig = dataclasses.field(default_factory=DefenseConfig)
+    serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
 
     @property
     def num_classes(self) -> int:

@@ -4,6 +4,18 @@ Port of `dorpatch_tpu.defense` for one device. The masked forwards run on
 the victim's device; the decision logic reads the `[B, 36]` / `[B, 630]`
 prediction tables.
 
+Dispatch and materialization are separate calls, as in the JAX package,
+so the serving worker (`serve/service.py`) launches every radius's work
+before it reads any result: `predict_tables` (the exhaustive tables, no
+host sync), `begin_pruned` -> `_PrunedPending.schedule()` (the pruned
+path's one designed sync) -> `finalize()`, and `materialize_verdicts`
+(the host read of either). `robust_predict` is these calls in a row.
+Every program is wrapped by `observe.timed_first_call` under the JAX
+package's name (`defense.phase1.r0.03`, `defense.rows.bf16.r0.12`, ...):
+its first call is recorded as a `compile` event and its input signatures
+are counted against `recompile_budget` (`pruned_trace_counts`,
+`warm_pruned`), the shape budget a serving process arms.
+
 Masking twice equals double masking (`mask_j(mask_i(x)) ==
 mask_{(i,j)}(x)`), so every second-round prediction is an entry of the
 630-pair table (its diagonal is the one-masked prediction) and the
@@ -72,7 +84,7 @@ import torch.nn.functional as F
 
 from dorpatch_tpu_torch import data as data_lib
 from dorpatch_tpu_torch import masks as masks_lib
-from dorpatch_tpu_torch import utils
+from dorpatch_tpu_torch import observe, utils
 from dorpatch_tpu_torch.config import DefenseConfig
 from dorpatch_tpu_torch.ops.masked_fill import masked_fill
 
@@ -268,11 +280,13 @@ def schedule_round2(p1: np.ndarray, majority: np.ndarray,
 
 
 class _PrunedPending:
-    """One pruned certification batch: phase 1 runs at construction,
-    `schedule()` reads the `[B, M]` first-round table (the one designed
-    host sync) and runs phase 2, `finalize()` runs `schedule()`, assembles
-    the records and, under the "-exact" modes and in the bf16 bank,
-    escalates."""
+    """One pruned certification batch, made by `PatchCleanser.begin_pruned`:
+    phase 1 is launched at construction (nothing read back), `schedule()`
+    reads the `[B, M]` first-round table (the one designed host sync) and
+    launches phase 2, `finalize()` runs `schedule()`, assembles the records
+    and, under the "-exact" modes and in the bf16 bank, escalates. The
+    split lets the serving worker launch phase 1 for every radius before
+    any sync."""
 
     def __init__(self, pc: "PatchCleanser", imgs: torch.Tensor, n: int,
                  num_classes: int, bucket_sizes, mode: str,
@@ -299,11 +313,17 @@ class _PrunedPending:
         else:
             self.t1 = pc._phase1(imgs)
         self.min_margin = None
+        self._scheduled = False
         # phase-2 chunks: (prediction table, [(table_row, image[, mask])])
         self.pair_chunks = []
         self.row_chunks = []
 
-    def schedule(self) -> None:
+    def schedule(self) -> "_PrunedPending":
+        """Read the first-round table, plan and launch phase 2. Idempotent;
+        returns the pending."""
+        if self._scheduled:
+            return self
+        self._scheduled = True
         pc = self.pc
         self.p1 = self.t1.cpu().numpy()[:self.n]
         self.majority, self.unanimous = host_round1(self.p1, self.num_classes)
@@ -338,6 +358,7 @@ class _PrunedPending:
                 t = pc._rows(xg, torch.as_tensor(mask_idx, device=dev))
             self.row_chunks.append(
                 (t, [(pos, b, i) for pos, (b, i) in enumerate(chunk)]))
+        return self
 
     def finalize(self) -> List[PatchCleanserRecord]:
         self.schedule()
@@ -466,10 +487,33 @@ class _PrunedPending:
         return records
 
 
+def materialize_verdicts(entry):
+    """Host-materialize one certifier's batch answer, the device-to-host
+    read the serving layer's `marshal_response` delegates to. `entry` is
+    either the exhaustive `predict_tables` 4-tuple or a `_PrunedPending`;
+    returns `(pred [n], certified [n], forwards [n], forward_equivalents
+    [n])` as numpy arrays (forwards counts evaluated table entries,
+    forward_equivalents their cost in full forwards)."""
+    if isinstance(entry, _PrunedPending):
+        recs = entry.finalize()
+        return (np.asarray([r.prediction for r in recs]),
+                np.asarray([r.certification for r in recs]),
+                np.asarray([r.forwards for r in recs]),
+                np.asarray([r.forward_equivalents for r in recs]))
+    pred, certified, p1, p2 = entry
+    exhaustive = int(p1.shape[1]) + int(p2.shape[1])
+    pred, certified = pred.cpu().numpy(), certified.cpu().numpy()
+    full = np.full((pred.shape[0],), exhaustive)
+    return pred, certified, full, full.astype(np.float64)
+
+
 @dataclasses.dataclass
 class PatchCleanser:
     """One certifier per mask family: `robust_predict` over image batches
-    on `device`; `collect` aggregates records."""
+    on `device`; `collect` aggregates records. `recompile_budget` is the
+    input signatures each program may run (one per image bucket; the row
+    programs one per row bucket), enforced only under an armed guard
+    (`observe.set_recompile_guard`)."""
 
     apply_fn: Callable[[torch.Tensor], torch.Tensor]
     spec: masks_lib.MaskSpec
@@ -477,6 +521,7 @@ class PatchCleanser:
     incremental_engine: Any = None
     device: Any = "cuda"
     result: Any = None
+    recompile_budget: Any = None
     #: per-image smallest evaluated top-2 margin of the last pruned
     #: `robust_predict` (+inf where no margins were read)
     last_min_margin: Any = dataclasses.field(default=None, init=False,
@@ -500,6 +545,15 @@ class PatchCleanser:
         self._rects = torch.as_tensor(rects, dtype=torch.int32,
                                       device=self.device)
         self._incr_family = None
+        # the JAX package's program names: the bf16 bank is its own
+        # program set (`defense.phase1.bf16.r0.03`)
+        r = self.spec.patch_ratio
+        self._prog_tag = ".bf16" if self._bf16 else ""
+        self._predict = observe.timed_first_call(
+            self._exhaustive, f"defense.predict.r{r}",
+            recompile_budget=self.recompile_budget)
+        self._phase1 = self._pairs = self._rows = None
+        self._phase1_incr = self._pairs_incr = self._rows_incr = None
         if self.spec.n_patch == 1:
             self._build_pruned(rects)
 
@@ -514,11 +568,34 @@ class PatchCleanser:
         self._np_grid_full = masks_lib.second_round_table_indices(m)
         self.row_bucket_sizes = data_lib.batch_buckets(
             max(1, int(self.config.chunk_size)))
+        r, tag, rb = self.spec.patch_ratio, self._prog_tag, \
+            self.recompile_budget
+        row_rb = len(self.row_bucket_sizes) if rb is not None else None
+        self._phase1 = observe.timed_first_call(
+            self._phase1_tables, f"defense.phase1{tag}.r{r}",
+            recompile_budget=rb)
+        self._pairs = observe.timed_first_call(
+            self._pairs_tables, f"defense.pairs{tag}.r{r}",
+            recompile_budget=rb)
+        self._rows = observe.timed_first_call(
+            self._rows_tables, f"defense.rows{tag}.r{r}",
+            recompile_budget=row_rb)
         if (self.incremental_engine is not None
                 and self.config.incremental != "off"):
-            self._incr_family = self.incremental_engine.build_family(
+            fam = self._incr_family = self.incremental_engine.build_family(
                 rects, m, self.config.chunk_size, self.config.mask_fill,
                 compute_dtype=self.config.compute_dtype)
+            kind = self.incremental_engine.kind
+            self._phase1_incr = observe.timed_first_call(
+                fam.phase1, f"defense.phase1.{kind}{tag}.r{r}",
+                recompile_budget=rb)
+            if kind in MARGIN_KINDS:
+                self._pairs_incr = observe.timed_first_call(
+                    fam.pairs, f"defense.pairs.{kind}{tag}.r{r}",
+                    recompile_budget=rb)
+                self._rows_incr = observe.timed_first_call(
+                    fam.rows, f"defense.rows.{kind}{tag}.r{r}",
+                    recompile_budget=row_rb)
         # forward equivalents per combined-table mask: 1 without a margin
         # engine, its dirty-token fraction with one; `cache_fe` charges each
         # call's clean cache once per image (phase 1, each pair-audit image,
@@ -555,10 +632,10 @@ class PatchCleanser:
             self.config.mask_fill, with_margins or self._bf16,
             self._dtype if self._bf16 else None)
 
-    def _predict(self, imgs: torch.Tensor, num_classes: int):
+    def _exhaustive(self, imgs: torch.Tensor, num_classes: int):
         """The exhaustive 666-entry sweep and verdict, always float32 on
         the original victim: (pred, certified, preds_1, preds_2)
-        tensors."""
+        tensors (`_predict`, its timed wrapper)."""
         preds = masked_predictions(self.apply_fn, imgs, self._rects,
                                    self.config.chunk_size,
                                    self.config.mask_fill)
@@ -567,24 +644,19 @@ class PatchCleanser:
                                                  num_classes)
         return pred, certified, p1, p2
 
-    def _phase1(self, imgs, with_margins=False):
+    # `_phase1`, `_pairs`, `_rows` (and the engine family's
+    # `_phase1_incr`, `_pairs_incr`, `_rows_incr`) are these, wrapped by
+    # `observe.timed_first_call` in `_build_pruned`
+
+    def _phase1_tables(self, imgs, with_margins=False):
         return self._sweep(imgs, self._rects[:self._num_singles],
                            with_margins)
 
-    def _phase1_incr(self, imgs):
-        return self._incr_family.phase1(imgs)
-
-    def _pairs(self, imgs):
+    def _pairs_tables(self, imgs):
         return self._sweep(imgs, self._rects[self._num_singles:])
 
-    def _pairs_incr(self, imgs):
-        return self._incr_family.pairs(imgs)
-
-    def _rows_incr(self, imgs_g, sets_idx):
-        return self._incr_family.rows(imgs_g, sets_idx)
-
     @torch.no_grad()
-    def _rows(self, imgs_g: torch.Tensor, mask_idx: torch.Tensor):
+    def _rows_tables(self, imgs_g: torch.Tensor, mask_idx: torch.Tensor):
         """`[W,H,W,C]` gathered images x `[W]` first-round mask ids ->
         `[W, M]` second-round rows (and their `[W, M]` margins in the bf16
         bank). The M second masks run in groups of G columns (G the largest
@@ -658,6 +730,119 @@ class PatchCleanser:
                              f"engine is {kind!r}")
         return mode
 
+    def pruned_programs(self, incremental: Optional[str] = None):
+        """`[(name, program, input_kind)]` of the three programs the
+        resolved pruned(+incremental) path runs: "imgs" (`[B,H,W,C]`),
+        "rows" (gathered `[W,H,W,C]`, `[W]` first-mask ids) or "rows_sets"
+        (gathered `[W,H,W,C]`, `[W,M]` combined-table index rows, the
+        margin engines' rows)."""
+        r, tag = self.spec.patch_ratio, self._prog_tag
+        mode = self.resolved_incremental(incremental)
+        kind = mode.split("-")[0]
+        if kind in MARGIN_KINDS:
+            return [
+                (f"defense.phase1.{kind}{tag}.r{r}", self._phase1_incr,
+                 "imgs"),
+                (f"defense.pairs.{kind}{tag}.r{r}", self._pairs_incr, "imgs"),
+                (f"defense.rows.{kind}{tag}.r{r}", self._rows_incr,
+                 "rows_sets"),
+            ]
+        if mode == "stem":
+            return [
+                (f"defense.phase1.stem{tag}.r{r}", self._phase1_incr, "imgs"),
+                (f"defense.pairs{tag}.r{r}", self._pairs, "imgs"),
+                (f"defense.rows{tag}.r{r}", self._rows, "rows"),
+            ]
+        return [
+            (f"defense.phase1{tag}.r{r}", self._phase1, "imgs"),
+            (f"defense.pairs{tag}.r{r}", self._pairs, "imgs"),
+            (f"defense.rows{tag}.r{r}", self._rows, "rows"),
+        ]
+
+    def pruned_trace_counts(self) -> dict:
+        """Input signatures run so far by each program of the resolved
+        pruned path (and, where it escalates, by the exhaustive
+        program): the serving layer's zero-recompile bookkeeping."""
+        out = {name: int(fn._cache_size())
+               for name, fn, _ in self.pruned_programs()}
+        if self.resolved_incremental().endswith("-exact") or self._bf16:
+            out[f"defense.predict.r{self.spec.patch_ratio}"] = \
+                int(self._predict._cache_size())
+        return out
+
+    @torch.no_grad()
+    def warm_pruned(self, bucket_sizes: Sequence[int],
+                    num_classes: Optional[int] = None) -> None:
+        """Run every program the resolved pruned path can run at serving
+        time, at every shape it can run it: phase 1 and the pair audit per
+        image bucket, the rows program per row bucket and, where the path
+        escalates ("-exact", the bf16 bank; pass `num_classes`), the
+        exhaustive program per image bucket. Warm inputs are made the way
+        live ones are (dtype, device, index types), so they share live
+        traffic's signatures."""
+        size = self.spec.img_size
+        mode = self.resolved_incremental()
+        (_, phase1, _), (_, pairs, _), (_, rows, rows_kind) = \
+            self.pruned_programs()
+        esc_on = mode.endswith("-exact") or self._bf16
+        if esc_on and num_classes is None:
+            raise ValueError(
+                f"warm_pruned needs num_classes under "
+                f"{mode if mode.endswith('-exact') else 'bfloat16'} "
+                "(the escalation program's argument)")
+
+        def run(prog, *args):
+            out = prog(*args)
+            (out[0] if isinstance(out, tuple) else out).cpu()
+
+        def full(b):
+            return torch.full((int(b), size, size, 3), 0.5,
+                              dtype=torch.float32, device=self.device)
+
+        for b in bucket_sizes:
+            imgs = full(b)
+            run(phase1, imgs)
+            run(pairs, imgs)
+            if esc_on:
+                run(self._predict, imgs, int(num_classes))
+        for w in self.row_bucket_sizes:
+            imgs_g = full(w)
+            if rows_kind == "rows_sets":
+                run(rows, imgs_g, torch.as_tensor(
+                    self._np_grid_full[[0] * int(w)], device=self.device))
+            else:
+                run(rows, imgs_g, torch.as_tensor([0] * int(w),
+                                                  device=self.device))
+
+    def begin_pruned(self, imgs: torch.Tensor, num_classes: int,
+                     n: Optional[int] = None,
+                     bucket_sizes: Optional[Sequence[int]] = None,
+                     prune: Optional[str] = None,
+                     incremental: Optional[str] = None) -> _PrunedPending:
+        """Launch phase 1 of the pruned certification (no host sync).
+        `imgs` may already be bucket-padded (pass the real count as `n`,
+        the serving worker's contract); otherwise it is padded here when
+        `bucket_sizes` is given. Call `.schedule()` then `.finalize()` on
+        the returned pending, or `materialize_verdicts` on it."""
+        mode = self.resolved_prune(prune)
+        if mode == "off":
+            raise ValueError("begin_pruned needs prune='exact'|'consensus'")
+        incr = self.resolved_incremental(incremental, prune)
+        total = int(imgs.shape[0])
+        n = total if n is None else int(n)
+        if bucket_sizes is not None and n and total == n:
+            imgs = data_lib.pad_to_bucket(
+                imgs, data_lib.bucket_batch(n, bucket_sizes))
+        return _PrunedPending(self, imgs, n, num_classes, bucket_sizes,
+                              mode, incr)
+
+    def predict_tables(self, imgs: torch.Tensor, num_classes: int):
+        """The exhaustive sweep's tables on the device, `(pred [B],
+        certified [B], preds_1 [B,M], preds_2 [B,P])`, nothing read back:
+        the serving worker launches every certifier before it reads any;
+        `materialize_verdicts` reads them."""
+        return self._predict(imgs, num_classes)
+
     # ---- entry points ----
 
     @torch.no_grad()
@@ -675,18 +860,18 @@ class PatchCleanser:
         imgs = imgs.to(self.device)
         n = int(imgs.shape[0])
         mode = self.resolved_prune(prune)
+        if n and mode != "off":
+            pending = self.begin_pruned(imgs, num_classes,
+                                        bucket_sizes=bucket_sizes,
+                                        prune=mode, incremental=incremental)
+            records = pending.schedule().finalize()
+            self.last_min_margin = pending.min_margin
+            return records
         if bucket_sizes is not None and n:
             imgs = data_lib.pad_to_bucket(
                 imgs, data_lib.bucket_batch(n, bucket_sizes))
-        if n and mode != "off":
-            incr = self.resolved_incremental(incremental, mode)
-            pending = _PrunedPending(self, imgs, n, num_classes, bucket_sizes,
-                                     mode, incr)
-            records = pending.finalize()
-            self.last_min_margin = pending.min_margin
-            return records
         pred, certified, p1, p2 = (t.cpu().numpy() for t in
-                                   self._predict(imgs, num_classes))
+                                   self.predict_tables(imgs, num_classes))
         full = self.num_forwards_exhaustive
         return [PatchCleanserRecord(int(pred[b]), bool(certified[b]), p1[b],
                                     p2[b], full, float(full))
@@ -701,11 +886,12 @@ class PatchCleanser:
 
 def build_defenses(apply_fn, img_size: int,
                    config: DefenseConfig = DefenseConfig(),
-                   incremental=None, device="cuda") -> List[PatchCleanser]:
+                   incremental=None, device="cuda",
+                   recompile_budget=None) -> List[PatchCleanser]:
     """The 4-radius defense bank, one certifier per ratio of the config."""
     return [PatchCleanser(apply_fn,
                           masks_lib.geometry(img_size, r, config.n_patch,
                                              config.num_mask_per_axis),
                           config, incremental_engine=incremental,
-                          device=device)
+                          device=device, recompile_budget=recompile_budget)
             for r in config.ratios]

@@ -69,10 +69,8 @@ class VictimForward:
             return self
         if self.dtype != torch.float32:
             raise ValueError("cast copies are made from the float32 forward")
-        if dtype not in self._casts:
-            self._casts[dtype] = VictimForward(
-                utils.cast_module(self.model, dtype), dtype)
-        return self._casts[dtype]
+        return utils.cached_cast(self._casts, dtype, lambda: VictimForward(
+            utils.cast_module(self.model, dtype), dtype))
 
 
 class Victim(NamedTuple):

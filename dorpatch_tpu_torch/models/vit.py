@@ -340,11 +340,9 @@ class TokenPrunedViT:
         made at the first call and kept); itself at float32."""
         if dtype == torch.float32:
             return self
-        if dtype not in self._casts:
-            self._casts[dtype] = TokenPrunedViT(
-                utils.cast_module(self.module, dtype), self.img_size,
-                self.normalize)
-        return self._casts[dtype]
+        return utils.cached_cast(self._casts, dtype, lambda: TokenPrunedViT(
+            utils.cast_module(self.module, dtype), self.img_size,
+            self.normalize))
 
     def build_family(self, rects: np.ndarray, num_singles: int,
                      chunk_size: int, fill: float,

@@ -1,0 +1,138 @@
+"""Wall-clock block timing (with MFU accounting), `torch.profiler` traces,
+and the shared latency-percentile formula.
+
+Port of `dorpatch_tpu.observe.timing`; the profiler is `torch.profiler`
+(CPU and, where there is one, CUDA activity), exported as a Chrome trace.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import os
+import threading
+from typing import Optional, Sequence
+
+import time
+
+
+def nearest_rank_percentile(sorted_vals: Sequence[float],
+                            q: float) -> Optional[float]:
+    """Nearest-rank percentile over an ASCENDING sequence (None when empty).
+
+    The ONE percentile formula for serving latency: the service's live
+    `/stats`, the offline report's serve section, and `tools/loadgen.py`
+    all route through it, so their p50/p95/p99 rows can never disagree on
+    the same samples (same contract as `StepTimer.summary` for MFU)."""
+    if not sorted_vals:
+        return None
+    idx = max(0, min(len(sorted_vals) - 1,
+                     math.ceil(q * len(sorted_vals)) - 1))
+    return float(sorted_vals[idx])
+
+
+class StepTimer:
+    """Wall-clock series over timed blocks -> throughput summary."""
+
+    def __init__(self, clock=time.perf_counter):
+        self._clock = clock
+        self._t0 = None
+        self.block_seconds = []
+
+    def start(self) -> None:
+        self._t0 = self._clock()
+
+    def stop(self) -> float:
+        if self._t0 is None:
+            raise RuntimeError("StepTimer.stop() before start()")
+        dt = self._clock() - self._t0
+        self._t0 = None
+        self.block_seconds.append(dt)
+        return dt
+
+    def summary(self, steps_per_block: int, batch: int,
+                flops_per_step: float = 0.0,
+                peak_flops: float = 0.0) -> dict:
+        """Throughput summary; pass `flops_per_step` (useful FLOPs of one
+        optimization step, e.g. 3 x forward-FLOPs x EOT x batch) and the
+        card's `peak_flops` to get an `mfu` row (the JAX package's
+        formula, so the two packages' rows compare)."""
+        total = float(sum(self.block_seconds))
+        n_steps = steps_per_block * len(self.block_seconds)
+        out = {
+            "blocks": len(self.block_seconds),
+            "total_seconds": round(total, 3),
+            "steps_per_sec": round(n_steps / total, 3) if total else 0.0,
+            "images_per_sec": round(n_steps * batch / total, 3) if total else 0.0,
+        }
+        if flops_per_step and peak_flops and total:
+            out["achieved_tflops"] = round(
+                n_steps * flops_per_step / total / 1e12, 2)
+            out["mfu"] = round(n_steps * flops_per_step / total / peak_flops, 4)
+        return out
+
+
+#: the file a `trace` scope writes into its directory
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def trace(trace_dir: Optional[str]):
+    """`torch.profiler` scope; no-op when `trace_dir` is falsy.
+
+    Records the process's CPU operators and, on a machine with a GPU, its
+    CUDA kernels, and writes `<trace_dir>/trace.json` (Chrome trace
+    format) when the scope closes."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(trace_dir, TRACE_FILE))
+
+
+# One capture at a time per process: the profiler is a process-global
+# toggle, so overlapping captures would corrupt each other.
+_PROFILE_LOCK = threading.Lock()
+
+
+def capture_profile(out_dir: Optional[str], duration_s: float = 0.5,
+                    max_duration_s: float = 10.0,
+                    sleep=time.sleep) -> Optional[str]:
+    """On-demand bounded-duration `torch.profiler` capture.
+
+    Traces everything the process launches for (clamped) `duration_s`
+    into ``<out_dir>/profile`` and emits a ``profile.captured`` event on
+    the active EventLog. Serving keeps answering while the capture runs —
+    this is the `POST /profile` hook, not a pause button.
+    Returns the trace dir, or None when `out_dir` is falsy or another
+    capture is already in flight (the lock is never waited on: a second
+    concurrent request is refused, not queued)."""
+    if not out_dir:
+        return None
+    if not _PROFILE_LOCK.acquire(blocking=False):
+        return None
+    try:
+        dur = max(0.05, min(float(duration_s), float(max_duration_s)))
+        trace_dir = os.path.join(out_dir, "profile")
+        t0 = time.perf_counter()
+        with trace(trace_dir):
+            sleep(dur)
+        from dorpatch_tpu_torch.observe import events
+
+        events.record_event("profile.captured", dir=trace_dir,
+                            duration_s=round(dur, 3),
+                            wall_s=round(time.perf_counter() - t0, 3))
+        return trace_dir
+    finally:
+        _PROFILE_LOCK.release()

@@ -6,10 +6,14 @@
 
 There is no fallback from the kernel to the plain version and no "auto"
 that picks the plain version on the card.
+
+The launch counts are shared by every thread (the serve pool's replicas
+launch from their own threads), so every read and write holds one lock.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -27,6 +31,7 @@ _LAUNCHES: Dict[str, int] = {"masked_fill_fwd": 0, "masked_fill_bwd": 0,
 #: one ("gn_relu_fwd/one_pass", "gn_relu_bwd/split", ...), or each shape
 #: class (kernel H by its dirty rows per entry: "masked_kv_attn_bf16/S99").
 _ROUTES: Dict[str, int] = {}
+_COUNTS_LOCK = threading.Lock()
 
 
 def on_card(t: torch.Tensor) -> bool:
@@ -40,27 +45,31 @@ def on_card(t: torch.Tensor) -> bool:
 
 
 def count_launch(name: str, route: Optional[str] = None) -> None:
-    _LAUNCHES[name] += 1
-    if route is not None:
-        key = f"{name}/{route}"
-        _ROUTES[key] = _ROUTES.get(key, 0) + 1
+    with _COUNTS_LOCK:
+        _LAUNCHES[name] += 1
+        if route is not None:
+            key = f"{name}/{route}"
+            _ROUTES[key] = _ROUTES.get(key, 0) + 1
 
 
 def launch_counts() -> Dict[str, int]:
     """A copy of the per-kernel launch counts."""
-    return dict(_LAUNCHES)
+    with _COUNTS_LOCK:
+        return dict(_LAUNCHES)
 
 
 def route_counts() -> Dict[str, int]:
     """A copy of the per-route and per-shape-class launch counts
     ("kernel/route" -> launches)."""
-    return dict(_ROUTES)
+    with _COUNTS_LOCK:
+        return dict(_ROUTES)
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
-    _ROUTES.clear()
+    with _COUNTS_LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
+        _ROUTES.clear()
 
 
 def require(t: torch.Tensor, name: str, dtype, ndim: int) -> None:

@@ -436,12 +436,10 @@ class StemFoldEngine:
         made at the first call and kept); itself at float32."""
         if dtype == torch.float32:
             return self
-        if dtype not in self._casts:
-            self._casts[dtype] = StemFoldEngine(
-                utils.cast_module(self.module, dtype), self.img_size,
-                self.kernel_fn, self.kernel_hw, self.strides, self.pads,
-                self.normalize, self.norm_scale)
-        return self._casts[dtype]
+        return utils.cached_cast(self._casts, dtype, lambda: StemFoldEngine(
+            utils.cast_module(self.module, dtype), self.img_size,
+            self.kernel_fn, self.kernel_hw, self.strides, self.pads,
+            self.normalize, self.norm_scale))
 
     def build_family(self, rects: np.ndarray, num_singles: int,
                      chunk_size: int, fill: float,

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import copy
 import random
+import threading
 
 import numpy as np
 import torch
@@ -86,6 +87,19 @@ def cast_module(module: torch.nn.Module,
         if t.is_floating_point():
             t.data = t.data.to(dtype)
     return out
+
+
+_CAST_LOCK = threading.Lock()
+
+
+def cached_cast(cache: dict, dtype: torch.dtype, make):
+    """`cache[dtype]`, made by `make()` at the first call and kept; under
+    one lock, so replicas that build their banks from several threads share
+    one cast copy instead of racing to make two."""
+    with _CAST_LOCK:
+        if dtype not in cache:
+            cache[dtype] = make()
+        return cache[dtype]
 
 
 def forward_at(apply_fn, dtype: torch.dtype):

@@ -246,6 +246,65 @@ def test_consensus_trigger_detector_matches_jax(bucket_sizes):
     assert [r.prediction for r in exact] == [r.prediction for r in got]
 
 
+@pytest.mark.parametrize("prune", ["off", "exact", "consensus"])
+def test_dispatch_split_equals_robust_predict_and_jax(prune):
+    """The serving worker's calls: `predict_tables` (prune off) or
+    `begin_pruned` -> `schedule()` -> `finalize()`, each on the batch the
+    service pads to its bucket (the real count passed as `n`), give
+    `robust_predict`'s records, and `materialize_verdicts` gives the JAX
+    package's `materialize_verdicts`. `warm_pruned` runs each program at
+    every serving shape: the signature counts equal the JAX package's
+    trace counts after its own `warm_pruned`, and a batch after it adds
+    none."""
+    x = _trigger_batch()
+    jpc = jdef.PatchCleanser(_jax_trigger, jmasks.geometry(IMG, 0.1),
+                             JaxDefenseConfig(ratios=(0.1,), prune=prune))
+    tpc = tdef.PatchCleanser(_torch_trigger, tmasks.geometry(IMG, 0.1),
+                             DefenseConfig(ratios=(0.1,), prune=prune),
+                             device="cpu", recompile_budget=2)
+    want = tpc.robust_predict(torch.as_tensor(x), CLASSES,
+                              bucket_sizes=(1, 8))
+    padded = np.concatenate([x, np.repeat(x[:1], 4, axis=0)])
+    if prune == "off":
+        jentry = jpc.predict_tables(None, jnp.asarray(padded), CLASSES)
+        tentry = tpc.predict_tables(torch.as_tensor(padded), CLASSES)
+        got = [tuple(a[:4]) for a in tdef.materialize_verdicts(tentry)]
+        ref = [tuple(a[:4]) for a in jdef.materialize_verdicts(jentry)]
+    else:
+        pending = tpc.begin_pruned(torch.as_tensor(padded), CLASSES, n=4,
+                                   bucket_sizes=(1, 8))
+        assert pending.schedule() is pending and pending.schedule() is \
+            pending
+        _assert_records_equal(pending.finalize(), want)
+        tentry = tpc.begin_pruned(torch.as_tensor(x), CLASSES,
+                                  bucket_sizes=(1, 8)).schedule()
+        jentry = jpc.begin_pruned(None, jnp.asarray(x), CLASSES,
+                                  bucket_sizes=(1, 8)).schedule()
+        got = [tuple(a) for a in tdef.materialize_verdicts(tentry)]
+        ref = [tuple(a) for a in jdef.materialize_verdicts(jentry)]
+    assert got == ref
+    assert got == [tuple(r.prediction for r in want),
+                   tuple(r.certification for r in want),
+                   tuple(r.forwards for r in want),
+                   tuple(r.forward_equivalents for r in want)]
+    if prune == "off":
+        return
+    fresh = tdef.PatchCleanser(_torch_trigger, tmasks.geometry(IMG, 0.1),
+                               DefenseConfig(ratios=(0.1,), prune=prune),
+                               device="cpu", recompile_budget=2)
+    fresh.warm_pruned((1, 8), num_classes=CLASSES)
+    jfresh = jdef.PatchCleanser(_jax_trigger, jmasks.geometry(IMG, 0.1),
+                                JaxDefenseConfig(ratios=(0.1,), prune=prune),
+                                recompile_budget=2)
+    jfresh.warm_pruned(None, (1, 8), num_classes=CLASSES)
+    warm = fresh.pruned_trace_counts()
+    assert warm == jfresh.pruned_trace_counts()
+    assert [n for n, _, _ in fresh.pruned_programs()] == \
+        [n for n, _, _ in jfresh.pruned_programs()]
+    fresh.robust_predict(torch.as_tensor(x), CLASSES, bucket_sizes=(1, 8))
+    assert fresh.pruned_trace_counts() == warm
+
+
 @pytest.mark.parametrize("margin", [float("inf"), 0.5])
 def test_consensus_bf16_escalation_rederives_the_round1_certificate(margin):
     """The bf16 bank under "consensus": at margin inf every image escalates
