@@ -60,8 +60,8 @@ NVIDIA GPU.
      --img-size 224 -b 2 --sampling-size 128 --dropout 2 --max-iterations
      20 --num-batches 1` (ResNetV2-50x1 BiT at full depth and width;
      kernels A, B, C and the GroupNorm+ReLU forward and backward);
-   - ViT: the same flags with `--base_arch vit` (ViT-B/16 at full depth
-     and width; kernels A, B and H);
+   - ViT: the same flags with `--base_arch vit` and `--max-iterations
+     10` (ViT-B/16 at full depth and width; kernels A, B and H);
    random weights from the seed, certification at the four radii with
    prune="exact", incremental="auto" (-> stem for the conv victims,
    -> token-exact for the ViT); then the same three runs with
@@ -70,12 +70,14 @@ NVIDIA GPU.
    the bf16 bank fills bf16 images (A's bf16 form) and runs C's and H's
    bf16 forms);
    - RN50 480 and RN50 480 bf16: ResNetV2-50x1 at BiT's 480 px
-     fine-tuning resolution, `--img-size 480 -b 1`, the other flags as
-     RN50's, without and with the bf16 flags (the backward of the stage-1
-     slabs takes kernel G, in float32 and in bf16);
-   - ResMLP and ResMLP bf16: RN50's flags with `--base_arch resmlp`
-     (ResMLP-24 at full depth and width; kernels A and B, the mixer
-     engine's gathers and cuBLAS matmuls, A in escalations);
+     fine-tuning resolution, `--img-size 480 -b 1 --max-iterations 10`,
+     the other flags as RN50's, without and with the bf16 flags (the
+     backward of the stage-1 slabs takes kernel G, in float32 and in
+     bf16);
+   - ResMLP and ResMLP bf16: RN50's flags with `--base_arch resmlp
+     --max-iterations 10` (ResMLP-24 at full depth and width; kernels A
+     and B, the mixer engine's gathers and cuBLAS matmuls, A in
+     escalations);
    - CIFAR n_patch=2 and its bf16 twin: CIFAR's flags with `-b 2
      --defense-n-patch 2` (the exhaustive sweep of 630 + 22680 masks a
      radius, kernel A at K = 3; the bf16 bank keeps the float32 sweep);
@@ -83,9 +85,21 @@ NVIDIA GPU.
      consensus`, whose records are then held against the RN50 runs' (same
      prediction, every certificate kept, at most the forwards);
    - CIFAR disk, where Pillow is installed: CIFAR's flags without
-     `--synthetic`, reading a seeded CIFAR-10 `test_batch` it writes into
-     a temporary `--data_dir`;
-   and prints A's and B's launches x (time - bound) per path;
+     `--synthetic` and with `--max-iterations 10`, reading a seeded CIFAR-10 `test_batch` it writes into
+     a temporary `--data_dir`, streamed (the default `stream_depth` 2)
+     and again through the synchronous input path, which must give the
+     same report and patch (each main path prints its `data` spans'
+     seconds);
+   and prints A's and B's launches x (time - bound) per path; then runs
+   RN50 at 224 in float32, 10 iterations a stage in blocks of 5, once
+   uninterrupted and once with `--carry-checkpoints --hang-timeout 300`,
+   interrupted from the block callback at stage 1's first block and run
+   again over the same results dir, which must resume from the snapshot,
+   run stage 1's last block and save the uninterrupted run's patch bit
+   for bit,
+   with its telemetry files written, its snapshots cleared and A-D and F
+   launched in the resumed run (`rn50_carry_phase`; the snapshot saves'
+   ms and bytes printed);
 5. computes the RN50 victim's input gradient on one masked batch 10
    times and runs the RN50 attack's first 5 steps twice from one seed,
    in float32 and in bf16, and fails unless every gradient equals the
@@ -131,7 +145,25 @@ NVIDIA GPU.
    failure set; and repeats the stem-fold, token-engine and bf16-bank
    cross-checks of 6 on the trained weights (the token engine's largest
    logit drift over unescalated images printed beside the 0.5 margin);
-9. serves (`serve_phase`): holds the serve paths' kernels at their shapes
+9. runs the attack-sweep farm (`farm_phase`, `python -m
+   dorpatch_tpu_torch.farm` worker processes over one farm directory) on
+   the CIFAR ResNet-18 trained in 7: 4 jobs (patch budget 0.06 and 0.12,
+   float32 and bfloat16 attack and certify bank; batch 8 at 32 px,
+   `--sampling-size 128 --dropout 2`, 20 iterations, a snapshot every 5,
+   the stage switch at 10, failure-biased sampling from 15); a worker
+   with `--chaos crash_block --crash-mode kill` SIGKILLs itself at its
+   seeded block while one with `--chaos ckpt_raise,enospc_events` fails a
+   job's snapshot save and its event log's disk; two healthy workers
+   drain the farm. It fails unless every job ends done, the killed job
+   shows attempts 2, reclaims 1 and a resume from an iteration above 0,
+   its patch equals an uninterrupted `run_sweep` of the point in this
+   process bit for bit, the ckpt_raise job ends done at attempts 2, and
+   the draining workers launched A, B, C and the bf16 forms of C and A
+   (their `metrics.json`; the kernels line gives the CIFAR records their
+   `farm_launches`); it prints the fleet report, per-job seconds, the
+   reclaim latency, the iterations the resume saved and the CIFAR
+   snapshot saves' ms and bytes;
+10. serves (`serve_phase`): holds the serve paths' kernels at their shapes
    (A, C, D and their bf16 forms at RN50's bucket of 8 at 224, A and C at
    CIFAR's, H's bf16 form at ViT-B/16's batch of 1), then runs
    `dorpatch_tpu_torch.serve`'s service and HTTP front-end in this
@@ -149,7 +181,7 @@ NVIDIA GPU.
    kernels launched (`serve_path`); it prints, beside the card's name and
    power limit, the warmup seconds per replica, the latency percentiles,
    images/s, batch occupancy and forwards per image;
-10. prints the total seconds, the per-kernel JSON line (the serve paths'
+11. prints the total seconds, the per-kernel JSON line (the serve paths'
    records last), the nvidia-smi line and, last,
    `{"ok": true, "device": {...}}`.
 
@@ -161,6 +193,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -210,23 +243,40 @@ RN50_ARGV = ["--synthetic", "--dataset", "imagenet", "--base_arch",
              "resnetv2", "--img-size", "224", "-b", "2",
              "--sampling-size", "128", "--dropout", "2",
              "--max-iterations", "20", "--num-batches", "1"]
-VIT_ARGV = [a if a != "resnetv2" else "vit" for a in RN50_ARGV]
+
+
+def _iterations(argv, n):
+    """`argv` with `--max-iterations n`."""
+    i = argv.index("--max-iterations")
+    return argv[:i + 1] + [str(n)] + argv[i + 2:]
+
+
+#: the attack's depth of the ViT, RN50 480 and ResMLP paths (their f32
+#: and bf16 runs), cut from 20 to keep the script within its time: every
+#: kernel of a path launches in each iteration and in the certification
+SHORT_ITERATIONS = 10
+VIT_ARGV = _iterations([a if a != "resnetv2" else "vit" for a in RN50_ARGV],
+                       SHORT_ITERATIONS)
 #: ResNetV2-50x1 at BiT's 480 px fine-tuning resolution, 1 image a batch
 RN50_480_ARGV = ["--synthetic", "--dataset", "imagenet", "--base_arch",
                  "resnetv2", "--img-size", "480", "-b", "1",
                  "--sampling-size", "128", "--dropout", "2",
-                 "--max-iterations", "20", "--num-batches", "1"]
+                 "--max-iterations", str(SHORT_ITERATIONS),
+                 "--num-batches", "1"]
 #: the bf16 paths: the same runs with the bf16 attack and certify bank
 BF16_FLAGS = ["--compute-dtype", "bfloat16", "--certify-dtype", "bfloat16"]
 #: ResMLP-24 (24 blocks, D 384, 196 tokens) at 224, RN50's other flags
-RESMLP_ARGV = [a if a != "resnetv2" else "resmlp" for a in RN50_ARGV]
+RESMLP_ARGV = _iterations(
+    [a if a != "resnetv2" else "resmlp" for a in RN50_ARGV],
+    SHORT_ITERATIONS)
 #: the n_patch=2 defense bank (630 pairs, 22680 triples a radius, the
 #: exhaustive sweep) on the CIFAR ResNet-18, 2 images a batch
 CIFAR_NP2_ARGV = [a if a != "8" else "2" for a in CIFAR_ARGV] + [
     "--defense-n-patch", "2"]
 CONSENSUS = ["--prune", "consensus"]
 #: the CIFAR path without --synthetic: the disk source over --data_dir
-CIFAR_DISK_ARGV = [a for a in CIFAR_ARGV if a != "--synthetic"]
+CIFAR_DISK_ARGV = _iterations([a for a in CIFAR_ARGV if a != "--synthetic"],
+                              SHORT_ITERATIONS)
 CIFAR_KERNELS = ("masked_fill_fwd", "masked_fill_bwd", "stem_fold")
 #: the count each record's launches are read from: kernels A and B at 224,
 #: kernel C at RN50's stem and kernel H at the pair audit's shape count as
@@ -325,14 +375,19 @@ TRAINED_CIFAR_BF16_KERNELS = tuple(k for k in CIFAR_BF16_KERNELS
 #: its first batch; stale after SERVE_STALE_S) at concurrency 16: two full
 #: batches wait at once and each replica takes one (at 8 the clients wait
 #: for each batch, and replica 1 may take them all); ViT-B/16's bf16 bank
-#: at batch 1, SERVE_VIT_REQUESTS requests at concurrency 2
+#: at batch 1, SERVE_VIT_REQUESTS requests at concurrency 2. Replicas beat
+#: only at batch boundaries, so the stale window must outlast a healthy
+#: batch: a trained CIFAR batch of 8 takes 2.6 s (service p50 on the card) and
+#: longer while the restarted replica 0 warms up beside it on the card; at
+#: a 3 s window replica 1 was once declared wedged too, and the requests
+#: re-dispatched to it failed twice
+SERVE_STALE_S = 6.0
 SERVE_RN50_ARGV = ["--synthetic", "--dataset", "imagenet", "--base_arch",
                    "resnetv2", "--img-size", "224", "--serve-max-batch", "8",
                    "--serve-deadline-ms", "60000"]
 SERVE_VIT_ARGV = [a if a != "resnetv2" else "vit" for a in SERVE_RN50_ARGV
                   ][:-4] + ["--serve-max-batch", "1", "--serve-deadline-ms",
                             "60000", "--certify-dtype", "bfloat16"]
-SERVE_STALE_S = 3.0
 SERVE_CIFAR_ARGV = ["--dataset", "cifar10", "--base_arch", "resnet18",
                     "--img-size", "32", "--serve-max-batch", "8",
                     "--serve-deadline-ms", "60000", "--serve-replicas", "2",
@@ -351,6 +406,30 @@ SERVE_PROFILE_S = 2.0
 #: clean forward D; the ViT bank runs H's bf16 form. A (or its bf16 form)
 #: must launch exactly when a pair audit was scheduled, and float32 A in
 #: the RN50 bf16 bank exactly when an image escalated (`serve_path`)
+#: the RN50 224 --carry-checkpoints check: 10 iterations a stage in
+#: blocks of 5, so that stage 1 has a block left after its first; the
+#: watchdog (s) must outlast the longest block, its first call included
+RN50_CARRY_ITERATIONS = 10
+RN50_CARRY_ARGV = _iterations(RN50_ARGV, RN50_CARRY_ITERATIONS) + [
+    "--sweep-interval", "5"]
+RN50_CARRY_HANG_S = 300
+#: the farm (`farm_phase`): the trained CIFAR ResNet-18, batch 8 at 32
+#: px, its attack with the stage switch at 10, failure-biased sampling
+#: from 15 and a snapshot every 5 iterations; one grid point a job, one
+#: radius (0.06) certified a point
+FARM_ATTACK = {"sampling_size": 128, "dropout": 2, "max_iterations": 20,
+               "sweep_interval": 5, "switch_iteration": 10,
+               "failure_sampling_start": 15}
+FARM_BUDGETS = [0.06, 0.12]
+FARM_SWEEP = {"defense_ratio": 0.06}
+#: lease TTL (s): above the longest block, a worker's first call included,
+#: with two workers on the card; the reclaim waits it out
+FARM_TTL = 15.0
+FARM_PROC_TIMEOUT = 300
+#: the draining workers' kernels: A, B in every step, C in the float32
+#: jobs' phase 1, C's and A's bf16 forms in the bf16 jobs' bank
+FARM_KERNELS = ("masked_fill_fwd", "masked_fill_bwd", "stem_fold",
+                "stem_fold_bf16", "masked_fill_fwd_bf16")
 SERVE_KERNELS = {"RN50": ("stem_fold", "gn_relu_fwd"),
                  "RN50 bf16": ("stem_fold_bf16", "gn_relu_fwd_bf16",
                                "gn_relu_fwd"),
@@ -1105,8 +1184,23 @@ def gn_split_shares(img_size):
         for d in ("fwd", "bwd") for kind, isz in (("", 4), ("_bf16", 2))}
 
 
+def _span_seconds(result_dir, name):
+    """Summed `dur_s` of the `name` spans in a results dir's events.jsonl."""
+    total = 0.0
+    with open(os.path.join(result_dir, "events.jsonl")) as fh:
+        for line in fh:
+            rec = json.loads(line)
+            if rec.get("kind") == "span" and rec.get("name") == name:
+                total += rec["dur_s"]
+    return total
+
+
+#: each main path's saved patch (mask, pattern) of batch 0, by label
+PATCHES = {}
+
+
 def main_path(torch, dev, label, argv, required, shares=None,
-              audit_fill=None, trained=False):
+              audit_fill=None, trained=False, edit=None):
     """One main path through the CLI entry point, with the launch counts
     set to 0 just before and read just after; every kernel in `required`
     must have launched. Of each GroupNorm kernel's launches, the share in
@@ -1121,8 +1215,11 @@ def main_path(torch, dev, label, argv, required, shares=None,
     was scheduled. A `trained` path must load its victim from the
     checkpoint (`get_model` draws random weights without one), evaluate the
     attack's stage switch and draw masks from the failure set; it prints
-    both. Returns (metrics, launch and route counts of the run, the first
-    batch's certification records: per image, one per radius)."""
+    both. `edit` maps the parsed config (e.g. to another `stream_depth`).
+    Prints the seconds the run's `data` spans took (the input path), and
+    keeps the patch of batch 0 in `PATCHES[label]`. Returns (metrics,
+    launch and route counts of the run, the first batch's certification
+    records: per image, one per radius)."""
     from dorpatch_tpu_torch import attack, defense, ops, pipeline
     from dorpatch_tpu_torch.artifacts import ArtifactStore, results_path
     from dorpatch_tpu_torch.cli import build_parser, config_from_args
@@ -1161,6 +1258,8 @@ def main_path(torch, dev, label, argv, required, shares=None,
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         cfg = config_from_args(build_parser().parse_args(
             argv + ["--results-root", root]))
+        if edit is not None:
+            cfg = edit(cfg)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1176,7 +1275,10 @@ def main_path(torch, dev, label, argv, required, shares=None,
             hook(plain)
         counts = ops.launch_counts()
         routes = ops.route_counts()
-        records = ArtifactStore(results_path(cfg)).load_pc_records(0)
+        store = ArtifactStore(results_path(cfg))
+        records = store.load_pc_records(0)
+        PATCHES[label] = store.load_patch(0)
+        data_s = _span_seconds(store.result_dir, "data")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"{label} main path: {wall:.2f} s wall; attack seconds "
           f"{m.get('attack_seconds')}; certify seconds "
@@ -1186,8 +1288,9 @@ def main_path(torch, dev, label, argv, required, shares=None,
           f"records {m.get('escalated')}; certification schedule over the "
           f"radii: {sched['pair_audits']} pair audits (images), "
           f"{sched['rows']} minority rows; peak device memory {peak:.2f} "
-          f"GiB; launches {counts}; routes and shape classes {routes}",
-          flush=True)
+          f"GiB; data spans {data_s:.4f} s (stream depth "
+          f"{cfg.stream_depth}); launches {counts}; routes and shape "
+          f"classes {routes}", flush=True)
     for name in required:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
@@ -1833,23 +1936,38 @@ def consensus_cross_check(torch, dev, b, lift, size=224):
 def disk_phase(torch, dev) -> None:
     """The CIFAR path without --synthetic, reading a seeded CIFAR-10
     `test_batch` (`write_cifar_disk`) from a temporary --data_dir: all 8
-    images evaluated, kernels A, B and C launched. Left out, and said so,
-    where Pillow is not installed."""
+    images evaluated, kernels A, B and C launched; then again with the
+    synchronous input path (`stream_depth` 0), which must give the same
+    report and patch (both print their `data` span seconds). Left out, and
+    said so, where Pillow is not installed."""
     import importlib.util
 
     if importlib.util.find_spec("PIL") is None:
         print("CIFAR disk main path: left out, Pillow (PIL) is not "
               "installed on this machine", flush=True)
         return
+    import dataclasses
+
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as root:
         write_cifar_disk(torch, dev, root)
         m, _, _ = main_path(torch, dev, "CIFAR disk",
                             CIFAR_DISK_ARGV + ["--data_dir", root],
                             CIFAR_KERNELS)
+        # the synchronous input path (stream_depth 0) beside the streamed
+        # one: its `data` spans decode every batch in the loop
+        m_sync, _, _ = main_path(
+            torch, dev, "CIFAR disk sync", CIFAR_DISK_ARGV + [
+                "--data_dir", root], CIFAR_KERNELS,
+            edit=lambda c: dataclasses.replace(c, stream_depth=0))
     if m["evaluated_images"] != 8 or m["clean_accuracy"] != 100.0:
         raise AssertionError(f"CIFAR disk main path evaluated "
                              f"{m['evaluated_images']} of 8 images: {m}")
+    if m_sync["report"] != m["report"] or any(
+            not (a == b).all() for a, b in zip(PATCHES["CIFAR disk"],
+                                                PATCHES["CIFAR disk sync"])):
+        raise AssertionError("the streamed and the synchronous input paths "
+                             "disagree")
     print(f"CIFAR disk main-path phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -1961,6 +2079,330 @@ def trained_phase(torch, dev, out) -> None:
                      drifting=drifting, **kw)
     print(f"trained cross-check phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+
+# ------------------------------------------- carry checkpoints and farm
+
+
+class _Interrupt(RuntimeError):
+    """Raised from a block callback to cut a run short."""
+
+
+class _TimedSaves:
+    """Times every `CarryCheckpointer.save` in this process (the device
+    synchronized first, so queued work is not counted) and sizes the
+    snapshot it wrote: `records` of (ms, bytes)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.records = []
+
+    def __enter__(self):
+        from dorpatch_tpu_torch import checkpoint
+
+        self._cls = checkpoint.CarryCheckpointer
+        self._real = real = self._cls.save
+        timed = self
+
+        def save(ck, stage, iteration, *args, **kwargs):
+            timed.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real(ck, stage, iteration, *args, **kwargs)
+            ms = (time.perf_counter() - t0) * 1e3
+            step = os.path.join(ck.directory,
+                                str(stage * 10_000_000 + iteration))
+            timed.records.append((ms, sum(
+                os.path.getsize(os.path.join(step, f))
+                for f in os.listdir(step))))
+
+        self._cls.save = save
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.save = self._real
+
+    def summary(self):
+        if not self.records:
+            return "no saves"
+        ms = sorted(r[0] for r in self.records)
+        return (f"{len(ms)} saves, median {ms[len(ms) // 2]:.3f} ms "
+                f"(min {ms[0]:.3f}, max {ms[-1]:.3f}), "
+                f"{self.records[-1][1]} bytes each")
+
+
+def rn50_carry_phase(torch, dev) -> None:
+    """RN50 at 224 in float32 with blocks of 5 iterations
+    (`RN50_CARRY_ARGV`): first uninterrupted, for the reference patch;
+    then with `--carry-checkpoints --hang-timeout RN50_CARRY_HANG_S`,
+    interrupted from the block callback at stage 1's first block (after
+    the block's snapshot), and run again over the same results dir. The
+    second run must resume from that snapshot (stage 1's init skipped,
+    its draws inside the restored generator), run stage 1's last block
+    and save the reference patch bit for bit; the telemetry files must be
+    there (run.json chaining both attempts), the watchdog must stay quiet,
+    the snapshots must be cleared on success, and A, B, C, D and F must
+    launch in the resumed run alone. Prints the snapshot saves' ms and
+    bytes."""
+    from dorpatch_tpu_torch import observe, ops
+    from dorpatch_tpu_torch.artifacts import ArtifactStore, results_path
+    from dorpatch_tpu_torch.checkpoint import CarryCheckpointer
+    from dorpatch_tpu_torch.cli import build_parser, config_from_args
+    from dorpatch_tpu_torch.pipeline import run_experiment
+
+    real = observe.AttackMetricsLogger.on_block_end
+
+    def interrupt(logger, stage, step, info):
+        real(logger, stage, step, info)
+        if stage == 1:
+            raise _Interrupt(f"cut at stage {stage}, iteration {step}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_carry_") as root, \
+            _TimedSaves(torch) as saves:
+        t0 = time.perf_counter()
+        ref_cfg = config_from_args(build_parser().parse_args(
+            RN50_CARRY_ARGV + ["--results-root",
+                               os.path.join(root, "reference")]))
+        run_experiment(ref_cfg, verbose=False)
+        want = ArtifactStore(results_path(ref_cfg)).load_patch(0)
+        reference = time.perf_counter() - t0
+        cfg = config_from_args(build_parser().parse_args(
+            RN50_CARRY_ARGV + ["--carry-checkpoints", "--hang-timeout",
+                               str(RN50_CARRY_HANG_S), "--results-root",
+                               os.path.join(root, "carry")]))
+        out = results_path(cfg)
+        t0 = time.perf_counter()
+        observe.AttackMetricsLogger.on_block_end = interrupt
+        try:
+            run_experiment(cfg, verbose=False)
+            raise AssertionError("the RN50 carry run was not interrupted")
+        except _Interrupt:
+            pass
+        finally:
+            observe.AttackMetricsLogger.on_block_end = real
+        cut = time.perf_counter() - t0
+        info = CarryCheckpointer(
+            os.path.join(out, "carry_0")).latest_step_info()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = run_experiment(cfg, verbose=False)
+        torch.cuda.synchronize()
+        resumed = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        got = ArtifactStore(out).load_patch(0)
+        files = set(os.listdir(out))
+        with open(os.path.join(out, "run.json")) as fh:
+            chain = json.load(fh).get("previous_run_ids", [])
+        left = os.listdir(os.path.join(out, "carry_0"))
+    saved = (info.stage * RN50_CARRY_ITERATIONS + info.iteration
+             if info else 0)
+    print(f"RN50 carry check (--carry-checkpoints, --max-iterations "
+          f"{RN50_CARRY_ITERATIONS}, --sweep-interval 5): "
+          f"reference run {reference:.2f} s; interrupted after stage 1's "
+          f"first block in {cut:.2f} s; snapshot (stage, iteration) "
+          f"{(info.stage, info.iteration) if info else None}; resumed run "
+          f"{resumed:.2f} s (attack seconds {m.get('attack_seconds')}, "
+          f"certify {m.get('certify_seconds')}); iterations saved "
+          f"{saved}; carry "
+          f"snapshots: {saves.summary()}; resumed run's launches {counts}",
+          flush=True)
+    if info is None or (info.stage, info.iteration) != (1, 5):
+        raise AssertionError(f"RN50 carry snapshot: {info}")
+    if not all((a == b).all() for a, b in zip(got, want)):
+        raise AssertionError("the resumed RN50 patch differs from the "
+                             "uninterrupted run's")
+    need = {"run.json", "events.jsonl", "metrics.jsonl", "heartbeat_0.jsonl"}
+    if need - files or len(chain) != 1 or left:
+        raise AssertionError(f"RN50 carry telemetry: files {sorted(files)}, "
+                             f"previous run ids {chain}, left {left}")
+    for name in RN50_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched in the "
+                                 "resumed RN50 carry run")
+
+
+def _farm_specs(model_dir):
+    """The farm grid (FARM_BUDGETS x float32/bfloat16) as two specs of
+    one farm: an axis cannot pair `attack.compute_dtype` with
+    `defense.compute_dtype`, so each dtype's half carries its certify
+    dtype in its base and its attack dtype as a one-value axis (the job
+    ids name both)."""
+    base = {"dataset": "cifar10", "base_arch": "resnet18", "img_size": 32,
+            "batch_size": 8, "data_source": "procedural",
+            "model_dir": model_dir, "attack": FARM_ATTACK}
+    return [{"base": dict(base, defense={"compute_dtype": dtype}),
+             "axes": {"attack.patch_budget": FARM_BUDGETS,
+                      "attack.compute_dtype": [dtype]},
+             "sweep": FARM_SWEEP, "max_attempts": 3}
+            for dtype in ("float32", "bfloat16")]
+
+
+def _farm_worker(farm, worker_id, *extra):
+    return [sys.executable, "-m", "dorpatch_tpu_torch.farm", "work", farm,
+            "--worker-id", worker_id, "--lease-ttl", str(FARM_TTL),
+            "--heartbeat-interval", "0.5", "--poll-interval", "0.5",
+            "--backoff-base", "0.5", "--backoff-cap", "2.0", *extra]
+
+
+def _run_workers(farm, workers):
+    """Start every worker of `workers` ({id: extra args}) at once and wait
+    for all; returns {id: (exit code, output tail)}. A worker still
+    running at FARM_PROC_TIMEOUT is killed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = {w: subprocess.Popen(_farm_worker(farm, w, *extra), cwd=root,
+                                 env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for w, extra in workers.items()}
+    out = {}
+    try:
+        for w, p in procs.items():
+            text, _ = p.communicate(timeout=FARM_PROC_TIMEOUT)
+            out[w] = (p.returncode, text[-3000:])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def farm_phase(torch, dev, out) -> dict:
+    """The attack-sweep farm on the CIFAR ResNet-18 trained into `out`
+    (`python -m dorpatch_tpu_torch.farm`, worker processes over one farm
+    directory): the 4-job grid of `_farm_specs`; a worker with
+    `--chaos crash_block --crash-mode kill` SIGKILLs itself at its seeded
+    block (after the block's snapshot) while a worker with `--chaos
+    ckpt_raise,enospc_events` fails one job's snapshot save (ENOSPC) and
+    loses its event log's disk; then two healthy workers drain the farm,
+    one reclaiming the killed job once its lease (FARM_TTL) goes stale and
+    resuming it from the snapshot. Gates: every job done; the killed job
+    at attempts 2, reclaims 1, resumed from an iteration above 0, its
+    patch bit-equal to an uninterrupted `run_sweep` of the same point in
+    this process; the ckpt_raise job done at attempts 2; kernels A, B, C
+    and the bf16 forms of C and A launched by the draining workers (their
+    `metrics.json`). Prints the phase wall, per-job seconds, the reclaim
+    latency, the iterations the resume saved, the fleet report, and the
+    control run's snapshot saves (ms, bytes). Returns the draining
+    workers' launches by kernel."""
+    import dataclasses
+
+    import numpy as np
+
+    from dorpatch_tpu_torch.checkpoint import CarryCheckpointer
+    from dorpatch_tpu_torch.farm.queue import JobQueue
+    from dorpatch_tpu_torch.farm.report import (format_fleet_report,
+                                                summarize_fleet)
+    from dorpatch_tpu_torch.farm.worker import job_config
+    from dorpatch_tpu_torch.observe import heartbeat_filename, last_beat
+    from dorpatch_tpu_torch.sweep import run_sweep
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_farm_") as tmp:
+        farm = os.path.join(tmp, "farm")
+        jq = JobQueue(farm)
+        for spec in _farm_specs(out):
+            jq.submit_spec(spec)
+        ids = jq.job_ids()
+        t0 = time.perf_counter()
+        first = _run_workers(farm, {
+            "wKill": ["--chaos", "crash_block", "--crash-mode", "kill",
+                      "--max-jobs", "1"],
+            "wChaos": ["--chaos", "ckpt_raise,enospc_events",
+                       "--max-jobs", "1"]})
+        t_first = time.perf_counter() - t0
+        if first["wKill"][0] != -9 or first["wChaos"][0] != 0:
+            raise AssertionError(f"farm chaos workers: {first}")
+        marked = {f: [j for j in ids if os.path.exists(os.path.join(
+            jq.job_dir(j), f"chaos_{f}.fired"))]
+            for f in ("crash_block", "ckpt_raise", "enospc_events")}
+        killed = marked["crash_block"][0]
+        dead = last_beat(os.path.join(farm, "workers", "wKill",
+                                      heartbeat_filename(0)))
+        t0 = time.perf_counter()
+        drain = _run_workers(farm, {"wA": [], "wB": []})
+        t_drain = time.perf_counter() - t0
+        if any(rc != 0 for rc, _ in drain.values()):
+            raise AssertionError(f"farm drain workers: {drain}")
+        jobs = {j: jq.read_job(j) for j in ids}
+        rows = {}
+        for j in ids:
+            with open(os.path.join(jq.job_dir(j), "results",
+                                   "rows.jsonl")) as fh:
+                rows[j] = [json.loads(line) for line in fh]
+        launches = {}
+        for w in ("wA", "wB"):
+            with open(os.path.join(farm, "workers", w,
+                                   "metrics.json")) as fh:
+                snap = json.load(fh)["metrics"]
+            for series in snap.get("kernel_launches_total",
+                                   {}).get("series", []):
+                k = series["labels"]["kernel"]
+                launches[k] = launches.get(k, 0) + int(series["value"])
+        fleet = summarize_fleet(farm)
+        print(format_fleet_report(fleet), flush=True)
+
+        # the uninterrupted control of the killed point, with its own
+        # snapshots timed
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(job_config(jobs[killed]), device="cuda")
+        control = os.path.join(tmp, "control")
+        with _TimedSaves(torch) as saves:
+            run_sweep(cfg, patch_budgets=(cfg.attack.patch_budget,),
+                      densities=(cfg.attack.density,),
+                      structureds=(cfg.attack.structured,),
+                      defense_ratio=FARM_SWEEP["defense_ratio"],
+                      verbose=False, result_dir=control,
+                      checkpointer_factory=lambda point, params:
+                      CarryCheckpointer(os.path.join(tmp, "control_ck")))
+        t_control = time.perf_counter() - t0
+        same = all((np.load(os.path.join(jq.job_dir(killed), "results",
+                                         name))
+                    == np.load(os.path.join(control, name))).all()
+                   for name in ("point_000_mask.npy",
+                                "point_000_pattern.npy"))
+    wall = time.perf_counter() - t_phase
+    k, row = jobs[killed], rows[killed][0]
+    resumed = (row.get("resumed_from_stage"),
+               row.get("resumed_from_iteration"))
+    reclaim = (k.get("started_ts", 0.0) - dead["ts"]) if dead else None
+    saved = ((resumed[0] or 0) * FARM_ATTACK["max_iterations"]
+             + (resumed[1] or 0))
+    per_job = {j: (jobs[j]["state"], jobs[j]["attempts"],
+                   [r["seconds"] for r in rows[j]],
+                   round(jobs[j].get("completed_ts", 0.0)
+                         - jobs[j].get("started_ts", 0.0), 2))
+               for j in ids}
+    print(f"farm phase: {wall:.1f} s wall (chaos workers {t_first:.1f} s, "
+          f"drain {t_drain:.1f} s, control {t_control:.1f} s); jobs "
+          f"(state, attempts, sweep seconds, last attempt s): {per_job}; "
+          f"killed {killed}: attempts {k['attempts']}, reclaims "
+          f"{k.get('reclaims')}, resumed from (stage, iteration) {resumed}, "
+          f"iterations saved {saved}, "
+          f"reclaim latency {reclaim:.2f} s after the last beat (lease TTL "
+          f"{FARM_TTL}); chaos markers {marked}; drain launches "
+          f"{launches}; step time {fleet['step_time']}; control carry "
+          f"snapshots (CIFAR, batch 8): {saves.summary()}; resumed patch "
+          f"bit-equal to the control: {same}", flush=True)
+    states = {j: job["state"] for j, job in jobs.items()}
+    if set(states.values()) != {"done"} or len(ids) != 4:
+        raise AssertionError(f"farm jobs lost: {states}")
+    if (k["attempts"], k.get("reclaims")) != (2, 1) or not resumed[1]:
+        raise AssertionError(f"killed job {killed}: {k}, row {row}")
+    if not same:
+        raise AssertionError("the crash-resumed farm patch differs from the "
+                             "uninterrupted control run")
+    raised = marked["ckpt_raise"]
+    if (len(raised) != 1 or not marked["enospc_events"]
+            or jobs[raised[0]]["attempts"] != 2
+            or jobs[raised[0]]["failures"][0]["kind"] != "io"):
+        raise AssertionError(f"ckpt_raise/enospc_events: {marked}, "
+                             f"{[jobs[j] for j in raised]}")
+    for name in FARM_KERNELS:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"farm's draining workers: {launches}")
+    return launches
 
 
 # ------------------------------------------------------------- serving
@@ -2498,6 +2940,9 @@ def main() -> int:
                         records_of[label],
                         records_of[label.replace("RN50", "RN50 consensus")])
     disk_phase(torch, dev)
+    t0 = time.perf_counter()
+    rn50_carry_phase(torch, dev)
+    print(f"RN50 carry phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     for dtype in ("float32", "bfloat16"):
@@ -2531,6 +2976,13 @@ def main() -> int:
         trained_phase(torch, dev, out)
         print(f"trained-victim phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
+        t0 = time.perf_counter()
+        farm = farm_phase(torch, dev, out)
+        print(f"farm phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        # the farm runs the CIFAR shapes: its launches beside their records
+        for rec in cifar_kernels + cifar_bf16:
+            rec["farm_launches"] = farm.get(
+                COUNT_OF.get(rec["name"], rec["name"]), 0)
         t0 = time.perf_counter()
         serve_kernels_recs = serve_phase(torch, dev, out, smi)
         print(f"serve phase: {time.perf_counter() - t0:.1f} s", flush=True)

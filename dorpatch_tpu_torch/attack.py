@@ -20,18 +20,24 @@ forward and backward through the victim's once-cast bf16 copy
 the losses and every carry field stay float32, and the failure sweep runs
 the same bf16 forward. The clean predictions (`y`, the stage-1 switch)
 stay on the float32 forward.
+
+Crash recovery (`checkpoint.CarryCheckpointer`): with a `checkpointer`, the
+carry is snapshotted at every block boundary, before the `on_block_end`
+callback, and `generate` resumes from the newest snapshot; the generator's
+state is part of the snapshot, so a resumed run draws the same masks and
+ends on the same patch, bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dorpatch_tpu_torch import losses, utils
+from dorpatch_tpu_torch import losses, observe, utils
 from dorpatch_tpu_torch import masks as masks_lib
 from dorpatch_tpu_torch.config import AttackConfig
 from dorpatch_tpu_torch.defense import masked_predictions
@@ -127,6 +133,11 @@ class DorPatch:
     apply_fn: Callable[[torch.Tensor], torch.Tensor]
     num_classes: int
     config: AttackConfig = dataclasses.field(default_factory=AttackConfig)
+    # called at every block boundary as (stage, iteration, info), info
+    # holding the host copies "metrics" ([8]), "stopped" and "n_failed"
+    on_block_end: Optional[Callable[[int, int, dict], None]] = None
+    # optional checkpoint.CarryCheckpointer: mid-stage crash recovery
+    checkpointer: Optional[Any] = None
 
     def __post_init__(self):
         # the EOT forward (step and sweep): the victim itself at float32,
@@ -373,33 +384,56 @@ class DorPatch:
                 torch.where(never, state.adv_pattern, state.best_pattern))
 
     def _run_stage(self, stage: int, state: TrainState, x, local_var_x,
-                   universe) -> TrainState:
+                   universe, start_iter: int = 0,
+                   stage0_artifacts=None) -> TrainState:
+        """Blocks of `sweep_interval` steps from `start_iter` (a resumed
+        snapshot's iteration) to `max_iterations`, each after a failure
+        sweep; at each boundary the carry is snapshotted (stage 1 with
+        `stage0_artifacts`), then `on_block_end` is called."""
         cfg = self.config
         n_universe = universe.shape[0]
         interval, total = cfg.sweep_interval, cfg.max_iterations
-        i = 0
-        while i < total:
-            # full failure sweep at every sweep_interval boundary (incl. 0)
-            state = state.replace(failed=self.sweep_failures(
-                state.adv_mask, state.adv_pattern, x, state.y, state.targeted,
-                universe))
-            n_steps = min(interval, total - i)
-            for _ in range(n_steps):
-                state = self._step(state, x, local_var_x, universe, stage)
-            i += n_steps
-            # untargeted -> targeted switch at the boundary after
-            # switch_iteration steps (stage 0)
-            if (stage == 0 and i >= cfg.switch_iteration
-                    and i - n_steps < cfg.switch_iteration
-                    and not bool(state.targeted.all())):
-                y_new, has_target = majority_incorrect_label(
-                    state.last_preds, state.y, self.num_classes)
-                switch = has_target & (~state.targeted)
-                state = state.replace(targeted=state.targeted | switch,
-                                      y=torch.where(switch, y_new, state.y))
-                state = self._reset_schedules(state, n_universe)
-            if bool(state.stopped):
-                break
+        if bool(state.stopped):
+            return state  # e.g. resumed from a snapshot taken at early stop
+        i = start_iter
+        with observe.span(f"attack.stage{stage}", start_iter=start_iter) as sp:
+            while i < total:
+                # full failure sweep at every sweep_interval boundary
+                state = state.replace(failed=self.sweep_failures(
+                    state.adv_mask, state.adv_pattern, x, state.y,
+                    state.targeted, universe))
+                n_steps = min(interval, total - i)
+                for _ in range(n_steps):
+                    state = self._step(state, x, local_var_x, universe, stage)
+                i += n_steps
+                # untargeted -> targeted switch at the boundary after
+                # switch_iteration steps (stage 0)
+                if (stage == 0 and i >= cfg.switch_iteration
+                        and i - n_steps < cfg.switch_iteration
+                        and not bool(state.targeted.all())):
+                    y_new, has_target = majority_incorrect_label(
+                        state.last_preds, state.y, self.num_classes)
+                    switch = has_target & (~state.targeted)
+                    state = state.replace(targeted=state.targeted | switch,
+                                          y=torch.where(switch, y_new,
+                                                        state.y))
+                    state = self._reset_schedules(state, n_universe)
+                # snapshot before the callback, so a crash anywhere after
+                # the block's computation resumes from this block
+                if self.checkpointer is not None:
+                    s0 = stage0_artifacts or (None, None)
+                    self.checkpointer.save(stage, i, state, s0[0], s0[1])
+                # the block's one host read: the metrics and the stop flag
+                host = torch.cat([state.metrics.float(),
+                                  state.stopped.float()[None]]).cpu().numpy()
+                stopped = bool(host[8])
+                if self.on_block_end is not None:
+                    self.on_block_end(stage, i, {
+                        "metrics": host[:8], "stopped": stopped,
+                        "n_failed": int(host[7])})
+                if stopped:
+                    break
+            sp["end_iter"] = i
         return state
 
     @torch.no_grad()
@@ -422,15 +456,31 @@ class DorPatch:
         n = universe.shape[0]
         state = self._init_state(gen, x, y, targeted, n)
 
+        # mid-stage crash recovery: the newest carry snapshot, if any; its
+        # generator state replaces the one drawn from above
+        resume = None
+        if self.checkpointer is not None:
+            resume = self.checkpointer.restore(
+                state, (state.adv_mask, state.adv_pattern))
+
         cached = store.load_stage0(batch_id) if store is not None else None
-        if cached is not None:
+        if resume is not None and resume.stage == 1:
+            # the snapshot is past stage 0: y, targeted and the
+            # coefficients live inside the restored state
+            stage0_mask, stage0_pattern = (resume.stage0_mask,
+                                           resume.stage0_pattern)
+        elif cached is not None:
             stage0_mask, stage0_pattern = (torch.as_tensor(a, device=dev)
                                            for a in cached)
             targeted_now = torch.as_tensor(targeted, device=dev)
             coeff_struct_carry = torch.full_like(state.coeff_struct,
                                                  cfg.structured)
         else:
-            state = self._run_stage(0, state, x, local_var_x, universe)
+            start0 = 0
+            if resume is not None:
+                state, start0 = resume.state, resume.iteration
+            state = self._run_stage(0, state, x, local_var_x, universe,
+                                    start_iter=start0)
             stage0_mask, stage0_pattern = self._finalize_best(state)
             targeted_now = state.targeted
             coeff_struct_carry = state.coeff_struct
@@ -438,20 +488,29 @@ class DorPatch:
                 store.save_stage0(batch_id, stage0_mask.cpu().numpy(),
                                   stage0_pattern.cpu().numpy())
 
-        # ---- stage 1 init ----
-        delta = losses.l2_project(stage0_mask, stage0_pattern, x, cfg.eps)
-        adv_x = x + delta
-        targeted_vec = targeted_now.expand(x.shape[0]) | state.targeted
-        preds = torch.argmax(self.apply_fn(adv_x), dim=-1)
-        newly = (~targeted_vec) & (preds != state.y)
-        y_cur = torch.where(newly, preds, state.y)
-        targeted_vec = targeted_vec | newly
-        hard_mask = patch_selection(stage0_mask, cfg.patch_budget,
-                                    cfg.basic_unit)
-        state = self._init_state(gen, x, y_cur, False, n).replace(
-            adv_mask=hard_mask, adv_pattern=adv_x, best_mask=hard_mask,
-            targeted=targeted_vec, coeff_struct=coeff_struct_carry)
-        state = self._run_stage(1, state, x, local_var_x, universe)
+        if resume is not None and resume.stage == 1:
+            # stage 1's init drew from the generator before the snapshot:
+            # its draws are inside the restored generator state
+            state, start1 = resume.state, resume.iteration
+        else:
+            start1 = 0
+            delta = losses.l2_project(stage0_mask, stage0_pattern, x, cfg.eps)
+            adv_x = x + delta
+            targeted_vec = targeted_now.expand(x.shape[0]) | state.targeted
+            preds = torch.argmax(self.apply_fn(adv_x), dim=-1)
+            newly = (~targeted_vec) & (preds != state.y)
+            y_cur = torch.where(newly, preds, state.y)
+            targeted_vec = targeted_vec | newly
+            hard_mask = patch_selection(stage0_mask, cfg.patch_budget,
+                                        cfg.basic_unit)
+            # the stage-0 carry's generator (a restored one after a
+            # stage-0 resume)
+            state = self._init_state(state.gen, x, y_cur, False, n).replace(
+                adv_mask=hard_mask, adv_pattern=adv_x, best_mask=hard_mask,
+                targeted=targeted_vec, coeff_struct=coeff_struct_carry)
+        state = self._run_stage(1, state, x, local_var_x, universe,
+                                start_iter=start1,
+                                stage0_artifacts=(stage0_mask, stage0_pattern))
         best_mask, best_pattern = self._finalize_best(state)
         return AttackResult(adv_mask=best_mask, adv_pattern=best_pattern,
                             y=state.y.cpu().numpy(),

@@ -1,9 +1,10 @@
 """Command line of the port: the main-path and serving flags of
 `dorpatch_tpu.cli` (names, aliases, defaults and choices), plus `--device`.
 `python -m dorpatch_tpu_torch.serve` reuses this parser (the `--serve-*`
-group, `--chaos` with the serve faults, `--no-metrics-log`). The JAX
-package's mesh, pallas, remat, gn-impl, farm, aot, recert, gateway, trace,
-sanitize and heartbeat flags are not offered.
+group, `--chaos` with the serve faults, `--no-metrics-log`). The telemetry
+flags `--trace-dir`, `--hang-timeout` and `--heartbeat-interval` and
+`--carry-checkpoints` are the JAX package's. Its mesh, pallas, remat,
+gn-impl, aot, recert, gateway, backend and sanitize flags are not offered.
 
 Run:  python -m dorpatch_tpu_torch --synthetic --dataset imagenet \\
           --base_arch resnetv2 --img-size 224 --max-iterations 20 -b 2
@@ -131,9 +132,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "logit gap below which an incremental entry is "
                         "distrusted and its image re-certified "
                         "exhaustively")
+    p.add_argument("--trace-dir", default="",
+                   help="write a torch.profiler trace of the run here")
     p.add_argument("--no-metrics-log", action="store_true",
-                   help="disable run telemetry (run.json, events.jsonl, "
-                        "heartbeats, metrics.json) in the results dir")
+                   help="disable run telemetry (metrics.jsonl, "
+                        "events.jsonl, heartbeats, metrics.json) in the "
+                        "results dir")
+    p.add_argument("--hang-timeout", type=float, default=0.0,
+                   help="seconds without telemetry progress before the "
+                        "watchdog prints every process's last-known phase "
+                        "and aborts (0 = disabled); must exceed the longest "
+                        "single attack block including the kernels' build; "
+                        "requires telemetry (no effect with --no-metrics-log)")
+    p.add_argument("--heartbeat-interval", type=float, default=5.0,
+                   help="seconds between heartbeat_<proc>.jsonl beats")
+    p.add_argument("--carry-checkpoints", action="store_true",
+                   help="checkpoint the optimizer carry every sweep block "
+                        "(mid-stage crash recovery)")
     # serving (`python -m dorpatch_tpu_torch.serve` reuses this parser)
     p.add_argument("--serve-port", type=int, default=8700,
                    help="HTTP front-end port for the certified-inference "
@@ -193,6 +208,10 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         data_source=args.data_source,
         img_size=args.img_size,
         metrics_log=not args.no_metrics_log,
+        trace_dir=args.trace_dir,
+        hang_timeout=args.hang_timeout,
+        heartbeat_interval=args.heartbeat_interval,
+        carry_checkpoints=args.carry_checkpoints,
         attack=AttackConfig(patch_budget=args.patch_budget,
                             targeted=args.targeted,
                             lr=args.lr,

@@ -4,7 +4,10 @@ The fields of `dorpatch_tpu.config` that this package reads, with the same
 defaults, so a results directory, a flag and a default mean the same thing in
 both packages. `ExperimentConfig.device` is new: entry points run on "cuda"
 unless the caller asks for "cpu". `ServeConfig` configures the
-certified-inference service (`serve/`).
+certified-inference service (`serve/`), `FarmConfig` the attack-sweep farm
+(`farm/`). `config_from_dict` reads a config dict back, and refuses by name
+the JAX package's keys whose subsystems this package does not have
+(`NOT_PORTED`).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ class AttackConfig:
     lr_stop: float = 1e-3                      # all-lr early-stop threshold
     lr_decay: float = 0.1
     loss_decay_margin: float = 1e-3
+    report_interval: int = 20                  # metrics echo cadence (iterations)
     adapt_start: int = 200                     # stage-0 coefficient adaptation start
     # EOT forward+backward precision, float32|bfloat16 (the patch, the
     # losses and the carry stay float32)
@@ -134,6 +138,33 @@ class ServeConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class FarmConfig:
+    """Attack-sweep farm knobs (`dorpatch_tpu_torch/farm/`): how workers
+    lease, retry, and (in chaos mode) sabotage jobs over a shared farm
+    directory.
+
+    `lease_ttl` is the reclaim latency after a worker dies: a lease is
+    fresh while the owner's heartbeat file advanced within the TTL, so it
+    must comfortably exceed `heartbeat_interval` AND the longest gap
+    between block boundaries (lease renewal points), a kernel build inside
+    the first block included."""
+
+    lease_ttl: float = 60.0         # heartbeat staleness after which a
+                                    # worker's jobs are reclaimable
+    heartbeat_interval: float = 1.0  # worker liveness beat cadence
+    max_attempts: int = 3           # per-job cap across transient retries
+                                    # and crash reclaims
+    backoff_base: float = 2.0       # transient retry delay: base * 2^(n-1)
+    backoff_cap: float = 300.0      # ... clipped here ...
+    backoff_jitter: float = 0.25    # ... times (1 + jitter * u), u drawn
+                                    # deterministically from the job id
+    poll_interval: float = 1.0      # idle worker re-scan cadence
+    chaos: str = ""                 # comma-joined farm fault injections
+                                    # ("" = off): crash_block, ckpt_raise,
+                                    # wedge_heartbeat, enospc_events
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     """One end-to-end experiment."""
 
@@ -150,11 +181,27 @@ class ExperimentConfig:
     synthetic_data: bool = False
     data_source: str = "auto"       # auto|disk|synthetic|procedural
     img_size: int = 224
-    metrics_log: bool = True        # telemetry (run.json, events.jsonl, ...)
+    stream_depth: int = 2           # input streaming: a background loader
+                                    # thread and a pinned-memory copy on a
+                                    # side stream, this many batches ahead
+                                    # (data.streaming_batches); 0 = loads in
+                                    # the loop
+    # telemetry: metrics_log gates metrics.jsonl, events.jsonl and the
+    # heartbeats; run.json is always written
+    metrics_log: bool = True
+    trace_dir: str = ""             # torch.profiler trace of the run here
+    heartbeat_interval: float = 5.0  # seconds between heartbeat beats
+    hang_timeout: float = 0.0       # >0 arms the watchdog: abort with the
+                                    # last-known phase instead of hanging;
+                                    # must exceed the longest block, the
+                                    # kernel build included
+    # snapshots of the attack's carry at every block (checkpoint.py)
+    carry_checkpoints: bool = False
 
     attack: AttackConfig = dataclasses.field(default_factory=AttackConfig)
     defense: DefenseConfig = dataclasses.field(default_factory=DefenseConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+    farm: FarmConfig = dataclasses.field(default_factory=FarmConfig)
 
     @property
     def num_classes(self) -> int:
@@ -164,6 +211,50 @@ class ExperimentConfig:
 def config_to_dict(cfg: ExperimentConfig) -> dict:
     """JSON-safe nested dict of the experiment config."""
     return dataclasses.asdict(cfg)
+
+
+#: keys of the JAX package's config whose subsystems (mesh, Pallas tier,
+#: GroupNorm implementation switch, sanitizer, AOT store, recert, gateway,
+#: remat) this package does not have; `config_from_dict` refuses them by
+#: name, so a job that names one fails as a configuration error instead of
+#: losing the setting. `backend` and `gn_impl` at their JAX defaults are
+#: refused too: the port has one backend and picks its GroupNorm kernels
+#: itself.
+NOT_PORTED = {
+    "ExperimentConfig": ("backend", "gn_impl", "mesh_data", "mesh_mask",
+                         "sanitize", "aot", "recert", "gateway"),
+    "AttackConfig": ("selection", "use_pallas", "remat", "remat_threshold",
+                     "remat_policy"),
+    "DefenseConfig": ("use_pallas",),
+}
+
+
+def config_from_dict(d: dict) -> ExperimentConfig:
+    """Inverse of `config_to_dict`. Unknown keys are rejected, and the JAX
+    package's keys of `NOT_PORTED` are refused by name; list values
+    round-trip back to the tuples the dataclasses declare."""
+    def build(cls, sub: dict):
+        fields = {f.name for f in dataclasses.fields(cls)}
+        later = sorted(set(sub) & set(NOT_PORTED.get(cls.__name__, ())))
+        if later:
+            raise ValueError(
+                f"{cls.__name__} keys {later} are not ported to "
+                "dorpatch_tpu_torch (their subsystems are not in this "
+                "package)")
+        unknown = set(sub) - fields
+        if unknown:
+            raise ValueError(f"unknown {cls.__name__} keys: {sorted(unknown)}")
+        return cls(**{k: tuple(v) if isinstance(v, list) else v
+                      for k, v in sub.items()})
+
+    d = dict(d)
+    attack = build(AttackConfig, d.pop("attack", {}))
+    defense = build(DefenseConfig, d.pop("defense", {}))
+    serve = build(ServeConfig, d.pop("serve", {}))
+    farm = build(FarmConfig, d.pop("farm", {}))
+    cfg = build(ExperimentConfig, d)
+    return dataclasses.replace(cfg, attack=attack, defense=defense,
+                               serve=serve, farm=farm)
 
 
 def resolved_data_source(cfg: ExperimentConfig) -> str:

@@ -15,13 +15,21 @@
   the eval transform `_pil_resize_center_crop`, the JAX package's loaders.
   They need Pillow, imported when the disk source is read, never when this
   module is imported; without it the disk source raises an `ImportError`.
+- the streaming input path: `stream_batches` (a background loader thread
+  feeding a bounded queue), `prefetch_to_device` (pinned host memory copied
+  on a side CUDA stream, a batch ahead) and `streaming_batches`, both over
+  `dataset_batches`.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 import os
 import pickle
+import queue
+import threading
+import time
 from typing import Iterator, Sequence, Tuple
 
 import numpy as np
@@ -369,3 +377,158 @@ def dataset_batches(dataset: str, batch_size: int, img_size: int = 224,
         _pil()
         return disk_batches(dataset, data_dir, batch_size, img_size, seed)
     raise ValueError(f"unknown data source {source!r}")
+
+
+# ------------------------------------------------------ streaming input path
+#
+# At 224 px a disk batch costs real wall time (PIL decode and resize per
+# image), and the synchronous loop serializes it behind the card. The two
+# pieces below overlap disk/decode, the host-to-device copy and compute with
+# bounded memory:
+#
+#   `stream_batches`     - the batch iterator runs on a worker thread into a
+#                          bounded queue (order-preserving, clean shutdown),
+#                          so the decode of batch N+1 overlaps the compute
+#                          of batch N;
+#   `prefetch_to_device` - the copy of batch N+1 from pinned host memory is
+#                          issued on a side CUDA stream before batch N is
+#                          yielded, so the copy overlaps compute too.
+#
+# Telemetry, as in the JAX package: a `data.prefetch` span for each
+# placement (its `batch` runs ahead of the consumer's) and a
+# `data.stream.wait` event for each batch the consumer took from the loader
+# thread, with how long it blocked.
+
+
+def stream_batches(batches, depth: int = 2):
+    """Run a host batch iterator on a daemon worker thread feeding a
+    bounded queue (`depth` batches of lookahead); yields items in order.
+
+    Errors raised by the underlying iterator re-raise at the consumer.
+    Closing the generator (or exhausting it) stops the worker promptly: the
+    worker's blocked `put` polls a stop event, and shutdown drains the
+    queue so the join cannot deadlock on a full queue."""
+    from dorpatch_tpu_torch import observe
+
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, int(depth)))
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in batches:
+                if not put(("batch", item)):
+                    return
+            put(("done", None))
+        except BaseException as e:  # loader errors re-raise at the consumer
+            put(("error", e))
+
+    t = threading.Thread(target=worker, name="dorpatch-data-stream",
+                         daemon=True)
+    t.start()
+    try:
+        i = 0
+        while True:
+            t0 = time.perf_counter()
+            kind, payload = q.get()
+            wait = time.perf_counter() - t0
+            if kind == "done":
+                return
+            if kind == "error":
+                raise payload
+            observe.record_event("data.stream.wait", batch=i,
+                                 wait_s=round(wait, 6))
+            i += 1
+            yield payload
+    finally:
+        stop.set()
+        while True:  # unblock a worker stuck on a full queue
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+        t.join(timeout=5.0)
+
+
+def prefetch_to_device(batches, depth: int = 2, device="cuda"):
+    """Host-to-device prefetch over `(images, labels)` host batches: the
+    copy of batch N+1 is issued before batch N is yielded. Yields
+    `(images on device, labels host numpy)`.
+
+    On a CUDA device each batch is copied from pinned host memory on a side
+    stream and an event is recorded behind the copy; when the batch is
+    yielded, the consumer's current stream waits on that event, and the
+    tensor is marked with `record_stream` for the consumer's stream, so the
+    caching allocator does not hand its memory out again while the
+    consumer's kernels still read it. On the CPU the batch is wrapped as a
+    tensor."""
+    import torch
+
+    from dorpatch_tpu_torch import observe
+
+    dev = torch.device(device)
+    side = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
+
+    def place(x_np):
+        x = torch.as_tensor(np.ascontiguousarray(x_np))
+        if side is None:
+            return x, None
+        x = x.pin_memory()
+        with torch.cuda.stream(side):
+            x_dev = x.to(dev, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        return x_dev, done
+
+    def hand_over(item):
+        (x_dev, done), y_np = item
+        if done is not None:
+            consumer = torch.cuda.current_stream(dev)
+            consumer.wait_event(done)
+            x_dev.record_stream(consumer)
+        return x_dev, y_np
+
+    depth = max(1, int(depth))
+    buf: "collections.deque" = collections.deque()
+    it = iter(batches)
+    try:
+        n = 0
+        for x_np, y_np in it:
+            with observe.span("data.prefetch", batch=n,
+                              images=int(np.shape(x_np)[0]),
+                              ahead=len(buf)):
+                buf.append((place(x_np), y_np))
+            n += 1
+            if len(buf) >= depth:
+                yield hand_over(buf.popleft())
+        while buf:
+            yield hand_over(buf.popleft())
+    finally:
+        buf.clear()
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
+
+
+def streaming_batches(dataset: str, batch_size: int, img_size: int = 224,
+                      seed: int = 1234, source: str = "synthetic",
+                      data_dir: str = "/home/data/data", depth: int = 2,
+                      device="cuda"):
+    """`dataset_batches` behind the streaming input path: background reads
+    and the side-stream copy, `depth` batches of lookahead at each stage.
+    Images arrive on `device`; labels stay host numpy. Close it (`.close()`)
+    to stop the loader thread before the stream ends."""
+    return prefetch_to_device(
+        stream_batches(
+            dataset_batches(dataset, batch_size, img_size, seed,
+                            source=source, data_dir=data_dir),
+            depth=depth),
+        depth=depth, device=device)

@@ -1,6 +1,7 @@
-"""Observability core of the port: run telemetry for the serving layer.
+"""Observability core of the port: run telemetry of the main path, the
+sweep and farm, and the serving layer.
 
-Port of `dorpatch_tpu.observe` (the parts the service needs), with the same
+Port of `dorpatch_tpu.observe` (all but the report CLI), with the same
 file names, record schemas, metric names and JSON keys, so the JAX
 package's readers (`python -m dorpatch_tpu.observe.report`,
 `tools/loadgen.py --expect-metrics`) read the port's results directories:
@@ -14,11 +15,17 @@ package's readers (`python -m dorpatch_tpu.observe.report`,
   `heartbeat.Watchdog` aborts a wedged run.
 - `metrics.json`           — the metric registry's snapshot
   (`metrics.MetricRegistry`), also served as `GET /metrics`.
+- `metrics.jsonl`          — the attack's per-block metrics
+  (`attack_log.AttackMetricsLogger`).
 
-`StepTimer`/`trace`/`capture_profile` (`timing.py`, `torch.profiler`) and
-`console.log` round out the surface.
+`StepTimer`/`trace`/`capture_profile`/`init_profiler` (`timing.py`,
+`torch.profiler`) and `console.log` round out the surface.
 """
 
+from dorpatch_tpu_torch.observe.attack_log import (  # noqa: F401
+    METRIC_NAMES,
+    AttackMetricsLogger,
+)
 from dorpatch_tpu_torch.observe.console import (  # noqa: F401
     elapsed,
     log,
@@ -31,6 +38,7 @@ from dorpatch_tpu_torch.observe.events import (  # noqa: F401
     RecompileWatchdog,
     active,
     active_event_log,
+    active_in_thread,
     device_memory_stats,
     events_filename,
     record_compile,
@@ -68,16 +76,19 @@ from dorpatch_tpu_torch.observe.metrics import (  # noqa: F401
 from dorpatch_tpu_torch.observe.timing import (  # noqa: F401
     StepTimer,
     capture_profile,
+    init_profiler,
     nearest_rank_percentile,
     trace,
 )
 
 __all__ = [
+    "AttackMetricsLogger",
     "Counter",
     "EventLog",
     "Gauge",
     "Heartbeat",
     "Histogram",
+    "METRIC_NAMES",
     "MetricRegistry",
     "RecompileBudgetExceeded",
     "RecompileWatchdog",
@@ -85,12 +96,14 @@ __all__ = [
     "Watchdog",
     "active",
     "active_event_log",
+    "active_in_thread",
     "capture_profile",
     "device_memory_stats",
     "elapsed",
     "events_filename",
     "heartbeat_filename",
     "heartbeat_gaps",
+    "init_profiler",
     "labeled_values",
     "last_beat",
     "last_beat_ts",

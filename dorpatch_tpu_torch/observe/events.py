@@ -26,7 +26,10 @@ Record kinds:
 The module-level `span()` / `record_event()` / `record_compile()` helpers
 delegate to the process's ACTIVE EventLog and no-op when none is installed,
 so the defense and serving layers can emit telemetry without holding a
-reference to the sink the driver configured.
+reference to the sink the caller configured. A thread may install a sink
+of its own ahead of the process's (`active_in_thread`): the farm worker
+does, so that workers on threads of one process each record into their
+own job's log.
 
 The zero-recompile contract, eagerly: an eager program never retraces, so
 each `timed_first_call` wrapper keeps the distinct input signatures (the
@@ -228,10 +231,13 @@ class EventLog:
 # ---------------- process-wide active log ----------------
 
 _ACTIVE: Optional[EventLog] = None
+_LOCAL = threading.local()
 
 
 def active_event_log() -> Optional[EventLog]:
-    return _ACTIVE
+    """The calling thread's sink (`active_in_thread`), else the process's."""
+    el = getattr(_LOCAL, "elog", None)
+    return el if el is not None else _ACTIVE
 
 
 @contextlib.contextmanager
@@ -248,12 +254,25 @@ def active(elog: Optional[EventLog]):
 
 
 @contextlib.contextmanager
+def active_in_thread(elog: Optional[EventLog]):
+    """Install `elog` as the calling thread's sink for the scope, ahead of
+    the process's. Unlike `active`, it installs and restores nothing that
+    another thread sees, so scopes on concurrent threads need not nest."""
+    prev = getattr(_LOCAL, "elog", None)
+    _LOCAL.elog = elog
+    try:
+        yield elog
+    finally:
+        _LOCAL.elog = prev
+
+
+@contextlib.contextmanager
 def span(name: str, **attrs):
     """Span against the active EventLog; no-op when telemetry is off.
 
     Always yields a dict callers may add attributes to — a throwaway one
     when no log is active, so call sites never branch on telemetry."""
-    el = _ACTIVE
+    el = active_event_log()
     if el is None:
         yield dict(attrs)
         return
@@ -262,13 +281,13 @@ def span(name: str, **attrs):
 
 
 def record_event(name: str, **attrs) -> None:
-    el = _ACTIVE
+    el = active_event_log()
     if el is not None:
         el.event(name, **attrs)
 
 
 def record_compile(name: str, seconds: float) -> None:
-    el = _ACTIVE
+    el = active_event_log()
     if el is not None:
         el.compile(name, seconds)
 

@@ -104,6 +104,34 @@ def trace(trace_dir: Optional[str]):
 # One capture at a time per process: the profiler is a process-global
 # toggle, so overlapping captures would corrupt each other.
 _PROFILE_LOCK = threading.Lock()
+_INIT_LOCK = threading.Lock()
+_profiler_ready = False
+
+
+def init_profiler() -> None:
+    """Set `torch.profiler` up on the calling thread, once per process.
+
+    The profiler's client is registered on the thread that loaded torch,
+    and its first use must be on that thread too: a first capture on any
+    other thread (an HTTP handler's `POST /profile`, a signal's capture
+    thread) prints "External init callback must run in same thread as
+    registerClient" and skips the client's setup, and on an H100 a serve
+    path failed after it (internal errors once, a segfault once). Every
+    entry point loads torch on its main thread and boots there, so the
+    service and the farm worker call this while booting, before any other
+    thread may capture. Later calls return at once."""
+    global _profiler_ready
+    with _INIT_LOCK:
+        if _profiler_ready:
+            return
+        import torch
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with _PROFILE_LOCK, torch.profiler.profile(activities=activities):
+            pass
+        _profiler_ready = True
 
 
 def capture_profile(out_dir: Optional[str], duration_s: float = 0.5,

@@ -264,6 +264,9 @@ class CertifiedInferenceService:
                 self.bucket_sizes, self.serve_cfg.max_queue_depth,
                 self.serve_cfg.flush_fraction, clock=self._clock)
         if self.result_dir:
+            # `POST /profile` captures on an HTTP thread: the profiler's
+            # first use must be here, on the thread that boots
+            observe.init_profiler()
             run_id = observe.new_run_id()
             observe.write_run_manifest(
                 self.result_dir, self.run_cfg, run_id=run_id,

@@ -201,3 +201,140 @@ def test_default_source_is_disk_and_reads_data_dir(tmp_path, monkeypatch,
     m = run_experiment(cfg, verbose=False)
     assert m["evaluated_images"] == 2
     assert len(m["acc_pc"]) == 4 and m["clean_accuracy"] == 100.0
+
+
+# ------------------------------------------------ the streaming input path
+
+
+def _numbered_batches(n, delay=0.0):
+    import time
+
+    for i in range(n):
+        if delay:
+            time.sleep(delay)
+        yield (np.full((2, 4, 4, 3), i, np.float32),
+               np.full((2,), i, np.int64))
+
+
+def test_stream_batches_order_preserved():
+    """16 batches through the worker thread, with producer jitter: every
+    batch arrives, in order."""
+    import time
+
+    def jittery():
+        for i, item in enumerate(_numbered_batches(16)):
+            time.sleep(0.002 if i % 3 else 0.0)
+            yield item
+
+    got = [int(y[0]) for _x, y in tdata.stream_batches(jittery(), depth=2)]
+    assert got == list(range(16))
+
+
+def test_stream_batches_propagates_loader_error():
+    """A loader crash mid-stream surfaces at the consumer, after the
+    batches that preceded it."""
+    def broken():
+        yield from _numbered_batches(3)
+        raise RuntimeError("disk ate the shard")
+
+    seen = []
+    with pytest.raises(RuntimeError, match="disk ate the shard"):
+        for _x, y in tdata.stream_batches(broken(), depth=2):
+            seen.append(int(y[0]))
+    assert seen == [0, 1, 2]
+
+
+def test_stream_batches_clean_shutdown_midstream():
+    """Closing the generator after a few batches stops the worker thread
+    promptly, although it is blocked on a full queue, and halts the
+    underlying producer."""
+    import itertools
+    import threading
+    import time
+
+    produced = []
+
+    def endless():
+        for i in itertools.count():
+            produced.append(i)
+            yield (np.zeros((1, 2, 2, 3), np.float32),
+                   np.asarray([i], np.int64))
+
+    gen = tdata.stream_batches(endless(), depth=2)
+    for _ in range(3):
+        next(gen)
+    gen.close()
+    alive = [t for t in threading.enumerate()
+             if t.name == "dorpatch-data-stream" and t.is_alive()]
+    assert not alive
+    n = len(produced)
+    time.sleep(0.1)
+    assert len(produced) == n
+
+
+def test_prefetch_overlap_and_wait_events(tmp_path):
+    """The JAX package's telemetry contract: with depth 2 the
+    `data.prefetch` span of batch N+1 is recorded before the consumer
+    handles batch N, and every batch taken from the loader thread records
+    a `data.stream.wait` event."""
+    import json
+
+    import torch
+
+    from dorpatch_tpu_torch import observe
+
+    path = str(tmp_path / "events.jsonl")
+    with observe.EventLog(path, run_id="r"):
+        for i, (x, y) in enumerate(tdata.prefetch_to_device(
+                tdata.stream_batches(_numbered_batches(6), depth=2),
+                depth=2, device="cpu")):
+            assert isinstance(x, torch.Tensor) and float(x[0, 0, 0, 0]) == i
+            assert isinstance(y, np.ndarray)
+            observe.record_event("consume", batch=i)
+    rows = [json.loads(line) for line in open(path)]
+    order = [(r["name"], r.get("batch")) for r in rows
+             if (r["kind"] == "span" and r["name"] == "data.prefetch")
+             or (r["kind"] == "event" and r["name"] == "consume")]
+    for n in range(5):
+        assert order.index(("data.prefetch", n + 1)) \
+            < order.index(("consume", n)), f"no lookahead at batch {n}"
+    assert max(r["ahead"] for r in rows if r.get("name") == "data.prefetch"
+               and r["kind"] == "span") >= 1
+    waits = [r for r in rows if r.get("name") == "data.stream.wait"]
+    assert [w["batch"] for w in waits] == list(range(6))
+    assert all(w["wait_s"] >= 0.0 for w in waits)
+
+
+@pytest.mark.parametrize("source", ["synthetic", "procedural"])
+def test_streaming_batches_equal_dataset_batches(source):
+    """The composed path yields tensors on the device (the CPU here) equal
+    to `dataset_batches`' arrays, and to the JAX package's stream."""
+    import itertools
+
+    import torch
+
+    it = tdata.streaming_batches("cifar10", batch_size=4, img_size=32,
+                                 source=source, data_dir="", device="cpu")
+    got = list(itertools.islice(it, 3))
+    it.close()
+    want = list(itertools.islice(tdata.dataset_batches(
+        "cifar10", 4, 32, source=source), 3))
+    jwant = list(itertools.islice(jdata.dataset_batches(
+        "cifar10", "", 4, 32, source=source), 3))
+    for (x, y), (wx, wy), (jx, jy) in zip(got, want, jwant):
+        assert isinstance(x, torch.Tensor) and x.dtype == torch.float32
+        assert tuple(x.shape) == (4, 32, 32, 3)
+        np.testing.assert_array_equal(x.numpy(), wx)
+        np.testing.assert_array_equal(y, wy)
+        np.testing.assert_array_equal(x.numpy(), jx)
+        np.testing.assert_array_equal(y, jy)
+
+
+def test_streaming_disk_source_without_pillow_fails_at_the_call(
+        tmp_path, monkeypatch):
+    """The disk source's Pillow check runs when the stream is made, not
+    later on the loader thread."""
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match="Pillow"):
+        tdata.streaming_batches("cifar10", 2, 32, source="disk",
+                                data_dir=str(tmp_path), device="cpu")

@@ -135,8 +135,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     victim, the disk loaders' module and victim training among them:
     neither jax nor any module of `dorpatch_tpu` may load, and PIL only
     when the disk source is read. The serving stack (`serve/`, `observe/`,
-    `chaos`, `backoff`) keeps its own copies of the JAX package's jax-free
-    modules and must be among the modules scanned."""
+    `chaos`, `backoff`), the sweep and the farm (`checkpoint`, `sweep`,
+    `farm/`, `observe.attack_log`) keep their own copies of the JAX
+    package's jax-free modules and must be among the modules scanned."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import dorpatch_tpu_torch
@@ -162,14 +163,21 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "dorpatch_tpu_torch.serve.batcher",
                 "dorpatch_tpu_torch.serve.http",
                 "dorpatch_tpu_torch.serve.types",
-                "dorpatch_tpu_torch.serve.__main__"}
+                "dorpatch_tpu_torch.serve.__main__",
+                "dorpatch_tpu_torch.checkpoint", "dorpatch_tpu_torch.sweep",
+                "dorpatch_tpu_torch.observe.attack_log",
+                "dorpatch_tpu_torch.farm", "dorpatch_tpu_torch.farm.queue",
+                "dorpatch_tpu_torch.farm.worker",
+                "dorpatch_tpu_torch.farm.report",
+                "dorpatch_tpu_torch.farm.chaos",
+                "dorpatch_tpu_torch.farm.__main__"}
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "flax" or m.startswith("flax.")
                      or m == "PIL" or m.startswith("PIL.")
                      or m == "dorpatch_tpu" or m.startswith("dorpatch_tpu."))
         print(len(names), bad, sorted(need - set(names)))
-        sys.exit(1 if bad or len(names) < 30 or need - set(names) else 0)
+        sys.exit(1 if bad or len(names) < 59 or need - set(names) else 0)
     """)
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")

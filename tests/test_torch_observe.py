@@ -318,3 +318,18 @@ def test_capture_profile_writes_a_torch_trace(tmp_path):
     recs = [json.loads(line) for line in open(tmp_path / "events.jsonl")]
     assert [r["name"] for r in recs] == ["profile.captured"]
     assert tobs.capture_profile("", 0.05) is None
+
+
+def test_init_profiler_sets_up_once_on_the_calling_thread(monkeypatch):
+    entered = []
+    real = torch.profiler.profile
+
+    def spy(*args, **kw):
+        entered.append(threading.get_ident())
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tobs.timing, "_profiler_ready", False)
+    monkeypatch.setattr(torch.profiler, "profile", spy)
+    tobs.init_profiler()
+    tobs.init_profiler()
+    assert entered == [threading.get_ident()]

@@ -214,3 +214,161 @@ def test_cli_rejects_what_the_jax_cli_rejects(argv):
     for parser in (build_parser(), jcli.build_parser()):
         with pytest.raises(SystemExit):
             parser.parse_args(argv)
+
+
+# ------------------------------------- run telemetry and carry checkpoints
+
+
+@pytest.fixture()
+def one_torch_thread():
+    """One intra-op thread: the runs' small ops go in parallel test
+    processes, whose threads would otherwise contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+#: the span names of the JAX package's main path, with their attributes
+SPANS = {"run": {"processes"}, "setup": set(), "data": set(),
+         "batch": {"batch", "images", "cached"}, "attack": set(),
+         "certify": {"batch", "images", "forwards", "forward_equivalents",
+                     "forwards_exhaustive", "compute_dtype"},
+         "artifact_io": {"op"}, "finalize": set(),
+         "attack.stage0": {"start_iter", "end_iter"},
+         "attack.stage1": {"start_iter", "end_iter"},
+         "data.prefetch": {"batch", "images", "ahead"}}
+
+
+def _jsonl(path):
+    import json
+
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def test_run_telemetry_files_and_the_jax_report(tmp_path, shallow_victim,
+                                                capsys, one_torch_thread):
+    """A CPU run writes `run.json` (torch environment), `events.jsonl`
+    with the JAX package's span names and attributes and a `block` record
+    per attack block, `metrics.jsonl` with the JAX logger's keys, and
+    heartbeats; `python -m dorpatch_tpu.observe.report` renders the
+    directory."""
+    import json
+
+    from dorpatch_tpu.observe import AttackMetricsLogger as JaxLogger
+    from dorpatch_tpu.observe import report as jax_report
+
+    cfg = _cfg(tmp_path)
+    run_experiment(cfg, verbose=False)
+    out = tart.results_path(cfg)
+    run = json.load(open(os.path.join(out, "run.json")))
+    assert run["backend_impl"] == "torch" and run["config"]["device"] == "cpu"
+    events = _jsonl(os.path.join(out, "events.jsonl"))
+    assert {e["run_id"] for e in events} == {run["run_id"]}
+    spans = {}
+    for e in events:
+        if e["kind"] == "span":
+            spans.setdefault(e["name"], set()).update(e)
+    for name, attrs in SPANS.items():
+        assert name in spans, name
+        assert attrs <= spans[name], (name, attrs - spans[name])
+    ops = {e["op"] for e in events if e.get("name") == "artifact_io"
+           and e["kind"] == "span"}
+    assert {"load_patch", "save_patch", "load_pc_records",
+            "save_pc_records"} <= ops
+    blocks = [(e["stage"], e["step"]) for e in events if e["kind"] == "block"]
+    assert blocks == [(0, 1), (0, 2), (1, 1), (1, 2)]
+    assert any(e.get("name") == "data.stream.wait" for e in events)
+    recs = _jsonl(os.path.join(out, "metrics.jsonl"))
+    assert [(r["stage"], r["step"]) for r in recs] == blocks
+    jlog = JaxLogger(run_id=run["run_id"])
+    jlog.on_block_end(0, 1, {"metrics": np.zeros(8), "stopped": False})
+    assert list(recs[0]) == list(jlog.history[0])
+    beats = _jsonl(os.path.join(out, "heartbeat_0.jsonl"))
+    assert beats and beats[-1]["phase"] == "exit"
+    capsys.readouterr()
+    assert jax_report.main([out]) == 0
+    text = capsys.readouterr().out
+    assert run["run_id"] in text
+    assert jax_report.main([out, "--json"]) == 0
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["manifest"]["run_id"] == run["run_id"]
+
+
+def test_no_metrics_log_and_hang_timeout_warning(tmp_path, shallow_victim,
+                                                 capsys, one_torch_thread):
+    """Telemetry off: run.json only, and an armed --hang-timeout says it is
+    ignored; the synchronous input path (stream_depth 0) gives the same
+    report."""
+    import dataclasses
+
+    cfg = dataclasses.replace(_cfg(tmp_path), metrics_log=False,
+                              hang_timeout=30.0, stream_depth=0)
+    m = run_experiment(cfg, verbose=False)
+    assert "ignored: telemetry is disabled" in capsys.readouterr().err
+    out = tart.results_path(cfg)
+    files = set(os.listdir(out))
+    assert "run.json" in files
+    assert not files & {"events.jsonl", "metrics.jsonl", "heartbeat_0.jsonl"}
+    streamed = run_experiment(
+        dataclasses.replace(_cfg(tmp_path / "s")), verbose=False)
+    assert streamed["report"] == m["report"]
+
+
+def test_carry_checkpoints_resume_the_main_path(tmp_path, shallow_victim,
+                                                monkeypatch, one_torch_thread):
+    """--carry-checkpoints: a run killed at a stage-1 block leaves its
+    snapshots under carry_0; the next run over the same results dir
+    resumes from them (no earlier block again) and saves the patch of an
+    uninterrupted run, bit for bit; on success the snapshots are cleared.
+    The watchdog (--hang-timeout) stays quiet through all of it."""
+    import dataclasses
+
+    from dorpatch_tpu_torch import observe
+
+    kw = dict(max_iterations=4, sweep_interval=2, switch_iteration=2)
+    base = dataclasses.replace(_cfg(tmp_path / "a", **kw),
+                               carry_checkpoints=True, hang_timeout=600.0)
+    run_experiment(base, verbose=False)
+    want = tart.ArtifactStore(tart.results_path(base)).load_patch(0)
+    assert os.listdir(os.path.join(tart.results_path(base), "carry_0")) == []
+
+    cfg = dataclasses.replace(base, results_root=str(tmp_path / "b"))
+    real = observe.AttackMetricsLogger.on_block_end
+
+    def crash(self, stage, step, info):
+        real(self, stage, step, info)
+        if (stage, step) == (1, 2):
+            raise RuntimeError("killed")
+
+    monkeypatch.setattr(observe.AttackMetricsLogger, "on_block_end", crash)
+    with pytest.raises(RuntimeError, match="killed"):
+        run_experiment(cfg, verbose=False)
+    out = tart.results_path(cfg)
+    assert os.listdir(os.path.join(out, "carry_0"))
+    monkeypatch.setattr(observe.AttackMetricsLogger, "on_block_end", real)
+    run_experiment(cfg, verbose=False)
+    got = tart.ArtifactStore(out).load_patch(0)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert os.listdir(os.path.join(out, "carry_0")) == []
+    recs = _jsonl(os.path.join(out, "metrics.jsonl"))
+    runs = {}
+    for r in recs:
+        runs.setdefault(r["run_id"], []).append((r["stage"], r["step"]))
+    assert list(runs.values()) == [[(0, 2), (0, 4), (1, 2)], [(1, 4)]]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--trace-dir", "/t"], ["--hang-timeout", "30"],
+    ["--heartbeat-interval", "0.5"], ["--carry-checkpoints"], []])
+def test_telemetry_flags_match_jax(argv):
+    from dorpatch_tpu import cli as jcli
+
+    cfg = config_from_args(build_parser().parse_args(argv))
+    jcfg = jcli.config_from_args(jcli.build_parser().parse_args(argv))
+    for name in ("trace_dir", "hang_timeout", "heartbeat_interval",
+                 "carry_checkpoints", "metrics_log", "stream_depth"):
+        assert getattr(cfg, name) == getattr(jcfg, name), name
+    assert cfg.attack.report_interval == jcfg.attack.report_interval

@@ -404,6 +404,25 @@ def test_restart_after_stop_and_failed_start_unwinds(tmp_path, monkeypatch):
     failing.stop()
 
 
+def test_start_sets_the_profiler_up_on_the_booting_thread(tmp_path,
+                                                         monkeypatch):
+    """`POST /profile` captures on an HTTP thread, so the profiler's first
+    use is the booting thread's, before any replica thread runs; a service
+    without a results dir captures nothing and skips it."""
+    from dorpatch_tpu_torch import observe
+
+    calls = []
+    svc = make_service(tmp_path)
+    monkeypatch.setattr(observe, "init_profiler", lambda: calls.append(
+        (threading.get_ident(), svc._pool)))
+    with svc:
+        pass
+    assert calls == [(threading.get_ident(), None)]
+    with make_service():
+        pass
+    assert len(calls) == 1
+
+
 def test_serve_raises_without_a_gpu_unless_cpu_is_asked():
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible")

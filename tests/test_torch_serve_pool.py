@@ -218,7 +218,8 @@ def test_chaos_refuses_faults_not_yet_ported():
 
     assert chaos.parse_faults("wedge_dispatch, kill_backend") == (
         "wedge_dispatch", "kill_backend")
-    with pytest.raises(ValueError, match="not yet ported"):
-        chaos.parse_faults("crash_block")
+    for fault in ("recert_kill_cycle", "wedge_probe"):
+        with pytest.raises(ValueError, match="not yet ported"):
+            chaos.parse_faults(fault)
     with pytest.raises(ValueError, match="unknown"):
         chaos.parse_faults("nope")
