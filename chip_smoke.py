@@ -169,7 +169,7 @@ NVIDIA GPU.
    `dorpatch_tpu_torch.serve`'s service and HTTP front-end in this
    process on each serving path and sends it requests over HTTP from
    stdlib clients: RN50 at 224 (`--serve-max-batch 8`, buckets 1 and 8,
-   16 requests at concurrency 8) with 1 and 2 replicas in float32, with 2
+   8 requests at concurrency 8) with 1 and 2 replicas in float32, with 2
    in the bf16 bank; the CIFAR ResNet-18 trained in 7 with 2 replicas
    and `--chaos wedge_dispatch` at concurrency 16 (replica 0 wedges its
    first batch: the supervisor must fail its requests over and restart
@@ -181,7 +181,24 @@ NVIDIA GPU.
    kernels launched (`serve_path`); it prints, beside the card's name and
    power limit, the warmup seconds per replica, the latency percentiles,
    images/s, batch occupancy and forwards per image;
-11. prints the total seconds, the per-kernel JSON line (the serve paths'
+11. runs the certified fleet on the CIFAR ResNet-18 trained in 7
+   (`fleet_phase`, the JAX package's `tools/recert_smoke.py` and
+   `tools/gateway_smoke.py` on the card): a recert generation (two bf16
+   jobs, batch 8, 10 iterations) through `recert run` in this process, the
+   same spec SIGKILLed after its submit with its state file torn in a
+   second process and resumed here to a byte-identical baseline (both
+   drains launching A, B and the bf16 forms of C and A); a planted
+   regression that `recert check` names under DP400, a strict boot that
+   refuses it with no victim built and no kernel launched, a warn boot
+   that serves and answers 503 on `GET /robustness`; then two `python -m
+   dorpatch_tpu_torch.serve` backends booted strict behind an in-process
+   gateway, 24 requests through it while `kill_backend` SIGKILLs one
+   (every answer once, equal to `robust_predict`), a canary rolled back
+   by `poison_canary`, and `python -m dorpatch_tpu_torch.observe.report
+   --fleet` reconciling client, gateway and backends with no orphaned
+   trace (the kernels line gives the CIFAR records their
+   `recert_launches`, the CIFAR serve records their `fleet_launches`);
+12. prints the total seconds, the per-kernel JSON line (the serve paths'
    records last), the nvidia-smi line and, last,
    `{"ok": true, "device": {...}}`.
 
@@ -368,13 +385,14 @@ TRAINED_CIFAR_BF16_KERNELS = tuple(k for k in CIFAR_BF16_KERNELS
 #: the serving paths (`python -m dorpatch_tpu_torch.serve`'s flags, run in
 #: this process through `CertifiedInferenceService.from_config` and
 #: `HttpFrontend` so that the launch counts hold the kernels): RN50 at 224
-#: with the (1, 8) buckets, SERVE_REQUESTS requests at closed-loop
+#: with the (1, 8) buckets, SERVE_RN50_REQUESTS requests at closed-loop
 #: concurrency SERVE_CONCURRENCY over HTTP, with 1 and 2 replicas on the
 #: card in float32, with 2 in the bf16 bank; the trained CIFAR ResNet-18
 #: with 2 replicas and the wedge_dispatch failover drill (replica 0 wedges
-#: its first batch; stale after SERVE_STALE_S) at concurrency 16: two full
-#: batches wait at once and each replica takes one (at 8 the clients wait
-#: for each batch, and replica 1 may take them all); ViT-B/16's bf16 bank
+#: its first batch; stale after SERVE_STALE_S), SERVE_REQUESTS requests at
+#: concurrency 16: two full batches wait at once and each replica takes
+#: one (at 8 the clients wait for each batch, and replica 1 may take them
+#: all); ViT-B/16's bf16 bank
 #: at batch 1, SERVE_VIT_REQUESTS requests at concurrency 2. Replicas beat
 #: only at batch boundaries, so the stale window must outlast a healthy
 #: batch: a trained CIFAR batch of 8 takes 2.6 s (service p50 on the card) and
@@ -396,6 +414,8 @@ SERVE_CIFAR_ARGV = ["--dataset", "cifar10", "--base_arch", "resnet18",
                     "--chaos", "wedge_dispatch"]
 CERTIFY_BF16 = ["--certify-dtype", "bfloat16"]
 SERVE_REQUESTS, SERVE_CONCURRENCY, SERVE_VIT_REQUESTS = 16, 8, 2
+#: the RN50 serve runs' requests: one full batch at concurrency 8
+SERVE_RN50_REQUESTS = 8
 #: the RN50 2-replica runs' `POST /profile` capture (seconds) of one more
 #: batch served after the measured traffic: the device's busy share of a
 #: served batch
@@ -430,6 +450,36 @@ FARM_PROC_TIMEOUT = 300
 #: jobs' phase 1, C's and A's bf16 forms in the bf16 jobs' bank
 FARM_KERNELS = ("masked_fill_fwd", "masked_fill_bwd", "stem_fold",
                 "stem_fold_bf16", "masked_fill_fwd_bf16")
+#: the certified fleet (`fleet_phase`): a recert generation of two jobs
+#: (patch budget 0.06 and 0.12) on the trained CIFAR ResNet-18, batch 8,
+#: 10 iterations (the stage switch at 5, failure-biased sampling from 8, a
+#: snapshot every 5), bf16 attack and certify bank, one radius (0.06), on
+#: the procedural task's held-out images
+RECERT_ATTACK = {"sampling_size": 128, "dropout": 2, "max_iterations": 10,
+                 "sweep_interval": 5, "switch_iteration": 5,
+                 "failure_sampling_start": 8, "compute_dtype": "bfloat16"}
+RECERT_BUDGETS = [0.06, 0.12]
+#: the recert drain's kernels: A and B in every attack step, C's and A's
+#: bf16 forms in the bf16 bank
+RECERT_KERNELS = ("masked_fill_fwd", "masked_fill_bwd", "stem_fold_bf16",
+                  "masked_fill_fwd_bf16")
+#: points a planted regression lifts one baseline entry by (tolerance 2)
+RECERT_PLANT = 30.0
+#: the fleet's serve processes: the trained CIFAR ResNet-18, one replica,
+#: batches of 1 (a lone request flushes at once: the clients are closed
+#: loops at concurrency 1, so a SIGKILLed backend's books hold exactly the
+#: requests it answered); FLEET_REQUESTS through the gateway over
+#: FLEET_IMAGES held-out images, FLEET_POST more after the rollback,
+#: FLEET_DIRECT to the warn-mode service in this process (the latency of a
+#: backend without the gateway)
+FLEET_SERVE_ARGV = ["--dataset", "cifar10", "--base_arch", "resnet18",
+                    "--img-size", "32", "--serve-max-batch", "1",
+                    "--serve-deadline-ms", "60000", "--serve-replicas", "1",
+                    "--data-source", "procedural"]
+FLEET_REQUESTS, FLEET_IMAGES, FLEET_POST, FLEET_DIRECT = 24, 12, 4, 8
+FLEET_BOOT_S = 300
+#: the backends' kernels: C in phase 1 of every certification
+FLEET_KERNELS = ("stem_fold",)
 SERVE_KERNELS = {"RN50": ("stem_fold", "gn_relu_fwd"),
                  "RN50 bf16": ("stem_fold_bf16", "gn_relu_fwd_bf16",
                                "gn_relu_fwd"),
@@ -2792,7 +2842,7 @@ def serve_phase(torch, dev, out, smi):
     t0 = time.perf_counter()
     recs = serve_kernels(torch, dev)
     print(f"serve kernels: {time.perf_counter() - t0:.1f} s", flush=True)
-    rn50 = _serve_images(224, SERVE_REQUESTS, 1234)
+    rn50 = _serve_images(224, SERVE_RN50_REQUESTS, 1234)
     counts, ref_cache = {}, {}
     for label, flags, reps in (("RN50", [], (1, 2)),
                                ("RN50 bf16", CERTIFY_BF16, (2,))):
@@ -2833,8 +2883,595 @@ def serve_phase(torch, dev, out, smi):
     return out_recs
 
 
+# ------------------------------------------------------------- the fleet
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _recert(*argv):
+    """`python -m dorpatch_tpu_torch.recert` in this process: (exit code,
+    stdout, stderr)."""
+    import contextlib
+    import io
+
+    from dorpatch_tpu_torch.recert.__main__ import main as recert_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = recert_main(list(argv))
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _post(url, image, trace_id, deadline_ms):
+    """One `POST /predict` of `image`: (answer, client seconds)."""
+    import urllib.error
+    import urllib.request
+
+    body = json.dumps({"image": image.tolist(), "deadline_ms": deadline_ms,
+                       "trace_id": trace_id}).encode()
+    req = urllib.request.Request(url + "/predict", data=body, headers={
+        "Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=deadline_ms / 1e3 + 60) as r:
+            ans = json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        ans = json.loads(e.read())
+    return ans, time.perf_counter() - t0
+
+
+def _pcts(seconds):
+    """p50/p95/p99 (nearest rank) of `seconds`, in ms."""
+    lat = sorted(t * 1e3 for t in seconds)
+    n = len(lat)
+    return [round(lat[max(0, min(n - 1, math.ceil(q * n) - 1))], 1)
+            for q in (0.5, 0.95, 0.99)]
+
+
+def _spawn_backend(root, port, argv):
+    """`python -m dorpatch_tpu_torch.serve` on `port`, telemetry under
+    `root`/serve, output in `root`/backend.log."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    os.makedirs(root, exist_ok=True)
+    log = open(os.path.join(root, "backend.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dorpatch_tpu_torch.serve", *argv,
+         "--results-root", root, "--serve-port", str(port)],
+        cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return proc
+
+
+def _await_warm(proc, url, root, t0):
+    """Seconds from `t0` until the backend at `url` answers warm."""
+    while time.perf_counter() - t0 < FLEET_BOOT_S:
+        if proc.poll() is not None:
+            break
+        try:
+            code, body = _get(url + "/healthz")
+            if code == 200 and json.loads(body).get("warm"):
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        time.sleep(0.2)
+    with open(os.path.join(root, "backend.log")) as fh:
+        tail = fh.read()[-3000:]
+    raise AssertionError(f"fleet backend {url} never became warm (exit "
+                         f"{proc.poll()}): {tail}")
+
+
+def _stop_backend(proc):
+    """SIGINT (a clean stop: the queue drains, metrics.json is written);
+    the exit code."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return proc.returncode
+
+
+def _launches_of(result_dir):
+    """`kernel_launches_total` by kernel from a metrics.json."""
+    path = os.path.join(result_dir, "metrics.json")
+    if not os.path.exists(path):
+        return {}
+    with open(path) as fh:
+        snap = json.load(fh)["metrics"]
+    return {s["labels"]["kernel"]: int(s["value"]) for s in
+            snap.get("kernel_launches_total", {}).get("series", [])}
+
+
+def _event_ts(path, pred):
+    with open(path) as fh:
+        for line in fh:
+            try:
+                e = json.loads(line)
+            except ValueError:
+                continue
+            if pred(e):
+                return float(e["ts"])
+    return None
+
+
+def _recert_drain(torch, label, recert_dir, spec_path, baseline):
+    """One `recert run --update-baseline` in this process (its farm
+    worker on the card), with the launch counts set to 0 just before and
+    read just after: (seconds, launches, per-job seconds)."""
+    from dorpatch_tpu_torch import ops
+    from dorpatch_tpu_torch.farm.queue import JobQueue
+    from dorpatch_tpu_torch.recert.scheduler import RecertScheduler
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, out, err = _recert("run", recert_dir, "--spec", spec_path,
+                           "--baseline-file", baseline, "--update-baseline",
+                           "--poll-interval", "0.1", "--lease-ttl", "30",
+                           "--worker-id", "recert-fleet", "--device", "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"recert {label} run exited {rc}: {out[-2000:]} "
+                             f"{err[-2000:]}")
+    for name in RECERT_KERNELS:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"recert {label} drain: {launches}")
+    _, farm_dir = RecertScheduler(recert_dir,
+                                  baseline_file=baseline).latest_completed()
+    jq = JobQueue(farm_dir)
+    jobs = {j: jq.read_job(j) for j in jq.job_ids()}
+    per_job = {j: round(job.get("completed_ts", 0.0)
+                        - job.get("started_ts", 0.0), 2)
+               for j, job in jobs.items()}
+    if {job["state"] for job in jobs.values()} != {"done"} or \
+            len(jobs) != len(RECERT_BUDGETS):
+        raise AssertionError(f"recert {label} jobs: {jobs}")
+    return wall, {k: v for k, v in launches.items() if v}, per_job
+
+
+def fleet_phase(torch, dev, out, smi) -> dict:
+    """The certified fleet on the CIFAR ResNet-18 trained into `out`,
+    mirroring the JAX package's recert and gateway drills on the card.
+
+    1. Recert, crash-resumed: a control generation (`recert run
+       --update-baseline`, the RECERT_* spec, its farm worker in this
+       process on the card); the same spec in a second process with
+       `--chaos recert_kill_cycle,recert_torn_state` must die by SIGKILL
+       right after submitting, its state file torn; a plain re-run of
+       that directory in this process must resume generation 1 (no
+       gen_0002) and write a baseline byte-identical to the control's.
+       Both drains must launch A, B and the bf16 forms of C and A.
+    2. The regression gate: one baseline entry lifted RECERT_PLANT points
+       past its tolerance makes `recert check` exit 1 naming the cell
+       under DP400; `--require-recert strict` then raises
+       `RecertGateError` in `CertifiedInferenceService.from_config` with
+       no victim built (`registry.get_model` counted) and no kernel
+       launched; `warn` boots, answers FLEET_DIRECT requests over HTTP
+       and answers 503 on `GET /robustness`, rendering the cell as
+       regressed; with the entry restored `recert check` exits 0 on an
+       "ok" verdict.
+    3. The fleet: two `python -m dorpatch_tpu_torch.serve` processes
+       (FLEET_SERVE_ARGV, `--require-recert strict` on the ok directory;
+       the second with `--chaos kill_backend`) and a third, the canary,
+       boot at once; an in-process `Gateway` fronts the first two.
+       FLEET_REQUESTS closed-loop requests (concurrency 1) through it
+       while backend 2 SIGKILLs itself: every answer ok, answered once,
+       equal to the port's `robust_predict` on the same image (per radius
+       prediction and certificate, the clean prediction, the forwards),
+       some request re-dispatched, backend 2 ejected. The canary joins;
+       `RollingDeploy` with `poison_canary` must roll back (the
+       `gateway.rollback` event and counter, the canary drained, the
+       stable weight restored), and FLEET_POST more requests must be
+       answered by the stable backend.
+    4. The report: `python -m dorpatch_tpu_torch.observe.report --fleet`
+       over the client, the gateway and the three backends must exit 0
+       (client == gateway == the sum of the backends, no orphaned trace
+       id) and render the rollback; the recert directory's report is
+       printed.
+
+    Prints, beside the card, the generations' wall and per-job seconds,
+    the strict refusal's seconds from construction to the raise, the
+    gateway's client p50/p95/p99 beside the direct service's, the kill
+    to ejection and the poisoned evaluation to rollback seconds. Returns
+    {"recert": launches of both drains, "backends": the backends' kernel
+    launches after warmup (their metrics.json)}."""
+    import numpy as np
+
+    from dorpatch_tpu_torch import data, defense, ops
+    from dorpatch_tpu_torch.cli import build_parser, config_from_args
+    from dorpatch_tpu_torch.config import GatewayConfig
+    from dorpatch_tpu_torch.gateway import Gateway, GatewayFrontend, \
+        RollingDeploy
+    from dorpatch_tpu_torch.gateway.membership import backend_name
+    from dorpatch_tpu_torch.models import registry
+    from dorpatch_tpu_torch.observe import MetricRegistry, labeled_values
+    from dorpatch_tpu_torch.observe import report as report_mod
+    from dorpatch_tpu_torch.recert.gate import RecertGateError
+    from dorpatch_tpu_torch.recert.scheduler import RecertScheduler
+    from dorpatch_tpu_torch.serve import CertifiedInferenceService, \
+        HttpFrontend
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    held, _ = data.procedural_arrays("cifar10", 2, 32, 1234, "test")
+    images = held[:FLEET_IMAGES]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        d = {k: os.path.join(tmp, k) for k in (
+            "control", "chaos", "strict", "warn", "backend1", "backend2",
+            "canary", "gateway", "client")}
+        spec = {"base": {"dataset": "cifar10", "base_arch": "resnet18",
+                         "img_size": 32, "batch_size": 8,
+                         "data_source": "procedural", "model_dir": out,
+                         "attack": RECERT_ATTACK,
+                         "defense": {"compute_dtype": "bfloat16"}},
+                "axes": {"attack.patch_budget": RECERT_BUDGETS},
+                "sweep": {"defense_ratio": 0.06}, "max_attempts": 2}
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as fh:
+            json.dump(spec, fh)
+        control_rb = os.path.join(tmp, "control_baseline.json")
+        chaos_rb = os.path.join(tmp, "chaos_baseline.json")
+
+        # -- 1. recert: control, killed, resumed --
+        control_s, control_launches, control_jobs = _recert_drain(
+            torch, "control", d["control"], spec_path, control_rb)
+        with open(control_rb, "rb") as fh:
+            control_bytes = fh.read()
+        t0 = time.perf_counter()
+        killed = subprocess.run(
+            [sys.executable, "-m", "dorpatch_tpu_torch.recert", "run",
+             d["chaos"], "--spec", spec_path, "--baseline-file", chaos_rb,
+             "--update-baseline", "--device", "cuda", "--chaos",
+             "recert_kill_cycle,recert_torn_state", "--crash-mode", "kill"],
+            cwd=here, env=env, capture_output=True, text=True, timeout=300)
+        killed_s = time.perf_counter() - t0
+        state_path = os.path.join(d["chaos"], "recert_state.json")
+        try:
+            with open(state_path) as fh:
+                json.load(fh)
+            torn = False
+        except (OSError, ValueError):
+            torn = True
+        if killed.returncode != -9 or not torn or os.path.exists(chaos_rb):
+            raise AssertionError(
+                f"recert chaos run: exit {killed.returncode} (want -9), "
+                f"state torn {torn}, baseline written "
+                f"{os.path.exists(chaos_rb)}: {killed.stderr[-2000:]}")
+        resume_s, resume_launches, resume_jobs = _recert_drain(
+            torch, "resume", d["chaos"], spec_path, chaos_rb)
+        st = RecertScheduler(d["chaos"], baseline_file=chaos_rb).status()
+        with open(chaos_rb, "rb") as fh:
+            chaos_bytes = fh.read()
+        gens = sorted(n for n in os.listdir(d["chaos"])
+                      if n.startswith("gen_"))
+        if (st["generation"], st["inflight"], gens) != (1, None,
+                                                          ["gen_0001"]):
+            raise AssertionError(f"the resume did not finish generation 1: "
+                                 f"{st}, {gens}")
+        if chaos_bytes != control_bytes:
+            raise AssertionError(
+                f"the crash-resumed baseline differs from the control's: "
+                f"{chaos_bytes!r} != {control_bytes!r}")
+        entries = json.loads(chaos_bytes)["entries"]
+        if len(entries) != len(RECERT_BUDGETS) or \
+                (st.get("verdict") or {}).get("status") != "ok":
+            raise AssertionError(f"recert baseline {entries}, status {st}")
+        print(f"fleet recert (batch 8, 10 iterations, bf16 attack and "
+              f"certify; {smi}): control generation {control_s:.1f} s, jobs "
+              f"{control_jobs} s; killed scheduler {killed_s:.1f} s (exit "
+              f"{killed.returncode}, state torn); resume {resume_s:.1f} s, "
+              f"jobs {resume_jobs} s; baselines byte-identical "
+              f"({len(chaos_bytes)} bytes): {entries}; drain launches "
+              f"control {control_launches}, resume {resume_launches}",
+              flush=True)
+
+        # -- 2. the regression gate --
+        planted = sorted(entries)[0]
+        data_rb = json.loads(chaos_bytes)
+        data_rb["entries"][planted]["robust_accuracy"] += RECERT_PLANT
+        with open(chaos_rb, "w") as fh:
+            json.dump(data_rb, fh)
+        rc, out_check, _ = _recert("check", d["chaos"], "--baseline-file",
+                                   chaos_rb)
+        if rc != 1 or "DP400" not in out_check or planted not in out_check:
+            raise AssertionError(f"recert check on a planted regression: "
+                                 f"exit {rc}, {out_check!r}")
+
+        def serve_cfg(root, require):
+            return config_from_args(build_parser().parse_args(
+                FLEET_SERVE_ARGV + ["--model_dir", out, "--results-root",
+                                    root, "--serve-port", "0",
+                                    "--recert-dir", d["chaos"],
+                                    "--require-recert", require]))
+
+        built, plain_get = [], registry.get_model
+
+        def counting_get(*args, **kwargs):
+            built.append(args)
+            return plain_get(*args, **kwargs)
+
+        registry.get_model = counting_get
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            CertifiedInferenceService.from_config(
+                serve_cfg(d["strict"], "strict"))
+            refused = None
+        except RecertGateError as e:
+            refused = str(e)
+        finally:
+            registry.get_model = plain_get
+        refuse_s = time.perf_counter() - t0
+        launched = {k: v for k, v in ops.launch_counts().items() if v}
+        if refused is None or "failing" not in refused or built or launched:
+            raise AssertionError(f"strict boot on a failing verdict: "
+                                 f"refused {refused!r}, victims built "
+                                 f"{len(built)}, launches {launched}")
+        warn_cfg = serve_cfg(d["warn"], "warn")
+        svc = CertifiedInferenceService.from_config(warn_cfg).start()
+        try:
+            with HttpFrontend(svc, "127.0.0.1", 0) as fe:
+                url = f"http://127.0.0.1:{fe.port}"
+                direct = [_post(url, images[i % FLEET_IMAGES], f"d{i}",
+                                warn_cfg.serve.deadline_ms)
+                          for i in range(FLEET_DIRECT)]
+                code, body = _get(url + "/robustness")
+        finally:
+            svc.stop()
+        robust = json.loads(body)
+        cell = (robust.get("cells") or {}).get(planted, {})
+        if (code, robust.get("status"), cell.get("status")) != (
+                503, "failing", "regressed") or any(
+                a.get("status") != "ok" for a, _ in direct):
+            raise AssertionError(f"warn boot: /robustness {code} {robust}, "
+                                 f"answers {[a for a, _ in direct]}")
+        with open(chaos_rb, "wb") as fh:
+            fh.write(chaos_bytes)
+        rc, out_check, _ = _recert("check", d["chaos"], "--baseline-file",
+                                   chaos_rb)
+        verdict = RecertScheduler(d["chaos"],
+                                  baseline_file=chaos_rb).status()["verdict"]
+        if rc != 0 or verdict["status"] != "ok":
+            raise AssertionError(f"recert check after the restore: exit "
+                                 f"{rc}, verdict {verdict}")
+        print(f"fleet regression gate: check exit 1 naming {planted} under "
+              f"DP400; strict refusal {refuse_s * 1e3:.1f} ms from "
+              f"construction to RecertGateError (0 victims built, 0 "
+              f"launches); warn served {FLEET_DIRECT} requests, "
+              f"/robustness 503 with the cell regressed; restored: check "
+              f"exit 0, verdict ok", flush=True)
+
+        # -- 3. the fleet --
+        ports = [_free_port() for _ in range(3)]
+        urls = [f"http://127.0.0.1:{p}" for p in ports]
+        fleet_argv = FLEET_SERVE_ARGV + ["--model_dir", out, "--recert-dir",
+                                         d["chaos"], "--require-recert",
+                                         "strict"]
+        roots = [d["backend1"], d["backend2"], d["canary"]]
+        t0 = time.perf_counter()
+        procs = [_spawn_backend(roots[0], ports[0], fleet_argv),
+                 _spawn_backend(roots[1], ports[1], fleet_argv
+                                + ["--chaos", "kill_backend"]),
+                 _spawn_backend(roots[2], ports[2], fleet_argv)]
+        try:
+            boots = [round(_await_warm(p, u, r, t0), 1)
+                     for p, u, r in zip(procs, urls, roots)]
+            names = [backend_name(u) for u in urls]
+            cfg = GatewayConfig(
+                backends=tuple(urls[:2]), probe_interval_s=0.3,
+                probe_jitter=0.1, fail_threshold=2, ok_threshold=1,
+                inflight_cap=32, dispatch_retries=2,
+                canary_steps=(0.5, 1.0), canary_hold_s=0.4,
+                chaos="poison_canary")
+            gateway = Gateway(cfg, result_dir=d["gateway"])
+            client = MetricRegistry()
+            m_client = client.counter(
+                "loadgen_requests_total",
+                help="client-side attempts by terminal status")
+            answers = []
+            with gateway, GatewayFrontend(gateway, port=0) as gfe:
+                gw_url = f"http://127.0.0.1:{gfe.port}"
+                t1 = time.perf_counter()
+                while gateway.healthz()["routable"] != 2:
+                    if time.perf_counter() - t1 > 60:
+                        raise AssertionError(f"the fleet never probed "
+                                             f"healthy: {gateway.healthz()}")
+                    time.sleep(0.1)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for i in range(FLEET_REQUESTS):
+                    answers.append((i % FLEET_IMAGES, *_post(
+                        gw_url, images[i % FLEET_IMAGES], f"fl{i}", 60000.0)))
+                    m_client.inc(status=str(answers[-1][1].get("status")))
+                load_s = time.perf_counter() - t1
+                try:
+                    procs[1].wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    pass
+                t1 = time.perf_counter()
+                while gateway.registry.get(names[1]).snapshot()["state"] \
+                        != "ejected":
+                    if time.perf_counter() - t1 > 60:
+                        raise AssertionError("the gateway never ejected "
+                                             "the killed backend")
+                    time.sleep(0.1)
+                gateway.add_backend(urls[2])
+                deploy = RollingDeploy(gateway, [names[2]]).run(
+                    warm_timeout_s=60)
+                snaps = {b.name: b.snapshot()
+                         for b in gateway.registry.backends()}
+                rollbacks = int(gateway.metrics.value(
+                    "gateway_rollbacks_total"))
+                for i in range(FLEET_POST):
+                    answers.append((i, *_post(gw_url, images[i],
+                                              f"post{i}", 60000.0)))
+                    m_client.inc(status=str(answers[-1][1].get("status")))
+            stops = [_stop_backend(procs[0]), _stop_backend(procs[2])]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        os.makedirs(d["client"])
+        client.dump(os.path.join(d["client"], "metrics_client.json"))
+        serve_dirs = [os.path.join(r, "serve") for r in roots]
+        kill_marker = os.path.join(serve_dirs[1], "chaos_kill_backend.fired")
+        gw_events = os.path.join(d["gateway"], "events.jsonl")
+        t_kill = (os.path.getmtime(kill_marker)
+                  if os.path.exists(kill_marker) else None)
+        t_eject = _event_ts(gw_events, lambda e: e.get("name") ==
+                            "gateway.membership" and e.get("backend") ==
+                            names[1] and e.get("state") == "ejected")
+        poison_marker = os.path.join(d["gateway"],
+                                     "chaos_poison_canary.fired")
+        t_poison = (os.path.getmtime(poison_marker)
+                    if os.path.exists(poison_marker) else None)
+        t_rollback = _event_ts(gw_events, lambda e: e.get("name") ==
+                               "gateway.rollback")
+        launches = {}
+        for sd in serve_dirs:
+            for k, v in _launches_of(sd).items():
+                launches[k] = launches.get(k, 0) + v
+
+        # -- 4. the report --
+        fleet_dirs = [d["client"], d["gateway"], *serve_dirs]
+        rep = subprocess.run(
+            [sys.executable, "-m", "dorpatch_tpu_torch.observe.report",
+             "--fleet", *fleet_dirs], cwd=here, env=env, capture_output=True,
+            text=True, timeout=120)
+        fleet = report_mod.summarize_fleet_dirs(fleet_dirs)
+        rec_rep = subprocess.run(
+            [sys.executable, "-m", "dorpatch_tpu_torch.observe.report",
+             d["chaos"]], cwd=here, env=env, capture_output=True, text=True,
+            timeout=120)
+        print(rep.stdout, flush=True)
+        print(rec_rep.stdout, flush=True)
+
+        # -- the reference: robust_predict on each image, batch 1 --
+        cfg_ref = serve_cfg(d["warn"], "off")
+        victim = registry.get_model(cfg_ref.dataset, cfg_ref.base_arch,
+                                    cfg_ref.model_dir, cfg_ref.img_size,
+                                    device=dev)
+        bank = defense.build_defenses(victim.apply, cfg_ref.img_size,
+                                      cfg_ref.defense,
+                                      incremental=victim.incremental,
+                                      device=dev)
+        want = {}
+        with torch.no_grad():
+            for i in sorted({i for i, _, _ in answers}):
+                x = torch.as_tensor(images[i:i + 1], device=dev)
+                recs = [b.robust_predict(x, victim.num_classes,
+                                         bucket_sizes=(1,))[0]
+                        for b in bank]
+                want[i] = ([(r.prediction, bool(r.certification))
+                            for r in recs],
+                           int(victim.apply(x).argmax(dim=-1)[0]),
+                           sum(int(r.forwards) for r in recs))
+        del bank, victim
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    statuses = [a.get("status") for _, a, _ in answers]
+    by_backend, retried, mismatch = {}, 0, []
+    for i, a, _ in answers:
+        g = a.get("gateway") or {}
+        by_backend[g.get("backend")] = by_backend.get(g.get("backend"), 0) + 1
+        retried += 1 if g.get("retries") else 0
+        got = ([(v["prediction"], v["certified"]) for v in a["verdicts"]],
+               a["clean_prediction"], a["certify_forwards"]) \
+            if a.get("status") == "ok" else None
+        if got != want[i]:
+            mismatch.append((a.get("trace_id"), got, want[i]))
+    client_counts = {k: int(v) for k, v in labeled_values(
+        client.snapshot(), "loadgen_requests_total", "status").items()}
+    gw_lat = [t for _, _, t in answers[:FLEET_REQUESTS]]
+    svc_lat = [a["latency_ms"] / 1e3 for _, a, _ in answers[:FLEET_REQUESTS]
+               if "latency_ms" in a]
+    print(f"fleet phase ({smi}): {wall:.1f} s wall; backends warm in "
+          f"{boots} s from their start (together); "
+          f"{FLEET_REQUESTS} requests through the gateway in {load_s:.2f} s "
+          f"({FLEET_REQUESTS / load_s:.2f} images/s at concurrency 1), "
+          f"client latency p50/p95/p99 {_pcts(gw_lat)} ms (the backends' "
+          f"service latency {_pcts(svc_lat)} ms), direct to the warn "
+          f"service {_pcts([t for _, t in direct])} ms (its service "
+          f"latency {_pcts([a['latency_ms'] / 1e3 for a, _ in direct])} "
+          f"ms); answered by "
+          f"{by_backend}, {retried} re-dispatched; kill to ejection "
+          + (f"{t_eject - t_kill:.2f} s" if t_kill and t_eject else "n/a")
+          + "; poisoned evaluation to rollback "
+          + (f"{t_rollback - t_poison:.3f} s" if t_poison and t_rollback
+             else "n/a")
+          + f"; deploy {deploy}; backend exits {stops}; backend launches "
+          f"after warmup {launches}", flush=True)
+    if statuses != ["ok"] * (FLEET_REQUESTS + FLEET_POST):
+        raise AssertionError(f"fleet requests lost or failed: {statuses}")
+    if mismatch:
+        raise AssertionError(f"fleet answers differ from robust_predict: "
+                             f"{mismatch}")
+    if t_kill is None or procs[1].returncode != -9 or retried < 1 or \
+            by_backend.get(names[0], 0) < 1:
+        raise AssertionError(f"kill_backend: marker {t_kill}, exit "
+                             f"{procs[1].returncode}, re-dispatched "
+                             f"{retried}, answered by {by_backend}")
+    if (deploy["outcome"] != "rolled_back" or "DP400" not in
+            deploy["reason"] or rollbacks != 1 or t_poison is None
+            or snaps[names[2]]["state"] != "draining"
+            or snaps[names[2]]["weight"] != 0.0
+            or snaps[names[0]]["weight"] != 1.0
+            or any((a.get("gateway") or {}).get("backend") == names[2]
+                   for _, a, _ in answers)):
+        raise AssertionError(f"canary rollback: {deploy}, rollbacks "
+                             f"{rollbacks}, roster {snaps}")
+    if stops != [0, 0]:
+        raise AssertionError(f"backends' clean stop exited {stops}")
+    if (rep.returncode != 0 or fleet["traces"]["orphans"]
+            or not fleet["consistent"]
+            or fleet["gateway"]["by_status"] != client_counts
+            or fleet["gateway"]["rollbacks"] != 1
+            or "gateway rollbacks: 1" not in rep.stdout
+            or "orphaned traces: 0" not in rep.stdout
+            or rec_rep.returncode != 0
+            or "re-certification report" not in rec_rep.stdout):
+        raise AssertionError(f"fleet report: exit {rep.returncode}, "
+                             f"{fleet['checks']}, orphans "
+                             f"{fleet['traces']['orphans'][:4]}, client "
+                             f"{client_counts}; {rep.stdout[-2000:]} "
+                             f"{rec_rep.stdout[-1000:]}")
+    for name in FLEET_KERNELS:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"fleet's backends: {launches}")
+    recert = dict(control_launches)
+    for k, v in resume_launches.items():
+        recert[k] = recert.get(k, 0) + v
+    return {"recert": recert, "backends": launches}
+
+
 def main() -> int:
+    import faulthandler
+
     import torch
+
+    # a crash inside native code (the profiler, CUDA) prints every
+    # thread's Python stack instead of a bare signal
+    faulthandler.enable()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2986,6 +3623,18 @@ def main() -> int:
         t0 = time.perf_counter()
         serve_kernels_recs = serve_phase(torch, dev, out, smi)
         print(f"serve phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        fleet = fleet_phase(torch, dev, out, smi)
+        print(f"fleet phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        # the recert drain runs the CIFAR shapes (bf16), the backends the
+        # CIFAR serve shapes: their launches beside those records
+        for rec in cifar_kernels + cifar_bf16:
+            rec["recert_launches"] = fleet["recert"].get(
+                COUNT_OF.get(rec["name"], rec["name"]), 0)
+        for rec in serve_kernels_recs:
+            if rec["name"].endswith("_serve_cifar"):
+                rec["fleet_launches"] = fleet["backends"].get(
+                    rec["name"][:-len("_serve_cifar")], 0)
 
     print(f"chip_smoke total: {time.perf_counter() - start:.1f} s",
           flush=True)

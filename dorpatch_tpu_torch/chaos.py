@@ -1,7 +1,7 @@
-"""Deterministic fault injection for the attack-sweep farm and the serve
-replica pool.
+"""Deterministic fault injection for the attack-sweep farm, the serve
+replica pool, the fleet gateway and the recert scheduler.
 
-Port of `dorpatch_tpu.chaos`, the farm and serve faults. Each fault is
+Port of `dorpatch_tpu.chaos`, every fault. Each fault is
 seeded from the *job id* and fires *exactly once* per (job, fault): the
 fired-marker is an O_EXCL file in the state directory created BEFORE the
 fault is injected, so not even a SIGKILL fault can fire twice across
@@ -41,9 +41,29 @@ exception guard):
   callback so the committed counters reach metrics.json. Always SIGKILLs
   regardless of ``crash_mode``.
 
-Serve faults always target replica 0. The JAX package's recert and
-gateway faults belong to subsystems this port does not have yet;
-`parse_faults` refuses them by name.
+Serve faults always target replica 0.
+
+Gateway faults (wired by `gateway/` at its probe and deploy sites):
+
+- ``wedge_probe``     - the membership prober's next probes of backend 0
+  fail artificially (no socket touched), a seeded count sized past the
+  ejection threshold; then real probes resume and the re-admission
+  hysteresis takes over.
+- ``poison_canary``   - the rolling deploy's robustness evaluation of the
+  canary is replaced once with a failing DP400 verdict, proving the
+  automatic rollback without a genuinely regressed model.
+
+Recert faults (wired by `recert/scheduler.py` at `on_recert`, called right
+after the generation's grid is submitted, with the inflight record
+already committed to `recert_state.json`):
+
+- ``recert_kill_cycle`` - SIGKILL the scheduler mid-generation: jobs
+  submitted, nothing harvested. Resume must finish the same generation
+  with a baseline byte-identical to an uninterrupted run.
+- ``recert_torn_state`` - truncate `recert_state.json` mid-byte (a torn
+  write): the scheduler must recover from the generation directories.
+
+Every fault's seeded ordinal equals the JAX package's (`fault_seed`).
 """
 
 from __future__ import annotations
@@ -59,10 +79,10 @@ FARM_FAULTS = ("crash_block", "ckpt_raise", "wedge_heartbeat",
                "enospc_events")
 SERVE_FAULTS = ("wedge_dispatch", "raise_in_worker", "wedge_heartbeat",
                 "kill_backend")
-FAULTS = FARM_FAULTS + ("wedge_dispatch", "raise_in_worker", "kill_backend")
-#: the JAX package's faults of the subsystems not ported yet
-NOT_PORTED = ("recert_kill_cycle", "recert_torn_state", "wedge_probe",
-              "poison_canary")
+RECERT_FAULTS = ("recert_kill_cycle", "recert_torn_state")
+GATEWAY_FAULTS = ("wedge_probe", "poison_canary")
+FAULTS = (FARM_FAULTS + ("wedge_dispatch", "raise_in_worker", "kill_backend")
+          + RECERT_FAULTS + GATEWAY_FAULTS)
 
 # The replica every serve fault is aimed at (see module docstring).
 SERVE_TARGET_REPLICA = 0
@@ -79,13 +99,6 @@ def fault_seed(job_id: str, fault: str) -> int:
 
 
 def _check(faults: Sequence[str]) -> None:
-    later = [f for f in faults if f in NOT_PORTED]
-    if later:
-        raise ValueError(
-            f"chaos fault(s) {later} belong to the recert and gateway "
-            f"subsystems, not yet ported to dorpatch_tpu_torch; farm "
-            f"faults: {list(FARM_FAULTS)}, serve faults: "
-            f"{list(SERVE_FAULTS)}")
     unknown = [f for f in faults if f not in FAULTS]
     if unknown:
         raise ValueError(
@@ -112,6 +125,7 @@ class Chaos:
         self.crash_mode = crash_mode
         self._block_counter = 0
         self._serve_batch_counter = 0
+        self._probe_counter = {}
         self._heartbeat = None
         self._metrics_flush = None
 
@@ -198,6 +212,34 @@ class Chaos:
         event_log._fh = _ENOSPCFile(event_log._fh,
                                     self.events_write_budget())
 
+    # ---------------- recert injection site ----------------
+
+    def on_recert(self, phase: str, state_path: str = "") -> None:
+        """Scheduler cycle-boundary site, called by
+        `RecertScheduler.begin_generation` right after `submit_spec`, with
+        the inflight record already committed: earlier there is nothing to
+        resume, later the farm's own crash story covers it."""
+        if phase != "submitted":
+            return
+        if ("recert_torn_state" in self.faults and state_path
+                and self.fire_once("recert_torn_state")):
+            # tear the state file the way a crashed non-atomic writer
+            # would: keep the first half of the bytes, drop the rest
+            try:
+                with open(state_path, "rb") as fh:
+                    raw = fh.read()
+                with open(state_path, "wb") as fh:
+                    fh.write(raw[:max(1, len(raw) // 2)])
+            except OSError:
+                pass
+        if ("recert_kill_cycle" in self.faults
+                and self.fire_once("recert_kill_cycle")):
+            if self.crash_mode == "kill":
+                os.kill(os.getpid(), signal.SIGKILL)
+            raise SimulatedPreemption(
+                "chaos: simulated scheduler preemption mid-generation "
+                "(grid submitted, nothing harvested)")
+
     # ---------------- serve injection site ----------------
 
     def on_serve_batch(self, replica_id: int, heartbeat=None) -> None:
@@ -237,6 +279,45 @@ class Chaos:
         """Which in-flight batch (counted per process) the SIGKILL targets
         — never the first, so the backend provably answered something."""
         return 1 + fault_seed(self.job_id, "kill_backend") % 2
+
+    # ---------------- gateway injection sites ----------------
+
+    def wedge_probe_failures(self) -> int:
+        """How many consecutive probes of the target backend fail
+        artificially: sized past any sane ejection threshold, so the wedge
+        provably ejects; then real probes resume."""
+        return 4 + fault_seed(self.job_id, "wedge_probe") % 3
+
+    def on_gateway_probe(self, backend_index: int, backend_name: str) -> bool:
+        """Membership-prober site, called once per probe cycle per backend
+        before any socket is touched. True when the probe must count as
+        failed. Targets backend index 0; the first call commits the
+        fired-marker, then the next `wedge_probe_failures()` probes of that
+        backend fail."""
+        if "wedge_probe" not in self.faults or backend_index != 0:
+            return False
+        if self.fire_once("wedge_probe"):
+            self._probe_counter[backend_name] = self.wedge_probe_failures()
+        left = self._probe_counter.get(backend_name, 0)
+        if left <= 0:
+            return False
+        self._probe_counter[backend_name] = left - 1
+        return True
+
+    def poison_canary(self, verdict: dict) -> dict:
+        """Deploy-evaluation site, called by the rolling deploy with the
+        canary's real robustness verdict. Fires once, replacing it with a
+        failing DP400 (robustness regression) verdict; every later
+        evaluation passes the real verdict through."""
+        if ("poison_canary" in self.faults
+                and self.fire_once("poison_canary")):
+            return {"status": "failed",
+                    "findings_by_rule": {"DP400": [
+                        "chaos: injected robustness regression "
+                        "(certified-accuracy margin below baseline)"]},
+                    "worst_margin": -1.0,
+                    "poisoned": True}
+        return verdict
 
 
 

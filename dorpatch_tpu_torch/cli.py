@@ -1,10 +1,18 @@
-"""Command line of the port: the main-path and serving flags of
-`dorpatch_tpu.cli` (names, aliases, defaults and choices), plus `--device`.
+"""Command line of the port: the flags of `dorpatch_tpu.cli` (names,
+aliases, defaults, choices and help), plus `--device`.
 `python -m dorpatch_tpu_torch.serve` reuses this parser (the `--serve-*`
-group, `--chaos` with the serve faults, `--no-metrics-log`). The telemetry
-flags `--trace-dir`, `--hang-timeout` and `--heartbeat-interval` and
-`--carry-checkpoints` are the JAX package's. Its mesh, pallas, remat,
-gn-impl, aot, recert, gateway, backend and sanitize flags are not offered.
+group, `--chaos` with the serve faults, `--no-metrics-log`, and the
+recert boot gate's `--recert-dir`, `--recert-baseline` and
+`--require-recert`), and so does `python -m dorpatch_tpu_torch.gateway`
+(the `--gateway-*` group, `--chaos` with the gateway faults). The
+`--farm-*` flags land in the config record (`run.json`) a farm spec's
+`base` carries.
+
+Not offered, because their subsystems are not ported yet: `--backend`,
+`--mesh-data`, `--mesh-mask` (the mesh, `parallel/`), `--use-pallas` and
+`--gn-impl` (the port picks its CUDA kernels itself), `--remat` and
+`--remat-policy` (remat), `--sanitize` (the runtime sanitizers of
+`analysis/`) and `--aot`, `--aot-cache` (the AOT executable store).
 
 Run:  python -m dorpatch_tpu_torch --synthetic --dataset imagenet \\
           --base_arch resnetv2 --img-size 224 --max-iterations 20 -b 2
@@ -27,7 +35,9 @@ from __future__ import annotations
 import argparse
 
 from dorpatch_tpu_torch.config import (AttackConfig, DefenseConfig,
-                                       ExperimentConfig, ServeConfig)
+                                       ExperimentConfig, FarmConfig,
+                                       GatewayConfig, RecertConfig,
+                                       ServeConfig)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -183,12 +193,75 @@ def build_parser() -> argparse.ArgumentParser:
                         "slowest legitimate batch — replicas beat only at "
                         "batch boundaries, so a window shorter than one "
                         "batch false-positives a healthy replica as wedged")
+    # continuous re-certification (`python -m dorpatch_tpu_torch.recert`
+    # runs the scheduler; serve consults its published verdict at boot)
+    p.add_argument("--recert-dir", default="",
+                   help="recert directory holding the scheduler's published "
+                        "robustness verdict (recert_verdict.json); enables "
+                        "GET /robustness on the serve front-end "
+                        "('' = no robustness surface)")
+    p.add_argument("--recert-baseline", default="",
+                   help="robustness baseline file override ('' = the "
+                        "package's recert/robustness_baseline.json)")
+    p.add_argument("--require-recert", default="off",
+                   choices=["off", "warn", "strict"],
+                   help="serve-boot robustness gate against the recert "
+                        "verdict: 'warn' serves on a failing/stale verdict "
+                        "but reports it (canary mode); 'strict' is the "
+                        "deploy mode — boot refuses serving-ready with a "
+                        "typed error unless the verdict exists and is ok, "
+                        "so a fleet never serves silently-uncertified "
+                        "(as the JAX package's --aot strict)")
+    # fleet gateway (`python -m dorpatch_tpu_torch.gateway` routes POST
+    # /predict across N serve processes)
+    p.add_argument("--gateway-backends", default="",
+                   help="comma-joined backend base URLs "
+                        "(http://host:port) the gateway fronts; each is a "
+                        "`python -m dorpatch_tpu_torch.serve` process")
+    p.add_argument("--gateway-port", type=int, default=8800,
+                   help="gateway bind port (0 = ephemeral)")
+    p.add_argument("--gateway-probe-interval", type=float, default=1.0,
+                   help="per-backend health-probe cadence seconds "
+                        "(/healthz + /stats + /robustness, jittered)")
+    p.add_argument("--gateway-fail-threshold", type=int, default=3,
+                   help="consecutive probe failures before a backend is "
+                        "ejected from routing")
+    p.add_argument("--gateway-ok-threshold", type=int, default=2,
+                   help="consecutive probe successes before an ejected "
+                        "backend is re-admitted (flap hysteresis)")
+    p.add_argument("--gateway-inflight-cap", type=int, default=32,
+                   help="per-backend concurrent dispatches before the "
+                        "gateway answers typed Overloaded (503)")
+    p.add_argument("--gateway-canary-steps", default="0.1,0.5,1.0",
+                   help="rolling-deploy traffic fractions the canary group "
+                        "is stepped through (comma-joined floats)")
+    p.add_argument("--gateway-canary-hold", type=float, default=2.0,
+                   help="soak seconds per canary step before evaluating "
+                        "its robustness verdict")
+    # farm (`python -m dorpatch_tpu_torch.farm` shares these defaults;
+    # setting them here persists them into the config record a spec's
+    # `base` carries)
+    p.add_argument("--farm-lease-ttl", type=float, default=60.0,
+                   help="attack-sweep farm: heartbeat staleness (seconds) "
+                        "after which a worker's leased jobs are reclaimable "
+                        "by survivors; must exceed both the worker "
+                        "heartbeat interval and the longest gap between "
+                        "attack-block boundaries (lease renewal points)")
+    p.add_argument("--farm-max-attempts", type=int, default=3,
+                   help="attack-sweep farm: per-job attempt cap across "
+                        "transient retries and crash reclaims")
+    p.add_argument("--farm-backoff-base", type=float, default=2.0,
+                   help="attack-sweep farm: transient retry delay base "
+                        "(base * 2^(attempt-1), capped, plus deterministic "
+                        "per-job jitter)")
     p.add_argument("--chaos", default="",
                    help="deterministic fault injection (recovery testing; "
-                        "dorpatch_tpu_torch.chaos): comma-joined list of "
-                        "serve faults (python -m dorpatch_tpu_torch.serve): "
+                        "dorpatch_tpu_torch.chaos): comma-joined list. "
+                        "Serve faults (python -m dorpatch_tpu_torch.serve): "
                         "wedge_dispatch, raise_in_worker, wedge_heartbeat, "
-                        "kill_backend")
+                        "kill_backend. Gateway faults (python -m "
+                        "dorpatch_tpu_torch.gateway): wedge_probe, "
+                        "poison_canary")
     return p
 
 
@@ -243,6 +316,24 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
                           restart_backoff_cap=args.serve_restart_backoff_cap,
                           replica_stale_s=args.serve_replica_stale_s,
                           chaos=args.chaos),
+        farm=FarmConfig(lease_ttl=args.farm_lease_ttl,
+                        max_attempts=args.farm_max_attempts,
+                        backoff_base=args.farm_backoff_base,
+                        chaos=args.chaos),
+        recert=RecertConfig(dir=args.recert_dir,
+                            baseline_file=args.recert_baseline,
+                            require=args.require_recert),
+        gateway=GatewayConfig(
+            backends=tuple(b for b in args.gateway_backends.split(",") if b),
+            port=args.gateway_port,
+            probe_interval_s=args.gateway_probe_interval,
+            fail_threshold=args.gateway_fail_threshold,
+            ok_threshold=args.gateway_ok_threshold,
+            inflight_cap=args.gateway_inflight_cap,
+            canary_steps=tuple(float(s) for s in
+                               args.gateway_canary_steps.split(",") if s),
+            canary_hold_s=args.gateway_canary_hold,
+            chaos=args.chaos),
     )
 
 

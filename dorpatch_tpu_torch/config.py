@@ -5,9 +5,10 @@ defaults, so a results directory, a flag and a default mean the same thing in
 both packages. `ExperimentConfig.device` is new: entry points run on "cuda"
 unless the caller asks for "cpu". `ServeConfig` configures the
 certified-inference service (`serve/`), `FarmConfig` the attack-sweep farm
-(`farm/`). `config_from_dict` reads a config dict back, and refuses by name
-the JAX package's keys whose subsystems this package does not have
-(`NOT_PORTED`).
+(`farm/`), `RecertConfig` the service's re-certification boot gate
+(`recert/`) and `GatewayConfig` the fleet gateway (`gateway/`).
+`config_from_dict` reads a config dict back, and refuses by name the JAX
+package's keys whose subsystems this package does not have (`NOT_PORTED`).
 """
 
 from __future__ import annotations
@@ -165,6 +166,82 @@ class FarmConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RecertConfig:
+    """Continuous re-certification (`dorpatch_tpu_torch/recert/`): the
+    serve-boot robustness gate against the scheduler's published verdict.
+
+    `require` semantics (the JAX package's AotConfig.mode has the same):
+      "off"    — (default) no gate; the snapshot is still loaded for
+                 `GET /robustness` when `dir` is set.
+      "warn"   — boot proceeds on any verdict (failing/stale/absent) and
+                 carries the degraded status in `/robustness` + the boot
+                 log — canary mode.
+      "strict" — the deploy mode: the pool refuses serving-ready
+                 (`RecertGateError`) unless the verdict exists and is
+                 `ok` — never serve silently-uncertified."""
+
+    dir: str = ""                   # recert dir holding recert_verdict.json
+                                    # ("" = no robustness surface)
+    baseline_file: str = ""         # baseline override ("" = the package's
+                                    # recert/robustness_baseline.json)
+    require: str = "off"            # off|warn|strict
+
+
+@dataclasses.dataclass(frozen=True)
+class GatewayConfig:
+    """Horizontal serve fleet front-end (`dorpatch_tpu_torch/gateway/`): a
+    stdlib-only HTTP gateway routing `POST /predict` across N serve
+    *processes* (each a `python -m dorpatch_tpu_torch.serve`).
+
+    Membership is probe-driven (`/healthz` + `/stats` + `/robustness` on a
+    jittered interval): `fail_threshold` CONSECUTIVE probe failures eject a
+    backend, `ok_threshold` consecutive successes re-admit it — the
+    hysteresis that keeps a flapping backend out. Routing is
+    power-of-two-choices over each backend's scraped occupancy/reject rate,
+    retrying connection-level failures on the next backend (never
+    re-dispatching a request the backend already answered). When every
+    routable backend is saturated the gateway answers a typed `Overloaded`
+    (503) instead of queueing."""
+
+    backends: Tuple[str, ...] = ()  # backend base URLs (http://host:port)
+    host: str = "127.0.0.1"
+    port: int = 8800                # gateway bind port (0 = ephemeral)
+    probe_interval_s: float = 1.0   # health-probe cadence per backend
+    probe_jitter: float = 0.2       # multiplicative interval jitter (anti
+                                    # thundering-herd across gateways)
+    probe_timeout_s: float = 5.0    # per-probe socket timeout
+    fail_threshold: int = 3         # consecutive probe failures -> ejected
+    ok_threshold: int = 2           # consecutive probe successes -> healthy
+                                    # (re-admission hysteresis)
+    check_robustness: bool = True   # poll GET /robustness: a failing
+                                    # verdict degrades (not ejects) the
+                                    # backend — routable only when no
+                                    # healthy backend remains
+    inflight_cap: int = 32          # per-backend concurrent dispatches the
+                                    # gateway allows before calling the
+                                    # fleet saturated
+    dispatch_retries: int = 1       # connection-failure retries, each on a
+                                    # backend the request has not touched
+    dispatch_timeout_s: float = 75.0  # per-dispatch socket timeout (never
+                                    # retried: the backend may still answer)
+    canary_steps: Tuple[float, ...] = (0.1, 0.5, 1.0)
+                                    # rolling-deploy traffic fractions the
+                                    # canary group is stepped through
+    canary_hold_s: float = 2.0      # soak time per step before evaluating
+                                    # the canary's robustness
+    autoscale_window_s: float = 30.0   # sliding window for the signal-only
+                                    # scale recommendations
+    autoscale_high_occupancy: float = 0.8  # scale-up above this mean occupancy
+    autoscale_low_occupancy: float = 0.2   # scale-down below (and no rejects)
+    autoscale_high_reject: float = 0.01    # scale-up above this reject rate
+    autoscale_cooldown_s: float = 60.0     # min gap between recommendations
+    chaos: str = ""                 # gateway-side fault injection (comma
+                                    # list of dorpatch_tpu_torch.chaos
+                                    # GATEWAY_FAULTS: wedge_probe,
+                                    # poison_canary)
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     """One end-to-end experiment."""
 
@@ -202,6 +279,8 @@ class ExperimentConfig:
     defense: DefenseConfig = dataclasses.field(default_factory=DefenseConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
     farm: FarmConfig = dataclasses.field(default_factory=FarmConfig)
+    recert: RecertConfig = dataclasses.field(default_factory=RecertConfig)
+    gateway: GatewayConfig = dataclasses.field(default_factory=GatewayConfig)
 
     @property
     def num_classes(self) -> int:
@@ -214,15 +293,15 @@ def config_to_dict(cfg: ExperimentConfig) -> dict:
 
 
 #: keys of the JAX package's config whose subsystems (mesh, Pallas tier,
-#: GroupNorm implementation switch, sanitizer, AOT store, recert, gateway,
-#: remat) this package does not have; `config_from_dict` refuses them by
+#: GroupNorm implementation switch, sanitizer, AOT store, remat) this
+#: package does not have; `config_from_dict` refuses them by
 #: name, so a job that names one fails as a configuration error instead of
 #: losing the setting. `backend` and `gn_impl` at their JAX defaults are
 #: refused too: the port has one backend and picks its GroupNorm kernels
 #: itself.
 NOT_PORTED = {
     "ExperimentConfig": ("backend", "gn_impl", "mesh_data", "mesh_mask",
-                         "sanitize", "aot", "recert", "gateway"),
+                         "sanitize", "aot"),
     "AttackConfig": ("selection", "use_pallas", "remat", "remat_threshold",
                      "remat_policy"),
     "DefenseConfig": ("use_pallas",),
@@ -252,9 +331,12 @@ def config_from_dict(d: dict) -> ExperimentConfig:
     defense = build(DefenseConfig, d.pop("defense", {}))
     serve = build(ServeConfig, d.pop("serve", {}))
     farm = build(FarmConfig, d.pop("farm", {}))
+    recert = build(RecertConfig, d.pop("recert", {}))
+    gateway = build(GatewayConfig, d.pop("gateway", {}))
     cfg = build(ExperimentConfig, d)
     return dataclasses.replace(cfg, attack=attack, defense=defense,
-                               serve=serve, farm=farm)
+                               serve=serve, farm=farm, recert=recert,
+                               gateway=gateway)
 
 
 def resolved_data_source(cfg: ExperimentConfig) -> str:

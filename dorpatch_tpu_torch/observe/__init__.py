@@ -1,9 +1,10 @@
 """Observability core of the port: run telemetry of the main path, the
 sweep and farm, and the serving layer.
 
-Port of `dorpatch_tpu.observe` (all but the report CLI), with the same
-file names, record schemas, metric names and JSON keys, so the JAX
-package's readers (`python -m dorpatch_tpu.observe.report`,
+Port of `dorpatch_tpu.observe`, with the same file names, record schemas,
+metric names and JSON keys, so the port's report (`python -m
+dorpatch_tpu_torch.observe.report`, `report.py`, not imported here) and
+the JAX package's readers (`python -m dorpatch_tpu.observe.report`,
 `tools/loadgen.py --expect-metrics`) read the port's results directories:
 
 - `run.json`               — run manifest (`manifest.py`): resolved config,

@@ -5,10 +5,12 @@ Reuses the port's CLI (`dorpatch_tpu_torch.cli.build_parser`): model,
 dataset, defense and `--device` flags select what is served (on "cuda"
 unless `--device cpu` is given), the `--serve-*` group sizes the
 micro-batcher, replica pool and front-end; `--chaos wedge_dispatch,...`
-arms the serve faults (`dorpatch_tpu_torch.chaos`) against replica 0.
+arms the serve faults (`dorpatch_tpu_torch.chaos`) against replica 0;
+`--recert-dir DIR --require-recert strict|warn` gates the boot on the
+recert verdict in DIR (a strict refusal exits before any model is built).
 Telemetry lands in `<results_root>/serve/` (run.json, events.jsonl,
 metrics.json at a clean stop); render it with
-`python -m dorpatch_tpu.observe.report <results_root>/serve`.
+`python -m dorpatch_tpu_torch.observe.report <results_root>/serve`.
 
     python -m dorpatch_tpu_torch.serve --synthetic --dataset imagenet \\
         --base_arch resnetv2 --img-size 224 --serve-replicas 2 \\

@@ -17,9 +17,9 @@ Endpoints:
   queue depth, and per-program trace counts.
 - `GET /metrics` — Prometheus text exposition of the service's metric
   registry (the same registry `/stats` summarizes — one source of truth).
-- `GET /robustness` — the recert verdict snapshot; the port has no recert
-  gate yet and answers the unconfigured snapshot with a 503, as the JAX
-  package does without one.
+- `GET /robustness` — the recert verdict snapshot loaded at boot
+  (`service.robustness()`): 200 only when its status is "ok", 503 on a
+  failing, stale, absent or unconfigured verdict.
 - `POST /profile` — on-demand bounded `torch.profiler` capture into
   `<result_dir>/profile` (body `{"duration_ms": 500}` optional); 200 with
   the trace dir on success, 409 while another capture is in flight, 400

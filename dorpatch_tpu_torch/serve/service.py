@@ -28,7 +28,18 @@ JAX package's telemetry contract (`run.json`, `events.jsonl`,
 `metrics.json`, `heartbeat_r<slot>.jsonl`) — a `serve.batch` span per
 flush (bucket, occupancy), a `serve.request` event per answered or
 rejected request (status, latency) — which
-`python -m dorpatch_tpu.observe.report` renders as its "serve" section.
+`python -m dorpatch_tpu_torch.observe.report` renders as its "serve" section.
+
+Re-certification boot gate: with a `RecertConfig` (`recert_cfg`) the
+service reads the recert scheduler's published verdict
+(`recert.gate.boot_gate`) before anything else: before it resolves its
+device, builds its victim (`from_config`) or its defense bank, or warms
+a program. Under `--require-recert strict` a failing, stale or absent
+verdict raises `RecertGateError` there, so a refusal costs neither a CUDA
+context nor a kernel build; `warn` serves and carries the status. The
+gate runs again at every `start()` (a restarted service reads the newest
+verdict) and records `serve.recert_gate`; `robustness()` (`GET
+/robustness`, 200 only on "ok") answers the snapshot.
 
 The service runs on "cuda" unless `device="cpu"` is asked for; a CUDA
 request without a GPU raises.
@@ -48,8 +59,9 @@ import torch
 
 from dorpatch_tpu_torch import data as data_lib
 from dorpatch_tpu_torch import defense as defense_lib
-from dorpatch_tpu_torch import observe, utils
-from dorpatch_tpu_torch.config import DefenseConfig, ExperimentConfig, ServeConfig
+from dorpatch_tpu_torch import observe, ops, utils
+from dorpatch_tpu_torch.config import (DefenseConfig, ExperimentConfig,
+                                       RecertConfig, ServeConfig)
 from dorpatch_tpu_torch.defense import build_defenses
 from dorpatch_tpu_torch.serve.batcher import MicroBatcher, PendingRequest
 from dorpatch_tpu_torch.serve.pool import ReplicaPool
@@ -112,6 +124,19 @@ def marshal_response(reqs: List[PendingRequest], clean_logits,
     return out
 
 
+def recert_gate(recert_cfg: Optional[RecertConfig]
+                ) -> Optional[Dict[str, Any]]:
+    """The robustness snapshot of `recert_cfg`: None when neither a recert
+    dir nor a gate mode is configured; raises `RecertGateError` under
+    "strict" unless the verdict is "ok"."""
+    if recert_cfg is None or (recert_cfg.require == "off"
+                              and not recert_cfg.dir):
+        return None
+    from dorpatch_tpu_torch.recert.gate import boot_gate
+
+    return boot_gate(recert_cfg.dir, recert_cfg.require)
+
+
 class CertifiedInferenceService:
     """Micro-batching front door over a victim + PatchCleanser defense bank.
 
@@ -135,7 +160,12 @@ class CertifiedInferenceService:
         clock=time.perf_counter,
         incremental_engine: Any = None,
         device: Any = "cuda",
+        recert_cfg: Optional[RecertConfig] = None,
     ):
+        # the robustness boot gate comes first: a strict refusal must cost
+        # no device, no bank and no warmup
+        self.recert_cfg = recert_cfg
+        self._robustness: Optional[Dict[str, Any]] = recert_gate(recert_cfg)
         self.apply_fn = apply_fn
         self.num_classes = int(num_classes)
         self.img_size = int(img_size)
@@ -211,6 +241,10 @@ class CertifiedInferenceService:
         self._elog: Optional[observe.EventLog] = None
         self._warm = False
         self._started_at: Optional[float] = None
+        # kernel launches when every bank was warm, and those already
+        # written to metrics.json (`_dump_metrics`)
+        self._launches_from: Dict[str, int] = {}
+        self._launches_dumped: Dict[str, int] = {}
 
     @classmethod
     def from_config(cls, cfg: ExperimentConfig,
@@ -222,6 +256,8 @@ class CertifiedInferenceService:
         defaults to `<results_root>/serve`."""
         from dorpatch_tpu_torch.models.registry import get_model
 
+        # strict refusal before the victim is built or the card touched
+        recert_gate(cfg.recert)
         dev = utils.resolve_device(cfg.device)
         utils.configure_numerics()
         victim = get_model(cfg.dataset, cfg.base_arch, cfg.model_dir,
@@ -232,7 +268,7 @@ class CertifiedInferenceService:
                    serve_cfg=cfg.serve, defense_cfg=cfg.defense,
                    result_dir=result_dir if cfg.metrics_log else None,
                    run_cfg=cfg, incremental_engine=victim.incremental,
-                   device=dev)
+                   device=dev, recert_cfg=cfg.recert)
 
     # ---------------- lifecycle ----------------
 
@@ -280,6 +316,17 @@ class CertifiedInferenceService:
             # phase, and open-span accounting all hang off this span (a
             # crashed service leaves it open — the hang signature)
             self._stack.enter_context(observe.span("run", service="serve"))
+        # robustness boot gate, before any warmup: the verdict as of this
+        # boot (strict raises RecertGateError here); `warn` records the
+        # degraded status and serves, `GET /robustness` renders it
+        self._robustness = recert_gate(self.recert_cfg)
+        if self._robustness is not None:
+            observe.record_event(
+                "serve.recert_gate",
+                require=self._robustness["require"],
+                status=self._robustness["status"],
+                generation=self._robustness.get("generation"),
+                worst_margin=self._robustness.get("worst_margin"))
         if self.enforce_budgets:
             # arm the shape budget for the serving process: any program
             # running a shape past its per-bucket budget fails the batch
@@ -311,13 +358,16 @@ class CertifiedInferenceService:
                           crash_mode="raise")
             if self.result_dir:
                 # kill_backend's flush-before-SIGKILL contract
-                chaos.bind(metrics_flush=lambda: self.metrics.dump(
-                    os.path.join(self.result_dir, "metrics.json")))
+                chaos.bind(metrics_flush=self._dump_metrics)
         # the pool builds replicas 1..N-1 (fresh banks and streams, warmed
         # through _build_bank), adopts replica 0's bank from this service,
         # launches every worker thread, and starts the supervisor
         self._pool = ReplicaPool(self, chaos=chaos)
         self._pool.start()
+        # every bank is warm: the kernel launches from here on are the
+        # traffic's (`_dump_metrics`)
+        self._launches_from = ops.launch_counts()
+        self._launches_dumped = {}
 
     def _drain_timeout_s(self) -> float:
         """How long stop() waits for in-flight work: twice the request
@@ -350,19 +400,37 @@ class CertifiedInferenceService:
                         f"{drain_s:.1f}s; telemetry stays open",
                         file=sys.stderr)
             if self.result_dir:
-                self.metrics.dump(
-                    os.path.join(self.result_dir, "metrics.json"))
+                self._dump_metrics()
             return
         self._pool = None
         observe.record_event("serve.stopped", **self._snapshot())
         if self.result_dir:
             # final atomic snapshot next to events.jsonl: the offline
             # report and the fleet cross-check read this file
-            self.metrics.dump(os.path.join(self.result_dir, "metrics.json"))
+            self._dump_metrics()
         if self._stack is not None:
             self._stack.close()
             self._stack = None
             self._elog = None
+
+    def _dump_metrics(self) -> None:
+        """The registry's atomic snapshot, `<result_dir>/metrics.json`, with
+        the process's kernel launches since the service warmed as
+        `kernel_launches_total{kernel=...}` (the farm worker's counter): how
+        a reader outside a serve process sees which kernels its traffic
+        ran. The launch counts are the process's, so the counter means
+        this service's launches only in a serve process of its own."""
+        now = ops.launch_counts()
+        base, dumped = self._launches_from, self._launches_dumped
+        for name, n in sorted(now.items()):
+            new = max(0, n - base.get(name, 0)) - dumped.get(name, 0)
+            if new > 0:
+                self.metrics.counter(
+                    "kernel_launches_total",
+                    "CUDA kernel launches of this serve process since "
+                    "warmup, by kernel").inc(new, kernel=name)
+                dumped[name] = dumped.get(name, 0) + new
+        self.metrics.dump(os.path.join(self.result_dir, "metrics.json"))
 
     def capture_profile(self, duration_ms: float = 500.0) -> Optional[str]:
         """On-demand bounded `torch.profiler` capture into the run dir (the
@@ -595,9 +663,13 @@ class CertifiedInferenceService:
         return out
 
     def robustness(self) -> dict:
-        """`GET /robustness`: the port has no recert boot gate yet, so this
-        is the JAX package's unconfigured answer."""
-        return {"require": "off", "status": "unconfigured"}
+        """The recert verdict snapshot loaded at boot (`GET /robustness`):
+        gate mode, verdict status, generation, worst margin, per-cell
+        grid. It reflects the verdict as of boot: a fresh generation's
+        verdict takes effect at the next start."""
+        if self._robustness is None:
+            return {"require": "off", "status": "unconfigured"}
+        return dict(self._robustness)
 
     def stats(self) -> dict:
         s = self._snapshot()
@@ -605,6 +677,10 @@ class CertifiedInferenceService:
         s["buckets"] = list(self.bucket_sizes)
         s["trace_counts"] = self.trace_counts()
         s["warm"] = self._warm
+        if self._robustness is not None:
+            s["robustness"] = {
+                k: self._robustness.get(k)
+                for k in ("require", "status", "generation", "worst_margin")}
         if self._started_at is not None:
             s["uptime_s"] = round(self._clock() - self._started_at, 3)
         pool = self._pool

@@ -30,25 +30,28 @@ Run:  python -m dorpatch_tpu_torch.train --out pretrained_models/
       python -m dorpatch_tpu_torch.train --device cpu --epochs 1 \\
           --n-per-class 24 --batch-size 48
 
-The JAX package's `--telemetry-dir` is not offered: the run telemetry
-(`observe/`) is not ported yet.
+`--telemetry-dir DIR` writes the run-telemetry contract of a results dir
+there (`run.json`, `events.jsonl` with a `train.epoch` span an epoch and
+a `train.eval` span, `heartbeat_0.jsonl`), as the JAX package's does;
+`python -m dorpatch_tpu_torch.observe.report DIR` renders it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import sys
 import time
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from dorpatch_tpu_torch import data as data_lib
-from dorpatch_tpu_torch import utils
+from dorpatch_tpu_torch import observe, utils
 from dorpatch_tpu_torch.models import registry
 
 #: reflect padding of the random crop; offsets are drawn in [0, 2 * PAD]
@@ -174,12 +177,39 @@ def quantize(images01: np.ndarray) -> np.ndarray:
 
 
 def train_victim(cfg: TrainConfig = TrainConfig(), device="cuda",
-                 log=_log) -> Tuple[torch.nn.Module, dict]:
+                 log=_log, telemetry_dir: Optional[str] = None
+                 ) -> Tuple[torch.nn.Module, dict]:
     """Train the cfg.arch victim on `device` ("cuda" unless the caller asks
     for "cpu"); returns (model, report), report = {"test_acc",
-    "train_acc", "steps", "seconds", "backend", "n_train", "n_test"}."""
-    arch_name = registry.trainable_arch(cfg.arch)
+    "train_acc", "steps", "seconds", "backend", "n_train", "n_test"}.
+    `telemetry_dir` (optional) gets the run-telemetry contract of an
+    experiment results dir: run.json, events.jsonl spans per epoch, a
+    heartbeat file."""
+    arch_name = registry.trainable_arch(cfg.arch)  # fail before telemetry
     dev = utils.resolve_device(device)
+    telemetry = contextlib.ExitStack()
+    if telemetry_dir:
+        run_id = observe.new_run_id()
+        observe.write_run_manifest(
+            telemetry_dir, cfg, run_id=run_id,
+            extra=observe.torch_environment())
+        elog = telemetry.enter_context(observe.EventLog(
+            os.path.join(telemetry_dir, observe.events_filename()),
+            run_id=run_id))
+        telemetry.enter_context(observe.active(elog))
+        telemetry.enter_context(observe.Heartbeat(
+            os.path.join(telemetry_dir, observe.heartbeat_filename()),
+            get_phase=elog.current_path, run_id=run_id))
+        telemetry.enter_context(observe.span("run"))
+    # `with`, not a happy-path close: an exception must unwind the
+    # heartbeat thread and the process-global active EventLog, or a later
+    # run in the same process writes spans into this telemetry dir
+    with telemetry:
+        return _train_victim_impl(cfg, arch_name, dev, log)
+
+
+def _train_victim_impl(cfg: TrainConfig, arch_name: str, dev: torch.device,
+                       log) -> Tuple[torch.nn.Module, dict]:
     utils.configure_numerics()
     tr_x, tr_y = data_lib.training_arrays(
         cfg.dataset, cfg.data_source, cfg.data_dir,
@@ -212,23 +242,26 @@ def train_victim(cfg: TrainConfig = TrainConfig(), device="cuda",
     step = 0
     train_acc = 0.0
     for epoch in range(cfg.epochs):
-        order = torch.as_tensor(rng.permutation(len(tr_x)), device=dev)
-        accs = []
-        for i in range(steps_per_epoch):
-            sel = order[i * cfg.batch_size:(i + 1) * cfg.batch_size]
-            offsets, flips = draw_augment(gen, cfg.batch_size)
-            _, acc = train_step(model, opt, lr_at(step), dev_tr_x[sel],
-                                dev_tr_y[sel], offsets, flips,
-                                cfg.label_smoothing)
-            accs.append(acc)
-            step += 1
-        train_acc = float(torch.stack(accs).mean())
+        with observe.span("train.epoch", epoch=epoch + 1) as sp:
+            order = torch.as_tensor(rng.permutation(len(tr_x)), device=dev)
+            accs = []
+            for i in range(steps_per_epoch):
+                sel = order[i * cfg.batch_size:(i + 1) * cfg.batch_size]
+                offsets, flips = draw_augment(gen, cfg.batch_size)
+                _, acc = train_step(model, opt, lr_at(step), dev_tr_x[sel],
+                                    dev_tr_y[sel], offsets, flips,
+                                    cfg.label_smoothing)
+                accs.append(acc)
+                step += 1
+            train_acc = float(torch.stack(accs).mean())
+            sp["train_acc"] = round(train_acc, 4)
         log(f"epoch {epoch + 1}/{cfg.epochs}: train_acc={train_acc:.3f} "
             f"({time.perf_counter() - t0:.0f}s)")
-    hits = sum(eval_hits(model, dev_te_x[i:i + EVAL_CHUNK],
-                         dev_te_y[i:i + EVAL_CHUNK])
-               for i in range(0, len(te_x), EVAL_CHUNK))
-    acc = int(hits) / len(te_x)
+    with observe.span("train.eval"):
+        hits = sum(eval_hits(model, dev_te_x[i:i + EVAL_CHUNK],
+                             dev_te_y[i:i + EVAL_CHUNK])
+                   for i in range(0, len(te_x), EVAL_CHUNK))
+        acc = int(hits) / len(te_x)
     report = {
         "test_acc": acc,
         "train_acc": train_acc,
@@ -278,6 +311,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("procedural", "disk"),
                    help="disk = real CIFAR train batches under --data-dir")
     p.add_argument("--data-dir", default="data/")
+    p.add_argument("--telemetry-dir", default="",
+                   help="write run telemetry (run.json, events.jsonl, "
+                        "heartbeat) here; readable by "
+                        "`python -m dorpatch_tpu_torch.observe.report`")
     return p
 
 
@@ -291,7 +328,8 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    model, report = train_victim(config_from_args(args), device=args.device)
+    model, report = train_victim(config_from_args(args), device=args.device,
+                                 telemetry_dir=args.telemetry_dir)
     path = save_victim_checkpoint(model, args.out, args.dataset, args.arch)
     _log(f"saved {path}; report={report}")
     return 0

@@ -136,8 +136,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     neither jax nor any module of `dorpatch_tpu` may load, and PIL only
     when the disk source is read. The serving stack (`serve/`, `observe/`,
     `chaos`, `backoff`), the sweep and the farm (`checkpoint`, `sweep`,
-    `farm/`, `observe.attack_log`) keep their own copies of the JAX
-    package's jax-free modules and must be among the modules scanned."""
+    `farm/`, `observe.attack_log`), and the certified fleet (`recert/`,
+    `gateway/`, `observe.report`, `analysis/`) keep their own copies of
+    the JAX package's jax-free modules and must be among the modules
+    scanned."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import dorpatch_tpu_torch
@@ -170,19 +172,72 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "dorpatch_tpu_torch.farm.worker",
                 "dorpatch_tpu_torch.farm.report",
                 "dorpatch_tpu_torch.farm.chaos",
-                "dorpatch_tpu_torch.farm.__main__"}
+                "dorpatch_tpu_torch.farm.__main__",
+                "dorpatch_tpu_torch.analysis",
+                "dorpatch_tpu_torch.analysis.engine",
+                "dorpatch_tpu_torch.analysis.baseline",
+                "dorpatch_tpu_torch.analysis.cli",
+                "dorpatch_tpu_torch.recert",
+                "dorpatch_tpu_torch.recert.baseline",
+                "dorpatch_tpu_torch.recert.gate",
+                "dorpatch_tpu_torch.recert.scheduler",
+                "dorpatch_tpu_torch.recert.__main__",
+                "dorpatch_tpu_torch.gateway",
+                "dorpatch_tpu_torch.gateway.membership",
+                "dorpatch_tpu_torch.gateway.router",
+                "dorpatch_tpu_torch.gateway.deploy",
+                "dorpatch_tpu_torch.gateway.autoscale",
+                "dorpatch_tpu_torch.gateway.http",
+                "dorpatch_tpu_torch.gateway.service",
+                "dorpatch_tpu_torch.gateway.__main__",
+                "dorpatch_tpu_torch.observe.report"}
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "flax" or m.startswith("flax.")
                      or m == "PIL" or m.startswith("PIL.")
                      or m == "dorpatch_tpu" or m.startswith("dorpatch_tpu."))
         print(len(names), bad, sorted(need - set(names)))
-        sys.exit(1 if bad or len(names) < 59 or need - set(names) else 0)
+        sys.exit(1 if bad or len(names) < 77 or need - set(names) else 0)
     """)
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                          env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_recert_and_gateway_import_no_torch_and_help_runs():
+    """Importing the recert, gateway and report modules, and their
+    `--help` (and recert's `--list-rules`), load neither torch nor jax nor
+    any module of `dorpatch_tpu`."""
+    code = textwrap.dedent("""
+        import contextlib, io, sys
+        import dorpatch_tpu_torch.recert, dorpatch_tpu_torch.recert.gate
+        import dorpatch_tpu_torch.recert.scheduler
+        import dorpatch_tpu_torch.recert.baseline
+        import dorpatch_tpu_torch.recert.__main__ as rm
+        import dorpatch_tpu_torch.gateway, dorpatch_tpu_torch.gateway.__main__
+        import dorpatch_tpu_torch.observe.report as report
+        import dorpatch_tpu_torch.analysis.cli
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert rm.main(["--list-rules"]) == 0
+            for main in (rm.main, report.main,
+                         dorpatch_tpu_torch.gateway.__main__.main):
+                try:
+                    main(["--help"])
+                except SystemExit as e:
+                    assert e.code == 0
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("torch", "jax")
+                     or m == "dorpatch_tpu" or m.startswith("dorpatch_tpu."))
+        print(bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
 
 

@@ -465,3 +465,109 @@ def test_from_config_real_cifar_victim_matches_robust_predict(tmp_path):
     manifest = json.load(open(tmp_path / "serve" / "run.json"))
     assert manifest["backend_impl"] == "torch"
     assert manifest["config"]["serve"]["max_batch"] == 1
+
+
+# ---------- the re-certification boot gate ----------
+
+def _verdict_dir(tmp_path, status):
+    rdir = tmp_path / f"recert_{status}"
+    rdir.mkdir()
+    if status != "absent":
+        (rdir / "recert_verdict.json").write_text(json.dumps({
+            "status": status, "generation": 3, "worst_margin": -4.0,
+            "findings_by_rule": {"DP400": 1} if status == "failing" else {},
+            "cells": {"cellA": {"status": "regressed" if status == "failing"
+                                else "ok", "margin": -4.0}}}))
+    return str(rdir)
+
+
+@pytest.mark.parametrize("status", ["failing", "stale", "absent"])
+def test_strict_recert_gate_refuses_before_any_model_is_built(
+        tmp_path, monkeypatch, status):
+    """`--require-recert strict` on a failing, stale or absent verdict
+    raises `RecertGateError` in `from_config` before the model factory
+    (`registry.get_model`) or the device is touched, and in the
+    constructor before the defense bank is built; the message is the JAX
+    gate's."""
+    from dorpatch_tpu.recert.gate import RecertGateError as JaxGateError
+    from dorpatch_tpu.recert.gate import boot_gate as jax_boot_gate
+    from dorpatch_tpu_torch import utils
+    from dorpatch_tpu_torch.cli import build_parser, config_from_args
+    from dorpatch_tpu_torch.config import RecertConfig
+    from dorpatch_tpu_torch.models import registry
+    from dorpatch_tpu_torch.recert.gate import RecertGateError
+    from dorpatch_tpu_torch.serve import service as service_mod
+
+    rdir = _verdict_dir(tmp_path, status)
+    calls = []
+    monkeypatch.setattr(registry, "get_model",
+                        lambda *a, **k: calls.append("get_model"))
+    monkeypatch.setattr(utils, "resolve_device",
+                        lambda *a, **k: calls.append("resolve_device"))
+    monkeypatch.setattr(service_mod, "build_defenses",
+                        lambda *a, **k: calls.append("build_defenses"))
+    cfg = config_from_args(build_parser().parse_args([
+        "--device", "cpu", "--dataset", "cifar10", "--base_arch",
+        "resnet18", "--img-size", "32", "--results-root", str(tmp_path),
+        "--recert-dir", rdir, "--require-recert", "strict"]))
+    with pytest.raises(RecertGateError) as ei:
+        CertifiedInferenceService.from_config(cfg)
+    with pytest.raises(JaxGateError) as jei:
+        jax_boot_gate(rdir, "strict")
+    assert str(ei.value) == str(jei.value)
+    with pytest.raises(RecertGateError):
+        CertifiedInferenceService(
+            torch_stub, N_CLASSES, IMG, serve_cfg=ServeConfig(
+                **_serve_kw()), device="cpu",
+            recert_cfg=RecertConfig(dir=rdir, require="strict"))
+    assert calls == []
+
+
+def test_warn_gate_serves_and_robustness_answers_200_only_on_ok(tmp_path):
+    """`warn` on a failing verdict serves, carries the snapshot in
+    `robustness()` and `stats()`, records `serve.recert_gate`, and `GET
+    /robustness` answers 503 with the cells; `strict` on an ok verdict
+    serves and answers 200. The snapshots equal the JAX service's."""
+    import urllib.error
+    import urllib.request
+
+    from dorpatch_tpu.config import RecertConfig as JRecertConfig
+    from dorpatch_tpu_torch.config import RecertConfig
+    from dorpatch_tpu_torch.serve import HttpFrontend
+
+    codes = {}
+    for status, require in (("failing", "warn"), ("ok", "strict")):
+        rdir = _verdict_dir(tmp_path, status)
+        root = tmp_path / status
+        svc = CertifiedInferenceService(
+            torch_stub, N_CLASSES, IMG, serve_cfg=ServeConfig(**_serve_kw()),
+            defense_cfg=DefenseConfig(ratios=(0.1,), chunk_size=64),
+            result_dir=str(root), device="cpu",
+            recert_cfg=RecertConfig(dir=rdir, require=require))
+        jsvc = jserve.CertifiedInferenceService(
+            jax_stub, None, num_classes=N_CLASSES, img_size=IMG,
+            serve_cfg=JServeConfig(**_serve_kw()),
+            defense_cfg=JDefenseConfig(ratios=(0.1,), chunk_size=64),
+            recert_cfg=JRecertConfig(dir=rdir, require=require))
+        with svc, jsvc, HttpFrontend(svc, "127.0.0.1", 0) as fe:
+            assert isinstance(svc.predict(make_images(1)[0]), PredictResult)
+            snap = svc.robustness()
+            assert snap == jsvc.robustness()
+            assert svc.stats()["robustness"] == jsvc.stats()["robustness"]
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{fe.port}/robustness",
+                        timeout=30) as r:
+                    codes[status] = (r.status, json.loads(r.read()))
+            except urllib.error.HTTPError as e:
+                codes[status] = (e.code, json.loads(e.read()))
+        assert snap["status"] == status and snap["require"] == require
+        assert codes[status][1] == snap
+        gate = [e for e in (json.loads(line) for line in
+                            open(root / "events.jsonl"))
+                if e.get("name") == "serve.recert_gate"]
+        assert len(gate) == 1 and gate[0]["status"] == status
+    assert codes["failing"][0] == 503 and codes["ok"][0] == 200
+    assert codes["failing"][1]["cells"]["cellA"]["status"] == "regressed"
+    plain = make_service()
+    assert plain.robustness() == {"require": "off", "status": "unconfigured"}

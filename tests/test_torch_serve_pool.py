@@ -214,12 +214,16 @@ def test_exhausted_restarts_retire_degrade_not_hang(tmp_path):
 
 
 def test_chaos_refuses_faults_not_yet_ported():
+    """Every fault of the JAX package is ported: the recert and gateway
+    faults parse as the JAX package parses them, and an unknown name is
+    still refused."""
+    from dorpatch_tpu import chaos as jax_chaos
     from dorpatch_tpu_torch import chaos
 
     assert chaos.parse_faults("wedge_dispatch, kill_backend") == (
         "wedge_dispatch", "kill_backend")
+    assert chaos.FAULTS == jax_chaos.FAULTS
     for fault in ("recert_kill_cycle", "wedge_probe"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            chaos.parse_faults(fault)
+        assert chaos.parse_faults(fault) == jax_chaos.parse_faults(fault)
     with pytest.raises(ValueError, match="unknown"):
         chaos.parse_faults("nope")

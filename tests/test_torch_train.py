@@ -299,21 +299,6 @@ def test_cli_writes_the_checkpoint_at_the_contract_path(tmp_path):
     assert victim.from_checkpoint
 
 
-@pytest.mark.parametrize("arch", ["cifar_resnet18", "cifar_vit"])
-def test_two_cpu_runs_repeat_bit_for_bit(arch):
-    cfg = ttrain.TrainConfig(arch=arch, **TINY)
-    runs = [ttrain.train_victim(cfg, device="cpu", log=lambda *a: None)
-            for _ in range(2)]
-    (m1, r1), (m2, r2) = runs
-    assert r1["steps"] == 10 and r1["n_train"] == 240 and r1["n_test"] == 20
-    assert r1["backend"] == "cpu"
-    for k in ("test_acc", "train_acc", "steps"):
-        assert r1[k] == r2[k], k
-    for (k1, v1), (k2, v2) in zip(m1.state_dict().items(),
-                                  m2.state_dict().items()):
-        assert k1 == k2 and torch.equal(v1, v2), k1
-
-
 @pytest.mark.parametrize("arch", ["resnetv2", "vit", "resmlp",
                                   "cifar_resmlp"])
 def test_untrainable_families_raise(arch):
