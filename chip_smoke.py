@@ -55,10 +55,10 @@ NVIDIA GPU.
    scheduled:
    - CIFAR: `--synthetic --dataset cifar10 --base_arch resnet18
      --img-size 32 -b 8 --sampling-size 128 --dropout 2 --max-iterations
-     20 --num-batches 1` (full-width CIFAR ResNet-18; kernels A, B, C);
+     10 --num-batches 1` (full-width CIFAR ResNet-18; kernels A, B, C);
    - RN50: `--synthetic --dataset imagenet --base_arch resnetv2
      --img-size 224 -b 2 --sampling-size 128 --dropout 2 --max-iterations
-     20 --num-batches 1` (ResNetV2-50x1 BiT at full depth and width;
+     10 --num-batches 1` (ResNetV2-50x1 BiT at full depth and width;
      kernels A, B, C and the GroupNorm+ReLU forward and backward);
    - ViT: the same flags with `--base_arch vit` and `--max-iterations
      10` (ViT-B/16 at full depth and width; kernels A, B and H);
@@ -105,7 +105,19 @@ NVIDIA GPU.
    in float32 and in bf16, and fails unless every gradient equals the
    first and the patches are bit-equal (`repeat.victim_repeat`,
    `repeat.attack_steps`; without cuDNN determinism the float32 gradient
-   differs in almost every call);
+   differs in almost every call); then remat (`remat_phase`): one attack
+   step of RN50 at 224 (float32 and bf16) and of ViT-B/16 (float32), 2
+   images, `--sampling-size 128`, with remat off and under each policy,
+   loss and both gradients bit-equal (`torch.equal`), kernel D's
+   statistics recomputed in the backward bit-equal to the forward's,
+   peak memory, ms and GroupNorm launches a step printed; one step of
+   RN50 at 480 px with 1 image without remat and with 2 under each
+   policy that fits (REMAT_480_POLICIES); and the slice's path, RN50 at
+   480 px with 2 images a batch and `--remat on` through the CLI
+   (RN50_480_B2_ARGV, 10 iterations; it does not fit without remat),
+   whose certification records must equal those of certifying its patch
+   again with remat off (the 480 px kernel records carry its launches as
+   `remat_launches`);
 6. certifies one radius both ways on each conv victim (stem fold = kernel
    C, and full masked forwards = kernel A) and asserts the first-round
    tables agree wherever both top-2 margins exceed 1e-3; on RN50 also
@@ -145,6 +157,15 @@ NVIDIA GPU.
    failure set; and repeats the stem-fold, token-engine and bf16-bank
    cross-checks of 6 on the trained weights (the token engine's largest
    logit drift over unescalated images printed beside the 0.5 margin);
+   runs the trained CIFAR path (10 iterations) with `--sanitize`, whose
+   events.jsonl must hold `sanitize.enabled` and the programs' budgets and
+   no exceeded budget, then plants two NaNs in its attack, one made by an
+   aten op and one inside kernel A (a NaN fill), each of which must raise
+   `FloatingPointError` naming the op, or the kernel (`sanitize_phase`);
+   and holds the trained CIFAR ResNet-18's `.pth` and an RN50 `.pth`
+   written from the port's random init to the timm key contract through
+   `python -m dorpatch_tpu_torch.models.verify`, with the card's logits
+   within 1e-4 of the CPU's and every argmax equal (`verify_phase`);
 9. runs the attack-sweep farm (`farm_phase`, `python -m
    dorpatch_tpu_torch.farm` worker processes over one farm directory) on
    the CIFAR ResNet-18 trained in 7: 4 jobs (patch budget 0.06 and 0.12,
@@ -252,14 +273,22 @@ GN_480_SLAB = (128, 120 * 120, 256)
 TOL_H = dict(rtol=1e-5, atol=1e-5)
 TOL_H_LOGITS = 1e-4
 
+#: the attack's depth of every untrained main path (their f32 and bf16
+#: runs), cut from 20 (CIFAR, RN50 and what derives from them: since PR
+#: 17; ViT, RN50 480, ResMLP: since PR 15) to keep the script within its
+#: time: every kernel of a path launches in each iteration and in the
+#: certification
+SHORT_ITERATIONS = 10
 CIFAR_ARGV = ["--synthetic", "--dataset", "cifar10", "--base_arch",
               "resnet18", "--img-size", "32", "-b", "8",
               "--sampling-size", "128", "--dropout", "2",
-              "--max-iterations", "20", "--num-batches", "1"]
+              "--max-iterations", str(SHORT_ITERATIONS), "--num-batches",
+              "1"]
 RN50_ARGV = ["--synthetic", "--dataset", "imagenet", "--base_arch",
              "resnetv2", "--img-size", "224", "-b", "2",
              "--sampling-size", "128", "--dropout", "2",
-             "--max-iterations", "20", "--num-batches", "1"]
+             "--max-iterations", str(SHORT_ITERATIONS), "--num-batches",
+             "1"]
 
 
 def _iterations(argv, n):
@@ -268,10 +297,6 @@ def _iterations(argv, n):
     return argv[:i + 1] + [str(n)] + argv[i + 2:]
 
 
-#: the attack's depth of the ViT, RN50 480 and ResMLP paths (their f32
-#: and bf16 runs), cut from 20 to keep the script within its time: every
-#: kernel of a path launches in each iteration and in the certification
-SHORT_ITERATIONS = 10
 VIT_ARGV = _iterations([a if a != "resnetv2" else "vit" for a in RN50_ARGV],
                        SHORT_ITERATIONS)
 #: ResNetV2-50x1 at BiT's 480 px fine-tuning resolution, 1 image a batch
@@ -1250,7 +1275,7 @@ PATCHES = {}
 
 
 def main_path(torch, dev, label, argv, required, shares=None,
-              audit_fill=None, trained=False, edit=None):
+              audit_fill=None, trained=False, edit=None, inspect=None):
     """One main path through the CLI entry point, with the launch counts
     set to 0 just before and read just after; every kernel in `required`
     must have launched. Of each GroupNorm kernel's launches, the share in
@@ -1265,7 +1290,8 @@ def main_path(torch, dev, label, argv, required, shares=None,
     was scheduled. A `trained` path must load its victim from the
     checkpoint (`get_model` draws random weights without one), evaluate the
     attack's stage switch and draw masks from the failure set; it prints
-    both. `edit` maps the parsed config (e.g. to another `stream_depth`).
+    both. `edit` maps the parsed config (e.g. to another `stream_depth`);
+    `inspect` is called with the results dir before it is removed.
     Prints the seconds the run's `data` spans took (the input path), and
     keeps the patch of batch 0 in `PATCHES[label]`. Returns (metrics,
     launch and route counts of the run, the first batch's certification
@@ -1329,6 +1355,8 @@ def main_path(torch, dev, label, argv, required, shares=None,
         records = store.load_pc_records(0)
         PATCHES[label] = store.load_patch(0)
         data_s = _span_seconds(store.result_dir, "data")
+        if inspect is not None:
+            inspect(store.result_dir)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"{label} main path: {wall:.2f} s wall; attack seconds "
           f"{m.get('attack_seconds')}; certify seconds "
@@ -3464,6 +3492,296 @@ def fleet_phase(torch, dev, out, smi) -> dict:
     return {"recert": recert, "backends": launches}
 
 
+# ------------------------------------------------------------------ remat
+#
+# Remat (`--remat`, `--remat-policy`, `models/remat.py`) checkpoints each
+# residual block of the victim under the attack's gradient forward: loss and
+# gradients must be bit-equal with it on and off, and it must let RN50 at
+# 480 px run a batch of 2, whose activations (about 90 GiB in float32) do
+# not fit the card without it.
+
+#: the slice's full-width path: RN50 at 480 px, 2 images a batch, remat on
+RN50_480_B2_ARGV = (RN50_480_ARGV[:RN50_480_ARGV.index("-b") + 1] + ["2"]
+                    + RN50_480_ARGV[RN50_480_ARGV.index("-b") + 2:]
+                    + ["--remat", "on"])
+#: the policies whose RN50 480 batch-2 step fits the card ("conv" keeps
+#: every std-conv output of a block: it does not fit, dev run, PERF.md §5);
+#: "dots" equals "full" on a conv victim
+REMAT_480_POLICIES = ("full", "dots")
+
+
+def _remat_grads(torch, atk, x, lvx, rects, state):
+    """One EOT step's loss and both gradients (stage 0)."""
+    m = state.adv_mask.detach().clone().requires_grad_(True)
+    p = state.adv_pattern.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        total, _ = atk._loss_and_aux(m, p, x, lvx, rects, state, 0)
+        g_mask, g_pattern = torch.autograd.grad(total, (m, p))
+    return total.detach(), g_mask, g_pattern
+
+
+def remat_step_check(torch, dev, label, arch, size, b, dtype, modes,
+                     stats_check=False):
+    """One attack step (stage 0, `sampling_size` 128, dropout 2, one
+    injected draw) of `arch` at `size` px on `b` images in `dtype`, under
+    each of `modes` (None: remat off; else the policy, remat on): loss and
+    both gradients must equal the first mode's (`torch.equal`). Prints each
+    mode's peak device memory, ms a step (the second of two calls) and
+    GroupNorm forward/backward launches a step. `stats_check`: the
+    GroupNorm statistics (mean, rstd) that kernel D recomputes in the
+    backward under remat must equal the first forward's bit for bit."""
+    from dorpatch_tpu_torch import losses, ops, utils
+    from dorpatch_tpu_torch import masks as masks_lib
+    from dorpatch_tpu_torch.attack import DorPatch
+    from dorpatch_tpu_torch.config import AttackConfig
+    from dorpatch_tpu_torch.models import get_model
+    from dorpatch_tpu_torch.ops import fused_gn
+
+    victim = get_model("imagenet", arch, "/nonexistent", size, device=dev)
+    x = torch.rand((b, size, size, 3), generator=utils.generator(1, dev),
+                   device=dev)
+    y = torch.argmax(victim.apply(x), -1)
+    lvx = torch.mean(losses.local_variance(x)[0], dim=-1)
+    base = AttackConfig(sampling_size=128, compute_dtype=dtype)
+    universe = torch.as_tensor(masks_lib.dropout_universe(
+        size, base.dropout, base.dropout_sizes), device=dev)
+    idx = torch.randperm(universe.shape[0], generator=utils.generator(
+        2, torch.device("cpu")))[:128].to(dev)
+    rects = universe[idx]
+    gn = "gn_relu_fwd" + ("_bf16" if dtype == "bfloat16" else "")
+    gnb = gn.replace("fwd", "bwd")
+    plain_fwd = fused_gn.gn_relu_fwd_kernel
+    out, stats = {}, []
+
+    def recording_fwd(xg, *args, **kwargs):
+        y_, mean, rstd = plain_fwd(xg, *args, **kwargs)
+        stats.append((tuple(xg.shape), float(xg.double().sum()),
+                      mean.clone(), rstd.clone()))
+        return y_, mean, rstd
+
+    for mode in modes:
+        cfg = AttackConfig(sampling_size=128, compute_dtype=dtype,
+                           remat="off" if mode is None else "on",
+                           remat_policy=mode or "full")
+        atk = DorPatch(victim.apply, victim.num_classes, cfg)
+        state = atk._init_state(utils.generator(0, dev), x, y, False,
+                                universe.shape[0])
+        _remat_grads(torch, atk, x, lvx, rects, state)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        stats.clear()
+        if stats_check:
+            fused_gn.gn_relu_fwd_kernel = recording_fwd
+        try:
+            t0 = time.perf_counter()
+            res = _remat_grads(torch, atk, x, lvx, rects, state)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            fused_gn.gn_relu_fwd_kernel = plain_fwd
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[mode] = res
+        same = [torch.equal(a, c) for a, c in zip(out[modes[0]], res)]
+        name = "off" if mode is None else mode
+        print(f"remat {label}: {name}: peak {peak:.2f} GiB, {ms:.1f} ms a "
+              f"step, {gn} {counts[gn]} and {gnb} {counts[gnb]} launches a "
+              f"step; loss and gradients equal to "
+              f"{modes[0] or 'off'}: {same}", flush=True)
+        if not all(same):
+            raise AssertionError(f"remat {label} {name}: loss and gradients "
+                                 f"differ from {modes[0] or 'off'}: {same}")
+        if stats_check and mode is not None:
+            # a call whose input (shape, float64 sum) was seen before is
+            # the backward's recomputation of that forward call
+            fwd = {}
+            for shape, key, mean, rstd in stats:
+                fwd.setdefault((shape, key), (mean, rstd))
+            bad = [i for i, (shape, key, mean, rstd) in enumerate(stats)
+                   if not (torch.equal(fwd[(shape, key)][0], mean)
+                           and torch.equal(fwd[(shape, key)][1], rstd))]
+            print(f"remat {label}: {name}: {len(stats)} GroupNorm forward "
+                  f"calls, {len(stats) - len(fwd)} recomputed in the "
+                  f"backward, statistics differing from the first "
+                  f"forward's: {bad}", flush=True)
+            if bad or len(stats) == len(fwd):
+                raise AssertionError(f"remat {label} {name}: recomputed "
+                                     f"GroupNorm statistics {bad}, "
+                                     f"{len(stats) - len(fwd)} recomputed")
+    return out
+
+
+def _records_equal(a, b) -> bool:
+    import numpy as np
+
+    return (a.prediction == b.prediction
+            and bool(a.certification) == bool(b.certification)
+            and np.array_equal(a.preds_1, b.preds_1)
+            and np.array_equal(a.preds_2, b.preds_2)
+            and a.forwards == b.forwards)
+
+
+def remat_phase(torch, dev):
+    """Remat on the card: one step of RN50 at 224 (float32 and bf16) and
+    of ViT-B/16 (float32), batch 2, remat off and under each policy, loss
+    and gradients bit-equal (`remat_step_check`); then the slice's path,
+    RN50 at 480 px with 2 images a batch and `--remat on` through the CLI
+    (`main_path`, 10 iterations), whose certification records must equal
+    those of certifying its patch again in this process with remat off,
+    and one step of it under each policy that fits beside the batch-1 step
+    without remat. Returns the 480 px path's launch counts."""
+    from dorpatch_tpu_torch import data, losses
+    from dorpatch_tpu_torch.config import DefenseConfig
+    from dorpatch_tpu_torch.defense import build_defenses
+    from dorpatch_tpu_torch.models import get_model
+
+    policies = (None, "full", "conv", "dots")
+    for label, arch, dtype in (("RN50 224 f32", "resnetv2", "float32"),
+                               ("RN50 224 bf16", "resnetv2", "bfloat16"),
+                               ("ViT-B/16 224 f32", "vit", "float32")):
+        remat_step_check(torch, dev, label, arch, 224, 2, dtype, policies,
+                         stats_check=arch == "resnetv2")
+        torch.cuda.empty_cache()
+    remat_step_check(torch, dev, "RN50 480 f32 b1", "resnetv2", 480, 1,
+                     "float32", (None,))
+    remat_step_check(torch, dev, "RN50 480 f32 b2", "resnetv2", 480, 2,
+                     "float32", REMAT_480_POLICIES)
+    torch.cuda.empty_cache()
+
+    label = "RN50 480 b2 remat"
+    t0 = time.perf_counter()
+    _, counts, records = main_path(torch, dev, label, RN50_480_B2_ARGV,
+                                   RN50_KERNELS, gn_split_shares(480))
+    print(f"{label} main-path phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    victim = get_model("imagenet", "resnetv2", "/nonexistent", 480,
+                       device=dev)
+    x_np, _ = next(data.synthetic_batches("imagenet", 2, 480, 1234))
+    x = torch.as_tensor(x_np, device=dev)
+    mask, pattern = (torch.as_tensor(a, device=dev) for a in PATCHES[label])
+    adv_x = x + losses.l2_project(mask, pattern, x, 4.0)
+    defenses = build_defenses(victim.apply, 480, DefenseConfig(),
+                              incremental=victim.incremental, device=dev)
+    with torch.no_grad():
+        again = [list(r) for r in zip(*[
+            d.robust_predict(adv_x, victim.num_classes,
+                             bucket_sizes=data.batch_buckets(2))
+            for d in defenses])]
+    same = (len(again) == len(records) and all(
+        _records_equal(a, b) for ra, rb in zip(again, records)
+        for a, b in zip(ra, rb)))
+    print(f"{label}: certification records equal to certifying its patch "
+          f"with remat off: {same} ({len(records)} images)", flush=True)
+    if not same:
+        raise AssertionError(f"{label}: certification records differ")
+    return counts
+
+
+def sanitize_phase(torch, dev, out) -> None:
+    """`--sanitize` on the trained CIFAR ResNet-18 through the CLI (10
+    iterations): `sanitize.enabled` and the programs' budget events must
+    be in its events.jsonl and no budget exceeded; then two NaNs planted
+    in its attack, one made by an aten op (a victim wrapper's sqrt of a
+    negative number) and one made inside kernel A (a NaN fill value), must
+    each raise `FloatingPointError` naming the op, or the kernel."""
+    from dorpatch_tpu_torch.analysis.sanitize import Sanitizer
+    from dorpatch_tpu_torch.attack import DorPatch
+    from dorpatch_tpu_torch.config import AttackConfig
+
+    found = {}
+
+    def inspect(result_dir):
+        with open(os.path.join(result_dir, "events.jsonl")) as fh:
+            recs = [json.loads(line) for line in fh]
+        found["names"] = sorted({r.get("name") for r in recs
+                                 if r.get("kind") == "event"})
+        found["budgets"] = {r["entry"]: r["budget"] for r in recs
+                            if r.get("name") == "sanitize.budget"}
+        found["compiles"] = sorted({r["name"] for r in recs
+                                    if r.get("kind") == "compile"})
+
+    label = "trained CIFAR sanitize"
+    argv = _iterations(TRAINED_ARGV, SHORT_ITERATIONS) + [
+        "--base_arch", "resnet18", "--model_dir", out]
+    # the same run unsanitized first: what the sanitizer costs
+    plain, _, _ = main_path(torch, dev, "trained CIFAR, 10 iterations",
+                            argv, CIFAR_KERNELS)
+    t0 = time.perf_counter()
+    m, _, _ = main_path(torch, dev, label, argv + ["--sanitize"],
+                        CIFAR_KERNELS, inspect=inspect)
+    print(f"{label}: events {found['names']}; budgets {found['budgets']}; "
+          f"compile records {found['compiles']}; "
+          f"{time.perf_counter() - t0:.1f} s; attack and certify seconds "
+          f"{m['attack_seconds']} {m['certify_seconds']} against "
+          f"{plain['attack_seconds']} {plain['certify_seconds']} "
+          f"unsanitized", flush=True)
+    if ("sanitize.enabled" not in found["names"]
+            or "sanitize.recompile_budget_exceeded" in found["names"]
+            or found["budgets"].get("attack.step.stage0") != 8
+            or found["budgets"].get("attack.sweep") != 8
+            or not any(k.startswith("defense.") for k in found["budgets"])):
+        raise AssertionError(f"{label}: sanitizer events {found}")
+
+    victim = trained_victim("cifar10", "resnet18", out, 32, dev)
+    x = torch.rand((2, 32, 32, 3), generator=torch.Generator(dev).manual_seed(
+        5), device=dev)
+    y = torch.argmax(victim.apply(x), -1)
+
+    def bad_victim(z):
+        return victim.apply(z) * torch.sqrt(z.mean() - 1.0)
+
+    base = AttackConfig(sampling_size=128, max_iterations=2)
+    for what, atk, want in (
+            ("an aten op", DorPatch(bad_victim, 10, base), "aten.sqrt"),
+            ("kernel A", DorPatch(victim.apply, 10, AttackConfig(
+                sampling_size=128, max_iterations=2,
+                mask_fill=float("nan"))), "kernel masked_fill_fwd")):
+        try:
+            with Sanitizer():
+                atk.generate(x, y=y, seed=1)
+        except FloatingPointError as e:
+            print(f"{label}: NaN planted in {what}: FloatingPointError: {e}",
+                  flush=True)
+            if want not in str(e):
+                raise AssertionError(f"{label}: the NaN of {what} was "
+                                     f"blamed elsewhere: {e}") from e
+        else:
+            raise AssertionError(f"{label}: the NaN of {what} raised nothing")
+
+
+def verify_phase(torch, dev, out) -> None:
+    """`python -m dorpatch_tpu_torch.models.verify` on the trained CIFAR
+    ResNet-18's `.pth` and on an RN50 `.pth` written from the port's
+    random init: keys clean against the timm contract, the card's logits
+    within 1e-4 of the CPU's, argmax equal."""
+    from dorpatch_tpu_torch.models import registry, verify
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_verify_") as tmp:
+        rn50 = os.path.join(tmp, "resnetv2_50x1_bit_distilled_cutout2_128_"
+                                 "imagenet.pth")
+        model = registry.build_bare_model("resnetv2_50x1_bit_distilled",
+                                          1000, 224, seed=0)
+        torch.save({"state_dict": model.state_dict()}, rn50)
+        del model
+        cifar = registry.checkpoint_path(out, "cifar10", "cifar_resnet18")
+        drift_keys = ("missing", "unexpected", "shape_drift")
+        for path, arch, dataset, size in (
+                (cifar, "resnet18", "cifar10", 32),
+                (rn50, "resnetv2", "imagenet", 224)):
+            rc = verify.main([path])
+            report = verify.verify_checkpoint(path, arch, dataset,
+                                              img_size=size)
+            keys = verify.verify_keys(path, arch, dataset)
+            print(f"verify {report['arch']}: exit {rc}; "
+                  f"{json.dumps(report)}; key drift "
+                  f"{[len(keys[k]) for k in drift_keys]}", flush=True)
+            if (rc != 0 or report["max_abs_delta"] > 1e-4
+                    or not report["argmax_agree"]):
+                raise AssertionError(f"verify {path}: exit {rc}, {report}")
+
+
 def main() -> int:
     import faulthandler
 
@@ -3587,6 +3905,14 @@ def main() -> int:
     print(f"repeat phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
+    remat_counts = remat_phase(torch, dev)
+    # the 480 px records' launches on the batch-2 remat path beside theirs
+    for rec in rn50_480:
+        rec["remat_launches"] = remat_counts.get(
+            COUNT_OF.get(rec["name"], rec["name"]), 0)
+    print(f"remat phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
     cross_check(torch, dev, "cifar10", "resnet18", 32, 8)
     victim, x = cross_check(torch, dev, "imagenet", "resnetv2", 224, 4)
     gn_logits_check(torch, dev, victim, x)
@@ -3612,6 +3938,11 @@ def main() -> int:
         t0 = time.perf_counter()
         trained_phase(torch, dev, out)
         print(f"trained-victim phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        sanitize_phase(torch, dev, out)
+        verify_phase(torch, dev, out)
+        print(f"sanitize and verify phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
         farm = farm_phase(torch, dev, out)

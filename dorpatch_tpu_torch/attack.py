@@ -21,6 +21,18 @@ the losses and every carry field stay float32, and the failure sweep runs
 the same bf16 forward. The clean predictions (`y`, the stage-1 switch)
 stay on the float32 forward.
 
+Remat (`AttackConfig.remat`, `remat_policy`; `models/remat.py`): the EOT
+forward under `torch.autograd.grad` checkpoints each residual block of the
+victim, so the backward keeps the block inputs and recomputes the rest;
+loss and gradients are bit-equal with it on and off. The failure sweep
+and the clean predictions never differentiate and keep the plain forward.
+
+Programs (`observe.timed_first_call`): the step runs as
+"attack.step.stage0"/"attack.step.stage1" and the sweep as "attack.sweep",
+each with the `recompile_budget` the pipeline declares (the batch size:
+the correctness filter makes the batch the only legitimate shape bucket),
+enforced under an armed recompile guard (`--sanitize`).
+
 Crash recovery (`checkpoint.CarryCheckpointer`): with a `checkpointer`, the
 carry is snapshotted at every block boundary, before the `on_block_end`
 callback, and `generate` resumes from the newest snapshot; the generator's
@@ -41,6 +53,7 @@ from dorpatch_tpu_torch import losses, observe, utils
 from dorpatch_tpu_torch import masks as masks_lib
 from dorpatch_tpu_torch.config import AttackConfig
 from dorpatch_tpu_torch.defense import masked_predictions
+from dorpatch_tpu_torch.models import remat as remat_lib
 from dorpatch_tpu_torch.ops.masked_fill import masked_fill
 
 _FIELDS_LATCHED = ("step", "adv_mask", "adv_pattern", "best_mask",
@@ -138,12 +151,55 @@ class DorPatch:
     on_block_end: Optional[Callable[[int, int, dict], None]] = None
     # optional checkpoint.CarryCheckpointer: mid-stage crash recovery
     checkpointer: Optional[Any] = None
+    # None: follow config.remat ("auto" remats only when the masked batch
+    # exceeds config.remat_threshold); True/False force it
+    remat: Optional[bool] = None
+    # input signatures each program (step, sweep) may run; inert unless a
+    # recompile guard is armed (observe.set_recompile_guard)
+    recompile_budget: Optional[int] = None
 
     def __post_init__(self):
+        cfg = self.config
         # the EOT forward (step and sweep): the victim itself at float32,
         # its once-cast copy at bf16
         self._fwd = utils.forward_at(
-            self.apply_fn, utils.compute_dtype(self.config.compute_dtype))
+            self.apply_fn, utils.compute_dtype(cfg.compute_dtype))
+        if cfg.remat not in ("auto", "on", "off"):
+            raise ValueError(f"remat={cfg.remat!r}")
+        if cfg.remat_policy not in remat_lib.POLICIES:
+            raise ValueError(f"remat_policy={cfg.remat_policy!r}")
+        self._programs = {
+            stage: observe.timed_first_call(
+                self._step, f"attack.step.stage{stage}",
+                recompile_budget=self.recompile_budget)
+            for stage in (0, 1)}
+        self._programs["sweep"] = observe.timed_first_call(
+            self._sweep, "attack.sweep",
+            recompile_budget=self.recompile_budget)
+
+    def _grad_fwd(self, n_masked: int):
+        """The forward used under `torch.autograd.grad`, with the remat
+        policy applied. `remat=None` follows `config.remat`: "on"/"off"
+        force it, "auto" remats when `n_masked` (images x EOT samples)
+        exceeds `config.remat_threshold`. Remat recomputes each residual
+        block of the victim in the backward instead of keeping its
+        activations; `config.remat_policy` picks what a block keeps
+        (`models/remat.py`)."""
+        cfg = self.config
+        if self.remat is not None:
+            use = self.remat
+        else:
+            use = cfg.remat == "on" or (
+                cfg.remat == "auto" and n_masked > cfg.remat_threshold)
+        if not use:
+            return self._fwd
+        fwd, policy = self._fwd, cfg.remat_policy
+
+        def remat_fwd(images: torch.Tensor) -> torch.Tensor:
+            with remat_lib.enabled(policy):
+                return fwd(images)
+
+        return remat_fwd
 
     # ---------- mask sampling ----------
 
@@ -184,7 +240,8 @@ class DorPatch:
         # fused rasterize + fill (kernels A/B on the card): no [S,H,W] mask
         # tensor; gradients reach adv_x through the kept pixels
         masked = masked_fill(adv_x, rects, cfg.mask_fill)
-        logits = self._fwd(masked.reshape((-1,) + tuple(x.shape[1:])))
+        logits = self._grad_fwd(b * s)(
+            masked.reshape((-1,) + tuple(x.shape[1:])))
         y_rep = state.y.repeat_interleave(s)
         targeted_rep = state.targeted.repeat_interleave(s)
         loss_adv = losses.cw_margin_switchable(
@@ -319,11 +376,16 @@ class DorPatch:
 
     # ---------- sweep ----------
 
-    @torch.no_grad()
     def sweep_failures(self, adv_mask, adv_pattern, x, y, targeted,
                        universe) -> torch.Tensor:
         """Full-universe failure sweep: a mask fails if any image's goal is
         violated under it. Returns bool `[n_mask]`."""
+        return self._programs["sweep"](adv_mask, adv_pattern, x, y,
+                                       targeted, universe)
+
+    @torch.no_grad()
+    def _sweep(self, adv_mask, adv_pattern, x, y, targeted,
+               universe) -> torch.Tensor:
         delta = losses.l2_project(adv_mask, adv_pattern, x, self.config.eps)
         preds = masked_predictions(
             self._fwd, x + delta, universe,
@@ -403,8 +465,9 @@ class DorPatch:
                     state.adv_mask, state.adv_pattern, x, state.y,
                     state.targeted, universe))
                 n_steps = min(interval, total - i)
+                step = self._programs[stage]
                 for _ in range(n_steps):
-                    state = self._step(state, x, local_var_x, universe, stage)
+                    state = step(state, x, local_var_x, universe, stage)
                 i += n_steps
                 # untargeted -> targeted switch at the boundary after
                 # switch_iteration steps (stage 0)

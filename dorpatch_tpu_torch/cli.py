@@ -10,9 +10,8 @@ recert boot gate's `--recert-dir`, `--recert-baseline` and
 
 Not offered, because their subsystems are not ported yet: `--backend`,
 `--mesh-data`, `--mesh-mask` (the mesh, `parallel/`), `--use-pallas` and
-`--gn-impl` (the port picks its CUDA kernels itself), `--remat` and
-`--remat-policy` (remat), `--sanitize` (the runtime sanitizers of
-`analysis/`) and `--aot`, `--aot-cache` (the AOT executable store).
+`--gn-impl` (the port picks its CUDA kernels itself) and `--aot`,
+`--aot-cache` (the AOT executable store).
 
 Run:  python -m dorpatch_tpu_torch --synthetic --dataset imagenet \\
           --base_arch resnetv2 --img-size 224 --max-iterations 20 -b 2
@@ -28,6 +27,10 @@ Run:  python -m dorpatch_tpu_torch --synthetic --dataset imagenet \\
           --base_arch resnet18 --img-size 32 --defense-n-patch 2
       python -m dorpatch_tpu_torch --dataset cifar10 --data_dir DIR \\
           --base_arch resnet18 --img-size 32 --prune consensus
+      python -m dorpatch_tpu_torch --synthetic --base_arch resnetv2 \\
+          --img-size 480 -b 2 --remat on --remat-policy full
+      python -m dorpatch_tpu_torch --synthetic --dataset cifar10 \\
+          --base_arch resnet18 --img-size 32 --sanitize
 """
 
 from __future__ import annotations
@@ -95,6 +98,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="EOT forward+backward precision (carry stays float32)")
+    p.add_argument("--remat", default="auto", choices=["auto", "on", "off"],
+                   help="rematerialize the EOT forward in the backward "
+                        "(activation memory for step time; auto: only when "
+                        "the masked batch exceeds the remat threshold, "
+                        "1024 masked images)")
+    p.add_argument("--remat-policy", default="full",
+                   choices=["full", "conv", "dots"],
+                   help="what an active remat keeps inside each residual "
+                        "block: full = nothing; conv = the conv outputs, "
+                        "replaying only the normalize chains (ResNetV2); "
+                        "dots = the matmul outputs (ViT/ResMLP)")
     p.add_argument("--certify-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="certification sweep precision (the defense's "
@@ -144,6 +158,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "exhaustively")
     p.add_argument("--trace-dir", default="",
                    help="write a torch.profiler trace of the run here")
+    p.add_argument("--sanitize", action="store_true",
+                   help="arm the runtime sanitizers: NaN checks that name "
+                        "the op or kernel that produced a NaN, compile-like "
+                        "events (kernel builds, new program input "
+                        "signatures) in events.jsonl, the programs' shape "
+                        "budgets enforced, the lock watch; debugging runs "
+                        "only, costs throughput")
     p.add_argument("--no-metrics-log", action="store_true",
                    help="disable run telemetry (metrics.jsonl, "
                         "events.jsonl, heartbeats, metrics.json) in the "
@@ -285,6 +306,7 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         hang_timeout=args.hang_timeout,
         heartbeat_interval=args.heartbeat_interval,
         carry_checkpoints=args.carry_checkpoints,
+        sanitize=args.sanitize,
         attack=AttackConfig(patch_budget=args.patch_budget,
                             targeted=args.targeted,
                             lr=args.lr,
@@ -300,7 +322,9 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
                             eps=args.epsilon,
                             num_patch=args.num_patch,
                             dual=args.dual,
-                            compute_dtype=args.compute_dtype),
+                            compute_dtype=args.compute_dtype,
+                            remat=args.remat,
+                            remat_policy=args.remat_policy),
         defense=DefenseConfig(n_patch=args.defense_n_patch,
                               prune=args.prune,
                               incremental=args.incremental,

@@ -61,6 +61,20 @@ class AttackConfig:
     # EOT forward+backward precision, float32|bfloat16 (the patch, the
     # losses and the carry stay float32)
     compute_dtype: str = "float32"
+    # rematerialize the EOT forward in the backward: auto|on|off. "auto"
+    # remats only when the masked batch (images x sampling_size) exceeds
+    # remat_threshold. The port checkpoints each residual block
+    # (models/remat.py); the JAX package wraps the whole forward.
+    remat: str = "auto"
+    # masked images above which "auto" remats. The JAX package's 512 was
+    # measured on a v5e; on an 80 GB H100 it would remat the default CIFAR
+    # path (8 images x 128 samples, 2.27 GiB). 1024 is the largest masked
+    # batch of every path the port ran before remat existed (CIFAR, the
+    # farm and the parity run at batch 8), so "auto" changes none of them.
+    remat_threshold: int = 1024
+    # what an active remat saves inside a block: "full" nothing, "conv" the
+    # ResNetV2 std-conv outputs, "dots" the matmul outputs (ViT, ResMLP)
+    remat_policy: str = "full"
 
     @property
     def scale_down(self) -> float:
@@ -274,6 +288,10 @@ class ExperimentConfig:
                                     # kernel build included
     # snapshots of the attack's carry at every block (checkpoint.py)
     carry_checkpoints: bool = False
+    # runtime sanitizers (analysis/sanitize.py): NaN at the producing op or
+    # kernel, compile-like events into events.jsonl, the programs' shape
+    # budgets enforced, the lock watch armed; debugging runs only
+    sanitize: bool = False
 
     attack: AttackConfig = dataclasses.field(default_factory=AttackConfig)
     defense: DefenseConfig = dataclasses.field(default_factory=DefenseConfig)
@@ -293,17 +311,15 @@ def config_to_dict(cfg: ExperimentConfig) -> dict:
 
 
 #: keys of the JAX package's config whose subsystems (mesh, Pallas tier,
-#: GroupNorm implementation switch, sanitizer, AOT store, remat) this
-#: package does not have; `config_from_dict` refuses them by
-#: name, so a job that names one fails as a configuration error instead of
-#: losing the setting. `backend` and `gn_impl` at their JAX defaults are
-#: refused too: the port has one backend and picks its GroupNorm kernels
-#: itself.
+#: GroupNorm implementation switch, AOT store) this package does not have;
+#: `config_from_dict` refuses them by name, so a job that names one fails
+#: as a configuration error instead of losing the setting. `backend` and
+#: `gn_impl` at their JAX defaults are refused too: the port has one
+#: backend and picks its GroupNorm kernels itself.
 NOT_PORTED = {
     "ExperimentConfig": ("backend", "gn_impl", "mesh_data", "mesh_mask",
-                         "sanitize", "aot"),
-    "AttackConfig": ("selection", "use_pallas", "remat", "remat_threshold",
-                     "remat_policy"),
+                         "aot"),
+    "AttackConfig": ("selection", "use_pallas"),
     "DefenseConfig": ("use_pallas",),
 }
 

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from dorpatch_tpu_torch import masks as masks_lib
 from dorpatch_tpu_torch import utils
+from dorpatch_tpu_torch.models import remat
 
 
 class Affine(nn.Module):
@@ -119,7 +120,7 @@ class ResMLP(nn.Module):
         zs: List[torch.Tensor] = []
         for block in self.blocks:
             xs.append(x)
-            x, z = block(x)
+            x, z = remat.block(block, x)
             zs.append(z)
         if mode == "cache":
             return xs, zs, x

@@ -27,6 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dorpatch_tpu_torch.models import remat
 from dorpatch_tpu_torch.ops.fused_gn import (gn_preserve_dtype, gn_relu,
                                              gn_relu_reference)
 from dorpatch_tpu_torch.ops.stem_fold import same_pads
@@ -56,8 +57,10 @@ class StdConv(nn.Module):
         pc0, pc1 = same_pads(x.shape[2], self.k, self.stride)
         if pr0 or pr1 or pc0 or pc1:
             x = F.pad(x, (0, 0, pc0, pc1, pr0, pr1))
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.standardized(), None,
-                     self.stride)
+        x, w = x.permute(0, 3, 1, 2), self.standardized()
+        # the output the "conv" remat policy saves
+        with remat.tagged("conv_out"):
+            y = F.conv2d(x, w, None, self.stride)
         return y.permute(0, 2, 3, 1)
 
 
@@ -173,7 +176,7 @@ class ResNetV2(nn.Module):
         x = stem_pool(x)
         for stage in self.stages:
             for block in stage["blocks"]:
-                x = block(x)
+                x = remat.block(block, x)
         x = self.norm(x).mean(dim=(1, 2))
         fc = self.head["fc"]
         return F.linear(x, fc.weight.flatten(1), fc.bias)

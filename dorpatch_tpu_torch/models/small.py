@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dorpatch_tpu_torch.models import remat
 from dorpatch_tpu_torch.ops.fused_gn import gn_preserve_dtype
 
 
@@ -119,7 +120,7 @@ class CifarResNet18(nn.Module):
                 return x
         x = F.relu(self.stem_norm(x))
         for block in self.blocks:
-            x = block(x)
+            x = remat.block(block, x)
         return self.head(x.mean(dim=(1, 2)))
 
 

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from dorpatch_tpu_torch import masks as masks_lib
 from dorpatch_tpu_torch import utils
+from dorpatch_tpu_torch.models import remat
 from dorpatch_tpu_torch.ops.masked_kv_attn import masked_kv_attention
 
 
@@ -160,7 +161,7 @@ class ViT(nn.Module):
             cache.append(x)
             if mode == "cache" and i == self.depth - 1:
                 return cache
-            x = block(x)
+            x = remat.block(block, x)
         return self.head(self.norm(x)[:, 0])
 
 

@@ -40,6 +40,14 @@ traces. An armed guard (`set_recompile_guard(RecompileWatchdog())`) raises
 budget: on the card cuDNN picks its algorithms and the caching allocator
 sizes its blocks per shape, so live traffic must run only warmed shapes.
 
+Under `--sanitize` (`analysis/sanitize.py`) two more hooks are armed: a
+NaN guard (`set_nan_guard`), which every `timed_first_call` program calls
+after each call with its outputs and a replay of the call (the generators
+among its arguments rewound to their states before it), and the compile
+log (`set_compile_log`), which records every call that brings a program a
+new input signature as a `compile` record, as the JAX package's
+`jax_log_compiles` logs every trace.
+
 Spans are main-thread only (the stack is per-process, not per-thread); the
 heartbeat thread only *reads* `current_path()` under the lock.
 """
@@ -309,6 +317,37 @@ def recompile_guard():
     return _RECOMPILE_GUARD
 
 
+# A NaN guard (`analysis.sanitize.NanGuard`): `after_call(name, out,
+# replay)` after every call through a _FirstCallTimer; None: no check.
+_NAN_GUARD = None
+# True: every call that brings a program a new input signature is recorded
+# as a `compile` record (the first call always is).
+_COMPILE_LOG = False
+
+
+def set_nan_guard(guard) -> None:
+    global _NAN_GUARD
+    _NAN_GUARD = guard
+
+
+def nan_guard():
+    return _NAN_GUARD
+
+
+def set_compile_log(on: bool) -> bool:
+    """Switch the compile log; returns the previous setting."""
+    global _COMPILE_LOG
+    prev, _COMPILE_LOG = _COMPILE_LOG, bool(on)
+    return prev
+
+
+def log_compile(name: str, seconds: float) -> None:
+    """A compile-like event outside the programs (the kernels' build),
+    recorded as a `compile` record while the compile log is on."""
+    if _COMPILE_LOG:
+        record_compile(name, seconds)
+
+
 class RecompileBudgetExceeded(RuntimeError):
     """A program saw more input signatures than its declared budget."""
 
@@ -318,10 +357,13 @@ class RecompileWatchdog:
     package's `analysis.sanitize.RecompileWatchdog`, the same events).
     `_cache_size()` of a `timed_first_call` wrapper is the number of
     distinct input signatures it has run; programs without it are
-    skipped."""
+    skipped. `record_budgets` (the sanitizer's) also writes one
+    `sanitize.budget` event the first time a program with a declared
+    budget runs."""
 
-    def __init__(self):
+    def __init__(self, record_budgets: bool = False):
         self._last_seen = {}
+        self._record_budgets = record_budgets
 
     def after_call(self, name: str, wrapped, budget: Optional[int]) -> None:
         try:
@@ -329,6 +371,8 @@ class RecompileWatchdog:
         except (AttributeError, TypeError):
             return
         prev = self._last_seen.get(name, 0)
+        if self._record_budgets and prev == 0 and budget is not None:
+            record_event("sanitize.budget", entry=name, budget=budget)
         if traces > prev:
             self._last_seen[name] = traces
             if prev >= 1:
@@ -344,6 +388,19 @@ class RecompileWatchdog:
                 f"declared budget of {budget} (shape-unstable call pattern? "
                 "every distinct input shape/dtype picks its own cuDNN "
                 "algorithms and allocator blocks)")
+
+
+def _generators(value) -> list:
+    """The `torch.Generator`s among a program's arguments: at top level,
+    in tuples and lists, and in dataclass fields (the attack's carry)."""
+    if type(value).__name__ == "Generator" and hasattr(value, "get_state"):
+        return [value]
+    if isinstance(value, (tuple, list)):
+        return [g for v in value for g in _generators(v)]
+    fields = getattr(value, "__dataclass_fields__", None)
+    if fields:
+        return [g for f in fields for g in _generators(getattr(value, f))]
+    return []
 
 
 def _signature(value):
@@ -383,8 +440,12 @@ class _FirstCallTimer:
         sig = (_signature(args), _signature(sorted(kwargs.items())))
         with self._lock:
             first, self._done = not self._done, True
+            new = sig not in self._signatures
             self._signatures.add(sig)
-        if first:
+        nan = _NAN_GUARD
+        rewind = ([(g, g.get_state()) for g in _generators(args)]
+                  if nan is not None else None)
+        if first or (new and _COMPILE_LOG):
             t0 = self._clock()
             out = self.__wrapped__(*args, **kwargs)
             record_compile(self._name, self._clock() - t0)
@@ -393,6 +454,13 @@ class _FirstCallTimer:
         guard = _RECOMPILE_GUARD
         if guard is not None:
             guard.after_call(self._name, self, self.recompile_budget)
+        if nan is not None:
+            def replay():
+                for g, state in rewind:
+                    g.set_state(state)
+                return self.__wrapped__(*args, **kwargs)
+
+            nan.after_call(self._name, out, replay)
         return out
 
     def __getattr__(self, item):

@@ -9,10 +9,20 @@ that picks the plain version on the card.
 
 The launch counts are shared by every thread (the serve pool's replicas
 launch from their own threads), so every read and write holds one lock.
+
+Under an armed sanitizer (`analysis/sanitize.py`, `set_sanitize`) every
+wrapper decorated with `sanitized(name)` checks its own floating outputs
+for NaN and raises `FloatingPointError` naming itself: the kernels run
+outside the dispatcher, so the sanitizer's op-by-op check cannot see them.
+The wrapper runs as one opaque op (`opaque`): the op-by-op check skips
+the allocations and plain-version ops inside it, so a NaN made there is
+blamed on the wrapper, on the card and on the CPU alike.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import threading
 from typing import Dict, Optional
 
@@ -70,6 +80,80 @@ def reset_launch_counts() -> None:
         for name in _LAUNCHES:
             _LAUNCHES[name] = 0
         _ROUTES.clear()
+
+
+_SANITIZE = False
+_LOCAL = threading.local()
+
+
+def set_sanitize(on: bool) -> bool:
+    """Arm (or disarm) the wrappers' NaN checks; returns the previous
+    setting."""
+    global _SANITIZE
+    prev, _SANITIZE = _SANITIZE, bool(on)
+    return prev
+
+
+def in_opaque() -> bool:
+    """True inside a sanitized wrapper in this thread."""
+    return getattr(_LOCAL, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def opaque():
+    _LOCAL.depth = getattr(_LOCAL, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _LOCAL.depth -= 1
+
+
+def tensors_in(value) -> list:
+    """The tensors in `value`: itself, or in its tuples, lists, dicts and
+    dataclass fields (the attack's carry), recursively."""
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, dict):
+        value = list(value.values())
+    elif hasattr(value, "__dataclass_fields__"):
+        value = [getattr(value, f) for f in value.__dataclass_fields__]
+    if isinstance(value, (tuple, list)):
+        return [t for v in value for t in tensors_in(v)]
+    return []
+
+
+def nan_tensors(value) -> list:
+    """The floating tensors in `value` that hold a NaN."""
+    return [t for t in tensors_in(value)
+            if t.is_floating_point() and t.numel()
+            and bool(torch.isnan(t).any())]
+
+
+def sanitized(name: str):
+    """Decorate a kernel wrapper: armed, it runs as one opaque op and
+    raises `FloatingPointError` naming kernel `name` when its output holds
+    a NaN that its inputs did not (on the CPU: naming the kernel's plain
+    version). A NaN that reached it from elsewhere passes on, for the
+    replay of its program to find where it was made."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not _SANITIZE:
+                return fn(*args, **kwargs)
+            clean = not nan_tensors((args, kwargs))
+            with opaque():
+                out = fn(*args, **kwargs)
+            bad = nan_tensors(out) if clean else []
+            if bad:
+                first = bad[0]
+                where = ("kernel" if first.device.type == "cuda"
+                         else "the plain version of kernel")
+                raise FloatingPointError(
+                    f"NaN produced by {where} {name} ({fn.__qualname__}, "
+                    f"output {tuple(first.shape)} on {first.device})")
+            return out
+        return wrapper
+    return deco
 
 
 def require(t: torch.Tensor, name: str, dtype, ndim: int) -> None:

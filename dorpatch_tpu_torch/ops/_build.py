@@ -21,7 +21,10 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from typing import Optional
+
+from dorpatch_tpu_torch.observe import events
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -102,6 +105,7 @@ def build() -> pathlib.Path:
     if so.exists():
         return so
     nvcc = _nvcc()
+    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = pathlib.Path(tempfile.mkdtemp(prefix="build_", dir=BUILD_DIR))
     try:
@@ -132,6 +136,7 @@ def build() -> pathlib.Path:
         os.replace(tmp_so, so)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    events.log_compile("kernels.build", time.perf_counter() - t0)
     return so
 
 

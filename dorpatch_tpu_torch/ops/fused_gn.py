@@ -452,6 +452,7 @@ def gn_relu_fwd_kernel(x: torch.Tensor, scale: torch.Tensor,
     return y, mean, rstd
 
 
+@_backend.sanitized("gn_relu_bwd")
 def gn_relu_bwd_kernel(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                        bias: torch.Tensor, mean: torch.Tensor,
                        rstd: torch.Tensor, num_groups: int = 32,
@@ -522,6 +523,7 @@ class GNRelu(torch.autograd.Function):
         return dx, dscale, dbias, None, None
 
 
+@_backend.sanitized("gn_relu_fwd")
 def gn_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm(num_groups, eps)+ReLU on NHWC `x` with the `[C]` affine

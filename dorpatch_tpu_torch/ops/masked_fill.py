@@ -160,6 +160,7 @@ def masked_fill_fwd_kernel(imgs: torch.Tensor, rects: torch.Tensor,
     return _fwd_launch(imgs, rects, fill, None)
 
 
+@_backend.sanitized("masked_fill_bwd")
 def masked_fill_bwd_kernel(rects: torch.Tensor,
                            g: torch.Tensor) -> torch.Tensor:
     """Kernel B on CUDA tensors: g `[B,S,H,W,C]` f32 -> `[B,H,W,C]` f32,
@@ -253,6 +254,7 @@ class MaskedFill(torch.autograd.Function):
         return masked_fill_bwd_kernel(rects, g.contiguous()), None, None
 
 
+@_backend.sanitized("masked_fill_fwd")
 def masked_fill(imgs: torch.Tensor, rects, fill: float = 0.5) -> torch.Tensor:
     """Occlude `imgs` `[B,H,W,C]` with every rectangle set in `rects`
     `[S,K,4]` (int32 rows `(r0, r1, c0, c1)`, half-open; zero-area rows are

@@ -183,6 +183,7 @@ def masked_kv_attention_kernel(q, kd, vd, kc, vc, clean_bias, dirty_bias,
     return out
 
 
+@_backend.sanitized("masked_kv_attn")
 def masked_kv_attention(q, kd, vd, kc, vc, clean_bias, dirty_bias):
     """The attention read of one token-engine block. CUDA tensors run
     kernel H; CPU tensors run the plain version."""

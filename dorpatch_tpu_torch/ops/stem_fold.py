@@ -241,6 +241,7 @@ def _pad_nhwc(u: torch.Tensor, pads) -> torch.Tensor:
     return F.pad(u, (0, 0, pc0, pc1, pr0, pr1))
 
 
+@_backend.sanitized("stem_fold")
 def fold_masked_stem(kernel: torch.Tensor, clean: torch.Tensor,
                      u: torch.Tensor, plan: Sequence[_Window],
                      strides: Tuple[int, int], pads,
@@ -260,6 +261,7 @@ def fold_masked_stem(kernel: torch.Tensor, clean: torch.Tensor,
     return out
 
 
+@_backend.sanitized("stem_fold")
 def fold_masked_stem_kernel(kernel: torch.Tensor, clean: torch.Tensor,
                             up: torch.Tensor, geo: torch.Tensor,
                             occ: torch.Tensor, oh: int, ow: int, s: int,

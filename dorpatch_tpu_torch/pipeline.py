@@ -18,9 +18,14 @@ with the forward counts and `compute_dtype`, `artifact_io` with `op`,
 `finalize`, and a `block` record per attack block), `heartbeat_0.jsonl`,
 `metrics.jsonl` (`observe.AttackMetricsLogger`) and, under
 `hang_timeout`, the watchdog; `trace_dir` wraps the run in a
-`torch.profiler` trace. Input streams through `data.streaming_batches`
-when `stream_depth` > 0. `carry_checkpoints` snapshots the attack's carry
-under `<results>/carry_<batch>` at every block (cleared on success, kept on
+`torch.profiler` trace. `sanitize` arms the runtime sanitizers
+(`analysis/sanitize.py`) once the event log is active, so their events
+land in `events.jsonl`; the programs' shape budgets are declared always,
+as in the JAX package (the batch size for the attack's step and sweep,
+the image buckets for certification's), and enforced only then. Input
+streams through `data.streaming_batches` when `stream_depth` > 0.
+`carry_checkpoints` snapshots the attack's carry under
+`<results>/carry_<batch>` at every block (cleared on success, kept on
 failure for the next run to resume from).
 """
 
@@ -116,6 +121,10 @@ def run_experiment(cfg: ExperimentConfig, verbose: bool = True) -> Dict:
             stack.enter_context(hb)
             if watchdog is not None:
                 stack.enter_context(watchdog)
+        if cfg.sanitize:
+            from dorpatch_tpu_torch.analysis.sanitize import Sanitizer
+
+            stack.enter_context(Sanitizer())
         stack.enter_context(observe.trace(cfg.trace_dir))
         stack.enter_context(logger)
         stack.enter_context(observe.span("run", processes=1))
@@ -127,9 +136,11 @@ def run_experiment(cfg: ExperimentConfig, verbose: bool = True) -> Dict:
             defenses = build_defenses(victim.apply, cfg.img_size,
                                       cfg.defense,
                                       incremental=victim.incremental,
-                                      device=dev)
+                                      device=dev,
+                                      recompile_budget=len(cert_buckets))
             attack = DorPatch(victim.apply, victim.num_classes, cfg.attack,
-                              on_block_end=_on_block)
+                              on_block_end=_on_block,
+                              recompile_budget=int(cfg.batch_size))
         return _run_batches(cfg, dev, rng, store, victim, defenses,
                             cert_buckets, attack, logger, verbose)
 

@@ -194,15 +194,22 @@ def test_apply_overrides_dotted_and_unknown():
     {"attack": {"remat_policy": "full"}}, {"defense": {"use_pallas": "on"}}])
 def test_config_from_dict_refuses_not_ported_keys_by_name(key):
     """The JAX package's keys of the subsystems the port lacks are refused
-    by name; `recert` and `gateway`, ported, are accepted and read back as
-    the JAX package reads them."""
-    if set(key) & {"recert", "gateway"}:
+    by name; `recert`, `gateway`, `sanitize` and the attack's `remat`,
+    `remat_threshold` and `remat_policy`, ported, are accepted and read
+    back as the JAX package reads them."""
+    ported_attack = {"remat", "remat_threshold", "remat_policy"}
+    if set(key) & {"recert", "gateway", "sanitize"} or \
+            set(key.get("attack", {})) & ported_attack:
         from dorpatch_tpu.config import config_from_dict as jax_from_dict
         from dorpatch_tpu.config import config_to_dict as jax_to_dict
 
         (name,) = key
-        assert config_to_dict(config_from_dict(key))[name] == \
-            jax_to_dict(jax_from_dict(key))[name]
+        got = config_to_dict(config_from_dict(key))[name]
+        want = jax_to_dict(jax_from_dict(key))[name]
+        if name == "attack":
+            got = {k: got[k] for k in key[name]}
+            want = {k: want[k] for k in key[name]}
+        assert got == want
         return
     with pytest.raises(ValueError, match="not ported"):
         config_from_dict(key)
