@@ -65,17 +65,18 @@ NVIDIA GPU.
    random weights from the seed, certification at the four radii with
    prune="exact", incremental="auto" (-> stem for the conv victims,
    -> token-exact for the ViT); then the same three runs with
-   `--compute-dtype bfloat16 --certify-dtype bfloat16` (the bf16 attack
+   `--compute-dtype bfloat16 --certify-dtype bfloat16` (ViT's with
+   `--max-iterations 5`; the bf16 attack
    fills at float32 (A, B) and runs the victim's bf16 copy (D, F on RN50);
    the bf16 bank fills bf16 images (A's bf16 form) and runs C's and H's
    bf16 forms);
    - RN50 480 and RN50 480 bf16: ResNetV2-50x1 at BiT's 480 px
-     fine-tuning resolution, `--img-size 480 -b 1 --max-iterations 10`,
+     fine-tuning resolution, `--img-size 480 -b 1 --max-iterations 5`,
      the other flags as RN50's, without and with the bf16 flags (the
      backward of the stage-1 slabs takes kernel G, in float32 and in
      bf16);
    - ResMLP and ResMLP bf16: RN50's flags with `--base_arch resmlp
-     --max-iterations 10` (ResMLP-24 at full depth and width; kernels A
+     --max-iterations 5` (ResMLP-24 at full depth and width; kernels A
      and B, the mixer engine's gathers and cuBLAS matmuls, A in
      escalations);
    - CIFAR n_patch=2 and its bf16 twin: CIFAR's flags with `-b 2
@@ -85,13 +86,28 @@ NVIDIA GPU.
      consensus`, whose records are then held against the RN50 runs' (same
      prediction, every certificate kept, at most the forwards);
    - CIFAR disk, where Pillow is installed: CIFAR's flags without
-     `--synthetic` and with `--max-iterations 10`, reading a seeded CIFAR-10 `test_batch` it writes into
+     `--synthetic` and with `--max-iterations 5`, reading a seeded CIFAR-10 `test_batch` it writes into
      a temporary `--data_dir`, streamed (the default `stream_depth` 2)
      and again through the synchronous input path, which must give the
      same report and patch (each main path prints its `data` spans'
      seconds);
-   and prints A's and B's launches x (time - bound) per path; then runs
-   RN50 at 224 in float32, 10 iterations a stage in blocks of 5, once
+   and prints A's and B's launches x (time - bound) per path; then the
+   mesh (`mesh_phase`): CIFAR in float32 and with both bf16 flags
+   on a 2x2 mesh of 4 ranks, RN50 and ViT-B/16 on 2x1, the single-process
+   paths' argv with `--mesh-data/--mesh-mask`, the ranks sharing the card
+   over gloo (`python -m torch.distributed.run` of this script with
+   `--mesh-worker`), each rank's launch counts set to 0 just before its
+   path and read just after (every rank must launch its sharded forms);
+   the first attack step's gradients within 1e-5 of one process's with
+   cuDNN off (printed as configured too: cuDNN picks its algorithm by the
+   batch), the records (verdicts, tables, forwards) equal to one process's
+   certification of the same patch (the run's, where the patches are
+   equal) but for entries under a 1e-3 margin, the whole-run patch
+   difference printed; each sharded form (A, B's float64 form, C, H and
+   the bf16 forms of A, C, H) held on every rank at its shard against its
+   plain version and the single-device kernel, timed at the shard with
+   the gloo all_reduce of the cotangent; and a one-rank NCCL group's
+   sharded fill; then runs RN50 at 224 in float32, 10 iterations a stage in blocks of 5, once
    uninterrupted and once with `--carry-checkpoints --hang-timeout 300`,
    interrupted from the block callback at stage 1's first block and run
    again over the same results dir, which must resume from the snapshot,
@@ -114,7 +130,7 @@ NVIDIA GPU.
    RN50 at 480 px with 1 image without remat and with 2 under each
    policy that fits (REMAT_480_POLICIES); and the slice's path, RN50 at
    480 px with 2 images a batch and `--remat on` through the CLI
-   (RN50_480_B2_ARGV, 10 iterations; it does not fit without remat),
+   (RN50_480_B2_ARGV, 5 iterations; it does not fit without remat),
    whose certification records must equal those of certifying its patch
    again with remat off (the 480 px kernel records carry its launches as
    `remat_launches`);
@@ -279,6 +295,11 @@ TOL_H_LOGITS = 1e-4
 #: time: every kernel of a path launches in each iteration and in the
 #: certification
 SHORT_ITERATIONS = 10
+#: the depth of the paths no other phase is held to (RN50 480 in both
+#: dtypes and at batch 2 under remat, ResMLP, ViT bf16, CIFAR disk), cut
+#: from 10 to make room for the mesh phase: the CIFAR, RN50 and
+#: ViT paths keep 10, the mesh paths are held to them
+HEAVY_ITERATIONS = 5
 CIFAR_ARGV = ["--synthetic", "--dataset", "cifar10", "--base_arch",
               "resnet18", "--img-size", "32", "-b", "8",
               "--sampling-size", "128", "--dropout", "2",
@@ -303,14 +324,15 @@ VIT_ARGV = _iterations([a if a != "resnetv2" else "vit" for a in RN50_ARGV],
 RN50_480_ARGV = ["--synthetic", "--dataset", "imagenet", "--base_arch",
                  "resnetv2", "--img-size", "480", "-b", "1",
                  "--sampling-size", "128", "--dropout", "2",
-                 "--max-iterations", str(SHORT_ITERATIONS),
+                 "--max-iterations", str(HEAVY_ITERATIONS),
                  "--num-batches", "1"]
 #: the bf16 paths: the same runs with the bf16 attack and certify bank
 BF16_FLAGS = ["--compute-dtype", "bfloat16", "--certify-dtype", "bfloat16"]
 #: ResMLP-24 (24 blocks, D 384, 196 tokens) at 224, RN50's other flags
 RESMLP_ARGV = _iterations(
     [a if a != "resnetv2" else "resmlp" for a in RN50_ARGV],
-    SHORT_ITERATIONS)
+    HEAVY_ITERATIONS)
+VIT_BF16_ARGV = _iterations(VIT_ARGV, HEAVY_ITERATIONS) + BF16_FLAGS
 #: the n_patch=2 defense bank (630 pairs, 22680 triples a radius, the
 #: exhaustive sweep) on the CIFAR ResNet-18, 2 images a batch
 CIFAR_NP2_ARGV = [a if a != "8" else "2" for a in CIFAR_ARGV] + [
@@ -318,7 +340,7 @@ CIFAR_NP2_ARGV = [a if a != "8" else "2" for a in CIFAR_ARGV] + [
 CONSENSUS = ["--prune", "consensus"]
 #: the CIFAR path without --synthetic: the disk source over --data_dir
 CIFAR_DISK_ARGV = _iterations([a for a in CIFAR_ARGV if a != "--synthetic"],
-                              SHORT_ITERATIONS)
+                              HEAVY_ITERATIONS)
 CIFAR_KERNELS = ("masked_fill_fwd", "masked_fill_bwd", "stem_fold")
 #: the count each record's launches are read from: kernels A and B at 224,
 #: kernel C at RN50's stem and kernel H at the pair audit's shape count as
@@ -1358,6 +1380,7 @@ def main_path(torch, dev, label, argv, required, shares=None,
         if inspect is not None:
             inspect(store.result_dir)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    m["wall_s"] = wall
     print(f"{label} main path: {wall:.2f} s wall; attack seconds "
           f"{m.get('attack_seconds')}; certify seconds "
           f"{m.get('certify_seconds')}; forwards {m.get('forwards')} of "
@@ -1549,7 +1572,8 @@ def vit_cross_check(torch, dev, b, lift, dataset="imagenet", arch="vit",
         def first_round():
             return eng._chunk(patches, cls0, kcs, vcs, per_image(table.idx),
                               per_image(table.keep),
-                              per_image(table.slot_bias), cfg.mask_fill)
+                              per_image(table.slot_bias), cfg.mask_fill,
+                              eng._attn(None))
 
         ops.reset_launch_counts()
         lg_tok = first_round()
@@ -3628,7 +3652,7 @@ def remat_phase(torch, dev):
     of ViT-B/16 (float32), batch 2, remat off and under each policy, loss
     and gradients bit-equal (`remat_step_check`); then the slice's path,
     RN50 at 480 px with 2 images a batch and `--remat on` through the CLI
-    (`main_path`, 10 iterations), whose certification records must equal
+    (`main_path`, 5 iterations), whose certification records must equal
     those of certifying its patch again in this process with remat off,
     and one step of it under each policy that fits beside the batch-1 step
     without remat. Returns the 480 px path's launch counts."""
@@ -3782,9 +3806,761 @@ def verify_phase(torch, dev, out) -> None:
                 raise AssertionError(f"verify {path}: exit {rc}, {report}")
 
 
+#: the mesh phase (`mesh_phase`): ranks of a `(data, mask)` mesh that share
+#: cuda:0 over gloo (NCCL refuses two ranks on one card), launched by
+#: `python -m torch.distributed.run --standalone` running this script with
+#: `--mesh-worker`. Each path is the single-process main path of the same
+#: argv (its label in MESH_LAUNCHES), whose records and patch it is held to;
+#: the kernel checks hold each sharded form at a rank's shard against its
+#: plain version and against the single-device kernel on the whole shape.
+#: (world, mesh, paths, kernel checks) a launch
+MESH_LAUNCHES = (
+    (4, (2, 2),
+     (("CIFAR mesh", "CIFAR", CIFAR_ARGV, True),
+      ("CIFAR bf16 mesh", "CIFAR bf16", CIFAR_ARGV + BF16_FLAGS, False)),
+     (("fill", 8, 32, "_cifar"), ("fill_bf16", 8, 32, "_cifar"),
+      ("stem", "cifar10", "resnet18", 32, 8, "_cifar", "float32"),
+      ("stem", "cifar10", "resnet18", 32, 8, "_cifar", "bfloat16"))),
+    (2, (2, 1),
+     (("RN50 mesh", "RN50", RN50_ARGV, True),
+      ("ViT mesh", "ViT", VIT_ARGV, True)),
+     (("fill", 2, 224, "_224"), ("fill_bf16", 2, 224, "_224"),
+      ("stem", "imagenet", "resnetv2", 224, 2, "_rn50", "float32"),
+      ("stem", "imagenet", "resnetv2", 224, 2, "_rn50", "bfloat16"),
+      ("attn", "float32"), ("attn", "bfloat16"))))
+#: the sharded forms each mesh path must launch on every rank; the bf16
+#: bank's fill only where the single-process path filled a pair audit
+MESH_KERNELS = {
+    "CIFAR mesh": ("masked_fill_fwd_mesh", "masked_fill_bwd_mesh",
+                   "stem_fold_mesh"),
+    "CIFAR bf16 mesh": ("masked_fill_fwd_mesh", "masked_fill_bwd_mesh",
+                        "stem_fold_bf16_mesh"),
+    "RN50 mesh": ("masked_fill_fwd_mesh", "masked_fill_bwd_mesh",
+                  "stem_fold_mesh", "gn_relu_fwd", "gn_relu_bwd"),
+    "ViT mesh": ("masked_fill_fwd_mesh", "masked_fill_bwd_mesh",
+                 "masked_kv_attn_mesh")}
+#: a launch's time limit (s): ranks start, build nothing (the library is
+#: built), run their paths and checks
+MESH_TIMEOUT_S = 400
+#: a first-round flip between a mesh path's records and its single-process
+#: path's is allowed only under this top-2 margin of the single-process
+#: entry (`PERF.md` §2)
+MESH_FLIP_MARGIN = 1e-3
+#: first-step gradients vs one process, with cuDNN off: its algorithm
+#: choice depends on the batch, and a rank's batch is a shard
+TOL_STEP = 1e-5
+#: calls per timed graph and timed graphs of the mesh phase's kernel times
+#: (fewer than INNER, REPS: the phase's time is capped)
+MESH_TIMING = (5, 5)
+#: the record of the single-device kernel on the whole shape (timed by the
+#: kernel phases) beside each sharded form's; the bf16 fill's whole shape
+#: (S = 126) is timed in the mesh phase
+WHOLE_OF = {"masked_fill_fwd_mesh_cifar": "masked_fill_fwd",
+            "masked_fill_bwd_mesh_cifar": "masked_fill_bwd",
+            "masked_fill_fwd_mesh_224": "masked_fill_fwd_224",
+            "masked_fill_bwd_mesh_224": "masked_fill_bwd_224",
+            "stem_fold_mesh_cifar": "stem_fold",
+            "stem_fold_bf16_mesh_cifar": "stem_fold_bf16",
+            "stem_fold_mesh_rn50": "stem_fold_rn50",
+            "stem_fold_bf16_mesh_rn50": "stem_fold_bf16_rn50",
+            "masked_kv_attn_mesh": "masked_kv_attn",
+            "masked_kv_attn_mesh_pairs": "masked_kv_attn_pairs",
+            "masked_kv_attn_bf16_mesh": "masked_kv_attn_bf16",
+            "masked_kv_attn_bf16_mesh_pairs": "masked_kv_attn_bf16_pairs"}
+MESH_SOURCES = {"fill": "dorpatch_tpu/ops/masked_fill.py:152",
+                "stem": "dorpatch_tpu/ops/stem_fold.py:271",
+                "attn": "dorpatch_tpu/ops/masked_kv_attn.py:110"}
+
+
+def _host_ms(torch, fn, reps: int = 10) -> float:
+    """Median host milliseconds of `fn()` between synchronizes (a
+    collective: every rank calls it)."""
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times[1:])[reps // 2]
+
+
+def _timed_on_rank0(torch, mesh, fns):
+    """Device ms of each of `fns` timed on rank 0 while the other ranks
+    wait (the card is not shared during the timing); None elsewhere."""
+    mesh.barrier()
+    out = ([_device_ms(f, *MESH_TIMING) for f in fns] if mesh.rank == 0
+           else None)
+    mesh.barrier()
+    return out
+
+
+def _mesh_fill_check(torch, mesh, b, size, suffix, bf16):
+    """A-mesh (and B-mesh) at a rank's `[B/d, S/m]` shard of the attack
+    step's fill (S = 128; the bf16 bank's pair chunk S = 126): against the
+    plain version at the shard and the single-device kernel on the whole
+    shape (exact), the whole cotangent (after the all_reduce) against
+    float64 autograd of the plain version and kernel B (TOL_B), the shard's
+    float64 partial against the plain float64 sum; timed at the shard on
+    rank 0 beside the plain version, `torch.where` and the single-device
+    kernel on the whole shape, and the gloo all_reduce of the cotangent."""
+    from dorpatch_tpu_torch import masks as masks_lib
+    from dorpatch_tpu_torch.fill_bench import (bwd_bytes, fill_inputs,
+                                               kept_share, yardsticks)
+    from dorpatch_tpu_torch.ops import masked_fill as mf
+
+    fill, s = 0.5, (126 if bf16 else 128)
+    imgs, rects, g = fill_inputs(torch, mesh.device, b, size, s, seed=s + 1)
+    if bf16:
+        imgs = imgs.bfloat16()
+    rows, cols = mesh.block(b, s)
+    xb, rb, gb = imgs[rows].contiguous(), rects[cols].contiguous(), \
+        g[rows, cols].contiguous()
+    hwc, k = size * size * 3, rects.shape[1]
+    x = imgs.clone().requires_grad_(not bf16)
+    with torch.enable_grad():
+        blk = mf.sharded_masked_fill(x, rects, fill, mesh)
+        gx = None if bf16 else torch.autograd.grad(blk, x, gb)[0]
+    blk = blk.detach()
+    whole = mf.masked_fill_fwd_kernel(imgs, rects, fill)[rows, cols]
+    plain = mf.masked_fill_reference(xb, rb, fill)
+    torch.cuda.synchronize()
+    if not (torch.equal(blk, plain) and torch.equal(blk, whole)):
+        raise AssertionError(f"sharded fill{suffix} differs from its plain "
+                             "version or the single-device kernel A")
+    tag = "_bf16" if bf16 else ""
+    shard = f"[{xb.shape[0]} of {b} images, {rb.shape[0]} of {s} masks]"
+    recs = []
+    keep = None
+    if not bf16:
+        xd = imgs.double().requires_grad_(True)
+        with torch.enable_grad():
+            (want,) = torch.autograd.grad(
+                mf.masked_fill_reference(xd, rects, fill), xd, g.double())
+        torch.testing.assert_close(gx.double(), want, **TOL_B)
+        b_err = float((gx.double() - want).abs().max())
+        kern_b = float((gx - mf.masked_fill_bwd_kernel(rects, g)).abs().max())
+        part = torch.zeros((xb.shape[0], size, size, 3), dtype=torch.float64,
+                           device=mesh.device)
+        mf._bwd_launch(rb, gb, None, out=part)
+        keep = masks_lib.rasterize(rb, size)
+        want_part = (gb.double() * keep[None, ..., None]).sum(1)
+        part_err = float((part - want_part).abs().max())
+        if part_err > 1e-9:
+            raise AssertionError(f"kernel B's float64 form{suffix}: "
+                                 f"{part_err} from the plain float64 sum")
+        buf = torch.zeros((b, size, size, 3), dtype=torch.float64,
+                          device=mesh.device)
+        ar_ms = _host_ms(torch, lambda: mesh.all_reduce(buf))
+        print(f"mesh rank {mesh.rank}: sharded fill{suffix} {shard}: exact "
+              f"against the plain fill and kernel A; cotangent "
+              f"{b_err:.3g} from float64 autograd, {kern_b:.3g} from kernel "
+              f"B; B's float64 partial {part_err:.3g} from the plain sum; "
+              f"all_reduce of [{b},{size},{size},3] float64 over "
+              f"{mesh.backend}: {ar_ms:.3f} ms", flush=True)
+    else:
+        print(f"mesh rank {mesh.rank}: sharded bf16 fill{suffix} {shard}: "
+              "exact against the plain fill and kernel A's bf16 form",
+              flush=True)
+    if keep is None:
+        keep = masks_lib.rasterize(rb, size)
+    plain_b, lib_a, lib_b = yardsticks(torch, xb, keep, gb, fill)
+    fns = [lambda: mf._fwd_launch(xb, rb, fill, None, "_mesh"),
+           lambda: mf.masked_fill_reference(xb, rb, fill), lib_a]
+    if bf16:    # no record of the single-device kernel at this shape
+        fns.append(lambda: mf.masked_fill_fwd_kernel(imgs, rects, fill))
+    else:
+        fns += [lambda: mf._bwd_launch(rb, gb, None, out=part), plain_b,
+                lib_b]
+    ms = _timed_on_rank0(torch, mesh, fns)
+    if ms is None:
+        return []
+    bl, sl = xb.shape[0], rb.shape[0]
+    isz = 2 if bf16 else 4
+    bound, by = _bound(isz * bl * hwc + 16 * sl * k + isz * bl * sl * hwc,
+                       0.0)
+    recs.append(dict(name=f"masked_fill_fwd{tag}_mesh{suffix}", route="cuda",
+                     source="dorpatch_tpu_torch/csrc/masked_fill.cu",
+                     replaces=MESH_SOURCES["fill"], launches=0,
+                     max_abs_err=0.0, ms=ms[0], plain_ms=ms[1],
+                     bound_ms=bound, bound_by=by, library_ms=ms[2],
+                     shard=shard, whole_kernel_ms=ms[3] if bf16 else None))
+    if not bf16:
+        need, _ = bwd_bytes(gb.shape, k, keep)
+        bound, by = _bound(need + 4 * bl * hwc,
+                           bl * sl * hwc * kept_share(keep), PEAK_F64_FLOPS)
+        recs.append(dict(name=f"masked_fill_bwd_mesh{suffix}", route="cuda",
+                         source="dorpatch_tpu_torch/csrc/masked_fill.cu",
+                         replaces=MESH_SOURCES["fill"], launches=0,
+                         max_abs_err=b_err, ms=ms[3], plain_ms=ms[4],
+                         bound_ms=bound, bound_by=by, library_ms=ms[5],
+                         shard=shard, whole_kernel_ms=None,
+                         all_reduce_ms=ar_ms))
+    for r in recs:
+        print(f"mesh kernel {r['name']} {shard}: {r['ms'] * 1e3:.2f} us a "
+              f"shard (plain {r['plain_ms'] * 1e3:.2f}, library "
+              f"{r['library_ms'] * 1e3:.2f}, bound {r['bound_ms'] * 1e3:.2f} "
+              f"us by {r['bound_by']})", flush=True)
+    return recs
+
+
+def _mesh_stem_check(torch, mesh, dataset, arch, size, b, suffix, dtype):
+    """C-mesh (C-bf16-mesh) on a rank's data block of one phase-1 chunk:
+    against the plain fold of the block (`stem_bench.stem_gate`) and the
+    single-device kernel on the whole batch (bit-equal rows); timed at the
+    block on rank 0 beside the plain fold, conv2d of the masked block and
+    the single-device kernel on the whole batch."""
+    from types import SimpleNamespace
+
+    import torch.nn.functional as F
+
+    from dorpatch_tpu_torch import stem_bench as sb
+    from dorpatch_tpu_torch.ops import stem_fold as sf
+
+    dt = getattr(torch, dtype)
+    case = sb.stem_case(torch, mesh.device, dataset, arch, size, b, dt)
+    rows, _ = mesh.block(b, mesh.shape["mask"])
+    blk = SimpleNamespace(**vars(case))
+    for f in ("imgs", "clean", "u", "up"):
+        setattr(blk, f, getattr(case, f)[rows].contiguous())
+    blk.xm = case.xm.reshape((b, -1) + tuple(case.xm.shape[1:]))[rows] \
+        .reshape((-1,) + tuple(case.xm.shape[1:]))
+    args = sb.kernel_args(blk)
+    with torch.no_grad():
+        got = sf.fold_masked_stem_sharded(*args, mesh=mesh)
+        whole = sf.fold_masked_stem_kernel(*sb.kernel_args(case))[rows]
+        want = sb.plain(blk)
+        torch.cuda.synchronize()
+        err, bad, _ = sb.stem_gate(torch, blk, got, want)
+        if bad or not torch.equal(got, whole):
+            raise AssertionError(f"sharded stem fold{suffix} {dtype}: {bad} "
+                                 f"elements out of C's gate (max {err}), or "
+                                 "not equal to the single-device kernel")
+        blk.part = [pw._replace(occ=torch.as_tensor(pw.occ,
+                                                    device=mesh.device))
+                    for pw in blk.part]
+        ms = _timed_on_rank0(torch, mesh, [
+            lambda: sf.fold_masked_stem_sharded(*args, mesh=mesh),
+            lambda: sb.plain(blk),
+            lambda: F.conv2d(blk.xm, blk.w_oihw, None, blk.s)])
+    shard = f"[{blk.imgs.shape[0]} of {b} images, N={case.n}]"
+    print(f"mesh rank {mesh.rank}: sharded stem fold{suffix} {dtype} "
+          f"{shard}: max_abs_err {err:.3g} against the plain fold, equal to "
+          "the single-device kernel's rows", flush=True)
+    if ms is None:
+        return []
+    _, _, bytes_ms, ops_ms, _ = sb.bounds(blk)
+    bound, by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else \
+        (ops_ms, "operations")
+    tag = "_bf16" if dtype == "bfloat16" else ""
+    rec = dict(name=f"stem_fold{tag}_mesh{suffix}", route="cuda",
+               source="dorpatch_tpu_torch/csrc/stem_fold.cu",
+               replaces=MESH_SOURCES["stem"], launches=0, max_abs_err=err,
+               ms=ms[0], plain_ms=ms[1], bound_ms=bound, bound_by=by,
+               library_ms=ms[2], shard=shard, whole_kernel_ms=None)
+    print(f"mesh kernel {rec['name']} {shard}: {ms[0] * 1e3:.2f} us a shard "
+          f"(plain {ms[1] * 1e3:.2f}, conv2d {ms[2] * 1e3:.2f}, bound "
+          f"{bound * 1e3:.2f} us by {by})", flush=True)
+    return [rec]
+
+
+def _mesh_attn_check(torch, mesh, dtype):
+    """H-mesh (H-bf16-mesh) on a rank's data block of the ViT-B/16 engine's
+    phase-1 and pair-audit chunks: against the plain version on the block
+    (float64; the bf16 form within an ulp plus 2^-8 of the largest |v|)
+    and the single-device kernel on the whole batch (bit-equal rows);
+    timed on rank 0 beside the plain version, SDPA and the single-device
+    kernel on the whole batch."""
+    import numpy as np
+
+    import torch.nn.functional as F
+
+    from dorpatch_tpu_torch import attn_bench
+    from dorpatch_tpu_torch.ops import masked_kv_attn as mka
+
+    bf16 = dtype == "bfloat16"
+    rng = np.random.default_rng(16)
+    tag = "_bf16" if bf16 else ""
+    recs = []
+    for suffix, (_, kind, c) in zip(("", "_pairs"), attn_bench.SHAPES):
+        args = attn_bench.engine_case(torch, mesh.device, kind, c, rng)
+        if bf16:
+            args = tuple(a.bfloat16() for a in args)
+        b = args[0].shape[0]
+        rows, _ = mesh.block(b, mesh.shape["mask"])
+        blk = tuple(a[rows].contiguous() for a in args)
+        got = mka.masked_kv_attention_sharded(*blk, mesh=mesh)
+        whole = mka.masked_kv_attention_kernel(*args)[rows]
+        if bf16:
+            want = mka.masked_kv_attention_reference(*blk)
+            vmax = max(float(blk[2].abs().max()), float(blk[4].abs().max()))
+            e = (got.float() - want.float()).abs()
+            bad = int((e > _ulp16(torch, want) + 2.0 ** -8 * vmax).sum())
+            err = float(e.max())
+        else:
+            want = mka.masked_kv_attention_reference(
+                *(a.double() for a in blk))
+            err = float((got.double() - want).abs().max())
+            bad = int((~torch.isclose(got.double(), want, **TOL_H)).sum())
+        if bad or not torch.equal(got, whole):
+            raise AssertionError(f"sharded kernel H{tag}{suffix}: {bad} "
+                                 f"elements out of tolerance (max {err}), "
+                                 "or not equal to the single-device kernel")
+        qs, ks, vs, mask = attn_bench.sdpa_inputs(torch, blk)
+        ms = _timed_on_rank0(torch, mesh, [
+            lambda: mka.masked_kv_attention_sharded(*blk, mesh=mesh),
+            lambda: mka.masked_kv_attention_reference(*blk),
+            lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                   attn_mask=mask, scale=1.0)])
+        bb, cc, s, h, f = blk[0].shape
+        shard = f"[{bb} of {b} images, C={cc}, S={s}]"
+        print(f"mesh rank {mesh.rank}: sharded kernel H{tag}{suffix} "
+              f"{shard}: max_abs_err {err:.3g} against the plain version, "
+              "equal to the single-device kernel's rows", flush=True)
+        if ms is not None:
+            bound, by, _, _ = attn_bench.bound(blk)
+            rec = dict(name=f"masked_kv_attn{tag}_mesh{suffix}",
+                       route="cuda",
+                       source="dorpatch_tpu_torch/csrc/masked_kv_attn.cu",
+                       replaces=MESH_SOURCES["attn"], launches=0,
+                       max_abs_err=err, ms=ms[0], plain_ms=ms[1],
+                       bound_ms=bound, bound_by=by, library_ms=ms[2],
+                       shard=shard, whole_kernel_ms=None)
+            print(f"mesh kernel {rec['name']} {shard}: {ms[0] * 1e3:.2f} us "
+                  f"a shard (plain {ms[1] * 1e3:.2f}, SDPA "
+                  f"{ms[2] * 1e3:.2f}, bound {bound * 1e3:.2f} us by {by})",
+                  flush=True)
+            recs.append(rec)
+        del args, blk, got, whole, want, qs, ks, vs, mask
+        torch.cuda.empty_cache()
+    return recs
+
+
+def _step_grads(torch, atk, x, lvx, rects, state):
+    """One EOT step's (stage 0) gradients with respect to the image (the
+    perturbation `l2_project` returns), the mask and the pattern."""
+    from dorpatch_tpu_torch import losses
+
+    plain, seen = losses.l2_project, []
+
+    def keep(*args, **kwargs):
+        seen.append(plain(*args, **kwargs))
+        return seen[-1]
+
+    m = state.adv_mask.detach().clone().requires_grad_(True)
+    p = state.adv_pattern.detach().clone().requires_grad_(True)
+    losses.l2_project = keep
+    try:
+        with torch.enable_grad():
+            total, _ = atk._loss_and_aux(m, p, x, lvx, rects, state, 0)
+            return torch.autograd.grad(total, (seen[0], m, p))
+    finally:
+        losses.l2_project = plain
+
+
+def _path_inputs(torch, argv, dev):
+    """(config, victim, images) of a main path's first batch: the victim
+    of `get_model` (random weights from the seed) and the synthetic batch,
+    every image of which the pipeline keeps (its labels are the victim's
+    own predictions)."""
+    from dorpatch_tpu_torch import data
+    from dorpatch_tpu_torch.cli import build_parser, config_from_args
+    from dorpatch_tpu_torch.models import get_model
+
+    cfg = config_from_args(build_parser().parse_args(argv))
+    victim = get_model(cfg.dataset, cfg.base_arch, cfg.model_dir,
+                       cfg.img_size, device=dev)
+    x_np, _ = next(data.dataset_batches(cfg.dataset, cfg.batch_size,
+                                        cfg.img_size, cfg.seed,
+                                        source="synthetic"))
+    return cfg, victim, torch.as_tensor(x_np, device=dev)
+
+
+def _first_step(torch, mesh, cfg, victim, x):
+    """The path's first attack step (stage 0, one seeded draw of the EOT
+    sample) on the mesh and, on rank 0, in one process: the gradients with
+    respect to the image, the mask and the pattern, with cuDNN off (its
+    convolutions give an image the same result in a batch of any size, so
+    what differs is the mesh's) and as configured (cuDNN picks its
+    algorithm by the batch, and a rank's is a shard of one process's).
+    Returns, on rank 0, {"off": largest |difference| with cuDNN off, "on":
+    as configured, "native_one"/"native_mesh": each configured gradient's
+    largest |difference| from the cuDNN-off one, "max": the largest |g|};
+    None elsewhere."""
+    from dorpatch_tpu_torch import losses, utils
+    from dorpatch_tpu_torch import masks as masks_lib
+    from dorpatch_tpu_torch.attack import DorPatch
+
+    dev = mesh.device
+    with torch.no_grad():
+        y = torch.argmax(victim.apply(x), -1)
+    lvx = torch.mean(losses.local_variance(x)[0], dim=-1)
+    universe = torch.as_tensor(masks_lib.dropout_universe(
+        cfg.img_size, cfg.attack.dropout, cfg.attack.dropout_sizes),
+        device=dev)
+    idx = torch.randperm(universe.shape[0], generator=utils.generator(
+        2, torch.device("cpu")))[:cfg.attack.sampling_size].to(dev)
+
+    def grads(atk):
+        state = atk._init_state(utils.generator(0, dev), x, y, False,
+                                universe.shape[0])
+        return _step_grads(torch, atk, x, lvx, universe[idx], state)
+
+    def diff(a, b):
+        return max(float((u - v).abs().max()) for u, v in zip(a, b))
+
+    got, want = {}, {}
+    try:
+        for on in (False, True):
+            torch.backends.cudnn.enabled = on
+            got[on] = grads(DorPatch(victim.apply, victim.num_classes,
+                                     cfg.attack, mesh=mesh))
+            torch.cuda.synchronize()
+            mesh.barrier()
+            if mesh.rank == 0:
+                want[on] = grads(DorPatch(victim.apply, victim.num_classes,
+                                          cfg.attack))
+            torch.cuda.empty_cache()
+            mesh.barrier()
+    finally:
+        torch.backends.cudnn.enabled = True
+    torch.cuda.empty_cache()
+    if mesh.rank:
+        return None
+    return {"off": diff(got[False], want[False]),
+            "on": diff(got[True], want[True]),
+            "native_one": diff(want[True], want[False]),
+            "native_mesh": diff(got[True], got[False]),
+            "max": max(float(g.abs().max()) for g in want[False])}
+
+
+def _one_process_records(torch, cfg, victim, x, root) -> None:
+    """Where the mesh run's patch of batch 0 is not the one-process run's
+    (`<root>/one_patch.npz`, written by `mesh_phase`), the single-process
+    certification (the bank without a mesh) of that patch, pickled to
+    `<root>/one.pkl`: what the meshed certification must give on the same
+    images. Where the patches are equal the one-process run's records are
+    that already."""
+    import pickle
+
+    import numpy as np
+
+    from dorpatch_tpu_torch import data, losses
+    from dorpatch_tpu_torch.artifacts import ArtifactStore, results_path
+    from dorpatch_tpu_torch.defense import build_defenses
+
+    patch = ArtifactStore(results_path(cfg)).load_patch(0)
+    one = np.load(os.path.join(root, "one_patch.npz"))
+    if all(np.array_equal(a, one[k]) for a, k in zip(patch, ("mask",
+                                                            "pattern"))):
+        return
+    mask, pattern = (torch.as_tensor(a, device=x.device) for a in patch)
+    adv = x + losses.l2_project(mask, pattern, x, cfg.attack.eps)
+    bank = build_defenses(victim.apply, cfg.img_size, cfg.defense,
+                          incremental=victim.incremental, device=x.device)
+    with torch.no_grad():
+        per = [d.robust_predict(adv, victim.num_classes,
+                                bucket_sizes=data.batch_buckets(
+                                    cfg.batch_size)) for d in bank]
+    with open(os.path.join(root, "one.pkl"), "wb") as fh:
+        pickle.dump([list(r) for r in zip(*per)], fh)
+
+
+def mesh_worker(spec_path: str) -> int:
+    """One rank of a mesh launch (`--mesh-worker SPEC`): the spec's paths
+    through the CLI entry point (launch counts set to 0 just before and
+    read just after each), their first attack step against one process,
+    then the sharded kernels' checks; writes `rank_<rank>.json` beside the
+    spec."""
+    import torch
+
+    from dorpatch_tpu_torch import ops, utils
+    from dorpatch_tpu_torch.cli import build_parser, config_from_args
+    from dorpatch_tpu_torch.parallel import make_mesh
+    from dorpatch_tpu_torch.pipeline import run_experiment
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    d, m = spec["mesh"]
+    mesh = make_mesh(d, m)
+    utils.configure_numerics()
+    out = {"rank": mesh.rank, "mesh": mesh.describe(), "paths": {},
+           "kernels": []}
+    try:
+        t_start = time.perf_counter()
+        for label, argv, root, step in spec["paths"]:
+            cfg = config_from_args(build_parser().parse_args(
+                argv + ["--results-root", root, "--mesh-data", str(d),
+                        "--mesh-mask", str(m)]))
+            torch.cuda.synchronize()
+            mesh.barrier()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = run_experiment(cfg, verbose=mesh.rank == 0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            res = {"wall": wall, "launches": ops.launch_counts(),
+                   "routes": ops.route_counts(),
+                   "unsharded": dict(mesh.unsharded),
+                   "metrics": {k: got.get(k) for k in (
+                       "report", "attack_seconds", "certify_seconds",
+                       "forwards", "forwards_exhaustive", "escalated")}}
+            mesh.barrier()              # rank 0 has saved the artifacts
+            cfg0, victim, x = _path_inputs(torch, argv, mesh.device)
+            if step:
+                res["first_step_diff"] = _first_step(torch, mesh, cfg0,
+                                                     victim, x)
+            if mesh.rank == 0:
+                _one_process_records(torch, cfg, victim, x, root)
+            del victim
+            torch.cuda.empty_cache()
+            mesh.barrier()
+            out["paths"][label] = res
+            if mesh.rank == 0:
+                print(f"mesh {label}: run {wall:.1f} s, with its checks "
+                      f"{time.perf_counter() - t_start:.1f} s since the "
+                      "launch's first path", flush=True)
+        for check in spec["kernels"]:
+            if mesh.rank == 0:
+                print(f"mesh kernel checks: {check[0]} at "
+                      f"{time.perf_counter() - t_start:.1f} s", flush=True)
+            kind, rest = check[0], check[1:]
+            if kind == "fill":
+                out["kernels"] += _mesh_fill_check(torch, mesh, *rest, False)
+            elif kind == "fill_bf16":
+                out["kernels"] += _mesh_fill_check(torch, mesh, *rest, True)
+            elif kind == "stem":
+                out["kernels"] += _mesh_stem_check(torch, mesh, *rest)
+            else:
+                out["kernels"] += _mesh_attn_check(torch, mesh, *rest)
+        with open(os.path.join(os.path.dirname(spec_path),
+                               f"rank_{mesh.rank}.json"), "w") as fh:
+            json.dump(out, fh)
+        mesh.barrier()
+    finally:
+        mesh.close()
+    return 0
+
+
+def _all_records_equal(a, b) -> bool:
+    """Per image and radius, `_records_equal`."""
+    return len(a) == len(b) and all(
+        len(ra) == len(rb) and all(_records_equal(x, y)
+                                   for x, y in zip(ra, rb))
+        for ra, rb in zip(a, b))
+
+
+def _flips(torch, argv, patch, base, other):
+    """The first-round and pair-table entries (both evaluated) where
+    records `other` differ from `base`, each with `base`'s top-2 margin
+    there (the victim's forward, at the bank's dtype, on the masked image
+    of `patch`): [(image, radius, entry, margin)]."""
+    import numpy as np
+
+    from dorpatch_tpu_torch import losses, utils
+    from dorpatch_tpu_torch import masks as masks_lib
+    from dorpatch_tpu_torch.defense import UNEVALUATED
+    from dorpatch_tpu_torch.ops.masked_fill import masked_fill
+
+    cfg, victim, x = _path_inputs(torch, argv, torch.device("cuda"))
+    mask, pattern = (torch.as_tensor(a, device=x.device) for a in patch)
+    dt = utils.compute_dtype(cfg.defense.compute_dtype)
+    fwd = utils.forward_at(victim.apply, dt)
+    adv = (x + losses.l2_project(mask, pattern, x, cfg.attack.eps)).to(dt)
+    out = []
+    for r, ratio in enumerate(cfg.defense.ratios):
+        spec = masks_lib.geometry(cfg.img_size, ratio, cfg.defense.n_patch,
+                                  cfg.defense.num_mask_per_axis)
+        singles, doubles = masks_lib.mask_sets(spec)
+        kk = max(singles.shape[1], doubles.shape[1])
+        rects = np.concatenate([masks_lib.pad_rects(singles, kk),
+                                masks_lib.pad_rects(doubles, kk)])
+        for i, (a, c) in enumerate(zip(base, other)):
+            ta = np.concatenate([a[r].preds_1, a[r].preds_2])
+            tc = np.concatenate([c[r].preds_1, c[r].preds_2])
+            both = (ta != UNEVALUATED) & (tc != UNEVALUATED)
+            for j in np.nonzero(both & (ta != tc))[0]:
+                xm = masked_fill(adv[i:i + 1], torch.as_tensor(
+                    rects[j:j + 1], device=dev), cfg.defense.mask_fill)
+                with torch.no_grad():
+                    _, mg = utils.preds_margins(fwd(
+                        xm.reshape((1,) + tuple(x.shape[1:]))))
+                out.append((i, ratio, int(j), float(mg[0])))
+    del victim
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(torch, records_of, metrics_of, fills, whole_ms) -> list:
+    """The mesh paths (MESH_LAUNCHES) through `torch.distributed.run`, each
+    launch one command of `--mesh-worker` ranks sharing cuda:0 over gloo.
+    Fails unless every rank launched its path's sharded kernels, every
+    first step's gradients are within TOL_STEP of one process's, and each
+    path's records (verdicts, tables, forwards) equal its single-process
+    path's, but for table entries whose single-process margin is under
+    MESH_FLIP_MARGIN (listed); prints each path's wall, attack and certify
+    seconds beside the single-process path's and the whole-run patch
+    difference (not held). Then the NCCL check. Returns the sharded
+    kernels' records, their launches summed over every rank of every path
+    of their launch, each with the single-device kernel's ms on the whole
+    shape (`whole_ms`, by record name, WHOLE_OF)."""
+    import pickle
+
+    import numpy as np
+
+    from dorpatch_tpu_torch.artifacts import ArtifactStore, results_path
+    from dorpatch_tpu_torch.cli import build_parser, config_from_args
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    recs = []
+    torch.cuda.empty_cache()
+    for world, (d, m), paths, kernels in MESH_LAUNCHES:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as root:
+            spec = {"mesh": [d, m], "kernels": kernels, "paths": [
+                [label, argv, os.path.join(root, label.replace(" ", "_")),
+                 step] for label, _, argv, step in paths]}
+            spec_path = os.path.join(root, "spec.json")
+            for label, single, _, _ in paths:
+                path_root = os.path.join(root, label.replace(" ", "_"))
+                os.makedirs(path_root)
+                np.savez(os.path.join(path_root, "one_patch.npz"),
+                         mask=PATCHES[single][0], pattern=PATCHES[single][1])
+            with open(spec_path, "w") as fh:
+                json.dump(spec, fh)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", str(world),
+                 os.path.join(here, "chip_smoke.py"), "--mesh-worker",
+                 spec_path], cwd=here, capture_output=True, text=True,
+                timeout=MESH_TIMEOUT_S)
+            launch_s = time.perf_counter() - t0
+            lines = (proc.stdout + proc.stderr).splitlines()
+            print("\n".join(ln for ln in lines if ln.startswith(
+                ("mesh ", "[p0")) or "Error" in ln)[-12000:], flush=True)
+            if proc.returncode != 0:
+                print("\n".join(lines[-60:]), flush=True)
+                raise AssertionError(f"mesh launch of {world} ranks exited "
+                                     f"{proc.returncode}")
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(root, f"rank_{r}.json")) as fh:
+                    ranks.append(json.load(fh))
+            print(f"mesh launch {d}x{m}: {launch_s:.1f} s; backend "
+                  f"{ranks[0]['mesh']['backend']}, devices "
+                  f"{[r['mesh']['device'] for r in ranks]}", flush=True)
+            totals = {}
+            for label, single, argv, _ in paths:
+                per = [r["paths"][label] for r in ranks]
+                need = list(MESH_KERNELS[label])
+                if fills[single].get("masked_fill_fwd_bf16", 0):
+                    need.append("masked_fill_fwd_bf16_mesh")
+                for r, p in enumerate(per):
+                    miss = [k for k in need if p["launches"][k] <= 0]
+                    if miss:
+                        raise AssertionError(f"{label}: rank {r} did not "
+                                             f"launch {miss}")
+                for p in per:
+                    for k, v in p["launches"].items():
+                        totals[k] = totals.get(k, 0) + v
+                path_root = os.path.join(root, label.replace(" ", "_"))
+                cfg = config_from_args(build_parser().parse_args(
+                    argv + ["--results-root", path_root]))
+                store = ArtifactStore(results_path(cfg))
+                meshed = store.load_pc_records(0)
+                patch = store.load_patch(0)
+                one_recs = records_of[single]      # the patches are equal
+                if os.path.exists(os.path.join(path_root, "one.pkl")):
+                    with open(os.path.join(path_root, "one.pkl"),
+                              "rb") as fh:
+                        one_recs = pickle.load(fh)
+                same_run = _all_records_equal(records_of[single], meshed)
+                same = _all_records_equal(one_recs, meshed)
+                flips = [] if same else _flips(torch, argv, patch, one_recs,
+                                               meshed)
+                far = [f for f in flips if f[3] >= MESH_FLIP_MARGIN]
+                pdiff = max(float(np.abs(a - c).max()) for a, c in
+                            zip(patch, PATCHES[single]))
+                step = per[0].get("first_step_diff")
+                one, mm = metrics_of[single], per[0]["metrics"]
+                print(f"{label} ({d}x{m}, {world} ranks): wall "
+                      f"{per[0]['wall']:.2f} s (one process "
+                      f"{one['wall_s']:.2f}); attack s "
+                      f"{mm['attack_seconds']} ({one.get('attack_seconds')});"
+                      f" certify s {mm['certify_seconds']} "
+                      f"({one.get('certify_seconds')}); forwards "
+                      f"{mm['forwards']} ({one.get('forwards')}); patch max "
+                      f"|diff| from the one-process run's {pdiff:.3g} (not "
+                      f"held); records equal to the one-process run's: "
+                      f"{same_run}, to one process's certification of this "
+                      f"patch: {same}; its table entries differing, with "
+                      f"one process's margin: {flips}; first-step gradients "
+                      f"(image, mask, pattern) max |diff| from one "
+                      f"process's with cuDNN off and as configured, and "
+                      f"each configured one's from cuDNN off: {step}; calls "
+                      f"the mesh did not divide "
+                      f"{[p['unsharded'] for p in per]}; report equal to "
+                      f"the one-process run's: "
+                      f"{mm['report'] == one['report']}", flush=True)
+                if step is not None and not step["off"] <= TOL_STEP:
+                    raise AssertionError(f"{label}: first-step gradients "
+                                         f"{step} from one process's")
+                if far or (not same and not flips):
+                    raise AssertionError(
+                        f"{label}: records differ from one process's "
+                        f"certification of the same patch beyond margin "
+                        f"{MESH_FLIP_MARGIN}: {far or flips}")
+            for r in ranks[0]["kernels"]:
+                r["launches"] = totals.get(
+                    r["name"].split("_mesh")[0] + "_mesh", 0)
+                if r["whole_kernel_ms"] is None:
+                    r["whole_kernel_ms"] = whole_ms.get(WHOLE_OF[r["name"]])
+                recs.append(r)
+    nccl_check(torch)
+    return recs
+
+
+def nccl_check(torch) -> None:
+    """A one-rank NCCL group on the card runs `sharded_masked_fill` once,
+    its backward's all_reduce included: the installation's NCCL
+    initialises and reduces. Forward exact against kernel A, cotangent
+    within TOL_B of kernel B."""
+    import torch.distributed as dist
+
+    from dorpatch_tpu_torch.fill_bench import fill_inputs
+    from dorpatch_tpu_torch.ops import masked_fill as mf
+    from dorpatch_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as d:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1,
+            device_id=dev)
+        try:
+            mesh = make_mesh(1, 1)
+            imgs, rects, g = fill_inputs(torch, dev, 2, 32, 8, seed=5)
+            x = imgs.clone().requires_grad_(True)
+            with torch.enable_grad():
+                out = mf.sharded_masked_fill(x, rects, 0.5, mesh)
+                (gx,) = torch.autograd.grad(out, x, g)
+            torch.cuda.synchronize()
+            if not torch.equal(out, mf.masked_fill_fwd_kernel(imgs, rects,
+                                                              0.5)):
+                raise AssertionError("NCCL check: forward differs")
+            torch.testing.assert_close(
+                gx, mf.masked_fill_bwd_kernel(rects, g), **TOL_B)
+            print(f"NCCL check: one-rank {mesh.backend} group on {dev}, "
+                  f"NCCL {torch.cuda.nccl.version()}: sharded fill and its "
+                  "all_reduce agree with kernels A and B", flush=True)
+        finally:
+            dist.destroy_process_group()
+
+
 def main() -> int:
     import faulthandler
 
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        return mesh_worker(sys.argv[2])
     import torch
 
     # a crash inside native code (the profiler, CUDA) prints every
@@ -3844,7 +4620,7 @@ def main() -> int:
     print(f"bf16 kernel phases: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    fills, records_of = {}, {}
+    fills, records_of, metrics_of = {}, {}, {}
     at224, at480 = gn_split_shares(224), gn_split_shares(480)
     audit = "masked_fill_fwd_bf16"
     for label, argv, required, records, shares, audit_fill in (
@@ -3855,7 +4631,7 @@ def main() -> int:
              cifar_bf16, None, audit),
             ("RN50 bf16", RN50_ARGV + BF16_FLAGS, RN50_BF16_KERNELS,
              rn50_bf16, at224, audit),
-            ("ViT bf16", VIT_ARGV + BF16_FLAGS, VIT_BF16_KERNELS,
+            ("ViT bf16", VIT_BF16_ARGV, VIT_BF16_KERNELS,
              vit_bf16, None, None),
             ("RN50 480", RN50_480_ARGV, RN50_KERNELS, rn50_480, at480, None),
             ("RN50 480 bf16", RN50_480_ARGV + BF16_FLAGS,
@@ -3872,7 +4648,7 @@ def main() -> int:
             ("RN50 consensus bf16", RN50_ARGV + BF16_FLAGS + CONSENSUS,
              RN50_480_BF16_KERNELS, [], at224, audit)):
         t0 = time.perf_counter()
-        _, counts, records_of[label] = main_path(
+        metrics_of[label], counts, records_of[label] = main_path(
             torch, dev, label, argv, required, shares, audit_fill)
         for rec in records:
             rec["launches"] = counts.get(COUNT_OF.get(rec["name"],
@@ -3894,6 +4670,12 @@ def main() -> int:
         consensus_check(label.replace("RN50", "RN50 consensus"),
                         records_of[label],
                         records_of[label.replace("RN50", "RN50 consensus")])
+    t0 = time.perf_counter()
+    mesh_kernels = mesh_phase(
+        torch, records_of, metrics_of, fills,
+        {r["name"]: r["ms"] for r in cifar_kernels + rn50_kernels
+         + vit_kernels + cifar_bf16 + rn50_bf16 + vit_bf16})
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s", flush=True)
     disk_phase(torch, dev)
     t0 = time.perf_counter()
     rn50_carry_phase(torch, dev)
@@ -3971,7 +4753,8 @@ def main() -> int:
           flush=True)
     print(json.dumps({"kernels": cifar_kernels + rn50_kernels + vit_kernels
                       + cifar_bf16 + rn50_bf16 + vit_bf16 + rn50_480
-                      + rn50_480_bf16 + np2_kernels + serve_kernels_recs}),
+                      + rn50_480_bf16 + np2_kernels + mesh_kernels
+                      + serve_kernels_recs}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

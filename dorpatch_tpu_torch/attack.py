@@ -33,6 +33,17 @@ each with the `recompile_budget` the pipeline declares (the batch size:
 the correctness filter makes the batch the only legitimate shape bucket),
 enforced under an armed recompile guard (`--sanitize`).
 
+Mesh (`mesh=`, `parallel/`): every rank holds the whole batch and the
+whole carry and draws the whole sample from the same seeded generator;
+the EOT step fills and forwards only its `[B/d, S/m]` block
+(`ops.masked_fill.sharded_masked_fill`: the image cotangent comes back
+whole, added over the ranks in its backward), its block's adversarial
+loss is divided by the global S, and the replicated terms (structural,
+density, group lasso) are added once on each rank and not reduced. The
+block's losses and predictions are gathered (`Mesh.gather`) before the
+bookkeeping, so every rank keeps the same carry. The failure sweep splits
+its chunks the same way and gathers its predictions.
+
 Crash recovery (`checkpoint.CarryCheckpointer`): with a `checkpointer`, the
 carry is snapshotted at every block boundary, before the `on_block_end`
 callback, and `generate` resumes from the newest snapshot; the generator's
@@ -54,7 +65,8 @@ from dorpatch_tpu_torch import masks as masks_lib
 from dorpatch_tpu_torch.config import AttackConfig
 from dorpatch_tpu_torch.defense import masked_predictions
 from dorpatch_tpu_torch.models import remat as remat_lib
-from dorpatch_tpu_torch.ops.masked_fill import masked_fill
+from dorpatch_tpu_torch.ops.masked_fill import masked_fill, \
+    sharded_masked_fill
 
 _FIELDS_LATCHED = ("step", "adv_mask", "adv_pattern", "best_mask",
                    "best_pattern", "loss_best", "lr", "not_decay",
@@ -157,6 +169,8 @@ class DorPatch:
     # input signatures each program (step, sweep) may run; inert unless a
     # recompile guard is armed (observe.set_recompile_guard)
     recompile_budget: Optional[int] = None
+    # optional parallel.Mesh: the EOT step and the sweep shard over it
+    mesh: Optional[Any] = None
 
     def __post_init__(self):
         cfg = self.config
@@ -234,19 +248,9 @@ class DorPatch:
                       state: TrainState, stage: int):
         cfg = self.config
         b = x.shape[0]
-        s = rects.shape[0]
         delta = losses.l2_project(adv_mask, adv_pattern, x, cfg.eps)
         adv_x = x + delta
-        # fused rasterize + fill (kernels A/B on the card): no [S,H,W] mask
-        # tensor; gradients reach adv_x through the kept pixels
-        masked = masked_fill(adv_x, rects, cfg.mask_fill)
-        logits = self._grad_fwd(b * s)(
-            masked.reshape((-1,) + tuple(x.shape[1:])))
-        y_rep = state.y.repeat_interleave(s)
-        targeted_rep = state.targeted.repeat_interleave(s)
-        loss_adv = losses.cw_margin_switchable(
-            logits, y_rep, self.num_classes, targeted_rep,
-            cfg.confidence).reshape(b, s)
+        loss_adv, preds, adv_term = self._adversarial(adv_x, rects, state)
         loss_struc = losses.structural_loss(adv_x, local_var_x)
         loss = torch.mean(loss_adv, dim=1) + state.coeff_struct * loss_struc
         gl = torch.zeros(b, device=x.device)
@@ -256,10 +260,46 @@ class DorPatch:
             loss = loss + state.coeff_density * dens
             gl = losses.group_lasso(adv_mask, cfg.basic_unit)
             loss = loss + state.coeff_gl * gl
-        preds = torch.argmax(logits, dim=-1).reshape(b, s)
         aux = dict(loss=loss, loss_adv=loss_adv, loss_struc=loss_struc,
                    group_lasso=gl, density=dens, preds=preds, delta=delta)
-        return torch.sum(loss), aux
+        if adv_term is None:
+            return torch.sum(loss), aux
+        # on a mesh the gathered loss_adv carries no gradient: the sum's
+        # gradient is the replicated terms' (each counted once), and the
+        # block's term adds this rank's share of the adversarial one
+        return adv_term + torch.sum(loss), aux
+
+    def _adversarial(self, adv_x, rects, state: TrainState):
+        """The EOT forward: `(loss_adv [B,S], preds [B,S], term)`. One
+        process (or a mesh that does not divide the step: every rank runs
+        it whole) differentiates through `loss_adv`, and `term` is None.
+        On a mesh, this rank fills and forwards its `[B/d, S/m]` block
+        (`sharded_masked_fill`), `term` is the block's loss over the
+        global S, and the block's losses and predictions are gathered."""
+        cfg, mesh = self.config, self.mesh
+        b, s = adv_x.shape[0], rects.shape[0]
+        if mesh is None or not mesh.divides(b, s):
+            if mesh is not None:
+                mesh.note_unsharded("fill")
+            rows, cols = slice(0, b), slice(0, s)
+            # fused rasterize + fill (kernels A/B on the card): no [S,H,W]
+            # mask tensor; gradients reach adv_x through the kept pixels
+            masked = masked_fill(adv_x, rects, cfg.mask_fill)
+        else:
+            rows, cols = mesh.block(b, s)
+            masked = sharded_masked_fill(adv_x, rects, cfg.mask_fill, mesh)
+        bl, sl = masked.shape[0], masked.shape[1]
+        logits = self._grad_fwd(bl * sl)(
+            masked.reshape((-1,) + tuple(adv_x.shape[1:])))
+        loss_adv = losses.cw_margin_switchable(
+            logits, state.y[rows].repeat_interleave(sl), self.num_classes,
+            state.targeted[rows].repeat_interleave(sl),
+            cfg.confidence).reshape(bl, sl)
+        preds = torch.argmax(logits, dim=-1).reshape(bl, sl)
+        if bl == b and sl == s:
+            return loss_adv, preds, None
+        full = mesh.gather((loss_adv.detach(), preds), b, s, (rows, cols))
+        return full[0], full[1], loss_adv.sum() / s
 
     def _step(self, state: TrainState, x, local_var_x, universe, stage: int,
               idx=None, from_fail=None) -> TrainState:
@@ -390,7 +430,7 @@ class DorPatch:
         preds = masked_predictions(
             self._fwd, x + delta, universe,
             min(self.config.sampling_size, universe.shape[0]),
-            self.config.mask_fill)
+            self.config.mask_fill, mesh=self.mesh)
         hit = preds == y[:, None]
         return torch.where(targeted[:, None], ~hit, hit).any(dim=0)
 

@@ -8,10 +8,11 @@ recert boot gate's `--recert-dir`, `--recert-baseline` and
 `--farm-*` flags land in the config record (`run.json`) a farm spec's
 `base` carries.
 
-Not offered, because their subsystems are not ported yet: `--backend`,
-`--mesh-data`, `--mesh-mask` (the mesh, `parallel/`), `--use-pallas` and
-`--gn-impl` (the port picks its CUDA kernels itself) and `--aot`,
-`--aot-cache` (the AOT executable store).
+`--mesh-data D --mesh-mask M` (JAX defaults 1, 1) run the experiment on a
+`(data, mask)` mesh of D * M processes, one a rank, launched by torchrun
+(`parallel/`). Not offered, because their subsystems are not ported yet:
+`--backend`, `--use-pallas` and `--gn-impl` (the port picks its CUDA
+kernels itself) and `--aot`, `--aot-cache` (the AOT executable store).
 
 Run:  python -m dorpatch_tpu_torch --synthetic --dataset imagenet \\
           --base_arch resnetv2 --img-size 224 --max-iterations 20 -b 2
@@ -31,6 +32,9 @@ Run:  python -m dorpatch_tpu_torch --synthetic --dataset imagenet \\
           --img-size 480 -b 2 --remat on --remat-policy full
       python -m dorpatch_tpu_torch --synthetic --dataset cifar10 \\
           --base_arch resnet18 --img-size 32 --sanitize
+      torchrun --nproc-per-node 4 -m dorpatch_tpu_torch --synthetic \\
+          --dataset cifar10 --base_arch resnet18 --img-size 32 -b 8 \\
+          --mesh-data 2 --mesh-mask 2
 """
 
 from __future__ import annotations
@@ -95,6 +99,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--img-size", type=int, default=224)
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--results-root", default="results")
+    p.add_argument("--mesh-data", type=int, default=1,
+                   help="data axis of the mesh (images); with --mesh-mask, "
+                        "one process a rank under torchrun")
+    p.add_argument("--mesh-mask", type=int, default=1,
+                   help="mask axis of the mesh (the masked copies of an "
+                        "image)")
     p.add_argument("--compute-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="EOT forward+backward precision (carry stays float32)")
@@ -306,6 +316,8 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         hang_timeout=args.hang_timeout,
         heartbeat_interval=args.heartbeat_interval,
         carry_checkpoints=args.carry_checkpoints,
+        mesh_data=args.mesh_data,
+        mesh_mask=args.mesh_mask,
         sanitize=args.sanitize,
         attack=AttackConfig(patch_budget=args.patch_budget,
                             targeted=args.targeted,

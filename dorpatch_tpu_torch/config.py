@@ -3,10 +3,11 @@
 The fields of `dorpatch_tpu.config` that this package reads, with the same
 defaults, so a results directory, a flag and a default mean the same thing in
 both packages. `ExperimentConfig.device` is new: entry points run on "cuda"
-unless the caller asks for "cpu". `ServeConfig` configures the
-certified-inference service (`serve/`), `FarmConfig` the attack-sweep farm
-(`farm/`), `RecertConfig` the service's re-certification boot gate
-(`recert/`) and `GatewayConfig` the fleet gateway (`gateway/`).
+unless the caller asks for "cpu". `mesh_data` and `mesh_mask` are the JAX
+package's mesh axes, here a grid of processes (`parallel/`). `ServeConfig`
+configures the certified-inference service (`serve/`), `FarmConfig` the
+attack-sweep farm (`farm/`), `RecertConfig` the service's re-certification
+boot gate (`recert/`) and `GatewayConfig` the fleet gateway (`gateway/`).
 `config_from_dict` reads a config dict back, and refuses by name the JAX
 package's keys whose subsystems this package does not have (`NOT_PORTED`).
 """
@@ -286,6 +287,10 @@ class ExperimentConfig:
                                     # last-known phase instead of hanging;
                                     # must exceed the longest block, the
                                     # kernel build included
+    # mesh (parallel/): data axis (images) x mask axis (masked copies), one
+    # process a rank (torchrun); 1 x 1 = one process
+    mesh_data: int = 1
+    mesh_mask: int = 1
     # snapshots of the attack's carry at every block (checkpoint.py)
     carry_checkpoints: bool = False
     # runtime sanitizers (analysis/sanitize.py): NaN at the producing op or
@@ -310,15 +315,14 @@ def config_to_dict(cfg: ExperimentConfig) -> dict:
     return dataclasses.asdict(cfg)
 
 
-#: keys of the JAX package's config whose subsystems (mesh, Pallas tier,
+#: keys of the JAX package's config whose subsystems (Pallas tier,
 #: GroupNorm implementation switch, AOT store) this package does not have;
 #: `config_from_dict` refuses them by name, so a job that names one fails
 #: as a configuration error instead of losing the setting. `backend` and
 #: `gn_impl` at their JAX defaults are refused too: the port has one
 #: backend and picks its GroupNorm kernels itself.
 NOT_PORTED = {
-    "ExperimentConfig": ("backend", "gn_impl", "mesh_data", "mesh_mask",
-                         "aot"),
+    "ExperimentConfig": ("backend", "gn_impl", "aot"),
     "AttackConfig": ("selection", "use_pallas"),
     "DefenseConfig": ("use_pallas",),
 }

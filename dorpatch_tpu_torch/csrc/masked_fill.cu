@@ -55,7 +55,10 @@
 //    without atomics: the f32 result is the sum of the f32 terms up to
 //    float64 rounding, rounded once, and a repeated call gives the same
 //    bits. The rectangles stream through shared memory in tiles of
-//    kTileMasks masks.
+//    kTileMasks masks. Its float64 form (`dp_masked_fill_bwd_f64`) writes
+//    the sums unrounded: on a mesh each rank sums its own masks, the ranks'
+//    partials are added in float64 and rounded once, so the sharded
+//    cotangent equals the single-device one but for rounding ties.
 
 #include <stdint.h>
 #include <string.h>
@@ -177,11 +180,14 @@ fill_fwd(const E* __restrict__ imgs, const int* __restrict__ rects,
   }
 }
 
-// grid (lane blocks of an image, images); block cols x (kThreads / cols)
-template <int V>
+// grid (lane blocks of an image, images); block cols x (kThreads / cols).
+// O is float (the f32 cotangent, rounded once) or double (the float64 sums
+// unrounded: the mesh's partial cotangent, added across ranks before the
+// one rounding).
+template <int V, typename O>
 __global__ void __launch_bounds__(kThreads)
 fill_bwd(const float* __restrict__ g, const int* __restrict__ rects,
-         float* __restrict__ dx, int S, int K, int H, int W, int C, int cols) {
+         O* __restrict__ dx, int S, int K, int H, int W, int C, int cols) {
   using Vec = typename Lane<float, V>::T;
   __shared__ int r[kTileMasks * 4 * kMaxRects];
   __shared__ double part[kThreads][V];
@@ -240,14 +246,22 @@ fill_bwd(const float* __restrict__ g, const int* __restrict__ rects,
   for (int t = 0; t < V; ++t) part[threadIdx.x][t] = acc[t];
   __syncthreads();
   if (ty == 0 && live) {
-    Vec o;
+    double sum[V];
 #pragma unroll
     for (int t = 0; t < V; ++t) {
-      double sum = part[tx][t];
-      for (int j = 1; j < split; ++j) sum += part[j * cols + tx][t];
-      elem<float, V>(o, t) = (float)sum;
+      sum[t] = part[tx][t];
+      for (int j = 1; j < split; ++j) sum[t] += part[j * cols + tx][t];
     }
-    reinterpret_cast<Vec*>(dx)[(size_t)b * nl + lane] = o;
+    if constexpr (sizeof(O) == sizeof(float)) {
+      Vec o;
+#pragma unroll
+      for (int t = 0; t < V; ++t) elem<float, V>(o, t) = (float)sum[t];
+      reinterpret_cast<Vec*>(dx)[(size_t)b * nl + lane] = o;
+    } else {
+      O* o = dx + ((size_t)b * nl + lane) * V;
+#pragma unroll
+      for (int t = 0; t < V; ++t) o[t] = sum[t];
+    }
   }
 }
 
@@ -406,6 +420,28 @@ cudaError_t launch_fwd16(const uint16_t* imgs, const int* rects,
   return cudaGetLastError();
 }
 
+template <typename O>
+int fill_bwd_entry(const float* g, const int* rects, O* dx, int B, int S,
+                   int K, int H, int W, int C, int vec4, int cols, int blocks,
+                   void* stream) {
+  if (K < 1 || K > kMaxRects || cols < 1 || cols > kThreads ||
+      kThreads % cols != 0 || (vec4 && (W * C) % 4 != 0))
+    return (int)cudaErrorInvalidValue;
+  const long long n = (long long)H * W * C;
+  if (B == 0 || n == 0) return (int)cudaSuccess;
+  if (!covers(blocks, cols, vec4 ? n / 4 : n) || B > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)blocks, (unsigned)B);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (vec4)
+    fill_bwd<4, O><<<grid, kThreads, 0, st>>>(g, rects, dx, S, K, H, W, C,
+                                              cols);
+  else
+    fill_bwd<1, O><<<grid, kThreads, 0, st>>>(g, rects, dx, S, K, H, W, C,
+                                              cols);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -474,20 +510,18 @@ int dp_masked_fill_fwd_bf16(const void* imgs, const int* rects, void* out,
 int dp_masked_fill_bwd(const float* g, const int* rects, float* dx, int B,
                        int S, int K, int H, int W, int C, int vec4, int cols,
                        int blocks, void* stream) {
-  if (K < 1 || K > kMaxRects || cols < 1 || cols > kThreads ||
-      kThreads % cols != 0 || (vec4 && (W * C) % 4 != 0))
-    return (int)cudaErrorInvalidValue;
-  const long long n = (long long)H * W * C;
-  if (B == 0 || n == 0) return (int)cudaSuccess;
-  if (!covers(blocks, cols, vec4 ? n / 4 : n) || B > 65535)
-    return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)blocks, (unsigned)B);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (vec4)
-    fill_bwd<4><<<grid, kThreads, 0, st>>>(g, rects, dx, S, K, H, W, C, cols);
-  else
-    fill_bwd<1><<<grid, kThreads, 0, st>>>(g, rects, dx, S, K, H, W, C, cols);
-  return (int)cudaGetLastError();
+  return fill_bwd_entry<float>(g, rects, dx, B, S, K, H, W, C, vec4, cols,
+                               blocks, stream);
+}
+
+// Kernel B with the float64 sums written unrounded: dx [B,H,W,C] float64,
+// the rest as for dp_masked_fill_bwd (the mesh's partial cotangent of a
+// rank's masks, `ops/masked_fill.sharded_masked_fill`).
+int dp_masked_fill_bwd_f64(const float* g, const int* rects, double* dx,
+                           int B, int S, int K, int H, int W, int C, int vec4,
+                           int cols, int blocks, void* stream) {
+  return fill_bwd_entry<double>(g, rects, dx, B, S, K, H, W, C, vec4, cols,
+                                blocks, stream);
 }
 
 const char* dp_error_string(int code) {

@@ -1,7 +1,8 @@
 """Input data: the shape-bucket math and the generated image streams.
 
 - `batch_buckets`, `bucket_batch`, `bucket_plan`, `pad_to_bucket`: the fixed
-  batch-size ladder the certification worklists dispatch through.
+  batch-size ladder the certification worklists dispatch through;
+  `shard_bucket_plan` the waves of a mesh's shard-local worklists.
 - `synthetic_batches`: smooth random images with random labels, the same
   images as `dorpatch_tpu.data.synthetic_batches` for the same seed. The
   resize is PIL's bilinear filter reimplemented in numpy (PIL is not a
@@ -89,6 +90,21 @@ def bucket_plan(n: int, buckets: Sequence[int]):
     else:
         plan.extend(greedy)
     return plan
+
+
+def shard_bucket_plan(counts: Sequence[int], buckets: Sequence[int]):
+    """Per-shard greedy bucket cover of S parallel worklists dispatched as
+    one `[S * bucket]` call a wave: `[(offset, per_shard_counts, bucket),
+    ...]`. The waves are `bucket_plan` of the longest worklist (the loop
+    runs until the busiest shard drains); every other shard contributes
+    `min(bucket, its remaining entries)` real rows to each wave, the rest
+    of its slots padding. Wave shapes depend only on the ladder and the
+    largest count, never on the skew between shards."""
+    counts = [int(c) for c in counts]
+    if not counts:
+        return []
+    return [(off, tuple(max(0, min(cnt, c - off)) for c in counts), bucket)
+            for off, cnt, bucket in bucket_plan(max(counts), buckets)]
 
 
 def pad_to_bucket(arr: torch.Tensor, bucket: int) -> torch.Tensor:

@@ -67,6 +67,19 @@ argmax boundary re-certifies through the float32 exhaustive sweep on the
 original victim (`_escalate`, the "token-exact" law), so bf16 never weakens
 a verdict. The exhaustive `_predict` never runs in bf16: it is the oracle.
 
+Meshed certifiers (`mesh=`, `parallel/`) run the same schedule sharded:
+phase 1, the pair audits and the escalations' sweeps split every chunk of
+the table over the ranks (`masked_predictions(mesh=)`: the sharded fill,
+kernel A on the rank's `[B/d, S/m]` block), the engines' families run
+their rank's blocks (kernels C and H in their sharded forms), and every
+table is gathered back onto every rank, so the host logic and the records
+are the single-process ones. Phase 2 plans each data shard's worklist over
+its own images (`_schedule_mesh`, as `dorpatch_tpu.defense`): the waves come
+from `data.shard_bucket_plan` over a dense power-of-two row ladder, each
+one `[D * bucket]` call whose rows of shard d are its own entries, padded
+with an owned row; padding is left out of every table read and forward
+count. Escalations bucket on that row ladder. Program names carry `.mesh`.
+
 Tie-breaking (as in the JAX package): the majority label on count ties is
 the smallest label with the maximal count; among several recovering
 minority masks the one with the largest mask index wins.
@@ -86,7 +99,8 @@ from dorpatch_tpu_torch import data as data_lib
 from dorpatch_tpu_torch import masks as masks_lib
 from dorpatch_tpu_torch import observe, utils
 from dorpatch_tpu_torch.config import DefenseConfig
-from dorpatch_tpu_torch.ops.masked_fill import masked_fill
+from dorpatch_tpu_torch.ops.masked_fill import masked_fill, \
+    sharded_masked_fill
 
 PRUNE_MODES = ("off", "exact", "consensus")
 INCREMENTAL_MODES = ("auto", "token", "token-exact", "mixer", "mixer-exact",
@@ -143,18 +157,26 @@ def masked_predictions(apply_fn: Callable[[torch.Tensor], torch.Tensor],
                        imgs: torch.Tensor, rects: torch.Tensor,
                        chunk_size: int, fill: float = 0.5,
                        with_margins: bool = False,
-                       dtype: Optional[torch.dtype] = None):
+                       dtype: Optional[torch.dtype] = None, mesh=None):
     """Predictions under every mask in `rects`: `[B,H,W,C] x [N,K,4] ->
     [B,N]` int32 (plus the `[B,N]` float32 top-2 margins with
     `with_margins`). The mask axis runs in chunks of at most `chunk_size`
     (a live-memory bound of `B * chunk_size` masked images); each chunk is
     one fused `masked_fill` (kernel A on the card) and one batched
-    forward. `dtype` casts the images before the fill (the bf16 bank)."""
+    forward. `dtype` casts the images before the fill (the bf16 bank). On
+    a `mesh` the chunks are sized to the mask axis and each rank fills and
+    forwards its block of every chunk (`sharded_masked_fill`; a chunk the
+    mesh does not divide runs whole on rank 0); the tables are gathered
+    with one `all_reduce`."""
     if dtype is not None:
         imgs = imgs.to(dtype)
     n = int(rects.shape[0])
-    n_chunks, chunk = plan_chunks(n, chunk_size)
+    n_chunks, chunk = plan_chunks(
+        n, chunk_size, 1 if mesh is None else mesh.shape["mask"])
     batch = imgs.shape[0]
+    if mesh is not None:
+        return _mesh_predictions(apply_fn, imgs, rects, n_chunks, chunk,
+                                 fill, with_margins, mesh)
     preds, margins = [], []
     for i in range(n_chunks):
         part = rects[i * chunk:(i + 1) * chunk]
@@ -169,6 +191,33 @@ def masked_predictions(apply_fn: Callable[[torch.Tensor], torch.Tensor],
     if with_margins:
         return torch.cat(preds, dim=1), torch.cat(margins, dim=1)
     return torch.cat(preds, dim=1)
+
+
+def _mesh_predictions(apply_fn, imgs, rects, n_chunks, chunk, fill,
+                      with_margins, mesh):
+    """`masked_predictions` on a mesh: this rank's block of every chunk
+    into a zero `[2, B, N]` float64 buffer (predictions, margins), then one
+    `all_reduce`."""
+    batch, n = int(imgs.shape[0]), int(rects.shape[0])
+    buf = torch.zeros((2, batch, n), dtype=torch.float64, device=imgs.device)
+    for i in range(n_chunks):
+        lo = i * chunk
+        part = rects[lo:lo + chunk]
+        rows, cols = mesh.block(batch, int(part.shape[0]), "fill")
+        if rows.stop == rows.start or cols.stop == cols.start:
+            continue
+        if mesh.divides(batch, int(part.shape[0])):
+            xm = sharded_masked_fill(imgs, part, fill, mesh)
+        else:
+            xm = masked_fill(imgs, part, fill)
+        p, m = utils.preds_margins(apply_fn(
+            xm.reshape((-1,) + tuple(imgs.shape[1:]))))
+        at = (rows, slice(lo + cols.start, lo + cols.stop))
+        buf[0][at] = p.reshape(rows.stop - rows.start, -1).double()
+        buf[1][at] = m.reshape(rows.stop - rows.start, -1).double()
+    mesh.all_reduce(buf)
+    preds = buf[0].to(torch.int32)
+    return (preds, buf[1].float()) if with_margins else preds
 
 
 def _second_round_index_grid(num_masks: int) -> np.ndarray:
@@ -333,6 +382,8 @@ class _PrunedPending:
         self.pair_idx = np.nonzero(need_pairs)[0]
         dev = self.imgs.device
         pairs_prog = pc._pairs_incr if self.rowsets else pc._pairs
+        if pc.mesh is not None:
+            return self._schedule_mesh(pairs_prog)
         if self.pair_idx.size:
             bs = (self.bucket_sizes if self.bucket_sizes is not None
                   else data_lib.batch_buckets(int(self.imgs.shape[0])))
@@ -358,6 +409,67 @@ class _PrunedPending:
                 t = pc._rows(xg, torch.as_tensor(mask_idx, device=dev))
             self.row_chunks.append(
                 (t, [(pos, b, i) for pos, (b, i) in enumerate(chunk)]))
+        return self
+
+    def _schedule_mesh(self, pairs_prog) -> "_PrunedPending":
+        """Shard-local phase 2 on a mesh (`dorpatch_tpu.defense`'s
+        `_schedule_mesh`). Data shard s owns the contiguous images
+        `np.array_split(arange(n), D)[s]` (the rows its ranks fill) and
+        plans its own worklist of pair audits and minority rows; each wave
+        of `data.shard_bucket_plan` over the row ladder is one `[D *
+        bucket]` call whose rows `[s * bucket, (s + 1) * bucket)` are shard
+        s's entries, the free slots filled with an owned row (its first
+        scheduled entry, else its first image, else image 0): forwards
+        whose outputs no mapping reads. Wave shapes never depend on the
+        batch or the verdict mix, and padding is in no table read or
+        forward count."""
+        pc = self.pc
+        n, d = self.n, pc.mesh.shape["data"]
+        dev = self.imgs.device
+        blocks = np.array_split(np.arange(n), d)
+        lo = [int(b[0]) if b.size else n for b in blocks]
+        hi = [int(b[-1]) + 1 if b.size else n for b in blocks]
+        if self.pair_idx.size:
+            per = [self.pair_idx[(self.pair_idx >= lo[s])
+                                 & (self.pair_idx < hi[s])]
+                   for s in range(d)]
+            for off, counts, bucket in data_lib.shard_bucket_plan(
+                    [p.size for p in per], pc.row_bucket_sizes):
+                idx = np.zeros((d, bucket), np.int64)
+                mapping = []
+                for s in range(d):
+                    sel = per[s][off:off + counts[s]]
+                    idx[s, :] = (int(sel[0]) if sel.size
+                                 else int(per[s][0]) if per[s].size
+                                 else lo[s] if lo[s] < n else 0)
+                    idx[s, :sel.size] = sel
+                    mapping += [(s * bucket + j, int(b))
+                                for j, b in enumerate(sel)]
+                xu = self.imgs[torch.as_tensor(idx.reshape(-1), device=dev)]
+                self.pair_chunks.append((pairs_prog(xu), mapping))
+        per_rows = [[e for e in self.row_list if lo[s] <= e[0] < hi[s]]
+                    for s in range(d)]
+        for off, counts, w in data_lib.shard_bucket_plan(
+                [len(r) for r in per_rows], pc.row_bucket_sizes):
+            img_idx = np.zeros((d, w), np.int64)
+            mask_idx = np.zeros((d, w), np.int64)
+            mapping = []
+            for s in range(d):
+                sel = per_rows[s][off:off + counts[s]]
+                img_idx[s, :], mask_idx[s, :] = (
+                    sel[0] if sel else per_rows[s][0] if per_rows[s]
+                    else ((lo[s] if lo[s] < n else 0), 0))
+                for j, (b, i) in enumerate(sel):
+                    img_idx[s, j], mask_idx[s, j] = b, i
+                    mapping.append((s * w + j, b, i))
+            xg = self.imgs[torch.as_tensor(img_idx.reshape(-1), device=dev)]
+            flat = mask_idx.reshape(-1)
+            if self.rowsets:
+                t = pc._rows_incr(xg, torch.as_tensor(pc._np_grid_full[flat],
+                                                      device=dev))
+            else:
+                t = pc._rows(xg, torch.as_tensor(flat, device=dev))
+            self.row_chunks.append((t, mapping))
         return self
 
     def finalize(self) -> List[PatchCleanserRecord]:
@@ -467,8 +579,12 @@ class _PrunedPending:
         if not esc.size:
             return records
         m, p = pc.num_first, pc.num_second
-        bs = (self.bucket_sizes if self.bucket_sizes is not None
-              else data_lib.batch_buckets(int(self.imgs.shape[0])))
+        if pc.mesh is not None:
+            # meshed certifiers bucket escalations on the row ladder
+            bs = pc.row_bucket_sizes
+        else:
+            bs = (self.bucket_sizes if self.bucket_sizes is not None
+                  else data_lib.batch_buckets(int(self.imgs.shape[0])))
         dev = self.imgs.device
         for off, cnt, bucket in data_lib.bucket_plan(int(esc.size), bs):
             xe = data_lib.pad_to_bucket(
@@ -513,7 +629,8 @@ class PatchCleanser:
     on `device`; `collect` aggregates records. `recompile_budget` is the
     input signatures each program may run (one per image bucket; the row
     programs one per row bucket), enforced only under an armed guard
-    (`observe.set_recompile_guard`)."""
+    (`observe.set_recompile_guard`). `mesh` (`parallel.Mesh`) shards the
+    programs over its ranks, on the mesh's device."""
 
     apply_fn: Callable[[torch.Tensor], torch.Tensor]
     spec: masks_lib.MaskSpec
@@ -522,6 +639,7 @@ class PatchCleanser:
     device: Any = "cuda"
     result: Any = None
     recompile_budget: Any = None
+    mesh: Any = None
     #: per-image smallest evaluated top-2 margin of the last pruned
     #: `robust_predict` (+inf where no margins were read)
     last_min_margin: Any = dataclasses.field(default=None, init=False,
@@ -529,7 +647,8 @@ class PatchCleanser:
 
     def __post_init__(self):
         dtype = utils.compute_dtype(self.config.compute_dtype)
-        self.device = utils.resolve_device(self.device)
+        self.device = (self.mesh.device if self.mesh is not None
+                       else utils.resolve_device(self.device))
         self._downgrade_said = False
         # the bf16 bank's programs run on the once-cast victim; `_predict`
         # (the escalation's oracle) keeps `apply_fn`
@@ -545,10 +664,12 @@ class PatchCleanser:
         self._rects = torch.as_tensor(rects, dtype=torch.int32,
                                       device=self.device)
         self._incr_family = None
-        # the JAX package's program names: the bf16 bank is its own
-        # program set (`defense.phase1.bf16.r0.03`)
+        # the JAX package's program names: the bf16 bank and the meshed
+        # bank are program sets of their own (`defense.phase1.bf16.r0.03`,
+        # `defense.phase1.bf16.mesh.r0.03`)
         r = self.spec.patch_ratio
-        self._prog_tag = ".bf16" if self._bf16 else ""
+        self._prog_tag = (".bf16" if self._bf16 else "") + (
+            ".mesh" if self.mesh is not None else "")
         self._predict = observe.timed_first_call(
             self._exhaustive, f"defense.predict.r{r}",
             recompile_budget=self.recompile_budget)
@@ -566,17 +687,25 @@ class PatchCleanser:
             device=self.device)
         self._np_grid = _second_round_index_grid(m)
         self._np_grid_full = masks_lib.second_round_table_indices(m)
-        self.row_bucket_sizes = data_lib.batch_buckets(
-            max(1, int(self.config.chunk_size)))
+        cap = max(1, int(self.config.chunk_size))
+        self.row_bucket_sizes = data_lib.batch_buckets(cap)
+        if self.mesh is not None:
+            # each shard plans its own (about D times shorter) worklist and
+            # the pair audits dispatch at these rungs too: a dense
+            # power-of-two ladder bounds the padding at 2x
+            self.row_bucket_sizes = tuple(sorted(
+                {1, cap} | {2 ** k for k in range(1, cap.bit_length())
+                            if 2 ** k < cap}))
         r, tag, rb = self.spec.patch_ratio, self._prog_tag, \
             self.recompile_budget
         row_rb = len(self.row_bucket_sizes) if rb is not None else None
+        pair_rb = row_rb if self.mesh is not None else rb
         self._phase1 = observe.timed_first_call(
             self._phase1_tables, f"defense.phase1{tag}.r{r}",
             recompile_budget=rb)
         self._pairs = observe.timed_first_call(
             self._pairs_tables, f"defense.pairs{tag}.r{r}",
-            recompile_budget=rb)
+            recompile_budget=pair_rb)
         self._rows = observe.timed_first_call(
             self._rows_tables, f"defense.rows{tag}.r{r}",
             recompile_budget=row_rb)
@@ -584,7 +713,7 @@ class PatchCleanser:
                 and self.config.incremental != "off"):
             fam = self._incr_family = self.incremental_engine.build_family(
                 rects, m, self.config.chunk_size, self.config.mask_fill,
-                compute_dtype=self.config.compute_dtype)
+                compute_dtype=self.config.compute_dtype, mesh=self.mesh)
             kind = self.incremental_engine.kind
             self._phase1_incr = observe.timed_first_call(
                 fam.phase1, f"defense.phase1.{kind}{tag}.r{r}",
@@ -592,7 +721,7 @@ class PatchCleanser:
             if kind in MARGIN_KINDS:
                 self._pairs_incr = observe.timed_first_call(
                     fam.pairs, f"defense.pairs.{kind}{tag}.r{r}",
-                    recompile_budget=rb)
+                    recompile_budget=pair_rb)
                 self._rows_incr = observe.timed_first_call(
                     fam.rows, f"defense.rows.{kind}{tag}.r{r}",
                     recompile_budget=row_rb)
@@ -630,7 +759,7 @@ class PatchCleanser:
         return masked_predictions(
             self._capply, imgs, rects, self.config.chunk_size,
             self.config.mask_fill, with_margins or self._bf16,
-            self._dtype if self._bf16 else None)
+            self._dtype if self._bf16 else None, self.mesh)
 
     def _exhaustive(self, imgs: torch.Tensor, num_classes: int):
         """The exhaustive 666-entry sweep and verdict, always float32 on
@@ -638,7 +767,7 @@ class PatchCleanser:
         tensors (`_predict`, its timed wrapper)."""
         preds = masked_predictions(self.apply_fn, imgs, self._rects,
                                    self.config.chunk_size,
-                                   self.config.mask_fill)
+                                   self.config.mask_fill, mesh=self.mesh)
         p1, p2 = preds[:, :self._num_singles], preds[:, self._num_singles:]
         pred, certified = double_masking_verdict(p1, p2, self._num_singles,
                                                  num_classes)
@@ -662,12 +791,27 @@ class PatchCleanser:
         bank). The M second masks run in groups of G columns (G the largest
         divisor of M with G*W <= chunk_size), each group one forward of
         `[G*W]` images occluded by a rasterize-and-lerp of per-entry
-        rectangle sets (entry w's column j is {mask_idx[w], j}).
+        rectangle sets (entry w's column j is {mask_idx[w], j}). On a mesh
+        each rank runs its `[W/d, M/m]` block and the rows are gathered.
         """
         if self._bf16:
             imgs_g = imgs_g.to(self._dtype)     # the program boundary
-        m = self.num_first
         idx_tab = self._grid_full[mask_idx.long()]            # [W, M]
+        if self.mesh is None:
+            return self._rows_block(imgs_g, idx_tab)
+        def run(rows, cols):
+            out = self._rows_block(imgs_g[rows], idx_tab[rows][:, cols])
+            return out if self._bf16 else (out,)
+
+        got = self.mesh.tables(
+            int(idx_tab.shape[0]), int(idx_tab.shape[1]), run,
+            (torch.int32, torch.float32)[:2 if self._bf16 else 1], "rows")
+        return tuple(got) if self._bf16 else got[0]
+
+    def _rows_block(self, imgs_g: torch.Tensor, idx_tab: torch.Tensor):
+        """The rows program's `[W, M']` block of combined-table index rows
+        `idx_tab`, in column groups as `_rows_tables` says."""
+        m = int(idx_tab.shape[1])
         w_sz = int(imgs_g.shape[0])
         cap = max(1, int(self.config.chunk_size) // max(1, w_sz))
         g = max(d for d in range(1, m + 1)
@@ -887,11 +1031,13 @@ class PatchCleanser:
 def build_defenses(apply_fn, img_size: int,
                    config: DefenseConfig = DefenseConfig(),
                    incremental=None, device="cuda",
-                   recompile_budget=None) -> List[PatchCleanser]:
-    """The 4-radius defense bank, one certifier per ratio of the config."""
+                   recompile_budget=None, mesh=None) -> List[PatchCleanser]:
+    """The 4-radius defense bank, one certifier per ratio of the config;
+    sharded over `mesh` when one is given."""
     return [PatchCleanser(apply_fn,
                           masks_lib.geometry(img_size, r, config.n_patch,
                                              config.num_mask_per_axis),
                           config, incremental_engine=incremental,
-                          device=device, recompile_budget=recompile_budget)
+                          device=device, recompile_budget=recompile_budget,
+                          mesh=mesh)
             for r in config.ratios]

@@ -302,7 +302,10 @@ class MixerPrunedResMLP:
 
     def build_family(self, rects: np.ndarray, num_singles: int,
                      chunk_size: int, fill: float,
-                     compute_dtype: str = "float32") -> ResMLPMixerFamily:
+                     compute_dtype: str = "float32",
+                     mesh=None) -> ResMLPMixerFamily:
+        """The family's programs; the mixer engine holds no kernel to
+        shard, so on a `mesh` every rank runs them whole (no collective)."""
         return ResMLPMixerFamily(self, rects, num_singles, chunk_size, fill,
                                  compute_dtype)
 

@@ -20,7 +20,9 @@ Port of `dorpatch_tpu.models.vit`:
   from a full masked forward; the engine returns each entry's top-2 logit
   margin, and `defense.py`'s "token-exact" mode re-certifies every image
   whose read entries come within `DefenseConfig.incremental_margin` of the
-  decision boundary through the exhaustive sweep.
+  decision boundary through the exhaustive sweep. On a mesh (`parallel/`)
+  each rank runs its `[images, masks]` block of a table, kernel H through
+  its sharded form, and the tables are gathered after it.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ import torch.nn.functional as F
 from dorpatch_tpu_torch import masks as masks_lib
 from dorpatch_tpu_torch import utils
 from dorpatch_tpu_torch.models import remat
-from dorpatch_tpu_torch.ops.masked_kv_attn import masked_kv_attention
+from dorpatch_tpu_torch.ops.masked_kv_attn import (
+    masked_kv_attention, masked_kv_attention_sharded)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -271,11 +274,13 @@ class TokenViTFamily:
     sums and `cache_fe` the clean cache's cost per image and call.
     `compute_dtype` "bfloat16" runs the engine on a once-cast bf16 copy of
     the victim, with the tables in bf16 and the images cast at each
-    program's boundary; the margins stay float32."""
+    program's boundary; the margins stay float32. On a `mesh` each program
+    runs this rank's block and gathers the tables."""
 
     def __init__(self, engine: "TokenPrunedViT", rects: np.ndarray,
                  num_singles: int, chunk_size: int, fill: float,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", mesh=None):
+        self.mesh = mesh
         self.dtype = utils.compute_dtype(compute_dtype)
         self.engine = engine = engine.at(self.dtype)
         self.num_singles = int(num_singles)
@@ -300,17 +305,18 @@ class TokenViTFamily:
     @torch.no_grad()
     def phase1(self, imgs: torch.Tensor):
         return self.engine.table(imgs.to(self.dtype), self.first, self.fill,
-                                 self.chunk_size)
+                                 self.chunk_size, self.mesh)
 
     @torch.no_grad()
     def pairs(self, imgs: torch.Tensor):
         return self.engine.table(imgs.to(self.dtype), self.pair_tables,
-                                 self.fill, self.chunk_size)
+                                 self.fill, self.chunk_size, self.mesh)
 
     @torch.no_grad()
     def rows(self, imgs_g: torch.Tensor, sets_idx: torch.Tensor):
         return self.engine.rows(imgs_g.to(self.dtype), sets_idx,
-                                self.combined, self.fill, self.chunk_size)
+                                self.combined, self.fill, self.chunk_size,
+                                self.mesh)
 
 
 class TokenPrunedViT:
@@ -347,9 +353,10 @@ class TokenPrunedViT:
 
     def build_family(self, rects: np.ndarray, num_singles: int,
                      chunk_size: int, fill: float,
-                     compute_dtype: str = "float32") -> TokenViTFamily:
+                     compute_dtype: str = "float32",
+                     mesh=None) -> TokenViTFamily:
         return TokenViTFamily(self, rects, num_singles, chunk_size, fill,
-                              compute_dtype)
+                              compute_dtype, mesh)
 
     # ------------------------------------------------------------ internals
 
@@ -391,12 +398,13 @@ class TokenPrunedViT:
             vs.append(F.linear(ln, w[2 * d:], bias[2 * d:]).reshape(shape))
         return ks, vs
 
-    def _forward(self, d, kcs, vcs, idx, slot_bias):
+    def _forward(self, d, kcs, vcs, idx, slot_bias, attend):
         """Dirty tokens `d [B, C, S, D]` through every block against the
         per-image clean caches `kcs`/`vcs` (`depth x [B, T+1, H, f]`), then
         the cls readout -> logits `[B, C, classes]`. The clean rows at the
         dirty positions are stale and masked with -1e9; the S fresh rows
-        replace them (duplicate slots masked by `slot_bias`)."""
+        replace them (duplicate slots masked by `slot_bias`). `attend` is
+        the attention read (`masked_kv_attention` or its sharded form)."""
         mod = self.module
         b, c, s, dim = d.shape
         h = mod.num_heads
@@ -415,8 +423,7 @@ class TokenPrunedViT:
             q, kd, vd = (F.linear(ln, w[i * dim:(i + 1) * dim],
                                   bias[i * dim:(i + 1) * dim])
                          .reshape(b, c, s, h, hd) for i in range(3))
-            o = masked_kv_attention(q * scale, kd, vd, kc, vc, clean_bias,
-                                    slot_bias)
+            o = attend(q * scale, kd, vd, kc, vc, clean_bias, slot_bias)
             d = d + F.linear(o.reshape(b, c, s, dim), attn.proj.weight,
                              attn.proj.bias)
             mlp = block.mlp
@@ -426,7 +433,7 @@ class TokenPrunedViT:
         cls = self._ln(d[..., 0, :], mod.norm)
         return F.linear(cls, mod.head.weight, mod.head.bias)
 
-    def _chunk(self, patches, cls0, kcs, vcs, idx, keep, bias, fill):
+    def _chunk(self, patches, cls0, kcs, vcs, idx, keep, bias, fill, attn):
         """One chunk of c masks over B images; the tables are per image
         (`[B, c, ...]`). Returns the logits `[B, c, classes]`."""
         b, c = idx.shape[0], idx.shape[1]
@@ -435,17 +442,37 @@ class TokenPrunedViT:
         emb = self._embed(patches[rows, tok], keep, idx[..., 1:], fill)
         cls = cls0[:, None].expand(b, c, 1, cls0.shape[-1])
         d = torch.cat([cls, emb], dim=2)                           # [B, c, S, D]
-        return self._forward(d, kcs, vcs, idx, bias)
+        return self._forward(d, kcs, vcs, idx, bias, attn)
 
     def _clean(self, imgs):
         cache = self.module(self.normalize(imgs), "cache")
         kcs, vcs = self._clean_kv(cache)
         return self._patches(imgs), cache[0][:, :1], kcs, vcs
 
+    @staticmethod
+    def _attn(mesh):
+        if mesh is None:
+            return masked_kv_attention
+        return lambda *ops: masked_kv_attention_sharded(*ops, mesh=mesh)
+
     def table(self, imgs: torch.Tensor, tables: TokenTables, fill: float,
-              chunk_size: int):
+              chunk_size: int, mesh=None):
         """All N masks of `tables` over the batch -> `(preds, margins)`
-        `[B, N]`, in mask chunks of at most `chunk_size`."""
+        `[B, N]`, in mask chunks of at most `chunk_size`; on a `mesh`, this
+        rank's block, gathered."""
+        if mesh is not None:
+            return tuple(mesh.tables(
+                int(imgs.shape[0]), int(tables.idx.shape[0]),
+                lambda rows, cols: self._table(
+                    imgs[rows], TokenTables(tables.idx[cols],
+                                            tables.keep[cols],
+                                            tables.slot_bias[cols],
+                                            tables.fe),
+                    fill, chunk_size, self._attn(mesh)),
+                (torch.int32, torch.float32), "token"))
+        return self._table(imgs, tables, fill, chunk_size, self._attn(None))
+
+    def _table(self, imgs, tables, fill, chunk_size, attn):
         b = imgs.shape[0]
         n = int(tables.idx.shape[0])
         c = min(max(1, int(chunk_size)), max(1, n))
@@ -459,18 +486,30 @@ class TokenPrunedViT:
 
             p, m = utils.preds_margins(self._chunk(
                 patches, cls0, kcs, vcs, per_image(tables.idx),
-                per_image(tables.keep), per_image(tables.slot_bias), fill))
+                per_image(tables.keep), per_image(tables.slot_bias), fill,
+                attn))
             preds.append(p)
             margins.append(m)
         return torch.cat(preds, dim=1), torch.cat(margins, dim=1)
 
     def rows(self, imgs_g: torch.Tensor, sets_idx: torch.Tensor,
-             combined: TokenTables, fill: float, chunk_size: int):
+             combined: TokenTables, fill: float, chunk_size: int, mesh=None):
         """Second-round rows: entry w is gathered image w against the
         combined-table masks `sets_idx[w]` `[M2]` -> `(preds, margins)`
         `[W, M2]`. The second-mask axis runs in chunks of
         `max(1, chunk_size // W)`, so a chunk holds at most `chunk_size`
-        entries."""
+        entries; on a `mesh`, this rank's block, gathered."""
+        if mesh is not None:
+            return tuple(mesh.tables(
+                int(sets_idx.shape[0]), int(sets_idx.shape[1]),
+                lambda rows, cols: self._rows(
+                    imgs_g[rows], sets_idx[rows][:, cols], combined, fill,
+                    chunk_size, self._attn(mesh)),
+                (torch.int32, torch.float32), "token"))
+        return self._rows(imgs_g, sets_idx, combined, fill, chunk_size,
+                          self._attn(None))
+
+    def _rows(self, imgs_g, sets_idx, combined, fill, chunk_size, attn):
         w, m2 = int(sets_idx.shape[0]), int(sets_idx.shape[1])
         c = max(1, min(m2, int(chunk_size) // max(1, w)))
         sets = sets_idx.to(device=combined.idx.device, dtype=torch.long)
@@ -480,7 +519,7 @@ class TokenPrunedViT:
             cols = sets[:, off:off + c]                            # [W, c]
             p, m = utils.preds_margins(self._chunk(
                 patches, cls0, kcs, vcs, combined.idx[cols],
-                combined.keep[cols], combined.slot_bias[cols], fill))
+                combined.keep[cols], combined.slot_bias[cols], fill, attn))
             preds.append(p)
             margins.append(m)
         return torch.cat(preds, dim=1), torch.cat(margins, dim=1)

@@ -30,13 +30,17 @@ import torch
 
 #: Launches of each kernel since the last `reset_launch_counts`; a wrapper
 #: adds one exactly where it launches its kernel. A kernel's bf16 form
-#: counts under its own name ("..._bf16").
-_LAUNCHES: Dict[str, int] = {"masked_fill_fwd": 0, "masked_fill_bwd": 0,
-                             "stem_fold": 0, "gn_relu_fwd": 0,
-                             "gn_relu_bwd": 0, "masked_kv_attn": 0,
-                             "masked_fill_fwd_bf16": 0, "stem_fold_bf16": 0,
-                             "gn_relu_fwd_bf16": 0, "gn_relu_bwd_bf16": 0,
-                             "masked_kv_attn_bf16": 0}
+#: counts under its own name ("..._bf16"), and its sharded form on a mesh
+#: (`parallel/`) under its own too ("..._mesh"; kernel B's float64 form).
+_LAUNCHES: Dict[str, int] = {
+    "masked_fill_fwd": 0, "masked_fill_bwd": 0, "stem_fold": 0,
+    "gn_relu_fwd": 0, "gn_relu_bwd": 0, "masked_kv_attn": 0,
+    "masked_fill_fwd_bf16": 0, "stem_fold_bf16": 0, "gn_relu_fwd_bf16": 0,
+    "gn_relu_bwd_bf16": 0, "masked_kv_attn_bf16": 0,
+    "masked_fill_fwd_mesh": 0, "masked_fill_bwd_mesh": 0,
+    "masked_fill_fwd_bf16_mesh": 0, "stem_fold_mesh": 0,
+    "stem_fold_bf16_mesh": 0, "masked_kv_attn_mesh": 0,
+    "masked_kv_attn_bf16_mesh": 0}
 #: Of those launches, how many took each route, for kernels with more than
 #: one ("gn_relu_fwd/one_pass", "gn_relu_bwd/split", ...), or each shape
 #: class (kernel H by its dirty rows per entry: "masked_kv_attn_bf16/S99").

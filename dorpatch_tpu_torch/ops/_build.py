@@ -6,6 +6,9 @@ shared library with a plain C interface, and the library is loaded with
 `ctypes`. The build happens at first use, into `build/dorpatch_kernels/` at
 the root of the checkout (listed in `.gitignore`), under a name keyed by the
 sources' hash, so an edited source rebuilds and an unchanged one loads.
+Processes that start together (the ranks of a mesh, `parallel/`) build
+once: the first to take the file lock `build/dorpatch_kernels/.lock`
+builds, the others wait on it and then load what it built.
 
 Each C entry point returns `cudaGetLastError()` after its launch; `check`
 turns a nonzero code into an exception.
@@ -14,6 +17,7 @@ turns a nonzero code into an exception.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -43,6 +47,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "dp_masked_fill_fwd": ([_P] * 3 + [_I] * 6 + [_F] + [_I] * 5 + [_P], _I),
     "dp_masked_fill_bwd": ([_P] * 3 + [_I] * 9 + [_P], _I),
+    "dp_masked_fill_bwd_f64": ([_P] * 3 + [_I] * 9 + [_P], _I),
     "dp_masked_fill_fwd_bf16": ([_P] * 3 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
                                 _I),
     "dp_stem_fold_smem": ([_I] * 5, ctypes.c_longlong),
@@ -99,11 +104,25 @@ def library_path() -> pathlib.Path:
 
 
 def build() -> pathlib.Path:
-    """Compile and link the library unless it exists; returns its path."""
-    global build_log
+    """Compile and link the library unless it exists; returns its path.
+    Holds the build directory's file lock while it checks and builds, so
+    one process of several started together builds."""
     so = library_path()
     if so.exists():
         return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if so.exists():       # built by the process that held the lock
+                return so
+            return _build(so)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build(so: pathlib.Path) -> pathlib.Path:
+    global build_log
     nvcc = _nvcc()
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

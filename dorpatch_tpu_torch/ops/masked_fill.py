@@ -17,6 +17,13 @@ differentiates through the fill. `masked_fill_reference` is the plain
 version, which a CPU tensor takes. Rectangles and the fill value carry no
 gradient.
 
+`sharded_masked_fill` is the fill on a mesh (`parallel/`, the JAX
+package's `_sharded_masked_fill_fn`): kernel A on this rank's
+`[B/d, S/m]` block; in the backward, kernel B's float64 form on the block,
+written at the rank's image rows of a zero `[B,H,W,C]` float64 buffer, one
+`all_reduce` over the world and one rounding to float32. Each form counts
+its launches under its own name (`..._mesh`).
+
 `fwd_plan` and `bwd_plan` choose each launch's geometry from the shape:
 16-byte lanes or the scalar route, masks per block (A; at bf16 also the
 lanes a thread holds), lanes per block (B), and A's store policy from the
@@ -178,9 +185,10 @@ def _check_vec(vec: int, w: int, c: int, aligned: bool,
 
 
 def _fwd_launch(imgs: torch.Tensor, rects: torch.Tensor, fill: float,
-                plan: Optional[FwdPlan]) -> torch.Tensor:
+                plan: Optional[FwdPlan], suffix: str = "") -> torch.Tensor:
     """Kernel A with `plan` (None: `fwd_plan` of the shape); the bf16 form
-    for bf16 images."""
+    for bf16 images. `suffix` names the form the launch counts under
+    ("_mesh": the sharded fill's)."""
     bf16 = imgs.dtype == torch.bfloat16
     _backend.require(imgs, "imgs", torch.bfloat16 if bf16 else torch.float32,
                      4)
@@ -202,13 +210,13 @@ def _fwd_launch(imgs: torch.Tensor, rects: torch.Tensor, fill: float,
     lib = _build.library()
     stream = _backend.stream_handle(imgs)
     if bf16:
-        _backend.count_launch("masked_fill_fwd_bf16")
+        _backend.count_launch("masked_fill_fwd_bf16" + suffix)
         _build.check(lib.dp_masked_fill_fwd_bf16(
             imgs.data_ptr(), rects.data_ptr(), out.data_ptr(), b, s, k, h, w,
             c, float(fill), int(plan.vec > 1), plan.group, int(plan.stream),
             plan.lanes, tiles, groups, stream), "masked_fill_fwd_bf16")
         return out
-    _backend.count_launch("masked_fill_fwd")
+    _backend.count_launch("masked_fill_fwd" + suffix)
     _build.check(lib.dp_masked_fill_fwd(
         imgs.data_ptr(), rects.data_ptr(), out.data_ptr(), b, s, k, h, w, c,
         float(fill), int(plan.vec > 1), plan.group, int(plan.stream), tiles,
@@ -217,26 +225,39 @@ def _fwd_launch(imgs: torch.Tensor, rects: torch.Tensor, fill: float,
 
 
 def _bwd_launch(rects: torch.Tensor, g: torch.Tensor,
-                plan: Optional[BwdPlan]) -> torch.Tensor:
-    """Kernel B with `plan` (None: `bwd_plan` of the shape)."""
+                plan: Optional[BwdPlan],
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel B with `plan` (None: `bwd_plan` of the shape). With `out`, a
+    contiguous float64 `[B,H,W,C]` view, its float64 form writes the sums
+    there unrounded (counted as "masked_fill_bwd_mesh")."""
     _backend.require(g, "g", torch.float32, 5)
     _backend.require(rects, "rects", torch.int32, 3)
     b, s, h, w, c = g.shape
     if rects.shape[0] != s or rects.shape[2] != 4:
         raise ValueError(f"rects {tuple(rects.shape)} do not match g "
                          f"{tuple(g.shape)}")
-    dx = torch.empty((b, h, w, c), dtype=g.dtype, device=g.device)
+    if out is None:
+        dx, name = torch.empty((b, h, w, c), dtype=g.dtype,
+                               device=g.device), "masked_fill_bwd"
+    else:
+        _backend.require(out, "out", torch.float64, 4)
+        if tuple(out.shape) != (b, h, w, c) or out.device != g.device:
+            raise ValueError(f"out {tuple(out.shape)} does not match g "
+                             f"{tuple(g.shape)}")
+        dx, name = out, "masked_fill_bwd_mesh"
     aligned = _aligned(g, dx)
     if plan is None:
         plan = bwd_plan(b, s, h, w, c, aligned)
     _check_vec(plan.vec, w, c, aligned)
     blocks, _ = bwd_grid(plan, b, h, w, c)
     lib = _build.library()
-    _backend.count_launch("masked_fill_bwd")
-    _build.check(lib.dp_masked_fill_bwd(
+    entry = (lib.dp_masked_fill_bwd if out is None
+             else lib.dp_masked_fill_bwd_f64)
+    _backend.count_launch(name)
+    _build.check(entry(
         g.data_ptr(), rects.data_ptr(), dx.data_ptr(), b, s,
         int(rects.shape[1]), h, w, c, int(plan.vec == 4), plan.cols, blocks,
-        _backend.stream_handle(g)), "masked_fill_bwd")
+        _backend.stream_handle(g)), name)
     return dx
 
 
@@ -266,3 +287,53 @@ def masked_fill(imgs: torch.Tensor, rects, fill: float = 0.5) -> torch.Tensor:
     if _backend.on_card(imgs):
         return MaskedFill.apply(imgs, rects, float(fill))
     return masked_fill_reference(imgs, rects, fill)
+
+
+class ShardedMaskedFill(torch.autograd.Function):
+    """The fill of this rank's `[rows, cols]` block of a mesh (`imgs` and
+    `rects` whole, as every rank holds them): kernel A forward; backward,
+    kernel B's float64 form at the block's image rows of a zero buffer, one
+    `all_reduce` over the world, one rounding. CPU tensors take the plain
+    versions (the cotangent summed in float64 too)."""
+
+    @staticmethod
+    def forward(ctx, imgs, rects, fill, mesh, rows, cols):
+        blk = rects[cols].contiguous()
+        ctx.save_for_backward(blk)
+        ctx.mesh, ctx.rows, ctx.shape = mesh, rows, tuple(imgs.shape)
+        x = imgs[rows].contiguous()
+        if _backend.on_card(imgs):
+            return _fwd_launch(x, blk, fill, None, "_mesh")
+        return masked_fill_reference(x, blk, fill)
+
+    @staticmethod
+    def backward(ctx, g):
+        (blk,) = ctx.saved_tensors
+        mesh = ctx.mesh
+        buf = torch.zeros(ctx.shape, dtype=torch.float64, device=g.device)
+        if _backend.on_card(g):
+            _bwd_launch(blk, g.contiguous(), None, out=buf[ctx.rows])
+        else:
+            keep = masks_lib.rasterize(blk, ctx.shape[1])   # [S, H, W]
+            buf[ctx.rows] = (g.double() * keep[None, ..., None]).sum(dim=1)
+        mesh.all_reduce(buf)
+        return buf.to(g.dtype), None, None, None, None, None
+
+
+@_backend.sanitized("masked_fill_fwd_mesh")
+def sharded_masked_fill(imgs: torch.Tensor, rects, fill: float,
+                        mesh) -> torch.Tensor:
+    """`masked_fill` on a mesh: this rank's `[B/d, S/m, H, W, C]` block
+    (`mesh.block(B, S)` says where it sits), differentiable with respect to
+    float32 `imgs`, whose cotangent comes back whole on every rank. A shape
+    the mesh does not divide runs the unsharded fill (kernels A and B) on
+    every rank and returns the whole `[B, S, H, W, C]`, counted in
+    `mesh.unsharded["fill"]`."""
+    rects = _rects_i32(rects, imgs.device)
+    b, s = int(imgs.shape[0]), int(rects.shape[0])
+    if not mesh.divides(b, s):
+        mesh.note_unsharded("fill")
+        return masked_fill(imgs, rects, fill)
+    rows, cols = mesh.block(b, s)
+    return ShardedMaskedFill.apply(imgs, rects, float(fill), mesh, rows,
+                                   cols)

@@ -133,11 +133,13 @@ def masked_kv_attention_reference(q, kd, vd, kc, vc, clean_bias, dirty_bias):
 
 
 def masked_kv_attention_kernel(q, kd, vd, kc, vc, clean_bias, dirty_bias,
-                               plan: Optional[Bf16Plan] = None):
+                               plan: Optional[Bf16Plan] = None,
+                               suffix: str = ""):
     """Kernel H on CUDA tensors (all float32, or all bf16 for its bf16
     form; contiguous, the shapes of `masked_kv_attention_reference`).
     `plan` (bf16 only) defaults to `bf16_plan`'s; another is for measuring
-    other blocks."""
+    other blocks. `suffix` names the form the launch counts under ("_mesh":
+    the sharded form's)."""
     args = dict(q=q, kd=kd, vd=vd, kc=kc, vc=vc, clean_bias=clean_bias,
                 dirty_bias=dirty_bias)
     bf16 = q.dtype == torch.bfloat16
@@ -172,7 +174,7 @@ def masked_kv_attention_kernel(q, kd, vd, kc, vc, clean_bias, dirty_bias,
     if bf16:
         plan = plan or bf16_plan(b, c, s, h, t, f,
                                  _sm_count(q.device.index or 0))
-    _backend.count_launch(name, f"S{s}")
+    _backend.count_launch(name + suffix, f"S{s}")
     if bf16:
         status = lib.dp_masked_kv_attn_bf16(*ptrs, out.data_ptr(), b, c, s,
                                             h, f, t, *plan, stream)
@@ -191,5 +193,25 @@ def masked_kv_attention(q, kd, vd, kc, vc, clean_bias, dirty_bias):
         return masked_kv_attention_kernel(
             *(x.contiguous() for x in (q, kd, vd, kc, vc, clean_bias,
                                        dirty_bias)))
+    return masked_kv_attention_reference(q, kd, vd, kc, vc, clean_bias,
+                                         dirty_bias)
+
+
+@_backend.sanitized("masked_kv_attn_mesh")
+def masked_kv_attention_sharded(q, kd, vd, kc, vc, clean_bias, dirty_bias,
+                                mesh):
+    """The attention read on a mesh rank's shard, the JAX package's
+    `masked_kv_attention_sharded`: every operand holds the images of the
+    rank's data block on its leading axis (and the dirty operands its mask
+    block), as a `shard_map` body sees them; no collective, attention
+    entries being per image and mask. CUDA tensors run kernel H (or its
+    bf16 form), counted as "masked_kv_attn_mesh" ("..._bf16_mesh"); CPU
+    tensors run the plain version."""
+    if mesh is None:
+        raise ValueError("masked_kv_attention_sharded needs a mesh")
+    if _backend.on_card(q):
+        return masked_kv_attention_kernel(
+            *(x.contiguous() for x in (q, kd, vd, kc, vc, clean_bias,
+                                       dirty_bias)), suffix="_mesh")
     return masked_kv_attention_reference(q, kd, vd, kc, vc, clean_bias,
                                          dirty_bias)

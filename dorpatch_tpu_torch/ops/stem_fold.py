@@ -273,6 +273,30 @@ def fold_masked_stem_kernel(kernel: torch.Tensor, clean: torch.Tensor,
     bf16 form: the delta on the bf16 tensor cores, float32 accumulation,
     launched with `plan`, by default `bf16_plan`). Returns `[B, N, h, w, c]`
     of clean's type."""
+    return _fold_launch(kernel, clean, up, geo, occ, oh, ow, s, plan, "")
+
+
+@_backend.sanitized("stem_fold_mesh")
+def fold_masked_stem_sharded(kernel: torch.Tensor, clean: torch.Tensor,
+                             up: torch.Tensor, geo: torch.Tensor,
+                             occ: torch.Tensor, oh: int, ow: int, s: int,
+                             mesh, plan: Optional[Bf16FoldPlan] = None
+                             ) -> torch.Tensor:
+    """Kernel C (or its bf16 form) on a mesh rank's shard, the JAX
+    package's `fold_masked_stem_sharded`: `clean` and `up` hold the images
+    of the rank's data block (each rank computes its own block's clean
+    stem), `geo`/`occ` the windows of its mask block; the stem kernel is
+    replicated. No collective: an entry is one image under one mask, and
+    the family gathers its tables after the trunk. Counted as
+    "stem_fold_mesh" ("stem_fold_bf16_mesh")."""
+    if mesh is None:
+        raise ValueError("fold_masked_stem_sharded needs a mesh")
+    return _fold_launch(kernel, clean, up, geo, occ, oh, ow, s, plan,
+                        "_mesh")
+
+
+def _fold_launch(kernel, clean, up, geo, occ, oh, ow, s, plan,
+                 suffix: str) -> torch.Tensor:
     bf16 = clean.dtype == torch.bfloat16
     dt = torch.bfloat16 if bf16 else torch.float32
     for t, name, tt, nd in ((kernel, "kernel", dt, 4), (clean, "clean", dt, 4),
@@ -318,14 +342,14 @@ def fold_masked_stem_kernel(kernel: torch.Tensor, clean: torch.Tensor,
                          f"{_build.MAX_SMEM_BYTES}")
     stream = _backend.stream_handle(clean)
     if bf16:
-        _backend.count_launch("stem_fold_bf16")
+        _backend.count_launch("stem_fold_bf16" + suffix)
         _build.check(lib.dp_stem_fold_bf16(
             geo.data_ptr(), up.data_ptr(), occ.data_ptr(), clean.data_ptr(),
             kernel.data_ptr(), out.data_ptr(), b, n, hp, wp, cin, ih, iw, oh,
             ow, h, w, c, k, s, plan.lanes, plan.group, plan.mtiles,
             int(plan.stream), stream), "stem_fold_bf16")
         return out
-    _backend.count_launch("stem_fold")
+    _backend.count_launch("stem_fold" + suffix)
     _build.check(lib.dp_stem_fold(
         geo.data_ptr(), up.data_ptr(), occ.data_ptr(), clean.data_ptr(),
         kernel.data_ptr(), out.data_ptr(), b, n, hp, wp, cin, ih, iw, oh, ow,
@@ -345,11 +369,14 @@ class StemFoldFamily:
     `(preds [B, M], margins [B, M] float32)`, the `apply_masks` +
     full-forward table up to conv summation order, at `compute_dtype`
     ("float32" or "bfloat16": a once-cast copy of the victim, the images
-    cast at the boundary)."""
+    cast at the boundary). On a `mesh` each rank folds and runs the trunk
+    on its `[B/d, M/m]` block (`fold_masked_stem_sharded` on the card) and
+    the tables are gathered after it."""
 
     def __init__(self, engine: "StemFoldEngine", rects: np.ndarray,
                  num_singles: int, chunk_size: int, fill: float,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", mesh=None):
+        self.mesh = mesh
         self.dtype = utils.compute_dtype(compute_dtype)
         self.engine = engine.at(self.dtype)
         self.num_singles = int(num_singles)
@@ -374,10 +401,20 @@ class StemFoldFamily:
 
     @torch.no_grad()
     def phase1(self, imgs: torch.Tensor):
+        if self.mesh is None:
+            return self._phase1(imgs, 0, len(self.plan))
+        return tuple(self.mesh.tables(
+            int(imgs.shape[0]), len(self.plan),
+            lambda rows, cols: self._phase1(imgs[rows], cols.start,
+                                            cols.stop),
+            (torch.int32, torch.float32), "stem_fold"))
+
+    def _phase1(self, imgs: torch.Tensor, lo: int, hi: int):
+        """The `[B, hi - lo]` tables of masks `lo:hi` of the family."""
         eng = self.engine
         imgs = imgs.to(self.dtype)      # the program boundary
         b, h, w, ci = imgs.shape
-        n = len(self.plan)
+        n = hi - lo
         clean = eng.module(eng.normalize(imgs), "stem")      # [B, h', w', c']
         u = eng.norm_scale * (self.fill - imgs)
         kernel = eng.kernel_fn(eng.module).contiguous()      # HWIO
@@ -391,13 +428,18 @@ class StemFoldFamily:
         card = _backend.on_card(imgs)
         up = pad_for_kernel(u, eng.pads, s) if card else None
         preds, margins = [], []
-        for off in range(0, n, c):
-            cnt = min(c, n - off)
+        for off in range(lo, hi, c):
+            cnt = min(c, hi - off)
             if card:
                 oh, ow, geo, occ = self._kernel_plan(
                     off, cnt, clean.shape[1], clean.shape[2], imgs.device)
-                folded = fold_masked_stem_kernel(kernel, clean.contiguous(),
-                                                 up, geo, occ, oh, ow, s)
+                if self.mesh is None:
+                    folded = fold_masked_stem_kernel(
+                        kernel, clean.contiguous(), up, geo, occ, oh, ow, s)
+                else:
+                    folded = fold_masked_stem_sharded(
+                        kernel, clean.contiguous(), up, geo, occ, oh, ow, s,
+                        self.mesh)
             else:
                 folded = fold_masked_stem(kernel, clean, u,
                                           self.plan[off:off + cnt],
@@ -445,6 +487,7 @@ class StemFoldEngine:
 
     def build_family(self, rects: np.ndarray, num_singles: int,
                      chunk_size: int, fill: float,
-                     compute_dtype: str = "float32") -> StemFoldFamily:
+                     compute_dtype: str = "float32",
+                     mesh=None) -> StemFoldFamily:
         return StemFoldFamily(self, rects, num_singles, chunk_size, fill,
-                              compute_dtype)
+                              compute_dtype, mesh)

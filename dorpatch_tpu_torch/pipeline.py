@@ -4,15 +4,26 @@
   L2-project the patch -> certify with the 4-radius defense bank ->
   accumulate records -> report.
 
-Port of `dorpatch_tpu.pipeline.run_experiment` for one device, without the
-mesh layer. Runs on `cfg.device` ("cuda" unless the caller asks for "cpu"),
-in full float32 (`utils.configure_numerics`) unless the config asks for
-bf16: the attack's `compute_dtype` (`--compute-dtype`) and the certify
-bank's (`--certify-dtype`) reach `DorPatch` and `build_defenses` with the
-config.
+Port of `dorpatch_tpu.pipeline.run_experiment`. Runs on `cfg.device`
+("cuda" unless the caller asks for "cpu"), in full float32
+(`utils.configure_numerics`) unless the config asks for bf16: the attack's
+`compute_dtype` (`--compute-dtype`) and the certify bank's
+(`--certify-dtype`) reach `DorPatch` and `build_defenses` with the config.
+
+With `mesh_data * mesh_mask > 1` the run is one rank of a `(data, mask)`
+mesh (`parallel/`; one process a rank, launched by torchrun): the attack
+and the defense bank shard their masked batches over it, every rank runs
+this program on the same values and gets the same records, rank 0 reads
+and writes the artifacts (`parallel.multiproc.Process0Store`, carry
+snapshots through `Process0Checkpointer`) and prints the report, and each
+rank writes its own `events_<rank>.jsonl` and `heartbeat_<rank>.jsonl`
+and, at the end, `mesh_<rank>.json` (the mesh, the rank's kernel launches
+and the calls the mesh did not divide). Certification runs at the exact
+batch on a mesh, as in the JAX package (its phase 2 buckets shard-locally).
 
 Run telemetry (`observe/`), the JAX package's files and span names:
-`run.json` always; with `metrics_log`, `events.jsonl` (spans `run`,
+`run.json` always (on a mesh with the backend, the world size and each
+rank's device); with `metrics_log`, `events.jsonl` (spans `run`,
 `setup`, `data`, `batch` with `images` and `cached`, `attack`, `certify`
 with the forward counts and `compute_dtype`, `artifact_io` with `op`,
 `finalize`, and a `block` record per attack block), `heartbeat_0.jsonl`,
@@ -41,7 +52,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from dorpatch_tpu_torch import data, losses, metrics, observe, utils
+from dorpatch_tpu_torch import data, losses, metrics, observe, ops, utils
 from dorpatch_tpu_torch.artifacts import (ArtifactStore, results_path,
                                           write_config_record)
 from dorpatch_tpu_torch.attack import DorPatch
@@ -49,6 +60,8 @@ from dorpatch_tpu_torch.checkpoint import CarryCheckpointer
 from dorpatch_tpu_torch.config import ExperimentConfig, resolved_data_source
 from dorpatch_tpu_torch.defense import build_defenses
 from dorpatch_tpu_torch.models import get_model
+from dorpatch_tpu_torch.parallel import (make_mesh, make_sharded_attack,
+                                         make_sharded_defenses, multiproc)
 
 
 def _random_targets(rng: np.random.Generator, y: np.ndarray,
@@ -69,33 +82,62 @@ def _sync(dev: torch.device) -> None:
 def run_experiment(cfg: ExperimentConfig, verbose: bool = True) -> Dict:
     """Run the full pipeline; returns the metrics dict with the report
     line, the attack and certify seconds and the forward counts."""
-    dev = utils.resolve_device(cfg.device)
+    mesh = None
+    if cfg.mesh_data * cfg.mesh_mask > 1:
+        mesh = make_mesh(cfg.mesh_data, cfg.mesh_mask, device=cfg.device)
+    try:
+        return _run(cfg, verbose, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _run(cfg: ExperimentConfig, verbose: bool, mesh) -> Dict:
+    dev = utils.resolve_device(cfg.device if mesh is None else mesh.device)
     utils.configure_numerics()
     utils.set_global_seed(cfg.seed)
     rng = np.random.default_rng(cfg.seed)
     store = ArtifactStore(results_path(cfg))
+    main = multiproc.is_main(mesh)
+    rank = 0 if mesh is None else mesh.rank
+    verbose = verbose and main
+    run_id = observe.new_run_id()
+    env = observe.torch_environment()
+    if mesh is not None:
+        observe.set_process_index(rank)
+        store = multiproc.Process0Store(store, mesh)
+        run_id = multiproc.shared_run_id(mesh, run_id)
+        devices = [None] * mesh.size
+        torch.distributed.all_gather_object(devices, str(dev),
+                                            group=mesh.host_group)
+        env.update(process_count=mesh.size, process_index=rank,
+                   mesh={**mesh.describe(), "devices": devices})
     if verbose:
         name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu")
         observe.log(f"device: {dev} ({name}); attack "
                     f"{cfg.attack.compute_dtype}, certification "
                     f"{cfg.defense.compute_dtype}")
+        if mesh is not None:
+            observe.log(f"mesh: {cfg.mesh_data}x{cfg.mesh_mask} over "
+                        f"{mesh.size} ranks, backend {mesh.backend}, "
+                        f"devices {env['mesh']['devices']}")
 
     # run telemetry: a per-attempt run_id stamps every record, so resumed
     # runs stay groupable; run.json makes the results dir self-describing
-    run_id = observe.new_run_id()
-    write_config_record(cfg, store.result_dir)
-    observe.write_run_manifest(store.result_dir, cfg, run_id=run_id,
-                               extra=observe.torch_environment())
+    if main:
+        write_config_record(cfg, store.result_dir)
+        observe.write_run_manifest(store.result_dir, cfg, run_id=run_id,
+                                   extra=env)
     elog = hb = watchdog = None
     if cfg.metrics_log:
         elog = observe.EventLog(
-            os.path.join(store.result_dir, observe.events_filename(0)),
-            run_id=run_id)
+            os.path.join(store.result_dir, observe.events_filename(rank)),
+            run_id=run_id, process_index=rank)
         hb = observe.Heartbeat(
-            os.path.join(store.result_dir, observe.heartbeat_filename(0)),
+            os.path.join(store.result_dir, observe.heartbeat_filename(rank)),
             get_phase=elog.current_path, interval=cfg.heartbeat_interval,
-            run_id=run_id)
+            process_index=rank, run_id=run_id)
         if cfg.hang_timeout > 0:
             watchdog = observe.Watchdog(store.result_dir, elog,
                                         cfg.hang_timeout)
@@ -106,7 +148,7 @@ def run_experiment(cfg: ExperimentConfig, verbose: bool = True) -> Dict:
                     file=sys.stderr)
     logger = observe.AttackMetricsLogger(
         path=(os.path.join(store.result_dir, "metrics.jsonl")
-              if cfg.metrics_log else None),
+              if cfg.metrics_log and main else None),
         echo_every=cfg.attack.report_interval if verbose else 0,
         run_id=run_id)
 
@@ -127,26 +169,50 @@ def run_experiment(cfg: ExperimentConfig, verbose: bool = True) -> Dict:
             stack.enter_context(Sanitizer())
         stack.enter_context(observe.trace(cfg.trace_dir))
         stack.enter_context(logger)
-        stack.enter_context(observe.span("run", processes=1))
+        stack.enter_context(observe.span(
+            "run", processes=1 if mesh is None else mesh.size))
         stack.enter_context(torch.no_grad())
         with observe.span("setup"):
             victim = get_model(cfg.dataset, cfg.base_arch, cfg.model_dir,
                                cfg.img_size, device=dev)
-            cert_buckets = data.batch_buckets(cfg.batch_size)
-            defenses = build_defenses(victim.apply, cfg.img_size,
-                                      cfg.defense,
-                                      incremental=victim.incremental,
-                                      device=dev,
-                                      recompile_budget=len(cert_buckets))
-            attack = DorPatch(victim.apply, victim.num_classes, cfg.attack,
-                              on_block_end=_on_block,
-                              recompile_budget=int(cfg.batch_size))
-        return _run_batches(cfg, dev, rng, store, victim, defenses,
-                            cert_buckets, attack, logger, verbose)
+            budget = int(cfg.batch_size)
+            if mesh is None:
+                cert_buckets = data.batch_buckets(cfg.batch_size)
+                defenses = build_defenses(victim.apply, cfg.img_size,
+                                          cfg.defense,
+                                          incremental=victim.incremental,
+                                          device=dev,
+                                          recompile_budget=len(cert_buckets))
+                attack = DorPatch(victim.apply, victim.num_classes,
+                                  cfg.attack, on_block_end=_on_block,
+                                  recompile_budget=budget)
+            else:
+                # exact-batch certification: bucket padding would not
+                # keep the data blocks the shard-local schedule plans
+                cert_buckets = None
+                defenses = make_sharded_defenses(
+                    victim.apply, cfg.img_size, mesh, cfg.defense,
+                    recompile_budget=budget,
+                    incremental=victim.incremental)
+                attack = make_sharded_attack(
+                    victim.apply, victim.num_classes, cfg.attack, mesh,
+                    on_block_end=_on_block, recompile_budget=budget)
+        try:
+            return _run_batches(cfg, dev, rng, store, victim, defenses,
+                                cert_buckets, attack, logger, verbose, mesh)
+        finally:
+            if mesh is not None:
+                with open(os.path.join(store.result_dir,
+                                       f"mesh_{rank}.json"), "w") as fh:
+                    json.dump({**mesh.describe(),
+                               "launches": ops.launch_counts(),
+                               "routes": ops.route_counts(),
+                               "unsharded": dict(mesh.unsharded)}, fh,
+                              indent=1)
 
 
 def _run_batches(cfg, dev, rng, store, victim, defenses, cert_buckets,
-                 attack, logger, verbose) -> Dict:
+                 attack, logger, verbose, mesh=None) -> Dict:
     preds_list: List[np.ndarray] = []
     y_list: List[np.ndarray] = []
     preds_adv_list: List[np.ndarray] = []
@@ -225,12 +291,16 @@ def _run_batches(cfg, dev, rng, store, victim, defenses, cert_buckets,
                             device=dev)
                     ck = None
                     if cfg.carry_checkpoints:
-                        ck = CarryCheckpointer(
-                            os.path.join(store.result_dir, f"carry_{i}"),
-                            fingerprint={"seed": int(cfg.seed),
-                                         "batch": int(i),
-                                         "n_images": int(x.shape[0]),
-                                         "attack": repr(cfg.attack)})
+                        def make_ck():
+                            return CarryCheckpointer(
+                                os.path.join(store.result_dir, f"carry_{i}"),
+                                fingerprint={"seed": int(cfg.seed),
+                                             "batch": int(i),
+                                             "n_images": int(x.shape[0]),
+                                             "attack": repr(cfg.attack)})
+
+                        ck = (make_ck() if mesh is None else
+                              multiproc.Process0Checkpointer(make_ck, mesh))
                         attack.checkpointer = ck
                     _sync(dev)
                     ta = time.perf_counter()
@@ -354,6 +424,8 @@ def _run_batches(cfg, dev, rng, store, victim, defenses, cert_buckets,
         m["report"] = metrics.report_line(m)
         if verbose:
             observe.log(m["report"])
+        if not multiproc.is_main(mesh):
+            return m
         try:
             with open(os.path.join(store.result_dir, "summary.json"),
                       "w") as fh:

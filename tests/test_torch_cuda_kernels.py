@@ -100,6 +100,25 @@ def test_fill_backward_matches_float64_autograd(dev, b, size, s, k):
     assert torch.equal(mf.masked_fill_bwd_kernel(rects, g), got)
 
 
+@pytest.mark.parametrize("b,size,s,k", FILL_CASES)
+def test_fill_backward_float64_form_is_the_unrounded_sum(dev, b, size, s, k):
+    """Kernel B's float64 form (the mesh's partial cotangent) writes the
+    sums the float32 form rounds: within 1e-12 of float64 autograd of the
+    plain version, and rounded to float32 it equals the float32 form."""
+    imgs, rects = _case(dev, 1, b, size, s, k)
+    g = torch.randn((b, s, size, size, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    out = torch.zeros((b, size, size, 3), dtype=torch.float64, device=dev)
+    got = mf._bwd_launch(rects, g, None, out=out)
+    torch.cuda.synchronize()
+    assert got is out
+    x = imgs.double().requires_grad_(True)
+    (want,) = torch.autograd.grad(mf.masked_fill_reference(x, rects, 0.5), x,
+                                  g.double())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    assert torch.equal(got.float(), mf.masked_fill_bwd_kernel(rects, g))
+
+
 @pytest.mark.parametrize("vec", [4, 1])
 def test_fill_backward_every_plan_matches_float64_autograd(dev, vec):
     imgs, rects = _case(dev, 5, 3, 32, 200, 2)

@@ -194,11 +194,13 @@ def test_apply_overrides_dotted_and_unknown():
     {"attack": {"remat_policy": "full"}}, {"defense": {"use_pallas": "on"}}])
 def test_config_from_dict_refuses_not_ported_keys_by_name(key):
     """The JAX package's keys of the subsystems the port lacks are refused
-    by name; `recert`, `gateway`, `sanitize` and the attack's `remat`,
-    `remat_threshold` and `remat_policy`, ported, are accepted and read
-    back as the JAX package reads them."""
+    by name; `recert`, `gateway`, `sanitize`, the mesh's `mesh_data` and
+    `mesh_mask`, and the attack's `remat`, `remat_threshold` and
+    `remat_policy`, ported, are accepted and read back as the JAX package
+    reads them."""
     ported_attack = {"remat", "remat_threshold", "remat_policy"}
-    if set(key) & {"recert", "gateway", "sanitize"} or \
+    if set(key) & {"recert", "gateway", "sanitize", "mesh_data",
+                   "mesh_mask"} or \
             set(key.get("attack", {})) & ported_attack:
         from dorpatch_tpu.config import config_from_dict as jax_from_dict
         from dorpatch_tpu.config import config_to_dict as jax_to_dict

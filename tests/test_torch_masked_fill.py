@@ -72,7 +72,14 @@ def test_cpu_tensor_takes_the_plain_version_without_launching():
                                         "stem_fold_bf16": 0,
                                         "gn_relu_fwd_bf16": 0,
                                         "gn_relu_bwd_bf16": 0,
-                                        "masked_kv_attn_bf16": 0}
+                                        "masked_kv_attn_bf16": 0,
+                                        "masked_fill_fwd_mesh": 0,
+                                        "masked_fill_bwd_mesh": 0,
+                                        "masked_fill_fwd_bf16_mesh": 0,
+                                        "stem_fold_mesh": 0,
+                                        "stem_fold_bf16_mesh": 0,
+                                        "masked_kv_attn_mesh": 0,
+                                        "masked_kv_attn_bf16_mesh": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

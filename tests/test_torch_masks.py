@@ -139,7 +139,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     `farm/`, `observe.attack_log`), and the certified fleet (`recert/`,
     `gateway/`, `observe.report`, `analysis/`) keep their own copies of
     the JAX package's jax-free modules and must be among the modules
-    scanned."""
+    scanned, and so must the mesh (`parallel/`)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import dorpatch_tpu_torch
@@ -190,7 +190,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "dorpatch_tpu_torch.gateway.http",
                 "dorpatch_tpu_torch.gateway.service",
                 "dorpatch_tpu_torch.gateway.__main__",
-                "dorpatch_tpu_torch.observe.report"}
+                "dorpatch_tpu_torch.observe.report",
+                "dorpatch_tpu_torch.parallel",
+                "dorpatch_tpu_torch.parallel.mesh",
+                "dorpatch_tpu_torch.parallel.multiproc",
+                "dorpatch_tpu_torch.parallel.sharded"}
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "flax" or m.startswith("flax.")
