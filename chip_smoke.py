@@ -55,28 +55,28 @@ NVIDIA GPU.
    scheduled:
    - CIFAR: `--synthetic --dataset cifar10 --base_arch resnet18
      --img-size 32 -b 8 --sampling-size 128 --dropout 2 --max-iterations
-     10 --num-batches 1` (full-width CIFAR ResNet-18; kernels A, B, C);
+     2 --num-batches 1` (full-width CIFAR ResNet-18; kernels A, B, C);
    - RN50: `--synthetic --dataset imagenet --base_arch resnetv2
      --img-size 224 -b 2 --sampling-size 128 --dropout 2 --max-iterations
-     10 --num-batches 1` (ResNetV2-50x1 BiT at full depth and width;
+     2 --num-batches 1` (ResNetV2-50x1 BiT at full depth and width;
      kernels A, B, C and the GroupNorm+ReLU forward and backward);
    - ViT: the same flags with `--base_arch vit` and `--max-iterations
-     10` (ViT-B/16 at full depth and width; kernels A, B and H);
+     2` (ViT-B/16 at full depth and width; kernels A, B and H);
    random weights from the seed, certification at the four radii with
    prune="exact", incremental="auto" (-> stem for the conv victims,
    -> token-exact for the ViT); then the same three runs with
    `--compute-dtype bfloat16 --certify-dtype bfloat16` (ViT's with
-   `--max-iterations 5`; the bf16 attack
+   `--max-iterations 2`; the bf16 attack
    fills at float32 (A, B) and runs the victim's bf16 copy (D, F on RN50);
    the bf16 bank fills bf16 images (A's bf16 form) and runs C's and H's
    bf16 forms);
    - RN50 480 and RN50 480 bf16: ResNetV2-50x1 at BiT's 480 px
-     fine-tuning resolution, `--img-size 480 -b 1 --max-iterations 5`,
+     fine-tuning resolution, `--img-size 480 -b 1 --max-iterations 2`,
      the other flags as RN50's, without and with the bf16 flags (the
      backward of the stage-1 slabs takes kernel G, in float32 and in
      bf16);
    - ResMLP and ResMLP bf16: RN50's flags with `--base_arch resmlp
-     --max-iterations 5` (ResMLP-24 at full depth and width; kernels A
+     --max-iterations 2` (ResMLP-24 at full depth and width; kernels A
      and B, the mixer engine's gathers and cuBLAS matmuls, A in
      escalations);
    - CIFAR n_patch=2 and its bf16 twin: CIFAR's flags with `-b 2
@@ -86,7 +86,7 @@ NVIDIA GPU.
      consensus`, whose records are then held against the RN50 runs' (same
      prediction, every certificate kept, at most the forwards);
    - CIFAR disk, where Pillow is installed: CIFAR's flags without
-     `--synthetic` and with `--max-iterations 5`, reading a seeded CIFAR-10 `test_batch` it writes into
+     `--synthetic` and with `--max-iterations 2`, reading a seeded CIFAR-10 `test_batch` it writes into
      a temporary `--data_dir`, streamed (the default `stream_depth` 2)
      and again through the synchronous input path, which must give the
      same report and patch (each main path prints its `data` spans'
@@ -107,7 +107,7 @@ NVIDIA GPU.
    the bf16 forms of A, C, H) held on every rank at its shard against its
    plain version and the single-device kernel, timed at the shard with
    the gloo all_reduce of the cotangent; and a one-rank NCCL group's
-   sharded fill; then runs RN50 at 224 in float32, 10 iterations a stage in blocks of 5, once
+   sharded fill; then runs RN50 at 224 in float32, 6 iterations a stage in blocks of 3, once
    uninterrupted and once with `--carry-checkpoints --hang-timeout 300`,
    interrupted from the block callback at stage 1's first block and run
    again over the same results dir, which must resume from the snapshot,
@@ -130,7 +130,7 @@ NVIDIA GPU.
    RN50 at 480 px with 1 image without remat and with 2 under each
    policy that fits (REMAT_480_POLICIES); and the slice's path, RN50 at
    480 px with 2 images a batch and `--remat on` through the CLI
-   (RN50_480_B2_ARGV, 5 iterations; it does not fit without remat),
+   (RN50_480_B2_ARGV, 2 iterations; it does not fit without remat),
    whose certification records must equal those of certifying its patch
    again with remat off (the 480 px kernel records carry its launches as
    `remat_launches`);
@@ -159,8 +159,9 @@ NVIDIA GPU.
    layerscales of 1, where the engine's drift can exceed the margin);
 7. trains both trainable victims on the card through `train.py`'s flags
    into a temporary model dir (`cifar_resnet18` at the JAX package's
-   defaults: 1404 steps; `cifar_vit` as the JAX package's own run,
-   `--n-per-class 1000 --lr 1e-3`: 936 steps, at seeds 0, 1 and 2), prints
+   defaults but TRAIN_EPOCHS epochs: 468 steps; `cifar_vit` as the JAX
+   package's own run, `--n-per-class 1000 --lr 1e-3`, TRAIN_EPOCHS
+   epochs: 312 steps, at seeds 0, 1 and 2), prints
    steps/s, seconds and held-out accuracy, and fails if the mean held-out
    accuracy over the seeds is below TRAIN_MIN_ACC;
    then trains each for 20 steps twice from one seed and fails unless
@@ -201,12 +202,12 @@ NVIDIA GPU.
    reclaim latency, the iterations the resume saved and the CIFAR
    snapshot saves' ms and bytes;
 10. serves (`serve_phase`): holds the serve paths' kernels at their shapes
-   (A, C, D and their bf16 forms at RN50's bucket of 8 at 224, A and C at
+   (A, C, D and their bf16 forms at RN50's bucket of 2 at 224, A and C at
    CIFAR's, H's bf16 form at ViT-B/16's batch of 1), then runs
    `dorpatch_tpu_torch.serve`'s service and HTTP front-end in this
    process on each serving path and sends it requests over HTTP from
-   stdlib clients: RN50 at 224 (`--serve-max-batch 8`, buckets 1 and 8,
-   8 requests at concurrency 8) with 1 and 2 replicas in float32, with 2
+   stdlib clients: RN50 at 224 (`--serve-max-batch 2`, buckets 1 and 2,
+   2 requests at concurrency 8) with 1 and 2 replicas in float32, with 2
    in the bf16 bank; the CIFAR ResNet-18 trained in 7 with 2 replicas
    and `--chaos wedge_dispatch` at concurrency 16 (replica 0 wedges its
    first batch: the supervisor must fail its requests over and restart
@@ -235,7 +236,23 @@ NVIDIA GPU.
    --fleet` reconciling client, gateway and backends with no orphaned
    trace (the kernels line gives the CIFAR records their
    `recert_launches`, the CIFAR serve records their `fleet_launches`);
-12. prints the total seconds, the per-kernel JSON line (the serve paths'
+12. the analysis slice (`start_gates` right after the build, so the gates
+   run on the host's CPU beside the kernel phases, whose times are the
+   card's, and `finish_gates` before the main paths, so that no host-timed
+   phase shares the CPU with them; `analysis_phase` after the main
+   paths): `python -m dorpatch_tpu_torch.analysis
+   dorpatch_tpu_torch`, `--concurrency dorpatch_tpu_torch` and
+   `--baseline check` on the card's installation, each of which must exit
+   0; the host microseconds a call of kernel A at CIFAR [8,128] through
+   its wrapper, its op `dorpatch_torch::masked_fill_fwd` and the direct
+   launch under the op (`fill_bench.host_costs`); the RN50 bf16 attack
+   step's ms at 224 beside PERF.md §5's; the main paths' walls; and a
+   short CIFAR run (CAPTURE_ARGV) under `analysis.entrypoints.
+   capture_entrypoints()` whose every program must trace on fake `cuda`
+   and on fake `cpu` tensors to one fingerprint (`capture_check`; the
+   kernels' ops each program holds printed). Every kernel above runs
+   through its `torch.library` op (`ops/_library.py`);
+13. prints the total seconds, the per-kernel JSON line (the serve paths'
    records last), the nvidia-smi line and, last,
    `{"ok": true, "device": {...}}`.
 
@@ -290,16 +307,17 @@ TOL_H = dict(rtol=1e-5, atol=1e-5)
 TOL_H_LOGITS = 1e-4
 
 #: the attack's depth of every untrained main path (their f32 and bf16
-#: runs), cut from 20 (CIFAR, RN50 and what derives from them: since PR
-#: 17; ViT, RN50 480, ResMLP: since PR 15) to keep the script within its
-#: time: every kernel of a path launches in each iteration and in the
-#: certification
-SHORT_ITERATIONS = 10
+#: runs) and of the mesh paths held to them, cut from 20 to 10, then to
+#: 2, to keep the script within its time on slower card hosts: every
+#: kernel of a path launches in each iteration and in the certification
+SHORT_ITERATIONS = 2
 #: the depth of the paths no other phase is held to (RN50 480 in both
 #: dtypes and at batch 2 under remat, ResMLP, ViT bf16, CIFAR disk), cut
-#: from 10 to make room for the mesh phase: the CIFAR, RN50 and
-#: ViT paths keep 10, the mesh paths are held to them
-HEAVY_ITERATIONS = 5
+#: from 10 to make room for the mesh phase, then from 5
+HEAVY_ITERATIONS = 2
+#: the sanitized trained CIFAR run's depth: its programs' budget events
+#: need the attack's stage switch (at 10) and a sweep
+SANITIZE_ITERATIONS = 10
 CIFAR_ARGV = ["--synthetic", "--dataset", "cifar10", "--base_arch",
               "resnet18", "--img-size", "32", "-b", "8",
               "--sampling-size", "128", "--dropout", "2",
@@ -403,16 +421,20 @@ GN_KERNELS = ("gn_relu_fwd", "gn_relu_bwd", "gn_relu_fwd_bf16",
 MIXER_KERNELS = ("masked_fill_fwd", "masked_fill_bwd")
 NP2_KERNELS = ("masked_fill_fwd", "masked_fill_bwd")
 #: victim training (`python -m dorpatch_tpu_torch.train`) at the JAX
-#: package's defaults (12 epochs, batch 128, lr 3e-3, warmup 100):
-#: cifar_resnet18 at 1500 images a class (1404 steps); cifar_vit with the
+#: package's defaults (batch 128, lr 3e-3, warmup 100) but TRAIN_EPOCHS
+#: epochs, cut from its 12 to keep the script within its time (the train
+#: accuracy levels off at about 0.60 from the second epoch):
+#: cifar_resnet18 at 1500 images a class (468 steps); cifar_vit with the
 #: flags of the JAX package's own cifar_vit run (`tools/flagship_vit_leg.sh`:
-#: 1000 images a class, 936 steps, lr 1e-3). Held out, the JAX package's
-#: CPU runs reached 0.609 and 0.613; TRAIN_MIN_ACC is the bar of the mean
+#: 1000 images a class, lr 1e-3; 312 steps). Held out, the JAX package's
+#: 12-epoch CPU runs reached 0.609 and 0.613; TRAIN_MIN_ACC is the bar of the mean
 #: over TRAIN_SEEDS. cifar_vit's held-out accuracy spreads over 0.52-0.65
 #: from seed to seed (its accuracy on augmented images stays at 0.59-0.60),
 #: so its bar is the mean of three seeds; seed 0 is the checkpoint
-TRAIN_ARGV = {"cifar_resnet18": [],
-              "cifar_vit": ["--n-per-class", "1000", "--lr", "1e-3"]}
+TRAIN_EPOCHS = 4
+TRAIN_ARGV = {"cifar_resnet18": ["--epochs", str(TRAIN_EPOCHS)],
+              "cifar_vit": ["--n-per-class", "1000", "--lr", "1e-3",
+                            "--epochs", str(TRAIN_EPOCHS)]}
 TRAIN_SEEDS = {"cifar_resnet18": (0,), "cifar_vit": (0, 1, 2)}
 TRAIN_MIN_ACC = 0.55
 #: the repeat check: two one-epoch runs of 20 steps of 128 from one seed
@@ -432,7 +454,7 @@ TRAINED_CIFAR_BF16_KERNELS = tuple(k for k in CIFAR_BF16_KERNELS
 #: the serving paths (`python -m dorpatch_tpu_torch.serve`'s flags, run in
 #: this process through `CertifiedInferenceService.from_config` and
 #: `HttpFrontend` so that the launch counts hold the kernels): RN50 at 224
-#: with the (1, 8) buckets, SERVE_RN50_REQUESTS requests at closed-loop
+#: with the (1, SERVE_RN50_BATCH) buckets, SERVE_RN50_REQUESTS requests at closed-loop
 #: concurrency SERVE_CONCURRENCY over HTTP, with 1 and 2 replicas on the
 #: card in float32, with 2 in the bf16 bank; the trained CIFAR ResNet-18
 #: with 2 replicas and the wedge_dispatch failover drill (replica 0 wedges
@@ -447,9 +469,12 @@ TRAINED_CIFAR_BF16_KERNELS = tuple(k for k in CIFAR_BF16_KERNELS
 #: a 3 s window replica 1 was once declared wedged too, and the requests
 #: re-dispatched to it failed twice
 SERVE_STALE_S = 6.0
+#: the RN50 serve runs' largest bucket, cut from 8 to keep the script
+#: within its time (each replica warms every bucket up)
+SERVE_RN50_BATCH = 2
 SERVE_RN50_ARGV = ["--synthetic", "--dataset", "imagenet", "--base_arch",
-                   "resnetv2", "--img-size", "224", "--serve-max-batch", "8",
-                   "--serve-deadline-ms", "60000"]
+                   "resnetv2", "--img-size", "224", "--serve-max-batch",
+                   str(SERVE_RN50_BATCH), "--serve-deadline-ms", "60000"]
 SERVE_VIT_ARGV = [a if a != "resnetv2" else "vit" for a in SERVE_RN50_ARGV
                   ][:-4] + ["--serve-max-batch", "1", "--serve-deadline-ms",
                             "60000", "--certify-dtype", "bfloat16"]
@@ -462,23 +487,27 @@ SERVE_CIFAR_ARGV = ["--dataset", "cifar10", "--base_arch", "resnet18",
 CERTIFY_BF16 = ["--certify-dtype", "bfloat16"]
 SERVE_REQUESTS, SERVE_CONCURRENCY, SERVE_VIT_REQUESTS = 16, 8, 2
 #: the RN50 serve runs' requests: one full batch at concurrency 8
-SERVE_RN50_REQUESTS = 8
+SERVE_RN50_REQUESTS = SERVE_RN50_BATCH
 #: the RN50 2-replica runs' `POST /profile` capture (seconds) of one more
-#: batch served after the measured traffic: the device's busy share of a
-#: served batch
-SERVE_PROFILE_S = 2.0
+#: batch served after the measured traffic, asked for
+#: SERVE_PROFILE_AFTER_S after that batch's requests are sent (it is on
+#: the card then): the device's busy share of a served batch. Cut from 2
+#: s after 2 s with the bucket of 8, to fit inside a batch of
+#: SERVE_RN50_BATCH (the trace's export grows with its length)
+SERVE_PROFILE_S, SERVE_PROFILE_AFTER_S = 1.0, 0.5
 #: the serve paths' kernels: phase 1 folds the stem (C), the pair audits
 #: fill with A, every RN50 forward runs D; the bf16 bank runs their bf16
 #: forms, its escalations (the float32 exhaustive sweep) A and D, and the
 #: clean forward D; the ViT bank runs H's bf16 form. A (or its bf16 form)
 #: must launch exactly when a pair audit was scheduled, and float32 A in
 #: the RN50 bf16 bank exactly when an image escalated (`serve_path`)
-#: the RN50 224 --carry-checkpoints check: 10 iterations a stage in
-#: blocks of 5, so that stage 1 has a block left after its first; the
+#: the RN50 224 --carry-checkpoints check: 6 iterations a stage in
+#: blocks of 3 (cut from 10 in blocks of 5 to keep the script within its
+#: time), so that stage 1 has a block left after its first; the
 #: watchdog (s) must outlast the longest block, its first call included
-RN50_CARRY_ITERATIONS = 10
+RN50_CARRY_ITERATIONS, RN50_CARRY_BLOCK = 6, 3
 RN50_CARRY_ARGV = _iterations(RN50_ARGV, RN50_CARRY_ITERATIONS) + [
-    "--sweep-interval", "5"]
+    "--sweep-interval", str(RN50_CARRY_BLOCK)]
 RN50_CARRY_HANG_S = 300
 #: the farm (`farm_phase`): the trained CIFAR ResNet-18, batch 8 at 32
 #: px, its attack with the stage switch at 10, failure-biased sampling
@@ -2233,7 +2262,7 @@ class _TimedSaves:
 
 
 def rn50_carry_phase(torch, dev) -> None:
-    """RN50 at 224 in float32 with blocks of 5 iterations
+    """RN50 at 224 in float32 with blocks of RN50_CARRY_BLOCK iterations
     (`RN50_CARRY_ARGV`): first uninterrupted, for the reference patch;
     then with `--carry-checkpoints --hang-timeout RN50_CARRY_HANG_S`,
     interrupted from the block callback at stage 1's first block (after
@@ -2298,7 +2327,7 @@ def rn50_carry_phase(torch, dev) -> None:
     saved = (info.stage * RN50_CARRY_ITERATIONS + info.iteration
              if info else 0)
     print(f"RN50 carry check (--carry-checkpoints, --max-iterations "
-          f"{RN50_CARRY_ITERATIONS}, --sweep-interval 5): "
+          f"{RN50_CARRY_ITERATIONS}, --sweep-interval {RN50_CARRY_BLOCK}): "
           f"reference run {reference:.2f} s; interrupted after stage 1's "
           f"first block in {cut:.2f} s; snapshot (stage, iteration) "
           f"{(info.stage, info.iteration) if info else None}; resumed run "
@@ -2307,7 +2336,7 @@ def rn50_carry_phase(torch, dev) -> None:
           f"{saved}; carry "
           f"snapshots: {saves.summary()}; resumed run's launches {counts}",
           flush=True)
-    if info is None or (info.stage, info.iteration) != (1, 5):
+    if info is None or (info.stage, info.iteration) != (1, RN50_CARRY_BLOCK):
         raise AssertionError(f"RN50 carry snapshot: {info}")
     if not all((a == b).all() for a, b in zip(got, want)):
         raise AssertionError("the resumed RN50 patch differs from the "
@@ -2512,25 +2541,27 @@ def farm_phase(torch, dev, out) -> dict:
 
 def serve_kernels(torch, dev):
     """The serve paths' kernels at their shapes, held and timed as above:
-    at the RN50 serve bucket of 8 images at 224, A (float32 and bf16) at
-    the pair audit's chunk (S = 63), C (float32 and bf16) at phase 1's
-    chunk and D (float32 and bf16) at a pair-audit slab (8 x 63 images at
-    (784, 512)); at the CIFAR bucket of 8, A and C; H's bf16 form at the
-    ViT-B/16 bank's chunks with 1 image (the serve path's batch). Returns
-    the records by path, launches filled in by `serve_phase`."""
+    at the RN50 serve bucket of SERVE_RN50_BATCH images at 224, A (float32
+    and bf16) at the pair audit's chunk (S = 63), C (float32 and bf16) at
+    phase 1's chunk and D (float32 and bf16) at a pair-audit slab
+    (SERVE_RN50_BATCH x 63 images at (784, 512)); at the CIFAR bucket of
+    8, A and C; H's bf16 form at the ViT-B/16 bank's chunks with 1 image
+    (the serve path's batch). Returns the records by path, launches filled
+    in by `serve_phase`."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    rn50 = [fill_phase_bf16(torch, dev, 8, 224, "_serve_rn50",
+    b = SERVE_RN50_BATCH
+    rn50 = [fill_phase_bf16(torch, dev, b, 224, "_serve_rn50",
                             torch.float32),
-            stem_fold_phase(torch, dev, "imagenet", "resnetv2", 224, 8,
+            stem_fold_phase(torch, dev, "imagenet", "resnetv2", 224, b,
                             "stem_fold_serve_rn50"),
-            gn_slab(torch, dev, gen, 8 * 63, 784, 512, 4,
+            gn_slab(torch, dev, gen, b * 63, 784, 512, 4,
                     suffix="_serve_rn50")[0]]
-    rn50_bf16 = [fill_phase_bf16(torch, dev, 8, 224, "_serve_rn50"),
-                 stem_fold_phase(torch, dev, "imagenet", "resnetv2", 224, 8,
+    rn50_bf16 = [fill_phase_bf16(torch, dev, b, 224, "_serve_rn50"),
+                 stem_fold_phase(torch, dev, "imagenet", "resnetv2", 224, b,
                                  "stem_fold_bf16_serve_rn50",
                                  torch.bfloat16),
-                 gn_slab(torch, dev, gen, 8 * 63, 784, 512, 4,
+                 gn_slab(torch, dev, gen, b * 63, 784, 512, 4,
                          torch.bfloat16, "_serve_rn50")[0]]
     cifar = [fill_phase_bf16(torch, dev, 8, 32, "_serve_cifar",
                              torch.float32),
@@ -2712,7 +2743,7 @@ def serve_path(torch, dev, label, argv, images, required, smi,
                 if profile_s:
 
                     def capture():
-                        time.sleep(2.0)     # the batch is on the card
+                        time.sleep(SERVE_PROFILE_AFTER_S)
                         req = urllib.request.Request(
                             url + "/profile", data=json.dumps(
                                 {"duration_ms": profile_s * 1e3}).encode(),
@@ -3574,7 +3605,8 @@ def remat_step_check(torch, dev, label, arch, size, b, dtype, modes,
     rects = universe[idx]
     gn = "gn_relu_fwd" + ("_bf16" if dtype == "bfloat16" else "")
     gnb = gn.replace("fwd", "bwd")
-    plain_fwd = fused_gn.gn_relu_fwd_kernel
+    # the forward kernels' op, as `fused_gn.GNRelu` calls it
+    plain_fwd = fused_gn.gn_relu_fwd_op
     out, stats = {}, []
 
     def recording_fwd(xg, *args, **kwargs):
@@ -3597,14 +3629,14 @@ def remat_step_check(torch, dev, label, arch, size, b, dtype, modes,
         ops.reset_launch_counts()
         stats.clear()
         if stats_check:
-            fused_gn.gn_relu_fwd_kernel = recording_fwd
+            fused_gn.gn_relu_fwd_op = recording_fwd
         try:
             t0 = time.perf_counter()
             res = _remat_grads(torch, atk, x, lvx, rects, state)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
         finally:
-            fused_gn.gn_relu_fwd_kernel = plain_fwd
+            fused_gn.gn_relu_fwd_op = plain_fwd
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         out[mode] = res
@@ -3652,7 +3684,7 @@ def remat_phase(torch, dev):
     of ViT-B/16 (float32), batch 2, remat off and under each policy, loss
     and gradients bit-equal (`remat_step_check`); then the slice's path,
     RN50 at 480 px with 2 images a batch and `--remat on` through the CLI
-    (`main_path`, 5 iterations), whose certification records must equal
+    (`main_path`, HEAVY_ITERATIONS), whose certification records must equal
     those of certifying its patch again in this process with remat off,
     and one step of it under each policy that fits beside the batch-1 step
     without remat. Returns the 480 px path's launch counts."""
@@ -3727,7 +3759,7 @@ def sanitize_phase(torch, dev, out) -> None:
                                     if r.get("kind") == "compile"})
 
     label = "trained CIFAR sanitize"
-    argv = _iterations(TRAINED_ARGV, SHORT_ITERATIONS) + [
+    argv = _iterations(TRAINED_ARGV, SANITIZE_ITERATIONS) + [
         "--base_arch", "resnet18", "--model_dir", out]
     # the same run unsanitized first: what the sanitizer costs
     plain, _, _ = main_path(torch, dev, "trained CIFAR, 10 iterations",
@@ -3940,9 +3972,9 @@ def _mesh_fill_check(torch, mesh, b, size, suffix, bf16):
         torch.testing.assert_close(gx.double(), want, **TOL_B)
         b_err = float((gx.double() - want).abs().max())
         kern_b = float((gx - mf.masked_fill_bwd_kernel(rects, g)).abs().max())
-        part = torch.zeros((xb.shape[0], size, size, 3), dtype=torch.float64,
-                           device=mesh.device)
-        mf._bwd_launch(rb, gb, None, out=part)
+        # the float64 form through its op: the block's sums at rows 0: of
+        # a zero buffer of the block's rows
+        part = mf.masked_fill_bwd_op(rb, gb, xb.shape[0], 0)
         keep = masks_lib.rasterize(rb, size)
         want_part = (gb.double() * keep[None, ..., None]).sum(1)
         part_err = float((part - want_part).abs().max())
@@ -3965,13 +3997,13 @@ def _mesh_fill_check(torch, mesh, b, size, suffix, bf16):
     if keep is None:
         keep = masks_lib.rasterize(rb, size)
     plain_b, lib_a, lib_b = yardsticks(torch, xb, keep, gb, fill)
-    fns = [lambda: mf._fwd_launch(xb, rb, fill, None, "_mesh"),
+    fns = [lambda: mf.masked_fill_fwd_op(xb, rb, fill, True),
            lambda: mf.masked_fill_reference(xb, rb, fill), lib_a]
     if bf16:    # no record of the single-device kernel at this shape
         fns.append(lambda: mf.masked_fill_fwd_kernel(imgs, rects, fill))
     else:
-        fns += [lambda: mf._bwd_launch(rb, gb, None, out=part), plain_b,
-                lib_b]
+        fns += [lambda: mf.masked_fill_bwd_op(rb, gb, xb.shape[0], 0),
+                plain_b, lib_b]
     ms = _timed_on_rank0(torch, mesh, fns)
     if ms is None:
         return []
@@ -4556,6 +4588,230 @@ def nccl_check(torch) -> None:
             dist.destroy_process_group()
 
 
+#: the analysis gates, run on the card's installation while the kernel
+#: phases run (`start_gates`), collected before the main paths
+#: (`finish_gates`): (name, arguments of `python -m
+#: dorpatch_tpu_torch.analysis`)
+ANALYSIS_GATES = (("lint", ["dorpatch_tpu_torch"]),
+                  ("concurrency", ["--concurrency", "dorpatch_tpu_torch"]),
+                  ("baseline", ["--baseline", "check"]))
+#: the RN50 bf16 attack step of PERF.md §5 (`trace.py`, profiled), ms
+RN50_BF16_STEP_MS = 73.55
+#: the capture run (`capture_check`): CIFAR's flags at a short size, with
+#: the certification's chunks large (a chunk loop runs in Python: each
+#: chunk is a copy of the forward in a traced graph)
+CAPTURE_ARGV = ["--synthetic", "--dataset", "cifar10", "--base_arch",
+                "resnet18", "--img-size", "32", "-b", "2",
+                "--sampling-size", "64", "--dropout", "1",
+                "--max-iterations", "2", "--sweep-interval", "2",
+                "--num-batches", "1"]
+CAPTURE_CHUNK = 1024
+
+
+def start_gates() -> dict:
+    """Start the analysis gates (`ANALYSIS_GATES`) as subprocesses on the
+    host's CPU: they trace on fake tensors and need no card. Returns
+    name -> (start time, process, finish box)."""
+    import atexit
+    import threading
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    gates = {}
+    for name, args in ANALYSIS_GATES:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dorpatch_tpu_torch.analysis"] + args,
+            cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        box = {}
+
+        def wait(proc=proc, box=box):
+            box["out"] = proc.communicate()[0]
+            box["t"] = time.perf_counter()
+
+        th = threading.Thread(target=wait, daemon=True)
+        th.start()
+        gates[name] = (time.perf_counter(), proc, box, th)
+        # a phase that fails before `finish_gates` leaves none running
+        atexit.register(lambda p=proc: p.poll() is None and p.kill())
+    return gates
+
+
+def finish_gates(gates: dict, timeout: float = 600.0) -> None:
+    """Wait for the gates; each must exit 0. Prints each one's seconds
+    and last line, and the seconds waited."""
+    waited = time.perf_counter()
+    failed = []
+    for name, (t0, proc, box, th) in gates.items():
+        th.join(timeout)
+        if th.is_alive():
+            proc.kill()
+            th.join()
+            failed.append(name)
+        out = box.get("out") or ""
+        last = out.strip().splitlines()[-1] if out.strip() else ""
+        print(f"analysis gate {name}: exit {proc.returncode} in "
+              f"{box.get('t', time.perf_counter()) - t0:.1f} s: {last}",
+              flush=True)
+        if proc.returncode != 0:
+            print(out[-6000:], flush=True)
+            failed.append(name)
+    print(f"analysis gates: waited {time.perf_counter() - waited:.1f} s "
+          "after the kernel phases", flush=True)
+    if failed:
+        raise AssertionError(f"analysis gates failed: {sorted(set(failed))}")
+
+
+def dispatch_cost(torch, dev) -> dict:
+    """Host microseconds to make one eager call of kernel A at the CIFAR
+    step's shape [8, 128]: through the user's wrapper (`masked_fill`, the
+    op and its autograd function), the kernel entry (the op) and the
+    direct ctypes launch under it (`fill_bench.host_costs`)."""
+    from dorpatch_tpu_torch.fill_bench import host_costs
+    from dorpatch_tpu_torch.ops import masked_fill as mf
+
+    with torch.no_grad():
+        rec = host_costs(torch, mf, dev)
+    rec["dispatch_us"] = rec["entry_us"] - rec["launch_us"]
+    print(f"dispatch cost of kernel A at [8,128]: {rec['wrapper_us']:.2f} us "
+          f"a call through masked_fill, {rec['entry_us']:.2f} through the "
+          f"op dorpatch_torch::masked_fill_fwd, {rec['launch_us']:.2f} the "
+          f"direct launch: the dispatcher adds {rec['dispatch_us']:.2f} us",
+          flush=True)
+    return rec
+
+
+def _direct_launches(on: bool) -> None:
+    """Route the fill's and the GroupNorm's autograd functions to their
+    kernels' ctypes launches without the dispatcher (`on`), or back through
+    their ops: the A/B of the op layer on a step."""
+    from dorpatch_tpu_torch.ops import fused_gn as gn
+    from dorpatch_tpu_torch.ops import masked_fill as mf
+
+    saved = _direct_launches.__dict__.setdefault("ops", dict(
+        fill_fwd=mf.masked_fill_fwd_op, fill_bwd=mf.masked_fill_bwd_op,
+        gn_fwd=gn.gn_relu_fwd_op, gn_bwd=gn.gn_relu_bwd_op))
+    if on:
+        mf.masked_fill_fwd_op = mf._fwd_cuda
+        mf.masked_fill_bwd_op = mf._bwd_cuda
+        gn.gn_relu_fwd_op = gn._fwd_launch
+        gn.gn_relu_bwd_op = gn._bwd_cuda
+    else:
+        mf.masked_fill_fwd_op = saved["fill_fwd"]
+        mf.masked_fill_bwd_op = saved["fill_bwd"]
+        gn.gn_relu_fwd_op = saved["gn_fwd"]
+        gn.gn_relu_bwd_op = saved["gn_bwd"]
+
+
+def rn50_bf16_step(torch, dev, steps: int = 5, pairs: int = 3) -> dict:
+    """ms of one RN50 bf16 attack step at 224 (2 images, S = 128 over the
+    dropout=2 universe, as `trace.py`'s attack_step; unprofiled, host clock
+    around `steps` synchronized steps), through the kernels' ops and with
+    the same launches called directly (`_direct_launches`), in `pairs`
+    alternating pairs: medians, and the ops' share over the direct."""
+    from dorpatch_tpu_torch import data, masks, utils
+    from dorpatch_tpu_torch.attack import DorPatch
+    from dorpatch_tpu_torch.config import AttackConfig
+    from dorpatch_tpu_torch.losses import local_variance
+    from dorpatch_tpu_torch.models import get_model
+
+    victim = get_model("imagenet", "resnetv2", "/nonexistent", 224,
+                       device=dev)
+    x_np, _ = next(data.synthetic_batches("imagenet", 2, 224, 1234))
+    x = torch.as_tensor(x_np, device=dev)
+    with torch.no_grad():
+        y = torch.argmax(victim.apply(x), -1)
+    attack = DorPatch(victim.apply, victim.num_classes,
+                      AttackConfig(sampling_size=128, dropout=2,
+                                   compute_dtype="bfloat16"))
+    universe = torch.as_tensor(masks.dropout_universe(224, 2), device=dev)
+    lvx = torch.mean(local_variance(x)[0], dim=-1)
+    state = attack._init_state(utils.generator(1234, dev), x, y, False,
+                               universe.shape[0])
+
+    def timed(direct: bool) -> float:
+        nonlocal state
+        _direct_launches(direct)
+        try:
+            state = attack._step(state, x, lvx, universe, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state = attack._step(state, x, lvx, universe, 0)
+            torch.cuda.synchronize()
+        finally:
+            _direct_launches(False)
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    for _ in range(2):
+        state = attack._step(state, x, lvx, universe, 0)
+    runs = {"ops": [], "direct": []}
+    for i in range(pairs):
+        for direct in ((False, True) if i % 2 == 0 else (True, False)):
+            runs["direct" if direct else "ops"].append(timed(direct))
+    out = {k: sorted(v)[len(v) // 2] for k, v in runs.items()}
+    out["ops_share"] = out["ops"] / out["direct"] - 1.0
+    print(f"RN50 bf16 attack step at 224 (unprofiled, medians of {pairs} "
+          f"runs of {steps} steps): {out['ops']:.2f} ms through the ops, "
+          f"{out['direct']:.2f} ms with direct launches ({100 * out['ops_share']:+.2f}%); "
+          f"runs {runs}; PERF.md §5's profiled step: {RN50_BF16_STEP_MS} ms",
+          flush=True)
+    return out
+
+
+def capture_check(torch, dev) -> list:
+    """A short CIFAR run on the card under `capture_entrypoints()`: every
+    program it runs is recorded with its arguments, then traced on fake
+    `cuda` and on fake `cpu` tensors; the two fingerprints must match and
+    every program must trace. Prints each program's kernels' ops and the
+    names whose fingerprints differ. Returns the captured names."""
+    import dataclasses
+
+    from dorpatch_tpu_torch.analysis import baseline
+    from dorpatch_tpu_torch.analysis import entrypoints as ep_mod
+    from dorpatch_tpu_torch.cli import build_parser, config_from_args
+    from dorpatch_tpu_torch.pipeline import run_experiment
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capture_") as root:
+        cfg = config_from_args(build_parser().parse_args(
+            CAPTURE_ARGV + ["--results-root", root]))
+        cfg = dataclasses.replace(cfg, defense=dataclasses.replace(
+            cfg.defense, chunk_size=CAPTURE_CHUNK))
+        ep_mod.clear_entrypoints()
+        with ep_mod.capture_entrypoints():
+            run_experiment(cfg, verbose=False)
+        torch.cuda.synchronize()
+    eps = ep_mod.registered_entrypoints()
+    if not eps:
+        raise AssertionError("the capture run recorded no program")
+    checks = baseline.device_fingerprints(eps, ("cuda", "cpu"))
+    for c in checks:
+        print(f"capture {c.name}: fake cuda {c.fingerprints['cuda']}, fake "
+              f"cpu {c.fingerprints['cpu']}{'' if c.same else ' DIFFER'}; "
+              f"kernels' ops {c.kernels}", flush=True)
+    ep_mod.clear_entrypoints()
+    bad = [c.name for c in checks if not c.same]
+    print(f"capture: {len(checks)} programs, fingerprints differ on fake "
+          f"cuda and fake cpu for {bad}", flush=True)
+    if bad:
+        raise AssertionError(f"fingerprints differ across devices: {bad}")
+    return [c.name for c in checks]
+
+
+def analysis_phase(torch, dev, walls) -> dict:
+    """The analysis slice on the card (the gates ran beside the kernel
+    phases): the dispatch cost of a kernel's op, the RN50 bf16 attack
+    step, the main paths' walls and the capture check."""
+    t0 = time.perf_counter()
+    out = dict(dispatch=dispatch_cost(torch, dev),
+               rn50_bf16_step=rn50_bf16_step(torch, dev))
+    print("main-path walls (s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in walls.items()), flush=True)
+    out["captured"] = capture_check(torch, dev)
+    print(f"analysis phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import faulthandler
 
@@ -4587,6 +4843,7 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
+    gates = start_gates()
 
     t0 = time.perf_counter()
     cifar_kernels = kernel_phases(torch, dev)
@@ -4619,6 +4876,7 @@ def main() -> int:
     np2_kernels = fill_phase_k3(torch, dev)
     print(f"bf16 kernel phases: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    finish_gates(gates)
 
     fills, records_of, metrics_of = {}, {}, {}
     at224, at480 = gn_split_shares(224), gn_split_shares(480)
@@ -4666,6 +4924,8 @@ def main() -> int:
                           "ViT": rn50_kernels[:2], "RN50 480": rn50_480[:2],
                           "ResMLP": rn50_kernels[:2],
                           "CIFAR n_patch=2": np2_kernels[:1]})
+    analysis_phase(torch, dev,
+                   {k: v["wall_s"] for k, v in metrics_of.items()})
     for label in ("RN50", "RN50 bf16"):
         consensus_check(label.replace("RN50", "RN50 consensus"),
                         records_of[label],

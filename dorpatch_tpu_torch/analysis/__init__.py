@@ -1,22 +1,53 @@
-"""The analysis pieces the port's re-certification and `--sanitize` need.
+"""Static analysis + program auditing + runtime sanitizers for the port.
 
-Plain-Python copies of parts of `dorpatch_tpu.analysis`, with the same
-names and output bytes:
+Port of `dorpatch_tpu.analysis`, with these wings:
 
-- `engine.Finding` — one rule offense at a location (the recert rules
-  DP400-DP402 report through it);
-- `baseline.dump_baseline` — the deterministic baseline serialization
-  (sorted keys, normalized numbers), so a re-certification baseline the
-  port writes is byte-equal to the JAX package's on the same data;
-- `cli.emit` — the finding stream in the `human` and `json` formats;
+- **AST** (`engine.py`, `rules_output.py`, `rules_torch.py`, `fix.py`,
+  `cli.py`): rules DP101-DP108 (each JAX rule's torch reading) with stable
+  IDs, `# noqa: DPxxx` suppressions, a mechanical DP106 fixer (`--fix`),
+  and the CLI gate `python -m dorpatch_tpu_torch.analysis`.
+- **Concurrency** (`concurrency.py`, `--concurrency`): rules DP500-DP504
+  over the threaded packages, and `static_lock_graph()`, the DP501 graph
+  the runtime lock watch is seeded with.
+- **Trace** (`entrypoints.py`, `program.py`, `--trace`): rules DP200-DP208
+  over the graph of every production entry point, traced on fake tensors
+  (`make_fx`; each kernel one `dorpatch_torch::` op).
+- **Baseline** (`baseline.py`, `--baseline check|update`): rules
+  DP300-DP304 comparing every entry point's graph fingerprint, interface
+  and static cost vector against the checked-in `baselines.json`.
+- **Runtime** (`sanitize.py`, `lockwatch.py`): the `--sanitize` flag.
 
-and the runtime wing, imported by name (not from here): `sanitize`
-(`--sanitize`, which imports torch) and `lockwatch` (the lock watch it
-arms). The AST, trace, comms and concurrency wings of the JAX package's
-`analysis/` (and its SARIF output, which needs their rule tables) are not
-ported yet. Importing the package loads no torch.
+The comms wing (DP600-DP603) and DP305 are not ported yet. Importing the
+package, the engine, the AST rules or the CLI loads no torch (the
+re-certification and gateway CLIs emit findings through it); the trace
+and baseline wings import torch when they run.
 """
 
-from dorpatch_tpu_torch.analysis.engine import Finding  # noqa: F401
+from dorpatch_tpu_torch.analysis.engine import (  # noqa: F401
+    ALL_CODES,
+    FileContext,
+    Finding,
+    Rule,
+    all_rules,
+    analyze_file,
+    analyze_paths,
+    analyze_source,
+    get_rule,
+    iter_python_files,
+    register,
+)
 
-__all__ = ["Finding"]
+__all__ = [
+    "ALL_CODES",
+    "FileContext",
+    "Finding",
+    "Rule",
+    "all_rules",
+    "analyze_file",
+    "analyze_paths",
+    "analyze_source",
+    "get_rule",
+    "iter_python_files",
+    "register",
+]
+

@@ -14,11 +14,12 @@ Port of `dorpatch_tpu.analysis.sanitize`, behind the pipeline's
   the call from the same inputs, with every generator among them rewound
   (so the step draws the same sample), under `NanOpMode`, a
   `TorchDispatchMode` that checks every op's floating outputs, and raises
-  `FloatingPointError` at the first op that produced a NaN. The port's
-  CUDA kernels run outside the dispatcher, so while the sanitizer is armed
-  each kernel wrapper checks its own outputs and names itself
-  (`ops._backend.sanitized`); a NaN made inside kernel A-H is blamed on
-  the kernel, not on the next aten op.
+  `FloatingPointError` at the first op that produced a NaN. Each kernel
+  is one op of the dispatcher (`dorpatch_torch::...`, `ops/_library.py`),
+  which the mode checks as one; while the sanitizer is armed each kernel
+  wrapper also checks its own outputs and names itself
+  (`ops._backend.sanitized`), so a NaN made inside kernel A-H is blamed
+  on the kernel, not on the next aten op.
 - **Compile events.** The port has no JIT. Its compile-like events are the
   kernels' build (`ops/_build.py`, a `compile` record "kernels.build")
   and each new input signature of a program (a `compile` record under
@@ -31,8 +32,10 @@ Port of `dorpatch_tpu.analysis.sanitize`, behind the pipeline's
   the JAX package's budgets: the batch size for the attack's programs,
   the image buckets for certification's). Each budget is written as a
   `sanitize.budget` event the first time its program runs.
-- **Lock sanitizer.** `lockwatch.LockWatch` is armed process-wide, with no
-  static seed (the port has no static concurrency tier yet).
+- **Lock sanitizer.** `lockwatch.LockWatch` is armed process-wide, seeded
+  with the static DP501 graph (`concurrency.static_lock_graph()`), so a
+  runtime acquisition that inverts a source-committed order is caught on
+  its very first execution.
 
 Usage:
 
@@ -44,7 +47,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from dorpatch_tpu_torch import observe
@@ -60,9 +62,9 @@ _UNINITIALIZED = ("empty", "empty_like", "empty_strided", "new_empty",
 
 
 class NanOpMode(TorchDispatchMode):
-    """Checks every op's floating outputs; raises `FloatingPointError` at
-    the first op whose output holds a NaN (the ops inside a sanitized
-    kernel wrapper excepted: the wrapper checks itself)."""
+    """Checks every op's floating outputs (a kernel's op as one op);
+    raises `FloatingPointError` at the first op whose output holds a
+    NaN."""
 
     def __init__(self, program: str = ""):
         super().__init__()
@@ -70,8 +72,7 @@ class NanOpMode(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if (_backend.in_opaque()
-                or func.overloadpacket.__name__ in _UNINITIALIZED):
+        if func.overloadpacket.__name__ in _UNINITIALIZED:
             return out
         bad = _backend.nan_tensors(out)
         if bad:
@@ -116,8 +117,15 @@ class Sanitizer:
                          if recompile_budgets else None)
         self.lock_watch = None
         if lock_order or lock_hold_budget_s is not None:
+            # a broken static scan must not break arming
+            try:
+                from dorpatch_tpu_torch.analysis.concurrency import \
+                    static_lock_graph
+                static = static_lock_graph()
+            except Exception:
+                static = None
             self.lock_watch = _lockwatch.LockWatch(
-                hold_budget_s=lock_hold_budget_s, static_graph=None)
+                hold_budget_s=lock_hold_budget_s, static_graph=static)
         self._prev = None
 
     def __enter__(self) -> "Sanitizer":

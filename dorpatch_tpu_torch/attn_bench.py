@@ -147,10 +147,10 @@ def main(argv=None) -> int:
     from dorpatch_tpu_torch.ops import masked_kv_attn as mka
 
     if not torch.cuda.is_available():
-        print("attn_bench: no CUDA device is available", file=sys.stderr)
+        print("attn_bench: no CUDA device is available", file=sys.stderr)  # noqa: DP101 — the tool's result stream
         return 2
     dev = torch.device("cuda")
-    print(f"tree {root}; device {torch.cuda.get_device_name(0)}; ViT-B/16 "
+    print(f"tree {root}; device {torch.cuda.get_device_name(0)}; ViT-B/16 "  # noqa: DP101 — the tool's result stream
           f"at {IMG} px, radius {RADIUS}, B = {B}", flush=True)
     rng = np.random.default_rng(4)
     for name, kind, c in SHAPES:
@@ -179,7 +179,7 @@ def main(argv=None) -> int:
                     rec["sweep"] = [dict(plan._asdict(), ms=device_ms(
                         lambda: mka.masked_kv_attention_kernel(
                             *a, plan=plan))) for plan in others]
-            print(json.dumps(rec), flush=True)
+            print(json.dumps(rec), flush=True)  # noqa: DP101 — the tool's result stream
             del a, lib_args
         del args32
         torch.cuda.empty_cache()

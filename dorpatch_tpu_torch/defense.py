@@ -238,15 +238,15 @@ def double_masking_verdict(preds_1: torch.Tensor, preds_2: torch.Tensor,
     one-masked image whose own second-round row unanimously keeps its label
     wins; else the majority stands. Never certified on disagreement."""
     dev = preds_1.device
-    grid = torch.as_tensor(_second_round_index_grid(num_masks), device=dev,
-                           dtype=torch.long)
+    grid_np = _second_round_index_grid(num_masks)
+    grid = torch.as_tensor(grid_np, device=dev, dtype=torch.long)
     counts = F.one_hot(preds_1.long(), num_classes).sum(dim=1)
     majority = torch.argmax(counts, dim=-1).to(preds_1.dtype)
     unanimous = (preds_1 == preds_1[:, :1]).all(dim=1)
     certified = unanimous & (preds_2 == majority[:, None]).all(dim=1)
     p = int(preds_2.shape[1])
     second = preds_2[:, grid.clamp(max=max(p - 1, 0))]          # [B, M, M]
-    if int(grid.max()) >= p:
+    if int(grid_np.max()) >= p:       # on the host: no device sync
         second = torch.where(grid < p, second,
                              torch.full_like(second, OUT_OF_TABLE))
     eye = torch.eye(num_masks, dtype=torch.bool, device=dev)[None]
@@ -847,10 +847,10 @@ class PatchCleanser:
         if self.spec.n_patch != 1:
             if mode != "off" and not self._downgrade_said:
                 self._downgrade_said = True
-                print(f"defense: prune={mode!r} runs as 'off' for the "
-                      f"n_patch={self.spec.n_patch} mask family at ratio "
-                      f"{self.spec.patch_ratio} (the exhaustive sweep)",
-                      file=sys.stderr, flush=True)
+                observe.log(f"defense: prune={mode!r} runs as 'off' for the "
+                            f"n_patch={self.spec.n_patch} mask family at "
+                            f"ratio {self.spec.patch_ratio} (the exhaustive "
+                            "sweep)", file=sys.stderr)
             return "off"
         return mode
 

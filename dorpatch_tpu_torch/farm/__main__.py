@@ -106,7 +106,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if fleet is None:
         observe.log(f"{args.farm_dir} is not a farm directory (no farm.json)")
         return 1
-    print(json.dumps(fleet, indent=1, default=float) if args.json
+    print(json.dumps(fleet, indent=1, default=float) if args.json  # noqa: DP101 — the report on stdout is in-contract
           else format_fleet_report(fleet))
     return 0
 

@@ -286,11 +286,11 @@ class JobQueue:
                         # cross-process liveness cannot use a private
                         # monotonic epoch, and the skew hazard is exactly
                         # what the seq-preferred path above absorbs
-                        elif now - prev[1] > ttl:
+                        elif now - prev[1] > ttl:  # noqa: DP504 — injectable cross-process clock
                             return False  # frozen a whole TTL: dead
                 # ts fallback (pre-seq beats): same deliberate wall clock
-                return (now - float(beat["ts"])) <= ttl
-        return now <= float(lease.get("expires_ts", 0.0))
+                return (now - float(beat["ts"])) <= ttl  # noqa: DP504 — injectable cross-process clock
+        return now <= float(lease.get("expires_ts", 0.0))  # noqa: DP504 — injectable cross-process clock
 
     def _lease_record(self, job_id: str, worker_id: str, ttl: float,
                       heartbeat_path: str) -> Dict:

@@ -5,6 +5,7 @@ paths' shapes.
     python dorpatch_tpu_torch/fill_bench.py --tree DIR    # DIR's kernels
     python -m dorpatch_tpu_torch.fill_bench --sweep       # other plans too
     python -m dorpatch_tpu_torch.fill_bench --dtype bfloat16   # A's bf16 form
+    python dorpatch_tpu_torch/fill_bench.py --host [--tree DIR]  # host us
 
 At the CIFAR shape (8 images, 32x32x3) and the 224 shape (2 images,
 224x224x3), each with the attack step's S = 128 masks, the failure sweep's
@@ -28,6 +29,15 @@ S = 36 masks and pair-audit chunk of 63, K = 2), exact against its plain
 version, beside the plain version, one bf16 `torch.where` on the
 keep-mask, the bytes bound (2 bytes an element) and a one-element `zero_`
 (the floor a launch pays in the same graph).
+
+`--host` times the host instead: microseconds to launch one eager call of
+kernel A at the CIFAR attack step's shape (8 images, S = 128) through the
+user's wrapper (`masked_fill`, no gradient) and through the kernel entry
+(`masked_fill_fwd_kernel`), and, where the checkout has it, the direct
+ctypes launch under them (`_fwd_launch`, no dispatcher): the median over
+HOST_REPS loops of HOST_CALLS calls made back to back (one synchronize
+after each loop, so the card keeps up and the host's cost is what is
+timed). With `--tree DIR`, the parent's wrapper against this one's.
 
 `--tree DIR` imports `dorpatch_tpu_torch` from another checkout (the
 parent of a change, unpacked with `git archive`), so that one chip call
@@ -57,6 +67,44 @@ SHAPES16 = [(f"{name}_bank{s}", b, size, s)
                                   ("480", 1, 480)) for s in (36, 63)]
 PEAK_BYTES_PER_S = 3.35e12
 INNER, REPS = 20, 15
+#: `--host`: calls a timed loop makes, and timed loops
+HOST_CALLS, HOST_REPS = 200, 9
+
+
+def host_us(torch, fn, calls: int = HOST_CALLS,
+            reps: int = HOST_REPS) -> float:
+    """Median host microseconds to make one call of `fn`: `calls` calls
+    back to back, a synchronize after each loop (not timed)."""
+    import time
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return sorted(out)[reps // 2]
+
+
+def host_costs(torch, mf, dev) -> dict:
+    """`--host`'s record: host us a call of A at the CIFAR step's shape
+    through the wrapper, the kernel entry and (where the checkout has it)
+    the direct launch."""
+    _, b, size, s = SHAPES[0]
+    imgs, rects, _ = fill_inputs(torch, dev, b, size, s)
+    rec = dict(shape=SHAPES[0][0], b=b, size=size, s=s,
+               wrapper_us=host_us(torch, lambda: mf.masked_fill(imgs, rects,
+                                                                0.5)),
+               entry_us=host_us(torch, lambda: mf.masked_fill_fwd_kernel(
+                   imgs, rects, 0.5)))
+    if hasattr(mf, "_fwd_launch"):
+        rec["launch_us"] = host_us(
+            torch, lambda: mf._fwd_launch(imgs, rects, 0.5, None))
+    return rec
 
 
 def bytes_bound_ms(nbytes: float) -> float:
@@ -206,10 +254,10 @@ def main16(args, root, torch, mf, device_ms) -> int:
             bad += n_bad
         summary.append({key: rec[key] for key in
                         ("shape", "a_ms", "a_bound_ms", "exact")})
-        print(json.dumps(rec), flush=True)
+        print(json.dumps(rec), flush=True)  # noqa: DP101 — the tool's result stream
         del imgs, keep, want
         torch.cuda.empty_cache()
-    print(json.dumps({"device": torch.cuda.get_device_name(0),
+    print(json.dumps({"device": torch.cuda.get_device_name(0),  # noqa: DP101 — the tool's result stream
                       "tree": root, "dtype": "bfloat16",
                       "shapes": summary}), flush=True)
     return 1 if bad else 0
@@ -220,6 +268,8 @@ def main(argv=None) -> int:
     p.add_argument("--tree", default=None,
                    help="checkout whose dorpatch_tpu_torch to time")
     p.add_argument("--sweep", action="store_true")
+    p.add_argument("--host", action="store_true",
+                   help="host microseconds a call of A (CIFAR step shape)")
     p.add_argument("--dtype", default="float32",
                    choices=("float32", "bfloat16"))
     args = p.parse_args(argv)
@@ -236,10 +286,16 @@ def main(argv=None) -> int:
     from dorpatch_tpu_torch.ops import masked_fill as mf
 
     if not torch.cuda.is_available():
-        print("fill_bench: no CUDA device is available", file=sys.stderr)
+        print("fill_bench: no CUDA device is available", file=sys.stderr)  # noqa: DP101 — the tool's result stream
         return 2
     dev = torch.device("cuda")
-    print(f"tree {root}; device {torch.cuda.get_device_name(0)}", flush=True)
+    print(f"tree {root}; device {torch.cuda.get_device_name(0)}", flush=True)  # noqa: DP101 — the tool's result stream
+    if args.host:
+        with torch.no_grad():
+            rec = host_costs(torch, mf, dev)
+        print(json.dumps({"device": torch.cuda.get_device_name(0),  # noqa: DP101 — the tool's result stream
+                          "tree": root, "host": rec}), flush=True)
+        return 0
     if args.dtype == "bfloat16":
         return main16(args, root, torch, mf, device_ms)
     fill = 0.5
@@ -280,10 +336,10 @@ def main(argv=None) -> int:
         summary.append({key: rec[key] for key in
                         ("shape", "a_ms", "a_bound_ms", "b_ms",
                          "b_bound_ms")})
-        print(json.dumps(rec), flush=True)
+        print(json.dumps(rec), flush=True)  # noqa: DP101 — the tool's result stream
         del imgs, g, keep, plain_b, lib_a, lib_b
         torch.cuda.empty_cache()
-    print(json.dumps({"device": torch.cuda.get_device_name(0),
+    print(json.dumps({"device": torch.cuda.get_device_name(0),  # noqa: DP101 — the tool's result stream
                       "tree": root, "shapes": summary}), flush=True)
     return 0
 

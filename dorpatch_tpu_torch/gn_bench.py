@@ -95,7 +95,7 @@ def device_ms(fn, inner: int = INNER, reps: int = REPS) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph):  # noqa: DP105 — a timing capture, not a program
         for _ in range(inner):
             fn()
     graph.replay()
@@ -186,21 +186,21 @@ def main(argv=None) -> int:
     from dorpatch_tpu_torch.ops import fused_gn as fgn
 
     if not torch.cuda.is_available():
-        print("gn_bench: no CUDA device is available", file=sys.stderr)
+        print("gn_bench: no CUDA device is available", file=sys.stderr)  # noqa: DP101 — the tool's result stream
         return 2
     dev = torch.device("cuda")
     dtype = getattr(torch, args.dtype)
     isz = torch.empty((), dtype=dtype).element_size()
     plan_args = (32, isz) if isz != 4 else ()
     step_n = STEP_N[args.img_size]
-    print(f"tree {root}; device {torch.cuda.get_device_name(0)}; "
+    print(f"tree {root}; device {torch.cuda.get_device_name(0)}; "  # noqa: DP101 — the tool's result stream
           f"{args.dtype}; RN50 at {args.img_size} px, N = {step_n}",
           flush=True)
     if args.split and hasattr(fgn, "split_plan"):
         from dorpatch_tpu_torch.ops import _build
 
         lib = _build.library()
-        print(json.dumps({"fwd_split_max_clusters": {
+        print(json.dumps({"fwd_split_max_clusters": {  # noqa: DP101 — the tool's result stream
             cl: lib.dp_gn_fwd_split_clusters(cl, int(isz == 2))
             for cl in range(1, fgn.SPLIT_MAX_CLUSTER + 1)}}), flush=True)
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -254,12 +254,12 @@ def main(argv=None) -> int:
                                          cluster=plan.cluster, ms=ms))
         for k in total:
             total[k] += calls * rec[k]
-        print(json.dumps(rec), flush=True)
+        print(json.dumps(rec), flush=True)  # noqa: DP101 — the tool's result stream
         del x, dy
         torch.cuda.empty_cache()
     total["fwd_over_bound_ms"] = total["fwd_ms"] - total["fwd_bound_ms"]
     total["bwd_over_bound_ms"] = total["bwd_ms"] - total["bwd_bound_ms"]
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "n": step_n,
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "n": step_n,  # noqa: DP101 — the tool's result stream
                       "img_size": args.img_size, "dtype": args.dtype,
                       "per_forward_49_calls": total}),
           flush=True)

@@ -34,11 +34,11 @@ The policies (`AttackConfig.remat_policy`), as selective checkpointing
   dots_saveable` for the ViT and ResMLP blocks; convolutions are not
   dots, so on the conv victims "dots" equals "full".
 
-The port's kernels are called outside the dispatcher (ctypes entries inside
-`torch.autograd.Function`s), so no policy can save their outputs: under
-every policy the GroupNorm+ReLU forward kernel (D, or E) runs again in the
-backward, and its saved tensors pass through checkpoint's saved-tensor
-hooks like any other. The victims draw no random numbers (every sample is
+The port's kernels are `dorpatch_torch::` ops (`ops/_library.py`) inside
+`torch.autograd.Function`s, which no policy names, so no policy saves
+their outputs: under every policy the GroupNorm+ReLU forward kernel (D, or
+E) runs again in the backward, and its saved tensors pass through
+checkpoint's saved-tensor hooks like any other. The victims draw no random numbers (every sample is
 drawn outside them from an explicit `torch.Generator`), so the regions do
 not stash and restore the RNG state (`preserve_rng_state=False`).
 

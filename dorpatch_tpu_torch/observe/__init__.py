@@ -41,10 +41,12 @@ from dorpatch_tpu_torch.observe.events import (  # noqa: F401
     active_event_log,
     active_in_thread,
     device_memory_stats,
+    entrypoint_recorder,
     events_filename,
     record_compile,
     record_event,
     recompile_guard,
+    set_entrypoint_recorder,
     set_recompile_guard,
     span,
     timed_first_call,
@@ -118,7 +120,9 @@ __all__ = [
     "record_compile",
     "record_event",
     "recompile_guard",
+    "entrypoint_recorder",
     "run_manifest",
+    "set_entrypoint_recorder",
     "set_process_index",
     "set_recompile_guard",
     "span",

@@ -317,6 +317,28 @@ def recompile_guard():
     return _RECOMPILE_GUARD
 
 
+# ------------- entry-point recorder hook (analysis/entrypoints.py) -----------
+
+# Installed by the program auditor (`dorpatch_tpu_torch.analysis.
+# entrypoints`): an object whose `on_wrap(name, fn)` fires when
+# `timed_first_call` wraps a program (and `on_budget(name, budget)`, when
+# it has one, with the declared recompile budget) and whose `on_call(name,
+# fn, args, kwargs)` fires before every call through the wrapper — which is
+# how the auditor learns the exact (name, program, example arguments)
+# production runs, without observe importing the analysis package. None
+# means no recording.
+_ENTRYPOINT_RECORDER = None
+
+
+def set_entrypoint_recorder(recorder) -> None:
+    global _ENTRYPOINT_RECORDER
+    _ENTRYPOINT_RECORDER = recorder
+
+
+def entrypoint_recorder():
+    return _ENTRYPOINT_RECORDER
+
+
 # A NaN guard (`analysis.sanitize.NanGuard`): `after_call(name, out,
 # replay)` after every call through a _FirstCallTimer; None: no check.
 _NAN_GUARD = None
@@ -437,6 +459,11 @@ class _FirstCallTimer:
             return len(self._signatures)
 
     def __call__(self, *args, **kwargs):
+        recorder = _ENTRYPOINT_RECORDER
+        if recorder is not None:
+            # before the call: the auditor needs the arguments, never the
+            # execution
+            recorder.on_call(self._name, self.__wrapped__, args, kwargs)
         sig = (_signature(args), _signature(sorted(kwargs.items())))
         with self._lock:
             first, self._done = not self._done, True
@@ -478,5 +505,18 @@ def timed_first_call(fn, name: str, clock=time.perf_counter,
     `recompile_budget` declares how many input signatures (shape/dtype
     buckets) this program is allowed. It is inert until a recompile guard
     is installed (`set_recompile_guard`), which then checks the
-    signature count after every call and raises on excess."""
+    signature count after every call and raises on excess.
+
+    When an entry-point recorder is installed (`set_entrypoint_recorder`;
+    the program auditor's capture mode), every wrap is reported through
+    `on_wrap(name, fn)` and every call through `on_call(name, fn, args,
+    kwargs)`."""
+    recorder = _ENTRYPOINT_RECORDER
+    if recorder is not None:
+        recorder.on_wrap(name, fn)
+        # the declared budget is wrapper metadata, invisible through the
+        # raw fn (the baseline tier's DP303 reads it)
+        on_budget = getattr(recorder, "on_budget", None)
+        if on_budget is not None:
+            on_budget(name, recompile_budget)
     return _FirstCallTimer(fn, name, clock, recompile_budget)

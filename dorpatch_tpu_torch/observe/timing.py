@@ -76,6 +76,55 @@ class StepTimer:
 TRACE_FILE = "trace.json"
 
 
+class KernelGate:
+    """Kernel op calls against the profiler's start and stop.
+
+    A kernel's op (`dorpatch_torch::...`) runs a Python kernel behind the
+    dispatcher: the op's profiler record opens before the call waits for
+    the GIL and closes after it. A profiler stopped on another thread in
+    between can free that record before it closes: a native crash of a
+    serving process.
+    Every kernel op call runs inside the gate (`with KERNEL_GATE:`, any
+    number at once, from any thread); the profiler starts and stops inside
+    `transition()`, which waits until no call is in flight and holds new
+    ones back meanwhile. A call never makes another: not reentrant."""
+
+    def __init__(self):
+        self._cond = threading.Condition(threading.Lock())
+        self._calls = 0
+        self._closed = False
+
+    def __enter__(self):
+        with self._cond:
+            while self._closed:
+                self._cond.wait(0.1)
+            self._calls += 1
+
+    def __exit__(self, *exc):
+        with self._cond:
+            self._calls -= 1
+            if self._closed and not self._calls:
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def transition(self):
+        with self._cond:
+            while self._closed:
+                self._cond.wait(0.1)
+            self._closed = True
+            while self._calls:
+                self._cond.wait(0.1)
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._closed = False
+                self._cond.notify_all()
+
+
+KERNEL_GATE = KernelGate()
+
+
 @contextlib.contextmanager
 def trace(trace_dir: Optional[str]):
     """`torch.profiler` scope; no-op when `trace_dir` is falsy.
@@ -93,11 +142,13 @@ def trace(trace_dir: Optional[str]):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
     prof = torch.profiler.profile(activities=activities)
-    prof.start()
+    with KERNEL_GATE.transition():
+        prof.start()
     try:
         yield
     finally:
-        prof.stop()
+        with KERNEL_GATE.transition():
+            prof.stop()
         prof.export_chrome_trace(os.path.join(trace_dir, TRACE_FILE))
 
 

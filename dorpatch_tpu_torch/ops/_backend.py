@@ -10,18 +10,16 @@ that picks the plain version on the card.
 The launch counts are shared by every thread (the serve pool's replicas
 launch from their own threads), so every read and write holds one lock.
 
-Under an armed sanitizer (`analysis/sanitize.py`, `set_sanitize`) every
-wrapper decorated with `sanitized(name)` checks its own floating outputs
-for NaN and raises `FloatingPointError` naming itself: the kernels run
-outside the dispatcher, so the sanitizer's op-by-op check cannot see them.
-The wrapper runs as one opaque op (`opaque`): the op-by-op check skips
-the allocations and plain-version ops inside it, so a NaN made there is
-blamed on the wrapper, on the card and on the CPU alike.
+Each kernel entry is a `torch.library` op (`ops/_library.py`): its CUDA
+kernel launches, its CPU kernel is the plain version. Under an armed
+sanitizer (`analysis/sanitize.py`, `set_sanitize`) every wrapper decorated
+with `sanitized(name)` checks its own floating outputs for NaN and raises
+`FloatingPointError` naming itself, on the card and on the CPU alike; the
+sanitizer's op-by-op check sees each kernel as the one op it is.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import threading
 from typing import Dict, Optional
@@ -46,6 +44,13 @@ _LAUNCHES: Dict[str, int] = {
 #: class (kernel H by its dirty rows per entry: "masked_kv_attn_bf16/S99").
 _ROUTES: Dict[str, int] = {}
 _COUNTS_LOCK = threading.Lock()
+
+
+def require_card(t: torch.Tensor, name: str) -> None:
+    """Refuse a tensor that is not on the card: a kernel entry has no
+    plain path."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
 
 
 def on_card(t: torch.Tensor) -> bool:
@@ -87,7 +92,6 @@ def reset_launch_counts() -> None:
 
 
 _SANITIZE = False
-_LOCAL = threading.local()
 
 
 def set_sanitize(on: bool) -> bool:
@@ -96,20 +100,6 @@ def set_sanitize(on: bool) -> bool:
     global _SANITIZE
     prev, _SANITIZE = _SANITIZE, bool(on)
     return prev
-
-
-def in_opaque() -> bool:
-    """True inside a sanitized wrapper in this thread."""
-    return getattr(_LOCAL, "depth", 0) > 0
-
-
-@contextlib.contextmanager
-def opaque():
-    _LOCAL.depth = getattr(_LOCAL, "depth", 0) + 1
-    try:
-        yield
-    finally:
-        _LOCAL.depth -= 1
 
 
 def tensors_in(value) -> list:
@@ -134,19 +124,18 @@ def nan_tensors(value) -> list:
 
 
 def sanitized(name: str):
-    """Decorate a kernel wrapper: armed, it runs as one opaque op and
-    raises `FloatingPointError` naming kernel `name` when its output holds
-    a NaN that its inputs did not (on the CPU: naming the kernel's plain
-    version). A NaN that reached it from elsewhere passes on, for the
-    replay of its program to find where it was made."""
+    """Decorate a kernel wrapper: armed, it raises `FloatingPointError`
+    naming kernel `name` when its output holds a NaN that its inputs did
+    not (on the CPU: naming the kernel's plain version). A NaN that
+    reached it from elsewhere passes on, for the replay of its program to
+    find where it was made."""
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
             if not _SANITIZE:
                 return fn(*args, **kwargs)
             clean = not nan_tensors((args, kwargs))
-            with opaque():
-                out = fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
             bad = nan_tensors(out) if clean else []
             if bad:
                 first = bad[0]
@@ -163,8 +152,7 @@ def sanitized(name: str):
 def require(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
     """A kernel argument check: a contiguous CUDA tensor of the given type
     (or one of a tuple of types) and rank."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    require_card(t, name)
     if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:

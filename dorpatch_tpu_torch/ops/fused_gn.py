@@ -49,7 +49,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from dorpatch_tpu_torch.ops import _backend, _build
+from dorpatch_tpu_torch.ops import _backend, _build, _library
 
 #: threads of a one-pass block, and the most CTAs of its cluster (the
 #: portable cluster size); `csrc/fused_gn.cu` kOneThreads, kMaxCluster
@@ -296,6 +296,12 @@ def gn_relu_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     eps) * scale) + bias`, then ReLU, cast to `x.dtype`. `F.group_norm` takes
     a two-pass variance and would differ from the JAX package in the last
     bits."""
+    return _gn_relu_fwd_reference(x, scale, bias, num_groups, eps)[0]
+
+
+def _gn_relu_fwd_reference(x, scale, bias, num_groups: int, eps: float):
+    """`gn_relu_reference` with its statistics: `(y, mean, rstd)`, the
+    plain version of the forward kernels."""
     n, h, w, c = x.shape
     g, gs = num_groups, c // num_groups
     acc = _acc_dtype(x.dtype)
@@ -303,7 +309,7 @@ def gn_relu_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     mean, rstd = gn_stats_reference(x, g, eps)
     mul = rstd[:, None, :, None] * scale.to(acc).reshape(1, 1, g, gs)
     y = (xf - mean[:, None, :, None]) * mul + bias.to(acc).reshape(1, 1, g, gs)
-    return torch.relu(y).reshape(n, h, w, c).to(x.dtype)
+    return torch.relu(y).reshape(n, h, w, c).to(x.dtype), mean, rstd
 
 
 def gn_preserve_dtype(x: torch.Tensor, scale: torch.Tensor,
@@ -431,9 +437,20 @@ def gn_relu_fwd_kernel(x: torch.Tensor, scale: torch.Tensor,
                        eps: float = 1e-5, plan: Optional[GNPlan] = None):
     """The forward kernels on CUDA tensors: x `[N,H,W,C]` f32 or bf16,
     scale and bias f32 -> `(y [N,H,W,C] of x's type, mean [N,G] f32, rstd
-    [N,G] f32)`. `plan` defaults to `gn_plan`'s (another is for measuring
-    other chunks); a split plan's `width` and `cluster`, when not 0, are
-    the statistics pass's chunk and cluster instead of `split_plan`'s."""
+    [N,G] f32)`, through the op `dorpatch_torch::gn_relu_fwd`. `plan`
+    defaults to `gn_plan`'s (another is for measuring other chunks and
+    launches directly); a split plan's `width` and `cluster`, when not 0,
+    are the statistics pass's chunk and cluster instead of
+    `split_plan`'s."""
+    _backend.require_card(x, "x")
+    if plan is not None:
+        return _fwd_launch(x, scale, bias, num_groups, eps, plan)
+    return _library.call(gn_relu_fwd_op, x, scale, bias, num_groups,
+                         float(eps))
+
+
+def _fwd_launch(x, scale, bias, num_groups: int, eps: float,
+                plan: Optional[GNPlan] = None):
     _check(x, scale, bias, num_groups)
     n, h, w, c = x.shape
     plan = _plan_of("fwd", x, num_groups, plan)
@@ -458,8 +475,19 @@ def gn_relu_bwd_kernel(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                        rstd: torch.Tensor, num_groups: int = 32,
                        params: bool = True, plan: Optional[GNPlan] = None):
     """The backward kernels on CUDA tensors -> `(dx, dscale, dbias)`: dx
-    of x's type, `dscale`/`dbias` f32 and None unless `params`. `plan` as
-    for the forward."""
+    of x's type, `dscale`/`dbias` f32 and None unless `params`, through
+    the op `dorpatch_torch::gn_relu_bwd`. `plan` as for the forward."""
+    _backend.require_card(x, "x")
+    if plan is not None:
+        return _bwd_launch(x, dy, scale, bias, mean, rstd, num_groups,
+                           params, plan)
+    dx, dscale, dbias = _library.call(gn_relu_bwd_op, x, dy, scale, bias,
+                                      mean, rstd, num_groups, params)
+    return (dx, dscale, dbias) if params else (dx, None, None)
+
+
+def _bwd_launch(x, dy, scale, bias, mean, rstd, num_groups: int,
+                params: bool, plan: Optional[GNPlan] = None):
     _check(x, scale, bias, num_groups)
     _backend.require(dy, "dy", x.dtype, 4)
     for t, name in ((mean, "mean"), (rstd, "rstd")):
@@ -496,15 +524,63 @@ def gn_relu_bwd_kernel(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
     return dx, dscale, dbias
 
 
+def _fwd_fake(x, scale, bias, num_groups, eps):
+    stats = x.new_empty((x.shape[0], num_groups), dtype=_acc_dtype(x.dtype))
+    return torch.empty_like(x), stats, torch.empty_like(stats)
+
+
+def _bwd_plain(x, dy, scale, bias, mean, rstd, num_groups, params):
+    dx, dscale, dbias = gn_relu_backward_reference(x, dy, scale, bias, mean,
+                                                   rstd, num_groups)
+    if params:
+        return dx, dscale, dbias
+    return dx, scale.new_empty((0,)), bias.new_empty((0,))
+
+
+def _bwd_cuda(x, dy, scale, bias, mean, rstd, num_groups, params):
+    dx, dscale, dbias = _bwd_launch(x, dy, scale, bias, mean, rstd,
+                                    num_groups, params)
+    if params:
+        return dx, dscale, dbias
+    return dx, scale.new_empty((0,)), bias.new_empty((0,))
+
+
+def _bwd_fake(x, dy, scale, bias, mean, rstd, num_groups, params):
+    n = x.shape[-1] if params else 0
+    return (torch.empty_like(x), scale.new_empty((n,)),
+            bias.new_empty((n,)))
+
+
+#: the forward kernels (D one-pass, E split): x `[N,H,W,C]` f32/bf16,
+#: scale and bias `[C]` f32 -> `(y of x's type, mean [N,G], rstd [N,G])`
+gn_relu_fwd_op = _library.define(
+    "gn_relu_fwd(Tensor x, Tensor scale, Tensor bias, int num_groups, "
+    "float eps) -> (Tensor, Tensor, Tensor)",
+    _gn_relu_fwd_reference,
+    lambda x, scale, bias, num_groups, eps: _fwd_launch(
+        x, scale, bias, num_groups, eps),
+    _fwd_fake)
+#: the backward kernels (F one-pass, G split) -> `(dx of x's type, dscale,
+#: dbias)`, the parameter cotangents `[C]` f32, or empty unless `params`
+gn_relu_bwd_op = _library.define(
+    "gn_relu_bwd(Tensor x, Tensor dy, Tensor scale, Tensor bias, "
+    "Tensor mean, Tensor rstd, int num_groups, bool params) "
+    "-> (Tensor, Tensor, Tensor)",
+    _bwd_plain, _bwd_cuda, _bwd_fake)
+
+
 class GNRelu(torch.autograd.Function):
-    """The forward kernels, and the backward kernels for the gradient. The
-    kernels take float32 affine parameters: bf16 ones are widened (exactly)
-    for them, and their cotangents come back in the parameters' type."""
+    """The forward op, and the backward op for the gradient (the kernels
+    on CUDA tensors, their plain versions on CPU tensors). The kernels take
+    float32 affine parameters: bf16 ones are widened (exactly) for them,
+    and their cotangents come back in the parameters' type."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, num_groups, eps):
-        s32, b32 = scale.float().contiguous(), bias.float().contiguous()
-        y, mean, rstd = gn_relu_fwd_kernel(x, s32, b32, num_groups, eps)
+        acc = _acc_dtype(x.dtype)
+        s32, b32 = scale.to(acc).contiguous(), bias.to(acc).contiguous()
+        y, mean, rstd = _library.call(gn_relu_fwd_op, x, s32, b32,
+                                      num_groups, eps)
         ctx.save_for_backward(x, s32, b32, mean, rstd)
         ctx.num_groups = num_groups
         ctx.param_dtypes = (scale.dtype, bias.dtype)
@@ -514,13 +590,13 @@ class GNRelu(torch.autograd.Function):
     def backward(ctx, dy):
         x, scale, bias, mean, rstd = ctx.saved_tensors
         params = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
-        dx, dscale, dbias = gn_relu_bwd_kernel(
-            x, dy.contiguous(), scale, bias, mean, rstd, ctx.num_groups,
-            params=params)
-        if params:
-            dscale = dscale.to(ctx.param_dtypes[0])
-            dbias = dbias.to(ctx.param_dtypes[1])
-        return dx, dscale, dbias, None, None
+        dx, dscale, dbias = _library.call(
+            gn_relu_bwd_op, x, dy.contiguous(), scale, bias, mean, rstd,
+            ctx.num_groups, params)
+        if not params:
+            return dx, None, None, None, None
+        return (dx, dscale.to(ctx.param_dtypes[0]),
+                dbias.to(ctx.param_dtypes[1]), None, None)
 
 
 @_backend.sanitized("gn_relu_fwd")
@@ -533,7 +609,5 @@ def gn_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if x.shape[-1] % num_groups:
         raise ValueError(f"C={x.shape[-1]} not divisible by {num_groups} "
                          "groups")
-    if _backend.on_card(x):
-        return GNRelu.apply(x.contiguous(), scale, bias, num_groups,
-                            float(eps))
-    return gn_relu_reference(x, scale, bias, num_groups, eps)
+    _backend.on_card(x)
+    return GNRelu.apply(x.contiguous(), scale, bias, num_groups, float(eps))

@@ -40,7 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from dorpatch_tpu_torch import masks as masks_lib
-from dorpatch_tpu_torch.ops import _backend, _build
+from dorpatch_tpu_torch.ops import _backend, _build, _library
 
 #: threads of a block of either kernel (`kThreads` in csrc/masked_fill.cu)
 THREADS = 256
@@ -163,16 +163,19 @@ def masked_fill_fwd_kernel(imgs: torch.Tensor, rects: torch.Tensor,
                            fill: float) -> torch.Tensor:
     """Kernel A on CUDA tensors: imgs `[B,H,W,C]` f32 or bf16, rects
     `[S,K,4]` int32 -> `[B,S,H,W,C]` of the images' type, launched with
-    `fwd_plan`."""
-    return _fwd_launch(imgs, rects, fill, None)
+    `fwd_plan` through the op `dorpatch_torch::masked_fill_fwd`."""
+    _backend.require_card(imgs, "imgs")
+    return _library.call(masked_fill_fwd_op, imgs, rects, float(fill))
 
 
 @_backend.sanitized("masked_fill_bwd")
 def masked_fill_bwd_kernel(rects: torch.Tensor,
                            g: torch.Tensor) -> torch.Tensor:
     """Kernel B on CUDA tensors: g `[B,S,H,W,C]` f32 -> `[B,H,W,C]` f32,
-    launched with `bwd_plan`."""
-    return _bwd_launch(rects, g, None)
+    launched with `bwd_plan` through the op `dorpatch_torch::
+    masked_fill_bwd`."""
+    _backend.require_card(g, "g")
+    return _library.call(masked_fill_bwd_op, rects, g)
 
 
 def _check_vec(vec: int, w: int, c: int, aligned: bool,
@@ -261,18 +264,79 @@ def _bwd_launch(rects: torch.Tensor, g: torch.Tensor,
     return dx
 
 
+def _masked_fill_bwd_reference(rects: torch.Tensor, g: torch.Tensor,
+                               rows: int = 0, row0: int = 0) -> torch.Tensor:
+    """The plain version of kernel B (`rows` 0), the cotangent of
+    `masked_fill_reference` as autograd forms it (`where(keep, g, 0)`
+    summed over the masks), or of its float64 form (`rows` > 0): the sums
+    in float64 at image rows `row0:` of a zero `[rows, H, W, C]` buffer."""
+    keep = masks_lib.rasterize(rects, g.shape[2])[None, ..., None]
+    if not rows:
+        return torch.where(keep, g, 0.0).sum(dim=1)
+    buf = torch.zeros((rows,) + tuple(g.shape[2:]), dtype=torch.float64,
+                      device=g.device)
+    buf[row0:row0 + g.shape[0]] = (g.double() * keep).sum(dim=1)
+    return buf
+
+
+def _fwd_cuda(imgs, rects, fill, mesh=False):
+    return _fwd_launch(imgs, rects, fill, None, "_mesh" if mesh else "")
+
+
+def _fwd_fake(imgs, rects, fill, mesh=False):
+    b, h, w, c = imgs.shape
+    return imgs.new_empty((b, rects.shape[0], h, w, c))
+
+
+def _bwd_cuda(rects, g, rows=0, row0=0):
+    if not rows:
+        return _bwd_launch(rects, g, None)
+    buf = torch.zeros((rows,) + tuple(g.shape[2:]), dtype=torch.float64,
+                      device=g.device)
+    _bwd_launch(rects, g, None, out=buf[row0:row0 + g.shape[0]])
+    return buf
+
+
+def _bwd_fake(rects, g, rows=0, row0=0):
+    b, _, h, w, c = g.shape
+    if not rows:
+        return g.new_empty((b, h, w, c))
+    return g.new_empty((rows, h, w, c), dtype=torch.float64)
+
+
+#: kernel A: imgs `[B,H,W,C]` f32/bf16, rects `[S,K,4]` int32 ->
+#: `[B,S,H,W,C]`; `mesh` counts the launch as the sharded form's
+masked_fill_fwd_op = _library.define(
+    "masked_fill_fwd(Tensor imgs, Tensor rects, float fill, "
+    "bool mesh=False) -> Tensor",
+    lambda imgs, rects, fill, mesh=False: masked_fill_reference(
+        imgs, rects, fill),
+    _fwd_cuda, _fwd_fake)
+#: kernel B: rects `[S,K,4]`, g `[B,S,H,W,C]` f32 -> `[B,H,W,C]` f32; with
+#: `rows` > 0 its float64 form (the mesh's): the block's sums at image rows
+#: `row0:` of a zero float64 `[rows,H,W,C]`
+masked_fill_bwd_op = _library.define(
+    "masked_fill_bwd(Tensor rects, Tensor g, int rows=0, int row0=0) "
+    "-> Tensor",
+    _masked_fill_bwd_reference, _bwd_cuda, _bwd_fake)
+
+
 class MaskedFill(torch.autograd.Function):
-    """Kernel A forward, kernel B backward (image cotangent only)."""
+    """Kernel A forward, kernel B backward (image cotangent only), as the
+    ops `masked_fill_fwd` and `masked_fill_bwd`: on CPU tensors their plain
+    versions."""
 
     @staticmethod
     def forward(ctx, imgs, rects, fill):
         ctx.save_for_backward(rects)
-        return masked_fill_fwd_kernel(imgs.contiguous(), rects, fill)
+        return _library.call(masked_fill_fwd_op, imgs.contiguous(), rects,
+                             fill)
 
     @staticmethod
     def backward(ctx, g):
         (rects,) = ctx.saved_tensors
-        return masked_fill_bwd_kernel(rects, g.contiguous()), None, None
+        return (_library.call(masked_fill_bwd_op, rects, g.contiguous()),
+                None, None)
 
 
 @_backend.sanitized("masked_fill_fwd")
@@ -283,10 +347,9 @@ def masked_fill(imgs: torch.Tensor, rects, fill: float = 0.5) -> torch.Tensor:
     type (float32 or bf16), differentiable with respect to float32 `imgs`.
     CUDA tensors run kernels A and B; CPU tensors run the plain
     version."""
-    rects = _rects_i32(rects, imgs.device)
-    if _backend.on_card(imgs):
-        return MaskedFill.apply(imgs, rects, float(fill))
-    return masked_fill_reference(imgs, rects, fill)
+    _backend.on_card(imgs)
+    return MaskedFill.apply(imgs, _rects_i32(rects, imgs.device),
+                            float(fill))
 
 
 class ShardedMaskedFill(torch.autograd.Function):
@@ -300,23 +363,16 @@ class ShardedMaskedFill(torch.autograd.Function):
     def forward(ctx, imgs, rects, fill, mesh, rows, cols):
         blk = rects[cols].contiguous()
         ctx.save_for_backward(blk)
-        ctx.mesh, ctx.rows, ctx.shape = mesh, rows, tuple(imgs.shape)
-        x = imgs[rows].contiguous()
-        if _backend.on_card(imgs):
-            return _fwd_launch(x, blk, fill, None, "_mesh")
-        return masked_fill_reference(x, blk, fill)
+        ctx.mesh, ctx.rows, ctx.batch = mesh, rows, int(imgs.shape[0])
+        return _library.call(masked_fill_fwd_op, imgs[rows].contiguous(),
+                             blk, fill, True)
 
     @staticmethod
     def backward(ctx, g):
         (blk,) = ctx.saved_tensors
-        mesh = ctx.mesh
-        buf = torch.zeros(ctx.shape, dtype=torch.float64, device=g.device)
-        if _backend.on_card(g):
-            _bwd_launch(blk, g.contiguous(), None, out=buf[ctx.rows])
-        else:
-            keep = masks_lib.rasterize(blk, ctx.shape[1])   # [S, H, W]
-            buf[ctx.rows] = (g.double() * keep[None, ..., None]).sum(dim=1)
-        mesh.all_reduce(buf)
+        buf = _library.call(masked_fill_bwd_op, blk, g.contiguous(),
+                            ctx.batch, ctx.rows.start)
+        ctx.mesh.all_reduce(buf)
         return buf.to(g.dtype), None, None, None, None, None
 
 
@@ -329,6 +385,7 @@ def sharded_masked_fill(imgs: torch.Tensor, rects, fill: float,
     the mesh does not divide runs the unsharded fill (kernels A and B) on
     every rank and returns the whole `[B, S, H, W, C]`, counted in
     `mesh.unsharded["fill"]`."""
+    _backend.on_card(imgs)
     rects = _rects_i32(rects, imgs.device)
     b, s = int(imgs.shape[0]), int(rects.shape[0])
     if not mesh.divides(b, s):

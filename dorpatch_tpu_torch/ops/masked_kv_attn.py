@@ -30,7 +30,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from dorpatch_tpu_torch.ops import _backend, _build
+from dorpatch_tpu_torch.ops import _backend, _build, _library
 
 #: head widths the kernel is built for (ViT-B/16: 64, `cifar_vit`: 32)
 HEAD_DIMS = (32, 64)
@@ -133,13 +133,24 @@ def masked_kv_attention_reference(q, kd, vd, kc, vc, clean_bias, dirty_bias):
 
 
 def masked_kv_attention_kernel(q, kd, vd, kc, vc, clean_bias, dirty_bias,
-                               plan: Optional[Bf16Plan] = None,
-                               suffix: str = ""):
+                               plan: Optional[Bf16Plan] = None):
     """Kernel H on CUDA tensors (all float32, or all bf16 for its bf16
-    form; contiguous, the shapes of `masked_kv_attention_reference`).
-    `plan` (bf16 only) defaults to `bf16_plan`'s; another is for measuring
-    other blocks. `suffix` names the form the launch counts under ("_mesh":
-    the sharded form's)."""
+    form; contiguous, the shapes of `masked_kv_attention_reference`),
+    through the op `dorpatch_torch::masked_kv_attn`. `plan` (bf16 only)
+    defaults to `bf16_plan`'s; another is for measuring other blocks and
+    launches directly."""
+    _backend.require_card(q, "q")
+    if plan is not None:
+        return _attn_launch(q, kd, vd, kc, vc, clean_bias, dirty_bias, plan,
+                            "")
+    return _library.call(masked_kv_attn_op, q, kd, vd, kc, vc, clean_bias,
+                         dirty_bias)
+
+
+def _attn_launch(q, kd, vd, kc, vc, clean_bias, dirty_bias,
+                 plan: Optional[Bf16Plan], suffix: str):
+    """Kernel H with `plan`; `suffix` names the form the launch counts
+    under ("_mesh": the sharded form's)."""
     args = dict(q=q, kd=kd, vd=vd, kc=kc, vc=vc, clean_bias=clean_bias,
                 dirty_bias=dirty_bias)
     bf16 = q.dtype == torch.bfloat16
@@ -185,16 +196,37 @@ def masked_kv_attention_kernel(q, kd, vd, kc, vc, clean_bias, dirty_bias,
     return out
 
 
+def _attn_fake(q, kd, vd, kc, vc, clean_bias, dirty_bias, mesh=False):
+    return torch.empty_like(q)
+
+
+#: kernel H: q/kd/vd `[B,C,S,H,f]`, kc/vc `[B,T,H,f]`, clean_bias
+#: `[B,C,T]`, dirty_bias `[B,C,S]`, all f32 or all bf16 -> `[B,C,S,H,f]`;
+#: `mesh` counts the launch as the sharded form's
+masked_kv_attn_op = _library.define(
+    "masked_kv_attn(Tensor q, Tensor kd, Tensor vd, Tensor kc, Tensor vc, "
+    "Tensor clean_bias, Tensor dirty_bias, bool mesh=False) -> Tensor",
+    lambda q, kd, vd, kc, vc, clean_bias, dirty_bias, mesh=False:
+    masked_kv_attention_reference(q, kd, vd, kc, vc, clean_bias,
+                                  dirty_bias).contiguous(),
+    lambda q, kd, vd, kc, vc, clean_bias, dirty_bias, mesh=False:
+    _attn_launch(q, kd, vd, kc, vc, clean_bias, dirty_bias, None,
+                 "_mesh" if mesh else ""),
+    _attn_fake)
+
+
+def _contiguous(*ts):
+    return [t.contiguous() for t in ts]
+
+
 @_backend.sanitized("masked_kv_attn")
 def masked_kv_attention(q, kd, vd, kc, vc, clean_bias, dirty_bias):
-    """The attention read of one token-engine block. CUDA tensors run
-    kernel H; CPU tensors run the plain version."""
-    if _backend.on_card(q):
-        return masked_kv_attention_kernel(
-            *(x.contiguous() for x in (q, kd, vd, kc, vc, clean_bias,
-                                       dirty_bias)))
-    return masked_kv_attention_reference(q, kd, vd, kc, vc, clean_bias,
-                                         dirty_bias)
+    """The attention read of one token-engine block, through the op
+    `dorpatch_torch::masked_kv_attn`: CUDA tensors run kernel H; CPU
+    tensors run the plain version; any other device raises."""
+    _backend.on_card(q)
+    return _library.call(masked_kv_attn_op, *_contiguous(
+        q, kd, vd, kc, vc, clean_bias, dirty_bias))
 
 
 @_backend.sanitized("masked_kv_attn_mesh")
@@ -209,9 +241,6 @@ def masked_kv_attention_sharded(q, kd, vd, kc, vc, clean_bias, dirty_bias,
     tensors run the plain version."""
     if mesh is None:
         raise ValueError("masked_kv_attention_sharded needs a mesh")
-    if _backend.on_card(q):
-        return masked_kv_attention_kernel(
-            *(x.contiguous() for x in (q, kd, vd, kc, vc, clean_bias,
-                                       dirty_bias)), suffix="_mesh")
-    return masked_kv_attention_reference(q, kd, vd, kc, vc, clean_bias,
-                                         dirty_bias)
+    _backend.on_card(q)
+    return _library.call(masked_kv_attn_op, *_contiguous(
+        q, kd, vd, kc, vc, clean_bias, dirty_bias), True)

@@ -34,6 +34,7 @@ margins are read out in float32.
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from dorpatch_tpu_torch import utils
-from dorpatch_tpu_torch.ops import _backend, _build
+from dorpatch_tpu_torch.ops import _backend, _build, _library
 
 
 #: kernel C's bf16 form (`stem_fold_tc`): the depth of one
@@ -261,38 +262,92 @@ def fold_masked_stem(kernel: torch.Tensor, clean: torch.Tensor,
     return out
 
 
+def fold_masked_stem_uniform(kernel: torch.Tensor, clean: torch.Tensor,
+                             up: torch.Tensor, geo: torch.Tensor,
+                             occ: torch.Tensor, oh: int, ow: int,
+                             s: int) -> torch.Tensor:
+    """The plain version over kernel C's operands (the family-uniform
+    windows of `_uniform_plan`, `up` padded by `pad_for_kernel`): per mask,
+    the VALID delta conv of its enlarged window (`_delta_conv`), added into
+    a broadcast of clean. An output of the enlarged window outside the
+    mask's true region sees only occ = 0 input: its delta is exactly
+    zero."""
+    n, ih, iw = occ.shape
+    out = clean[:, None].repeat(1, n, 1, 1, 1)
+    for i, (o0, oc0, i0, ic0) in enumerate(geo.tolist()):
+        win = up[:, i0:i0 + ih, ic0:ic0 + iw, :] * occ[i, :, :, None]
+        d = _delta_conv(win, kernel, int(s))
+        out[:, i, o0:o0 + oh, oc0:oc0 + ow, :] += d.to(out.dtype)
+    return out
+
+
+def _fold_fake(kernel, clean, up, geo, occ, oh, ow, s, mesh=False):
+    b, h, w, c = clean.shape
+    return clean.new_empty((b, occ.shape[0], h, w, c))
+
+
+#: kernel C: HWIO kernel, clean `[B,h,w,c]`, up, geo `[N,4]` int32, occ
+#: `[N,IH,IW]` (f32, or all bf16) -> `[B,N,h,w,c]` of clean's type; `mesh`
+#: counts the launch as the sharded form's
+stem_fold_op = _library.define(
+    "stem_fold(Tensor kernel, Tensor clean, Tensor up, Tensor geo, "
+    "Tensor occ, int oh, int ow, int s, bool mesh=False) -> Tensor",
+    lambda kernel, clean, up, geo, occ, oh, ow, s, mesh=False:
+    fold_masked_stem_uniform(kernel, clean, up, geo, occ, oh, ow, s),
+    lambda kernel, clean, up, geo, occ, oh, ow, s, mesh=False: _fold_launch(
+        kernel, clean, up, geo, occ, oh, ow, s, None,
+        "_mesh" if mesh else ""),
+    _fold_fake)
+
+
 @_backend.sanitized("stem_fold")
+def fold_stem(kernel: torch.Tensor, clean: torch.Tensor, up: torch.Tensor,
+              geo: torch.Tensor, occ: torch.Tensor, oh: int, ow: int,
+              s: int) -> torch.Tensor:
+    """The fold over kernel C's operands (`fold_masked_stem_kernel`'s),
+    through the op `dorpatch_torch::stem_fold`: kernel C (or its bf16
+    form) on CUDA tensors, `fold_masked_stem_uniform` on CPU tensors."""
+    _backend.on_card(clean)
+    return _library.call(stem_fold_op, kernel, clean, up, geo, occ, oh, ow, s)
+
+
 def fold_masked_stem_kernel(kernel: torch.Tensor, clean: torch.Tensor,
                             up: torch.Tensor, geo: torch.Tensor,
                             occ: torch.Tensor, oh: int, ow: int, s: int,
                             plan: Optional[Bf16FoldPlan] = None
                             ) -> torch.Tensor:
-    """Kernel C on CUDA tensors. `up` is the fill delta padded by the stem's
-    pads plus `s - 1` rows/cols (`pad_for_kernel`); `geo`/`occ` come from
-    `_uniform_plan`. kernel, clean, up and occ all float32, or all bf16 (the
-    bf16 form: the delta on the bf16 tensor cores, float32 accumulation,
-    launched with `plan`, by default `bf16_plan`). Returns `[B, N, h, w, c]`
-    of clean's type."""
-    return _fold_launch(kernel, clean, up, geo, occ, oh, ow, s, plan, "")
+    """Kernel C on CUDA tensors: `fold_stem`, refusing CPU tensors. `up` is
+    the fill delta padded by the stem's pads plus `s - 1` rows/cols
+    (`pad_for_kernel`); `geo`/`occ` come from `_uniform_plan`. kernel,
+    clean, up and occ all float32, or all bf16 (the bf16 form: the delta on
+    the bf16 tensor cores, float32 accumulation, launched with `plan`, by
+    default `bf16_plan`). Returns `[B, N, h, w, c]` of clean's type. A
+    `plan` other than the default is for measuring: it launches without
+    the op."""
+    _backend.require_card(clean, "clean")
+    if plan is not None:
+        return _fold_launch(kernel, clean, up, geo, occ, oh, ow, s, plan, "")
+    return fold_stem(kernel, clean, up, geo, occ, oh, ow, s)
 
 
 @_backend.sanitized("stem_fold_mesh")
 def fold_masked_stem_sharded(kernel: torch.Tensor, clean: torch.Tensor,
                              up: torch.Tensor, geo: torch.Tensor,
                              occ: torch.Tensor, oh: int, ow: int, s: int,
-                             mesh, plan: Optional[Bf16FoldPlan] = None
-                             ) -> torch.Tensor:
+                             mesh) -> torch.Tensor:
     """Kernel C (or its bf16 form) on a mesh rank's shard, the JAX
     package's `fold_masked_stem_sharded`: `clean` and `up` hold the images
     of the rank's data block (each rank computes its own block's clean
     stem), `geo`/`occ` the windows of its mask block; the stem kernel is
     replicated. No collective: an entry is one image under one mask, and
     the family gathers its tables after the trunk. Counted as
-    "stem_fold_mesh" ("stem_fold_bf16_mesh")."""
+    "stem_fold_mesh" ("stem_fold_bf16_mesh"); CPU tensors run the plain
+    version."""
     if mesh is None:
         raise ValueError("fold_masked_stem_sharded needs a mesh")
-    return _fold_launch(kernel, clean, up, geo, occ, oh, ow, s, plan,
-                        "_mesh")
+    _backend.on_card(clean)
+    return _library.call(stem_fold_op, kernel, clean, up, geo, occ, oh, ow,
+                         s, True)
 
 
 def _fold_launch(kernel, clean, up, geo, occ, oh, ow, s, plan,
@@ -364,6 +419,19 @@ def pad_for_kernel(u: torch.Tensor, pads, s: int) -> torch.Tensor:
     return _pad_nhwc(u, ((pr0, pr1 + s - 1), (pc0, pc1 + s - 1))).contiguous()
 
 
+#: every live family, for `drop_plans`
+_FAMILIES: "weakref.WeakSet[StemFoldFamily]" = weakref.WeakSet()
+
+
+def drop_plans() -> None:
+    """Forget every family's cached device plans; the next call rebuilds
+    them. A trace on fake tensors (the program auditor's `trace_program`)
+    drops them before and after it, so that it neither reads a plan of
+    real tensors nor leaves one of fake tensors behind."""
+    for family in list(_FAMILIES):
+        family._kernel_plans.clear()
+
+
 class StemFoldFamily:
     """One mask family's stem-folded first round: `phase1(imgs)` ->
     `(preds [B, M], margins [B, M] float32)`, the `apply_masks` +
@@ -386,18 +454,20 @@ class StemFoldFamily:
                                  engine.kernel_hw, engine.strides[0],
                                  engine.pads)
         self._kernel_plans = {}   # (offset, count, device) -> device plan
+        _FAMILIES.add(self)
 
     def _kernel_plan(self, off: int, cnt: int, h: int, w: int,
                      device: torch.device):
         key = (off, cnt, str(device))
-        if key not in self._kernel_plans:
+        plan = self._kernel_plans.get(key)
+        if plan is None:
             eng = self.engine
             oh, ow, geo, occ = _uniform_plan(
                 self.plan[off:off + cnt], h, w, eng.kernel_hw, eng.strides[0])
-            self._kernel_plans[key] = (
-                oh, ow, torch.as_tensor(geo, device=device),
-                torch.as_tensor(occ, dtype=self.dtype, device=device))
-        return self._kernel_plans[key]
+            plan = (oh, ow, torch.as_tensor(geo, device=device),
+                    torch.as_tensor(occ, dtype=self.dtype, device=device))
+            self._kernel_plans[key] = plan
+        return plan
 
     @torch.no_grad()
     def phase1(self, imgs: torch.Tensor):
@@ -425,25 +495,19 @@ class StemFoldFamily:
         inflation = float(np.prod(clean.shape[1:])) / float(h * w * ci)
         c = max(1, min(n, int(self.chunk_size / max(1.0, inflation))))
         s = int(eng.strides[0])
-        card = _backend.on_card(imgs)
-        up = pad_for_kernel(u, eng.pads, s) if card else None
+        up = pad_for_kernel(u, eng.pads, s)
         preds, margins = [], []
         for off in range(lo, hi, c):
             cnt = min(c, hi - off)
-            if card:
-                oh, ow, geo, occ = self._kernel_plan(
-                    off, cnt, clean.shape[1], clean.shape[2], imgs.device)
-                if self.mesh is None:
-                    folded = fold_masked_stem_kernel(
-                        kernel, clean.contiguous(), up, geo, occ, oh, ow, s)
-                else:
-                    folded = fold_masked_stem_sharded(
-                        kernel, clean.contiguous(), up, geo, occ, oh, ow, s,
-                        self.mesh)
+            oh, ow, geo, occ = self._kernel_plan(
+                off, cnt, clean.shape[1], clean.shape[2], imgs.device)
+            if self.mesh is None:
+                folded = fold_stem(kernel, clean.contiguous(), up, geo, occ,
+                                   oh, ow, s)
             else:
-                folded = fold_masked_stem(kernel, clean, u,
-                                          self.plan[off:off + cnt],
-                                          eng.strides, eng.pads)
+                folded = fold_masked_stem_sharded(
+                    kernel, clean.contiguous(), up, geo, occ, oh, ow, s,
+                    self.mesh)
             logits = eng.module(folded.reshape((-1,) + folded.shape[2:]),
                                 "trunk")
             p, m = utils.preds_margins(logits)

@@ -112,7 +112,7 @@ def compare(label: str, a, b) -> dict:
         if d > 0 and first is None:
             first = i + 1
         worst = max(worst, d)
-    print(f"{label}: {'bit-equal' if first is None else 'differ'} over "
+    print(f"{label}: {'bit-equal' if first is None else 'differ'} over "  # noqa: DP101 — the tool's result stream
           f"{len(a)} steps; first differing step {first}, largest "
           f"difference {worst:.3g}", flush=True)
     return dict(first_step=first, max_abs=worst)
@@ -141,7 +141,7 @@ def victim_repeat(victim, x, label: str, trials: int,
         diffs = [_diff(outs[0][i], o[i]) for o in outs[1:]]
         rec[key] = max(diffs, default=0.0)
         rec[key + "_differing"] = sum(d > 0 for d in diffs)
-    print(f"{label}: over {trials} calls, logits differ from the first in "
+    print(f"{label}: over {trials} calls, logits differ from the first in "  # noqa: DP101 — the tool's result stream
           f"{rec['logits_differing']} (largest difference "
           f"{rec['logits']:.3g}), the input gradient in "
           f"{rec['input_grad_differing']} (largest difference "
@@ -187,7 +187,7 @@ def main(argv=None) -> int:
                                           spec.img_size, SEED))
     x = torch.as_tensor(x_np, device=dev)
     dt = args.compute_dtype
-    print(f"device: {torch.cuda.get_device_name(dev)}; {victim.name} at "
+    print(f"device: {torch.cuda.get_device_name(dev)}; {victim.name} at "  # noqa: DP101 — the tool's result stream
           f"{spec.img_size} px, batch {spec.batch}, compute dtype {dt}; "
           f"cudnn benchmark {torch.backends.cudnn.benchmark}, deterministic "
           f"{torch.backends.cudnn.deterministic}", flush=True)
@@ -223,7 +223,7 @@ def main(argv=None) -> int:
         torch.use_deterministic_algorithms(False)
     ops = sorted({str(w.message).split("\n")[0] for w in caught})
     for msg in ops:
-        print(f"deterministic-mode warning: {msg}", flush=True)
+        print(f"deterministic-mode warning: {msg}", flush=True)  # noqa: DP101 — the tool's result stream
     summary["attack/deterministic"] = compare(
         "diagnostic: attack steps, deterministic algorithms", *runs)
     summary["deterministic_warnings"] = ops
@@ -238,7 +238,7 @@ def main(argv=None) -> int:
     summary["attack/cudnn_nondeterministic"] = compare(
         "diagnostic: attack steps, cuDNN determinism off", *runs)
     summary["repeats"] = repeats
-    print(json.dumps(summary), flush=True)
+    print(json.dumps(summary), flush=True)  # noqa: DP101 — the tool's result stream
     return 0 if repeats else 1
 
 

@@ -118,11 +118,11 @@ def main(argv=None) -> int:
         expected = not same and named(name, args.changed)
         changed += expected
         differ += not same and not expected
-        print(f"{'SAME' if same else 'CHANGED' if expected else 'DIFF'} "
+        print(f"{'SAME' if same else 'CHANGED' if expected else 'DIFF'} "  # noqa: DP101 — the tool's result stream
               f"{name} ({len(body)} instructions; ours {mine})", flush=True)
     for name in sorted(set(ours) - matched):
-        print(f"NEW {name} ({len(ours[name])} instructions)", flush=True)
-    print(f"{len(theirs) - differ - changed} of {len(theirs)} kernels of "
+        print(f"NEW {name} ({len(ours[name])} instructions)", flush=True)  # noqa: DP101 — the tool's result stream
+    print(f"{len(theirs) - differ - changed} of {len(theirs)} kernels of "  # noqa: DP101 — the tool's result stream
           f"{args.tree} compile to the same instructions here, {changed} "
           f"changed as expected ({' '.join(args.changed) or 'none named'}),"
           f" {differ} differ or are missing ({len(ours)} kernels here)",

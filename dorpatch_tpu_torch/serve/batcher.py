@@ -228,4 +228,4 @@ class MicroBatcher:
                     # cond, and production workers always pass `timeout`
                     # (the heartbeat tick) — only timeout-less callers
                     # (tests, drains) can reach this branch
-                    self._cond.wait()  # producers always notify
+                    self._cond.wait()  # producers always notify  # noqa: DP502 — producers always notify

@@ -379,7 +379,7 @@ class ReplicaPool:
         inflight = r.take_inflight()
         self._failover(inflight, now)
         with r.lock:
-            r.restarts += 1  # control state, not a metric
+            r.restarts += 1  # control state, not a metric  # noqa: DP108 — control state, not a metric
         retire = r.restarts > int(getattr(self.cfg, "max_restarts", 0))
         delay = 0.0
         if not retire:
@@ -477,7 +477,7 @@ class ReplicaPool:
                                  restarts=r.restarts)
             self._replica_event("quarantine", r)
             with r.lock:
-                r.restarts += 1  # control state, not a metric
+                r.restarts += 1  # control state, not a metric  # noqa: DP108 — control state, not a metric
             if r.restarts > int(getattr(self.cfg, "max_restarts", 0)):
                 self._retire(r)
             else:
@@ -496,7 +496,7 @@ class ReplicaPool:
         # the lock so the hold stays a handful of pure assignments
         hb = ReplicaHeartbeat(self._hb_path(r.slot), r.slot, self._clock)
         with r.lock:
-            r.generation += 1  # control state, not a metric
+            r.generation += 1  # control state, not a metric  # noqa: DP108 — control state, not a metric
             r.clean, r.defenses = clean, defenses
             r.stream = stream
             r.hb = hb

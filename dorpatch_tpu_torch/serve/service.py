@@ -467,7 +467,7 @@ class CertifiedInferenceService:
         if stream is not None:
             # the bank's tables were made on this thread's stream; the
             # replica's stream must not read them before they exist
-            torch.cuda.synchronize(self.device)
+            torch.cuda.synchronize(self.device)  # noqa: DP107 — bank build, before traffic
         return clean, defenses, stream
 
     def warmup(self) -> Dict[str, int]:
@@ -533,7 +533,7 @@ class CertifiedInferenceService:
                                                   defenses[0].row_bucket_sizes],
                                      dur_s=round(self._clock() - t0, 6))
             if stream is not None:
-                stream.synchronize()
+                stream.synchronize()  # noqa: DP107 — warmup, before traffic
 
     def _build_bank(self, slot: int):
         """Build and warm one replica's bank (`_new_bank`, `_warm_bank`).
@@ -573,7 +573,7 @@ class CertifiedInferenceService:
         across processes (minted here when the ingress didn't)."""
         tid = str(trace_id) if trace_id else observe.new_trace_id()
         try:
-            arr = np.asarray(image, dtype=np.float32)
+            arr = np.asarray(image, dtype=np.float32)  # noqa: DP107 — host data parsing
         except (ValueError, TypeError) as e:  # ragged / non-numeric input
             self._m_requests.inc(status="error")
             observe.record_event("serve.request", status="error",

@@ -206,12 +206,12 @@ def main(argv=None) -> int:
     from dorpatch_tpu_torch.ops import stem_fold as sf
 
     if not torch.cuda.is_available():
-        print("stem_bench: no CUDA device is available", file=sys.stderr)
+        print("stem_bench: no CUDA device is available", file=sys.stderr)  # noqa: DP101 — the tool's result stream
         return 2
     dev = torch.device("cuda")
     utils.configure_numerics()
     one = torch.zeros(1, device=dev)
-    print(f"tree {root}; device {torch.cuda.get_device_name(0)}; radius "
+    print(f"tree {root}; device {torch.cuda.get_device_name(0)}; radius "  # noqa: DP101 — the tool's result stream
           f"{RADIUS}", flush=True)
     failed = 0
     for name, dataset, arch, size, b in SHAPES:
@@ -259,7 +259,7 @@ def main(argv=None) -> int:
                                     lambda: sf.fold_masked_stem_kernel(
                                         *a, plan=plan))))
             failed += bad > 0 or not repeats
-            print(json.dumps(rec), flush=True)
+            print(json.dumps(rec), flush=True)  # noqa: DP101 — the tool's result stream
             del case, a, got
             torch.cuda.empty_cache()
     return 1 if failed else 0

@@ -83,7 +83,7 @@ class TrainConfig:
 
 
 def _log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
+    observe.log(msg, file=sys.stderr)
 
 
 def _reflect(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -151,13 +151,27 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
     """One update at rate `lr` on the uint8 batch `x_u8` augmented by
     (`offsets`, `flips`); returns the loss and the batch accuracy as
     device scalars (no host sync)."""
+    set_rate(opt, lr)
+    return update(model, opt, x_u8, y, offsets, flips, label_smoothing)
+
+
+def set_rate(opt: torch.optim.Optimizer, lr: float) -> None:
+    """The rate of the next `update` (optax keeps its schedule in the
+    optimizer state; here it is the param groups' `lr`)."""
+    for group in opt.param_groups:
+        group["lr"] = lr
+
+
+def update(model: torch.nn.Module, opt: torch.optim.Optimizer,
+           x_u8: torch.Tensor, y: torch.Tensor, offsets: torch.Tensor,
+           flips: torch.Tensor,
+           label_smoothing: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`train_step` at the rate already set on `opt` (`set_rate`)."""
     x = augment(x_u8.float() / 255.0, offsets, flips)
     logits = model(registry.normalize(x))
     loss = F.cross_entropy(logits, y, label_smoothing=label_smoothing)
     opt.zero_grad(set_to_none=True)
     loss.backward()
-    for group in opt.param_groups:
-        group["lr"] = lr
     opt.step()
     return loss.detach(), (logits.argmax(-1) == y).float().mean()
 
@@ -168,6 +182,28 @@ def eval_hits(model: torch.nn.Module, x_u8: torch.Tensor,
     """Correct predictions on the uint8 batch, a device scalar."""
     logits = model(registry.normalize(x_u8.float() / 255.0))
     return (logits.argmax(-1) == y).sum()
+
+
+def make_train_programs(cfg: TrainConfig, model: torch.nn.Module,
+                        opt: torch.optim.Optimizer):
+    """The training programs, wrapped per the telemetry contract under the
+    JAX package's names: "train.step" (`update` of the uint8 batch at the
+    rate the loop set with `set_rate`; one input signature) and
+    "train.eval_step" (`eval_hits`; two: the full chunk and the last). One
+    constructor shared by the training loop and the program auditor
+    (`analysis/entrypoints.py`). The JAX package's "train.init" has no
+    program here: eager torch initializes the parameters in the module's
+    constructor."""
+    def step(x_u8, y, offsets, flips):
+        return update(model, opt, x_u8, y, offsets, flips,
+                      cfg.label_smoothing)
+
+    def eval_step(x_u8, y):
+        return eval_hits(model, x_u8, y)
+
+    return (observe.timed_first_call(step, "train.step", recompile_budget=1),
+            observe.timed_first_call(eval_step, "train.eval_step",
+                                     recompile_budget=2))
 
 
 def quantize(images01: np.ndarray) -> np.ndarray:
@@ -230,6 +266,7 @@ def _train_victim_impl(cfg: TrainConfig, arch_name: str, dev: torch.device,
     model = registry.build_bare_model(arch_name, n_classes, cfg.img_size,
                                       cfg.seed).to(dev)
     opt = make_optimizer(cfg, model)
+    step_program, eval_program = make_train_programs(cfg, model, opt)
     lr_at = lr_schedule(cfg, total_steps)
     gen = utils.generator(cfg.seed, dev)
     dev_tr_x = torch.as_tensor(quantize(tr_x), device=dev)
@@ -248,9 +285,9 @@ def _train_victim_impl(cfg: TrainConfig, arch_name: str, dev: torch.device,
             for i in range(steps_per_epoch):
                 sel = order[i * cfg.batch_size:(i + 1) * cfg.batch_size]
                 offsets, flips = draw_augment(gen, cfg.batch_size)
-                _, acc = train_step(model, opt, lr_at(step), dev_tr_x[sel],
-                                    dev_tr_y[sel], offsets, flips,
-                                    cfg.label_smoothing)
+                set_rate(opt, lr_at(step))
+                _, acc = step_program(dev_tr_x[sel], dev_tr_y[sel], offsets,
+                                      flips)
                 accs.append(acc)
                 step += 1
             train_acc = float(torch.stack(accs).mean())
@@ -258,8 +295,8 @@ def _train_victim_impl(cfg: TrainConfig, arch_name: str, dev: torch.device,
         log(f"epoch {epoch + 1}/{cfg.epochs}: train_acc={train_acc:.3f} "
             f"({time.perf_counter() - t0:.0f}s)")
     with observe.span("train.eval"):
-        hits = sum(eval_hits(model, dev_te_x[i:i + EVAL_CHUNK],
-                             dev_te_y[i:i + EVAL_CHUNK])
+        hits = sum(eval_program(dev_te_x[i:i + EVAL_CHUNK],
+                                dev_te_y[i:i + EVAL_CHUNK])
                    for i in range(0, len(te_x), EVAL_CHUNK))
         acc = int(hits) / len(te_x)
     report = {

@@ -139,7 +139,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     `farm/`, `observe.attack_log`), and the certified fleet (`recert/`,
     `gateway/`, `observe.report`, `analysis/`) keep their own copies of
     the JAX package's jax-free modules and must be among the modules
-    scanned, and so must the mesh (`parallel/`)."""
+    scanned, and so must the mesh (`parallel/`), every wing of the
+    analysis package and the kernels' op library."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import dorpatch_tpu_torch
@@ -177,6 +178,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "dorpatch_tpu_torch.analysis.engine",
                 "dorpatch_tpu_torch.analysis.baseline",
                 "dorpatch_tpu_torch.analysis.cli",
+                "dorpatch_tpu_torch.analysis.__main__",
+                "dorpatch_tpu_torch.analysis.rules_output",
+                "dorpatch_tpu_torch.analysis.rules_torch",
+                "dorpatch_tpu_torch.analysis.fix",
+                "dorpatch_tpu_torch.analysis.concurrency",
+                "dorpatch_tpu_torch.analysis.entrypoints",
+                "dorpatch_tpu_torch.analysis.program",
+                "dorpatch_tpu_torch.analysis.sanitize",
+                "dorpatch_tpu_torch.analysis.lockwatch",
+                "dorpatch_tpu_torch.ops._library",
                 "dorpatch_tpu_torch.recert",
                 "dorpatch_tpu_torch.recert.baseline",
                 "dorpatch_tpu_torch.recert.gate",
