@@ -134,7 +134,8 @@ NVIDIA GPU.
    whose certification records must equal those of certifying its patch
    again with remat off (the 480 px kernel records carry its launches as
    `remat_launches`);
-6. certifies one radius both ways on each conv victim (stem fold = kernel
+6. (after 8's trained-victim paths, beside the AOT build of 9) certifies
+   one radius both ways on each conv victim (stem fold = kernel
    C, and full masked forwards = kernel A) and asserts the first-round
    tables agree wherever both top-2 margins exceed 1e-3; on RN50 also
    holds the victim's logits with the GroupNorm kernels against its plain
@@ -183,16 +184,21 @@ NVIDIA GPU.
    written from the port's random init to the timm key contract through
    `python -m dorpatch_tpu_torch.models.verify`, with the card's logits
    within 1e-4 of the CPU's and every argmax equal (`verify_phase`);
-9. runs the attack-sweep farm (`farm_phase`, `python -m
+9. builds an AOT executable store with `python -m dorpatch_tpu_torch.aot
+   build --only ...` (AOT_BUILD_ONLY; in the background beside 6 and the
+   sanitize and verify runs of 8), which must exit 0, as must `aot
+   verify` on it; then runs the attack-sweep farm (`farm_phase`, `python -m
    dorpatch_tpu_torch.farm` worker processes over one farm directory) on
    the CIFAR ResNet-18 trained in 7: 4 jobs (patch budget 0.06 and 0.12,
    float32 and bfloat16 attack and certify bank; batch 8 at 32 px,
-   `--sampling-size 128 --dropout 2`, 20 iterations, a snapshot every 5,
-   the stage switch at 10, failure-biased sampling from 15); a worker
+   `--sampling-size 128 --dropout 2`, 10 iterations, a snapshot every 5,
+   the stage switch at 5, failure-biased sampling from 8); a worker
    with `--chaos crash_block --crash-mode kill` SIGKILLs itself at its
    seeded block while one with `--chaos ckpt_raise,enospc_events` fails a
    job's snapshot save and its event log's disk; two healthy workers
-   drain the farm. It fails unless every job ends done, the killed job
+   drain the farm with `--aot-store` on the built store (read-only: the
+   manifest must stay as it was; each writes its hits and misses to
+   `aot.json`) and the killed job's rows must equal the control run's. It fails unless every job ends done, the killed job
    shows attempts 2, reclaims 1 and a resume from an iteration above 0,
    its patch equals an uninterrupted `run_sweep` of the point in this
    process bit for bit, the ckpt_raise job ends done at attempts 2, and
@@ -207,7 +213,11 @@ NVIDIA GPU.
    `dorpatch_tpu_torch.serve`'s service and HTTP front-end in this
    process on each serving path and sends it requests over HTTP from
    stdlib clients: RN50 at 224 (`--serve-max-batch 2`, buckets 1 and 2,
-   2 requests at concurrency 8) with 1 and 2 replicas in float32, with 2
+   2 requests at concurrency 8) with 2 replicas in float32, eager and
+   booted `--aot auto` on an empty store (replica 0 misses and captures
+   every program, replica 1 hits every one, the clean forward and the
+   pruned certification's programs CUDA graphs; a warmup after the boot
+   timed), each with a `POST /profile` capture of a served batch, with 2
    in the bf16 bank; the CIFAR ResNet-18 trained in 7 with 2 replicas
    and `--chaos wedge_dispatch` at concurrency 16 (replica 0 wedges its
    first batch: the supervisor must fail its requests over and restart
@@ -218,7 +228,8 @@ NVIDIA GPU.
    not, `GET /metrics` counts what the clients sent and the path's
    kernels launched (`serve_path`); it prints, beside the card's name and
    power limit, the warmup seconds per replica, the latency percentiles,
-   images/s, batch occupancy and forwards per image;
+   images/s, batch occupancy and forwards per image, and the graphed RN50
+   run beside the eager one (p50, images/s, busy share, peak GiB);
 11. runs the certified fleet on the CIFAR ResNet-18 trained in 7
    (`fleet_phase`, the JAX package's `tools/recert_smoke.py` and
    `tools/gateway_smoke.py` on the card): a recert generation (two bf16
@@ -228,11 +239,17 @@ NVIDIA GPU.
    drains launching A, B and the bf16 forms of C and A); a planted
    regression that `recert check` names under DP400, a strict boot that
    refuses it with no victim built and no kernel launched, a warn boot
-   that serves and answers 503 on `GET /robustness`; then two `python -m
-   dorpatch_tpu_torch.serve` backends booted strict behind an in-process
-   gateway, 24 requests through it while `kill_backend` SIGKILLs one
-   (every answer once, equal to `robust_predict`), a canary rolled back
-   by `poison_canary`, and `python -m dorpatch_tpu_torch.observe.report
+   that serves and answers 503 on `GET /robustness` (booted `--aot auto`
+   on the fleet's empty store, which it writes); then two `python -m
+   dorpatch_tpu_torch.serve` backends booted `--aot auto` on that store
+   behind an in-process gateway, 12 requests through it while
+   `kill_backend` SIGKILLs one (every answer once, equal to
+   `robust_predict`), a canary booted `--aot strict` on the same store
+   (0 misses, its kernel library from the store) rolled back by
+   `poison_canary` and by DP305 (`aot verify` exits 0 on 9's store and 1
+   on a copy with one fingerprint edited, whose findings feed the
+   deploy's `finding_source`), a strict boot on an empty store that
+   refuses before warmup, and `python -m dorpatch_tpu_torch.observe.report
    --fleet` reconciling client, gateway and backends with no orphaned
    trace (the kernels line gives the CIFAR records their
    `recert_launches`, the CIFAR serve records their `fleet_launches`);
@@ -328,6 +345,12 @@ RN50_ARGV = ["--synthetic", "--dataset", "imagenet", "--base_arch",
              "--sampling-size", "128", "--dropout", "2",
              "--max-iterations", str(SHORT_ITERATIONS), "--num-batches",
              "1"]
+
+
+#: images of the 224 px cross-checks (stem fold, token and mixer engines,
+#: the bf16 bank, consensus) against full forwards; cut from 4 to keep the
+#: script within its time
+CROSS_CHECK_BATCH = 2
 
 
 def _iterations(argv, n):
@@ -454,23 +477,26 @@ TRAINED_CIFAR_BF16_KERNELS = tuple(k for k in CIFAR_BF16_KERNELS
 #: the serving paths (`python -m dorpatch_tpu_torch.serve`'s flags, run in
 #: this process through `CertifiedInferenceService.from_config` and
 #: `HttpFrontend` so that the launch counts hold the kernels): RN50 at 224
-#: with the (1, SERVE_RN50_BATCH) buckets, SERVE_RN50_REQUESTS requests at closed-loop
-#: concurrency SERVE_CONCURRENCY over HTTP, with 1 and 2 replicas on the
-#: card in float32, with 2 in the bf16 bank; the trained CIFAR ResNet-18
+#: with the (1, SERVE_RN50_BATCH) buckets, SERVE_RN50_REQUESTS requests at
+#: closed-loop concurrency SERVE_CONCURRENCY over HTTP, with 2 replicas on
+#: the card in float32, eager and booted from the AOT store, and with 2 in
+#: the bf16 bank; the trained CIFAR ResNet-18
 #: with 2 replicas and the wedge_dispatch failover drill (replica 0 wedges
 #: its first batch; stale after SERVE_STALE_S), SERVE_REQUESTS requests at
 #: concurrency 16: two full batches wait at once and each replica takes
 #: one (at 8 the clients wait for each batch, and replica 1 may take them
 #: all); ViT-B/16's bf16 bank
-#: at batch 1, SERVE_VIT_REQUESTS requests at concurrency 2. Replicas beat
+#: at batch 1 (one replica), SERVE_VIT_REQUESTS requests at concurrency 2.
+#: Replicas beat
 #: only at batch boundaries, so the stale window must outlast a healthy
 #: batch: a trained CIFAR batch of 8 takes 2.6 s (service p50 on the card) and
 #: longer while the restarted replica 0 warms up beside it on the card; at
 #: a 3 s window replica 1 was once declared wedged too, and the requests
 #: re-dispatched to it failed twice
 SERVE_STALE_S = 6.0
-#: the RN50 serve runs' largest bucket, cut from 8 to keep the script
-#: within its time (each replica warms every bucket up)
+#: the RN50 serve runs' largest bucket, cut from 8 to 2 to keep the
+#: script within its time (each replica warms, or boots from the AOT store,
+#: every bucket's programs)
 SERVE_RN50_BATCH = 2
 SERVE_RN50_ARGV = ["--synthetic", "--dataset", "imagenet", "--base_arch",
                    "resnetv2", "--img-size", "224", "--serve-max-batch",
@@ -488,13 +514,21 @@ CERTIFY_BF16 = ["--certify-dtype", "bfloat16"]
 SERVE_REQUESTS, SERVE_CONCURRENCY, SERVE_VIT_REQUESTS = 16, 8, 2
 #: the RN50 serve runs' requests: one full batch at concurrency 8
 SERVE_RN50_REQUESTS = SERVE_RN50_BATCH
-#: the RN50 2-replica runs' `POST /profile` capture (seconds) of one more
-#: batch served after the measured traffic, asked for
+#: the RN50 float32 2-replica runs' `POST /profile` capture (seconds) of
+#: one more batch served after the measured traffic, asked for
 #: SERVE_PROFILE_AFTER_S after that batch's requests are sent (it is on
-#: the card then): the device's busy share of a served batch. Cut from 2
-#: s after 2 s with the bucket of 8, to fit inside a batch of
-#: SERVE_RN50_BATCH (the trace's export grows with its length)
+#: the card then): the device's busy share of a served batch, eager and
+#: replayed from CUDA graphs. Cut from 2 s after 2 s with the bucket of 8,
+#: to fit inside a batch of SERVE_RN50_BATCH (the trace's export grows
+#: with its length); the bf16 bank's capture was cut to keep the script
+#: within its time
 SERVE_PROFILE_S, SERVE_PROFILE_AFTER_S = 1.0, 0.5
+#: the second RN50 float32 2-replica run boots `--aot auto` on an empty
+#: store (`aot/`): replica 0 captures every program and writes the store,
+#: replica 1 hits every entry; the clean forward and the pruned
+#: certification's programs must be CUDA graphs
+SERVE_AOT_GRAPHS = ("serve.clean_predict", "defense.phase1.stem",
+                    "defense.pairs", "defense.rows")
 #: the serve paths' kernels: phase 1 folds the stem (C), the pair audits
 #: fill with A, every RN50 forward runs D; the bf16 bank runs their bf16
 #: forms, its escalations (the float32 exhaustive sweep) A and D, and the
@@ -510,12 +544,13 @@ RN50_CARRY_ARGV = _iterations(RN50_ARGV, RN50_CARRY_ITERATIONS) + [
     "--sweep-interval", str(RN50_CARRY_BLOCK)]
 RN50_CARRY_HANG_S = 300
 #: the farm (`farm_phase`): the trained CIFAR ResNet-18, batch 8 at 32
-#: px, its attack with the stage switch at 10, failure-biased sampling
-#: from 15 and a snapshot every 5 iterations; one grid point a job, one
-#: radius (0.06) certified a point
-FARM_ATTACK = {"sampling_size": 128, "dropout": 2, "max_iterations": 20,
-               "sweep_interval": 5, "switch_iteration": 10,
-               "failure_sampling_start": 15}
+#: px, its attack with the stage switch at 5, failure-biased sampling
+#: from 8 and a snapshot every 5 iterations, 10 a stage (cut from 20 to
+#: keep the script within its time; the crash still lands on a block with
+#: one left); one grid point a job, one radius (0.06) certified a point
+FARM_ATTACK = {"sampling_size": 128, "dropout": 2, "max_iterations": 10,
+               "sweep_interval": 5, "switch_iteration": 5,
+               "failure_sampling_start": 8}
 FARM_BUDGETS = [0.06, 0.12]
 FARM_SWEEP = {"defense_ratio": 0.06}
 #: lease TTL (s): above the longest block, a worker's first call included,
@@ -552,7 +587,7 @@ FLEET_SERVE_ARGV = ["--dataset", "cifar10", "--base_arch", "resnet18",
                     "--img-size", "32", "--serve-max-batch", "1",
                     "--serve-deadline-ms", "60000", "--serve-replicas", "1",
                     "--data-source", "procedural"]
-FLEET_REQUESTS, FLEET_IMAGES, FLEET_POST, FLEET_DIRECT = 24, 12, 4, 8
+FLEET_REQUESTS, FLEET_IMAGES, FLEET_POST, FLEET_DIRECT = 12, 6, 2, 4
 FLEET_BOOT_S = 300
 #: the backends' kernels: C in phase 1 of every certification
 FLEET_KERNELS = ("stem_fold",)
@@ -2351,6 +2386,126 @@ def rn50_carry_phase(torch, dev) -> None:
                                  "resumed RN50 carry run")
 
 
+# ------------------------------------------------------------ the AOT store
+#
+# `python -m dorpatch_tpu_torch.aot build` on the card: the baseline gate
+# (every registry program traced on fake tensors, on the CPU), then the
+# programs of AOT_BUILD_ONLY run once on the card at their audit shapes,
+# each held to its trace (one key) and captured as a CUDA graph (or
+# recorded eager, with the reason) into a store with the kernel library's
+# blob. Started in the background after the trained-victim phase, beside
+# the cross-checks, the bf16 bank's checks, sanitize and verify, whose
+# times are not measurements; the farm reads it, the fleet verifies it
+# (DP305).
+
+AOT_BUILD_TIMEOUT_S = 900
+#: the registry programs the build captures: the attack's (the farm's
+#: workers resolve theirs by fingerprint) and the CIFAR certification's in
+#: float32 and bfloat16 at the farm's defense ratio (FARM_SWEEP). The whole
+#: registry (58 programs at audit shapes, which no serving boot and few of
+#: the farm's calls hit) took 128-182 s of the card beside timed phases
+AOT_BUILD_ONLY = ("attack.*", "defense.phase1.r0.06", "defense.pairs.r0.06",
+                  "defense.rows.r0.06", "defense.phase1.bf16.r0.06",
+                  "defense.pairs.bf16.r0.06", "defense.rows.bf16.r0.06")
+
+
+def _aot(*argv, timeout=300):
+    """`python -m dorpatch_tpu_torch.aot ARGV` in a subprocess: (exit code,
+    stdout, stderr)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "dorpatch_tpu_torch.aot",
+                           *argv], cwd=here, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def start_aot_build(store):
+    """`aot build --store store` started in the background."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    log = open(store + ".log", "w")
+    only = [a for g in AOT_BUILD_ONLY for a in ("--only", g)]
+    proc = subprocess.Popen([sys.executable, "-m", "dorpatch_tpu_torch.aot",
+                             "build", "--store", store, *only], cwd=here,
+                            env=env, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return proc, time.perf_counter(), store
+
+
+def aot_baseline(store) -> str:
+    """The baselines.json records of the programs `store` holds, written
+    beside it: what `aot verify` holds a store built with `--only`
+    against (against the whole file, every program left out would be a
+    DP305 absence)."""
+    from dorpatch_tpu_torch.analysis import baseline
+
+    path = store + ".baselines.json"
+    if not os.path.exists(path):
+        with open(os.path.join(store, "manifest.json")) as fh:
+            names = set(json.load(fh)["entries"])
+        data = baseline.load_baseline()
+        data["entries"] = {n: e for n, e in data["entries"].items()
+                           if n in names}
+        with open(path, "w") as fh:
+            fh.write(baseline.dump_baseline(data))
+    return path
+
+
+def finish_aot_build(build, smi) -> str:
+    """Wait for the background build; it must exit 0, write every program
+    of AOT_BUILD_ONLY keyed as a boot keys it, and `aot verify` exit 0 on
+    its store against its programs' baseline records (`aot_baseline`). Prints the build's seconds, its entries by method,
+    each eager entry's reason and the kernel blob's size. Returns the
+    store."""
+    proc, t0, store = build
+    try:
+        rc = proc.wait(timeout=AOT_BUILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    build_s = time.perf_counter() - t0
+    with open(store + ".log") as fh:
+        log = fh.read()
+    vrc, _, verr = (_aot("verify", "--store", store, "--baseline-file",
+                         aot_baseline(store)) if rc == 0 else (None, "", ""))
+    lrc, listing, _ = _aot("ls", "--store", store, "--json")
+    if rc != 0 or vrc != 0 or lrc != 0:
+        raise AssertionError(f"aot build exit {rc}, verify exit {vrc}: "
+                             f"{log[-3000:]} {verr[-2000:]}")
+    manifest = json.loads(listing)
+    # every selected program written, each keyed as a boot keys it (its
+    # recorded call's fingerprint the trace's)
+    import fnmatch
+
+    from dorpatch_tpu_torch.analysis import baseline
+
+    want = sorted(n for n in baseline.load_baseline()["entries"]
+                  if any(fnmatch.fnmatch(n, g) for g in AOT_BUILD_ONLY))
+    split = [n for n, e in manifest["entries"].items()
+             if e.get("recorded_fingerprint")]
+    if sorted(manifest["entries"]) != want or split:
+        raise AssertionError(f"aot build wrote {sorted(manifest['entries'])}"
+                             f" of {want}, recorded calls not their traces "
+                             f"{split}: {log[-3000:]}")
+    methods, eager = {}, {}
+    for name, e in manifest["entries"].items():
+        methods[e["method"]] = methods.get(e["method"], 0) + 1
+        if e["method"] == "eager":
+            eager[name] = (e.get("reason"), e.get("detail", "")[:90])
+    first = sorted(((e["build_compile_s"], n) for n, e in
+                    manifest["entries"].items()), reverse=True)[:3]
+    print(f"aot build ({smi}): {build_s:.1f} s from its start, beside the "
+          f"cross-check, bf16 bank, sanitize and verify phases (baseline "
+          f"gate included); {len(manifest['entries'])} "
+          f"programs, methods {methods}, eager entries {eager}; kernel "
+          f"library blob {manifest['kernels']['payload_bytes']} bytes; "
+          f"slowest first calls {first}; verify exit 0", flush=True)
+    return store
+
+
 def _farm_specs(model_dir):
     """The farm grid (FARM_BUDGETS x float32/bfloat16) as two specs of
     one farm: an axis cannot pair `attack.compute_dtype` with
@@ -2398,7 +2553,7 @@ def _run_workers(farm, workers):
     return out
 
 
-def farm_phase(torch, dev, out) -> dict:
+def farm_phase(torch, dev, out, aot_store) -> dict:
     """The attack-sweep farm on the CIFAR ResNet-18 trained into `out`
     (`python -m dorpatch_tpu_torch.farm`, worker processes over one farm
     directory): the 4-job grid of `_farm_specs`; a worker with
@@ -2412,10 +2567,15 @@ def farm_phase(torch, dev, out) -> dict:
     patch bit-equal to an uninterrupted `run_sweep` of the same point in
     this process; the ckpt_raise job done at attempts 2; kernels A, B, C
     and the bf16 forms of C and A launched by the draining workers (their
-    `metrics.json`). Prints the phase wall, per-job seconds, the reclaim
-    latency, the iterations the resume saved, the fleet report, and the
-    control run's snapshot saves (ms, bytes). Returns the draining
-    workers' launches by kernel."""
+    `metrics.json`). The draining workers read the AOT store `aot_store`
+    (`--aot-store`, read-only): its manifest must be byte-identical after
+    them, each must write its `aot.json`, and the resumed job's
+    `rows.jsonl` must equal the control run's (which has no store) but for
+    its seconds and resume point. Prints the phase wall, per-job seconds,
+    the reclaim latency, the iterations the resume saved, the workers' AOT
+    hits and misses, the fleet report, and the control run's snapshot
+    saves (ms, bytes). Returns the draining workers' launches by
+    kernel."""
     import dataclasses
 
     import numpy as np
@@ -2450,9 +2610,19 @@ def farm_phase(torch, dev, out) -> dict:
         killed = marked["crash_block"][0]
         dead = last_beat(os.path.join(farm, "workers", "wKill",
                                       heartbeat_filename(0)))
+        with open(os.path.join(aot_store, "manifest.json"), "rb") as fh:
+            manifest = fh.read()
         t0 = time.perf_counter()
-        drain = _run_workers(farm, {"wA": [], "wB": []})
+        drain = _run_workers(farm, {w: ["--aot-store", aot_store]
+                                    for w in ("wA", "wB")})
         t_drain = time.perf_counter() - t0
+        with open(os.path.join(aot_store, "manifest.json"), "rb") as fh:
+            untouched = fh.read() == manifest
+        aot_of = {}
+        for w in ("wA", "wB"):
+            with open(os.path.join(farm, "workers", w, "aot.json")) as fh:
+                rec = json.load(fh)
+            aot_of[w] = (rec["hits"], rec["misses"])
         if any(rc != 0 for rc, _ in drain.values()):
             raise AssertionError(f"farm drain workers: {drain}")
         jobs = {j: jq.read_job(j) for j in ids}
@@ -2492,6 +2662,13 @@ def farm_phase(torch, dev, out) -> dict:
                     == np.load(os.path.join(control, name))).all()
                    for name in ("point_000_mask.npy",
                                 "point_000_pattern.npy"))
+        timing = ("seconds", "resumed_from_stage", "resumed_from_iteration")
+        with open(os.path.join(control, "rows.jsonl")) as fh:
+            control_rows = [{k: v for k, v in json.loads(line).items()
+                             if k not in timing} for line in fh]
+        same_rows = control_rows == [
+            {k: v for k, v in r.items() if k not in timing}
+            for r in rows[killed]]
     wall = time.perf_counter() - t_phase
     k, row = jobs[killed], rows[killed][0]
     resumed = (row.get("resumed_from_stage"),
@@ -2514,15 +2691,19 @@ def farm_phase(torch, dev, out) -> dict:
           f"{FARM_TTL}); chaos markers {marked}; drain launches "
           f"{launches}; step time {fleet['step_time']}; control carry "
           f"snapshots (CIFAR, batch 8): {saves.summary()}; resumed patch "
-          f"bit-equal to the control: {same}", flush=True)
+          f"bit-equal to the control: {same}; draining workers' AOT store "
+          f"(hits, misses): {aot_of}, manifest untouched {untouched}, "
+          f"resumed rows equal the control's {same_rows}", flush=True)
     states = {j: job["state"] for j, job in jobs.items()}
     if set(states.values()) != {"done"} or len(ids) != 4:
         raise AssertionError(f"farm jobs lost: {states}")
     if (k["attempts"], k.get("reclaims")) != (2, 1) or not resumed[1]:
         raise AssertionError(f"killed job {killed}: {k}, row {row}")
-    if not same:
-        raise AssertionError("the crash-resumed farm patch differs from the "
-                             "uninterrupted control run")
+    if not same or not same_rows:
+        raise AssertionError("the crash-resumed farm patch or rows differ "
+                             "from the uninterrupted control run")
+    if not untouched:
+        raise AssertionError("a farm worker wrote the AOT store")
     raised = marked["ckpt_raise"]
     if (len(raised) != 1 or not marked["enospc_events"]
             or jobs[raised[0]]["attempts"] != 2
@@ -2656,7 +2837,7 @@ def _busy_share(trace_path, window_s):
 
 def serve_path(torch, dev, label, argv, images, required, smi,
                concurrency=SERVE_CONCURRENCY, drill=False, profile_s=0.0,
-               ref_cache=None):
+               ref_cache=None, aot=False):
     """One serving path: `CertifiedInferenceService.from_config` on the
     CLI flags `argv` and `HttpFrontend` on a free port, in this process;
     `images` sent over HTTP by `_closed_loop`, with the launch counts set
@@ -2680,10 +2861,17 @@ def serve_path(torch, dev, label, argv, images, required, smi,
     seconds once it runs: the device's busy share of the capture is
     printed (the rest is the share of a served batch the host holds the
     card idle). `ref_cache` keeps the reference's answers by bank and
-    batch across paths that serve the same images. Prints,
-    beside the card, the warmup seconds per replica, the latency
-    percentiles, images/s, batch occupancy and forwards per image. Returns
-    the launch counts."""
+    batch across paths that serve the same images. With `aot` the service
+    boots `--aot auto` on an empty executable store: replica 0 must miss
+    every program ("absent") and write it, replica 1 hit every one with no
+    miss, and the programs named by SERVE_AOT_GRAPHS must be CUDA graphs
+    (their replays count their kernels' launches). Prints, beside the
+    card, the start and warmup seconds per replica (and each replica's AOT
+    boot: seconds, methods, eager entries with their reasons, the kernel
+    library's source), the latency percentiles, images/s, batch occupancy,
+    forwards per image and the peak device memory, and with `aot` the
+    seconds of a warmup run after the boot on replica 0. Returns the launch
+    counts and those numbers."""
     import threading
     import urllib.request
 
@@ -2704,13 +2892,26 @@ def serve_path(torch, dev, label, argv, images, required, smi,
         return need_pairs, row_list
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as root:
+        aot_argv = (["--aot", "auto", "--aot-cache", f"{root}/aot_store"]
+                    if aot else [])
         cfg = config_from_args(build_parser().parse_args(
-            argv + ["--results-root", root, "--serve-port", "0"]))
+            argv + aot_argv + ["--results-root", root, "--serve-port", "0"]))
         deadline_ms = cfg.serve.deadline_ms
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         svc = CertifiedInferenceService.from_config(cfg)
         svc.start()
         start_s = time.perf_counter() - t0
+        boots = [r.aot_stats for r in svc._pool.replicas]
+        rewarm_s = None
+        if aot:
+            # the warmup a fully booted bank skips (its boot ran every
+            # program at every shape), timed once on replica 0's graphs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc.warmup()
+            rewarm_s = time.perf_counter() - t0
 
         def counts_of_banks():
             return [svc._bank_trace_counts(r.clean, r.defenses)
@@ -2763,6 +2964,7 @@ def serve_path(torch, dev, label, argv, images, required, smi,
             defense.schedule_round2 = plain
         after = counts_of_banks()
         svc.stop()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         with open(f"{root}/serve/events.jsonl") as fh:
             events = [json.loads(line) for line in fh]
         busy = None
@@ -2774,6 +2976,22 @@ def serve_path(torch, dev, label, argv, images, required, smi,
 
             busy = _busy_share(f"{prof['dir']}/{timing.TRACE_FILE}",
                                profile_s)
+    # -- the AOT boots --
+    if aot:
+        b0, b1 = boots[0], boots[1]
+        n_prog = len(b0["programs"])
+        graphs = [p for p in b0["programs"]
+                  if p.split("[")[0].rsplit(".r", 1)[0] in SERVE_AOT_GRAPHS]
+        eager_graphs = sorted(set(graphs) & set(b0["eager"]))
+        if (b0["builds"] != n_prog or b0["hits"]
+                or b0["miss_reasons"] != {"absent": n_prog}
+                or b1["hits"] != n_prog or b1["misses"]
+                or sorted(b1["programs"]) != sorted(b0["programs"])
+                or not graphs or eager_graphs):
+            raise AssertionError(
+                f"{label} serve path: AOT boots: replica 0 {b0}, replica 1 "
+                f"{b1}; programs that must be CUDA graphs but are eager: "
+                f"{ {p: b0['eager'][p] for p in eager_graphs} }")
     # -- every answer ok, inside its deadline, once --
     bad = [(i, c, a.get("status")) for i, (c, a, _) in enumerate(answers)
            if c != 200 or a.get("status") != "ok"
@@ -2900,8 +3118,19 @@ def serve_path(torch, dev, label, argv, images, required, smi,
              f"capture ({busy[1]} kernels and copies); " if busy and busy[1]
              else "device busy share not measured (the capture holds no "
              "device event); " if busy else "")
+          + f"peak device memory {peak_gib:.2f} GiB; "
+          + (f"AOT boots (seconds, builds, hits, misses, methods, eager "
+             f"entries, kernel library): " + "; ".join(
+                 f"replica {i}: {b['boot_s']} s, {b['builds']}, {b['hits']},"
+                 f" {b['misses']}, {b['methods']}, {b['eager']}, "
+                 f"{b['kernels']}, saved {b['saved_s']} s"
+                 for i, b in enumerate(boots))
+             + f"; warmup after the full boot (replica 0, replays) "
+             f"{rewarm_s:.2f} s; " if aot else "")
           + f"launches {counts}; routes {routes}", flush=True)
-    return counts
+    return counts, {"p50_ms": pct(0.5), "images_s": n / wall,
+                    "busy": busy[0] if busy and busy[1] else None,
+                    "peak_gib": peak_gib, "start_s": start_s}
 
 
 def _first_start(events, replica):
@@ -2916,32 +3145,45 @@ def _first_start(events, replica):
 
 def serve_phase(torch, dev, out, smi):
     """The serving paths (SERVE_*), each held by `serve_path`: RN50 at 224
-    with 1 and 2 replicas in float32, with 2 in the bf16 bank; the CIFAR
-    ResNet-18 trained into `out` with 2 replicas and the wedge_dispatch
-    drill; ViT-B/16's bf16 bank at batch 1. Returns the serve paths'
-    kernel records with their launches (from the 2-replica runs)."""
+    with 2 replicas in float32, eager and then booted from an empty AOT
+    store (its batches CUDA graphs; each run's served batch profiled, the
+    two set side by side), with 2 in the bf16 bank; the CIFAR ResNet-18
+    trained into `out` with 2 replicas and the wedge_dispatch drill;
+    ViT-B/16's bf16 bank at batch 1 with one replica. Returns the serve
+    paths' kernel records with their launches (from the RN50 graphed run,
+    the bf16 bank's and the CIFAR drill's)."""
     from dorpatch_tpu_torch import data
 
     t0 = time.perf_counter()
     recs = serve_kernels(torch, dev)
     print(f"serve kernels: {time.perf_counter() - t0:.1f} s", flush=True)
     rn50 = _serve_images(224, SERVE_RN50_REQUESTS, 1234)
-    counts, ref_cache = {}, {}
-    for label, flags, reps in (("RN50", [], (1, 2)),
-                               ("RN50 bf16", CERTIFY_BF16, (2,))):
-        for replicas in reps:
-            t0 = time.perf_counter()
-            counts[label] = serve_path(
-                torch, dev, label, SERVE_RN50_ARGV + flags + [
-                    "--serve-replicas", str(replicas)], rn50,
-                SERVE_KERNELS[label], smi,
-                profile_s=SERVE_PROFILE_S if replicas == 2 else 0.0,
-                ref_cache=ref_cache)
-            print(f"{label} serve phase ({replicas} replicas): "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    counts, ref_cache, numbers = {}, {}, {}
+    for label, flags, graphed, profile_s in (
+            ("RN50", [], False, SERVE_PROFILE_S),
+            ("RN50", [], True, SERVE_PROFILE_S),
+            ("RN50 bf16", CERTIFY_BF16, False, 0.0)):
+        t0 = time.perf_counter()
+        counts[label], numbers[label, graphed] = serve_path(
+            torch, dev, label + (" AOT" if graphed else ""),
+            SERVE_RN50_ARGV + flags + ["--serve-replicas", "2"], rn50,
+            SERVE_KERNELS[label], smi, profile_s=profile_s,
+            ref_cache=ref_cache, aot=graphed)
+        print(f"{label}{' AOT' if graphed else ''} serve phase (2 "
+              f"replicas): {time.perf_counter() - t0:.1f} s", flush=True)
+    eager, graphs = numbers["RN50", False], numbers["RN50", True]
+    print(f"RN50 float32 served, 2 replicas, bucket {SERVE_RN50_BATCH}, "
+          f"one batch of {SERVE_RN50_REQUESTS} requests a run (one sample "
+          f"each; {smi}), CUDA graphs against eager: client p50 "
+          f"{graphs['p50_ms']:.0f} / {eager['p50_ms']:.0f} ms, "
+          f"{graphs['images_s']:.3f} / {eager['images_s']:.3f} images/s, "
+          f"device busy {graphs['busy']} / {eager['busy']} of a served "
+          f"batch, start {graphs['start_s']:.1f} / {eager['start_s']:.1f} s, "
+          f"peak device memory {graphs['peak_gib']:.2f} / "
+          f"{eager['peak_gib']:.2f} GiB", flush=True)
     t0 = time.perf_counter()
     held_out, _ = data.procedural_arrays("cifar10", 3, 32, 1234, "test")
-    counts["CIFAR"] = serve_path(
+    counts["CIFAR"], _ = serve_path(
         torch, dev, "trained CIFAR", SERVE_CIFAR_ARGV + [
             "--model_dir", out, "--data-source", "procedural"],
         held_out[:SERVE_REQUESTS], SERVE_KERNELS["CIFAR"], smi,
@@ -2949,7 +3191,7 @@ def serve_phase(torch, dev, out, smi):
     print(f"trained CIFAR serve phase (failover drill): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    counts["ViT bf16"] = serve_path(
+    counts["ViT bf16"], _ = serve_path(
         torch, dev, "ViT bf16", SERVE_VIT_ARGV,
         _serve_images(224, SERVE_VIT_REQUESTS, 99),
         SERVE_KERNELS["ViT bf16"], smi, concurrency=2)
@@ -3127,7 +3369,7 @@ def _recert_drain(torch, label, recert_dir, spec_path, baseline):
     return wall, {k: v for k, v in launches.items() if v}, per_job
 
 
-def fleet_phase(torch, dev, out, smi) -> dict:
+def fleet_phase(torch, dev, out, smi, aot_store) -> dict:
     """The certified fleet on the CIFAR ResNet-18 trained into `out`,
     mirroring the JAX package's recert and gateway drills on the card.
 
@@ -3150,8 +3392,14 @@ def fleet_phase(torch, dev, out, smi) -> dict:
        "ok" verdict.
     3. The fleet: two `python -m dorpatch_tpu_torch.serve` processes
        (FLEET_SERVE_ARGV, `--require-recert strict` on the ok directory;
-       the second with `--chaos kill_backend`) and a third, the canary,
-       boot at once; an in-process `Gateway` fronts the first two.
+       the second with `--chaos kill_backend`) and a third, the canary;
+       an in-process `Gateway` fronts the first two. The warn service of
+       step 2 boots `--aot auto` on the fleet's empty AOT store, which it
+       writes (every program and the kernel library's blob); the three
+       backends boot together on that store, the stable ones `--aot
+       auto`, the canary `--aot strict`: each must hit every program with
+       0 misses, its kernel library from the store. Meanwhile a strict
+       boot on an empty store must refuse (`AotBootError`) before warmup.
        FLEET_REQUESTS closed-loop requests (concurrency 1) through it
        while backend 2 SIGKILLs itself: every answer ok, answered once,
        equal to the port's `robust_predict` on the same image (per radius
@@ -3159,8 +3407,11 @@ def fleet_phase(torch, dev, out, smi) -> dict:
        some request re-dispatched, backend 2 ejected. The canary joins;
        `RollingDeploy` with `poison_canary` must roll back (the
        `gateway.rollback` event and counter, the canary drained, the
-       stable weight restored), and FLEET_POST more requests must be
-       answered by the stable backend.
+       stable weight restored) on the poisoned DP400 verdict and on the
+       DP305 finding that `aot verify` reports on a copy of `aot_store`
+       with one fingerprint edited (its `finding_source`; `aot verify`
+       exits 0 on `aot_store` itself), and FLEET_POST more requests must
+       be answered by the stable backend.
     4. The report: `python -m dorpatch_tpu_torch.observe.report --fleet`
        over the client, the gateway and the three backends must exit 0
        (client == gateway == the sum of the backends, no orphaned trace
@@ -3175,9 +3426,13 @@ def fleet_phase(torch, dev, out, smi) -> dict:
     launches after warmup (their metrics.json)}."""
     import numpy as np
 
+    import dataclasses
+    import shutil
+
     from dorpatch_tpu_torch import data, defense, ops
+    from dorpatch_tpu_torch.aot import AotBootError
     from dorpatch_tpu_torch.cli import build_parser, config_from_args
-    from dorpatch_tpu_torch.config import GatewayConfig
+    from dorpatch_tpu_torch.config import AotConfig, GatewayConfig
     from dorpatch_tpu_torch.gateway import Gateway, GatewayFrontend, \
         RollingDeploy
     from dorpatch_tpu_torch.gateway.membership import backend_name
@@ -3308,8 +3563,14 @@ def fleet_phase(torch, dev, out, smi) -> dict:
             raise AssertionError(f"strict boot on a failing verdict: "
                                  f"refused {refused!r}, victims built "
                                  f"{len(built)}, launches {launched}")
-        warn_cfg = serve_cfg(d["warn"], "warn")
+        # the warn service boots `--aot auto` on the fleet's empty store:
+        # it writes every program and the kernel library's blob there
+        fleet_store = os.path.join(tmp, "aot_fleet")
+        warn_cfg = dataclasses.replace(
+            serve_cfg(d["warn"], "warn"),
+            aot=AotConfig(cache_dir=fleet_store, mode="auto"))
         svc = CertifiedInferenceService.from_config(warn_cfg).start()
+        warn_aot = svc.stats()["aot"]
         try:
             with HttpFrontend(svc, "127.0.0.1", 0) as fe:
                 url = f"http://127.0.0.1:{fe.port}"
@@ -3347,16 +3608,71 @@ def fleet_phase(torch, dev, out, smi) -> dict:
         urls = [f"http://127.0.0.1:{p}" for p in ports]
         fleet_argv = FLEET_SERVE_ARGV + ["--model_dir", out, "--recert-dir",
                                          d["chaos"], "--require-recert",
-                                         "strict"]
+                                         "strict", "--aot-cache",
+                                         fleet_store]
         roots = [d["backend1"], d["backend2"], d["canary"]]
         t0 = time.perf_counter()
-        procs = [_spawn_backend(roots[0], ports[0], fleet_argv),
+        procs = [_spawn_backend(roots[0], ports[0],
+                                fleet_argv + ["--aot", "auto"]),
                  _spawn_backend(roots[1], ports[1], fleet_argv
-                                + ["--chaos", "kill_backend"]),
-                 _spawn_backend(roots[2], ports[2], fleet_argv)]
+                                + ["--aot", "auto", "--chaos",
+                                   "kill_backend"]),
+                 _spawn_backend(roots[2], ports[2],
+                                fleet_argv + ["--aot", "strict"])]
         try:
+            # -- the AOT store: DP305 on an edited copy, strict on empty --
+            held = ["--baseline-file", aot_baseline(aot_store)]
+            vrc, _, verr = _aot("verify", "--store", aot_store, *held)
+            edited = os.path.join(tmp, "aot_edited")
+            shutil.copytree(aot_store, edited)
+            mpath = os.path.join(edited, "manifest.json")
+            with open(mpath) as fh:
+                manifest = json.load(fh)
+            drifted = sorted(manifest["entries"])[0]
+            manifest["entries"][drifted]["fingerprint"] = "0" * 16
+            with open(mpath, "w") as fh:
+                json.dump(manifest, fh)
+            erc, eout, _ = _aot("verify", "--store", edited, *held,
+                                "--format", "json")
+            dp305 = [f"{r['rule']}: {r['message']}" for r in
+                     (json.loads(line) for line in eout.splitlines() if line)]
+            if vrc != 0 or erc != 1 or not dp305 or any(
+                    not f.startswith(f"DP305: [{drifted}]") for f in dp305):
+                raise AssertionError(f"aot verify: exit {vrc} on the store "
+                                     f"({verr[-1000:]}), {erc} on the edited "
+                                     f"copy: {dp305}")
+            empty_cfg = config_from_args(build_parser().parse_args(
+                FLEET_SERVE_ARGV + ["--model_dir", out, "--results-root",
+                                    d["strict"], "--serve-port", "0", "--aot",
+                                    "strict", "--aot-cache",
+                                    os.path.join(tmp, "aot_empty")]))
+            t_ref = time.perf_counter()
+            svc = CertifiedInferenceService.from_config(empty_cfg)
+            try:
+                svc.start()
+                refused_aot = None
+            except AotBootError as e:
+                refused_aot = str(e)
+            aot_refuse_s = time.perf_counter() - t_ref
+            with open(os.path.join(d["strict"], "serve",
+                                   "events.jsonl")) as fh:
+                warmed = [e for e in map(json.loads, fh) if str(
+                    e.get("name", "")).startswith("serve.warmup")]
+            if refused_aot is None or svc._warm or warmed:
+                raise AssertionError(f"strict AOT boot on an empty store: "
+                                     f"refused {refused_aot!r}, warmup events "
+                                     f"{warmed}")
+            del svc
+            print(f"fleet AOT store ({smi}): verify exit 0 on the build's "
+                  f"store, exit 1 on a copy with {drifted}'s fingerprint "
+                  f"edited ({len(dp305)} DP305 finding(s)); strict boot on "
+                  f"an empty store refused in {aot_refuse_s:.2f} s before "
+                  f"warmup: {refused_aot[:160]}", flush=True)
+
             boots = [round(_await_warm(p, u, r, t0), 1)
                      for p, u, r in zip(procs, urls, roots)]
+            aot_boots = [json.loads(_get(u + "/stats")[1])["aot"]
+                         for u in urls]
             names = [backend_name(u) for u in urls]
             cfg = GatewayConfig(
                 backends=tuple(urls[:2]), probe_interval_s=0.3,
@@ -3397,8 +3713,9 @@ def fleet_phase(torch, dev, out, smi) -> dict:
                                              "the killed backend")
                     time.sleep(0.1)
                 gateway.add_backend(urls[2])
-                deploy = RollingDeploy(gateway, [names[2]]).run(
-                    warm_timeout_s=60)
+                deploy = RollingDeploy(
+                    gateway, [names[2]],
+                    finding_source=lambda: dp305).run(warm_timeout_s=60)
                 snaps = {b.name: b.snapshot()
                          for b in gateway.registry.backends()}
                 rollbacks = int(gateway.metrics.value(
@@ -3488,7 +3805,12 @@ def fleet_phase(torch, dev, out, smi) -> dict:
     svc_lat = [a["latency_ms"] / 1e3 for _, a, _ in answers[:FLEET_REQUESTS]
                if "latency_ms" in a]
     print(f"fleet phase ({smi}): {wall:.1f} s wall; backends warm in "
-          f"{boots} s from their start (together); "
+          f"{boots} s from their start (together); AOT boots (mode, boot s, "
+          f"builds, hits, misses, kernel library) of the warn service and "
+          f"the backends: "
+          + "; ".join(f"{b['mode']} {b['boot_s']} s {b['builds']} "
+                      f"{b['hits']} {b['misses']} {b['kernels']}"
+                      for b in [warn_aot] + aot_boots) + "; "
           f"{FLEET_REQUESTS} requests through the gateway in {load_s:.2f} s "
           f"({FLEET_REQUESTS / load_s:.2f} images/s at concurrency 1), "
           f"client latency p50/p95/p99 {_pcts(gw_lat)} ms (the backends' "
@@ -3513,8 +3835,17 @@ def fleet_phase(torch, dev, out, smi) -> dict:
         raise AssertionError(f"kill_backend: marker {t_kill}, exit "
                              f"{procs[1].returncode}, re-dispatched "
                              f"{retried}, answered by {by_backend}")
+    n_prog = warn_aot["builds"]
+    if (not n_prog or warn_aot["misses"] != n_prog or warn_aot["hits"]
+            or [b["mode"] for b in aot_boots] != ["auto", "auto", "strict"]
+            or [(b["hits"], b["misses"], b["kernels"]) for b in aot_boots]
+            != [(n_prog, 0, "store")] * 3):
+        raise AssertionError(f"fleet AOT boots: warn service {warn_aot}, "
+                             f"backends {aot_boots}")
     if (deploy["outcome"] != "rolled_back" or "DP400" not in
-            deploy["reason"] or rollbacks != 1 or t_poison is None
+            deploy["reason"] or "DP305" not in deploy["reason"]
+            or not set(dp305) <= set(deploy["findings"])
+            or rollbacks != 1 or t_poison is None
             or snaps[names[2]]["state"] != "draining"
             or snaps[names[2]]["weight"] != 0.0
             or snaps[names[0]]["weight"] != 1.0
@@ -4954,60 +5285,77 @@ def main() -> int:
             COUNT_OF.get(rec["name"], rec["name"]), 0)
     print(f"remat phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    t0 = time.perf_counter()
-    cross_check(torch, dev, "cifar10", "resnet18", 32, 8)
-    victim, x = cross_check(torch, dev, "imagenet", "resnetv2", 224, 4)
-    gn_logits_check(torch, dev, victim, x)
-    del victim, x
-    for lift in (0.0, 4.0):
-        vit_cross_check(torch, dev, 4, lift)
-    mixer_cross_check(torch, dev, 4, 0.0, gate=False)
-    for lift in (0.0, 4.0):
-        mixer_cross_check(torch, dev, 4, lift, layerscale=0.1)
-    print(f"cross-check phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    for arch in ("resnetv2", "vit"):
-        for lift in (0.0, 4.0):
-            bank_cross_check(torch, dev, arch, 4, lift)
-    bank_cross_check(torch, dev, "resnetv2", 2, 4.0, 480)
-    consensus_cross_check(torch, dev, 4, 4.0)
-    print(f"bf16 bank phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    aot_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_aot_")
+    aot_build = None
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_victims_") as out:
+            t0 = time.perf_counter()
+            train_phase(torch, dev, out)
+            print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
+            t0 = time.perf_counter()
+            trained_phase(torch, dev, out)
+            print(f"trained-victim phase: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_victims_") as out:
-        t0 = time.perf_counter()
-        train_phase(torch, dev, out)
-        print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
-        t0 = time.perf_counter()
-        trained_phase(torch, dev, out)
-        print(f"trained-victim phase: {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        t0 = time.perf_counter()
-        sanitize_phase(torch, dev, out)
-        verify_phase(torch, dev, out)
-        print(f"sanitize and verify phase: {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        t0 = time.perf_counter()
-        farm = farm_phase(torch, dev, out)
-        print(f"farm phase: {time.perf_counter() - t0:.1f} s", flush=True)
-        # the farm runs the CIFAR shapes: its launches beside their records
-        for rec in cifar_kernels + cifar_bf16:
-            rec["farm_launches"] = farm.get(
-                COUNT_OF.get(rec["name"], rec["name"]), 0)
-        t0 = time.perf_counter()
-        serve_kernels_recs = serve_phase(torch, dev, out, smi)
-        print(f"serve phase: {time.perf_counter() - t0:.1f} s", flush=True)
-        t0 = time.perf_counter()
-        fleet = fleet_phase(torch, dev, out, smi)
-        print(f"fleet phase: {time.perf_counter() - t0:.1f} s", flush=True)
-        # the recert drain runs the CIFAR shapes (bf16), the backends the
-        # CIFAR serve shapes: their launches beside those records
-        for rec in cifar_kernels + cifar_bf16:
-            rec["recert_launches"] = fleet["recert"].get(
-                COUNT_OF.get(rec["name"], rec["name"]), 0)
-        for rec in serve_kernels_recs:
-            if rec["name"].endswith("_serve_cifar"):
-                rec["fleet_launches"] = fleet["backends"].get(
-                    rec["name"][:-len("_serve_cifar")], 0)
+            # the AOT store's build runs in the background from here to the
+            # farm, beside the phases that time nothing they record
+            aot_build = start_aot_build(os.path.join(aot_tmp.name, "store"))
+            t0 = time.perf_counter()
+            cross_check(torch, dev, "cifar10", "resnet18", 32, 8)
+            victim, x = cross_check(torch, dev, "imagenet", "resnetv2", 224,
+                                    CROSS_CHECK_BATCH)
+            gn_logits_check(torch, dev, victim, x)
+            del victim, x
+            for lift in (0.0, 4.0):
+                vit_cross_check(torch, dev, CROSS_CHECK_BATCH, lift)
+            mixer_cross_check(torch, dev, CROSS_CHECK_BATCH, 0.0, gate=False)
+            for lift in (0.0, 4.0):
+                mixer_cross_check(torch, dev, CROSS_CHECK_BATCH, lift,
+                                  layerscale=0.1)
+            print(f"cross-check phase: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            t0 = time.perf_counter()
+            for arch in ("resnetv2", "vit"):
+                for lift in (0.0, 4.0):
+                    bank_cross_check(torch, dev, arch, CROSS_CHECK_BATCH,
+                                     lift)
+            bank_cross_check(torch, dev, "resnetv2", 2, 4.0, 480)
+            consensus_cross_check(torch, dev, CROSS_CHECK_BATCH, 4.0)
+            print(f"bf16 bank phase: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            t0 = time.perf_counter()
+            sanitize_phase(torch, dev, out)
+            verify_phase(torch, dev, out)
+            print(f"sanitize and verify phase: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            aot_store = finish_aot_build(aot_build, smi)
+            t0 = time.perf_counter()
+            farm = farm_phase(torch, dev, out, aot_store)
+            print(f"farm phase: {time.perf_counter() - t0:.1f} s", flush=True)
+            # the farm runs the CIFAR shapes: its launches beside their records
+            for rec in cifar_kernels + cifar_bf16:
+                rec["farm_launches"] = farm.get(
+                    COUNT_OF.get(rec["name"], rec["name"]), 0)
+            t0 = time.perf_counter()
+            serve_kernels_recs = serve_phase(torch, dev, out, smi)
+            print(f"serve phase: {time.perf_counter() - t0:.1f} s", flush=True)
+            t0 = time.perf_counter()
+            fleet = fleet_phase(torch, dev, out, smi, aot_store)
+            print(f"fleet phase: {time.perf_counter() - t0:.1f} s", flush=True)
+            # the recert drain runs the CIFAR shapes (bf16), the backends the
+            # CIFAR serve shapes: their launches beside those records
+            for rec in cifar_kernels + cifar_bf16:
+                rec["recert_launches"] = fleet["recert"].get(
+                    COUNT_OF.get(rec["name"], rec["name"]), 0)
+            for rec in serve_kernels_recs:
+                if rec["name"].endswith("_serve_cifar"):
+                    rec["fleet_launches"] = fleet["backends"].get(
+                        rec["name"][:-len("_serve_cifar")], 0)
+    finally:
+        if aot_build is not None and aot_build[0].poll() is None:
+            aot_build[0].kill()
+            aot_build[0].wait()
+        aot_tmp.cleanup()
 
     print(f"chip_smoke total: {time.perf_counter() - start:.1f} s",
           flush=True)

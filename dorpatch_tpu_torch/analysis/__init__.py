@@ -17,7 +17,9 @@ Port of `dorpatch_tpu.analysis`, with these wings:
   and static cost vector against the checked-in `baselines.json`.
 - **Runtime** (`sanitize.py`, `lockwatch.py`): the `--sanitize` flag.
 
-The comms wing (DP600-DP603) and DP305 are not ported yet. Importing the
+DP305 (the AOT store's drift against the baseline) is reported by
+`python -m dorpatch_tpu_torch.aot verify`. The comms wing (DP600-DP603)
+is not ported yet. Importing the
 package, the engine, the AST rules or the CLI loads no torch (the
 re-certification and gateway CLIs emit findings through it); the trace
 and baseline wings import torch when they run.

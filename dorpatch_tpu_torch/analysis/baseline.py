@@ -37,7 +37,8 @@ deterministically — sorted keys, normalized numbers — so diffs review):
 - **DP300 fingerprint-drift**, **DP301 cost-regression** (flops/bytes past
   the entry's tolerance; names the op), **DP302 entrypoint-set-drift**,
   **DP303 budget-ladder-mismatch**, **DP304 interface-drift** — the JAX
-  package's rules. DP305 (the AOT store) comes with `aot/`.
+  package's rules — and **DP305 aot-store-drift**, which `python -m
+  dorpatch_tpu_torch.aot verify` reports (`aot/store.verify_against`).
 
 XLA's compiled `cost_analysis` (`--baseline-cost compiled`) has no eager
 counterpart: the CLI refuses it.
@@ -87,11 +88,13 @@ BASELINE_RULE_ROWS: Tuple[Tuple[str, str, str], ...] = (
      "input/output signature or in-place-write drift with an UNCHANGED "
      "body fingerprint"),
     ("DP305", "aot-store-drift",
-     "not ported yet: the AOT store (aot/) comes in its own slice"),
+     "AOT executable store entry disagrees with analysis/baselines.json "
+     "(stale fingerprint/interface, missing entry, corrupt blob) or was "
+     "built for another environment — `python -m dorpatch_tpu_torch.aot "
+     "verify`"),
 )
 
-BASELINE_RULE_IDS: Tuple[str, ...] = tuple(
-    r[0] for r in BASELINE_RULE_ROWS if r[0] != "DP305")
+BASELINE_RULE_IDS: Tuple[str, ...] = tuple(r[0] for r in BASELINE_RULE_ROWS)
 
 #: Cap the stored per-op breakdown.
 TOP_K_PRIMITIVES = 8
@@ -267,6 +270,12 @@ def interface_record(ctx) -> Dict[str, Any]:
             if arg.alias_info is not None and arg.alias_info.is_write \
                     and a in index:
                 mutated.add(index[a])
+    return _interface(ins, outs, mutated)
+
+
+def _interface(ins: List[str], outs: List[str], mutated) -> Dict[str, Any]:
+    """The interface record of input and output signatures and written
+    inputs, with its sha."""
     rec: Dict[str, Any] = {
         "inputs": {"count": len(ins), "sha": _sha("|".join(ins)),
                    "head": ins[:4]},
@@ -276,6 +285,208 @@ def interface_record(ctx) -> Dict[str, Any]:
     }
     rec["sha"] = _sha(json.dumps(rec, sort_keys=True))
     return rec
+
+
+def _seedless(func, args, kwargs):
+    """`func`'s overload and arguments with its generator taken out, as a
+    trace records a draw (`program._NoGenerators`): `rand.generator` is
+    `rand.default`, `randint.low_generator` is `randint.low`."""
+    import torch
+
+    gen = torch.Generator
+    args = tuple(a for a in args if not isinstance(a, gen))
+    kwargs = {k: v for k, v in kwargs.items() if not isinstance(v, gen)}
+    name = func._overloadname
+    if name == "generator" or name.endswith("_generator"):
+        base = name[:-len("generator")].rstrip("_") or "default"
+        func = getattr(func.overloadpacket, base)
+    return func, args, kwargs
+
+
+def _has_tensor(x) -> bool:
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return True
+    if isinstance(x, (tuple, list)):
+        return any(_has_tensor(v) for v in x)
+    return False
+
+
+class _OpInfo:
+    """What the record needs of an op overload, worked out once."""
+
+    __slots__ = ("name", "packet", "kernel", "writes", "seeded")
+
+    def __init__(self, func, kernel_namespace: str):
+        schema = func._schema
+        self.packet = schema.name.split("::")[-1]
+        self.name = f"{func.namespace}.{self.packet}.{func._overloadname}"
+        self.kernel = func.namespace == kernel_namespace
+        self.writes = tuple(
+            i for i, arg in enumerate(schema.arguments)
+            if arg.alias_info is not None and arg.alias_info.is_write)
+        # "Generator" or "Optional[Generator]"
+        self.seeded = any("Generator" in str(arg.type)
+                          for arg in schema.arguments)
+
+
+_OP_INFO: Dict[Any, _OpInfo] = {}
+
+
+def canonical_run(fn, args: Tuple[Any, ...] = (),
+                  kwargs: Optional[Dict[str, Any]] = None):
+    """Run `fn(*args, **kwargs)` for real, recording what `canonical_graph`
+    renders of its trace: `(text, output, interface sha, indices of the
+    inputs written in place)`. The record is taken at the dispatcher, where
+    `make_fx` takes its graph, and renders each op as that graph's node
+    would render: inputs by position, values by first appearance, a
+    closed-over tensor a new constant at each use (a parameter by
+    signature, any other by its bytes), a device copy or a lifted constant
+    its source, a tuple result's elements as `getitem`s, a draw without
+    its generator. So it costs one eager call and tens of microseconds an
+    op instead of a trace, which is how a warm boot (`aot/boot.py`) keys
+    a program at serving size; the fingerprint of `text` is the trace's
+    (`tests/test_torch_aot.py` holds them equal on the registry's
+    programs)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from dorpatch_tpu_torch.analysis.program import (KERNEL_NAMESPACE,
+                                                     tensor_leaves,
+                                                     tensor_sig)
+
+    kwargs = dict(kwargs or {})
+    token = object()        # names of this record, kept on the tensors
+    Tensor, Parameter = torch.Tensor, torch.nn.Parameter
+    sigs: Dict[Any, str] = {}
+
+    def sig(t, layout: bool = True) -> str:
+        """`tensor_sig` (or its layout-free head), memoized by geometry."""
+        key = (t.shape, t.dtype, t.stride())
+        got = sigs.get(key)
+        if got is None:
+            got = sigs[key] = tensor_sig(t)
+        return got if layout else got.split(":")[0]
+
+    def value_sig(v, layout: bool) -> str:
+        if isinstance(v, Tensor):
+            return sig(v, layout)
+        if isinstance(v, (tuple, list)):
+            return "(" + ",".join(value_sig(x, layout) for x in v) + ")"
+        return _value_sig(v, layout)
+
+    lines: List[str] = []
+    count = [0]
+    mutated = set()
+    shas: Dict[int, Tuple[Any, int, str]] = {}
+    inputs = tensor_leaves((tuple(args), kwargs))
+    ins: List[str] = []
+    for i, t in enumerate(inputs):
+        t._dp_rec = (token, f"p{i}")
+        lines.append(f"p{i} = input {_value_sig(t, False)}")
+        ins.append(_value_sig(t))
+
+    def name_of(t) -> Optional[str]:
+        rec = t.__dict__.get("_dp_rec")
+        return rec[1] if rec is not None and rec[0] is token else None
+
+    def bytes_sha(t) -> str:
+        # a constant read at every use (rects, plans): hashed once a version
+        got = shas.get(id(t))
+        if got is None or got[0] is not t or got[1] != t._version:
+            got = (t, t._version, tensor_bytes_sha(t))
+            shas[id(t)] = got
+        return got[2]
+
+    plain = (int, float, bool)
+
+    def ref(a) -> str:
+        """A value as the graph holds it: the name of a tensor (a new
+        constant for an untracked one), containers rendered."""
+        if isinstance(a, Tensor):
+            rec = a.__dict__.get("_dp_rec")
+            if rec is not None and rec[0] is token:
+                return rec[1]
+            name = f"v{count[0]}"
+            count[0] += 1
+            if isinstance(a, Parameter):
+                what = f"param {sig(a)}"
+            else:
+                what = f"const {sig(a)}:{bytes_sha(a)}"
+            lines.append(f"{name} = {what}")
+            return name
+        if type(a) in plain:
+            return repr(a)
+        if isinstance(a, tuple):
+            return "(" + ",".join(ref(x) for x in a) + ")"
+        if isinstance(a, list):
+            return "[" + ",".join(ref(x) for x in a) + "]"
+        return _norm_arg(a, {})
+
+    def track(val, name: str) -> None:
+        if isinstance(val, torch.Tensor):
+            val._dp_rec = (token, name)
+        elif isinstance(val, (tuple, list)):
+            for i, v in enumerate(val):
+                item = f"v{count[0]}"
+                count[0] += 1
+                lines.append(f"{item} = getitem({name},{i}) -> "
+                             f"{value_sig(v, False)}")
+                track(v, item)
+
+    class Recorder(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            info = _OP_INFO.get(func)
+            if info is None:
+                info = _OP_INFO[func] = _OpInfo(func, KERNEL_NAMESPACE)
+            op_args, op_kwargs = args, kwargs
+            if info.seeded:
+                func2, op_args, op_kwargs = _seedless(func, args, kwargs)
+                info = _OP_INFO.get(func2) or _OpInfo(func2,
+                                                      KERNEL_NAMESPACE)
+            for i in info.writes:
+                if i < len(op_args) and isinstance(op_args[i],
+                                                   torch.Tensor):
+                    name = name_of(op_args[i])
+                    if name is not None and name[0] == "p":
+                        mutated.add(int(name[1:]))
+            out = func(*args, **kwargs)
+            if not isinstance(out, torch.Tensor) and not _has_tensor(out) \
+                    and not _has_tensor(op_args) \
+                    and not any(_has_tensor(v) for v in op_kwargs.values()):
+                return out          # a host computation (promote_types)
+            r_args = [ref(x) for x in op_args]
+            r_kwargs = {k: ref(v) for k, v in op_kwargs.items()}
+            src = op_args[0] if op_args else None
+            if isinstance(src, torch.Tensor) and isinstance(
+                    out, torch.Tensor) and (
+                    info.packet in ("lift_fresh", "lift_fresh_copy")
+                    or (info.packet in ("_to_copy", "to")
+                        and not set(op_kwargs) - {"device", "dtype",
+                                                  "non_blocking", "layout",
+                                                  "memory_format"}
+                        and src.dtype == out.dtype
+                        and tuple(src.shape) == tuple(out.shape))):
+                out._dp_rec = (token, r_args[0])
+                return out
+            name = f"v{count[0]}"
+            count[0] += 1
+            kw = ",".join(f"{k}={r_kwargs[k]}" for k in sorted(r_kwargs))
+            lines.append(f"{name} = {info.name}({','.join(r_args)}"
+                         f"{';' + kw if kw else ''}) -> "
+                         f"{value_sig(out, info.kernel)}")
+            track(out, name)
+            return out
+
+    with Recorder():
+        out = fn(*args, **kwargs)
+        leaves = tensor_leaves(out)
+        lines.append("out (" + ",".join(ref(t) for t in leaves) + ")")
+    outs = [tensor_sig(t) for t in leaves]
+    return ("\n".join(lines), out, _interface(ins, outs, mutated)["sha"],
+            sorted(mutated))
 
 
 # -------------------------------------------------------------- cost model
@@ -575,10 +786,12 @@ def check_entrypoints(
         budgets: Optional[Mapping[str, Optional[int]]] = None,
         ladders: Optional[Mapping[str, int]] = None,
         select: Optional[Sequence[str]] = None,
-        allow: Optional[Dict[str, Dict[str, str]]] = None) -> List[Finding]:
+        allow: Optional[Dict[str, Dict[str, str]]] = None,
+        live_out: Optional[Dict[str, Any]] = None) -> List[Finding]:
     """Diff the live program set against the baseline: DP300-DP304.
     `budgets`/`ladders` feed DP303 (from `entrypoints.declared_budgets()`
-    / `bucket_ladders()`)."""
+    / `bucket_ladders()`). `live_out` receives each program's live entry
+    (the AOT store's build keys on them)."""
     from dorpatch_tpu_torch.analysis import program as program_mod
 
     entries: Mapping[str, Any] = data.get("entries", {})
@@ -592,6 +805,8 @@ def check_entrypoints(
             continue
         anchors[ep.name] = (snap.pop("_path"), snap.pop("_line"))
         live[ep.name] = snap
+    if live_out is not None:
+        live_out.update(live)
 
     for name in sorted(set(live) - set(entries)):
         path, line = anchors.get(name, ("<entrypoint>", 1))

@@ -246,21 +246,38 @@ AUDIT_SEED = 0
 AUDIT_CHUNK = 1024
 AUDIT_SAMPLES = 64
 CPU = torch.device("cpu")
+#: the device the enumerators build on (`registry_device`): the CPU for the
+#: audits, the card for an AOT store's build
+_DEV = CPU
+
+
+@contextlib.contextmanager
+def registry_device(device) -> Iterator[None]:
+    """Build the registry's victims, banks and example arguments on
+    `device` within the scope (`python -m dorpatch_tpu_torch.aot build`
+    materializes the programs on the card). The programs and their
+    fingerprints are the same on every device."""
+    global _DEV
+    prev, _DEV = _DEV, torch.device(device)
+    try:
+        yield
+    finally:
+        _DEV = prev
 
 
 def _victim(arch: str):
-    """`(apply_fn, engine)` of a frozen CIFAR-family victim on the CPU,
-    seeded: its forward and its incremental engine."""
+    """`(apply_fn, engine)` of a frozen CIFAR-family victim on the
+    registry's device, seeded: its forward and its incremental engine."""
     from dorpatch_tpu_torch.models import registry
 
     model = registry.build_bare_model(arch, AUDIT_CLASSES, AUDIT_IMG_SIZE)
-    model = model.eval().requires_grad_(False)
+    model = model.to(_DEV).eval().requires_grad_(False)
     return (registry.VictimForward(model),
             registry.incremental_engine(arch, model, AUDIT_IMG_SIZE))
 
 
 def _imgs(b: int) -> torch.Tensor:
-    return torch.zeros((b, AUDIT_IMG_SIZE, AUDIT_IMG_SIZE, 3))
+    return torch.zeros((b, AUDIT_IMG_SIZE, AUDIT_IMG_SIZE, 3), device=_DEV)
 
 
 def _enumerate_attack(apply_fn) -> None:
@@ -274,10 +291,10 @@ def _enumerate_attack(apply_fn) -> None:
     atk = DorPatch(apply_fn, AUDIT_CLASSES, cfg,
                    recompile_budget=AUDIT_BATCH)
     x = _imgs(AUDIT_BATCH)
-    y = torch.zeros((AUDIT_BATCH,), dtype=torch.long)
+    y = torch.zeros((AUDIT_BATCH,), dtype=torch.long, device=_DEV)
     universe = torch.as_tensor(masks_lib.dropout_universe(
-        AUDIT_IMG_SIZE, cfg.dropout, cfg.dropout_sizes))
-    gen = utils.generator(AUDIT_SEED, CPU)
+        AUDIT_IMG_SIZE, cfg.dropout, cfg.dropout_sizes), device=_DEV)
+    gen = utils.generator(AUDIT_SEED, _DEV)
     state = atk._init_state(gen, x, y, False, int(universe.shape[0]))
     lvx = torch.mean(losses.local_variance(x)[0], dim=-1)
     for stage in (0, 1):
@@ -301,11 +318,13 @@ def _register_bank(defenses, imgs_args=True) -> None:
             if kind == "imgs":
                 register_entrypoint(fn, (imgs,), name=name)
             elif kind == "rows_sets":
-                sets = torch.zeros((w, d.num_first), dtype=torch.long)
+                sets = torch.zeros((w, d.num_first), dtype=torch.long,
+                                   device=_DEV)
                 register_entrypoint(fn, (imgs_g, sets), name=name)
             else:
                 register_entrypoint(
-                    fn, (imgs_g, torch.zeros((w,), dtype=torch.long)),
+                    fn, (imgs_g, torch.zeros((w,), dtype=torch.long,
+                                             device=_DEV)),
                     name=name)
             if kind != "imgs":
                 register_bucket_ladder(name, d.row_bucket_sizes)
@@ -322,7 +341,7 @@ def _enumerate_defense(apply_fn) -> None:
         cfg = DefenseConfig(chunk_size=AUDIT_CHUNK, compute_dtype=dtype,
                             incremental="off")
         _register_bank(build_defenses(apply_fn, AUDIT_IMG_SIZE, cfg,
-                                      device=CPU, recompile_budget=1),
+                                      device=_DEV, recompile_budget=1),
                        imgs_args=dtype == "float32")
 
 
@@ -339,16 +358,17 @@ def _enumerate_incremental() -> None:
             cfg = DefenseConfig(ratios=(0.06,), chunk_size=AUDIT_CHUNK,
                                 compute_dtype=dtype)
             _register_bank(build_defenses(apply_fn, AUDIT_IMG_SIZE, cfg,
-                                          incremental=engine, device=CPU,
+                                          incremental=engine, device=_DEV,
                                           recompile_budget=1),
                            imgs_args=False)
 
 
 def _enumerate_serve(apply_fn) -> None:
-    """The service's programs at each of its buckets (replica 0's bank:
-    every replica runs the same programs under the same names): the clean
-    forward, and its bank's exhaustive and pruned image programs; the
-    rows programs at the bank's smallest row bucket."""
+    """The service's programs as it names them (`trace_entrypoints()`,
+    replica 0's bank: every replica runs the same programs under the same
+    names): at each of its buckets the clean forward and its bank's
+    exhaustive and pruned image programs; the rows programs at the bank's
+    smallest row bucket."""
     from dorpatch_tpu_torch.config import DefenseConfig, ServeConfig
     from dorpatch_tpu_torch.serve.service import CertifiedInferenceService
 
@@ -356,25 +376,12 @@ def _enumerate_serve(apply_fn) -> None:
         apply_fn, num_classes=AUDIT_CLASSES, img_size=AUDIT_IMG_SIZE,
         serve_cfg=ServeConfig(max_batch=4, bucket_sizes=(1, 4)),
         defense_cfg=DefenseConfig(ratios=(0.1,), chunk_size=AUDIT_CHUNK),
-        device=CPU)
-    for b in svc.bucket_sizes:
-        imgs = _imgs(b)
-        register_entrypoint(svc._clean, (imgs,),
-                            name=f"serve.clean_predict[b{b}]")
-        for d in svc.defenses:
-            register_entrypoint(
-                d._predict, (imgs, AUDIT_CLASSES),
-                name=f"defense.predict.r{d.spec.patch_ratio}[b{b}]")
-            for name, fn, kind in d.pruned_programs():
-                if kind == "imgs":
-                    register_entrypoint(fn, (imgs,), name=f"{name}[b{b}]")
+        device=_DEV)
+    for name, fn, args in svc.trace_entrypoints():
+        register_entrypoint(fn, args, name=name)
     for d in svc.defenses:
-        w = int(d.row_bucket_sizes[0])
-        for name, fn, kind in d.pruned_programs():
-            if kind == "rows":
-                register_entrypoint(
-                    fn, (_imgs(w), torch.zeros((w,), dtype=torch.long)),
-                    name=f"{name}[w{w}]")
+        for name, _fn, kind in d.pruned_programs():
+            if kind in ("rows", "rows_sets"):
                 register_bucket_ladder(name, d.row_bucket_sizes)
 
 
@@ -384,14 +391,14 @@ def _enumerate_train() -> None:
 
     cfg = train.TrainConfig()
     model = registry.build_bare_model("cifar_resnet18", AUDIT_CLASSES,
-                                      AUDIT_IMG_SIZE)
+                                      AUDIT_IMG_SIZE).to(_DEV)
     step, evals = train.make_train_programs(
         cfg, model, train.make_optimizer(cfg, model))
     b = AUDIT_BATCH
     x = torch.zeros((b, AUDIT_IMG_SIZE, AUDIT_IMG_SIZE, 3),
-                    dtype=torch.uint8)
-    y = torch.zeros((b,), dtype=torch.long)
-    offsets, flips = train.draw_augment(utils.generator(AUDIT_SEED, CPU), b)
+                    dtype=torch.uint8, device=_DEV)
+    y = torch.zeros((b,), dtype=torch.long, device=_DEV)
+    offsets, flips = train.draw_augment(utils.generator(AUDIT_SEED, _DEV), b)
     register_entrypoint(step, (x, y, offsets, flips))
     register_entrypoint(evals, (x, y))
 
@@ -414,9 +421,10 @@ def _enumerate_kernel_probes() -> None:
     there to put their ops under the trace and baseline gates."""
     for dtype in (torch.float32, torch.bfloat16):
         tag = ".bf16" if dtype == torch.bfloat16 else ""
-        x = torch.zeros((AUDIT_BATCH, 8, 8, 256), dtype=dtype)
+        x = torch.zeros((AUDIT_BATCH, 8, 8, 256), dtype=dtype, device=_DEV)
         register_entrypoint(_gn_relu_grad,
-                            (x, torch.ones((256,)), torch.zeros((256,))),
+                            (x, torch.ones((256,), device=_DEV),
+                             torch.zeros((256,), device=_DEV)),
                             name=f"ops.gn_relu.grad{tag}")
 
 

@@ -136,7 +136,7 @@ def majority_incorrect_label(preds: torch.Tensor, y: torch.Tensor,
     label on ties): `(labels, has_target)`; images with no misclassified
     prediction keep their label and report False."""
     incorrect = preds != y[:, None]
-    counts = (F.one_hot(preds.long(), num_classes)
+    counts = (utils.one_hot(preds, num_classes)
               * incorrect[..., None]).sum(dim=1)
     has_any = incorrect.any(dim=1)
     mode = torch.argmax(counts, dim=-1).to(y.dtype)

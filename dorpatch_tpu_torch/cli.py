@@ -10,9 +10,10 @@ recert boot gate's `--recert-dir`, `--recert-baseline` and
 
 `--mesh-data D --mesh-mask M` (JAX defaults 1, 1) run the experiment on a
 `(data, mask)` mesh of D * M processes, one a rank, launched by torchrun
-(`parallel/`). Not offered, because their subsystems are not ported yet:
-`--backend`, `--use-pallas` and `--gn-impl` (the port picks its CUDA
-kernels itself) and `--aot`, `--aot-cache` (the AOT executable store).
+(`parallel/`). `--aot-cache DIR --aot auto|strict` warm-boot the service
+from the executable store (`aot/`). Not offered, because the port has no
+such subsystem: `--backend`, `--use-pallas` and `--gn-impl` (the port
+picks its CUDA kernels itself).
 
 Run:  python -m dorpatch_tpu_torch --synthetic --dataset imagenet \\
           --base_arch resnetv2 --img-size 224 --max-iterations 20 -b 2
@@ -41,7 +42,8 @@ from __future__ import annotations
 
 import argparse
 
-from dorpatch_tpu_torch.config import (AttackConfig, DefenseConfig,
+from dorpatch_tpu_torch.config import (AotConfig, AttackConfig,
+                                       DefenseConfig,
                                        ExperimentConfig, FarmConfig,
                                        GatewayConfig, RecertConfig,
                                        ServeConfig)
@@ -209,8 +211,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "bank and CUDA stream; a supervisor quarantines "
                         "and restarts sick replicas (serve/pool.py)")
     p.add_argument("--serve-max-restarts", type=int, default=2,
-                   help="restarts a quarantined replica gets before it "
-                        "retires and the pool degrades to reduced capacity")
+                   help="restarts a quarantined replica gets (AOT warm "
+                        "boot when --aot-cache is set) before it retires "
+                        "and the pool degrades to reduced capacity")
     p.add_argument("--serve-restart-backoff-base", type=float, default=0.5,
                    help="replica restart backoff base seconds (shared "
                         "backoff.retry_delay: base * 2^(n-1), capped, "
@@ -224,6 +227,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "slowest legitimate batch — replicas beat only at "
                         "batch boundaries, so a window shorter than one "
                         "batch false-positives a healthy replica as wedged")
+    # AOT executable store (`python -m dorpatch_tpu_torch.aot build` writes
+    # it; serve warm-boots from it, farm workers take --aot-store)
+    p.add_argument("--aot-cache", default="",
+                   help="AOT executable store directory: serve boots every "
+                        "program keyed by its baseline fingerprint and "
+                        "captures it as a CUDA graph, with the kernel "
+                        "library from the store ('' = disabled)")
+    p.add_argument("--aot", default="off",
+                   choices=["off", "auto", "strict"],
+                   help="warm-boot mode: 'auto' captures-and-rewrites the "
+                        "store on any miss (fingerprint/topology drift, "
+                        "corrupt blob — never serves stale); 'strict' is "
+                        "the deploy mode, failing boot on any miss before "
+                        "warmup so a fleet restart either comes up warm or "
+                        "visibly refuses")
     # continuous re-certification (`python -m dorpatch_tpu_torch.recert`
     # runs the scheduler; serve consults its published verdict at boot)
     p.add_argument("--recert-dir", default="",
@@ -356,6 +374,7 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
                         max_attempts=args.farm_max_attempts,
                         backoff_base=args.farm_backoff_base,
                         chaos=args.chaos),
+        aot=AotConfig(cache_dir=args.aot_cache, mode=args.aot),
         recert=RecertConfig(dir=args.recert_dir,
                             baseline_file=args.recert_baseline,
                             require=args.require_recert),

@@ -181,11 +181,30 @@ class FarmConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class AotConfig:
+    """AOT executable store (`dorpatch_tpu_torch/aot/`): warm-boot serving
+    from a store keyed by the baseline fingerprints, each program captured
+    as a CUDA graph (or run eagerly where it cannot be, with the reason).
+
+    `mode` semantics:
+      "off"    — (default) boot runs every program cold, store untouched.
+      "auto"   — load what hits; any miss (absent entry, fingerprint/
+                 interface drift, topology change, corrupt blob) captures
+                 AND rewrites the store entry — never serves stale.
+      "strict" — the deploy mode: any miss fails boot (`AotBootError`)
+                 before warmup, so a fleet restart either comes up warm or
+                 visibly refuses."""
+
+    cache_dir: str = ""             # store directory ("" = AOT disabled)
+    mode: str = "off"               # off|auto|strict
+
+
+@dataclasses.dataclass(frozen=True)
 class RecertConfig:
     """Continuous re-certification (`dorpatch_tpu_torch/recert/`): the
     serve-boot robustness gate against the scheduler's published verdict.
 
-    `require` semantics (the JAX package's AotConfig.mode has the same):
+    `require` semantics (AotConfig.mode has the same):
       "off"    — (default) no gate; the snapshot is still loaded for
                  `GET /robustness` when `dir` is set.
       "warn"   — boot proceeds on any verdict (failing/stale/absent) and
@@ -302,6 +321,7 @@ class ExperimentConfig:
     defense: DefenseConfig = dataclasses.field(default_factory=DefenseConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
     farm: FarmConfig = dataclasses.field(default_factory=FarmConfig)
+    aot: AotConfig = dataclasses.field(default_factory=AotConfig)
     recert: RecertConfig = dataclasses.field(default_factory=RecertConfig)
     gateway: GatewayConfig = dataclasses.field(default_factory=GatewayConfig)
 
@@ -316,13 +336,13 @@ def config_to_dict(cfg: ExperimentConfig) -> dict:
 
 
 #: keys of the JAX package's config whose subsystems (Pallas tier,
-#: GroupNorm implementation switch, AOT store) this package does not have;
+#: GroupNorm implementation switch) this package does not have;
 #: `config_from_dict` refuses them by name, so a job that names one fails
 #: as a configuration error instead of losing the setting. `backend` and
 #: `gn_impl` at their JAX defaults are refused too: the port has one
 #: backend and picks its GroupNorm kernels itself.
 NOT_PORTED = {
-    "ExperimentConfig": ("backend", "gn_impl", "aot"),
+    "ExperimentConfig": ("backend", "gn_impl"),
     "AttackConfig": ("selection", "use_pallas"),
     "DefenseConfig": ("use_pallas",),
 }
@@ -351,11 +371,13 @@ def config_from_dict(d: dict) -> ExperimentConfig:
     defense = build(DefenseConfig, d.pop("defense", {}))
     serve = build(ServeConfig, d.pop("serve", {}))
     farm = build(FarmConfig, d.pop("farm", {}))
+    aot = build(AotConfig, d.pop("aot", {}))
     recert = build(RecertConfig, d.pop("recert", {}))
     gateway = build(GatewayConfig, d.pop("gateway", {}))
     cfg = build(ExperimentConfig, d)
     return dataclasses.replace(cfg, attack=attack, defense=defense,
-                               serve=serve, farm=farm, recert=recert,
+                               serve=serve, farm=farm, aot=aot,
+                               recert=recert,
                                gateway=gateway)
 
 

@@ -93,7 +93,6 @@ from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from dorpatch_tpu_torch import data as data_lib
 from dorpatch_tpu_torch import masks as masks_lib
@@ -240,7 +239,7 @@ def double_masking_verdict(preds_1: torch.Tensor, preds_2: torch.Tensor,
     dev = preds_1.device
     grid_np = _second_round_index_grid(num_masks)
     grid = torch.as_tensor(grid_np, device=dev, dtype=torch.long)
-    counts = F.one_hot(preds_1.long(), num_classes).sum(dim=1)
+    counts = utils.one_hot(preds_1, num_classes).sum(dim=1)
     majority = torch.argmax(counts, dim=-1).to(preds_1.dtype)
     unanimous = (preds_1 == preds_1[:, :1]).all(dim=1)
     certified = unanimous & (preds_2 == majority[:, None]).all(dim=1)

@@ -6,8 +6,8 @@
 - ``report <farm_dir> [--json]``          the fleet report
 
 Port of `dorpatch_tpu.farm.__main__`, plus `work --device` ("cuda" unless
-"cpu" is asked for). The JAX package's `--aot-store`/`--aot` are not
-offered: the port has no executable store yet. `report` renders
+"cpu" is asked for). `work --aot-store DIR [--aot auto|off]` resolves the
+jobs' programs from an executable store, read-only (`aot/`). `report` renders
 `report.format_fleet_report` itself (the JAX package hands it to its
 `observe.report`, which reads a port farm directory too).
 
@@ -64,6 +64,16 @@ def build_parser() -> argparse.ArgumentParser:
                     default="kill",
                     help="crash_block dies by SIGKILL (kill) or by a "
                          "catchable SimulatedPreemption (raise)")
+    pw.add_argument("--aot-store", default="",
+                    help="shared AOT executable store (read-only): a "
+                         "program's first call of a signature is looked up "
+                         "by fingerprint and, on a hit, replays a captured "
+                         "CUDA graph from then on, so reclaimed jobs resume "
+                         "warm ('' = disabled)")
+    pw.add_argument("--aot", choices=["off", "auto"], default="auto",
+                    help="warm-boot mode with --aot-store (workers never "
+                         "write the store; 'auto' here means "
+                         "load-what-hits, run the rest as without a store)")
 
     pst = sub.add_parser("status", help="queue counts as one JSON line")
     pst.add_argument("farm_dir")
@@ -92,7 +102,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             heartbeat_interval=args.heartbeat_interval,
             backoff_base=args.backoff_base, backoff_cap=args.backoff_cap,
             backoff_jitter=args.backoff_jitter, chaos=args.chaos,
-            crash_mode=args.crash_mode, device=args.device)
+            crash_mode=args.crash_mode, device=args.device,
+            aot_store=args.aot_store, aot_mode=args.aot)
         summary = worker.run(max_jobs=args.max_jobs)
         observe.log(json.dumps(summary))
         return 0

@@ -23,6 +23,13 @@ Failure taxonomy (`classify_failure`):
 No fallback hides a fault: a kernel that fails fails the job, and the
 failure is classified and recorded; nothing reruns on a plain version.
 
+AOT: with `aot_store` (and `aot_mode` "auto") the worker installs the
+store's read-only `aot.FirstCallAotResolver` before its first claim: each
+program's first call of a new signature is looked up by fingerprint, a hit
+replays a captured graph from the next call on, a miss runs as it would
+without a store; the store is never written. `workers/<id>/aot.json`
+holds the resolver's hits and misses for the fleet report.
+
 Lease discipline: the lease is renewed at every attack-block boundary, and
 every commit re-checks ownership: a worker that lost its lease (wedged
 heartbeat, reclaimed job) abandons silently; the reclaimer owns the state.
@@ -39,7 +46,7 @@ import time
 import traceback
 from typing import Callable, Dict, Optional, Tuple
 
-from dorpatch_tpu_torch import observe
+from dorpatch_tpu_torch import checkpoint, observe
 from dorpatch_tpu_torch.config import ExperimentConfig, config_from_dict
 from dorpatch_tpu_torch.farm import queue as farm_queue
 from dorpatch_tpu_torch.farm.chaos import (Chaos, SimulatedPreemption,
@@ -152,7 +159,8 @@ class FarmWorker:
                  heartbeat_interval: float = 1.0, chaos: str = "",
                  crash_mode: str = "kill",
                  runner: Optional[Callable[[Dict, JobContext], Dict]] = None,
-                 clock=time.time, sleep=time.sleep, device: str = "cuda"):
+                 clock=time.time, sleep=time.sleep, device: str = "cuda",
+                 aot_store: str = "", aot_mode: str = "auto"):
         # one registry per worker process: the queue's claim/reclaim
         # tallies, the drain loop's outcome counters, and the heartbeat's
         # live `jobs_*` fields all read/write the same series
@@ -170,6 +178,8 @@ class FarmWorker:
         self.crash_mode = crash_mode
         self.runner = runner if runner is not None else default_runner
         self.device = device
+        self.aot_store = aot_store
+        self.aot_mode = aot_mode
         self._clock = clock
         self._sleep = sleep
         self.worker_dir = os.path.join(self.queue.farm_dir, "workers",
@@ -234,6 +244,22 @@ class FarmWorker:
         os.makedirs(self.worker_dir, exist_ok=True)
         summary = {"worker": self.worker_id, "done": 0, "failed": 0,
                    "quarantined": 0, "abandoned": 0}
+        resolver = prev_resolver = None
+        if self.aot_store and self.aot_mode != "off":
+            # installed BEFORE the first claim: the first program call of
+            # the first job is already warm-boot eligible
+            try:
+                from dorpatch_tpu_torch.aot.boot import FirstCallAotResolver
+                from dorpatch_tpu_torch.aot.store import open_readonly
+
+                store = open_readonly(self.aot_store, device=self.device)
+                if store is not None:
+                    resolver = FirstCallAotResolver(store)
+            except Exception:
+                resolver = None  # warm boot is an optimization, never a gate
+            if resolver is not None:
+                prev_resolver = observe.aot_resolver()
+                observe.set_aot_resolver(resolver)
         prev_sig = self._install_profile_signal()
         heartbeat = observe.Heartbeat(
             self.heartbeat_path, get_phase=lambda: self._phase,
@@ -275,6 +301,13 @@ class FarmWorker:
                         signal.signal(signal.SIGUSR2, prev_sig)
                     except ValueError:
                         pass
+                if resolver is not None:
+                    observe.set_aot_resolver(prev_resolver)
+                    summary["aot"] = dict(resolver.stats)
+                    # per-worker hit counts for the fleet report
+                    checkpoint.atomic_write_json(
+                        os.path.join(self.worker_dir, "aot.json"),
+                        {"worker": self.worker_id, **resolver.stats})
                 self._count_launches()
                 self.metrics.dump(
                     os.path.join(self.worker_dir, "metrics.json"))

@@ -3,17 +3,19 @@
 Two versions coexist during a deploy: the stable group keeps serving
 while the canary group (freshly booted serve processes, registered via
 `Gateway.add_backend` at weight 0) earns traffic in configured steps.
-(In the JAX package the versions are AOT executable stores; the port
-has no AOT store yet, so its canary is a fresh serve process with the
-weights it is given.) At each step the deploy
+The versions are AOT executable stores (`aot/`): a canary is a
+`python -m dorpatch_tpu_torch.serve` process booted `--aot strict` on
+the new store version, so it either comes up with every program from that
+store or refuses to boot. At each step the deploy
 
 1. shifts the traffic split (`canary_steps` fraction to the canary
    group, the rest to stable) by setting per-backend weights — the
    router's weighted power-of-two sampling does the rest;
 2. soaks for `canary_hold_s`;
 3. evaluates every canary's `GET /robustness` verdict (plus any findings
-   an injected `finding_source` reports — the recert gate's DP305 AOT
-   drift / DP400 robustness-regression rule ids).
+   an injected `finding_source` reports — `python -m
+   dorpatch_tpu_torch.aot verify`'s DP305 store drift, the recert gate's
+   DP400 robustness-regression rule ids).
 
 Any DP305 or DP400 finding, a failing verdict, or an unreachable
 `/robustness` probe rolls the fleet BACK automatically: canaries go to
@@ -38,9 +40,8 @@ from typing import Callable, List, Optional, Sequence
 
 from dorpatch_tpu_torch.gateway.membership import DRAINING, HEALTHY
 
-#: Recert rule ids that gate a deploy (recert/gate.py vocabulary):
-#: DP305 = AOT executable drift, DP400 = robustness regression. The port
-#: has no AOT store to raise DP305, but a `finding_source` may report it.
+#: Rule ids that gate a deploy: DP305 = AOT store drift (`aot verify`),
+#: DP400 = robustness regression (recert/gate.py vocabulary).
 BLOCKING_RULES = ("DP305", "DP400")
 
 

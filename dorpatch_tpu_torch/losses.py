@@ -9,7 +9,8 @@ the shifted operand of each finite difference) is kept with `detach`, as
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
+
+from dorpatch_tpu_torch import utils
 
 
 def cw_margin_switchable(logits: torch.Tensor, labels: torch.Tensor,
@@ -19,7 +20,7 @@ def cw_margin_switchable(logits: torch.Tensor, labels: torch.Tensor,
     labels `[N]`. Untargeted: hinge on `conf + logit_label - max_other`;
     targeted: `conf + max_other - logit_label`. The label's slot in the max
     over "others" is pushed to exactly -1e4. Returns `[N]`."""
-    onehot = F.one_hot(labels.long(), num_classes).to(logits.dtype)
+    onehot = utils.one_hot(labels, num_classes).to(logits.dtype)
     real = torch.sum(logits * onehot, dim=-1)
     other = torch.amax((1.0 - onehot) * logits - onehot * 1e4, dim=-1)
     targeted = torch.as_tensor(targeted, device=logits.device)

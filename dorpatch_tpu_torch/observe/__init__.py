@@ -40,12 +40,14 @@ from dorpatch_tpu_torch.observe.events import (  # noqa: F401
     active,
     active_event_log,
     active_in_thread,
+    aot_resolver,
     device_memory_stats,
     entrypoint_recorder,
     events_filename,
     record_compile,
     record_event,
     recompile_guard,
+    set_aot_resolver,
     set_entrypoint_recorder,
     set_recompile_guard,
     span,
@@ -107,6 +109,7 @@ __all__ = [
     "heartbeat_filename",
     "heartbeat_gaps",
     "init_profiler",
+    "aot_resolver",
     "labeled_values",
     "last_beat",
     "last_beat_ts",
@@ -122,6 +125,7 @@ __all__ = [
     "recompile_guard",
     "entrypoint_recorder",
     "run_manifest",
+    "set_aot_resolver",
     "set_entrypoint_recorder",
     "set_process_index",
     "set_recompile_guard",

@@ -412,6 +412,26 @@ class RecompileWatchdog:
                 "algorithms and allocator blocks)")
 
 
+# ---------------- aot warm-boot resolver hook (dorpatch_tpu_torch/aot) -------
+
+# Installed by the AOT warm-boot layer (`dorpatch_tpu_torch.aot.boot`): an
+# object whose `before_first_call(name, wrapped, args, kwargs)` fires
+# exactly once, on a timer's FIRST invocation, and may return a replacement
+# callable (a store-backed dispatcher) to install as `__wrapped__` before
+# the timed call runs. Returning None keeps the original program. Lives
+# here so observe never imports the aot package; None means no warm boot.
+_AOT_RESOLVER = None
+
+
+def set_aot_resolver(resolver) -> None:
+    global _AOT_RESOLVER
+    _AOT_RESOLVER = resolver
+
+
+def aot_resolver():
+    return _AOT_RESOLVER
+
+
 def _generators(value) -> list:
     """The `torch.Generator`s among a program's arguments: at top level,
     in tuples and lists, and in dataclass fields (the attack's carry)."""
@@ -472,6 +492,13 @@ class _FirstCallTimer:
         nan = _NAN_GUARD
         rewind = ([(g, g.get_state()) for g in _generators(args)]
                   if nan is not None else None)
+        if first and _AOT_RESOLVER is not None:
+            # warm boot: swap in a store-backed dispatcher before the first
+            # call; the resolver returns None to decline and never raises
+            replacement = _AOT_RESOLVER.before_first_call(
+                self._name, self.__wrapped__, args, kwargs)
+            if replacement is not None:
+                self.__wrapped__ = replacement
         if first or (new and _COMPILE_LOG):
             t0 = self._clock()
             out = self.__wrapped__(*args, **kwargs)

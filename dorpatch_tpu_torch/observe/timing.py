@@ -87,16 +87,19 @@ class KernelGate:
     Every kernel op call runs inside the gate (`with KERNEL_GATE:`, any
     number at once, from any thread); the profiler starts and stops inside
     `transition()`, which waits until no call is in flight and holds new
-    ones back meanwhile. A call never makes another: not reentrant."""
+    ones back meanwhile. A call never makes another: not reentrant. A CUDA
+    graph capture `hold()`s the gate: it counts as one call in flight for
+    its whole scope, and the kernel calls it makes go through."""
 
     def __init__(self):
         self._cond = threading.Condition(threading.Lock())
         self._calls = 0
         self._closed = False
+        self._local = threading.local()
 
     def __enter__(self):
         with self._cond:
-            while self._closed:
+            while self._closed and not getattr(self._local, "held", 0):
                 self._cond.wait(0.1)
             self._calls += 1
 
@@ -105,6 +108,19 @@ class KernelGate:
             self._calls -= 1
             if self._closed and not self._calls:
                 self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def hold(self):
+        """One call in flight for the scope (a graph capture): a
+        transition waits for it; the calls this thread makes inside go
+        through while one waits."""
+        self.__enter__()
+        self._local.held = getattr(self._local, "held", 0) + 1
+        try:
+            yield
+        finally:
+            self._local.held -= 1
+            self.__exit__(None, None, None)
 
     @contextlib.contextmanager
     def transition(self):

@@ -20,6 +20,7 @@ sanitizer's op-by-op check sees each kernel as the one op it is.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 from typing import Dict, Optional
@@ -27,7 +28,8 @@ from typing import Dict, Optional
 import torch
 
 #: Launches of each kernel since the last `reset_launch_counts`; a wrapper
-#: adds one exactly where it launches its kernel. A kernel's bf16 form
+#: adds one exactly where it launches its kernel, and a CUDA graph's replay
+#: one for each kernel launch its capture recorded. A kernel's bf16 form
 #: counts under its own name ("..._bf16"), and its sharded form on a mesh
 #: (`parallel/`) under its own too ("..._mesh"; kernel B's float64 form).
 _LAUNCHES: Dict[str, int] = {
@@ -63,12 +65,42 @@ def on_card(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
+#: per thread: the launches a CUDA graph capture on it records (`capturing`)
+_CAPTURE = threading.local()
+
+
+@contextlib.contextmanager
+def capturing():
+    """While this thread captures a CUDA graph (`aot/boot.py`), its kernel
+    calls are recorded into the graph, not run: they are collected into
+    the list the scope yields instead of counted. Each replay of the graph
+    launches them, and counts them (`count_replay`)."""
+    prev = getattr(_CAPTURE, "log", None)
+    log: list = []
+    _CAPTURE.log = log
+    try:
+        yield log
+    finally:
+        _CAPTURE.log = prev
+
+
 def count_launch(name: str, route: Optional[str] = None) -> None:
+    log = getattr(_CAPTURE, "log", None)
+    if log is not None:
+        log.append((name, route))
+        return
+    count_replay(((name, route),))
+
+
+def count_replay(launches) -> None:
+    """Count `(name, route)` launches: a wrapper's launch, or each kernel
+    launch a CUDA graph's replay makes (the ones its capture recorded)."""
     with _COUNTS_LOCK:
-        _LAUNCHES[name] += 1
-        if route is not None:
-            key = f"{name}/{route}"
-            _ROUTES[key] = _ROUTES.get(key, 0) + 1
+        for name, route in launches:
+            _LAUNCHES[name] += 1
+            if route is not None:
+                key = f"{name}/{route}"
+                _ROUTES[key] = _ROUTES.get(key, 0) + 1
 
 
 def launch_counts() -> Dict[str, int]:

@@ -10,6 +10,11 @@ Processes that start together (the ranks of a mesh, `parallel/`) build
 once: the first to take the file lock `build/dorpatch_kernels/.lock`
 builds, the others wait on it and then load what it built.
 
+A warm boot from an executable store (`aot/`) loads the library from the
+store's blob instead (`load_from_store`: the caller checked its sha).
+Which it loaded is recorded as a `kernels.load` event, `source` "store"
+or "build" (`loaded_source()`).
+
 Each C entry point returns `cudaGetLastError()` after its launch; `check`
 turns a nonzero code into an exception.
 """
@@ -70,6 +75,8 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+#: "store" or "build": where the loaded library came from
+_source: Optional[str] = None
 #: what the last build printed (ptxas register and shared-memory report)
 build_log = ""
 
@@ -159,18 +166,43 @@ def _build(so: pathlib.Path) -> pathlib.Path:
     return so
 
 
+def _load(path: pathlib.Path, source: str) -> ctypes.CDLL:
+    global _lib, _source
+    lib = ctypes.CDLL(str(path))
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    _lib, _source = lib, source
+    events.record_event("kernels.load", source=source, path=str(path))
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
-    global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, (argtypes, restype) in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = restype
-            _lib = lib
+            _load(build(), "build")
         return _lib
+
+
+def load_from_store(path) -> ctypes.CDLL:
+    """Load the library from an executable store's blob `path` (its sha
+    checked by the caller) unless one is loaded already."""
+    with _lock:
+        if _lib is None:
+            _load(pathlib.Path(path), "store")
+        return _lib
+
+
+def loaded() -> Optional[ctypes.CDLL]:
+    """The loaded library, or None before the first kernel call."""
+    return _lib
+
+
+def loaded_source() -> Optional[str]:
+    """"store" or "build": where the loaded library came from."""
+    return _source
 
 
 def check(status: int, what: str) -> None:

@@ -19,8 +19,11 @@ queue and one card:
   re-dispatched to the healthy replicas at most once each, inside their
   original deadlines — `PendingRequest.claim()` makes a late answer from
   the sick replica a shed duplicate, never a double answer.
-- **Restarts** — quarantined replicas are rebuilt and warmed through
-  `service._build_bank` after the shared `backoff.retry_delay` wait; a
+- **Restarts** — quarantined replicas are rebuilt, AOT-booted (with a
+  store: the entries the first boot wrote, so a restart replays graphs)
+  and warmed through `service._build_bank` after the shared
+  `backoff.retry_delay` wait; the restart record carries the boot's hits
+  and misses; a
   replica that exhausts `max_restarts` retires and the pool degrades
   gracefully: admission (`max_queue_depth`) shrinks with the healthy
   fraction so clients see `Overloaded` sooner, and the LAST retirement
@@ -87,7 +90,7 @@ class Replica:
     replica's CUDA stream (None on the CPU)."""
 
     def __init__(self, slot: int, clean, defenses, heartbeat: ReplicaHeartbeat,
-                 stream=None):
+                 stream=None, aot_stats: Optional[dict] = None):
         self.slot = int(slot)
         self.generation = 0  # guarded-by: self.lock
         self.state = "healthy"  # guarded-by: self.lock
@@ -96,6 +99,8 @@ class Replica:
         self.defenses = defenses
         self.hb = heartbeat
         self.stream = stream
+        #: this generation's AOT warm boot (None without a store)
+        self.aot_stats = aot_stats
         self.thread: Optional[threading.Thread] = None
         self.lock = threading.Lock()
         self.inflight: List[Any] = []  # guarded-by: self.lock
@@ -180,25 +185,25 @@ class ReplicaPool:
         # `start()` already warmed
         r0 = Replica(0, self.svc._clean, self.svc.defenses,
                      ReplicaHeartbeat(self._hb_path(0), 0, self._clock),
-                     stream=self.svc._stream)
+                     stream=self.svc._stream, aot_stats=self.svc._aot_stats)
         # build the full roster locally, publish once under the lock: the
         # supervisor and /stats iterate a complete, never-mutated list
         replicas = [r0]
         for slot in range(1, n):
-            clean, defenses, stream = self.svc._build_bank(slot)
+            clean, defenses, stream, aot_stats = self.svc._build_bank(slot)
             replicas.append(
                 Replica(slot, clean, defenses,
                         ReplicaHeartbeat(self._hb_path(slot), slot,
                                          self._clock),
-                        stream=stream))
+                        stream=stream, aot_stats=aot_stats))
         with self._lock:
             self.replicas = replicas
         for r in self.replicas:
             self._launch(r)
             self._replica_event("start", r)
-            # `aot`: the JAX package's record; the port has no AOT store
             observe.record_event("serve.replica.start", replica=r.slot,
-                                 generation=r.generation, aot=False)
+                                 generation=r.generation,
+                                 aot=bool(r.aot_stats))
         self._supervisor = threading.Thread(target=self._supervise,
                                             name="serve-supervisor",
                                             daemon=True)
@@ -469,7 +474,7 @@ class ReplicaPool:
     def _restart(self, r: Replica) -> None:
         t0 = self._clock()
         try:
-            clean, defenses, stream = self.svc._build_bank(r.slot)
+            clean, defenses, stream, aot_stats = self.svc._build_bank(r.slot)
         except Exception as e:
             observe.record_event("serve.replica.quarantine", replica=r.slot,
                                  generation=r.generation,
@@ -499,6 +504,7 @@ class ReplicaPool:
             r.generation += 1  # control state, not a metric  # noqa: DP108 — control state, not a metric
             r.clean, r.defenses = clean, defenses
             r.stream = stream
+            r.aot_stats = aot_stats
             r.hb = hb
             r.fail_kind = r.fail_error = None
             r.state = "healthy"
@@ -513,7 +519,8 @@ class ReplicaPool:
             "serve.replica.restart", replica=r.slot,
             generation=r.generation, restarts=r.restarts,
             dur_s=round(self._clock() - t0, 6),
-            aot_hits=None, aot_misses=None,
+            aot_hits=(aot_stats or {}).get("hits"),
+            aot_misses=(aot_stats or {}).get("misses"),
             trace_counts=sum(
                 self.svc._bank_trace_counts(clean, defenses).values()))
 

@@ -41,6 +41,12 @@ gate runs again at every `start()` (a restarted service reads the newest
 verdict) and records `serve.recert_gate`; `robustness()` (`GET
 /robustness`, 200 only on "ok") answers the snapshot.
 
+AOT warm boot: with an `AotConfig` (`--aot auto|strict --aot-cache DIR`)
+every bank's programs are installed from the executable store (`aot/`)
+after the shape budget is armed and before warmup, each captured as a
+CUDA graph per call signature (`trace_entrypoints`); "strict" refuses to
+boot on any miss. `stats()["aot"]` carries replica 0's boot.
+
 The service runs on "cuda" unless `device="cpu"` is asked for; a CUDA
 request without a GPU raises.
 """
@@ -60,8 +66,9 @@ import torch
 from dorpatch_tpu_torch import data as data_lib
 from dorpatch_tpu_torch import defense as defense_lib
 from dorpatch_tpu_torch import observe, ops, utils
-from dorpatch_tpu_torch.config import (DefenseConfig, ExperimentConfig,
-                                       RecertConfig, ServeConfig)
+from dorpatch_tpu_torch.config import (AotConfig, DefenseConfig,
+                                       ExperimentConfig, RecertConfig,
+                                       ServeConfig)
 from dorpatch_tpu_torch.defense import build_defenses
 from dorpatch_tpu_torch.serve.batcher import MicroBatcher, PendingRequest
 from dorpatch_tpu_torch.serve.pool import ReplicaPool
@@ -161,6 +168,7 @@ class CertifiedInferenceService:
         incremental_engine: Any = None,
         device: Any = "cuda",
         recert_cfg: Optional[RecertConfig] = None,
+        aot_cfg: Optional[AotConfig] = None,
     ):
         # the robustness boot gate comes first: a strict refusal must cost
         # no device, no bank and no warmup
@@ -176,6 +184,11 @@ class CertifiedInferenceService:
         self.enforce_budgets = enforce_budgets
         self._clock = clock
         self.device = utils.resolve_device(device)
+        self.aot_cfg = aot_cfg
+        self._aot_stats: Optional[Dict[str, Any]] = None
+        # the AOT keys of the service's programs, recorded by the first
+        # boot: every replica runs the same programs (`aot.warm_boot`)
+        self._aot_keys: Dict[str, tuple] = {}
 
         self.bucket_sizes = tuple(resolved_bucket_sizes(serve_cfg))
         self.batcher = MicroBatcher(self.bucket_sizes,
@@ -268,7 +281,7 @@ class CertifiedInferenceService:
                    serve_cfg=cfg.serve, defense_cfg=cfg.defense,
                    result_dir=result_dir if cfg.metrics_log else None,
                    run_cfg=cfg, incremental_engine=victim.incremental,
-                   device=dev, recert_cfg=cfg.recert)
+                   device=dev, recert_cfg=cfg.recert, aot_cfg=cfg.aot)
 
     # ---------------- lifecycle ----------------
 
@@ -334,8 +347,23 @@ class CertifiedInferenceService:
             prev = observe.recompile_guard()
             observe.set_recompile_guard(observe.RecompileWatchdog())
             self._stack.callback(observe.set_recompile_guard, prev)
+        if self._aot_on():
+            # AOT warm boot, AFTER the shape budget is armed and BEFORE
+            # warmup: every program's executable is installed behind its
+            # timer, so warmup and traffic replay graphs. Misses capture
+            # and rewrite the store ("auto") or fail boot ("strict"); a
+            # stale record is never served either way
+            self._aot_stats = self._warm_boot(self._clean, self.defenses,
+                                              self._stream)
         if self.serve_cfg.warmup:
-            self.warmup()
+            if self._booted_all(self._aot_stats):
+                # the boot ran every program at every shape: its warmup
+                # (a warmup after it replays them all once more, which
+                # takes about as long on the card as an eager warmup)
+                self._warm_bank(self._clean, self.defenses, booted=True)
+                self._warm = True
+            else:
+                self.warmup()
         self._started_at = self._clock()
         observe.record_event(
             "serve.started", buckets=list(self.bucket_sizes),
@@ -498,10 +526,16 @@ class CertifiedInferenceService:
         return buf.to(self.device, non_blocking=pin)
 
     def _warm_bank(self, clean, defenses, replica: int = 0,
-                   stream=None) -> None:
+                   stream=None, booted: bool = False) -> None:
         """Warm ONE replica's bank (see `warmup`) on its own stream, with
         inputs made the way live batches are; replica 0's bank is the
-        service's own, the pool warms the others through here."""
+        service's own, the pool warms the others through here. A bank
+        whose AOT boot installed every program (`booted`) ran each at
+        every shape in that boot: its warmup is that boot's."""
+        if booted:
+            observe.record_event("serve.warmup_aot", replica=int(replica),
+                                 buckets=list(self.bucket_sizes))
+            return
         ctx = (torch.cuda.stream(stream) if stream is not None
                else contextlib.nullcontext())
         with torch.no_grad(), ctx:
@@ -536,12 +570,99 @@ class CertifiedInferenceService:
                 stream.synchronize()  # noqa: DP107 — warmup, before traffic
 
     def _build_bank(self, slot: int):
-        """Build and warm one replica's bank (`_new_bank`, `_warm_bank`).
-        Returns `(clean, defenses, stream)`."""
+        """Build, AOT-boot (when configured: the store is keyed by program
+        name, fingerprint and interface, so every replica hits the entries
+        the first boot wrote) and warm one replica's bank (`_new_bank`,
+        `_warm_boot`, `_warm_bank`). Returns `(clean, defenses, stream,
+        aot_stats)`."""
         clean, defenses, stream = self._new_bank()
+        aot_stats = (self._warm_boot(clean, defenses, stream)
+                     if self._aot_on() else None)
         if self.serve_cfg.warmup:
-            self._warm_bank(clean, defenses, replica=slot, stream=stream)
-        return clean, defenses, stream
+            self._warm_bank(clean, defenses, replica=slot, stream=stream,
+                            booted=self._booted_all(aot_stats))
+        return clean, defenses, stream, aot_stats
+
+    def _booted_all(self, aot_stats) -> bool:
+        """True when an AOT boot installed every program of the bank's
+        boot set (each ran at its shape in the boot, through its timer)."""
+        return bool(aot_stats) and aot_stats["installed"] == len(
+            aot_stats["programs"]) - ("<kernels>" in aot_stats["programs"])
+
+    def _aot_on(self) -> bool:
+        cfg = self.aot_cfg
+        return (cfg is not None and getattr(cfg, "mode", "off") != "off"
+                and bool(getattr(cfg, "cache_dir", "")))
+
+    def _warm_boot(self, clean, defenses, stream) -> Dict[str, Any]:
+        """`aot.warm_boot` of one bank's serving programs, on its stream."""
+        from dorpatch_tpu_torch.aot.boot import warm_boot
+
+        ctx = (torch.cuda.stream(stream) if stream is not None
+               else contextlib.nullcontext())
+        with torch.no_grad(), ctx:
+            return warm_boot(self._bank_entrypoints(clean, defenses,
+                                                    boot=True),
+                             self.aot_cfg, clock=self._clock,
+                             keys=self._aot_keys)
+
+    def trace_entrypoints(self) -> List[tuple]:
+        """`(name, program, example args)` for every serving program at
+        every shape bucket — the program auditor's enumeration hook
+        (`analysis/entrypoints.py`). Bucket-suffixed names (e.g.
+        `serve.clean_predict[b8]`) keep one registry entry per shape
+        bucket; nothing is executed. Always replica 0's bank — every
+        replica runs the same programs with the same names, so the
+        registry, the baseline and the AOT store see ONE program set. The
+        rows program stands at its smallest row bucket here (the audit's
+        record); a boot installs it at every row bucket."""
+        return self._bank_entrypoints(self._clean, self.defenses)
+
+    def _bank_entrypoints(self, clean, defenses,
+                          boot: bool = False) -> List[tuple]:
+        """The bank's programs with example inputs made as live ones are
+        (dtype, device, index types: their call signatures are live
+        traffic's). `boot`: the set a warm boot installs — the rows
+        program at every row bucket, and the exhaustive program only
+        where the path runs it (no pruning, or an escalating path)."""
+        dev = self.device
+
+        def imgs_of(b):
+            return torch.full((int(b), self.img_size, self.img_size, 3), 0.5,
+                              dtype=torch.float32, device=dev)
+
+        out: List[tuple] = []
+        for b in self.bucket_sizes:
+            imgs = imgs_of(b)
+            out.append((f"serve.clean_predict[b{b}]", clean, (imgs,)))
+            for d in defenses:
+                r = d.spec.patch_ratio
+                if not boot or self.prune == "off" or \
+                        d.resolved_incremental().endswith("-exact") or \
+                        d._bf16:
+                    out.append((f"defense.predict.r{r}[b{b}]", d._predict,
+                                (imgs, self.num_classes)))
+                if self.prune != "off":
+                    # the programs the resolved pruned(+incremental) path
+                    # dispatches — engine-backed twins included
+                    for name, fn, kind in d.pruned_programs():
+                        if kind == "imgs":
+                            out.append((f"{name}[b{b}]", fn, (imgs,)))
+        if self.prune != "off":
+            for d in defenses:
+                rungs = d.row_bucket_sizes if boot else d.row_bucket_sizes[:1]
+                for name, fn, kind in d.pruned_programs():
+                    if kind not in ("rows", "rows_sets"):
+                        continue
+                    for w in rungs:
+                        idx = (torch.zeros((int(w),), dtype=torch.long,
+                                           device=dev) if kind == "rows"
+                               else torch.as_tensor(
+                                   d._np_grid_full[[0] * int(w)],
+                                   device=dev))
+                        out.append((f"{name}[w{w}]", fn,
+                                    (imgs_of(w), idx)))
+        return out
 
     def trace_counts(self) -> Dict[str, int]:
         """Input signatures run so far per program (the JAX package's
@@ -683,6 +804,8 @@ class CertifiedInferenceService:
                 for k in ("require", "status", "generation", "worst_margin")}
         if self._started_at is not None:
             s["uptime_s"] = round(self._clock() - self._started_at, 3)
+        if self._aot_stats is not None:
+            s["aot"] = self._aot_stats
         pool = self._pool
         if pool is not None:
             s["replicas"] = pool.snapshot()

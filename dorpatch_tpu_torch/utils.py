@@ -125,3 +125,17 @@ def preds_margins(logits: torch.Tensor):
     top2 = torch.topk(logits, 2, dim=-1).values.float()
     return (torch.argmax(logits, dim=-1).to(torch.int32),
             top2[..., 0] - top2[..., 1])
+
+
+def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """`F.one_hot(labels.long(), num_classes)` as the comparison
+    `F.one_hot` decomposes to when it is traced: the same int64 values,
+    with no host check of the labels' range, and the same ops whether it
+    runs or is traced (so a program's recorded call and its trace render
+    one graph: `analysis/baseline.canonical_run`)."""
+    labels = labels.long()
+    # the aten op itself: `torch.arange` would add pin_memory to its call
+    index = torch.ops.aten.arange.default(num_classes, dtype=torch.int64,
+                                          layout=torch.strided,
+                                          device=labels.device)
+    return torch.eq(labels.unsqueeze(-1), index).to(torch.int64)

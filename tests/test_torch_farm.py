@@ -194,12 +194,12 @@ def test_apply_overrides_dotted_and_unknown():
     {"attack": {"remat_policy": "full"}}, {"defense": {"use_pallas": "on"}}])
 def test_config_from_dict_refuses_not_ported_keys_by_name(key):
     """The JAX package's keys of the subsystems the port lacks are refused
-    by name; `recert`, `gateway`, `sanitize`, the mesh's `mesh_data` and
-    `mesh_mask`, and the attack's `remat`, `remat_threshold` and
-    `remat_policy`, ported, are accepted and read back as the JAX package
-    reads them."""
+    by name; `recert`, `gateway`, `sanitize`, `aot`, the mesh's
+    `mesh_data` and `mesh_mask`, and the attack's `remat`,
+    `remat_threshold` and `remat_policy`, ported, are accepted and read
+    back as the JAX package reads them."""
     ported_attack = {"remat", "remat_threshold", "remat_policy"}
-    if set(key) & {"recert", "gateway", "sanitize", "mesh_data",
+    if set(key) & {"recert", "gateway", "sanitize", "aot", "mesh_data",
                    "mesh_mask"} or \
             set(key.get("attack", {})) & ported_attack:
         from dorpatch_tpu.config import config_from_dict as jax_from_dict
@@ -868,6 +868,49 @@ def _run_fleet(tmp_path):
     _worker(tmp_path / "farm", runner, chaos="crash_block",
             crash_mode="raise").run()
     return farm, jq
+
+
+def test_worker_aot_store_is_read_only_and_writes_aot_json(tmp_path):
+    """A worker with `aot_store` installs the read-only resolver before
+    its first claim: each job's program hits the store by fingerprint,
+    the manifest is never written, `workers/<id>/aot.json` holds the hits
+    and misses, and both packages' fleet reports render them."""
+    from dorpatch_tpu.farm.report import format_fleet_report as jax_format
+    from dorpatch_tpu_torch import observe
+    from dorpatch_tpu_torch.aot import warm_boot
+    from dorpatch_tpu_torch.aot.store import MANIFEST
+    from dorpatch_tpu_torch.config import AotConfig
+
+    def program():
+        def prog(x):
+            return x * 2.0 + 1.0
+
+        return observe.timed_first_call(prog, "farm.test.prog")
+
+    store = str(tmp_path / "store")
+    warm_boot([("farm.test.prog", program(), (torch.zeros(3),))],
+              AotConfig(cache_dir=store, mode="auto"))
+    manifest = open(os.path.join(store, MANIFEST), "rb").read()
+    farm = str(tmp_path / "farm")
+    JobQueue(farm).submit_spec(SPEC)
+
+    def runner(job, ctx):
+        hit = program()(torch.zeros(3))
+        miss = program()(torch.zeros(5))
+        assert torch.equal(hit, torch.ones(3))
+        assert torch.equal(miss, torch.ones(5))
+        return {"rows": 0}
+
+    summary = _worker(farm, runner, worker_id="w0", aot_store=store).run()
+    assert summary["done"] == 4
+    assert observe.aot_resolver() is None
+    assert open(os.path.join(store, MANIFEST), "rb").read() == manifest
+    rec = json.load(open(os.path.join(farm, "workers", "w0", "aot.json")))
+    assert (rec["hits"], rec["misses"]) == (4, 4)
+    fleet = summarize_fleet(farm)
+    assert fleet["aot_by_worker"]["w0"]["hits"] == 4
+    assert "aot warm boot: w0" in format_fleet_report(fleet)
+    assert jax_format(fleet) == format_fleet_report(fleet)
 
 
 def test_summarize_fleet_accounting(tmp_path):

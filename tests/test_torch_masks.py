@@ -140,7 +140,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     `gateway/`, `observe.report`, `analysis/`) keep their own copies of
     the JAX package's jax-free modules and must be among the modules
     scanned, and so must the mesh (`parallel/`), every wing of the
-    analysis package and the kernels' op library."""
+    analysis package, the kernels' op library and the AOT store
+    (`aot/`)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import dorpatch_tpu_torch
@@ -205,7 +206,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "dorpatch_tpu_torch.parallel",
                 "dorpatch_tpu_torch.parallel.mesh",
                 "dorpatch_tpu_torch.parallel.multiproc",
-                "dorpatch_tpu_torch.parallel.sharded"}
+                "dorpatch_tpu_torch.parallel.sharded",
+                "dorpatch_tpu_torch.aot", "dorpatch_tpu_torch.aot.store",
+                "dorpatch_tpu_torch.aot.boot",
+                "dorpatch_tpu_torch.aot.build",
+                "dorpatch_tpu_torch.aot.__main__"}
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "flax" or m.startswith("flax.")

@@ -467,6 +467,54 @@ def test_from_config_real_cifar_victim_matches_robust_predict(tmp_path):
     assert manifest["config"]["serve"]["max_batch"] == 1
 
 
+def test_aot_auto_then_strict_answers_as_off(tmp_path):
+    """The CIFAR ResNet-18 service of the test above with 2 replicas,
+    booted `--aot off`, then `--aot auto` on an empty store (replica 0
+    writes every program, replica 1 hits them all), then `--aot strict` on
+    that store (0 misses): the same answers each time, and a strict boot
+    on an empty store refuses before warmup."""
+    from dorpatch_tpu_torch.aot import AotBootError
+    from dorpatch_tpu_torch.cli import build_parser, config_from_args
+
+    store = str(tmp_path / "store")
+    images = make_images(2, seed=11)
+    answers, stats = {}, {}
+    for mode in ("off", "auto", "strict"):
+        args = build_parser().parse_args([
+            "--device", "cpu", "--synthetic", "--dataset", "cifar10",
+            "--base_arch", "resnet18", "--img-size", "32",
+            "--serve-max-batch", "1", "--serve-deadline-ms", "120000",
+            "--serve-replicas", "2", "--aot", mode, "--aot-cache", store,
+            "--results-root", str(tmp_path / mode)])
+        cfg = dataclasses.replace(
+            config_from_args(args),
+            defense=DefenseConfig(ratios=(0.12,), num_mask_per_axis=3,
+                                  chunk_size=8))
+        svc = CertifiedInferenceService.from_config(cfg)
+        with svc:
+            got = [svc.predict(im) for im in images]
+            stats[mode] = svc.stats()
+            stats[mode]["boots"] = [r.aot_stats for r in svc._pool.replicas]
+        answers[mode] = [(r.prediction, r.certified, r.certify_forwards)
+                         for r in got]
+    assert answers["auto"] == answers["strict"] == answers["off"]
+    assert "aot" not in stats["off"]
+    auto, strict = stats["auto"]["aot"], stats["strict"]["aot"]
+    n = auto["builds"]
+    assert n and auto["hits"] == 0 and auto["miss_reasons"] == {"absent": n}
+    assert stats["auto"]["boots"][0] is auto
+    assert stats["auto"]["boots"][1]["hits"] == n
+    assert stats["auto"]["boots"][1]["misses"] == 0
+    assert strict["hits"] == n and strict["misses"] == 0
+    assert strict["methods"] == {"eager": n}       # the CPU captures nothing
+    svc = CertifiedInferenceService.from_config(dataclasses.replace(
+        cfg, aot=dataclasses.replace(cfg.aot, cache_dir=str(
+            tmp_path / "empty"))))
+    with pytest.raises(AotBootError):
+        svc.start()
+    assert not svc._warm
+
+
 # ---------- the re-certification boot gate ----------
 
 def _verdict_dir(tmp_path, status):

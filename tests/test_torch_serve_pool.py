@@ -163,6 +163,38 @@ def test_raised_worker_restarts_and_redispatches(tmp_path):
     assert sick[0]["cause"] == "raised" and sick[0]["inflight"] == 1
 
 
+def test_restart_comes_back_through_the_aot_warm_boot(tmp_path):
+    """A replica restarted after `raise_in_worker` rebuilds its bank
+    through the AOT warm boot: its restart record carries the boot's hits
+    (every program, written by the first boot) and no miss."""
+    from dorpatch_tpu_torch.config import (AotConfig, DefenseConfig,
+                                           ServeConfig)
+    from dorpatch_tpu_torch.serve import CertifiedInferenceService
+    from test_torch_serve import N_CLASSES, _serve_kw, torch_stub
+
+    svc = CertifiedInferenceService(
+        torch_stub, N_CLASSES, IMG,
+        serve_cfg=ServeConfig(**_serve_kw(
+            max_batch=1, bucket_sizes=(1,), replicas=1, max_restarts=2,
+            restart_backoff_base=0.2, restart_backoff_cap=1.0,
+            replica_stale_s=3.0, chaos="raise_in_worker")),
+        defense_cfg=DefenseConfig(ratios=(0.1,), chunk_size=64),
+        result_dir=str(tmp_path / "serve"), device="cpu",
+        aot_cfg=AotConfig(cache_dir=str(tmp_path / "store"), mode="auto"))
+    with svc:
+        r = svc.predict(make_images(1)[0])
+        assert isinstance(r, PredictResult), getattr(r, "reason", r)
+        st = svc.stats()
+        assert st["replicas"][0]["generation"] == 1
+        n = st["aot"]["builds"]
+        assert n and svc._pool.replicas[0].aot_stats["hits"] == n
+    ev = _events(tmp_path)
+    [start] = [e for e in ev if e.get("name") == "serve.replica.start"]
+    assert start["aot"] is True
+    [restart] = [e for e in ev if e.get("name") == "serve.replica.restart"]
+    assert (restart["aot_hits"], restart["aot_misses"]) == (n, 0)
+
+
 def test_wedge_heartbeat_detected_while_thread_lives(tmp_path):
     svc = make_service(tmp_path, max_batch=1, bucket_sizes=(1,),
                        replicas=1, max_restarts=2,
